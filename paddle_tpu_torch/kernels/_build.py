@@ -1,0 +1,130 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+The counterpart of ``paddle_tpu/kernels/pallas/_compat.py``: the one
+runtime every kernel of the port goes through.
+
+* ``build(names)`` compiles each ``csrc/<name>.cu`` with ``nvcc`` for
+  ``sm_90a`` into its own shared library with a plain C interface, all
+  sources at once (one ``nvcc`` process per source, started together).
+  The library lands under ``build/paddle_tpu_torch/`` at the root of the
+  checkout, named by a hash of its source and flags, so an edited source
+  rebuilds and an unchanged one is reused. A failed build raises.
+* ``load(name)`` returns the ``ctypes`` handle, building first if
+  needed. Nothing is built or loaded when a module is imported.
+* ``count_launch(name)`` is called by a kernel's wrapper right where it
+  launches the kernel, and nowhere else; ``launch_counts()`` and
+  ``reset_launch_counts()`` read and zero the counts.
+
+There is no fallback counter: a wrapper given a CUDA tensor launches its
+kernel or raises, and takes its plain PyTorch version only for a tensor
+on the CPU.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = [
+    "KERNELS", "build", "load", "count_launch", "launch_counts",
+    "reset_launch_counts", "build_logs", "BUILD_DIR",
+]
+
+KERNELS = ("paged_attention", "flash_attention")
+
+CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_libs: dict = {}
+_logs: dict = {}
+_launches = {name: 0 for name in KERNELS}
+
+
+def _nvcc():
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = Path(cuda_home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
+            "and PATH): the port's CUDA kernels cannot be built"
+        )
+    return found
+
+
+def _target(name):
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return src, BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build(names=KERNELS):
+    """Compile every kernel in ``names`` whose library is missing, one
+    ``nvcc`` per source, all running at once. Raises ``RuntimeError``
+    with the compiler's output if any of them fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name in names:
+        src, out = _target(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True,
+        )))
+    failed = []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        _logs[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)   # atomic: a reader never sees half a .so
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+
+
+def build_logs():
+    """nvcc output (including ``ptxas -v`` register and shared-memory
+    reports) of the builds this process ran, by kernel name."""
+    return dict(_logs)
+
+
+def load(name):
+    """The ``ctypes`` library of kernel ``name``, built on first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        _, out = _target(name)
+        if not out.exists():
+            build([name])
+        lib = ctypes.CDLL(str(out))
+        _libs[name] = lib
+    return lib
+
+
+def count_launch(name):
+    _launches[name] += 1
+
+
+def launch_counts():
+    return dict(_launches)
+
+
+def reset_launch_counts():
+    for name in _launches:
+        _launches[name] = 0

@@ -1,0 +1,293 @@
+"""Llama-family decoder (dense): RMSNorm + RoPE + GQA attention + SwiGLU.
+
+Counterpart of ``paddle_tpu/models/llama.py``. Module names match the
+JAX package (``llama.layers.0.self_attn.q_proj.weight`` ...), so a JAX
+``state_dict`` maps onto this model key for key (``models.convert``).
+Projections are ``torch.nn.Linear``: their weights are [out, in], the
+transpose of the JAX package's [in, out] ``Linear``.
+
+``LlamaForCausalLM(config, device=None, seed=0)`` builds on the CUDA
+device unless ``device`` names another one (``"cpu"`` for the tests),
+and raises when there is no CUDA device and no device was named. Its
+weights are drawn from a ``torch.Generator`` seeded with ``seed``, from
+the same distributions the JAX package initialises with: embedding
+N(0, 1), projections Xavier-normal, norms 1.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..core.device import resolve_device
+from ..generation import GenerationMixin, KVCache
+from ..ops.activation import swiglu
+from ..ops.fused_ops import rope_qk
+from ..ops.nn_ops import rms_norm, scaled_dot_product_attention
+
+__all__ = [
+    "LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
+    "LlamaModel", "LlamaForCausalLM", "torch_dtype",
+]
+
+_DTYPES = {
+    "float32": torch.float32, "bfloat16": torch.bfloat16,
+    "float16": torch.float16,
+}
+
+
+def torch_dtype(dtype):
+    """``"float32"``/``"bfloat16"``/``"float16"`` or a torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    try:
+        return _DTYPES[str(dtype)]
+    except KeyError:
+        raise ValueError(f"unsupported dtype {dtype!r}") from None
+
+
+class LlamaConfig:
+    def __init__(
+        self,
+        vocab_size=32000,
+        hidden_size=4096,
+        intermediate_size=11008,
+        num_hidden_layers=32,
+        num_attention_heads=32,
+        num_key_value_heads=None,
+        max_position_embeddings=4096,
+        rms_norm_eps=1e-6,
+        rope_theta=10000.0,
+        tie_word_embeddings=False,
+        dtype="float32",
+        num_experts=0,
+    ):
+        self.vocab_size = vocab_size
+        self.hidden_size = hidden_size
+        self.intermediate_size = intermediate_size
+        self.num_hidden_layers = num_hidden_layers
+        self.num_attention_heads = num_attention_heads
+        self.num_key_value_heads = num_key_value_heads or num_attention_heads
+        self.max_position_embeddings = max_position_embeddings
+        self.rms_norm_eps = rms_norm_eps
+        self.rope_theta = rope_theta
+        self.tie_word_embeddings = tie_word_embeddings
+        self.dtype = dtype
+        # > 0 is the Mixtral-style MoE of the JAX package: not ported yet
+        self.num_experts = num_experts
+
+    @classmethod
+    def tiny(cls, **overrides):
+        """Test-scale config, the same as the JAX package's."""
+        base = dict(
+            vocab_size=128, hidden_size=64, intermediate_size=128,
+            num_hidden_layers=2, num_attention_heads=4,
+            max_position_embeddings=128,
+        )
+        base.update(overrides)
+        return cls(**base)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, hidden_size, epsilon, device=None, dtype=None):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.ones(hidden_size, device=device, dtype=dtype)
+        )
+        self.epsilon = epsilon
+
+    def forward(self, x):
+        return rms_norm(x, self.weight, epsilon=self.epsilon)
+
+
+def _linear(n_in, n_out, device, dtype):
+    return nn.Linear(n_in, n_out, bias=False, device=device, dtype=dtype)
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, config, device=None, dtype=None):
+        super().__init__()
+        self.hidden_size = config.hidden_size
+        self.num_heads = config.num_attention_heads
+        self.num_kv_heads = config.num_key_value_heads
+        self.head_dim = config.hidden_size // config.num_attention_heads
+        self.rope_theta = config.rope_theta
+        h, hd = self.hidden_size, self.head_dim
+        self.q_proj = _linear(h, self.num_heads * hd, device, dtype)
+        self.k_proj = _linear(h, self.num_kv_heads * hd, device, dtype)
+        self.v_proj = _linear(h, self.num_kv_heads * hd, device, dtype)
+        self.o_proj = _linear(self.num_heads * hd, h, device, dtype)
+
+    def forward(self, hidden, cache=None, position=None):
+        """cache: KVCache ([b, max_len, kv_heads, d] k/v) with ``position``
+        (an int) tokens already in it; the new k/v are written into the
+        cache in place and attention runs over the whole buffer under a
+        causal keep-mask on the absolute timeline. GQA k/v are repeated
+        inside ``scaled_dot_product_attention``."""
+        b, s = hidden.shape[0], hidden.shape[1]
+        q = self.q_proj(hidden).view(b, s, self.num_heads, self.head_dim)
+        k = self.k_proj(hidden).view(b, s, self.num_kv_heads, self.head_dim)
+        v = self.v_proj(hidden).view(b, s, self.num_kv_heads, self.head_dim)
+        if cache is None:
+            q, k = rope_qk(q, k, base=self.rope_theta)
+            out = scaled_dot_product_attention(q, k, v, is_causal=True)
+        else:
+            steps = torch.arange(s, dtype=torch.int32, device=hidden.device)
+            q, k = rope_qk(q, k, position + steps, base=self.rope_theta)
+            cache.k[:, position:position + s] = k
+            cache.v[:, position:position + s] = v
+            k, v = cache.k, cache.v
+            max_len = k.shape[1]
+            keep = (
+                torch.arange(max_len, device=hidden.device)[None, :]
+                <= (position + steps)[:, None]
+            )[None, None]                                # [1, 1, s, max_len]
+            out = scaled_dot_product_attention(q, k, v, keep, is_causal=False)
+        out = self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+        return out if cache is None else (out, KVCache(cache.k, cache.v))
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, config, device=None, dtype=None):
+        super().__init__()
+        h, i = config.hidden_size, config.intermediate_size
+        self.gate_proj = _linear(h, i, device, dtype)
+        self.up_proj = _linear(h, i, device, dtype)
+        self.down_proj = _linear(i, h, device, dtype)
+
+    def forward(self, x):
+        return self.down_proj(swiglu(self.gate_proj(x), self.up_proj(x)))
+
+
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, config, device=None, dtype=None):
+        super().__init__()
+        if config.num_experts > 0:
+            raise NotImplementedError(
+                "paddle_tpu_torch Llama: MoE layers are not ported yet "
+                "(dense only)"
+            )
+        eps = config.rms_norm_eps
+        self.input_layernorm = RMSNorm(config.hidden_size, eps, device, dtype)
+        self.self_attn = LlamaAttention(config, device, dtype)
+        self.post_attention_layernorm = RMSNorm(
+            config.hidden_size, eps, device, dtype
+        )
+        self.mlp = LlamaMLP(config, device, dtype)
+
+    def forward(self, hidden, cache=None, position=None):
+        residual = hidden
+        hidden = self.input_layernorm(hidden)
+        new_cache = None
+        if cache is None:
+            hidden = self.self_attn(hidden)
+        else:
+            hidden, new_cache = self.self_attn(hidden, cache, position)
+        hidden = residual + hidden
+        out = hidden + self.mlp(self.post_attention_layernorm(hidden))
+        return out if cache is None else (out, new_cache)
+
+
+class LlamaModel(nn.Module):
+    def __init__(self, config, device=None, dtype=None):
+        super().__init__()
+        self.config = config
+        self.embed_tokens = nn.Embedding(
+            config.vocab_size, config.hidden_size, device=device, dtype=dtype
+        )
+        self.layers = nn.ModuleList([
+            LlamaDecoderLayer(config, device, dtype)
+            for _ in range(config.num_hidden_layers)
+        ])
+        self.norm = RMSNorm(
+            config.hidden_size, config.rms_norm_eps, device, dtype
+        )
+
+    def forward(self, input_ids, caches=None, position=None):
+        hidden = self.embed_tokens(input_ids)
+        new_caches = []
+        for i, layer in enumerate(self.layers):
+            if caches is None:
+                hidden = layer(hidden)
+            else:
+                hidden, c = layer(hidden, caches[i], position)
+                new_caches.append(c)
+        hidden = self.norm(hidden)
+        return hidden if caches is None else (hidden, new_caches)
+
+
+class LlamaForCausalLM(GenerationMixin, nn.Module):
+    def __init__(self, config, device=None, seed=0):
+        super().__init__()
+        device = resolve_device(device)
+        dtype = torch_dtype(config.dtype)
+        self.config = config
+        self.llama = LlamaModel(config, device, dtype)
+        self.lm_head = None
+        if not config.tie_word_embeddings:
+            self.lm_head = _linear(
+                config.hidden_size, config.vocab_size, device, dtype
+            )
+        self.init_weights(torch.Generator(device=device).manual_seed(seed))
+
+    @property
+    def device(self):
+        return self.llama.embed_tokens.weight.device
+
+    @property
+    def dtype(self):
+        return self.llama.embed_tokens.weight.dtype
+
+    @torch.no_grad()
+    def init_weights(self, generator):
+        """Embedding N(0, 1), projections Xavier-normal
+        (std = sqrt(2 / (fan_in + fan_out))), norms 1 — drawn in f32 from
+        ``generator`` (on the model's device) and cast to the weight
+        dtype."""
+        def draw(w, std):
+            noise = torch.empty(w.shape, dtype=torch.float32,
+                                device=w.device)
+            noise.normal_(0.0, std, generator=generator)
+            w.copy_(noise)
+
+        for mod in self.modules():
+            if isinstance(mod, nn.Embedding):
+                draw(mod.weight, 1.0)
+            elif isinstance(mod, nn.Linear):
+                fan_out, fan_in = mod.weight.shape
+                draw(mod.weight, (2.0 / (fan_in + fan_out)) ** 0.5)
+            elif isinstance(mod, RMSNorm):
+                mod.weight.fill_(1.0)
+
+    def init_kv_cache(self, batch_size, max_length, dtype=None):
+        """One zeroed KVCache per layer, [b, max_length, kv_heads, d]."""
+        c = self.config
+        head_dim = c.hidden_size // c.num_attention_heads
+        shape = (batch_size, max_length, c.num_key_value_heads, head_dim)
+        dtype = dtype or self.dtype
+        return [
+            KVCache(
+                torch.zeros(shape, dtype=dtype, device=self.device),
+                torch.zeros(shape, dtype=dtype, device=self.device),
+            )
+            for _ in range(c.num_hidden_layers)
+        ]
+
+    def logits(self, hidden):
+        if self.lm_head is not None:
+            return self.lm_head(hidden)
+        return F.linear(hidden, self.llama.embed_tokens.weight)
+
+    def forward(self, input_ids, caches=None, position=None):
+        """``caches`` given (decode): ``(logits, new_caches)``; otherwise
+        ``logits`` of the causal forward. The JAX model's training inputs
+        (``labels``, ``attn_mask``) wait for the training slice."""
+        if caches is not None:
+            hidden, new_caches = self.llama(
+                input_ids, caches=caches, position=position
+            )
+            return self.logits(hidden), new_caches
+        return self.logits(self.llama(input_ids))
+
+    def num_params(self):
+        return sum(p.numel() for p in self.parameters())

@@ -1,0 +1,102 @@
+"""Paged KV cache: ref-counted block manager over a preallocated pool.
+
+Counterpart of ``paddle_tpu/serving/kv_cache.py``: ``BlockManager`` whole,
+``KVPool`` for float pools only (the int8 pool waits for its slice).
+The physical cache is one tensor per layer and per K/V,
+``[num_kv_heads, num_blocks, block_size, head_dim]`` — the layout
+``kernels.paged_attention`` reads — and the adapter writes into it in
+place. Allocation policy lives in the engine.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["BlockManager", "KVPool"]
+
+
+class BlockManager:
+    """Ref-counted free-list over ``num_blocks`` logical blocks of
+    ``block_size`` tokens each. LIFO: the most recently freed block is
+    allocated first."""
+
+    def __init__(self, num_blocks, block_size):
+        if num_blocks < 1 or block_size < 1:
+            raise ValueError(
+                f"need num_blocks >= 1 and block_size >= 1, got "
+                f"{num_blocks}/{block_size}"
+            )
+        self.num_blocks = int(num_blocks)
+        self.block_size = int(block_size)
+        self._free = list(range(self.num_blocks - 1, -1, -1))
+        self._ref = [0] * self.num_blocks
+        self.high_water = 0   # max blocks ever simultaneously in use
+
+    @property
+    def num_free(self):
+        return len(self._free)
+
+    @property
+    def num_used(self):
+        return self.num_blocks - len(self._free)
+
+    def utilization(self):
+        return self.num_used / self.num_blocks
+
+    def blocks_needed(self, num_tokens):
+        """Blocks required to hold ``num_tokens`` cache slots."""
+        return -(-int(num_tokens) // self.block_size)
+
+    def ref_count(self, block_id):
+        return self._ref[block_id]
+
+    def can_allocate(self, n):
+        return len(self._free) >= n
+
+    def allocate(self, n):
+        """Take ``n`` blocks off the free-list (refcount 1 each)."""
+        if n > len(self._free):
+            raise RuntimeError(
+                f"KV pool exhausted: need {n} blocks, {len(self._free)} "
+                f"free of {self.num_blocks}"
+            )
+        out = [self._free.pop() for _ in range(n)]
+        for b in out:
+            self._ref[b] = 1
+        self.high_water = max(self.high_water, self.num_used)
+        return out
+
+    def fork(self, block_ids):
+        """Share existing blocks with a second owner: refcount++ each."""
+        for b in block_ids:
+            if self._ref[b] < 1:
+                raise RuntimeError(f"fork of free block {b}")
+            self._ref[b] += 1
+
+    def free(self, block_ids):
+        """Drop one reference per block; a block returns to the free-list
+        when its last owner releases it."""
+        for b in block_ids:
+            if self._ref[b] < 1:
+                raise RuntimeError(f"double free of block {b}")
+            self._ref[b] -= 1
+            if self._ref[b] == 0:
+                self._free.append(b)
+
+
+class KVPool:
+    """The physical page pool: per layer one K and one V tensor of
+    ``[num_kv_heads, num_blocks, block_size, head_dim]``, zeroed, on
+    ``device``. Updated in place by the adapter's page writes."""
+
+    def __init__(self, num_layers, num_kv_heads, num_blocks, block_size,
+                 head_dim, dtype=torch.float32, device="cpu"):
+        shape = (num_kv_heads, num_blocks, block_size, head_dim)
+        self.k = [torch.zeros(shape, dtype=dtype, device=device)
+                  for _ in range(num_layers)]
+        self.v = [torch.zeros(shape, dtype=dtype, device=device)
+                  for _ in range(num_layers)]
+        self.num_layers = int(num_layers)
+        self.num_blocks = int(num_blocks)
+        self.block_size = int(block_size)
+        self.dtype = dtype
+        self.device = torch.device(device)

@@ -1,0 +1,203 @@
+"""The port's kernel modules against the JAX package's kernels, on the CPU.
+
+The JAX side runs as its own tests run it off-TPU: the Pallas kernels in
+interpret mode (``_compat.interpret_mode()``), beside their XLA
+references. The port's side is the plain PyTorch version of each kernel,
+which its wrapper takes for CPU tensors (the CUDA kernels themselves run
+only on the card: ``chip_smoke.py`` holds them against these plain
+versions there). f32 tolerance atol 2e-5, rtol 2e-5 for the paged cases
+(the JAX package's own kernel-vs-reference tolerance), atol 1e-5, rtol
+1e-4 elsewhere.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.kernels.pallas import flash_attention as jfa
+from paddle_tpu.kernels.pallas import paged_attention as jpa
+from paddle_tpu.ops.impl.nn_ops import (
+    scaled_dot_product_attention as jax_sdpa,
+)
+from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+from paddle_tpu_torch.kernels import flash_attention as fa
+from paddle_tpu_torch.kernels import paged_attention as pa
+
+PAGED_TOL = dict(atol=2e-5, rtol=2e-5)
+TOL = dict(atol=1e-5, rtol=1e-4)
+
+
+def _pool(seed=0, kvh=2, pages=10, bs=8, d=32):
+    rng = np.random.RandomState(seed)
+    kp = rng.randn(kvh, pages, bs, d).astype(np.float32)
+    vp = rng.randn(kvh, pages, bs, d).astype(np.float32)
+    return kp, vp
+
+
+def _t(*arrays):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays)
+
+
+def _paged_cases():
+    # the TestPagedAttention sweep: a length-0 slot, a mid-page partial
+    # last block, a page-aligned length and full capacity; GQA group 2
+    kp, vp = _pool()
+    rng = np.random.RandomState(1)
+    q = rng.randn(4, 4, 32).astype(np.float32)
+    bt = rng.randint(0, 10, (4, 3)).astype(np.int32)
+    lens = np.array([0, 5, 16, 24], np.int32)
+    yield "gqa_partial_zero", (q, kp, vp, bt, lens)
+    # MHA, one page per sequence and a shared physical page
+    kp, vp = _pool(seed=3, kvh=4, pages=6, bs=4, d=16)
+    rng = np.random.RandomState(4)
+    q = rng.randn(3, 4, 16).astype(np.float32)
+    bt = np.array([[5, 1], [1, 2], [0, 3]], np.int32)
+    lens = np.array([1, 7, 8], np.int32)
+    yield "mha_shared_page", (q, kp, vp, bt, lens)
+    # wide GQA group (8 query heads per kv head)
+    kp, vp = _pool(seed=5, kvh=1, pages=4, bs=8, d=8)
+    rng = np.random.RandomState(6)
+    q = rng.randn(2, 8, 8).astype(np.float32)
+    bt = np.array([[3, 2], [1, 0]], np.int32)
+    lens = np.array([11, 3], np.int32)
+    yield "gqa8", (q, kp, vp, bt, lens)
+
+
+PAGED = dict(_paged_cases())
+
+
+@pytest.mark.parametrize("case", sorted(PAGED))
+def test_paged_ref_matches_jax_kernel_and_xla(case):
+    args = PAGED[case]
+    port = pa.paged_attention_ref(*_t(*args)).numpy()
+    jargs = tuple(map(jnp.asarray, args))
+    kernel = np.asarray(jpa.paged_attention(*jargs))   # Pallas interpret
+    xla = np.asarray(jpa.paged_attention_xla(*jargs))
+    np.testing.assert_allclose(port, kernel, **PAGED_TOL)
+    np.testing.assert_allclose(port, xla, **PAGED_TOL)
+    lens = args[4]
+    assert np.all(port[lens == 0] == 0.0)   # exact zeros, both sides
+
+
+def test_paged_block_table_reuse_after_free():
+    # physical pages 2, 3 remapped to a sequence with a SHORTER length:
+    # rows past it hold a previous tenant's data and must be masked
+    kp, vp = _pool(seed=2)
+    q = np.random.RandomState(3).randn(1, 2, 32).astype(np.float32)
+    bt = np.array([[2, 3]], np.int32)
+    full = pa.paged_attention_ref(*_t(q, kp, vp, bt,
+                                      np.array([16], np.int32)))
+    short_args = (q, kp, vp, bt, np.array([3], np.int32))
+    short = pa.paged_attention_ref(*_t(*short_args)).numpy()
+    assert np.abs(full.numpy() - short).max() > 1e-4
+    jshort = np.asarray(jpa.paged_attention(*map(jnp.asarray, short_args)))
+    np.testing.assert_allclose(short, jshort, **PAGED_TOL)
+
+
+@pytest.mark.parametrize(
+    "lens", [[5, 8], [0, 3], [7, 8]],
+    ids=["partial_and_capacity_slot", "zero", "last_slot_and_at_capacity"],
+)
+def test_update_pages_matches_jax(lens):
+    kp, vp = _pool(seed=6, kvh=2, pages=4, bs=4, d=16)
+    rng = np.random.RandomState(7)
+    kn = rng.randn(2, 2, 16).astype(np.float32)
+    vn = rng.randn(2, 2, 16).astype(np.float32)
+    # 2 logical pages per sequence: capacity 8 tokens
+    bt = np.array([[0, 1], [2, 3]], np.int32)
+    lens = np.array(lens, np.int32)   # a length of 8 is at capacity
+    jk, jv = jpa.update_pages(*map(jnp.asarray, (kp, vp, kn, vn, bt, lens)))
+    tk, tv = _t(kp, vp)
+    tbt, tlens = _t(bt, lens)
+    rows = pa.rows_below_capacity(tlens, tbt, 4)
+    pk, pv = pa.update_pages(tk, tv, *_t(kn, vn), tbt, tlens, rows)
+    assert pk is tk and pv is tv              # written in place
+    np.testing.assert_array_equal(pk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(pv.numpy(), np.asarray(jv))
+
+
+def test_update_pages_drops_at_capacity():
+    kp, vp = _pool(seed=8, kvh=1, pages=2, bs=4, d=8)
+    kn = np.ones((1, 1, 8), np.float32)
+    bt = np.array([[0, 1]], np.int32)
+    tk, tv = _t(kp, vp)
+    tbt, tlens = _t(bt, np.array([8], np.int32))
+    rows = pa.rows_below_capacity(tlens, tbt, 4)
+    assert rows.numel() == 0
+    pa.update_pages(tk, tv, *_t(kn, kn), tbt, tlens, rows)
+    np.testing.assert_array_equal(tk.numpy(), kp)   # nothing written
+    np.testing.assert_array_equal(tv.numpy(), vp)
+
+
+def _qkv(seed, b, s, h, d, hkv=None):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(b, s, h, d).astype(np.float32)
+    k = rng.randn(b, s, hkv or h, d).astype(np.float32)
+    v = rng.randn(b, s, hkv or h, d).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("s,block", [(16, 8), (32, 16)])
+def test_flash_ref_matches_jax_kernel(causal, s, block):
+    q, k, v = _qkv(10 + s, 2, s, 2, 16)
+    out, lse = fa.flash_attention_ref(*_t(q, k, v), causal=causal)
+    jout = jfa.flash_attention(*map(jnp.asarray, (q, k, v)), causal=causal,
+                               block_q=block, block_k=block)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), **TOL)
+    # logsumexp from the JAX forward kernel ([b*h, 8, s], row-replicated)
+    merge = lambda x: jnp.swapaxes(jnp.asarray(x), 1, 2).reshape(4, s, 16)
+    _, jlse = jfa._flash_fwd(merge(q), merge(k), merge(v), 0.25, causal,
+                             block, block)
+    np.testing.assert_allclose(
+        lse.numpy().reshape(4, s), np.asarray(jlse)[:, 0, :], **TOL
+    )
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_ref_ragged_matches_math_sdpa(causal):
+    # s = 13 divides no tile: the TPU kernel refuses it, the port's
+    # kernel masks the tail; its plain version must equal the math form
+    q, k, v = _qkv(20, 1, 13, 2, 16)
+    out, lse = fa.flash_attention_ref(*_t(q, k, v), causal=causal)
+    ref = jax_sdpa(*map(jnp.asarray, (q, k, v)), is_causal=causal)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    # lse by hand, f64
+    s = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64),
+                  k.astype(np.float64)) / 4.0
+    if causal:
+        s = np.where(np.tril(np.ones((13, 13), bool)), s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    ref_lse = (m + np.log(np.exp(s - m).sum(-1, keepdims=True)))[..., 0]
+    np.testing.assert_allclose(lse.numpy(), ref_lse, **TOL)
+
+
+def test_flash_ref_gqa_reads_kv_heads_in_place():
+    q, k, v = _qkv(30, 1, 9, 4, 8, hkv=2)
+    out, _ = fa.flash_attention_ref(*_t(q, k, v), causal=True)
+    ref = jax_sdpa(jnp.asarray(q), jnp.repeat(jnp.asarray(k), 2, axis=2),
+                   jnp.repeat(jnp.asarray(v), 2, axis=2), is_causal=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+def test_wrappers_take_plain_path_on_cpu():
+    reset_launch_counts()
+    args = PAGED["gqa_partial_zero"]
+    torch.testing.assert_close(
+        pa.paged_attention(*_t(*args)), pa.paged_attention_ref(*_t(*args)),
+        rtol=0, atol=0,
+    )
+    q, k, v = _t(*_qkv(40, 1, 10, 2, 16))
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    ref, ref_lse = fa.flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=0)
+    assert launch_counts() == {"paged_attention": 0, "flash_attention": 0}
+
+
+def test_paged_wrapper_rejects_bad_group():
+    q = torch.zeros(1, 3, 8)
+    kp = torch.zeros(2, 2, 4, 8)
+    with pytest.raises(ValueError, match="divisible"):
+        pa.paged_attention(q, kp, kp, torch.zeros(1, 1, dtype=torch.int32),
+                           torch.ones(1, dtype=torch.int32))

@@ -1,0 +1,292 @@
+"""The port's serving engine on the CPU: against the port's own
+``generate`` and against the JAX package's engine on the same weights.
+
+  * greedy outputs of the port ``Engine`` are identical to one-at-a-time
+    ``generate`` on a mixed workload, with and without preemption;
+  * greedy token ids equal the JAX ``Engine``'s on converted weights
+    (the reference engine is built with the analysis gate off);
+  * KV blocks all return to the pool after the drain;
+  * sampling: the warped distributions match JAX, and the same numpy
+    noise fed to both ``sample_tokens`` gives the same tokens (a
+    ``torch.Generator`` and ``jax.random`` never give the same bits).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as paddle
+from paddle_tpu import serving as jax_serving
+from paddle_tpu.models.llama import LlamaConfig as JaxLlamaConfig
+from paddle_tpu.models.llama import LlamaForCausalLM as JaxLlama
+from paddle_tpu.serving.sampler import sample_tokens as jax_sample_tokens
+from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+from paddle_tpu_torch.models import (
+    LlamaConfig,
+    LlamaForCausalLM,
+    load_reference_state,
+)
+from paddle_tpu_torch.serving import (
+    BlockManager,
+    Engine,
+    EngineConfig,
+    SamplingParams,
+    sample_tokens,
+)
+from paddle_tpu_torch.serving.sampler import pack_sampling_params
+
+
+@pytest.fixture(scope="module", params=["mha", "gqa"])
+def model(request):
+    kv = 2 if request.param == "gqa" else None
+    return LlamaForCausalLM(LlamaConfig.tiny(num_key_value_heads=kv),
+                            device="cpu", seed=0)
+
+
+def _oracle(model, prompt, max_new):
+    out = model.generate(torch.tensor([prompt]), max_new_tokens=max_new)
+    return out[0, len(prompt):].tolist()
+
+
+def _workload(n_req=16, seed=42, total=16):
+    rng = np.random.default_rng(seed)
+    lens = [int(n) for n in rng.choice([4, 7, 10, 13], n_req)]
+    prompts = [rng.integers(1, 128, n).tolist() for n in lens]
+    return prompts, [total - n for n in lens]
+
+
+class TestBlockManager:
+    def test_allocate_free_cycle(self):
+        bm = BlockManager(num_blocks=8, block_size=4)
+        a = bm.allocate(3)
+        assert bm.num_used == 3 and bm.num_free == 5 and bm.high_water == 3
+        b = bm.allocate(2)
+        assert bm.high_water == 5
+        bm.free(a)
+        assert bm.num_used == 2
+        bm.free(b)
+        assert bm.num_used == 0 and bm.num_free == 8
+        assert bm.high_water == 5   # sticky
+
+    def test_lifo_reuse(self):
+        bm = BlockManager(4, 4)
+        assert bm.allocate(2) == [0, 1]
+        bm.free([1])
+        assert bm.allocate(1) == [1]   # most recently freed first
+
+    def test_refcount_fork(self):
+        bm = BlockManager(4, 4)
+        a = bm.allocate(2)
+        bm.fork(a)
+        bm.free(a)
+        assert bm.num_used == 2 and bm.ref_count(a[0]) == 1
+        bm.free(a)
+        assert bm.num_used == 0
+        with pytest.raises(RuntimeError, match="double free"):
+            bm.free(a)
+        with pytest.raises(RuntimeError, match="fork of free"):
+            bm.fork(a)
+
+    def test_exhaustion_and_needed(self):
+        bm = BlockManager(2, 4)
+        assert [bm.blocks_needed(n) for n in (1, 4, 5)] == [1, 1, 2]
+        bm.allocate(2)
+        assert not bm.can_allocate(1)
+        with pytest.raises(RuntimeError, match="exhausted"):
+            bm.allocate(1)
+
+
+def test_engine_matches_generate_mixed_workload(model):
+    prompts, max_new = _workload()
+    cfg = EngineConfig(max_batch_slots=4, max_model_len=32, page_size=4,
+                       prefill_buckets=[16, 32])
+    engine = Engine(model, cfg)
+    # staggered arrivals: 4 up front, the rest join mid-flight
+    pending = list(zip(prompts, max_new))
+    submitted, done, step = [], {}, 0
+    while pending or engine.has_unfinished():
+        if pending and (step == 0 or step % 3 == 0):
+            for p, k in pending[:4 if step == 0 else 2]:
+                submitted.append(engine.add_request(
+                    p, SamplingParams(max_new_tokens=k)
+                ))
+            pending = pending[4 if step == 0 else 2:]
+        for out in engine.step():
+            done[out.request_id] = out
+        step += 1
+        assert step < 500, "engine failed to drain"
+    assert len(done) == len(prompts)
+    assert engine.block_manager.num_used == 0
+    m = engine.metrics
+    assert m.prefill_steps == len(prompts) and m.decode_steps > 0
+    assert m.mean_ttft is not None
+    for req, p, k in zip(submitted, prompts, max_new):
+        assert done[req.request_id].token_ids == _oracle(model, p, k)
+        assert done[req.request_id].finish_reason == "length"
+
+
+def test_preemption_is_transparent(model):
+    prompts, max_new = _workload(n_req=8, seed=7, total=20)
+    params = [SamplingParams(max_new_tokens=k) for k in max_new]
+    roomy = Engine(model, EngineConfig(
+        max_batch_slots=4, max_model_len=32, page_size=4,
+        prefill_buckets=[16, 32],
+    ))
+    starved = Engine(model, EngineConfig(
+        max_batch_slots=4, max_model_len=32, page_size=4, num_blocks=10,
+        prefill_buckets=[16, 32],
+    ))
+    ref = [o.token_ids for o in roomy.generate(prompts, params)]
+    out = [o.token_ids for o in starved.generate(prompts, params)]
+    assert starved.metrics.preemptions > 0
+    assert roomy.metrics.preemptions == 0
+    assert out == ref
+    assert starved.block_manager.num_used == 0
+    assert starved.block_manager.high_water <= 10
+
+
+def test_engine_matches_jax_engine_on_converted_weights():
+    for kv in (None, 2):
+        paddle.seed(0)
+        jax_model = JaxLlama(JaxLlamaConfig.tiny(num_key_value_heads=kv))
+        port = LlamaForCausalLM(LlamaConfig.tiny(num_key_value_heads=kv),
+                                device="cpu")
+        load_reference_state(
+            port, {k: v.numpy() for k, v in jax_model.state_dict().items()}
+        )
+        prompts, max_new = _workload(n_req=10, seed=3, total=24)
+        jeng = jax_serving.Engine(jax_model, jax_serving.EngineConfig(
+            max_batch_slots=4, max_model_len=64, page_size=8,
+        ))
+        ref = jeng.generate(
+            prompts,
+            [jax_serving.SamplingParams(max_new_tokens=k) for k in max_new],
+        )
+        eng = Engine(port, EngineConfig(max_batch_slots=4, max_model_len=64,
+                                        page_size=8))
+        reset_launch_counts()
+        out = eng.generate(
+            prompts, [SamplingParams(max_new_tokens=k) for k in max_new]
+        )
+        assert [o.token_ids for o in out] == [o.token_ids for o in ref]
+        assert eng.block_manager.num_used == 0
+        # CPU tensors take the plain versions: no kernel launched
+        assert launch_counts() == {"paged_attention": 0,
+                                   "flash_attention": 0}
+
+
+def test_stop_token_and_abort(model):
+    prompt = [5, 9, 17, 3]
+    free = _oracle(model, prompt, 6)
+    engine = Engine(model, EngineConfig(max_batch_slots=2, max_model_len=32,
+                                        page_size=4))
+    eos = free[2]
+    out = engine.generate(
+        [prompt], SamplingParams(max_new_tokens=6, eos_token_id=eos)
+    )[0]
+    # the stop token is kept, as generate() keeps EOS
+    assert out.token_ids == free[:free.index(eos) + 1]
+    assert out.finish_reason == "stop"
+    req = engine.add_request(prompt, SamplingParams(max_new_tokens=8))
+    engine.step()
+    assert engine.abort(req.request_id)
+    outs = engine.step()
+    assert [o.finish_reason for o in outs] == ["aborted"]
+    assert not engine.has_unfinished()
+    assert engine.block_manager.num_used == 0
+
+
+def test_admission_limits(model):
+    engine = Engine(model, EngineConfig(max_batch_slots=2, max_model_len=16,
+                                        page_size=4, max_waiting=1))
+    with pytest.raises(ValueError, match="max_model_len"):
+        engine.add_request(list(range(1, 17)))
+    engine.add_request([1, 2, 3])
+    with pytest.raises(RuntimeError, match="queue full"):
+        engine.add_request([1, 2, 3])
+    # generate() feeds a bounded queue as it drains
+    outs = engine.generate([[1, 2], [3, 4], [5, 6]],
+                           SamplingParams(max_new_tokens=2))
+    assert [len(o.token_ids) for o in outs] == [2, 2, 2]
+    with pytest.raises(ValueError, match="num_blocks"):
+        EngineConfig(max_model_len=64, page_size=8, num_blocks=4)
+
+
+def test_abort_while_waiting(model):
+    engine = Engine(model, EngineConfig(max_batch_slots=1, max_model_len=32,
+                                        page_size=4))
+    first = engine.add_request([1, 2, 3], SamplingParams(max_new_tokens=3))
+    queued = engine.add_request([4, 5], SamplingParams(max_new_tokens=3))
+    assert engine.abort(queued.request_id)
+    assert not engine.abort("no-such-request")
+    done = {}
+    while engine.has_unfinished():
+        for o in engine.step():
+            done[o.request_id] = o
+    assert done[queued.request_id].finish_reason == "aborted"
+    assert done[queued.request_id].token_ids == []
+    assert done[first.request_id].finish_reason == "length"
+
+
+def _sampling_batch():
+    rng = np.random.RandomState(11)
+    logits = rng.randn(4, 50).astype(np.float32)
+    u = rng.uniform(1e-9, 1.0, logits.shape).astype(np.float32)
+    t = np.array([0.7, 1.0, 1.3, 0.9], np.float32)
+    k = np.array([5, 0, 12, 3], np.int32)
+    p = np.array([0.8, 1.0, 0.5, 0.95], np.float32)
+    do = np.array([True, True, False, True])
+    return logits, u, t, k, p, do
+
+
+def test_sampled_distributions_match_jax():
+    from paddle_tpu.generation import warp_logits as jax_warp
+    from paddle_tpu_torch.generation import warp_logits
+
+    logits, _, t, k, p, _ = _sampling_batch()
+    port = torch.softmax(warp_logits(*map(torch.from_numpy,
+                                          (logits, t, k, p))), -1)
+    ref = torch.softmax(torch.tensor(np.asarray(jax_warp(
+        *map(jnp.asarray, (logits, t, k, p))
+    ))), -1)
+    np.testing.assert_allclose(port.numpy(), ref.numpy(), atol=1e-6,
+                               rtol=1e-5)
+
+
+def test_same_noise_same_tokens_as_jax():
+    logits, u, t, k, p, do = _sampling_batch()
+    port = sample_tokens(*map(torch.from_numpy, (logits, t, k, p, do, u)))
+    ref = jax_sample_tokens(*map(jnp.asarray, (logits, t, k, p, do, u)))
+    np.testing.assert_array_equal(port.numpy(), np.asarray(ref))
+    greedy = sample_tokens(torch.from_numpy(logits), *map(
+        torch.from_numpy, (t, k, p, do)))
+    np.testing.assert_array_equal(greedy.numpy(), logits.argmax(-1))
+
+
+def test_pack_sampling_params_defaults():
+    class R:
+        sampling_params = SamplingParams(do_sample=True, temperature=0.5,
+                                         top_k=7, top_p=0.9)
+
+    packed = pack_sampling_params([None, R()])
+    assert packed["temperature"].tolist() == [1.0, 0.5]
+    assert packed["top_k"].tolist() == [0, 7]
+    assert packed["do_sample"].tolist() == [False, True]
+
+
+def test_sampled_requests_follow_the_engine_seed(model):
+    prompts = [[3, 4, 5], [9, 8], [1, 2, 3, 4]]
+    sp = [SamplingParams(max_new_tokens=6, do_sample=True, temperature=0.9,
+                         top_k=20, top_p=0.9),
+          SamplingParams(max_new_tokens=6),
+          SamplingParams(max_new_tokens=6, do_sample=True)]
+
+    def run(seed):
+        eng = Engine(model, EngineConfig(max_batch_slots=4, max_model_len=32,
+                                         page_size=4, seed=seed))
+        return [o.token_ids for o in eng.generate(prompts, sp)]
+
+    a, b = run(0), run(0)
+    assert a == b                                 # same seed, same tokens
+    assert a[1] == _oracle(model, prompts[1], 6)  # greedy row unaffected
+    assert all(len(t) == 6 and all(0 <= x < 128 for x in t) for t in a)
