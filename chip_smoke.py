@@ -12,9 +12,9 @@ Phases, in order; any failure exits non-zero:
                ``paddle_tpu_torch/kernels/csrc`` for sm_90a (one nvcc per
                source, started together) and print ptxas's resource report.
 3. kernels  — each kernel against its plain PyTorch version on the card,
-               in the working dtype, at the serving shapes and the ones
-               listed below; kernel, plain and library times from CUDA
-               events, and the bound for the same work.
+               in the working dtype, at the serving and training shapes
+               and the ones listed below; kernel, plain and library times
+               from CUDA events, and the bound for the same work.
 4. parity   — tiny f32 Llama (MHA and GQA): greedy outputs of the port's
                Engine are token-identical to the port's ``generate``.
 5. serving  — full-width bf16 Llama (the repo's serving configuration,
@@ -24,16 +24,30 @@ Phases, in order; any failure exits non-zero:
                per layer and each prefill the flash kernel once per layer,
                and the first decode step's logits agree with the same step
                run with the plain attention function.
+6. train_parity — tiny f32 Llama (MHA and GQA): 10 ``TrainStep`` steps
+               of AdamW through the flash kernels give the losses of the
+               same 10 steps with the plain attention functions.
+7. train    — the repo's pretraining configuration (``bench.py``'s
+               ``bench_llama``: 12 layers, hidden 2048, bf16 weights from a
+               seed, fused chunked loss, AdamW with fp32 master weights),
+               batch 12 x 1024 tokens: the first step's loss and every
+               parameter's gradient against the same step with plain
+               attention, then 14 ``TrainStep`` steps (1 + 3 warm-up + 10
+               timed) with 12 forward, 12 dq and 12 dk/dv flash launches
+               per step, one profiled step, 2 steps with ``recompute`` and
+               1 step without the fused loss.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the repository beside it, the script exits non-zero and prints no
 result. ``--out PATH`` also writes the full report (every case, the
-serving counters) as JSON to PATH.
+serving and training counters) as JSON to PATH.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -50,10 +64,32 @@ F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 # core flash kernel also rounds P to bf16; in f32 only the summation
 # order differs
 TOL = {"bfloat16": (2e-2, 1e-2), "float32": (1e-4, 1e-4)}
+# flash backward vs its plain version, dq/dk/dv elementwise. bf16: both
+# round the gradients to bf16 (one ulp is 2^-8 of |x|), and the kernels
+# also round P and dS to bf16 as operands of the dS K, dS^T Q and P^T dO
+# products (f32 accumulators), ~2^-9 relative per term; f32: summation
+# order over up to s keys (and the GQA group) only
+BWD_TOL = {"bfloat16": (3e-2, 2e-2), "float32": (2e-4, 1e-4)}
 # first decode step of the full-width bf16 model, paged kernel vs plain
 # attention: both round the attention output to bf16, and the 1-ulp
 # differences this leaves pass through 12 layers of bf16 matmuls
 LOGITS_TOL = 5e-2
+# first training step of the full-width bf16 model, flash kernels vs plain
+# attention: the loss within 1e-2 (bf16 activations through 12 layers,
+# the loss near ln(32000) ~ 10), and every parameter's gradient within a
+# relative L2 error of 5e-2 (the kernels round P and dS to bf16; every
+# gradient is a bf16 sum through up to 12 layers of bf16 matmuls)
+TRAIN_LOSS_TOL = 1e-2
+TRAIN_GRAD_RTOL = 5e-2
+# tiny f32 training, kernels vs plain attention over 10 AdamW steps
+PARITY_LOSS_RTOL = 1e-4
+# bench.py's bench_llama configuration (its TPU branch), bf16 weights
+TRAIN_CFG = dict(
+    vocab_size=32000, hidden_size=2048, intermediate_size=5632,
+    num_hidden_layers=12, num_attention_heads=16,
+    max_position_embeddings=2048, fused_loss_chunk=2048, dtype="bfloat16",
+)
+TRAIN_BATCH, TRAIN_SEQ = 12, 1024
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -103,13 +139,21 @@ def cuda_ms(torch, fn, iters, flush):
 
 
 # --------------------------------------------------------------- kernels
-def compare(out, ref):
+def compare(out, ref, tol=TOL):
     """(max abs error, within tolerance, tolerance) of a kernel output
     against its plain version: every element within atol + rtol * |ref|."""
-    atol, rtol = TOL[str(out.dtype).split(".")[-1]]
+    atol, rtol = tol[str(out.dtype).split(".")[-1]]
     diff = (out.float() - ref.float()).abs()
     ok = bool((diff <= atol + rtol * ref.float().abs()).all())
     return diff.max().item(), ok, {"atol": atol, "rtol": rtol}
+
+
+def bound(nbytes, flops, dtype, torch):
+    """(bound ms, bound_by) for moving ``nbytes`` and doing ``flops``."""
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def paged_case(torch, pa, flush, name, dtype, hq, hkv, d, lengths,
@@ -147,17 +191,14 @@ def paged_case(torch, pa, flush, name, dtype, hq, hkv, d, lengths,
               + 2 * tokens * hkv * d * item     # each cached K/V row once
               + tables.numel() * 4 + b * 4)
     flops = 4 * tokens * hq * d
-    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
+    bound_ms, bound_by = bound(nbytes, flops, dtype, torch)
     return {
         "case": name, "dtype": str(dtype).split(".")[-1], "batch": b,
         "hq": hq, "hkv": hkv, "d": d, "page_size": page,
         "pages_per_seq": pages_per_seq, "lengths": list(lengths),
         "max_abs_err": err, "tolerance": tol, "ms": ms,
         "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
-        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / peak
-                     else "operations"),
-        "bytes": nbytes, "flops": flops,
+        "bound_by": bound_by, "bytes": nbytes, "flops": flops,
     }
 
 
@@ -193,18 +234,94 @@ def flash_case(torch, fa, flush, s, dtype=None, h=16, d=128, b=1,
     item = q.element_size()
     nbytes = 4 * q.numel() * item + b * h * s * 4     # q, k, v, out, lse
     flops = 4 * b * h * d * (s * (s + 1) // 2)        # causal pairs only
-    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
+    bound_ms, bound_by = bound(nbytes, flops, dtype, torch)
+    name = f"s{s}" + (f"_b{b}" if b > 1 else "") + (
+        "_unaligned" if offset else "")
     return {
-        "case": f"s{s}" + ("_unaligned" if offset else ""), "dtype": str(dtype).split(".")[-1], "batch": b,
+        "case": name, "dtype": str(dtype).split(".")[-1], "batch": b,
         "heads": h, "d": d, "seq": s, "max_abs_err": err,
         "lse_max_abs_err": lse_err, "tolerance": tol, "ms": ms,
         "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": bound_ms,
-        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / peak
-                     else "operations"),
-        "bytes": nbytes, "flops": flops,
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+        "flops": flops,
     }
+
+
+def flash_bwd_case(torch, fa, flush, name, s, dtype=None, h=16, hkv=None,
+                   d=128, b=1, causal=True, offset=0):
+    """Both backward kernels against ``flash_attention_bwd_ref`` on the
+    forward kernel's out and lse; ``offset`` > 0 starts every input that
+    many elements into its buffer (off the 16-byte grid)."""
+    import torch.nn.functional as F
+
+    dtype = dtype or torch.bfloat16
+    hkv = hkv or h
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(1000 + s)
+
+    def make(heads):
+        n = b * s * heads * d
+        return (torch.randn(n + offset, generator=g, device=dev)
+                .to(dtype)[offset:].view(b, s, heads, d))
+
+    q, k, v, do = make(h), make(hkv), make(hkv), make(h)
+    scale = 1.0 / d ** 0.5
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    refs = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    errs = {}
+    for gname, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+        err, ok, tol = compare(got, ref, BWD_TOL)
+        check(ok and bool(torch.isfinite(got).all()),
+              f"flash_attention_bwd {name}: {gname} max_abs_err {err} "
+              f"outside {tol}")
+        errs[gname] = err
+    # per-kernel times on the aligned inputs the wrapper hands them
+    qa, ka, va, da = (fa._aligned(t) for t in (q, k, v, do))
+    delta = fa.attention_delta(out, da)
+    dq_ms = cuda_ms(torch, lambda: fa._launch_bwd_dq(
+        qa, ka, va, da, lse, delta, causal, scale), 20, flush)
+    dkv_ms = cuda_ms(torch, lambda: fa._launch_bwd_dkv(
+        qa, ka, va, da, lse, delta, causal, scale), 20, flush)
+    ms = cuda_ms(torch, lambda: fa.flash_attention_bwd(
+        q, k, v, out, lse, do, causal=causal), 20, flush)
+    plain_ms = cuda_ms(torch, lambda: fa.flash_attention_bwd_ref(
+        q, k, v, out, lse, do, causal=causal), 5, flush)
+    # yardstick: PyTorch's own attention backward (never called by the
+    # port), on aligned copies: it faults on inputs off the 16-byte grid
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                  for x in (qa, ka, va))
+    gqa = {"enable_gqa": True} if hkv != h else {}
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, **gqa)
+    dot = da.transpose(1, 2)
+    library_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), dot, retain_graph=True), 20, flush)
+    item = q.element_size()
+    nq, nkv = q.numel() * item, k.numel() * item
+    rows = b * h * s * 4                       # one f32 per query row
+    pairs = s * (s + 1) // 2 if causal else s * s
+    prod = 2 * b * h * d * pairs               # one s x s x d product
+    # the function: q, k, v, out, dO read, dq, dk, dv written, lse and
+    # delta; five products. Each kernel alone: its own reads and writes;
+    # dq runs S, dP, dS K (3), dk/dv S^T, dP^T, P^T dO, dS^T Q (4)
+    b_ms, b_by = bound(3 * nq + 2 * nkv + 2 * nkv + nq + 2 * rows,
+                       5 * prod, dtype, torch)
+    dq_b, dq_by = bound(3 * nq + 2 * nkv + 2 * rows, 3 * prod, dtype, torch)
+    dkv_b, dkv_by = bound(2 * nq + 4 * nkv + 2 * rows, 4 * prod, dtype,
+                          torch)
+    case = {
+        "case": name, "dtype": str(dtype).split(".")[-1], "batch": b,
+        "heads": h, "kv_heads": hkv, "d": d, "seq": s, "causal": causal,
+        "offset": offset, "max_abs_err": errs, "tolerance": BWD_TOL[
+            str(dtype).split(".")[-1]],
+        "ms": ms, "dq_ms": dq_ms, "dkv_ms": dkv_ms, "plain_ms": plain_ms,
+        "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "dq_bound_ms": dq_b, "dq_bound_by": dq_by, "dkv_bound_ms": dkv_b,
+        "dkv_bound_by": dkv_by, "flops": 5 * prod,
+    }
+    log(f"[kernels] {json.dumps(case)}")
+    return case
 
 
 def phase_kernels(torch):
@@ -231,9 +348,21 @@ def phase_kernels(torch):
              for s in (16, 32, 64, 100, 128, 512, 2048)]
     flash.append(flash_case(torch, fa, flush, 100, dtype=torch.float32))
     flash.append(flash_case(torch, fa, flush, 100, offset=1))
+    flash.append(flash_case(torch, fa, flush, TRAIN_SEQ, b=TRAIN_BATCH))
+    bwd = [flash_bwd_case(torch, fa, flush, f"s{s}", s)
+           for s in (128, 512, 1024, 2048)]
+    bwd += [
+        flash_bwd_case(torch, fa, flush, "train", TRAIN_SEQ, b=TRAIN_BATCH),
+        flash_bwd_case(torch, fa, flush, "gqa", 512, h=32, hkv=4, d=64),
+        flash_bwd_case(torch, fa, flush, "full", 128, causal=False),
+        flash_bwd_case(torch, fa, flush, "ragged", 100),
+        flash_bwd_case(torch, fa, flush, "ragged_full", 100, causal=False),
+        flash_bwd_case(torch, fa, flush, "unaligned", 100, offset=1),
+        flash_bwd_case(torch, fa, flush, "f32", 100, dtype=torch.float32),
+    ]
     for c in paged + flash:
         log(f"[kernels] {json.dumps(c)}")
-    return paged, flash
+    return paged, flash, bwd
 
 
 # ---------------------------------------------------------------- parity
@@ -386,6 +515,305 @@ def phase_serving(torch):
     return result
 
 
+# ------------------------------------------------------------- training
+def _lm_loss(model, ids):
+    return model(ids, labels=ids)[1]
+
+
+@contextlib.contextmanager
+def plain_attention(fa):
+    """Inside: ``FlashAttentionFunction`` runs the plain forward and
+    backward instead of the kernels (the comparison runs only)."""
+    saved = fa.flash_attention_fwd, fa.flash_attention_bwd
+    fa.flash_attention_fwd = fa.flash_attention_ref
+    fa.flash_attention_bwd = fa.flash_attention_bwd_ref
+    try:
+        yield
+    finally:
+        fa.flash_attention_fwd, fa.flash_attention_bwd = saved
+
+
+FLASH = ("flash_attention", "flash_attention_bwd_dq",
+         "flash_attention_bwd_dkv")
+
+
+def _flash_counts(counts):
+    return {n: counts[n] for n in FLASH}
+
+
+def phase_train_parity(torch):
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    from paddle_tpu_torch.ops import scaled_dot_product_attention
+
+    # attention that needs gradients returns a grad_fn on the card, and
+    # its backward runs both backward kernels
+    q, k, v = (torch.randn(2, 40, 4, 16, device="cuda", requires_grad=True)
+               for _ in range(3))
+    _build.reset_launch_counts()
+    out = scaled_dot_product_attention(q, k, v, is_causal=True)
+    check(out.grad_fn is not None, "sdpa on CUDA returned no grad_fn")
+    out.sum().backward()
+    counts = _flash_counts(_build.launch_counts())
+    check(counts == {n: 1 for n in FLASH} and all(
+        t.grad is not None and bool(t.grad.abs().sum() > 0)
+        for t in (q, k, v)),
+        f"sdpa backward on CUDA: launches {counts}, q/k/v gradients "
+        f"{[t.grad is not None for t in (q, k, v)]}")
+
+    ids = torch.from_numpy(
+        np.random.RandomState(1).randint(0, 128, (4, 100))).to("cuda")
+    result = {}
+    for kv in (None, 2):
+        cfg = LlamaConfig.tiny(num_key_value_heads=kv)
+
+        def run():
+            model = LlamaForCausalLM(cfg, seed=0)
+            opt = AdamW(learning_rate=1e-3, weight_decay=0.01,
+                        parameters=model.parameters())
+            step = TrainStep(model, _lm_loss, opt)
+            return [step(ids).item() for _ in range(10)]
+
+        _build.reset_launch_counts()
+        kern = run()
+        counts = _flash_counts(_build.launch_counts())
+        with plain_attention(fa):
+            plain = run()
+        L = cfg.num_hidden_layers
+        check(counts == {n: 10 * L for n in FLASH},
+              f"train_parity: flash launches {counts}, want {10 * L} each")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(kern, plain))
+        check(rel <= PARITY_LOSS_RTOL,
+              f"train_parity kv_heads={kv}: losses {kern} vs plain {plain}"
+              f" differ by {rel} > {PARITY_LOSS_RTOL} relative")
+        key = f"kv_heads={kv or cfg.num_attention_heads}"
+        result[key] = {"losses": kern, "plain_losses": plain,
+                       "max_rel_diff": rel}
+        log(f"[train_parity] {key}: 10 f32 steps, losses {kern[0]:.6f} -> "
+            f"{kern[-1]:.6f}, max relative difference to plain attention "
+            f"{rel:.3g}")
+    return result
+
+
+def _profiled_step(torch, step, ids):
+    """Device time of one training step, all kernels and the flash ones by
+    name, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(ids)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+
+    def named(tag):
+        return sum(e.self_device_time_total for e in kernels
+                   if tag in e.key) / 1e3
+
+    # kernel families by name: cuBLAS GEMMs, the port's flash kernels, the
+    # optimizer's multi-tensor (foreach) kernels, and everything else
+    # (casts, norms, RoPE, residual adds, the loss, gradient sums)
+    def family(key):
+        if "nvjet" in key or "gemm" in key.lower() or "cutlass" in key:
+            return "gemm"
+        if "flash_" in key:
+            return "flash"
+        if "multi_tensor_apply" in key:
+            return "foreach"
+        return "other"
+
+    families = {}
+    for e in kernels:
+        f = family(e.key)
+        families[f] = families.get(f, 0.0) + e.self_device_time_total / 1e3
+    return {
+        "device_ms": total, "families_ms": families,
+        "flash_fwd_ms": named("flash_fwd"),
+        "flash_bwd_dq_ms": named("flash_bwd_dq"),
+        "flash_bwd_dkv_ms": named("flash_bwd_dkv"),
+        "kernel_launches": sum(e.count for e in kernels),
+        "top": [(e.key[:80], e.self_device_time_total / 1e3, e.count)
+                for e in sorted(kernels,
+                                key=lambda e: -e.self_device_time_total)[:12]],
+    }
+
+
+def phase_train(torch):
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    # free what earlier phases left in reference cycles (the serving
+    # engines), so the peak below is the training step's own
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, TRAIN_CFG["vocab_size"], (TRAIN_BATCH, TRAIN_SEQ))).to("cuda")
+    L = TRAIN_CFG["num_hidden_layers"]
+
+    def build(**over):
+        model = LlamaForCausalLM(LlamaConfig(**dict(TRAIN_CFG, **over)),
+                                 seed=0)
+        opt = AdamW(learning_rate=3e-4, weight_decay=0.1,
+                    parameters=model.parameters(), multi_precision=True)
+        return model, TrainStep(model, _lm_loss, opt)
+
+    def run(step, n):
+        _build.reset_launch_counts()
+        losses = [step(ids) for _ in range(n)]
+        torch.cuda.synchronize()
+        return [x.item() for x in losses], _flash_counts(
+            _build.launch_counts())
+
+    t0 = time.perf_counter()
+    model, step = build()
+    torch.cuda.synchronize()
+    n_params = model.num_params()
+    log(f"[train] model: {n_params / 1e6:.1f}M params bf16, built in "
+        f"{time.perf_counter() - t0:.1f}s; batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens; {resident / 2**20:.0f} MiB allocated "
+        f"before it")
+
+    # first step's loss and gradients, flash kernels vs plain attention
+    def loss_and_grads():
+        for p in model.parameters():
+            p.grad = None
+        loss = _lm_loss(model, ids)
+        loss.backward()
+        grads = {n: p.grad.float() for n, p in model.named_parameters()}
+        for p in model.parameters():
+            p.grad = None
+        return loss.item(), grads
+
+    loss_k, g_k = loss_and_grads()
+    with plain_attention(fa):
+        loss_p, g_p = loss_and_grads()
+    rel = {n: ((g_k[n] - g_p[n]).norm() / g_p[n].norm().clamp_min(1e-30)
+               ).item() for n in g_p}
+    del g_k, g_p
+    worst = max(rel, key=rel.get)
+    check(abs(loss_k - loss_p) <= TRAIN_LOSS_TOL,
+          f"train: first-step loss {loss_k} vs plain attention {loss_p}")
+    check(all(np.isfinite(list(rel.values()))) and
+          rel[worst] <= TRAIN_GRAD_RTOL,
+          f"train: gradient of {worst} differs from plain attention by "
+          f"{rel[worst]} (relative L2) > {TRAIN_GRAD_RTOL}")
+    log(f"[train] first step, kernels vs plain attention: loss {loss_k:.5f}"
+        f" vs {loss_p:.5f}; worst gradient relative L2 error "
+        f"{rel[worst]:.3g} ({worst}), median "
+        f"{float(np.median(list(rel.values()))):.3g}")
+
+    # 1 first step + 3 warm-up + 10 timed, one launch count over all 14
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [step(ids)]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    losses += [step(ids) for _ in range(3)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(ids) for _ in range(10)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 10 * 1e3
+    counts = _flash_counts(_build.launch_counts())
+    peak = torch.cuda.max_memory_allocated()
+    losses = [x.item() for x in losses]
+    check(all(np.isfinite(losses)), f"train: non-finite loss {losses}")
+    check(losses[-1] < losses[0],
+          f"train: loss did not fall ({losses[0]} -> {losses[-1]})")
+    check(abs(losses[0] - loss_k) <= TRAIN_LOSS_TOL,
+          f"train: TrainStep's first loss {losses[0]} != {loss_k}")
+    check(counts == {n: 14 * L for n in FLASH},
+          f"train: flash launches {counts} over 14 steps, want {L} of "
+          f"each per step")
+    tokens_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    # bench.py's accounting: 6N per token plus causal attention
+    flops_token = 6 * n_params + 12 * L * TRAIN_CFG["hidden_size"] * \
+        TRAIN_SEQ * 0.5
+    mfu = tokens_s * flops_token / BF16_FLOPS
+    prof = _profiled_step(torch, step, ids)
+    flash_ms = (prof["flash_fwd_ms"] + prof["flash_bwd_dq_ms"]
+                + prof["flash_bwd_dkv_ms"])
+    log(f"[train] first step {first_s:.2f}s; 10 steps: {step_ms:.2f} "
+        f"ms/step, {tokens_s:.0f} tokens/s, MFU {mfu * 100:.2f}% of "
+        f"{BF16_FLOPS / 1e12:.0f} TFLOP/s; peak memory "
+        f"{peak / 2**30:.2f} GiB; losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}")
+    # the profiler may see no device time; the share is then unknown
+    prof["flash_share"] = (flash_ms / prof["device_ms"]
+                           if prof["device_ms"] else None)
+    log(f"[train] profiled step: device {prof['device_ms']:.2f} ms in "
+        f"{prof['kernel_launches']} kernels; flash fwd "
+        f"{prof['flash_fwd_ms']:.3f} ms, bwd dq "
+        f"{prof['flash_bwd_dq_ms']:.3f} ms, bwd dk/dv "
+        f"{prof['flash_bwd_dkv_ms']:.3f} ms (share of device time: "
+        f"{prof['flash_share']})")
+    log("[train] device ms by kernel family: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in sorted(prof["families_ms"].items())))
+    for name, ms, n in prof["top"]:
+        log(f"[train]   {name:80s} {ms:9.3f} ms {n:5d} calls")
+    log(f"[train] launches over 14 steps {counts}")
+    del step, model
+    torch.cuda.empty_cache()
+
+    # recompute: the same first two steps, the forward run twice
+    model, step = build(recompute=True)
+    torch.cuda.reset_peak_memory_stats()
+    rc_losses, rc_counts = run(step, 2)
+    want = {"flash_attention": 4 * L, "flash_attention_bwd_dq": 2 * L,
+            "flash_attention_bwd_dkv": 2 * L}
+    check(rc_counts == want,
+          f"train recompute: launches {rc_counts}, want {want}")
+    diff = max(abs(a - b) for a, b in zip(rc_losses, losses))
+    check(diff <= TRAIN_LOSS_TOL,
+          f"train recompute: losses {rc_losses} vs {losses[:2]}")
+    rc_peak = torch.cuda.max_memory_allocated()
+    log(f"[train] recompute: 2 steps, losses {rc_losses} (max difference "
+        f"{diff:.3g}), launches {rc_counts}, peak memory "
+        f"{rc_peak / 2**30:.2f} GiB")
+    del step, model
+    torch.cuda.empty_cache()
+
+    # the plain loss head: full [b, s, vocab] logits and cross_entropy
+    model, step = build(fused_loss_chunk=0)
+    full_losses, full_counts = run(step, 1)
+    check(full_counts == {n: L for n in FLASH},
+          f"train fused_loss_chunk=0: launches {full_counts}")
+    check(abs(full_losses[0] - losses[0]) <= TRAIN_LOSS_TOL,
+          f"train fused_loss_chunk=0: loss {full_losses[0]} vs "
+          f"{losses[0]}")
+    log(f"[train] fused_loss_chunk=0: loss {full_losses[0]:.5f} vs "
+        f"{losses[0]:.5f} fused")
+    del step, model
+    torch.cuda.empty_cache()
+    return {
+        "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "resident_bytes_before": resident,
+        "first_step_s": first_s, "step_ms": step_ms,
+        "tokens_per_s": tokens_s, "mfu": mfu, "peak_bytes": peak,
+        "recompute_peak_bytes": rc_peak, "losses": losses,
+        "launches": counts, "profile": prof,
+        "grad_check": {"loss": loss_k, "plain_loss": loss_p,
+                       "worst_rel_l2": rel[worst], "worst_param": worst,
+                       "median_rel_l2": float(np.median(list(rel.values())))},
+        "recompute_losses": rc_losses, "recompute_launches": rc_counts,
+        "unfused_loss": full_losses[0],
+    }
+
+
 def phase_profile(torch):
     """Where a full-width decode step's time goes: torch.profiler over 20
     steps with all 8 slots decoding. Not part of the default run."""
@@ -448,9 +876,9 @@ def phase_profile(torch):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
-        "--phases", default="kernels,parity,serving",
-        help="comma list of kernels, parity, serving, profile (default: "
-             "the first three)",
+        "--phases", default="kernels,parity,serving,train_parity,train",
+        help="comma list of kernels, parity, serving, train_parity, train, "
+             "profile (default: all but profile)",
     )
     ap.add_argument("--out", help="write the full report as JSON here")
     args = ap.parse_args(argv)
@@ -491,10 +919,11 @@ def main(argv=None):
                 if "registers" in line or "spill" in line:
                     log(f"[build] {name}: {line.strip()}")
 
-        paged = flash = None
+        paged = flash = bwd = None
         if "kernels" in phases:
-            paged, flash = phase_kernels(torch)
-            report["phases"]["kernels"] = {"paged": paged, "flash": flash}
+            paged, flash, bwd = phase_kernels(torch)
+            report["phases"]["kernels"] = {"paged": paged, "flash": flash,
+                                           "flash_bwd": bwd}
         if "parity" in phases:
             phase_parity(torch)
             report["phases"]["parity"] = "ok"
@@ -502,6 +931,12 @@ def main(argv=None):
         if "serving" in phases:
             serving = phase_serving(torch)
             report["phases"]["serving"] = serving
+        if "train_parity" in phases:
+            report["phases"]["train_parity"] = phase_train_parity(torch)
+        train = None
+        if "train" in phases:
+            train = phase_train(torch)
+            report["phases"]["train"] = train
         if "profile" in phases:
             report["phases"]["profile"] = phase_profile(torch)
         check("jax" not in sys.modules and not any(
@@ -514,31 +949,60 @@ def main(argv=None):
     report["seconds"] = time.perf_counter() - t_start
 
     kernels = []
-    launches = serving["launches"] if serving else {}
+    # launches on each main path: serving, and the 14 counted train steps
+    by_path = {"serving": serving["launches"] if serving else {},
+               "train": train["launches"] if train else {}}
+
+    def launches(name):
+        per = {p: c.get(name, 0) for p, c in by_path.items()}
+        return {"launches": sum(per.values()), "launches_by_path": per}
+
     if paged is not None:
         head = paged[0]
         kernels.append({
             "name": "paged_attention", "route": "cuda",
             "source": "paddle_tpu_torch/kernels/csrc/paged_attention.cu",
             "replaces": "paddle_tpu/kernels/pallas/paged_attention.py:73",
-            "launches": launches.get("paged_attention", 0),
+            **launches("paged_attention"),
             "max_abs_err": max(c["max_abs_err"] for c in paged),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": None, "shape": head["case"], "cases": paged,
+            "library_ms": None, "shape": head["case"],
         })
-        head = next(c for c in flash if c["case"] == "s128")
+        head = next(c for c in flash
+                    if c["case"] == f"s{TRAIN_SEQ}_b{TRAIN_BATCH}")
         kernels.append({
             "name": "flash_attention_fwd", "route": "cuda",
             "source": "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
             "replaces": "paddle_tpu/kernels/pallas/flash_attention.py:37",
-            "launches": launches.get("flash_attention", 0),
+            **launches("flash_attention"),
             "max_abs_err": max(c["max_abs_err"] for c in flash),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": head["case"],
-            "cases": flash,
         })
+        # the training shape; plain and library times are of the whole
+        # backward (dq, dk and dv), the function both kernels make up
+        head = next(c for c in bwd if c["case"] == "train")
+        for part, line in (("dq", 138), ("dkv", 191)):
+            errs = [c["max_abs_err"][g] for c in bwd
+                    for g in (("dq",) if part == "dq" else ("dk", "dv"))]
+            kernels.append({
+                "name": f"flash_attention_bwd_{part}", "route": "cuda",
+                "source":
+                    "paddle_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
+                "replaces":
+                    f"paddle_tpu/kernels/pallas/flash_attention.py:{line}",
+                **launches(f"flash_attention_bwd_{part}"),
+                "max_abs_err": max(errs),
+                "ms": head[f"{part}_ms"], "plain_ms": head["plain_ms"],
+                "bound_ms": head[f"{part}_bound_ms"],
+                "bound_by": head[f"{part}_bound_by"],
+                "library_ms": head["library_ms"],
+                "shape": f"b{TRAIN_BATCH} h16 d128 s{TRAIN_SEQ} causal",
+                "backward_ms": head["ms"],
+                "backward_bound_ms": head["bound_ms"],
+            })
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

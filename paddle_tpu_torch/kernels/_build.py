@@ -13,7 +13,9 @@ runtime every kernel of the port goes through.
   needed. Nothing is built or loaded when a module is imported.
 * ``count_launch(name)`` is called by a kernel's wrapper right where it
   launches the kernel, and nowhere else; ``launch_counts()`` and
-  ``reset_launch_counts()`` read and zero the counts.
+  ``reset_launch_counts()`` read and zero the counts. Counts are per
+  kernel (``LAUNCHES``), not per source: ``flash_attention_bwd.cu``
+  holds two kernels, counted apart.
 
 There is no fallback counter: a wrapper given a CUDA tensor launches its
 kernel or raises, and takes its plain PyTorch version only for a tensor
@@ -29,11 +31,15 @@ import subprocess
 from pathlib import Path
 
 __all__ = [
-    "KERNELS", "build", "load", "count_launch", "launch_counts",
+    "KERNELS", "LAUNCHES", "build", "load", "count_launch", "launch_counts",
     "reset_launch_counts", "build_logs", "BUILD_DIR",
 ]
 
-KERNELS = ("paged_attention", "flash_attention")
+# kernel sources, csrc/<name>.cu
+KERNELS = ("paged_attention", "flash_attention", "flash_attention_bwd")
+# launched kernels, as counted ("flash_attention" is the forward)
+LAUNCHES = ("paged_attention", "flash_attention", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv")
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"
@@ -45,7 +51,7 @@ NVCC_FLAGS = (
 
 _libs: dict = {}
 _logs: dict = {}
-_launches = {name: 0 for name in KERNELS}
+_launches = {name: 0 for name in LAUNCHES}
 
 
 def _nvcc():

@@ -6,6 +6,11 @@ JAX package (``llama.layers.0.self_attn.q_proj.weight`` ...), so a JAX
 Projections are ``torch.nn.Linear``: their weights are [out, in], the
 transpose of the JAX package's [in, out] ``Linear``.
 
+``LlamaForCausalLM.forward(input_ids, labels=None, attn_mask=None,
+caches=None, position=None)`` keeps the JAX argument order and return
+contract: the pretraining loss (shift by one, optionally through the
+chunked fused head) as well as logits and the cached decode step.
+
 ``LlamaForCausalLM(config, device=None, seed=0)`` builds on the CUDA
 device unless ``device`` names another one (``"cpu"`` for the tests),
 and raises when there is no CUDA device and no device was named. Its
@@ -20,10 +25,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.device import resolve_device
+from ..distributed.recompute import recompute
 from ..generation import GenerationMixin, KVCache
 from ..ops.activation import swiglu
-from ..ops.fused_ops import rope_qk
-from ..ops.nn_ops import rms_norm, scaled_dot_product_attention
+from ..ops.fused_ops import fused_linear_cross_entropy, rope_qk
+from ..ops.nn_ops import (
+    cross_entropy,
+    rms_norm,
+    scaled_dot_product_attention,
+)
 
 __all__ = [
     "LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
@@ -61,6 +71,10 @@ class LlamaConfig:
         tie_word_embeddings=False,
         dtype="float32",
         num_experts=0,
+        num_experts_per_tok=2,
+        router_aux_loss_coef=0.02,
+        recompute=False,
+        fused_loss_chunk=0,
     ):
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
@@ -75,6 +89,13 @@ class LlamaConfig:
         self.dtype = dtype
         # > 0 is the Mixtral-style MoE of the JAX package: not ported yet
         self.num_experts = num_experts
+        self.num_experts_per_tok = num_experts_per_tok
+        self.router_aux_loss_coef = router_aux_loss_coef
+        # recompute each decoder layer's activations in the backward
+        self.recompute = recompute
+        # > 0: the loss goes through the chunked fused LM head, and the
+        # [b, s, vocab] logits are never built
+        self.fused_loss_chunk = fused_loss_chunk
 
     @classmethod
     def tiny(cls, **overrides):
@@ -118,8 +139,12 @@ class LlamaAttention(nn.Module):
         self.v_proj = _linear(h, self.num_kv_heads * hd, device, dtype)
         self.o_proj = _linear(self.num_heads * hd, h, device, dtype)
 
-    def forward(self, hidden, cache=None, position=None):
-        """cache: KVCache ([b, max_len, kv_heads, d] k/v) with ``position``
+    def forward(self, hidden, attn_mask=None, cache=None, position=None):
+        """Causal attention; ``attn_mask`` (a bool keep-mask or an additive
+        float mask, broadcast to [b, heads, s, keys]) composes with
+        causality, and a masked call takes the math form.
+
+        cache: KVCache ([b, max_len, kv_heads, d] k/v) with ``position``
         (an int) tokens already in it; the new k/v are written into the
         cache in place and attention runs over the whole buffer under a
         causal keep-mask on the absolute timeline. GQA k/v are repeated
@@ -130,7 +155,8 @@ class LlamaAttention(nn.Module):
         v = self.v_proj(hidden).view(b, s, self.num_kv_heads, self.head_dim)
         if cache is None:
             q, k = rope_qk(q, k, base=self.rope_theta)
-            out = scaled_dot_product_attention(q, k, v, is_causal=True)
+            out = scaled_dot_product_attention(q, k, v, attn_mask,
+                                               is_causal=True)
         else:
             steps = torch.arange(s, dtype=torch.int32, device=hidden.device)
             q, k = rope_qk(q, k, position + steps, base=self.rope_theta)
@@ -142,6 +168,15 @@ class LlamaAttention(nn.Module):
                 torch.arange(max_len, device=hidden.device)[None, :]
                 <= (position + steps)[:, None]
             )[None, None]                                # [1, 1, s, max_len]
+            if attn_mask is not None:
+                # compose with the caller's mask over the cache timeline
+                if attn_mask.dtype == torch.bool:
+                    keep = keep & attn_mask
+                else:
+                    keep = torch.where(
+                        keep, attn_mask.float(),
+                        torch.full_like(attn_mask.float(), -1e30),
+                    )
             out = scaled_dot_product_attention(q, k, v, keep, is_causal=False)
         out = self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
         return out if cache is None else (out, KVCache(cache.k, cache.v))
@@ -175,14 +210,16 @@ class LlamaDecoderLayer(nn.Module):
         )
         self.mlp = LlamaMLP(config, device, dtype)
 
-    def forward(self, hidden, cache=None, position=None):
+    def forward(self, hidden, attn_mask=None, cache=None, position=None):
         residual = hidden
         hidden = self.input_layernorm(hidden)
         new_cache = None
         if cache is None:
-            hidden = self.self_attn(hidden)
+            hidden = self.self_attn(hidden, attn_mask)
         else:
-            hidden, new_cache = self.self_attn(hidden, cache, position)
+            hidden, new_cache = self.self_attn(
+                hidden, attn_mask, cache, position
+            )
         hidden = residual + hidden
         out = hidden + self.mlp(self.post_attention_layernorm(hidden))
         return out if cache is None else (out, new_cache)
@@ -203,15 +240,17 @@ class LlamaModel(nn.Module):
             config.hidden_size, config.rms_norm_eps, device, dtype
         )
 
-    def forward(self, input_ids, caches=None, position=None):
+    def forward(self, input_ids, attn_mask=None, caches=None, position=None):
         hidden = self.embed_tokens(input_ids)
         new_caches = []
         for i, layer in enumerate(self.layers):
-            if caches is None:
-                hidden = layer(hidden)
-            else:
-                hidden, c = layer(hidden, caches[i], position)
+            if caches is not None:
+                hidden, c = layer(hidden, attn_mask, caches[i], position)
                 new_caches.append(c)
+            elif self.config.recompute and torch.is_grad_enabled():
+                hidden = recompute(layer, hidden, attn_mask)
+            else:
+                hidden = layer(hidden, attn_mask)
         hidden = self.norm(hidden)
         return hidden if caches is None else (hidden, new_caches)
 
@@ -273,21 +312,51 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
             for _ in range(c.num_hidden_layers)
         ]
 
-    def logits(self, hidden):
+    def head_weight(self):
+        """The LM head as [vocab, hidden]: ``lm_head.weight``, or the
+        embedding when the two are tied."""
         if self.lm_head is not None:
-            return self.lm_head(hidden)
-        return F.linear(hidden, self.llama.embed_tokens.weight)
+            return self.lm_head.weight
+        return self.llama.embed_tokens.weight
 
-    def forward(self, input_ids, caches=None, position=None):
-        """``caches`` given (decode): ``(logits, new_caches)``; otherwise
-        ``logits`` of the causal forward. The JAX model's training inputs
-        (``labels``, ``attn_mask``) wait for the training slice."""
+    def logits(self, hidden):
+        return F.linear(hidden, self.head_weight())
+
+    def forward(self, input_ids, labels=None, attn_mask=None, caches=None,
+                position=None):
+        """Return contract, by arguments (the JAX model's):
+
+        * ``caches`` given (decode): ``(logits, new_caches)``.
+        * ``labels=None``: ``logits``.
+        * ``labels`` given: ``(logits, loss)``, the mean cross entropy of
+          position t's logits against ``labels[:, t + 1]`` (shift by
+          one); with ``config.fused_loss_chunk > 0`` the loss goes
+          through ``fused_linear_cross_entropy`` and the return is
+          ``(None, loss)``: the [b, s, vocab] logits are never built.
+
+        ``attn_mask`` composes with causality (see ``LlamaAttention``)."""
         if caches is not None:
             hidden, new_caches = self.llama(
-                input_ids, caches=caches, position=position
+                input_ids, attn_mask, caches=caches, position=position
             )
             return self.logits(hidden), new_caches
-        return self.logits(self.llama(input_ids))
+        hidden = self.llama(input_ids, attn_mask)
+        chunk = self.config.fused_loss_chunk
+        if labels is not None and chunk > 0:
+            h = hidden.shape[-1]
+            loss = fused_linear_cross_entropy(
+                hidden[:, :-1].reshape(-1, h), self.head_weight(),
+                labels[:, 1:].reshape(-1), chunk_size=chunk,
+            )
+            return None, loss
+        logits = self.logits(hidden)
+        if labels is None:
+            return logits
+        vocab = logits.shape[-1]
+        loss = cross_entropy(
+            logits[:, :-1].reshape(-1, vocab), labels[:, 1:].reshape(-1)
+        )
+        return logits, loss
 
     def num_params(self):
         return sum(p.numel() for p in self.parameters())

@@ -1,5 +1,8 @@
 from .activation import swiglu
-from .fused_ops import rope_qk
-from .nn_ops import rms_norm, scaled_dot_product_attention
+from .fused_ops import fused_linear_cross_entropy, rope_qk
+from .nn_ops import cross_entropy, rms_norm, scaled_dot_product_attention
 
-__all__ = ["rms_norm", "rope_qk", "scaled_dot_product_attention", "swiglu"]
+__all__ = [
+    "cross_entropy", "fused_linear_cross_entropy", "rms_norm", "rope_qk",
+    "scaled_dot_product_attention", "swiglu",
+]

@@ -1,6 +1,7 @@
-"""paddle_tpu_torch stands alone: importing it (and its serving module)
-loads neither jax nor anything of paddle_tpu, and its entry points refuse
-to fall back to the CPU quietly when no CUDA device exists."""
+"""paddle_tpu_torch stands alone: importing it (its serving and training
+modules too) loads neither jax nor anything of paddle_tpu, and its entry
+points refuse to fall back to the CPU quietly when no CUDA device
+exists."""
 import os
 import subprocess
 import sys
@@ -17,6 +18,10 @@ import paddle_tpu_torch.serving
 import paddle_tpu_torch.models
 import paddle_tpu_torch.kernels.paged_attention
 import paddle_tpu_torch.kernels.flash_attention
+import paddle_tpu_torch.optimizer
+import paddle_tpu_torch.nn
+import paddle_tpu_torch.jit
+import paddle_tpu_torch.distributed
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.")
@@ -92,4 +97,5 @@ def test_kernel_build_needs_nvcc_not_at_import():
     from paddle_tpu_torch.kernels import _build
 
     assert _build._libs == {}
-    assert _build.KERNELS == ("paged_attention", "flash_attention")
+    assert _build.KERNELS == ("paged_attention", "flash_attention",
+                              "flash_attention_bwd")

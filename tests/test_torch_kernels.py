@@ -7,7 +7,9 @@ which its wrapper takes for CPU tensors (the CUDA kernels themselves run
 only on the card: ``chip_smoke.py`` holds them against these plain
 versions there). f32 tolerance atol 2e-5, rtol 2e-5 for the paged cases
 (the JAX package's own kernel-vs-reference tolerance), atol 1e-5, rtol
-1e-4 elsewhere.
+1e-4 elsewhere. The flash backward's gradients through
+``FlashAttentionFunction`` are also held to autograd through the math
+attention, and to finite differences in float64.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +24,7 @@ from paddle_tpu.ops.impl.nn_ops import (
 from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import paged_attention as pa
+from paddle_tpu_torch.ops import scaled_dot_product_attention as port_sdpa
 
 PAGED_TOL = dict(atol=2e-5, rtol=2e-5)
 TOL = dict(atol=1e-5, rtol=1e-4)
@@ -192,7 +195,11 @@ def test_wrappers_take_plain_path_on_cpu():
     ref, ref_lse = fa.flash_attention_ref(q, k, v, causal=True)
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
     torch.testing.assert_close(lse, ref_lse, rtol=0, atol=0)
-    assert launch_counts() == {"paged_attention": 0, "flash_attention": 0}
+    do = torch.ones_like(q)
+    for got, want in zip(fa.flash_attention_bwd(q, k, v, out, lse, do),
+                         fa.flash_attention_bwd_ref(q, k, v, out, lse, do)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert set(launch_counts().values()) == {0}
 
 
 def test_paged_wrapper_rejects_bad_group():
@@ -201,3 +208,75 @@ def test_paged_wrapper_rejects_bad_group():
     with pytest.raises(ValueError, match="divisible"):
         pa.paged_attention(q, kp, kp, torch.zeros(1, 1, dtype=torch.int32),
                            torch.ones(1, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("s,d", [(32, 16), (64, 32)])
+def test_flash_bwd_ref_matches_jax_kernel(causal, s, d):
+    # the JAX backward kernels in interpret mode, 16 x 16 blocks, on the
+    # JAX forward's out and lse (row 0 of its [b*h, 8, s] layout)
+    b, h = 2, 2
+    q, k, v = _qkv(50 + s, b, s, h, d)
+    do = np.random.RandomState(60 + s).randn(b, s, h, d).astype(np.float32)
+    scale = 1.0 / d ** 0.5
+    merge = lambda x: jnp.swapaxes(jnp.asarray(x), 1, 2).reshape(b * h, s, d)
+    jq, jk, jv, jdo = map(merge, (q, k, v, do))
+    jout, jlse = jfa._flash_fwd(jq, jk, jv, scale, causal, 16, 16)
+    jgrads = jfa._flash_bwd(jq, jk, jv, jout, jlse, jdo, scale, causal, 16,
+                            16)
+    split = lambda x: torch.from_numpy(np.array(x)).reshape(
+        b, h, s, d).transpose(1, 2)
+    lse = torch.from_numpy(np.array(jlse)[:, 0, :]).reshape(b, h, s)
+    grads = fa.flash_attention_bwd_ref(
+        *_t(q, k, v), split(jout), lse, torch.from_numpy(do),
+        causal=causal, scale=scale,
+    )
+    for got, want in zip(grads, jgrads):
+        np.testing.assert_allclose(
+            got.transpose(1, 2).reshape(b * h, s, d).numpy(),
+            np.asarray(want), **TOL,
+        )
+
+
+def _grads(fn, q, k, v, do):
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fn(*leaves)
+    return (out, *torch.autograd.grad(out, leaves, do))
+
+
+@pytest.mark.parametrize(
+    "s,h,hkv,causal",
+    [(24, 2, 2, True), (24, 4, 2, True), (13, 2, 2, True),
+     (13, 4, 1, False)],
+    ids=["mha", "gqa", "ragged", "gqa_ragged_full"],
+)
+def test_flash_function_grads_match_math_autograd(s, h, hkv, causal):
+    # the Function's forward and backward (plain versions on the CPU)
+    # against autograd through the port's math attention (CPU tensors
+    # never reach the Function there), K/V repeated for GQA
+    q, k, v = _t(*_qkv(70 + s + h, 2, s, h, 16, hkv=hkv))
+    do = torch.from_numpy(
+        np.random.RandomState(80 + s).randn(2, s, h, 16).astype(np.float32))
+
+    def math(q, k, v):
+        rep = h // hkv
+        return port_sdpa(q, k.repeat_interleave(rep, 2),
+                         v.repeat_interleave(rep, 2), is_causal=causal)
+
+    got = _grads(lambda q, k, v: fa.flash_attention(q, k, v, causal=causal),
+                 q, k, v, do)
+    want = _grads(math, q, k, v, do)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
+                                   **TOL)
+
+
+def test_flash_function_gradcheck_float64():
+    rng = np.random.RandomState(90)
+    q = torch.from_numpy(rng.randn(1, 5, 2, 4)).requires_grad_()
+    k = torch.from_numpy(rng.randn(1, 5, 1, 4)).requires_grad_()
+    v = torch.from_numpy(rng.randn(1, 5, 1, 4)).requires_grad_()
+    assert torch.autograd.gradcheck(
+        lambda q, k, v: fa.flash_attention(q, k, v, causal=True),
+        (q, k, v), eps=1e-6, atol=1e-7, rtol=1e-5,
+    )

@@ -171,8 +171,7 @@ def test_engine_matches_jax_engine_on_converted_weights():
         assert [o.token_ids for o in out] == [o.token_ids for o in ref]
         assert eng.block_manager.num_used == 0
         # CPU tensors take the plain versions: no kernel launched
-        assert launch_counts() == {"paged_attention": 0,
-                                   "flash_attention": 0}
+        assert set(launch_counts().values()) == {0}
 
 
 def test_stop_token_and_abort(model):
