@@ -14,7 +14,9 @@ Phases, in order; any failure exits non-zero:
 3. kernels  — each kernel against its plain PyTorch version on the card,
                in the working dtype, at the serving and training shapes
                and the ones listed below; kernel, plain and library times
-               from CUDA events, and the bound for the same work.
+               from CUDA events, and the bound for the same work. The
+               gate (``GATE``) must also reject two planted faults of
+               the backward at the training shape.
 4. parity   — tiny f32 Llama (MHA and GQA): greedy outputs of the port's
                Engine are token-identical to the port's ``generate``.
 5. serving  — full-width bf16 Llama (the repo's serving configuration,
@@ -59,17 +61,34 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
-# kernel vs plain version: |out - ref| <= atol + rtol * |ref|. In bf16
-# both round the output to bf16 (one ulp is 2^-8 of |x|) and the tensor-
-# core flash kernel also rounds P to bf16; in f32 only the summation
-# order differs
-TOL = {"bfloat16": (2e-2, 1e-2), "float32": (1e-4, 1e-4)}
-# flash backward vs its plain version, dq/dk/dv elementwise. bf16: both
-# round the gradients to bf16 (one ulp is 2^-8 of |x|), and the kernels
-# also round P and dS to bf16 as operands of the dS K, dS^T Q and P^T dO
-# products (f32 accumulators), ~2^-9 relative per term; f32: summation
-# order over up to s keys (and the GQA group) only
-BWD_TOL = {"bfloat16": (3e-2, 2e-2), "float32": (2e-4, 1e-4)}
+# Kernel output vs its plain version on the same inputs, for each output
+# tensor (out; dq, dk, dv), scaled to the data: with randn inputs at
+# scale 1/sqrt(d) the outputs of late causal rows are an order of
+# magnitude smaller than those of the first rows, so no fixed absolute
+# bound fits both.
+#  - relative L2 error ||out - ref|| / ||ref|| <= l2. bf16: both sides
+#    round the output to bf16 (~2^-10 RMS relative), and the tensor-core
+#    kernels also round P (and dS) to bf16 as mma operands, ~2^-10 RMS
+#    per term with random signs; f32: summation order only.
+#  - every element: |out - ref| <= atol + rtol * |ref| + row_ulps * 2^-8
+#    * rowmax|ref| + floor * rms(ref), rowmax over the head dim of its own
+#    row. bf16: two ulps of its own (rtol 2^-7: both sides round to
+#    bf16), 4 of the row's largest element (an element that cancels to
+#    near 0 keeps its row's rounding error), and a floor of 2^-12 of the
+#    tensor's RMS for a row that cancels whole (dq's first causal row is
+#    0, its one key giving dP = delta; the kernels leave ~3e-7 there);
+#    f32: the fixed bound, as the L2 term is the tight one there.
+# gate_faults() shows that a backward with delta left out, or 10 % off in
+# the late rows only, fails this gate at the training shape.
+GATE = {
+    "bfloat16": {"l2": 1e-2, "rtol": 2.0 ** -7, "row_ulps": 4,
+                 "floor": 2.0 ** -12, "atol": 0.0},
+    "float32": {"l2": 1e-5, "rtol": 1e-4, "row_ulps": 0, "floor": 0.0,
+                "atol": 1e-4},
+}
+# a fixed bound of the kind bf16 flash checks often use, reported beside
+# each planted fault to show what it would let through
+FIXED_BOUND = (3e-2, 2e-2)
 # first decode step of the full-width bf16 model, paged kernel vs plain
 # attention: both round the attention output to bf16, and the 1-ulp
 # differences this leaves pass through 12 layers of bf16 matmuls
@@ -139,13 +158,29 @@ def cuda_ms(torch, fn, iters, flush):
 
 
 # --------------------------------------------------------------- kernels
-def compare(out, ref, tol=TOL):
-    """(max abs error, within tolerance, tolerance) of a kernel output
-    against its plain version: every element within atol + rtol * |ref|."""
-    atol, rtol = tol[str(out.dtype).split(".")[-1]]
-    diff = (out.float() - ref.float()).abs()
-    ok = bool((diff <= atol + rtol * ref.float().abs()).all())
-    return diff.max().item(), ok, {"atol": atol, "rtol": rtol}
+def compare(out, ref):
+    """(within ``GATE``, what the gate read) for a kernel output against
+    its plain version. ``limit_frac`` is the largest element's error as a
+    fraction of its bound; ``ref_rms`` and ``ref_absmax`` give the scale."""
+    gate = GATE[str(out.dtype).split(".")[-1]]
+    o, r = out.float(), ref.float()
+    diff = (o - r).abs()
+    rms = r.square().mean().sqrt()
+    bound_ = (gate["atol"] + gate["rtol"] * r.abs() + gate["floor"] * rms
+              + gate["row_ulps"] * 2.0 ** -8
+              * r.abs().amax(dim=-1, keepdim=True))
+    stats = {
+        "max_abs_err": diff.max().item(),
+        "rel_l2": (diff.norm() / r.norm().clamp_min(1e-30)).item(),
+        "limit_frac": (diff / bound_.clamp_min(1e-30)).max().item(),
+        "ref_rms": rms.item(),
+        "ref_absmax": r.abs().max().item(),
+        "fixed_bound_ok": bool(
+            (diff <= FIXED_BOUND[0] + FIXED_BOUND[1] * r.abs()).all()),
+    }
+    ok = (bool(o.isfinite().all()) and bool((diff <= bound_).all())
+          and stats["rel_l2"] <= gate["l2"])
+    return ok, stats
 
 
 def bound(nbytes, flops, dtype, torch):
@@ -173,13 +208,13 @@ def paged_case(torch, pa, flush, name, dtype, hq, hkv, d, lengths,
     out = pa.paged_attention(q, kp, vp, tables, lens)
     ref = pa.paged_attention_ref(q, kp, vp, tables, lens)
     torch.cuda.synchronize()
-    err, ok, tol = compare(out, ref)
+    ok, stats = compare(out, ref)
     zero_ok = all(
         bool((out[i] == 0).all()) for i, n in enumerate(lengths) if n == 0
     )
     check(ok and zero_ok,
-          f"paged_attention {name}: max_abs_err {err} outside {tol} or "
-          f"length-0 rows not exact zeros")
+          f"paged_attention {name}: {stats} outside the gate or length-0 "
+          f"rows not exact zeros")
     ms = cuda_ms(torch, lambda: pa.paged_attention(q, kp, vp, tables, lens),
                  50, flush)
     plain_ms = cuda_ms(
@@ -196,7 +231,7 @@ def paged_case(torch, pa, flush, name, dtype, hq, hkv, d, lengths,
         "case": name, "dtype": str(dtype).split(".")[-1], "batch": b,
         "hq": hq, "hkv": hkv, "d": d, "page_size": page,
         "pages_per_seq": pages_per_seq, "lengths": list(lengths),
-        "max_abs_err": err, "tolerance": tol, "ms": ms,
+        **stats, "ms": ms,
         "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
         "bound_by": bound_by, "bytes": nbytes, "flops": flops,
     }
@@ -217,11 +252,11 @@ def flash_case(torch, fa, flush, s, dtype=None, h=16, d=128, b=1,
     out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
     ref, ref_lse = fa.flash_attention_ref(q, k, v, causal=True)
     torch.cuda.synchronize()
-    err, ok, tol = compare(out, ref)
+    ok, stats = compare(out, ref)
     lse_err = (lse - ref_lse).abs().max().item()
     check(ok and lse_err <= 1e-3,
-          f"flash_attention s={s}: max_abs_err {err} outside {tol} or lse "
-          f"err {lse_err} > 1e-3")
+          f"flash_attention s={s}: {stats} outside the gate or lse err "
+          f"{lse_err} > 1e-3")
     ms = cuda_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, causal=True),
                  20, flush)
     plain_ms = cuda_ms(
@@ -239,8 +274,8 @@ def flash_case(torch, fa, flush, s, dtype=None, h=16, d=128, b=1,
         "_unaligned" if offset else "")
     return {
         "case": name, "dtype": str(dtype).split(".")[-1], "batch": b,
-        "heads": h, "d": d, "seq": s, "max_abs_err": err,
-        "lse_max_abs_err": lse_err, "tolerance": tol, "ms": ms,
+        "heads": h, "d": d, "seq": s, **stats,
+        "lse_max_abs_err": lse_err, "ms": ms,
         "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
         "flops": flops,
@@ -270,13 +305,11 @@ def flash_bwd_case(torch, fa, flush, name, s, dtype=None, h=16, hkv=None,
     grads = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
     refs = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal)
     torch.cuda.synchronize()
-    errs = {}
+    gate = {}
     for gname, got, ref in zip(("dq", "dk", "dv"), grads, refs):
-        err, ok, tol = compare(got, ref, BWD_TOL)
-        check(ok and bool(torch.isfinite(got).all()),
-              f"flash_attention_bwd {name}: {gname} max_abs_err {err} "
-              f"outside {tol}")
-        errs[gname] = err
+        ok, gate[gname] = compare(got, ref)
+        check(ok, f"flash_attention_bwd {name}: {gname} {gate[gname]} "
+                  f"outside the gate")
     # per-kernel times on the aligned inputs the wrapper hands them
     qa, ka, va, da = (fa._aligned(t) for t in (q, k, v, do))
     delta = fa.attention_delta(out, da)
@@ -313,8 +346,8 @@ def flash_bwd_case(torch, fa, flush, name, s, dtype=None, h=16, hkv=None,
     case = {
         "case": name, "dtype": str(dtype).split(".")[-1], "batch": b,
         "heads": h, "kv_heads": hkv, "d": d, "seq": s, "causal": causal,
-        "offset": offset, "max_abs_err": errs, "tolerance": BWD_TOL[
-            str(dtype).split(".")[-1]],
+        "offset": offset, "gate": gate,
+        "max_abs_err": {g: st["max_abs_err"] for g, st in gate.items()},
         "ms": ms, "dq_ms": dq_ms, "dkv_ms": dkv_ms, "plain_ms": plain_ms,
         "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
         "dq_bound_ms": dq_b, "dq_bound_by": dq_by, "dkv_bound_ms": dkv_b,
@@ -322,6 +355,40 @@ def flash_bwd_case(torch, fa, flush, name, s, dtype=None, h=16, hkv=None,
     }
     log(f"[kernels] {json.dumps(case)}")
     return case
+
+
+def gate_faults(torch, fa, s=TRAIN_SEQ, b=TRAIN_BATCH, h=16, d=128):
+    """``GATE`` must reject a bf16 backward with a planted fault, at the
+    training shape. Both kernels run on a wrong delta: "no_delta" on
+    delta = 0 (dS = P dP scale), "late_delta" on delta x 0.9 in the second
+    half of the rows only, a fault that changes each late gradient by a
+    few ulps of its own (``FIXED_BOUND`` lets its dk through). dq and dk
+    must fail; dv, which does not read delta, and the correct run must
+    pass. Returns what the gate read on each."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = d ** -0.5
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    refs = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=True)
+    delta = fa.attention_delta(out, do)
+    late = delta.clone()
+    late[..., s // 2:] *= 0.9
+    changed = {"none": (), "no_delta": ("dq", "dk"),
+               "late_delta": ("dq", "dk")}
+    result = {}
+    for fault, dl in (("none", delta), ("no_delta", torch.zeros_like(delta)),
+                      ("late_delta", late)):
+        got = (fa._launch_bwd_dq(q, k, v, do, lse, dl, True, scale),
+               *fa._launch_bwd_dkv(q, k, v, do, lse, dl, True, scale))
+        for gname, x, ref in zip(("dq", "dk", "dv"), got, refs):
+            ok, stats = compare(x, ref)
+            result[f"{fault}.{gname}"] = dict(stats, gate_ok=ok)
+            check(ok != (gname in changed[fault]),
+                  f"gate: {fault} {gname} {'passed' if ok else 'failed'} "
+                  f"({stats})")
+    log(f"[kernels] gate faults {json.dumps(result)}")
+    return result
 
 
 def phase_kernels(torch):
@@ -362,7 +429,7 @@ def phase_kernels(torch):
     ]
     for c in paged + flash:
         log(f"[kernels] {json.dumps(c)}")
-    return paged, flash, bwd
+    return paged, flash, bwd, gate_faults(torch, fa)
 
 
 # ---------------------------------------------------------------- parity
@@ -921,9 +988,10 @@ def main(argv=None):
 
         paged = flash = bwd = None
         if "kernels" in phases:
-            paged, flash, bwd = phase_kernels(torch)
+            paged, flash, bwd, faults = phase_kernels(torch)
             report["phases"]["kernels"] = {"paged": paged, "flash": flash,
-                                           "flash_bwd": bwd}
+                                           "flash_bwd": bwd,
+                                           "gate_faults": faults}
         if "parity" in phases:
             phase_parity(torch)
             report["phases"]["parity"] = "ok"

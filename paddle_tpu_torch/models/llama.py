@@ -71,8 +71,6 @@ class LlamaConfig:
         tie_word_embeddings=False,
         dtype="float32",
         num_experts=0,
-        num_experts_per_tok=2,
-        router_aux_loss_coef=0.02,
         recompute=False,
         fused_loss_chunk=0,
     ):
@@ -89,8 +87,6 @@ class LlamaConfig:
         self.dtype = dtype
         # > 0 is the Mixtral-style MoE of the JAX package: not ported yet
         self.num_experts = num_experts
-        self.num_experts_per_tok = num_experts_per_tok
-        self.router_aux_loss_coef = router_aux_loss_coef
         # recompute each decoder layer's activations in the backward
         self.recompute = recompute
         # > 0: the loss goes through the chunked fused LM head, and the
