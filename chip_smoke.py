@@ -16,7 +16,11 @@ Phases, in order; any failure exits non-zero:
                and the ones listed below; kernel, plain and library times
                from CUDA events, and the bound for the same work. The
                gate (``GATE``) must also reject two planted faults of
-               the backward at the training shape.
+               the backward at the training shape. The int8 paged kernel
+               also stays within 0.05 of the float kernel on the
+               unquantized pages; the grouped GEMM runs at the MoE
+               layer's shapes, the JAX sweeps of empty and one-row
+               groups, f32 and int8 rhs.
 4. parity   — tiny f32 Llama (MHA and GQA): greedy outputs of the port's
                Engine are token-identical to the port's ``generate``.
 5. serving  — full-width bf16 Llama (the repo's serving configuration,
@@ -26,6 +30,10 @@ Phases, in order; any failure exits non-zero:
                per layer and each prefill the flash kernel once per layer,
                and the first decode step's logits agree with the same step
                run with the plain attention function.
+5b. serving_int8 — the same with ``EngineConfig(kv_cache_dtype="int8")``:
+               every decode step runs the int8 paged kernel once per
+               layer and the float one never; it also reports the first
+               step's logit gap to the bf16 pool and the bytes per token.
 6. train_parity — tiny f32 Llama (MHA and GQA): 10 ``TrainStep`` steps
                of AdamW through the flash kernels give the losses of the
                same 10 steps with the plain attention functions.
@@ -38,12 +46,24 @@ Phases, in order; any failure exits non-zero:
                timed) with 12 forward, 12 dq and 12 dk/dv flash launches
                per step, one profiled step, 2 steps with ``recompute`` and
                1 step without the fused loss.
+8. moe      — ``bench.py``'s MoE layer (``bench_kernels``: d_model 1024,
+               8 experts, d_ff 2816, top-2, 8 x 1024 tokens, bf16):
+               ``impl="ragged"`` runs 3 grouped GEMM launches and agrees
+               with the plain grouped GEMM and with ``impl="dense"`` when
+               nothing drops; its gradients agree with the plain version;
+               ``quantize_moe_experts`` gives 3 int8 launches within 5 %
+               of the float layer and refuses gradients; ragged and dense
+               tokens/s; then one forward of ``bench_moe``'s level-0
+               Llama MoE (8 layers) against plain attention.
+
+``--phases`` picks a subset; ``profile`` (a profiled decode step over the
+bf16 and the int8 pool) runs only when named.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the repository beside it, the script exits non-zero and prints no
 result. ``--out PATH`` also writes the full report (every case, the
-serving and training counters) as JSON to PATH.
+serving, training and MoE counters) as JSON to PATH.
 """
 from __future__ import annotations
 
@@ -102,6 +122,30 @@ TRAIN_LOSS_TOL = 1e-2
 TRAIN_GRAD_RTOL = 5e-2
 # tiny f32 training, kernels vs plain attention over 10 AdamW steps
 PARITY_LOSS_RTOL = 1e-4
+# int8 paged kernel against the float kernel on the unquantized pages:
+# the JAX contract of test_int8_pool_tolerance (rtol, atol)
+INT8_POOL_TOL = (0.05, 0.05)
+# full-width ragged MoE layer (relative L2 error): against the dense impl
+# with nothing dropped (bf16 expert products rounded at other places), its
+# gradients against the plain grouped GEMM (bf16 sums through the
+# backward), and int8 experts against the float layer (docs/kernels.md's
+# ~5 % bound on a SwiGLU layer)
+MOE_DENSE_L2 = 1e-2
+MOE_GRAD_L2 = 5e-2
+MOE_INT8_L2 = 5e-2
+# bench.py's bench_kernels MoE layer and bench_moe level-0 model (bf16)
+MOE_LAYER = dict(d_model=1024, num_experts=8, d_ff=2816, k=2)
+MOE_BATCH, MOE_SEQ = 8, 1024
+MOE_LLAMA_CFG = dict(
+    vocab_size=32000, hidden_size=1024, intermediate_size=2816,
+    num_hidden_layers=8, num_attention_heads=16,
+    max_position_embeddings=2048, num_experts=8, num_experts_per_tok=2,
+    fused_loss_chunk=2048, dtype="bfloat16",
+)
+# the JAX grouped-GEMM sweeps: empty leading, trailing and interior
+# groups, single-row segments, all rows on one expert
+GMM_SWEEP = [[5, 0, 11, 16], [0, 0, 32, 0], [1, 1, 1, 29], [32, 0, 0, 0],
+             [0, 7, 1, 24]]
 # bench.py's bench_llama configuration (its TPU branch), bf16 weights
 TRAIN_CFG = dict(
     vocab_size=32000, hidden_size=2048, intermediate_size=5632,
@@ -192,7 +236,11 @@ def bound(nbytes, flops, dtype, torch):
 
 
 def paged_case(torch, pa, flush, name, dtype, hq, hkv, d, lengths,
-               page=16, pages_per_seq=32):
+               page=16, pages_per_seq=32, quant=False):
+    """The paged kernel against ``paged_attention_ref`` on the same pages.
+    ``quant``: the int8 kernel on pages built by ``quantize_tokens``,
+    also held to the float kernel on the unquantized pages
+    (``INT8_POOL_TOL``)."""
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(1)
     b = len(lengths)
@@ -205,36 +253,124 @@ def paged_case(torch, pa, flush, name, dtype, hq, hkv, d, lengths,
     perm = torch.randperm(n_pages, generator=g, device=dev)
     tables = perm.reshape(b, pages_per_seq).to(torch.int32)
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
-    out = pa.paged_attention(q, kp, vp, tables, lens)
-    ref = pa.paged_attention_ref(q, kp, vp, tables, lens)
+    k, v = ((pa.quantize_tokens(kp), pa.quantize_tokens(vp)) if quant
+            else (kp, vp))
+    out = pa.paged_attention(q, k, v, tables, lens)
+    ref = pa.paged_attention_ref(q, k, v, tables, lens)
     torch.cuda.synchronize()
     ok, stats = compare(out, ref)
     zero_ok = all(
         bool((out[i] == 0).all()) for i, n in enumerate(lengths) if n == 0
     )
+    extra = {}
+    if quant:
+        flt = pa.paged_attention(q, kp, vp, tables, lens)
+        rtol, atol = INT8_POOL_TOL
+        gap = (out.float() - flt.float()).abs()
+        ok = ok and bool((gap <= atol + rtol * flt.float().abs()).all())
+        extra = {"float_pool_max_abs_gap": gap.max().item(),
+                 "float_kernel_ms": cuda_ms(torch, lambda: pa.paged_attention(
+                     q, kp, vp, tables, lens), 50, flush)}
     check(ok and zero_ok,
-          f"paged_attention {name}: {stats} outside the gate or length-0 "
-          f"rows not exact zeros")
-    ms = cuda_ms(torch, lambda: pa.paged_attention(q, kp, vp, tables, lens),
+          f"paged_attention {name} (int8 {quant}): {stats} {extra} outside "
+          f"the gate or length-0 rows not exact zeros")
+    ms = cuda_ms(torch, lambda: pa.paged_attention(q, k, v, tables, lens),
                  50, flush)
     plain_ms = cuda_ms(
-        torch, lambda: pa.paged_attention_ref(q, kp, vp, tables, lens), 10,
+        torch, lambda: pa.paged_attention_ref(q, k, v, tables, lens), 10,
         flush)
-    item = q.element_size()
     tokens = sum(lengths)
-    nbytes = (2 * q.numel() * item              # q in, out
-              + 2 * tokens * hkv * d * item     # each cached K/V row once
+    # q in, out; each cached K/V row once (int8: 1 byte an element and a
+    # 4-byte scale a row); the tables
+    row_bytes = d + 4 if quant else d * q.element_size()
+    nbytes = (2 * q.numel() * q.element_size() + 2 * tokens * hkv * row_bytes
               + tables.numel() * 4 + b * 4)
     flops = 4 * tokens * hq * d
     bound_ms, bound_by = bound(nbytes, flops, dtype, torch)
     return {
-        "case": name, "dtype": str(dtype).split(".")[-1], "batch": b,
-        "hq": hq, "hkv": hkv, "d": d, "page_size": page,
+        "case": name, "dtype": str(dtype).split(".")[-1], "int8": quant,
+        "batch": b, "hq": hq, "hkv": hkv, "d": d, "page_size": page,
         "pages_per_seq": pages_per_seq, "lengths": list(lengths),
-        **stats, "ms": ms,
+        **stats, **extra, "ms": ms,
         "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
         "bound_by": bound_by, "bytes": nbytes, "flops": flops,
     }
+
+
+def _routed_group_sizes(torch, n_tokens, d, e, k, seed):
+    """Group sizes of ``n_tokens`` random bf16 tokens routed top-k over
+    ``e`` experts by a random gate (the ragged dispatch's own count)."""
+    from paddle_tpu_torch.ops import moe_ragged_dispatch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(n_tokens, d, generator=g, device="cuda")
+    w = torch.randn(d, e, generator=g, device="cuda") / d ** 0.5
+    return moe_ragged_dispatch(x, x @ w, k=k)[1]
+
+
+def gmm_case(torch, gk, flush, name, dtype, k, m, group_sizes, quant=False):
+    """The grouped GEMM kernel against ``grouped_matmul_ref`` on the same
+    inputs (``GATE``); ``quant`` gives it int8 rhs with per-channel
+    scales. Times the kernel, the plain version and, for bf16 float rhs,
+    ``torch._grouped_mm`` (never called by the port) where this PyTorch
+    has it."""
+    dev = "cuda"
+    gs = torch.as_tensor(group_sizes, dtype=torch.int32, device=dev)
+    n, e = int(gs.sum()), gs.numel()
+    g = torch.Generator(device=dev).manual_seed(n + k + m)
+    lhs = torch.randn(n, k, generator=g, device=dev).to(dtype)
+    rhs = (torch.randn(e, k, m, generator=g, device=dev)
+           / k ** 0.5).to(dtype)
+    scales = None
+    if quant:
+        from paddle_tpu_torch.quantization import weight_quantize_grouped
+
+        rhs, scales = weight_quantize_grouped(rhs.float())
+    with torch.no_grad():
+        out = gk.grouped_matmul(lhs, rhs, gs, scales)
+        ref = gk.grouped_matmul_ref(lhs, rhs, gs, scales)
+        torch.cuda.synchronize()
+        ok, stats = compare(out, ref)
+        check(ok, f"grouped_matmul {name}: {stats} outside the gate")
+        ms = cuda_ms(torch, lambda: gk.grouped_matmul(lhs, rhs, gs, scales),
+                     20, flush)
+        plain_ms = cuda_ms(
+            torch, lambda: gk.grouped_matmul_ref(lhs, rhs, gs, scales), 5,
+            flush)
+        library_ms, library_note = None, "none: int8 or f32 rhs"
+        if not quant and dtype == torch.bfloat16:
+            library_note = "torch._grouped_mm absent"
+            if hasattr(torch, "_grouped_mm"):
+                offs = torch.cumsum(gs, 0, dtype=torch.int32)
+                rhs_cm = rhs.transpose(1, 2).contiguous().transpose(1, 2)
+                try:
+                    lib = torch._grouped_mm(lhs, rhs_cm, offs=offs)
+                    torch.cuda.synchronize()
+                    lib_ok, lib_stats = compare(lib, ref)
+                    library_ms = cuda_ms(torch, lambda: torch._grouped_mm(
+                        lhs, rhs_cm, offs=offs), 20, flush)
+                    library_note = ("torch._grouped_mm" if lib_ok else
+                                    f"torch._grouped_mm, off the gate: "
+                                    f"{lib_stats}")
+                except (RuntimeError, TypeError) as err:
+                    library_note = f"torch._grouped_mm refused: {err}"[:200]
+    nbytes = (lhs.numel() * lhs.element_size()
+              + rhs.numel() * rhs.element_size()
+              + (scales.numel() * 4 if quant else 0)
+              + out.numel() * out.element_size())
+    flops = 2 * n * k * m
+    bound_ms, bound_by = bound(nbytes, flops, dtype, torch)
+    case = {
+        "case": name, "dtype": str(dtype).split(".")[-1],
+        "rhs": "int8" if quant else str(dtype).split(".")[-1], "n": n,
+        "k": k, "m": m, "experts": e,
+        "group_sizes": [int(x) for x in gs.tolist()], **stats, "ms": ms,
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        "library": library_note, "bound_ms": bound_ms,
+        "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+    }
+    log(f"[kernels] gmm {json.dumps(case)}")
+    return case
 
 
 def flash_case(torch, fa, flush, s, dtype=None, h=16, d=128, b=1,
@@ -393,24 +529,25 @@ def gate_faults(torch, fa, s=TRAIN_SEQ, b=TRAIN_BATCH, h=16, d=128):
 
 def phase_kernels(torch):
     from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import grouped_matmul as gk
     from paddle_tpu_torch.kernels import paged_attention as pa
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     lengths = [0, 1, 15, 16, 17, 200, 511, 512]   # 0, partial, full pages
-    paged = [
-        paged_case(torch, pa, flush, "serving", torch.bfloat16, 16, 16, 128,
-                   lengths),
-        paged_case(torch, pa, flush, "gqa", torch.bfloat16, 32, 4, 64,
-                   lengths),
-        paged_case(torch, pa, flush, "serving_f32", torch.float32, 16, 16,
-                   128, lengths),
+    cases = [
+        ("serving", torch.bfloat16, 16, 16, 128, lengths, {}),
+        ("gqa", torch.bfloat16, 32, 4, 64, lengths, {}),
+        ("serving_f32", torch.float32, 16, 16, 128, lengths, {}),
         # 16 chunks per sequence, most of them empty for the short ones
-        paged_case(torch, pa, flush, "long", torch.bfloat16, 16, 16, 128,
-                   [2048, 1000, 129, 3], pages_per_seq=128),
+        ("long", torch.bfloat16, 16, 16, 128, [2048, 1000, 129, 3],
+         {"pages_per_seq": 128}),
         # head dim and page size that take the scalar-load path
-        paged_case(torch, pa, flush, "odd", torch.bfloat16, 6, 2, 20,
-                   [37, 0, 5], page=5, pages_per_seq=8),
+        ("odd", torch.bfloat16, 6, 2, 20, [37, 0, 5],
+         {"page": 5, "pages_per_seq": 8}),
     ]
+    paged = [paged_case(torch, pa, flush, *c[:6], **c[6]) for c in cases]
+    quant = [paged_case(torch, pa, flush, *c[:6], **c[6], quant=True)
+             for c in cases]
     flash = [flash_case(torch, fa, flush, s)
              for s in (16, 32, 64, 100, 128, 512, 2048)]
     flash.append(flash_case(torch, fa, flush, 100, dtype=torch.float32))
@@ -429,7 +566,39 @@ def phase_kernels(torch):
     ]
     for c in paged + flash:
         log(f"[kernels] {json.dumps(c)}")
-    return paged, flash, bwd, gate_faults(torch, fa)
+    for c in quant:
+        log(f"[kernels] int8 paged {json.dumps(c)}")
+    # bench_kernels' MoE layer: 8 x 1024 tokens, top-2 of 8 experts
+    d, f, e = MOE_LAYER["d_model"], MOE_LAYER["d_ff"], MOE_LAYER["num_experts"]
+    routed = _routed_group_sizes(torch, MOE_BATCH * MOE_SEQ, d, e,
+                                 MOE_LAYER["k"], seed=3)
+    bf16 = torch.bfloat16
+    gmm = [
+        gmm_case(torch, gk, flush, "up", bf16, d, f, routed),
+        gmm_case(torch, gk, flush, "down", bf16, f, d, routed),
+    ]
+    gmm += [gmm_case(torch, gk, flush, f"sweep{gs}", bf16, 24, 40, gs)
+            for gs in GMM_SWEEP]
+    gmm += [
+        # n = 100 rows: off the 64-row tile
+        gmm_case(torch, gk, flush, "ragged_n", bf16, 24, 40, [37, 0, 50, 13]),
+        gmm_case(torch, gk, flush, "f32", torch.float32, 24, 40,
+                 [5, 0, 11, 16]),
+        # f32 takes any k and m
+        gmm_case(torch, gk, flush, "f32_odd", torch.float32, 12, 10,
+                 [3, 2, 5, 1]),
+    ]
+    gmm_quant = [
+        gmm_case(torch, gk, flush, "up_int8", bf16, d, f, routed, quant=True),
+        gmm_case(torch, gk, flush, "down_int8", bf16, f, d, routed,
+                 quant=True),
+        gmm_case(torch, gk, flush, "sweep_int8", bf16, 24, 40,
+                 [0, 7, 1, 24], quant=True),
+        gmm_case(torch, gk, flush, "f32_int8", torch.float32, 24, 40,
+                 [5, 0, 11, 16], quant=True),
+    ]
+    return (paged, flash, bwd, gate_faults(torch, fa), quant, gmm,
+            gmm_quant)
 
 
 # ---------------------------------------------------------------- parity
@@ -466,26 +635,79 @@ def phase_parity(torch):
 
 
 # --------------------------------------------------------------- serving
-def phase_serving(torch):
-    from paddle_tpu_torch.kernels import _build
-    from paddle_tpu_torch.kernels.paged_attention import paged_attention_ref
-    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
-    from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
+SERVING_CFG = dict(
+    vocab_size=32000, hidden_size=2048, intermediate_size=5632,
+    num_hidden_layers=12, num_attention_heads=16,
+    max_position_embeddings=2048, dtype="bfloat16",
+)
+
+
+def _pool_copy(entries):
+    """Clones of a pool's per-layer entries (tensors or int8 pairs)."""
+    return [tuple(t.clone() for t in e) if isinstance(e, tuple)
+            else e.clone() for e in entries]
+
+
+def _first_decode(torch, model, ecfg, prompts, compare_plain):
+    """Run a warm-up engine over ``prompts`` (4 tokens each) and return
+    its first decode step's logits (f32, active slots); with
+    ``compare_plain`` that step is also run with the plain attention
+    function on copies of the pool, and the two are compared."""
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.serving import Engine, SamplingParams
     from paddle_tpu_torch.serving import adapter as adapter_mod
 
-    cfg = LlamaConfig(
-        vocab_size=32000, hidden_size=2048, intermediate_size=5632,
-        num_hidden_layers=12, num_attention_heads=16,
-        max_position_embeddings=2048, dtype="bfloat16",
-    )
+    warm = Engine(model, ecfg)
+    got = {}
+    real_decode = warm.adapter.decode
+
+    def decode_and_compare(kp, vp, *args):
+        if got:
+            return real_decode(kp, vp, *args)
+        active = args[3]
+        if compare_plain:
+            kp2, vp2 = _pool_copy(kp), _pool_copy(vp)
+            adapter_mod.paged_attention = pa.paged_attention_ref
+            try:
+                plain = real_decode(kp2, vp2, *args).float()
+            finally:
+                adapter_mod.paged_attention = pa.paged_attention
+        out = real_decode(kp, vp, *args)
+        got["logits"] = out.float()[active]
+        got["finite"] = bool(torch.isfinite(out[active]).all())
+        if compare_plain:
+            got["max_abs_err"] = (out.float() - plain)[active].abs().max(
+            ).item()
+            got["logit_absmax"] = plain[active].abs().max().item()
+        return out
+
+    warm.adapter.decode = decode_and_compare
+    warm.generate(prompts[:8], SamplingParams(max_new_tokens=4))
+    torch.cuda.synchronize()
+    bytes_per_token = warm.pool.bytes_per_token()
+    del warm
+    check(got.get("finite"), "serving: non-finite decode logits")
+    return got, bytes_per_token
+
+
+def _serve(torch, tag, kv_cache_dtype=None):
+    """The full-width bf16 Llama serving 32 requests through
+    ``Engine.generate`` with ``kv_cache_dtype``; checks and returns the
+    run's counters. The int8 run also measures its first decode step's
+    logit gap to the float pool and its bytes per token against it."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
+
+    cfg = LlamaConfig(**SERVING_CFG)
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, seed=0)
     torch.cuda.synchronize()
-    log(f"[serving] model: {model.num_params() / 1e6:.1f}M params bf16, "
+    log(f"[{tag}] model: {model.num_params() / 1e6:.1f}M params bf16, "
         f"built in {time.perf_counter() - t0:.1f}s")
     n_req, slots, mml = 32, 8, 512
     ecfg = EngineConfig(max_batch_slots=slots, max_model_len=mml,
-                        page_size=16)
+                        page_size=16, kv_cache_dtype=kv_cache_dtype)
     rng = np.random.RandomState(0)
     prompts = [
         rng.randint(1, cfg.vocab_size, rng.randint(8, mml // 4)).tolist()
@@ -499,46 +721,35 @@ def phase_serving(torch):
         for i, k in enumerate(max_new)
     ]
 
-    # warm-up engine: the first 8 prompts, 4 tokens each. Its first
-    # decode step is also run once with the plain attention function on
-    # copies of the pool, and the logits are compared.
-    warm = Engine(model, ecfg)
-    compared = {}
-    real_decode = warm.adapter.decode
-
-    def decode_and_compare(kp, vp, *args):
-        if not compared:
-            kp2 = [t.clone() for t in kp]
-            vp2 = [t.clone() for t in vp]
-            adapter_mod.paged_attention = paged_attention_ref
-            try:
-                plain = real_decode(kp2, vp2, *args).float()
-            finally:
-                from paddle_tpu_torch.kernels import paged_attention as pa
-
-                adapter_mod.paged_attention = pa.paged_attention
-            out = real_decode(kp, vp, *args)
-            active = args[3]
-            diff = (out.float() - plain)[active].abs().max().item()
-            compared.update(
-                max_abs_err=diff,
-                finite=bool(torch.isfinite(out[active]).all()),
-                logit_absmax=plain[active].abs().max().item(),
-            )
-            return out
-        return real_decode(kp, vp, *args)
-
-    warm.adapter.decode = decode_and_compare
-    warm.generate(prompts[:8], SamplingParams(max_new_tokens=4))
-    torch.cuda.synchronize()
-    check(compared.get("finite"), "serving: non-finite decode logits")
+    # warm-up engine: the first 8 prompts, 4 tokens each; its first
+    # decode step against the same step with the plain attention function
+    compared, bytes_per_token = _first_decode(torch, model, ecfg, prompts,
+                                              True)
     check(compared["max_abs_err"] <= LOGITS_TOL,
-          f"serving: first decode logits differ from the plain attention "
+          f"{tag}: first decode logits differ from the plain attention "
           f"path by {compared['max_abs_err']} > {LOGITS_TOL}")
-    log(f"[serving] first decode step, kernel vs plain attention: "
+    log(f"[{tag}] first decode step, kernel vs plain attention: "
         f"max_abs_err {compared['max_abs_err']:.5f} (tolerance "
         f"{LOGITS_TOL}, |logits| max {compared['logit_absmax']:.3f})")
-    del warm
+    extra = {}
+    if kv_cache_dtype is not None:
+        # the same first step over a float (bf16) pool: the prefill
+        # attends over the in-flight float K/V either way, so the step's
+        # tokens and positions are the same
+        flt, flt_bytes = _first_decode(
+            torch, model, EngineConfig(max_batch_slots=slots,
+                                       max_model_len=mml, page_size=16),
+            prompts, False)
+        gap = (compared["logits"] - flt["logits"]).abs().max().item()
+        extra = {"float_pool_logit_gap": gap,
+                 "bytes_per_token": bytes_per_token,
+                 "float_pool_bytes_per_token": flt_bytes,
+                 "bytes_ratio": bytes_per_token / flt_bytes}
+        log(f"[{tag}] first decode step, {kv_cache_dtype} pool vs bf16 "
+            f"pool: max abs logit gap {gap:.5f}; bytes per token "
+            f"{bytes_per_token:.0f} vs {flt_bytes:.0f} "
+            f"({bytes_per_token / flt_bytes:.4f})")
+    compared = {k: v for k, v in compared.items() if k != "logits"}
 
     engine = Engine(model, ecfg)
     _build.reset_launch_counts()
@@ -551,17 +762,20 @@ def phase_serving(torch):
     m = engine.metrics
     check(len(outs) == n_req and all(
         o.finish_reason in ("length", "stop") for o in outs),
-        "serving: not every request finished")
+        f"{tag}: not every request finished")
     check(all(0 <= t < cfg.vocab_size for o in outs for t in o.token_ids),
-          "serving: token id out of range")
+          f"{tag}: token id out of range")
     check(engine.block_manager.num_used == 0,
-          f"serving: {engine.block_manager.num_used} KV blocks leaked")
+          f"{tag}: {engine.block_manager.num_used} KV blocks leaked")
     L = cfg.num_hidden_layers
-    check(counts["paged_attention"] == m.decode_steps * L,
-          f"serving: paged launches {counts['paged_attention']} != "
-          f"decode_steps {m.decode_steps} x {L}")
+    paged, other = (("paged_attention_quant", "paged_attention")
+                    if kv_cache_dtype else
+                    ("paged_attention", "paged_attention_quant"))
+    check(counts[paged] == m.decode_steps * L and counts[other] == 0,
+          f"{tag}: {paged} launches {counts[paged]} != decode_steps "
+          f"{m.decode_steps} x {L}, or {other} launched {counts[other]}")
     check(counts["flash_attention"] == m.prefill_steps * L,
-          f"serving: flash launches {counts['flash_attention']} != "
+          f"{tag}: flash launches {counts['flash_attention']} != "
           f"prefill_steps {m.prefill_steps} x {L}")
     n_tokens = sum(len(o.token_ids) for o in outs)
     ttft = float(np.mean([o.time_to_first_token for o in outs]))
@@ -572,14 +786,22 @@ def phase_serving(torch):
         "preemptions": m.preemptions,
         "pool_high_water": engine.block_manager.high_water,
         "sampled_requests": sum(p.do_sample for p in params),
-        "launches": counts, "first_decode_compare": compared,
+        "launches": counts, "first_decode_compare": compared, **extra,
     }
-    log(f"[serving] {n_req} requests x {slots} slots mml={mml}: "
+    log(f"[{tag}] {n_req} requests x {slots} slots mml={mml}: "
         f"{n_tokens} tokens in {dt:.3f}s -> {n_tokens / dt:.1f} tokens/s, "
         f"mean TTFT {ttft * 1e3:.1f} ms, decode steps {m.decode_steps}, "
         f"prefill steps {m.prefill_steps}, preemptions {m.preemptions}")
-    log(f"[serving] launches {counts}")
+    log(f"[{tag}] launches {counts}")
     return result
+
+
+def phase_serving(torch):
+    return _serve(torch, "serving")
+
+
+def phase_serving_int8(torch):
+    return _serve(torch, "serving_int8", kv_cache_dtype="int8")
 
 
 # ------------------------------------------------------------- training
@@ -881,75 +1103,283 @@ def phase_train(torch):
     }
 
 
+# ------------------------------------------------------------------- moe
+def _rel_l2(a, b):
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+@contextlib.contextmanager
+def plain_gmm(gk):
+    """Inside: ``grouped_matmul`` computes with its plain version (the
+    comparison runs only)."""
+    saved = gk.grouped_matmul
+    gk.grouped_matmul = gk.grouped_matmul_ref
+    try:
+        yield
+    finally:
+        gk.grouped_matmul = saved
+
+
+def _forward_ms(torch, fn, iters=10):
+    """Host-clock ms of ``fn`` ending in a synchronize, after 3 warm-ups."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def phase_moe(torch):
+    """bench_kernels' MoE layer (ragged and dense, float and int8
+    experts) and bench_moe's level-0 Llama MoE forward, bf16. Launches
+    on this path: the ragged forward, the int8 forward and the Llama MoE
+    forward, each counted from 0; the comparisons and the backward are
+    not counted."""
+    import copy
+
+    from paddle_tpu_torch.incubate import MoELayer
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import grouped_matmul as gk
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.quantization import quantize_moe_experts
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf16 = torch.bfloat16
+    e, k = MOE_LAYER["num_experts"], MOE_LAYER["k"]
+    ragged = MoELayer(**MOE_LAYER, impl="ragged", dtype=bf16, seed=0)
+    # capacity e / k: the dense path can drop nothing
+    dense = MoELayer(**MOE_LAYER, impl="dense", capacity_factor=e / k,
+                     dtype=bf16, seed=1)
+    dense.load_state_dict(ragged.state_dict())
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn(MOE_BATCH, MOE_SEQ, MOE_LAYER["d_model"], generator=g,
+                    device="cuda").to(bf16)
+    tokens = MOE_BATCH * MOE_SEQ
+    path = {}
+
+    def count_into(counts):
+        for name, n in counts.items():
+            path[name] = path.get(name, 0) + n
+
+    # ragged forward: 3 grouped GEMM launches
+    with torch.no_grad():
+        _build.reset_launch_counts()
+        out, aux = ragged(x)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        count_into(counts)
+        check(counts["grouped_matmul"] == 3,
+              f"moe: ragged forward launched {counts}")
+        with plain_gmm(gk):
+            out_p, aux_p = ragged(x)
+        ok, stats = compare(out, out_p)
+        check(ok, f"moe: ragged forward vs plain grouped GEMM {stats}")
+        del out_p, aux_p
+        out_d, aux_d, st_d = dense(x, return_stats=True)
+        dense_l2 = _rel_l2(out, out_d)
+        check(int(st_d["dropped_assignments"]) == 0 and
+              dense_l2 <= MOE_DENSE_L2 and aux.item() == aux_d.item(),
+              f"moe: ragged vs dense: relative L2 {dense_l2}, aux "
+              f"{aux.item()} vs {aux_d.item()}, dropped "
+              f"{int(st_d['dropped_assignments'])}")
+    layer_aux = aux.item()
+    log(f"[moe] ragged forward: 3 grouped_matmul launches; vs plain "
+        f"{json.dumps(stats)}; vs dense relative L2 {dense_l2:.3g}, aux "
+        f"{layer_aux:.6f} both")
+
+    # ragged backward, every parameter and the input, kernel vs plain
+    wgt = torch.randn(x.shape, generator=g, device="cuda")
+
+    def grads():
+        ragged.zero_grad(set_to_none=True)
+        xi = x.detach().clone().requires_grad_()
+        o, a = ragged(xi)
+        ((o.float() * wgt).sum() + a).backward()
+        got = {n: p.grad.float() for n, p in ragged.named_parameters()}
+        got["input"] = xi.grad.float()
+        return got
+
+    g_k = grads()
+    with plain_gmm(gk):
+        g_p = grads()
+    grad_l2 = {n: _rel_l2(g_k[n], g_p[n]) for n in g_p}
+    worst = max(grad_l2, key=grad_l2.get)
+    check(all(np.isfinite(list(grad_l2.values()))) and
+          grad_l2[worst] <= MOE_GRAD_L2,
+          f"moe: gradient of {worst} differs from the plain grouped GEMM "
+          f"by {grad_l2[worst]} > {MOE_GRAD_L2}")
+    ragged.zero_grad(set_to_none=True)
+    del g_k, g_p
+    log(f"[moe] ragged backward vs plain: relative L2 {json.dumps(grad_l2)}")
+
+    # speed: ragged and dense forward tokens/s (the card's counterpart of
+    # bench.py's moe_ragged_vs_dense_speedup)
+    with torch.no_grad():
+        ragged_ms = _forward_ms(torch, lambda: ragged(x))
+        dense_ms = _forward_ms(torch, lambda: dense(x))
+    del dense
+    speed = {"ragged_ms": ragged_ms, "dense_ms": dense_ms,
+             "ragged_tokens_per_s": tokens / ragged_ms * 1e3,
+             "dense_tokens_per_s": tokens / dense_ms * 1e3,
+             "ragged_vs_dense_speedup": dense_ms / ragged_ms}
+    log(f"[moe] forward, {tokens} tokens: ragged {ragged_ms:.3f} ms "
+        f"({speed['ragged_tokens_per_s']:.0f} tokens/s), dense "
+        f"{dense_ms:.3f} ms ({speed['dense_tokens_per_s']:.0f} tokens/s), "
+        f"ragged/dense speedup {speed['ragged_vs_dense_speedup']:.3f}x")
+
+    # int8 experts: 3 grouped_matmul_quant launches, against plain int8
+    # and the float layer; a gradient through them raises on the card
+    quant = copy.deepcopy(ragged)
+    saved = quantize_moe_experts(quant)
+    with torch.no_grad():
+        _build.reset_launch_counts()
+        out_q, _ = quant(x)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        count_into(counts)
+        check(counts["grouped_matmul_quant"] == 3,
+              f"moe: int8 forward launched {counts}")
+        with plain_gmm(gk):
+            out_qp, _ = quant(x)
+        ok_q, stats_q = compare(out_q, out_qp)
+        int8_l2 = _rel_l2(out_q, out)
+        check(ok_q and int8_l2 <= MOE_INT8_L2,
+              f"moe: int8 experts vs plain {stats_q}, vs float relative "
+              f"L2 {int8_l2}")
+        int8_ms = _forward_ms(torch, lambda: quant(x))
+    try:
+        quant(x.detach().clone().requires_grad_())
+    except RuntimeError as err:
+        check("inference-only" in str(err), f"moe: int8 grad guard: {err}")
+    else:
+        raise PhaseError("moe: int8 experts gave an output needing a "
+                         "gradient")
+    log(f"[moe] int8 experts (saved {saved} bytes): 3 grouped_matmul_quant "
+        f"launches; vs plain {json.dumps(stats_q)}; vs float relative L2 "
+        f"{int8_l2:.4f}; forward {int8_ms:.3f} ms; a gradient raises")
+    del quant, ragged
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bench_moe level 0: one no-grad forward with labels, 2 x 1024 tokens
+    model = LlamaForCausalLM(LlamaConfig(**MOE_LLAMA_CFG), seed=0)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, MOE_LLAMA_CFG["vocab_size"], (2, 1024))).to("cuda")
+    with torch.no_grad():
+        _build.reset_launch_counts()
+        _, loss = model(ids, labels=ids)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        count_into(counts)
+        with plain_attention(fa):
+            _, loss_p = model(ids, labels=ids)
+        _, aux = model.llama(ids)
+    L = MOE_LLAMA_CFG["num_hidden_layers"]
+    check(counts["flash_attention"] == L,
+          f"moe: Llama MoE forward flash launches {counts}, want {L}")
+    check(np.isfinite(loss.item()) and
+          abs(loss.item() - loss_p.item()) <= TRAIN_LOSS_TOL,
+          f"moe: Llama MoE loss {loss.item()} vs plain attention "
+          f"{loss_p.item()}")
+    llama = {"params": model.num_params(), "loss": loss.item(),
+             "plain_loss": loss_p.item(), "aux": aux.item(),
+             "launches": counts}
+    log(f"[moe] Llama MoE ({model.num_params() / 1e6:.1f}M params bf16, "
+        f"{L} layers): loss {loss.item():.5f} (aux {aux.item():.4f}) vs "
+        f"{loss_p.item():.5f} with plain attention; launches {counts}")
+    del model
+    torch.cuda.empty_cache()
+    log(f"[moe] launches on the path {path}")
+    return {"layer": MOE_LAYER, "tokens": tokens,
+            "forward_vs_plain": stats, "dense_rel_l2": dense_l2,
+            "aux": layer_aux, "grad_rel_l2": grad_l2,
+            "int8_vs_plain": stats_q, "int8_vs_float_rel_l2": int8_l2,
+            "int8_bytes_saved": saved, "int8_forward_ms": int8_ms,
+            **speed, "llama_moe": llama, "launches": path}
+
+
 def phase_profile(torch):
-    """Where a full-width decode step's time goes: torch.profiler over 20
-    steps with all 8 slots decoding. Not part of the default run."""
+    """Where a full-width decode step's time goes, over the bf16 pool and
+    the int8 pool: torch.profiler over 20 steps with all 8 slots
+    decoding. Not part of the default run."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
 
-    cfg = LlamaConfig(
-        vocab_size=32000, hidden_size=2048, intermediate_size=5632,
-        num_hidden_layers=12, num_attention_heads=16,
-        max_position_embeddings=2048, dtype="bfloat16",
-    )
-    model = LlamaForCausalLM(cfg, seed=0)
-    engine = Engine(model, EngineConfig(max_batch_slots=8,
-                                        max_model_len=512, page_size=16))
-    rng = np.random.RandomState(0)
-    for _ in range(8):
-        engine.add_request(rng.randint(1, 32000, 100).tolist(),
-                           SamplingParams(max_new_tokens=200))
-    for _ in range(30):   # admit, prefill, warm up
-        engine.step()
-    torch.cuda.synchronize()
-    n = 20
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    model = LlamaForCausalLM(LlamaConfig(**SERVING_CFG), seed=0)
+    result = {}
+    for pool in ("bf16", "int8"):
+        engine = Engine(model, EngineConfig(
+            max_batch_slots=8, max_model_len=512, page_size=16,
+            kv_cache_dtype="int8" if pool == "int8" else None))
+        rng = np.random.RandomState(0)
+        for _ in range(8):
+            engine.add_request(rng.randint(1, 32000, 100).tolist(),
+                               SamplingParams(max_new_tokens=200))
+        for _ in range(30):   # admit, prefill, warm up
+            engine.step()
+        torch.cuda.synchronize()
+        n = 20
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                engine.step()
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n * 1e3
+        # kernels only: an ATen op's own row repeats its kernels' time
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        device_us = sum(e.self_device_time_total for e in kernels)
+        launches = sum(e.count for e in kernels) / n
+        rows = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
+        log(f"[profile] {pool} pool, decode step (8 slots, ~130 cached "
+            f"tokens each): wall {wall:.3f} ms/step under the profiler, "
+            f"device busy {device_us / n / 1e3:.3f} ms/step in "
+            f"{launches:.0f} kernel launches/step")
+        for e in rows:
+            log(f"[profile] {e.key[:60]:60s} device "
+                f"{e.self_device_time_total / n:9.1f} us/step, calls/step "
+                f"{e.count / n:6.1f}")
+        # the same window without the profiler's overhead
+        t0 = time.perf_counter()
         for _ in range(n):
             engine.step()
         torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / n * 1e3
-    from torch.autograd import DeviceType
-
-    # kernels only: an ATen op's own row repeats its kernels' time
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    device_us = sum(e.self_device_time_total for e in kernels)
-    rows = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
-    log(f"[profile] decode step (8 slots, ~130 cached tokens each): "
-        f"wall {wall:.3f} ms/step under the profiler, device busy "
-        f"{device_us / n / 1e3:.3f} ms/step in "
-        f"{sum(e.count for e in kernels) / n:.0f} kernel launches/step")
-    for e in rows:
-        log(f"[profile] {e.key[:60]:60s} device "
-            f"{e.self_device_time_total / n:9.1f} us/step, calls/step "
-            f"{e.count / n:6.1f}")
-    # the same window without the profiler's overhead
-    t0 = time.perf_counter()
-    for _ in range(n):
-        engine.step()
-    torch.cuda.synchronize()
-    plain_wall = (time.perf_counter() - t0) / n * 1e3
-    log(f"[profile] decode step without the profiler: {plain_wall:.3f} "
-        f"ms/step")
-    return {"wall_ms_profiled": wall, "wall_ms": plain_wall,
-            "device_busy_ms": device_us / n / 1e3,
-            "kernel_launches_per_step": sum(e.count for e in kernels) / n}
+        plain_wall = (time.perf_counter() - t0) / n * 1e3
+        log(f"[profile] {pool} pool, decode step without the profiler: "
+            f"{plain_wall:.3f} ms/step")
+        result[pool] = {"wall_ms_profiled": wall, "wall_ms": plain_wall,
+                        "device_busy_ms": device_us / n / 1e3,
+                        "kernel_launches_per_step": launches}
+        del engine
+    return result
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
-        "--phases", default="kernels,parity,serving,train_parity,train",
-        help="comma list of kernels, parity, serving, train_parity, train, "
-             "profile (default: all but profile)",
+        "--phases",
+        default="kernels,parity,serving,serving_int8,train_parity,train,moe",
+        help="comma list of kernels, parity, serving, serving_int8, "
+             "train_parity, train, moe, profile (default: all but "
+             "profile)",
     )
     ap.add_argument("--out", help="write the full report as JSON here")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
+    unknown = phases - {"kernels", "parity", "serving", "serving_int8",
+                        "train_parity", "train", "moe", "profile"}
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
 
     import torch
 
@@ -981,32 +1411,44 @@ def main(argv=None):
         _build.build()
         log(f"[build] {len(_build.KERNELS)} kernels in "
             f"{time.perf_counter() - t0:.1f}s")
+        report["build"] = {}
         for name, text in _build.build_logs().items():
-            for line in text.splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"[build] {name}: {line.strip()}")
+            lines = [line.strip() for line in text.splitlines()
+                     if "registers" in line or "spill" in line]
+            report["build"][name] = lines
+            for line in lines:
+                log(f"[build] {name}: {line}")
 
+        runners = {
+            "kernels": phase_kernels, "parity": phase_parity,
+            "serving": phase_serving, "serving_int8": phase_serving_int8,
+            "train_parity": phase_train_parity, "train": phase_train,
+            "moe": phase_moe, "profile": phase_profile,
+        }
+        results, report["phase_seconds"] = {}, {}
+        for name, run in runners.items():
+            if name not in phases:
+                continue
+            t0 = time.perf_counter()
+            results[name] = run(torch)
+            report["phase_seconds"][name] = time.perf_counter() - t0
+            log(f"[{name}] phase done in "
+                f"{report['phase_seconds'][name]:.1f}s")
         paged = flash = bwd = None
-        if "kernels" in phases:
-            paged, flash, bwd, faults = phase_kernels(torch)
-            report["phases"]["kernels"] = {"paged": paged, "flash": flash,
-                                           "flash_bwd": bwd,
-                                           "gate_faults": faults}
-        if "parity" in phases:
-            phase_parity(torch)
-            report["phases"]["parity"] = "ok"
-        serving = None
-        if "serving" in phases:
-            serving = phase_serving(torch)
-            report["phases"]["serving"] = serving
-        if "train_parity" in phases:
-            report["phases"]["train_parity"] = phase_train_parity(torch)
-        train = None
-        if "train" in phases:
-            train = phase_train(torch)
-            report["phases"]["train"] = train
-        if "profile" in phases:
-            report["phases"]["profile"] = phase_profile(torch)
+        if "kernels" in results:
+            paged, flash, bwd, faults, quant, gmm, gmm_quant = \
+                results.pop("kernels")
+            report["phases"]["kernels"] = {
+                "paged": paged, "flash": flash, "flash_bwd": bwd,
+                "gate_faults": faults, "paged_quant": quant, "gmm": gmm,
+                "gmm_quant": gmm_quant,
+            }
+        if "parity" in results:
+            results["parity"] = "ok"
+        report["phases"].update(results)
+        serving, serving_int8, train, moe = (
+            results.get(p) for p in ("serving", "serving_int8", "train",
+                                     "moe"))
         check("jax" not in sys.modules and not any(
             m == "paddle_tpu" or m.startswith("paddle_tpu.")
             for m in sys.modules),
@@ -1017,9 +1459,11 @@ def main(argv=None):
     report["seconds"] = time.perf_counter() - t_start
 
     kernels = []
-    # launches on each main path: serving, and the 14 counted train steps
-    by_path = {"serving": serving["launches"] if serving else {},
-               "train": train["launches"] if train else {}}
+    # launches on each main path: serving (float and int8 pools), the 14
+    # counted train steps, and the moe phase's three counted forwards
+    by_path = {p: r["launches"] if r else {} for p, r in (
+        ("serving", serving), ("serving_int8", serving_int8),
+        ("train", train), ("moe", moe))}
 
     def launches(name):
         per = {p: c.get(name, 0) for p, c in by_path.items()}
@@ -1070,6 +1514,33 @@ def main(argv=None):
                 "shape": f"b{TRAIN_BATCH} h16 d128 s{TRAIN_SEQ} causal",
                 "backward_ms": head["ms"],
                 "backward_bound_ms": head["bound_ms"],
+            })
+        head = quant[0]
+        kernels.append({
+            "name": "paged_attention_quant", "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/paged_attention.cu",
+            "replaces": "paddle_tpu/kernels/pallas/paged_attention.py:103",
+            **launches("paged_attention_quant"),
+            "max_abs_err": max(c["max_abs_err"] for c in quant),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": None, "shape": head["case"],
+        })
+        for name, line, cases in (("grouped_matmul", 100, gmm),
+                                  ("grouped_matmul_quant", 128, gmm_quant)):
+            head = cases[0]
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": "paddle_tpu_torch/kernels/csrc/grouped_matmul.cu",
+                "replaces":
+                    f"paddle_tpu/kernels/pallas/grouped_matmul.py:{line}",
+                **launches(name),
+                "max_abs_err": max(c["max_abs_err"] for c in cases),
+                "ms": head["ms"], "plain_ms": head["plain_ms"],
+                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                "library_ms": head["library_ms"],
+                "shape": f"{head['case']}: n {head['n']}, k {head['k']}, "
+                         f"m {head['m']}, e {head['experts']}",
             })
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -15,7 +15,9 @@ runtime every kernel of the port goes through.
   launches the kernel, and nowhere else; ``launch_counts()`` and
   ``reset_launch_counts()`` read and zero the counts. Counts are per
   kernel (``LAUNCHES``), not per source: ``flash_attention_bwd.cu``
-  holds two kernels, counted apart.
+  holds two kernels, counted apart, and the int8 variants of
+  ``paged_attention.cu`` and ``grouped_matmul.cu`` count under their own
+  names.
 
 There is no fallback counter: a wrapper given a CUDA tensor launches its
 kernel or raises, and takes its plain PyTorch version only for a tensor
@@ -36,10 +38,12 @@ __all__ = [
 ]
 
 # kernel sources, csrc/<name>.cu
-KERNELS = ("paged_attention", "flash_attention", "flash_attention_bwd")
+KERNELS = ("paged_attention", "flash_attention", "flash_attention_bwd",
+           "grouped_matmul")
 # launched kernels, as counted ("flash_attention" is the forward)
-LAUNCHES = ("paged_attention", "flash_attention", "flash_attention_bwd_dq",
-            "flash_attention_bwd_dkv")
+LAUNCHES = ("paged_attention", "paged_attention_quant", "flash_attention",
+            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+            "grouped_matmul", "grouped_matmul_quant")
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"

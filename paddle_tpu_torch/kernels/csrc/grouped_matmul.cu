@@ -1,0 +1,467 @@
+// Ragged grouped GEMM for Hopper (sm_90a): the MoE expert projection.
+//
+// Replaces: paddle_tpu/kernels/pallas/grouped_matmul.py:_gmm_pallas_raw
+//           (kernel bodies _gmm_kernel and, for int8 expert weights,
+//           _gmm_kernel_quant; work list _group_metadata).
+//
+// Computes, for rows sorted so that each group's rows are one contiguous
+// segment of group_sizes[g] rows (group 0 first):
+//   out[i] = lhs[i] @ rhs[g(i)]               float rhs
+//   out[i] = (lhs[i] @ q[g(i)]) * scales[g(i)]  int8 rhs, per column
+// with lhs [n, k], rhs [e, k, m], scales [e, m] f32, out [n, m] in lhs's
+// dtype, f32 accumulation. Empty groups are allowed. Segments are clamped
+// to [0, n): group sizes summing past n never write past the output, and
+// rows past the sum are left unwritten (the JAX contract: unspecified).
+//
+// What bounds it on an H100: at the MoE shapes (n = 16384 rows, k 1024,
+// m 2816, 8 groups) operations (2 n k m at 989 TFLOP/s bf16 is ~0.1 ms;
+// the bytes, lhs + every expert's rhs + out, take ~0.05 ms).
+//
+// Design. The TPU kernel walks the (group, row tile) staircase in order
+// and carries an f32 accumulator in VMEM across a tile's items. Blocks on
+// the card run in no order, but every row belongs to exactly one group:
+// so a block owns one staircase item (one row tile of one group) and one
+// column tile, computes lhs[tile] @ rhs[g][:, cols] in f32 over the whole
+// k, and stores only its group's rows [lo, hi) of the tile. Two blocks
+// that share a row tile (a group boundary inside it) store disjoint rows:
+// no atomics, no accumulation across items. The work list is built on
+// the device: each block reads the [e] group sizes and walks their
+// running sums to find its item (O(e) per block, no host sync). The grid
+// is static at row tiles + e items (blockIdx.x) by column tiles
+// (blockIdx.y), as on the TPU; inactive items exit.
+//  * bf16 lhs (bf16 or int8 rhs): 8 warps, a 128 x 128 output tile, k in
+//    steps of 32 through a 3-stage ring in shared memory filled by
+//    16-byte cp.async (int8 rhs: 8-byte, converted to a bf16 tile in
+//    shared memory before its step, exact for |q| <= 127),
+//    mma.sync.m16n8k16 bf16 products into f32 accumulators through
+//    ldmatrix (.trans for rhs, which is stored with k along its rows).
+//    Gate: k % 8 == 0 and m % 8 == 0 (whole 16-byte vectors), 16-byte
+//    aligned lhs and rhs (8-byte for int8); ragged n, k and m tails are
+//    masked per vector.
+//  * f32 lhs (f32 or int8 rhs): exact FMAs, 256 threads in a 16 x 16
+//    grid over a 64 x 64 output tile, k in steps of 16, scalar loads
+//    masked per element (any shape).
+// int8 scales multiply each item's f32 result per column before the
+// store, as the TPU kernel's contrib * s_ref. Not yet wgmma/TMA.
+//
+// Launch contract: grouped_matmul_launch launches on the given stream
+// and returns cudaGetLastError() (0 on success).
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// The work list: item t of the staircase over row tiles of tm rows.
+
+struct Item {
+  int tile, lo, hi, g;  // row tile, the group's [lo, hi) rows, the group
+};
+
+// Thread 0 walks the group sizes; every thread gets the item through
+// shared memory. Returns false for an inactive (padding) item.
+__device__ bool find_item(const int32_t* __restrict__ group_sizes, int e,
+                          int n, int tm, int t, Item* out) {
+  __shared__ Item item;
+  __shared__ int found;
+  if (threadIdx.x == 0) {
+    found = 0;
+    long long start = 0;
+    int istart = 0;
+    for (int g = 0; g < e; ++g) {
+      const long long size = group_sizes[g] > 0 ? group_sizes[g] : 0;
+      const int lo = (int)(start < n ? start : n);
+      const int hi = (int)(start + size < n ? start + size : n);
+      start += size;
+      if (hi <= lo) continue;
+      const int first = lo / tm;
+      const int count = (hi - 1) / tm - first + 1;
+      if (t < istart + count) {
+        item.tile = first + (t - istart);
+        item.lo = lo;
+        item.hi = hi;
+        item.g = g;
+        found = 1;
+        break;
+      }
+      istart += count;
+    }
+  }
+  __syncthreads();
+  *out = item;
+  return found;
+}
+
+// ---------------------------------------------------------------------------
+// f32 lhs: exact FMAs.
+
+constexpr int kFM = 64, kFN = 64, kFK = 16, kFThreads = 256;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
+}
+
+template <typename R>
+__global__ void __launch_bounds__(kFThreads) gmm_f32_kernel(
+    const float* __restrict__ lhs, const R* __restrict__ rhs,
+    const float* __restrict__ scales, const int32_t* __restrict__ group_sizes,
+    float* __restrict__ out, int n, int k, int m, int e) {
+  __shared__ float a_s[kFK][kFM + 4];  // lhs tile, k-major
+  __shared__ float b_s[kFK][kFN + 4];
+  Item it;
+  if (!find_item(group_sizes, e, n, kFM, blockIdx.x, &it)) return;
+  const int r0 = max(it.lo, it.tile * kFM);
+  const int r1 = min(it.hi, it.tile * kFM + kFM);
+  const int row0 = it.tile * kFM;
+  const int col0 = blockIdx.y * kFN;
+  const R* w = rhs + (size_t)it.g * k * m;
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < k; k0 += kFK) {
+    __syncthreads();  // the previous step's readers are done
+    for (int i = threadIdx.x; i < kFM * kFK; i += kFThreads) {
+      const int r = i / kFK;
+      const int c = i - r * kFK;
+      const int row = row0 + r;
+      a_s[c][r] = row >= r0 && row < r1 && k0 + c < k
+                      ? lhs[(size_t)row * k + k0 + c] : 0.f;
+    }
+    for (int i = threadIdx.x; i < kFK * kFN; i += kFThreads) {
+      const int r = i / kFN;
+      const int c = i - r * kFN;
+      b_s[r][c] = k0 + r < k && col0 + c < m
+                      ? to_f32(w[(size_t)(k0 + r) * m + col0 + c]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kFK; ++kk) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = a_s[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = b_s[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + ty + 16 * i;
+    if (row < r0 || row >= r1) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = col0 + tx + 16 * j;
+      if (col >= m) continue;
+      float x = acc[i][j];
+      if (scales != nullptr) x *= scales[(size_t)it.g * m + col];
+      out[(size_t)row * m + col] = x;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 lhs on the tensor cores. Fragment layouts are the PTX ISA's for
+// mma.m16n8k16 (g = lane / 4, t = lane % 4):
+//   A (16x16): reg0 = A[g][2t..2t+1], reg1 = A[g+8][2t..], reg2 =
+//              A[g][2t+8..], reg3 = A[g+8][2t+8..]
+//   B (16x8):  reg0 = B[2t..2t+1][g], reg1 = B[2t+8..2t+9][g]
+//   C (16x8):  c0, c1 = C[g][2t..2t+1], c2, c3 = C[g+8][2t..2t+1]
+
+constexpr int kBM = 128, kBN = 128, kBK = 32, kTcThreads = 256;
+constexpr int kStages = 3;     // cp.async ring depth
+constexpr int kSA = kBK + 8;   // padded lhs row (bf16): conflict-free ldmatrix
+constexpr int kSB = kBN + 8;   // padded rhs row
+
+// one ring stage: the lhs tile, then the rhs tile (bf16 [kBK][kSB], or
+// int8 [kBK][kBN] staged as loaded)
+template <typename R>
+__host__ __device__ constexpr int stage_bytes() {
+  return kBM * kSA * 2 + (sizeof(R) == 1 ? kBK * kBN : kBK * kSB * 2);
+}
+template <typename R>
+__host__ __device__ constexpr int tc_smem_bytes() {
+  // int8 rhs: one bf16 tile more, the stage's rhs converted
+  return kStages * stage_bytes<R>() + (sizeof(R) == 1 ? kBK * kSB * 2 : 0);
+}
+
+// 16 (or, for int8 rhs, 8) bytes global -> shared, asynchronously; zeros
+// when !ok (src-size 0: nothing is read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool ok) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(d), "l"(src), "r"(ok ? 8 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4],
+                                        const __nv_bfloat16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4],
+                                              const __nv_bfloat16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// One block of 8 warps per (staircase item, column tile); warp w owns
+// rows 64 (w / 4) .. + 63 and columns 32 (w % 4) .. + 31 of the 128 x 128
+// tile. The k steps go through a ring of kStages shared-memory stages
+// filled by cp.async, kStages - 1 steps ahead of the products. int8 rhs
+// is staged as loaded and converted to a bf16 tile (exact for |q| <= 127)
+// right before its step's products.
+template <typename R>
+__global__ void __launch_bounds__(kTcThreads) gmm_bf16_kernel(
+    const __nv_bfloat16* __restrict__ lhs, const R* __restrict__ rhs,
+    const float* __restrict__ scales, const int32_t* __restrict__ group_sizes,
+    __nv_bfloat16* __restrict__ out, int n, int k, int m, int e) {
+  constexpr bool kInt8 = sizeof(R) == 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Item it;
+  if (!find_item(group_sizes, e, n, kBM, blockIdx.x, &it)) return;
+  const int r0 = max(it.lo, it.tile * kBM);
+  const int r1 = min(it.hi, it.tile * kBM + kBM);
+  const int row0 = it.tile * kBM;
+  const int col0 = blockIdx.y * kBN;
+  const R* w = rhs + (size_t)it.g * k * m;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = (warp >> 2) * 64;
+  const int wn = (warp & 3) * 32;
+
+  auto a_tile = [&](int st) {
+    return reinterpret_cast<__nv_bfloat16*>(smem_raw +
+                                            st * stage_bytes<R>());
+  };
+  auto b_stage = [&](int st) {
+    return smem_raw + st * stage_bytes<R>() + kBM * kSA * 2;
+  };
+  __nv_bfloat16* b_conv = reinterpret_cast<__nv_bfloat16*>(
+      smem_raw + kStages * stage_bytes<R>());
+
+  // issue the loads of k step kt into ring stage kt % kStages
+  auto load = [&](int kt) {
+    const int k0 = kt * kBK;
+    __nv_bfloat16* a_s = a_tile(kt % kStages);
+    // lhs: 128 rows x 4 vectors of 8; rows outside [r0, r1) and k past
+    // the end are zeros
+    for (int i = tid; i < kBM * (kBK / 8); i += kTcThreads) {
+      const int r = i >> 2;
+      const int c = (i & 3) * 8;
+      const int row = row0 + r;
+      const bool ok = row >= r0 && row < r1 && k0 + c < k;
+      cp_async16(a_s + r * kSA + c,
+                 lhs + (ok ? (size_t)row * k + k0 + c : 0), ok);
+    }
+    // rhs: 32 rows x 16 vectors of 8
+    unsigned char* b = b_stage(kt % kStages);
+    for (int i = tid; i < kBK * (kBN / 8); i += kTcThreads) {
+      const int r = i >> 4;
+      const int c = (i & 15) * 8;
+      const bool ok = k0 + r < k && col0 + c < m;
+      const R* src = w + (ok ? (size_t)(k0 + r) * m + col0 + c : 0);
+      if (kInt8) {
+        cp_async8(b + r * kBN + c, src, ok);
+      } else {
+        cp_async16(reinterpret_cast<__nv_bfloat16*>(b) + r * kSB + c, src,
+                   ok);
+      }
+    }
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+
+  // ldmatrix lane offsets: A as in a row-major [m][k] tile; B (k along
+  // rows) through .trans, registers 0, 1 for column tile j, 2, 3 for j + 1
+  const int ao = (lane & 15) * kSA + (lane >> 4) * 8;
+  const int bo = ((lane & 7) + ((lane >> 3) & 1) * 8) * kSB + (lane >> 4) * 8;
+
+  const int steps = (k + kBK - 1) / kBK;
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < steps) load(st);
+    cp_async_commit();  // an empty group keeps the count when steps is small
+  }
+  for (int kt = 0; kt < steps; ++kt) {
+    cp_async_wait<kStages - 2>();  // step kt has landed
+    __syncthreads();               // ... for every thread; step kt - 1 done
+    if (kt + kStages - 1 < steps) load(kt + kStages - 1);
+    cp_async_commit();
+    const __nv_bfloat16* a_s = a_tile(kt % kStages);
+    const __nv_bfloat16* b_s;
+    if (kInt8) {
+      const int8_t* q = reinterpret_cast<const int8_t*>(b_stage(kt % kStages));
+      for (int i = tid; i < kBK * (kBN / 8); i += kTcThreads) {
+        const int r = i >> 4;
+        const int c = (i & 15) * 8;
+        const uint2 raw = *reinterpret_cast<const uint2*>(q + r * kBN + c);
+        const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
+        uint4 x;
+        x.x = pack_bf16(v[0], v[1]);
+        x.y = pack_bf16(v[2], v[3]);
+        x.z = pack_bf16(v[4], v[5]);
+        x.w = pack_bf16(v[6], v[7]);
+        *reinterpret_cast<uint4*>(b_conv + r * kSB + c) = x;
+      }
+      __syncthreads();
+      b_s = b_conv;
+    } else {
+      b_s = reinterpret_cast<const __nv_bfloat16*>(b_stage(kt % kStages));
+    }
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      uint32_t a[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ldsm_x4(a[i], a_s + (wm + 16 * i) * kSA + ao + kk);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; j += 2) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, b_s + kk * kSB + bo + wn + j * 8);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          mma_bf16(acc[i][j], a[i], b[0], b[1]);
+          mma_bf16(acc[i][j + 1], a[i], b[2], b[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = col0 + wn + j * 8 + 2 * t;  // even; m % 8 == 0
+    if (col >= m) continue;
+    float s0 = 1.f, s1 = 1.f;
+    if (scales != nullptr) {
+      s0 = scales[(size_t)it.g * m + col];
+      s1 = scales[(size_t)it.g * m + col + 1];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + wm + i * 16 + g + 8 * h;
+        if (row < r0 || row >= r1) continue;
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * m + col) =
+            __floats2bfloat162_rn(acc[i][j][2 * h] * s0,
+                                  acc[i][j][2 * h + 1] * s1);
+      }
+    }
+  }
+}
+
+template <typename R>
+int launch_bf16(const void* lhs, const void* rhs, const float* scales,
+                const int32_t* gs, void* out, int n, int k, int m, int e,
+                cudaStream_t stream) {
+  auto kernel = gmm_bf16_kernel<R>;
+  constexpr int smem = tc_smem_bytes<R>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n + kBM - 1) / kBM + e, (m + kBN - 1) / kBN);
+  kernel<<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(lhs), static_cast<const R*>(rhs),
+      scales, gs, static_cast<__nv_bfloat16*>(out), n, k, m, e);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// lhs_dtype: 0 = float32, 1 = bfloat16 (out shares it); rhs_int8: rhs is
+// int8 with f32 scales [e, m] (else rhs has lhs's dtype and scales is
+// null).
+int grouped_matmul_launch(const void* lhs, const void* rhs,
+                          const void* scales, const void* group_sizes,
+                          void* out, int n, int k, int m, int e,
+                          int lhs_dtype, int rhs_int8, void* stream) {
+  if (n == 0 || m == 0 || e == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int32_t* gs = static_cast<const int32_t*>(group_sizes);
+  const float* sc = static_cast<const float*>(scales);
+  if (lhs_dtype == 0) {
+    const dim3 grid((n + kFM - 1) / kFM + e, (m + kFN - 1) / kFN);
+    if (rhs_int8) {
+      gmm_f32_kernel<int8_t><<<grid, kFThreads, 0, s>>>(
+          static_cast<const float*>(lhs), static_cast<const int8_t*>(rhs), sc,
+          gs, static_cast<float*>(out), n, k, m, e);
+    } else {
+      gmm_f32_kernel<float><<<grid, kFThreads, 0, s>>>(
+          static_cast<const float*>(lhs), static_cast<const float*>(rhs),
+          nullptr, gs, static_cast<float*>(out), n, k, m, e);
+    }
+    return (int)cudaGetLastError();
+  }
+  if (lhs_dtype == 1) {
+    if (k % 8 || m % 8) return (int)cudaErrorInvalidValue;
+    if (rhs_int8) {
+      return launch_bf16<int8_t>(lhs, rhs, sc, gs, out, n, k, m, e, s);
+    }
+    return launch_bf16<__nv_bfloat16>(lhs, rhs, nullptr, gs, out, n, k, m,
+                                      e, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

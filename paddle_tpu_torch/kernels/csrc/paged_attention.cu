@@ -1,7 +1,8 @@
 // Paged decode attention for Hopper (sm_90a), one query token per sequence.
 //
 // Replaces: paddle_tpu/kernels/pallas/paged_attention.py:paged_attention
-//           (kernel body _decode_kernel, online-softmax step
+//           (kernel bodies _decode_kernel and, for int8 pages,
+//           _decode_kernel_quant; online-softmax step
 //           _online_softmax_step).
 //
 // Computes, for every sequence b and query head hq:
@@ -10,12 +11,18 @@
 // token t lives in physical page block_tables[b, t / page_size], slot
 // t % page_size, of k_pages/v_pages [kv_heads, pages, page_size, d].
 // Query heads are grouped per kv head (GQA, hq / kv_heads per group).
+// Int8 pages (paged_attention_quant_launch) come with f32 scale planes
+// k_scales/v_scales [kv_heads, pages, page_size], one scale per cached
+// token per head: each K/V element is dequantized right after its load
+// (int8 * scale, as the TPU kernel's k_ref * ks_ref), and the rest is the
+// float kernel. Unwritten slots have scale 0 and read as exact zeros.
 // lengths[b] == 0 gives exact zeros. Lengths are clamped to the block
 // table's capacity, so the kernel never reads past a sequence's table.
 //
 // What bounds it on an H100: bytes. Each cached token costs 2 * d loads
-// (K and V) for 4 * d * group flops, far below the ~295 flop/byte the
-// card needs before compute is the limit. At serving sizes (8 sequences,
+// (K and V; half the bytes of bf16 when int8, plus 8 bytes of scales)
+// for 4 * d * group flops, far below the ~295 flop/byte the card needs
+// before compute is the limit. At serving sizes (8 sequences,
 // a few hundred tokens) the real limit is latency: too little work per
 // sequence to fill the card if one block walks a sequence alone.
 //
@@ -32,6 +39,9 @@
 //  2. paged_decode_combine: one block per (sequence, kv head) merges its
 //     chunks' states (rescaled to the common max) and writes out.
 // Pages may be any size: tiles and chunks are cut by token position.
+// The page element type P (float, bf16 or int8) is a template parameter
+// beside the query type T; rows take 16-byte loads (4 f32, 8 bf16 or 16
+// int8 values) when d and the page base allow it, scalar loads else.
 //
 // Launch contract: the launch function takes a workspace of
 // paged_attention_workspace_bytes() bytes, launches both kernels on the
@@ -59,18 +69,20 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// 16 loaded bytes -> f32 in shared memory (4 floats or 8 bf16 values)
-template <typename T>
-__device__ __forceinline__ void unpack(uint4 w, float* dst);
+// 16 loaded bytes -> f32 values (4 floats, 8 bf16 or 16 int8), each
+// times ``s`` (the token's scale; 1 for float pages)
+template <typename P>
+__device__ __forceinline__ void unpack(uint4 w, float s, float* dst);
 template <>
-__device__ __forceinline__ void unpack<float>(uint4 w, float* dst) {
+__device__ __forceinline__ void unpack<float>(uint4 w, float, float* dst) {
   dst[0] = __uint_as_float(w.x);
   dst[1] = __uint_as_float(w.y);
   dst[2] = __uint_as_float(w.z);
   dst[3] = __uint_as_float(w.w);
 }
 template <>
-__device__ __forceinline__ void unpack<__nv_bfloat16>(uint4 w, float* dst) {
+__device__ __forceinline__ void unpack<__nv_bfloat16>(uint4 w, float,
+                                                      float* dst) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -78,6 +90,22 @@ __device__ __forceinline__ void unpack<__nv_bfloat16>(uint4 w, float* dst) {
     dst[2 * j] = f.x;
     dst[2 * j + 1] = f.y;
   }
+}
+template <>
+__device__ __forceinline__ void unpack<int8_t>(uint4 w, float s,
+                                               float* dst) {
+  const int8_t* b = reinterpret_cast<const int8_t*>(&w);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) dst[j] = static_cast<float>(b[j]) * s;
+}
+
+// one page element -> f32 (times the token's scale for int8)
+__device__ __forceinline__ float load_elem(float x, float) { return x; }
+__device__ __forceinline__ float load_elem(__nv_bfloat16 x, float) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float load_elem(int8_t x, float s) {
+  return static_cast<float>(x) * s;
 }
 
 __host__ __device__ constexpr int k_stride(int d) {
@@ -94,11 +122,15 @@ __host__ __device__ inline size_t smem_floats(int group, int d) {
          + 3 * (size_t)group;           // m_s, l_s, a_s
 }
 
-template <typename T>
+// P is the page element type; k_scales/v_scales are read only when P is
+// int8 (null otherwise)
+template <typename T, typename P>
 __global__ void __launch_bounds__(kThreads) paged_decode_split(
     const T* __restrict__ q,              // [batch, hq, d]
-    const T* __restrict__ k_pages,        // [hkv, n_pages, page_size, d]
-    const T* __restrict__ v_pages,        // [hkv, n_pages, page_size, d]
+    const P* __restrict__ k_pages,        // [hkv, n_pages, page_size, d]
+    const P* __restrict__ v_pages,        // [hkv, n_pages, page_size, d]
+    const float* __restrict__ k_scales,   // [hkv, n_pages, page_size]
+    const float* __restrict__ v_scales,   // [hkv, n_pages, page_size]
     const int32_t* __restrict__ tables,   // [batch, pages_per_seq]
     const int32_t* __restrict__ lengths,  // [batch]
     float* __restrict__ part_m,           // [batch, hkv, splits, group]
@@ -107,7 +139,10 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split(
     int n_q_heads, int n_kv_heads, int n_pages, int page_size,
     int pages_per_seq, int d, float scale, int vec) {
   extern __shared__ float smem[];
+  constexpr bool kQuant = sizeof(P) == 1;
   __shared__ size_t row_s[kTile];       // element offset of each tile row
+  __shared__ float ks_s[kTile];         // each tile row's K scale (int8)
+  __shared__ float vs_s[kTile];         // each tile row's V scale (int8)
   const int group = n_q_heads / n_kv_heads;
   const int ks = k_stride(d);
   float* q_s = smem;                    // [group][d]
@@ -153,21 +188,28 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split(
   }
 
   const int32_t* table = tables + (size_t)b * pages_per_seq;
-  const size_t head_base = (size_t)h * n_pages * page_size * d;
+  const size_t head_base = (size_t)h * n_pages * page_size;  // tokens
 
   for (int t0 = start; t0 < end; t0 += kTile) {
     const int n = min(kTile, end - t0);
-    // the tile's row offsets, one block-table lookup per token
+    // the tile's row offsets, one block-table lookup per token, and for
+    // int8 pages the token's two scales
     if (tid < n) {
       const int pos = t0 + tid;
       const size_t phys = (size_t)table[pos / page_size];
-      row_s[tid] = head_base + (phys * page_size + pos % page_size) * d;
+      const size_t token = head_base + phys * page_size + pos % page_size;
+      row_s[tid] = token * d;
+      if (kQuant) {
+        ks_s[tid] = k_scales[token];
+        vs_s[tid] = v_scales[token];
+      }
     }
     __syncthreads();
-    // stage this tile's K/V rows (f32) in shared memory: independent
-    // 16-byte loads when rows are 16-byte aligned, else scalar loads
+    // stage this tile's K/V rows (f32, dequantized) in shared memory:
+    // independent 16-byte loads when rows are 16-byte aligned, else
+    // scalar loads
     if (vec) {
-      constexpr int V = 16 / sizeof(T);
+      constexpr int V = 16 / sizeof(P);
       const int per_row = d / V;
 #pragma unroll 4
       for (int i = tid; i < n * per_row; i += kThreads) {
@@ -177,15 +219,16 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split(
             *reinterpret_cast<const uint4*>(k_pages + row_s[t] + c);
         const uint4 vw =
             *reinterpret_cast<const uint4*>(v_pages + row_s[t] + c);
-        unpack<T>(kw, k_s + t * ks + c);
-        unpack<T>(vw, v_s + t * d + c);
+        unpack<P>(kw, kQuant ? ks_s[t] : 1.f, k_s + t * ks + c);
+        unpack<P>(vw, kQuant ? vs_s[t] : 1.f, v_s + t * d + c);
       }
     } else {
       for (int i = tid; i < n * d; i += kThreads) {
         const int t = i / d;
         const int c = i - t * d;
-        k_s[t * ks + c] = to_f32(k_pages[row_s[t] + c]);
-        v_s[i] = to_f32(v_pages[row_s[t] + c]);
+        k_s[t * ks + c] =
+            load_elem(k_pages[row_s[t] + c], kQuant ? ks_s[t] : 1.f);
+        v_s[i] = load_elem(v_pages[row_s[t] + c], kQuant ? vs_s[t] : 1.f);
       }
     }
     __syncthreads();
@@ -290,12 +333,12 @@ size_t workspace_floats(int batch, int n_q_heads, int n_kv_heads, int d,
   return states * (2 + (size_t)d);
 }
 
-template <typename T>
+template <typename T, typename P>
 int launch(const void* q, const void* k_pages, const void* v_pages,
-           const void* tables, const void* lengths, void* out,
-           void* workspace, int batch, int n_q_heads, int n_kv_heads,
-           int n_pages, int page_size, int pages_per_seq, int d,
-           float scale, cudaStream_t stream) {
+           const void* k_scales, const void* v_scales, const void* tables,
+           const void* lengths, void* out, void* workspace, int batch,
+           int n_q_heads, int n_kv_heads, int n_pages, int page_size,
+           int pages_per_seq, int d, float scale, cudaStream_t stream) {
   const int group = n_q_heads / n_kv_heads;
   const int n_splits = (pages_per_seq * page_size + kChunk - 1) / kChunk;
   const size_t states = (size_t)batch * n_kv_heads * n_splits * group;
@@ -303,17 +346,19 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
   float* part_l = part_m + states;
   float* part_acc = part_l + states;
   // 16-byte loads need 16-byte aligned rows
-  const int vec = d % (16 / sizeof(T)) == 0 &&
+  const int vec = d % (16 / sizeof(P)) == 0 &&
                   reinterpret_cast<uintptr_t>(k_pages) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(v_pages) % 16 == 0;
   const size_t smem = smem_floats(group, d) * sizeof(float);
-  auto split = paged_decode_split<T>;
+  auto split = paged_decode_split<T, P>;
   cudaError_t err = cudaFuncSetAttribute(
       split, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   split<<<dim3(batch, n_kv_heads, n_splits), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), static_cast<const int32_t*>(tables),
+      static_cast<const T*>(q), static_cast<const P*>(k_pages),
+      static_cast<const P*>(v_pages), static_cast<const float*>(k_scales),
+      static_cast<const float*>(v_scales),
+      static_cast<const int32_t*>(tables),
       static_cast<const int32_t*>(lengths), part_m, part_l, part_acc,
       n_q_heads, n_kv_heads, n_pages, page_size, pages_per_seq, d, scale,
       vec);
@@ -353,15 +398,44 @@ int paged_attention_launch(const void* q, const void* k_pages,
   if (batch == 0 || pages_per_seq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch<float>(q, k_pages, v_pages, block_tables, lengths, out,
-                         workspace, batch, n_q_heads, n_kv_heads, n_pages,
-                         page_size, pages_per_seq, d, scale, s);
+    return launch<float, float>(
+        q, k_pages, v_pages, nullptr, nullptr, block_tables, lengths, out,
+        workspace, batch, n_q_heads, n_kv_heads, n_pages, page_size,
+        pages_per_seq, d, scale, s);
   }
   if (dtype == 1) {
-    return launch<__nv_bfloat16>(q, k_pages, v_pages, block_tables, lengths,
-                                 out, workspace, batch, n_q_heads,
-                                 n_kv_heads, n_pages, page_size,
-                                 pages_per_seq, d, scale, s);
+    return launch<__nv_bfloat16, __nv_bfloat16>(
+        q, k_pages, v_pages, nullptr, nullptr, block_tables, lengths, out,
+        workspace, batch, n_q_heads, n_kv_heads, n_pages, page_size,
+        pages_per_seq, d, scale, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Int8 pages with f32 scales [n_kv_heads, n_pages, page_size]; dtype is
+// q's and out's (0 = float32, 1 = bfloat16).
+int paged_attention_quant_launch(const void* q, const void* k_pages,
+                                 const void* v_pages, const void* k_scales,
+                                 const void* v_scales,
+                                 const void* block_tables,
+                                 const void* lengths, void* out,
+                                 void* workspace, int batch, int n_q_heads,
+                                 int n_kv_heads, int n_pages, int page_size,
+                                 int pages_per_seq, int d, float scale,
+                                 int dtype, void* stream) {
+  if (batch == 0 || pages_per_seq == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return launch<float, int8_t>(
+        q, k_pages, v_pages, k_scales, v_scales, block_tables, lengths, out,
+        workspace, batch, n_q_heads, n_kv_heads, n_pages, page_size,
+        pages_per_seq, d, scale, s);
+  }
+  if (dtype == 1) {
+    return launch<__nv_bfloat16, int8_t>(
+        q, k_pages, v_pages, k_scales, v_scales, block_tables, lengths, out,
+        workspace, batch, n_q_heads, n_kv_heads, n_pages, page_size,
+        pages_per_seq, d, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -13,12 +13,18 @@ query token per sequence attends over that sequence's pages:
 A sequence with ``lengths[b] == 0`` returns exact zeros. GQA: query heads
 are grouped per kv head.
 
+Int8 pages: ``k_pages``/``v_pages`` may instead be ``(pages int8, scales
+float32 [num_kv_heads, num_pages, page_size])`` pairs, one scale per
+cached token per kv head (``quantize_tokens``, written by
+``update_pages``). Every read dequantizes in attention
+(``k = int8 * scale``); no dense float copy of the pool is made.
+
 ``paged_attention`` launches the CUDA kernel ``csrc/paged_attention.cu``
-on CUDA tensors and takes the plain PyTorch version
-``paged_attention_ref`` only for tensors on the CPU. ``update_pages``
-writes one token per sequence into the pool IN PLACE (the JAX version
-returns new arrays). The int8 pool (``quantize_tokens``) is not ported
-yet.
+(float pages, counted as ``paged_attention``; int8 pairs, counted as
+``paged_attention_quant``) on CUDA tensors and takes the plain PyTorch
+version ``paged_attention_ref`` only for tensors on the CPU.
+``update_pages`` writes one token per sequence into the pool IN PLACE
+(the JAX version returns new arrays).
 """
 from __future__ import annotations
 
@@ -28,8 +34,8 @@ import torch
 
 from . import _build
 
-__all__ = ["paged_attention", "paged_attention_ref", "rows_below_capacity",
-           "update_pages"]
+__all__ = ["paged_attention", "paged_attention_ref", "quantize_tokens",
+           "rows_below_capacity", "split_pages", "update_pages"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
@@ -45,12 +51,60 @@ def _kernel():
             ctypes.c_float, ci, vp,
         ]
         lib.paged_attention_launch.restype = ci
+        lib.paged_attention_quant_launch.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
+            ctypes.c_float, ci, vp,
+        ]
+        lib.paged_attention_quant_launch.restype = ci
         lib.paged_attention_smem_bytes.argtypes = [ci, ci]
         lib.paged_attention_smem_bytes.restype = ctypes.c_size_t
         lib.paged_attention_workspace_bytes.argtypes = [ci, ci, ci, ci, ci]
         lib.paged_attention_workspace_bytes.restype = ctypes.c_size_t
         _lib = lib
     return _lib
+
+
+def split_pages(pages):
+    """(pages, scales) for an int8 pair, (pages, None) for a float pages
+    tensor: the one reading of a pool entry, for this module and the
+    serving adapter."""
+    if isinstance(pages, (tuple, list)):
+        return pages[0], pages[1]
+    return pages, None
+
+
+def quantize_tokens(kv):
+    """Per-token-per-head absmax int8 quantization of new cache entries:
+    kv [..., d] float -> (q int8 [..., d], scale float32 [...]) with
+    ``kv ~ q * scale[..., None]``. The 1e-8 floor keeps all-zero tokens
+    exact (q == 0). ``torch.round`` rounds half to even like
+    ``jnp.round``, and the expression order is the JAX one, so the int8
+    values are bit-identical."""
+    kf = kv.float()
+    scale = torch.clamp_min(kf.abs().amax(dim=-1), 1e-8) / 127.0
+    q = torch.clamp(torch.round(kf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _check_quant(k_pages, k_scales, v_pages, v_scales):
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError(
+            "paged_attention: k and v pages must both be int8 (pages, "
+            "scales) pairs or both float tensors"
+        )
+    if k_scales is None:
+        return
+    if k_pages.dtype != torch.int8 or v_pages.dtype != torch.int8:
+        raise TypeError(
+            f"paged_attention: quantized pages must be int8, got "
+            f"{k_pages.dtype}/{v_pages.dtype}"
+        )
+    for name, s in (("k_scales", k_scales), ("v_scales", v_scales)):
+        if s.shape != k_pages.shape[:3]:
+            raise ValueError(
+                f"paged_attention: {name} {tuple(s.shape)} must be "
+                f"[hkv, pages, page_size] = {tuple(k_pages.shape[:3])}"
+            )
 
 
 def _check(q, k_pages, v_pages, block_tables, lengths):
@@ -81,34 +135,50 @@ def _check(q, k_pages, v_pages, block_tables, lengths):
 def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
                     scale=None):
     """Decode-mode paged attention -> [batch, num_q_heads, head_dim] in
-    ``q``'s dtype. CUDA tensors run the hand-written kernel (f32 or bf16,
-    head_dim <= 256); CPU tensors run ``paged_attention_ref``."""
-    _check(q, k_pages, v_pages, block_tables, lengths)
+    ``q``'s dtype. CUDA tensors run the hand-written kernel (f32 or bf16
+    q, pages of q's dtype or int8 pairs, head_dim <= 256); CPU tensors
+    run ``paged_attention_ref``."""
+    kq, k_scales = split_pages(k_pages)
+    vq, v_scales = split_pages(v_pages)
+    _check(q, kq, vq, block_tables, lengths)
+    _check_quant(kq, k_scales, vq, v_scales)
+    quant = k_scales is not None
     d = q.shape[-1]
     if scale is None:
         scale = 1.0 / (d ** 0.5)
     if q.device.type == "cpu":
-        return paged_attention_ref(
-            q, k_pages, v_pages, block_tables, lengths, scale=scale
-        )
+        return paged_attention_ref(q, k_pages, v_pages, block_tables,
+                                   lengths, scale=scale)
+    k_pages, v_pages = kq, vq
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     dtype = _DTYPES.get(q.dtype)
-    if dtype is None or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+    page_dtype = torch.int8 if quant else q.dtype
+    if dtype is None or k_pages.dtype != page_dtype or \
+            v_pages.dtype != page_dtype:
         raise TypeError(
-            f"paged_attention kernel takes float32 or bfloat16 q and pages "
-            f"of one dtype, got {q.dtype}/{k_pages.dtype}/{v_pages.dtype}"
+            f"paged_attention kernel takes float32 or bfloat16 q with pages "
+            f"of its dtype or int8 pairs, got "
+            f"{q.dtype}/{k_pages.dtype}/{v_pages.dtype}"
         )
     if d > 256:
         raise ValueError(f"paged_attention kernel: head_dim {d} > 256")
-    for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
-                    ("block_tables", block_tables), ("lengths", lengths)):
+    named = [("k_pages", k_pages), ("v_pages", v_pages),
+             ("block_tables", block_tables), ("lengths", lengths)]
+    if quant:
+        named += [("k_scales", k_scales), ("v_scales", v_scales)]
+    for name, t in named:
         if t.device != q.device:
             raise ValueError(
                 f"paged_attention: {name} is on {t.device}, q on {q.device}"
             )
-    if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
-        raise ValueError("paged_attention kernel: pages must be contiguous")
+        if name.endswith(("pages", "scales")) and not t.is_contiguous():
+            raise ValueError(
+                f"paged_attention kernel: {name} must be contiguous"
+            )
+    if quant and (k_scales.dtype != torch.float32
+                  or v_scales.dtype != torch.float32):
+        raise TypeError("paged_attention kernel: scales must be float32")
     q = q.contiguous()
     tables = block_tables.to(torch.int32).contiguous()
     lens = lengths.to(torch.int32).contiguous()
@@ -131,25 +201,37 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
         ),
         dtype=torch.uint8, device=q.device,
     )
+    geometry = (batch, n_q_heads, n_kv_heads, n_pages, page_size,
+                tables.shape[1], d, float(scale), dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.paged_attention_launch(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
-            workspace.data_ptr(), batch, n_q_heads, n_kv_heads, n_pages,
-            page_size, tables.shape[1], d, float(scale), dtype, stream,
-        )
+        if quant:
+            err = lib.paged_attention_quant_launch(
+                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                k_scales.data_ptr(), v_scales.data_ptr(), tables.data_ptr(),
+                lens.data_ptr(), out.data_ptr(), workspace.data_ptr(),
+                *geometry, stream,
+            )
+        else:
+            err = lib.paged_attention_launch(
+                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                workspace.data_ptr(), *geometry, stream,
+            )
+    name = "paged_attention_quant" if quant else "paged_attention"
     if err:
-        raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
-                           f"error {err}")
-    _build.count_launch("paged_attention")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    _build.count_launch(name)
     return out
 
 
 def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
                         scale=None):
     """Plain PyTorch version of the same contract (gather + masked
-    softmax in f32), the counterpart of ``paged_attention_xla``."""
+    softmax in f32), the counterpart of ``paged_attention_xla``. Int8
+    pairs are dequantized right after the gather."""
+    k_pages, k_scales = split_pages(k_pages)
+    v_pages, v_scales = split_pages(v_pages)
     batch, n_q_heads, d = q.shape
     n_kv_heads, _, page_size, _ = k_pages.shape
     pages_per_seq = block_tables.shape[1]
@@ -164,6 +246,13 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
     v = v_pages[:, tables].transpose(0, 1).reshape(
         batch, n_kv_heads, pages_per_seq * page_size, d
     )
+    if k_scales is not None:
+        ks = k_scales[:, tables].transpose(0, 1).reshape(
+            batch, n_kv_heads, -1)
+        vs = v_scales[:, tables].transpose(0, 1).reshape(
+            batch, n_kv_heads, -1)
+        k = k.float() * ks[..., None]
+        v = v.float() * vs[..., None]
     qg = q.reshape(batch, n_kv_heads, group, d).float()
     s = torch.einsum("bhgd,bhkd->bhgk", qg, k.float()) * scale
     pos = torch.arange(pages_per_seq * page_size, device=q.device)
@@ -194,15 +283,29 @@ def update_pages(k_pages, v_pages, k_new, v_new, block_tables, lengths,
     PLACE. k_new/v_new: [batch, num_kv_heads, head_dim], the token at
     position ``lengths[b]`` of sequence b. Returns (k_pages, v_pages).
 
+    With int8 ``(pages, scales)`` pairs the token is quantized on write
+    (``quantize_tokens``) and its scale lands in the same slot of the
+    scale plane: the two writes share one routing, so a row at capacity
+    drops both.
+
     Only the batch rows in ``rows`` are written, and each must be below
     capacity: pass ``rows_below_capacity(lengths, ...)`` to drop the
     sequences at capacity, as the JAX version does (it routes their
     scatter row out of bounds and XLA drops it; PyTorch raises on an
     out-of-range index)."""
-    page_size = k_pages.shape[2]
+    kq, k_scales = split_pages(k_pages)
+    vq, v_scales = split_pages(v_pages)
+    page_size = kq.shape[2]
     pos = lengths[rows].long()
     phys = block_tables[rows, pos // page_size].long()
     slot = pos % page_size
-    k_pages[:, phys, slot] = k_new[rows].transpose(0, 1).to(k_pages.dtype)
-    v_pages[:, phys, slot] = v_new[rows].transpose(0, 1).to(v_pages.dtype)
+    if k_scales is None:
+        kq[:, phys, slot] = k_new[rows].transpose(0, 1).to(kq.dtype)
+        vq[:, phys, slot] = v_new[rows].transpose(0, 1).to(vq.dtype)
+        return k_pages, v_pages
+    for pages, scales, new in ((kq, k_scales, k_new),
+                               (vq, v_scales, v_new)):
+        q8, sc = quantize_tokens(new[rows])
+        pages[:, phys, slot] = q8.transpose(0, 1)
+        scales[:, phys, slot] = sc.transpose(0, 1)
     return k_pages, v_pages

@@ -8,6 +8,12 @@ computes ``h @ wq``) and ``torch.nn.Linear`` keeps [out, in], so every
 projection is transposed on load. Embedding and norm weights load as
 they are. With tied embeddings neither side has ``lm_head.weight``; the
 port's head is then ``embed.T`` (``F.linear(h, embed)``).
+
+MoE layers (``num_experts > 0``): the gate ``weight [d_model, e]`` and the
+stacked expert weights ``[e, in, out]`` are not ``nn.Linear`` and have the
+same layout on both sides, so they load untransposed; so do the int8
+experts' ``*_scale`` buffers of a quantized model (quantize the port's
+model first, as in the JAX package).
 """
 from __future__ import annotations
 
@@ -21,7 +27,7 @@ __all__ = ["load_reference_state"]
 @torch.no_grad()
 def load_reference_state(model, state):
     """Copy ``state`` (JAX names -> numpy arrays) into ``model`` in place,
-    casting to each parameter's dtype and device. Raises ``KeyError`` on
+    casting to each parameter's (or buffer's) dtype and device. Raises ``KeyError`` on
     missing or unexpected names and ``ValueError`` on a shape mismatch.
     Returns ``model``."""
     linear_weights = {
@@ -29,6 +35,7 @@ def load_reference_state(model, state):
         if isinstance(mod, nn.Linear)
     }
     params = dict(model.named_parameters())
+    params.update((n, b) for n, b in model.named_buffers() if b is not None)
     missing = sorted(set(params) - set(state))
     unexpected = sorted(set(state) - set(params))
     if missing or unexpected:

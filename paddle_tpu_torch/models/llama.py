@@ -1,4 +1,5 @@
-"""Llama-family decoder (dense): RMSNorm + RoPE + GQA attention + SwiGLU.
+"""Llama-family decoder: RMSNorm + RoPE + GQA attention + SwiGLU, or a
+Mixtral-style MoE feed-forward when ``num_experts > 0``.
 
 Counterpart of ``paddle_tpu/models/llama.py``. Module names match the
 JAX package (``llama.layers.0.self_attn.q_proj.weight`` ...), so a JAX
@@ -16,7 +17,14 @@ device unless ``device`` names another one (``"cpu"`` for the tests),
 and raises when there is no CUDA device and no device was named. Its
 weights are drawn from a ``torch.Generator`` seeded with ``seed``, from
 the same distributions the JAX package initialises with: embedding
-N(0, 1), projections Xavier-normal, norms 1.
+N(0, 1), projections Xavier-normal, MoE gate and expert weights
+Xavier-uniform, norms 1.
+
+MoE (``num_experts > 0``): each decoder layer's MLP is an
+``incubate.MoELayer`` with the default dense impl and ``k =
+num_experts_per_tok``, as in the JAX package. The model sums the layers'
+aux losses and the loss adds ``router_aux_loss_coef * aux`` (fused and
+plain loss alike); the cached decode branch discards them.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ from torch import nn
 from ..core.device import resolve_device
 from ..distributed.recompute import recompute
 from ..generation import GenerationMixin, KVCache
+from ..incubate.moe import MoELayer, SwiGLUExperts, TopKGate
 from ..ops.activation import swiglu
 from ..ops.fused_ops import fused_linear_cross_entropy, rope_qk
 from ..ops.nn_ops import (
@@ -71,6 +80,8 @@ class LlamaConfig:
         tie_word_embeddings=False,
         dtype="float32",
         num_experts=0,
+        num_experts_per_tok=2,
+        router_aux_loss_coef=0.02,
         recompute=False,
         fused_loss_chunk=0,
     ):
@@ -85,8 +96,12 @@ class LlamaConfig:
         self.rope_theta = rope_theta
         self.tie_word_embeddings = tie_word_embeddings
         self.dtype = dtype
-        # > 0 is the Mixtral-style MoE of the JAX package: not ported yet
+        # > 0 makes each MLP a Mixtral-style MoE of num_experts experts,
+        # num_experts_per_tok of them per token, and the loss adds
+        # router_aux_loss_coef times the summed load-balancing loss
         self.num_experts = num_experts
+        self.num_experts_per_tok = num_experts_per_tok
+        self.router_aux_loss_coef = router_aux_loss_coef
         # recompute each decoder layer's activations in the backward
         self.recompute = recompute
         # > 0: the loss goes through the chunked fused LM head, and the
@@ -193,20 +208,25 @@ class LlamaMLP(nn.Module):
 class LlamaDecoderLayer(nn.Module):
     def __init__(self, config, device=None, dtype=None):
         super().__init__()
-        if config.num_experts > 0:
-            raise NotImplementedError(
-                "paddle_tpu_torch Llama: MoE layers are not ported yet "
-                "(dense only)"
-            )
         eps = config.rms_norm_eps
         self.input_layernorm = RMSNorm(config.hidden_size, eps, device, dtype)
         self.self_attn = LlamaAttention(config, device, dtype)
         self.post_attention_layernorm = RMSNorm(
             config.hidden_size, eps, device, dtype
         )
-        self.mlp = LlamaMLP(config, device, dtype)
+        self._moe = config.num_experts > 0
+        if self._moe:
+            self.mlp = MoELayer(
+                config.hidden_size, config.num_experts,
+                d_ff=config.intermediate_size,
+                k=config.num_experts_per_tok, device=device, dtype=dtype,
+            )
+        else:
+            self.mlp = LlamaMLP(config, device, dtype)
 
     def forward(self, hidden, attn_mask=None, cache=None, position=None):
+        """-> out, or (out, aux) for an MoE layer; with a cache, (out,
+        new_cache) and the aux loss discarded."""
         residual = hidden
         hidden = self.input_layernorm(hidden)
         new_cache = None
@@ -217,8 +237,15 @@ class LlamaDecoderLayer(nn.Module):
                 hidden, attn_mask, cache, position
             )
         hidden = residual + hidden
-        out = hidden + self.mlp(self.post_attention_layernorm(hidden))
-        return out if cache is None else (out, new_cache)
+        aux = None
+        if self._moe:
+            mlp_out, aux = self.mlp(self.post_attention_layernorm(hidden))
+        else:
+            mlp_out = self.mlp(self.post_attention_layernorm(hidden))
+        out = hidden + mlp_out
+        if cache is not None:
+            return out, new_cache
+        return (out, aux) if self._moe else out
 
 
 class LlamaModel(nn.Module):
@@ -237,18 +264,31 @@ class LlamaModel(nn.Module):
         )
 
     def forward(self, input_ids, attn_mask=None, caches=None, position=None):
+        """-> hidden; (hidden, new_caches) with caches; (hidden, aux) for
+        an MoE model without caches, aux the sum of the layers' losses."""
         hidden = self.embed_tokens(input_ids)
         new_caches = []
+        aux_total = None
         for i, layer in enumerate(self.layers):
             if caches is not None:
                 hidden, c = layer(hidden, attn_mask, caches[i], position)
                 new_caches.append(c)
-            elif self.config.recompute and torch.is_grad_enabled():
-                hidden = recompute(layer, hidden, attn_mask)
+                continue
+            if self.config.recompute and torch.is_grad_enabled():
+                out = recompute(layer, hidden, attn_mask)
             else:
-                hidden = layer(hidden, attn_mask)
+                out = layer(hidden, attn_mask)
+            if isinstance(out, tuple):
+                hidden, aux = out
+                aux_total = aux if aux_total is None else aux_total + aux
+            else:
+                hidden = out
         hidden = self.norm(hidden)
-        return hidden if caches is None else (hidden, new_caches)
+        if caches is not None:
+            return hidden, new_caches
+        if self.config.num_experts > 0:
+            return hidden, aux_total
+        return hidden
 
 
 class LlamaForCausalLM(GenerationMixin, nn.Module):
@@ -291,6 +331,8 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
             elif isinstance(mod, nn.Linear):
                 fan_out, fan_in = mod.weight.shape
                 draw(mod.weight, (2.0 / (fan_in + fan_out)) ** 0.5)
+            elif isinstance(mod, (TopKGate, SwiGLUExperts)):
+                mod.reset_parameters(generator)
             elif isinstance(mod, RMSNorm):
                 mod.weight.fill_(1.0)
 
@@ -330,13 +372,18 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
           through ``fused_linear_cross_entropy`` and the return is
           ``(None, loss)``: the [b, s, vocab] logits are never built.
 
-        ``attn_mask`` composes with causality (see ``LlamaAttention``)."""
+        ``attn_mask`` composes with causality (see ``LlamaAttention``).
+        An MoE model's loss adds ``router_aux_loss_coef`` times the summed
+        aux loss on both loss branches."""
         if caches is not None:
             hidden, new_caches = self.llama(
                 input_ids, attn_mask, caches=caches, position=position
             )
             return self.logits(hidden), new_caches
         hidden = self.llama(input_ids, attn_mask)
+        aux = None
+        if isinstance(hidden, tuple):
+            hidden, aux = hidden
         chunk = self.config.fused_loss_chunk
         if labels is not None and chunk > 0:
             h = hidden.shape[-1]
@@ -344,6 +391,8 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
                 hidden[:, :-1].reshape(-1, h), self.head_weight(),
                 labels[:, 1:].reshape(-1), chunk_size=chunk,
             )
+            if aux is not None:
+                loss = loss + self.config.router_aux_loss_coef * aux
             return None, loss
         logits = self.logits(hidden)
         if labels is None:
@@ -352,6 +401,8 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
         loss = cross_entropy(
             logits[:, :-1].reshape(-1, vocab), labels[:, 1:].reshape(-1)
         )
+        if aux is not None:
+            loss = loss + self.config.router_aux_loss_coef * aux
         return logits, loss
 
     def num_params(self):

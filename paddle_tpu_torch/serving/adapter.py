@@ -16,21 +16,27 @@ entry points:
     block-table zeros (page 0 is always a valid read) and their logits
     are never read.
 
+Int8 pools (``EngineConfig(kv_cache_dtype="int8")``): every per-layer
+pool entry is an ``(int8 pages, f32 scales)`` pair (``split_pages``).
+Page writes quantize on write (``quantize_tokens``, the scale landing in
+the same slot of the scale plane) and decode reads through the int8
+paged kernel; prefill attends over the in-flight float K/V, as in JAX.
+
 Differences from the JAX adapter: the adapter reads the model's modules
 directly (PyTorch runs eagerly, so there is no weight snapshot to
 refresh), and page writes go into the pool IN PLACE, so the entry points
 return logits only. JAX drops out-of-range scatter rows and clamps
 out-of-range gathers; PyTorch raises on both, so the writes here select
 the rows to write explicitly and clamp the block-table index.
-``prefill_ext``, ``verify``, the int8 pool and tensor parallelism are not
-ported yet.
+``prefill_ext``, ``verify`` and tensor parallelism are not ported yet.
 """
 from __future__ import annotations
 
 import torch
 
 from ..kernels.paged_attention import (
-    paged_attention, rows_below_capacity, update_pages,
+    paged_attention, quantize_tokens, rows_below_capacity, split_pages,
+    update_pages,
 )
 from ..ops.fused_ops import rope_qk
 from ..ops.nn_ops import rms_norm, scaled_dot_product_attention
@@ -59,13 +65,20 @@ def _write_chunk_pages(pages, kv, block_table, length, cache_len):
     """``_write_prompt_pages`` with a position offset: chunk token t
     lands at global position ``cache_len + t``. Only the first ``length``
     rows are written; the block-table index is clamped to the table, as
-    the JAX gather clamps."""
-    block_size = pages.shape[2]
-    gpos = cache_len + torch.arange(length, device=pages.device)
+    the JAX gather clamps. An int8 entry quantizes on write, and each
+    token's per-head scale goes to the same slot of the scale plane."""
+    buf, scales = split_pages(pages)
+    block_size = buf.shape[2]
+    gpos = cache_len + torch.arange(length, device=buf.device)
     logical = torch.clamp(gpos // block_size, max=block_table.shape[0] - 1)
     phys = block_table.long()[logical]
     slot = gpos % block_size
-    pages[:, phys, slot] = kv[:length].transpose(0, 1).to(pages.dtype)
+    if scales is None:
+        buf[:, phys, slot] = kv[:length].transpose(0, 1).to(buf.dtype)
+        return
+    q8, sc = quantize_tokens(kv[:length])      # [L, kvh, d], [L, kvh]
+    buf[:, phys, slot] = q8.transpose(0, 1)
+    scales[:, phys, slot] = sc.transpose(0, 1)
 
 
 class LlamaServingAdapter:
@@ -93,7 +106,8 @@ class LlamaServingAdapter:
 
     @property
     def dtype(self):
-        """The KV pool dtype: the model's."""
+        """The float KV pool's dtype: the model's (an int8 pool keeps its
+        scales in f32)."""
         return self.model.dtype
 
     def _qkv(self, attn, h, b, s):
@@ -138,7 +152,7 @@ class LlamaServingAdapter:
         active slot's new K/V in place; returns logits [slots, vocab]."""
         m = self.model
         b = tokens.shape[0]
-        page_size = kp[0].shape[2]
+        page_size = split_pages(kp[0])[0].shape[2]
         capacity = block_tables.shape[1] * page_size
         # inactive slots: write position at capacity -> not written; the
         # rows to write are found once for all layers

@@ -19,12 +19,18 @@ Each ``step()``:
     decode kernel on the card) and samples every slot at once
     (``sampler.sample_tokens``).
 
+``EngineConfig(kv_cache_dtype="int8")`` stores the pool as int8 pages
+with one f32 scale per token per kv head (``KVPool(quant_dtype=)``),
+quantized on write and read by the int8 paged kernel: the greedy
+byte-parity contract becomes a tolerance contract, as in the JAX
+package.
+
 PyTorch runs eagerly: there is no ``jit``, no donation and no compile
 probe; the KV pool is updated in place. Sampling noise comes from a
 ``torch.Generator`` seeded with ``EngineConfig.seed``.
 
 Not ported yet (later slices): prefix cache, chunked prefill and COW,
-speculative decoding, the int8 pool, journal, QoS and load shedding,
+speculative decoding, journal, QoS and load shedding,
 HTTP front door, fleet, tensor parallelism, spill tier, step
 observatory, SLO tracking and request TTLs, access log, poison
 isolation, ``resume``/``release``, per-request sampling seeds, the
@@ -68,7 +74,7 @@ def _default_buckets(max_model_len):
 class EngineConfig:
     def __init__(self, max_batch_slots=8, max_model_len=2048, page_size=16,
                  num_blocks=None, prefill_buckets=None, max_waiting=None,
-                 seed=0):
+                 seed=0, kv_cache_dtype=None):
         if max_batch_slots < 1:
             raise ValueError("max_batch_slots must be >= 1")
         if page_size < 1 or max_model_len < 2:
@@ -102,6 +108,14 @@ class EngineConfig:
             )
         self.max_waiting = max_waiting
         self.seed = int(seed)
+        # None stores the adapter's dtype; "int8" stores quantize-on-write
+        # int8 pages plus per-token scales
+        if kv_cache_dtype not in (None, "int8"):
+            raise ValueError(
+                f'kv_cache_dtype must be None or "int8", got '
+                f"{kv_cache_dtype!r}"
+            )
+        self.kv_cache_dtype = kv_cache_dtype
 
 
 class Engine:
@@ -124,6 +138,7 @@ class Engine:
             self.adapter.num_layers, self.adapter.num_kv_heads,
             cfg.num_blocks, cfg.page_size, self.adapter.head_dim,
             self.adapter.dtype, self.device,
+            quant_dtype=cfg.kv_cache_dtype,
         )
         self.block_manager = BlockManager(cfg.num_blocks, cfg.page_size)
         self.waiting: collections.deque = collections.deque()

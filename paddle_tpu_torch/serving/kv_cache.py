@@ -1,11 +1,13 @@
 """Paged KV cache: ref-counted block manager over a preallocated pool.
 
 Counterpart of ``paddle_tpu/serving/kv_cache.py``: ``BlockManager`` whole,
-``KVPool`` for float pools only (the int8 pool waits for its slice).
-The physical cache is one tensor per layer and per K/V,
-``[num_kv_heads, num_blocks, block_size, head_dim]`` — the layout
-``kernels.paged_attention`` reads — and the adapter writes into it in
-place. Allocation policy lives in the engine.
+``KVPool`` for float and int8 pools (its snapshot, rebind and spill
+helpers wait for their slices). The physical cache is one entry per
+layer and per K/V, ``[num_kv_heads, num_blocks, block_size, head_dim]``
+— the layout ``kernels.paged_attention`` reads — or, for an int8 pool, an
+``(int8 pages, float32 scales [num_kv_heads, num_blocks, block_size])``
+pair; the adapter writes into it in place. Allocation policy lives in
+the engine.
 """
 from __future__ import annotations
 
@@ -84,19 +86,52 @@ class BlockManager:
 
 
 class KVPool:
-    """The physical page pool: per layer one K and one V tensor of
+    """The physical page pool: per layer one K and one V entry of
     ``[num_kv_heads, num_blocks, block_size, head_dim]``, zeroed, on
-    ``device``. Updated in place by the adapter's page writes."""
+    ``device``. Updated in place by the adapter's page writes.
+
+    ``quant_dtype="int8"`` makes each entry an int8 ``(pages, scales)``
+    pair: ``scales`` float32 ``[num_kv_heads, num_blocks, block_size]``,
+    one per cached token per kv head, written beside every page write
+    (quantize-on-write) and applied in attention. Zero scales make
+    unwritten slots dequantize to exact 0, as the float pool's zeros.
+    Per token and head that is ``head_dim`` + 4 bytes instead of
+    ``head_dim * itemsize``."""
 
     def __init__(self, num_layers, num_kv_heads, num_blocks, block_size,
-                 head_dim, dtype=torch.float32, device="cpu"):
+                 head_dim, dtype=torch.float32, device="cpu",
+                 quant_dtype=None):
+        if quant_dtype not in (None, "int8"):
+            raise ValueError(
+                f'KVPool quant_dtype must be None or "int8", got '
+                f"{quant_dtype!r}"
+            )
         shape = (num_kv_heads, num_blocks, block_size, head_dim)
-        self.k = [torch.zeros(shape, dtype=dtype, device=device)
-                  for _ in range(num_layers)]
-        self.v = [torch.zeros(shape, dtype=dtype, device=device)
-                  for _ in range(num_layers)]
+
+        def mk():
+            if quant_dtype is None:
+                return torch.zeros(shape, dtype=dtype, device=device)
+            return (torch.zeros(shape, dtype=torch.int8, device=device),
+                    torch.zeros(shape[:3], dtype=torch.float32,
+                                device=device))
+
+        self.k = [mk() for _ in range(num_layers)]
+        self.v = [mk() for _ in range(num_layers)]
         self.num_layers = int(num_layers)
         self.num_blocks = int(num_blocks)
         self.block_size = int(block_size)
         self.dtype = dtype
+        self.quant_dtype = quant_dtype
         self.device = torch.device(device)
+
+    def nbytes(self):
+        total = 0
+        for entry in self.k + self.v:
+            for t in (entry if isinstance(entry, tuple) else (entry,)):
+                total += t.numel() * t.element_size()
+        return total
+
+    def bytes_per_token(self):
+        """Cache bytes per token slot across all layers and kv heads, the
+        figure the int8 pool cuts."""
+        return self.nbytes() / (self.num_blocks * self.block_size)

@@ -1,7 +1,7 @@
-"""paddle_tpu_torch stands alone: importing it (its serving and training
-modules too) loads neither jax nor anything of paddle_tpu, and its entry
-points refuse to fall back to the CPU quietly when no CUDA device
-exists."""
+"""paddle_tpu_torch stands alone: importing it (its serving, training,
+MoE and quantization modules too) loads neither jax nor anything of
+paddle_tpu, and its entry points refuse to fall back to the CPU quietly
+when no CUDA device exists."""
 import os
 import subprocess
 import sys
@@ -18,6 +18,10 @@ import paddle_tpu_torch.serving
 import paddle_tpu_torch.models
 import paddle_tpu_torch.kernels.paged_attention
 import paddle_tpu_torch.kernels.flash_attention
+import paddle_tpu_torch.kernels.grouped_matmul
+import paddle_tpu_torch.ops.moe_ops
+import paddle_tpu_torch.incubate
+import paddle_tpu_torch.quantization
 import paddle_tpu_torch.optimizer
 import paddle_tpu_torch.nn
 import paddle_tpu_torch.jit
@@ -71,6 +75,26 @@ def test_model_without_device_raises_without_cuda():
         LlamaForCausalLM(LlamaConfig.tiny())
 
 
+def test_moe_layer_and_int8_engine_without_device_raise_without_cuda():
+    from paddle_tpu_torch.incubate import MoELayer
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import Engine, EngineConfig
+
+    _require_no_cuda()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MoELayer(8, 2, 16, impl="ragged")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LlamaForCausalLM(LlamaConfig.tiny(num_experts=4))
+    # given the CPU, both build there, and an int8 engine follows its
+    # model's device
+    assert MoELayer(8, 2, 16, device="cpu").gate.weight.device.type == "cpu"
+    model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
+    engine = Engine(model, EngineConfig(max_batch_slots=2, max_model_len=16,
+                                        page_size=4, kv_cache_dtype="int8"))
+    assert all(t.device == torch.device("cpu")
+               for pair in engine.pool.k for t in pair)
+
+
 def test_resolve_device_default_raises_explicit_cpu_works():
     from paddle_tpu_torch import resolve_device
 
@@ -98,4 +122,4 @@ def test_kernel_build_needs_nvcc_not_at_import():
 
     assert _build._libs == {}
     assert _build.KERNELS == ("paged_attention", "flash_attention",
-                              "flash_attention_bwd")
+                              "flash_attention_bwd", "grouped_matmul")

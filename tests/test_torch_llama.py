@@ -121,8 +121,17 @@ def test_load_reference_state_rejects_mismatch():
 
 
 def test_moe_config_not_ported():
-    with pytest.raises(NotImplementedError):
-        LlamaForCausalLM(LlamaConfig.tiny(num_experts=4), device="cpu")
+    # the MoE model is ported (tests/test_torch_moe.py); what the JAX
+    # package does not serve, the port does not either: its serving
+    # adapter refuses MoE
+    from paddle_tpu_torch.incubate import MoELayer
+    from paddle_tpu_torch.serving import Engine
+
+    model = LlamaForCausalLM(LlamaConfig.tiny(num_experts=4), device="cpu")
+    assert isinstance(model.llama.layers[0].mlp, MoELayer)
+    assert model.llama.layers[0].mlp.impl == "dense"
+    with pytest.raises(NotImplementedError, match="MoE"):
+        Engine(model)
 
 
 def test_seeded_init_is_deterministic():
