@@ -14,7 +14,15 @@ Phases, in order; any failure exits non-zero:
 3. kernels  — each kernel against its plain PyTorch version on the card,
                in the working dtype, at the serving and training shapes
                and the ones listed below; kernel, plain and library times
-               from CUDA events, and the bound for the same work. The
+               from CUDA events, and the bound for the same work. Where a
+               wrapper chooses among device kernels (the flash forward:
+               wgmma or mma.sync; the grouped GEMM: wgmma or mma.sync),
+               every one that takes the inputs is held to the gate and
+               timed side by side through the same host path (mean and
+               median of 20 launches each); ``ms`` is the wrapper's own
+               call (the mean of 20, as every ``ms``), ``prev_ms`` the
+               mma.sync (or FMA) kernel that served these shapes before
+               the wgmma kernels. The
                gate (``GATE``) must also reject two planted faults of
                the backward at the training shape. The int8 paged kernel
                also stays within 0.05 of the float kernel on the
@@ -180,25 +188,32 @@ def device_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, iters, flush):
-    """Mean device time of ``fn`` over ``iters`` launches, each timed
-    with CUDA events after a write of ``flush`` (bigger than the 50 MB
-    L2, so every launch starts from a cold cache and the host's launch
-    overhead hides behind the flush)."""
+def cuda_times(torch, fn, iters, flush):
+    """(mean, median) device ms of ``fn`` over ``iters`` launches, each
+    timed with CUDA events after a write of ``flush`` (bigger than the 50
+    MB L2, so every launch starts from a cold cache and the host's launch
+    overhead hides behind the flush). The mean is every kernel's ``ms``;
+    the median, reported beside it where a wrapper has several kernels,
+    is less moved by a launch the shared host delays past the flush."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    total = 0.0
+    times = []
     for _ in range(iters):
         flush.zero_()
         start.record()
         fn()
         end.record()
         end.synchronize()
-        total += start.elapsed_time(end)
-    return total / iters
+        times.append(start.elapsed_time(end))
+    return float(np.mean(times)), float(np.median(times))
+
+
+def cuda_ms(torch, fn, iters, flush):
+    """Mean device time of ``fn`` (``cuda_times``)."""
+    return cuda_times(torch, fn, iters, flush)[0]
 
 
 # --------------------------------------------------------------- kernels
@@ -308,12 +323,33 @@ def _routed_group_sizes(torch, n_tokens, d, e, k, seed):
     return moe_ragged_dispatch(x, x @ w, k=k)[1]
 
 
+def _timed_variants(torch, compare_to, variants, run, flush, iters):
+    """Each device kernel in ``variants`` on the same inputs, through the
+    same host path ``run(variant)``: its output held to
+    ``compare_to(variant, out)`` (which checks and returns the gate's
+    stats), then its times. Returns {variant: {stats..., "ms": mean,
+    "median_ms": median}}."""
+    result = {}
+    for v in variants:
+        out = run(v)
+        torch.cuda.synchronize()
+        stats = compare_to(v, out)
+        mean, median = cuda_times(torch, lambda: run(v), iters, flush)
+        result[v] = dict(stats, ms=mean, median_ms=median)
+    return result
+
+
 def gmm_case(torch, gk, flush, name, dtype, k, m, group_sizes, quant=False):
-    """The grouped GEMM kernel against ``grouped_matmul_ref`` on the same
-    inputs (``GATE``); ``quant`` gives it int8 rhs with per-channel
-    scales. Times the kernel, the plain version and, for bf16 float rhs,
-    ``torch._grouped_mm`` (never called by the port) where this PyTorch
-    has it."""
+    """The grouped GEMM kernels against ``grouped_matmul_ref`` on the same
+    inputs (``GATE``); ``quant`` gives them int8 rhs with per-channel
+    scales. ``ms`` is the wrapper's call (``grouped_matmul``, on the
+    kernel ``_gmm_variant`` picks). Every device kernel that can take the
+    inputs (bf16 lhs and rhs: the wgmma kernel and the mma.sync kernel)
+    is held to the gate and timed side by side through ``_launch``
+    (``variants``); ``prev_ms`` is the kernel the dtypes had before the
+    wgmma kernel. Also times the plain version and, for bf16
+    float rhs, ``torch._grouped_mm`` (never called by the port) where
+    this PyTorch has it."""
     dev = "cuda"
     gs = torch.as_tensor(group_sizes, dtype=torch.int32, device=dev)
     n, e = int(gs.sum()), gs.numel()
@@ -326,14 +362,30 @@ def gmm_case(torch, gk, flush, name, dtype, k, m, group_sizes, quant=False):
         from paddle_tpu_torch.quantization import weight_quantize_grouped
 
         rhs, scales = weight_quantize_grouped(rhs.float())
+    variant = gk._gmm_variant(lhs.dtype, rhs.dtype, n, k, m)
+    prev = "fma" if dtype == torch.float32 else "mma"
+    kinds = ([variant, prev] if variant != prev else [variant]) + (
+        ["wgmma"] if variant != "wgmma" and rhs.dtype == torch.bfloat16
+        and k > 0 else [])
     with torch.no_grad():
         out = gk.grouped_matmul(lhs, rhs, gs, scales)
         ref = gk.grouped_matmul_ref(lhs, rhs, gs, scales)
         torch.cuda.synchronize()
         ok, stats = compare(out, ref)
-        check(ok, f"grouped_matmul {name}: {stats} outside the gate")
+        check(ok, f"grouped_matmul {name} ({variant}): {stats} outside the "
+                  f"gate")
+
+        def held(v, got):
+            ok_v, st = compare(got, ref)
+            check(ok_v, f"grouped_matmul {name} ({v}): {st} outside the "
+                        f"gate")
+            return st
+
         ms = cuda_ms(torch, lambda: gk.grouped_matmul(lhs, rhs, gs, scales),
                      20, flush)
+        variants = _timed_variants(
+            torch, held, kinds,
+            lambda v: gk._launch(lhs, rhs, gs, scales, variant=v), flush, 20)
         plain_ms = cuda_ms(
             torch, lambda: gk.grouped_matmul_ref(lhs, rhs, gs, scales), 5,
             flush)
@@ -364,8 +416,11 @@ def gmm_case(torch, gk, flush, name, dtype, k, m, group_sizes, quant=False):
         "case": name, "dtype": str(dtype).split(".")[-1],
         "rhs": "int8" if quant else str(dtype).split(".")[-1], "n": n,
         "k": k, "m": m, "experts": e,
-        "group_sizes": [int(x) for x in gs.tolist()], **stats, "ms": ms,
-        "plain_ms": plain_ms, "library_ms": library_ms,
+        "group_sizes": [int(x) for x in gs.tolist()], "variant": variant,
+        **stats, "ms": ms, "prev_ms": variants[prev]["ms"],
+        "variants": variants,
+        "plain_ms": plain_ms,
+        "library_ms": library_ms,
         "library": library_note, "bound_ms": bound_ms,
         "bound_by": bound_by, "bytes": nbytes, "flops": flops,
     }
@@ -374,44 +429,92 @@ def gmm_case(torch, gk, flush, name, dtype, k, m, group_sizes, quant=False):
 
 
 def flash_case(torch, fa, flush, s, dtype=None, h=16, d=128, b=1,
-               offset=0):
-    """``offset`` > 0 starts q, k and v that many elements into their
-    buffers, off the 16-byte grid the bf16 kernel loads on."""
+               offset=0, hkv=None, causal=True):
+    """The forward kernels against ``flash_attention_ref``: out within
+    ``GATE``, lse within 1e-3. ``offset`` > 0 starts q, k and v that many
+    elements into their buffers, off the 16-byte grid the bf16 kernels
+    load on; ``hkv`` < ``h`` is GQA. ``ms`` is the wrapper's call
+    (``flash_attention_fwd``, its aligning copies included, on the kernel
+    ``_fwd_variant`` picks). Every device kernel that takes the inputs
+    (bf16 at d 64 or 128: the wgmma kernel and the mma.sync kernel) is
+    held to both bounds and timed side by side through the wrapper's own
+    steps (the copies, then ``_launch_fwd``: ``variants``), and with
+    ``offset`` also alone on aligned copies (``kernel_ms``,
+    ``kernel_median_ms``); ``prev_ms`` is the dtype's kernel before the
+    wgmma one."""
     import torch.nn.functional as F
 
     dtype = dtype or torch.bfloat16
+    hkv = hkv or h
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(s)
-    n = b * s * h * d
-    q, k, v = (torch.randn(n + offset, generator=g, device=dev)
-               .to(dtype)[offset:].view(b, s, h, d) for _ in range(3))
-    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
-    ref, ref_lse = fa.flash_attention_ref(q, k, v, causal=True)
+
+    def make(heads):
+        n = b * s * heads * d
+        return (torch.randn(n + offset, generator=g, device=dev)
+                .to(dtype)[offset:].view(b, s, heads, d))
+
+    q, k, v = make(h), make(hkv), make(hkv)
+    scale = d ** -0.5
+    name = f"s{s}" + (f"_b{b}" if b > 1 else "") + (
+        f"_gqa{h}x{hkv}" if hkv != h else "") + (f"_d{d}" if d != 128
+                                                 else "") + (
+        "_full" if not causal else "") + ("_unaligned" if offset else "")
+    variant = fa._fwd_variant(dtype, d, s, s)
+    prev = "fma" if dtype == torch.float32 else "mma"
+    kinds = [variant, prev] if variant != prev else [variant]
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    ref, ref_lse = fa.flash_attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    ok, stats = compare(out, ref)
-    lse_err = (lse - ref_lse).abs().max().item()
-    check(ok and lse_err <= 1e-3,
-          f"flash_attention s={s}: {stats} outside the gate or lse err "
-          f"{lse_err} > 1e-3")
-    ms = cuda_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, causal=True),
+
+    def held(vname, got):
+        o, l = got
+        ok, st = compare(o, ref)
+        lse_err = (l - ref_lse).abs().max().item()
+        check(ok and lse_err <= 1e-3,
+              f"flash_attention {name} ({vname}): {st} outside the gate or "
+              f"lse err {lse_err} > 1e-3")
+        return dict(st, lse_max_abs_err=lse_err)
+
+    stats = held(variant, (out, lse))
+
+    ms = cuda_ms(torch, lambda: fa.flash_attention_fwd(q, k, v,
+                                                       causal=causal),
                  20, flush)
+    variants = _timed_variants(
+        torch, held, kinds,
+        lambda vn: fa._launch_fwd(*(fa._aligned(t) for t in (q, k, v)),
+                                  causal, scale, vn), flush, 20)
+    if offset:
+        # the kernels alone, on aligned copies made once (aligned inputs
+        # have no copies to leave out: there the times above are these)
+        qa, ka, va = (fa._aligned(t) for t in (q, k, v))
+        for vn in kinds:
+            variants[vn]["kernel_ms"], variants[vn]["kernel_median_ms"] = \
+                cuda_times(torch, lambda: fa._launch_fwd(qa, ka, va, causal,
+                                                         scale, vn),
+                           20, flush)
     plain_ms = cuda_ms(
-        torch, lambda: fa.flash_attention_ref(q, k, v, causal=True), 5, flush)
+        torch, lambda: fa.flash_attention_ref(q, k, v, causal=causal), 5,
+        flush)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    gqa = {"enable_gqa": True} if hkv != h else {}
     library_ms = cuda_ms(
         torch,
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                               **gqa),
         20, flush)
     item = q.element_size()
-    nbytes = 4 * q.numel() * item + b * h * s * 4     # q, k, v, out, lse
-    flops = 4 * b * h * d * (s * (s + 1) // 2)        # causal pairs only
+    # q, k, v, out, lse
+    nbytes = (2 * q.numel() + 2 * k.numel()) * item + b * h * s * 4
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = 4 * b * h * d * pairs
     bound_ms, bound_by = bound(nbytes, flops, dtype, torch)
-    name = f"s{s}" + (f"_b{b}" if b > 1 else "") + (
-        "_unaligned" if offset else "")
     return {
         "case": name, "dtype": str(dtype).split(".")[-1], "batch": b,
-        "heads": h, "d": d, "seq": s, **stats,
-        "lse_max_abs_err": lse_err, "ms": ms,
+        "heads": h, "kv_heads": hkv, "d": d, "seq": s, "causal": causal,
+        "variant": variant, **stats, "ms": ms,
+        "prev_ms": variants[prev]["ms"], "variants": variants,
         "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
         "flops": flops,
@@ -550,9 +653,16 @@ def phase_kernels(torch):
              for c in cases]
     flash = [flash_case(torch, fa, flush, s)
              for s in (16, 32, 64, 100, 128, 512, 2048)]
-    flash.append(flash_case(torch, fa, flush, 100, dtype=torch.float32))
-    flash.append(flash_case(torch, fa, flush, 100, offset=1))
-    flash.append(flash_case(torch, fa, flush, TRAIN_SEQ, b=TRAIN_BATCH))
+    flash += [
+        flash_case(torch, fa, flush, 100, dtype=torch.float32),
+        flash_case(torch, fa, flush, 100, offset=1),
+        flash_case(torch, fa, flush, 512, h=32, hkv=4, d=64),   # GQA d 64
+        flash_case(torch, fa, flush, 100, h=32, hkv=4, d=64),   # ragged
+        flash_case(torch, fa, flush, 128, causal=False),
+        flash_case(torch, fa, flush, 100, causal=False),
+        flash_case(torch, fa, flush, 128, d=32),                # mma.sync
+        flash_case(torch, fa, flush, TRAIN_SEQ, b=TRAIN_BATCH),
+    ]
     bwd = [flash_bwd_case(torch, fa, flush, f"s{s}", s)
            for s in (128, 512, 1024, 2048)]
     bwd += [
@@ -758,7 +868,7 @@ def _serve(torch, tag, kv_cache_dtype=None):
     outs = engine.generate(prompts, params)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = _build.launch_counts()
+    counts = dict(_build.launch_counts(), **_build.variant_counts())
     m = engine.metrics
     check(len(outs) == n_req and all(
         o.finish_reason in ("length", "stop") for o in outs),
@@ -1018,6 +1128,7 @@ def phase_train(torch):
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / 10 * 1e3
     counts = _flash_counts(_build.launch_counts())
+    variant_counts = _build.variant_counts()
     peak = torch.cuda.max_memory_allocated()
     losses = [x.item() for x in losses]
     check(all(np.isfinite(losses)), f"train: non-finite loss {losses}")
@@ -1094,7 +1205,7 @@ def phase_train(torch):
         "first_step_s": first_s, "step_ms": step_ms,
         "tokens_per_s": tokens_s, "mfu": mfu, "peak_bytes": peak,
         "recompute_peak_bytes": rc_peak, "losses": losses,
-        "launches": counts, "profile": prof,
+        "launches": dict(counts, **variant_counts), "profile": prof,
         "grad_check": {"loss": loss_k, "plain_loss": loss_p,
                        "worst_rel_l2": rel[worst], "worst_param": worst,
                        "median_rel_l2": float(np.median(list(rel.values())))},
@@ -1174,6 +1285,7 @@ def phase_moe(torch):
         torch.cuda.synchronize()
         counts = _build.launch_counts()
         count_into(counts)
+        count_into(_build.variant_counts())
         check(counts["grouped_matmul"] == 3,
               f"moe: ragged forward launched {counts}")
         with plain_gmm(gk):
@@ -1243,6 +1355,7 @@ def phase_moe(torch):
         torch.cuda.synchronize()
         counts = _build.launch_counts()
         count_into(counts)
+        count_into(_build.variant_counts())
         check(counts["grouped_matmul_quant"] == 3,
               f"moe: int8 forward launched {counts}")
         with plain_gmm(gk):
@@ -1277,6 +1390,7 @@ def phase_moe(torch):
         torch.cuda.synchronize()
         counts = _build.launch_counts()
         count_into(counts)
+        count_into(_build.variant_counts())
         with plain_attention(fa):
             _, loss_p = model(ids, labels=ids)
         _, aux = model.llama(ids)
@@ -1443,6 +1557,27 @@ def main(argv=None):
                 "gate_faults": faults, "paged_quant": quant, "gmm": gmm,
                 "gmm_quant": gmm_quant,
             }
+            # the wrapper's choice against the previous kernel, same
+            # inputs, run and host path: reported, not gated (the small
+            # cases are ~0.01 ms), by the mean and by the median, and by
+            # the median of the kernels alone (the unaligned flash case
+            # without its copies)
+            for stat in ("ms", "median_ms", "kernel_median_ms"):
+                slower = {}
+                for c in flash + gmm + gmm_quant:
+                    now, was = (
+                        c["variants"][x].get(stat,
+                                             c["variants"][x]["median_ms"])
+                        for x in (c["variant"], "fma" if c["dtype"] ==
+                                  "float32" else "mma"))
+                    if now > 1.1 * was:
+                        slower[f"{c['case']} ({c['variant']})"] = round(
+                            now / was, 3)
+                report["phases"]["kernels"][f"slower_than_prev_{stat}"] = \
+                    slower
+                log(f"[kernels] cases >10% slower on the wrapper's choice "
+                    f"than on the previous kernel ({stat}): "
+                    f"{slower or 'none'}")
         if "parity" in results:
             results["parity"] = "ok"
         report["phases"].update(results)
@@ -1469,6 +1604,17 @@ def main(argv=None):
         per = {p: c.get(name, 0) for p, c in by_path.items()}
         return {"launches": sum(per.values()), "launches_by_path": per}
 
+    def variant_entry(name, v, case, cases):
+        """One device kernel of a function that has several: its launches
+        on the main paths, its time at ``case``, its worst error over
+        ``cases``."""
+        return {"variant": v, **launches(f"{name}/{v}"),
+                "max_abs_err": max(c["variants"][v]["max_abs_err"]
+                                   for c in cases if v in c["variants"]),
+                "ms": case["variants"][v]["ms"],
+                "median_ms": case["variants"][v]["median_ms"],
+                "shape": case["case"]}
+
     if paged is not None:
         head = paged[0]
         kernels.append({
@@ -1481,17 +1627,27 @@ def main(argv=None):
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": None, "shape": head["case"],
         })
+        # the forward at the training shape, on the wrapper's choice
+        # (wgmma), the mma.sync kernel there as prev_ms; "variants" lists
+        # every device kernel of the function (the f32 FMA one at its own
+        # case) with its launches on the main paths
         head = next(c for c in flash
                     if c["case"] == f"s{TRAIN_SEQ}_b{TRAIN_BATCH}")
+        f32 = next(c for c in flash if c["dtype"] == "float32")
         kernels.append({
             "name": "flash_attention_fwd", "route": "cuda",
             "source": "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
             "replaces": "paddle_tpu/kernels/pallas/flash_attention.py:37",
             **launches("flash_attention"),
             "max_abs_err": max(c["max_abs_err"] for c in flash),
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "variant": head["variant"], "ms": head["ms"],
+            "prev_ms": head["prev_ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": head["case"],
+            "variants": [
+                variant_entry("flash_attention", v, case, flash)
+                for v, case in (("wgmma", head), ("mma", head),
+                                ("fma", f32))],
         })
         # the training shape; plain and library times are of the whole
         # backward (dq, dk and dv), the function both kernels make up
@@ -1526,8 +1682,15 @@ def main(argv=None):
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": None, "shape": head["case"],
         })
-        for name, line, cases in (("grouped_matmul", 100, gmm),
-                                  ("grouped_matmul_quant", 128, gmm_quant)):
+        # the grouped GEMM at the MoE layer's up projection, bf16 rhs
+        # (wgmma, the mma.sync kernel as prev_ms; the f32 FMA kernel
+        # under "variants") and int8 rhs (the mma.sync kernel)
+        f32 = next(c for c in gmm if c["dtype"] == "float32")
+        for name, line, cases, variants in (
+                ("grouped_matmul", 100, gmm,
+                 (("wgmma", gmm[0]), ("mma", gmm[0]), ("fma", f32))),
+                ("grouped_matmul_quant", 128, gmm_quant,
+                 (("mma", gmm_quant[0]),))):
             head = cases[0]
             kernels.append({
                 "name": name, "route": "cuda",
@@ -1536,11 +1699,14 @@ def main(argv=None):
                     f"paddle_tpu/kernels/pallas/grouped_matmul.py:{line}",
                 **launches(name),
                 "max_abs_err": max(c["max_abs_err"] for c in cases),
-                "ms": head["ms"], "plain_ms": head["plain_ms"],
+                "variant": head["variant"], "ms": head["ms"],
+                "prev_ms": head["prev_ms"], "plain_ms": head["plain_ms"],
                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                 "library_ms": head["library_ms"],
                 "shape": f"{head['case']}: n {head['n']}, k {head['k']}, "
                          f"m {head['m']}, e {head['experts']}",
+                "variants": [variant_entry(name, v, case, cases)
+                             for v, case in variants],
             })
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -7,7 +7,8 @@ runtime every kernel of the port goes through.
   ``sm_90a`` into its own shared library with a plain C interface, all
   sources at once (one ``nvcc`` process per source, started together).
   The library lands under ``build/paddle_tpu_torch/`` at the root of the
-  checkout, named by a hash of its source and flags, so an edited source
+  checkout, named by a hash of its source, of every shared header
+  ``csrc/*.cuh`` and of the flags, so an edited source or header
   rebuilds and an unchanged one is reused. A failed build raises.
 * ``load(name)`` returns the ``ctypes`` handle, building first if
   needed. Nothing is built or loaded when a module is imported.
@@ -17,7 +18,10 @@ runtime every kernel of the port goes through.
   kernel (``LAUNCHES``), not per source: ``flash_attention_bwd.cu``
   holds two kernels, counted apart, and the int8 variants of
   ``paged_attention.cu`` and ``grouped_matmul.cu`` count under their own
-  names.
+  names. Where a function has more than one device kernel (the wgmma and
+  the mma.sync flash forward, say), the wrapper also names the one it
+  launched: ``variant_counts()`` reads those counts, keyed
+  ``"<name>/<variant>"``.
 
 There is no fallback counter: a wrapper given a CUDA tensor launches its
 kernel or raises, and takes its plain PyTorch version only for a tensor
@@ -34,7 +38,7 @@ from pathlib import Path
 
 __all__ = [
     "KERNELS", "LAUNCHES", "build", "load", "count_launch", "launch_counts",
-    "reset_launch_counts", "build_logs", "BUILD_DIR",
+    "variant_counts", "reset_launch_counts", "build_logs", "BUILD_DIR",
 ]
 
 # kernel sources, csrc/<name>.cu
@@ -56,6 +60,7 @@ NVCC_FLAGS = (
 _libs: dict = {}
 _logs: dict = {}
 _launches = {name: 0 for name in LAUNCHES}
+_variants: dict = {}
 
 
 def _nvcc():
@@ -74,10 +79,11 @@ def _nvcc():
 
 def _target(name):
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return src, BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):   # any may be included
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return src, BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=KERNELS):
@@ -127,14 +133,24 @@ def load(name):
     return lib
 
 
-def count_launch(name):
+def count_launch(name, variant=None):
     _launches[name] += 1
+    if variant is not None:
+        key = f"{name}/{variant}"
+        _variants[key] = _variants.get(key, 0) + 1
 
 
 def launch_counts():
     return dict(_launches)
 
 
+def variant_counts():
+    """Launches by device kernel, ``{"<name>/<variant>": n}``, for the
+    functions whose wrapper chooses among several."""
+    return dict(_variants)
+
+
 def reset_launch_counts():
     for name in _launches:
         _launches[name] = 0
+    _variants.clear()

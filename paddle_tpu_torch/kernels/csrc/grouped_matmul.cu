@@ -26,12 +26,19 @@
 // that share a row tile (a group boundary inside it) store disjoint rows:
 // no atomics, no accumulation across items. The work list is built on
 // the device: each block reads the [e] group sizes and walks their
-// running sums to find its item (O(e) per block, no host sync). The grid
-// is static at row tiles + e items (blockIdx.x) by column tiles
-// (blockIdx.y), as on the TPU; inactive items exit.
-//  * bf16 lhs (bf16 or int8 rhs): 8 warps, a 128 x 128 output tile, k in
-//    steps of 32 through a 3-stage ring in shared memory filled by
-//    16-byte cp.async (int8 rhs: 8-byte, converted to a bf16 tile in
+// running sums (no host sync). Three kernels:
+//  * bf16 lhs and rhs (gmm_wgmma_kernel, the Hopper design): a persistent
+//    grid of one block per SM walks the work list; wgmma.m64n256k16
+//    products from shared memory that TMA fills through a 3-stage
+//    mbarrier ring, a producer thread and two consumer warpgroups per
+//    block. Described at the kernel.
+//  * bf16 lhs with int8 rhs (and bf16 rhs when the wrapper asks for it:
+//    chip_smoke.py's side-by-side timing) on mma.sync (gmm_bf16_kernel).
+//    Its grid is static at row tiles + e items (blockIdx.x) by column
+//    tiles (blockIdx.y), as on the TPU; inactive items exit. Each block
+//    walks the running sums to find its item. 8 warps, a 128 x 128 output
+//    tile, k in steps of 32 through a 3-stage ring in shared memory filled
+//    by 16-byte cp.async (int8 rhs: 8-byte, converted to a bf16 tile in
 //    shared memory before its step, exact for |q| <= 127),
 //    mma.sync.m16n8k16 bf16 products into f32 accumulators through
 //    ldmatrix (.trans for rhs, which is stored with k along its rows).
@@ -42,7 +49,8 @@
 //    grid over a 64 x 64 output tile, k in steps of 16, scalar loads
 //    masked per element (any shape).
 // int8 scales multiply each item's f32 result per column before the
-// store, as the TPU kernel's contrib * s_ref. Not yet wgmma/TMA.
+// store, as the TPU kernel's contrib * s_ref. The int8-rhs kernel keeps
+// its mma.sync design.
 //
 // Launch contract: grouped_matmul_launch launches on the given stream
 // and returns cudaGetLastError() (0 on success).
@@ -50,6 +58,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -409,6 +419,303 @@ __global__ void __launch_bounds__(kTcThreads) gmm_bf16_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 lhs and bf16 rhs on Hopper: wgmma fed by TMA through an mbarrier
+// ring (hopper.cuh), a persistent grid.
+//
+// Block: 3 warpgroups. Warpgroups 0 and 1 are consumers, each owning 64
+// rows of a 128 x BN output tile (wgmma.m64nBNk16, f32 accumulators in
+// registers); one thread of warpgroup 2 is the producer, issuing the TMA
+// loads of each k step (a 128 x 64 lhs box and BN / 64 rhs boxes of
+// 64 x 64) into a ring of kStages stages with full/empty mbarriers. lhs is
+// K-major (2-D map over [n, k]), rhs MN-major (3-D map over (m, k, e): the
+// transpose bit). TMA zero-fills past n, k and m; rows of a neighbouring
+// group loaded into the tile are never stored. The epilogue goes out by
+// TMA stores from a staged copy in shared memory, so it drains while the
+// next tile's products run (stores straight from the registers took the
+// up projection from 0.165 to 0.217 ms: chip_sweeps.py gmm_epilogue, on
+// an H100 80GB HBM3 at 700 W); a warpgroup whose rows cross a
+// group boundary stores the group's rows from its registers instead.
+//
+// Work list: every block walks the group sizes once (thread 0, into
+// shared memory: clamped segment bounds and running item counts), then
+// takes work tiles t = blockIdx.x, + gridDim.x, ... of the list
+// (item, column tile), column tile fastest: the blocks of one wave share
+// an item's lhs rows and one expert's rhs, which stay in L2. An item is
+// one row tile of one group; its tile stores only the group's rows, so
+// tiles that share a row tile write disjoint rows, with no atomics.
+
+constexpr int kWM = 128;        // output rows per tile
+// output columns per tile (against 128: chip_sweeps.py gmm_tile)
+constexpr int kWN = 256;  // sweep: gmm_tile_n
+constexpr int kWK = 64;         // k per ring stage: one 128-byte box row
+constexpr int kWThreads = 384;  // consumer warpgroups 0, 1; producer 2
+// epilogue by TMA stores where a warpgroup's rows lie in one group
+// (against stores from the registers: chip_sweeps.py gmm_epilogue)
+constexpr bool kTmaStore = true;  // sweep: gmm_tma_store
+
+template <int BN>
+struct WgmmaCfg {
+  // 3 x 48 KB at BN 256, beside the 64 KB output tile: 4 would not fit
+  static constexpr int kStages = 3;
+  static constexpr int kABytes = kWM * kWK * 2;  // 16 KB lhs box
+  static constexpr int kBBox = kWK * 64 * 2;     // 8 KB: one 64-column box
+  static constexpr int kStageBytes = kABytes + (BN / 64) * kBBox;
+  static constexpr int kRingBytes = kStages * kStageBytes;
+  // the output tile staged for TMA stores: BN / 64 boxes of 128 rows x 64
+  // columns, 128-byte swizzled; warpgroup wg's rows are the box's half wg
+  static constexpr int kOutBox = kWM * 128;
+  static constexpr int kOutBytes = (BN / 64) * kOutBox;
+  static constexpr int kTileBytes = kRingBytes + kOutBytes;
+};
+
+struct WTile {
+  int tile, lo, hi, g, col0;  // row tile, the group's rows [lo, hi)
+};
+
+// work tile t of the list (item-major, column tile fastest); items[] are
+// the running item counts of the e groups (items[e] = all items)
+template <int BN>
+__device__ __forceinline__ WTile locate(int t, int n_cols, int e,
+                                        const int* seg_lo, const int* seg_hi,
+                                        const int* items) {
+  const int item = t / n_cols;
+  int lo = 0, hi = e;  // first g with items[g] > item; its group is g - 1
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (items[mid] <= item) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  const int g = lo - 1;
+  WTile w;
+  w.g = g;
+  w.lo = seg_lo[g];
+  w.hi = seg_hi[g];
+  w.tile = w.lo / kWM + (item - items[g]);
+  w.col0 = (t - item * n_cols) * BN;
+  return w;
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kWThreads, 1) gmm_wgmma_kernel(
+    const __grid_constant__ CUtensorMap lhs_map,
+    const __grid_constant__ CUtensorMap rhs_map,
+    const __grid_constant__ CUtensorMap out_map,
+    const int32_t* __restrict__ group_sizes, __nv_bfloat16* __restrict__ out,
+    int n, int k, int m, int e) {
+  using C = WgmmaCfg<BN>;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(wg_smem) + 1023) & ~uintptr_t(1023));
+  unsigned char* staged = smem + C::kRingBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kTileBytes);
+  uint64_t* empty = full + C::kStages;
+  int* seg_lo = reinterpret_cast<int*>(empty + C::kStages);
+  int* seg_hi = seg_lo + e;
+  int* items = seg_hi + e;  // e + 1 running counts
+
+  if (threadIdx.x == 0) {
+    long long start = 0;
+    int total = 0;
+    for (int g = 0; g < e; ++g) {
+      const long long size = group_sizes[g] > 0 ? group_sizes[g] : 0;
+      const int lo = (int)(start < n ? start : n);
+      const int hi = (int)(start + size < n ? start + size : n);
+      start += size;
+      seg_lo[g] = lo;
+      seg_hi[g] = hi;
+      items[g] = total;
+      if (hi > lo) total += (hi - 1) / kWM - lo / kWM + 1;
+    }
+    items[e] = total;
+    for (int s = 0; s < C::kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int n_cols = (m + BN - 1) / BN;
+  const int n_tiles = items[e] * n_cols;
+  const int ksteps = (k + kWK - 1) / kWK;
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 2) {
+    // ---- producer: one thread keeps the ring full
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      hopper::tma_prefetch(&lhs_map);
+      hopper::tma_prefetch(&rhs_map);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+        const WTile w = locate<BN>(t, n_cols, e, seg_lo, seg_hi, items);
+        for (int ks = 0; ks < ksteps; ++ks) {
+          hopper::mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* st = smem + stage * C::kStageBytes;
+          hopper::mbar_arrive_expect_tx(&full[stage], C::kStageBytes);
+          hopper::tma_load_2d(st, &lhs_map, &full[stage], ks * kWK,
+                              w.tile * kWM);
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j) {
+            hopper::tma_load_3d(st + C::kABytes + j * C::kBBox, &rhs_map,
+                                &full[stage], w.col0 + 64 * j, ks * kWK, w.g);
+          }
+          if (++stage == C::kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63
+    hopper::setmaxnreg_inc<232>();
+    const int tid = threadIdx.x & 127;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    int stage = 0;
+    uint32_t phase = 0;
+    float acc[BN / 2];
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      const WTile w = locate<BN>(t, n_cols, e, seg_lo, seg_hi, items);
+      int prev = 0;
+      for (int ks = 0; ks < ksteps; ++ks) {
+        hopper::mbar_wait(&full[stage], phase);
+        const unsigned char* a = smem + stage * C::kStageBytes + wg * 64 * 128;
+        const unsigned char* b = smem + stage * C::kStageBytes + C::kABytes;
+        hopper::fence_regs(acc);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kWK / 16; ++kk) {
+          hopper::wgmma_ss<BN, 1>(acc, hopper::desc_k_major(a + kk * 32),
+                                  hopper::desc_mn_major(b + kk * 2048,
+                                                        C::kBBox),
+                                  ks > 0 || kk > 0);
+        }
+        hopper::wgmma_commit();
+        // the previous step's products are done: release its stage
+        hopper::wgmma_wait<1>();
+        if (ks > 0 && lane == 0) hopper::mbar_arrive(&empty[prev]);
+        prev = stage;
+        if (++stage == C::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      if (lane == 0) hopper::mbar_arrive(&empty[prev]);
+
+      // this warpgroup's 64 rows of the tile. All of them in the group
+      // (rows past n included: TMA does not write them): staged in shared
+      // memory and stored by TMA, which drains while the warpgroup runs
+      // the next tile. A group boundary inside them: the group's rows
+      // only, as bf16 pairs from the registers.
+      const int base = w.tile * kWM + wg * 64;
+      const int r_lo = warp * 16 + (lane >> 2);  // this lane's two rows
+      if (kTmaStore && w.lo <= base && (w.hi >= base + 64 || w.hi == n)) {
+        // the staging rows are free once the last store has read them
+        if (tid == 0) hopper::bulk_wait_read<0>();
+        hopper::named_bar_sync(1 + wg, 128);
+        unsigned char* half = staged + wg * 64 * 128;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          // 16-byte chunk j % 8 of its 128-byte row, swizzled by row % 8
+          unsigned char* box = half + (j >> 3) * C::kOutBox;
+          const int chunk = ((j & 7) ^ (r_lo & 7)) * 16 + 4 * (lane & 3);
+          *reinterpret_cast<uint32_t*>(box + r_lo * 128 + chunk) =
+              hopper::pack_bf16(acc[4 * j], acc[4 * j + 1]);
+          *reinterpret_cast<uint32_t*>(box + (r_lo + 8) * 128 + chunk) =
+              hopper::pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+        }
+        hopper::fence_proxy_async();
+        hopper::named_bar_sync(1 + wg, 128);
+        if (tid == 0) {
+#pragma unroll
+          for (int b = 0; b < BN / 64; ++b) {
+            hopper::tma_store_2d(&out_map, half + b * C::kOutBox,
+                                 w.col0 + 64 * b, base);
+          }
+          hopper::bulk_commit();
+        }
+      } else {
+        const int r0 = max(w.lo, w.tile * kWM);
+        const int r1 = min(w.hi, w.tile * kWM + kWM);
+        const int row = base + r_lo;
+        const bool lo_ok = row >= r0 && row < r1;
+        const bool hi_ok = row + 8 >= r0 && row + 8 < r1;
+        const int cb = w.col0 + 2 * (lane & 3);
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int col = cb + 8 * j;  // even; m % 8 == 0
+          if (col < m) {
+            if (lo_ok) {
+              *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * m +
+                                                 col) =
+                  __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+            }
+            if (hi_ok) {
+              *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(row + 8) * m +
+                                                 col) =
+                  __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+            }
+          }
+        }
+      }
+    }
+    // the stores must have read shared memory before the block ends
+    if (tid == 0) hopper::bulk_wait<0>();
+  }
+}
+
+template <int BN>
+int launch_wgmma(const void* lhs, const void* rhs, const int32_t* gs,
+                 void* out, int n, int k, int m, int e, cudaStream_t stream) {
+  using C = WgmmaCfg<BN>;
+  CUtensorMap lhs_map, rhs_map;
+  const cuuint64_t l_dims[2] = {(cuuint64_t)k, (cuuint64_t)n};
+  const cuuint64_t l_strides[1] = {(cuuint64_t)k * 2};
+  const cuuint32_t l_box[2] = {64, kWM};
+  int err = hopper::encode_bf16_map(&lhs_map, lhs, 2, l_dims, l_strides,
+                                    l_box);
+  if (err) return err;
+  const cuuint64_t r_dims[3] = {(cuuint64_t)m, (cuuint64_t)k, (cuuint64_t)e};
+  const cuuint64_t r_strides[2] = {(cuuint64_t)m * 2,
+                                   (cuuint64_t)k * m * 2};
+  const cuuint32_t r_box[3] = {64, kWK, 1};
+  err = hopper::encode_bf16_map(&rhs_map, rhs, 3, r_dims, r_strides, r_box);
+  if (err) return err;
+  CUtensorMap out_map;
+  const cuuint64_t o_dims[2] = {(cuuint64_t)m, (cuuint64_t)n};
+  const cuuint64_t o_strides[1] = {(cuuint64_t)m * 2};
+  const cuuint32_t o_box[2] = {64, 64};
+  err = hopper::encode_bf16_map(&out_map, out, 2, o_dims, o_strides, o_box);
+  if (err) return err;
+  // alignment slack, the ring and the staged output, full/empty
+  // barriers, the work list
+  const int smem = 1024 + C::kTileBytes + 2 * C::kStages * 8 +
+                   (3 * e + 1) * 4;
+  auto kernel = gmm_wgmma_kernel<BN>;
+  cudaError_t cerr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (cerr != cudaSuccess) return (int)cerr;
+  // at most row tiles + e items, times the column tiles
+  const long long tiles =
+      (long long)((n + kWM - 1) / kWM + e) * ((m + BN - 1) / BN);
+  const int sms = hopper::sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  kernel<<<grid, kWThreads, smem, stream>>>(
+      lhs_map, rhs_map, out_map, gs, static_cast<__nv_bfloat16*>(out), n, k,
+      m, e);
+  return (int)cudaGetLastError();
+}
+
 template <typename R>
 int launch_bf16(const void* lhs, const void* rhs, const float* scales,
                 const int32_t* gs, void* out, int n, int k, int m, int e,
@@ -431,15 +738,24 @@ extern "C" {
 
 // lhs_dtype: 0 = float32, 1 = bfloat16 (out shares it); rhs_int8: rhs is
 // int8 with f32 scales [e, m] (else rhs has lhs's dtype and scales is
-// null).
+// null). variant: 0 = the kernel of the dtypes (f32 FMA, or mma.sync for
+// bf16 lhs); 1 = wgmma (bf16 lhs and rhs, k > 0 only).
 int grouped_matmul_launch(const void* lhs, const void* rhs,
                           const void* scales, const void* group_sizes,
                           void* out, int n, int k, int m, int e,
-                          int lhs_dtype, int rhs_int8, void* stream) {
+                          int lhs_dtype, int rhs_int8, int variant,
+                          void* stream) {
   if (n == 0 || m == 0 || e == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t* gs = static_cast<const int32_t*>(group_sizes);
   const float* sc = static_cast<const float*>(scales);
+  if (variant != 0) {
+    if (lhs_dtype != 1 || rhs_int8 || k == 0 || k % 8 || m % 8) {
+      return (int)cudaErrorInvalidValue;
+    }
+    if (variant != 1) return (int)cudaErrorInvalidValue;
+    return launch_wgmma<kWN>(lhs, rhs, gs, out, n, k, m, e, s);
+  }
   if (lhs_dtype == 0) {
     const dim3 grid((n + kFM - 1) / kFM + e, (m + kFN - 1) / kFN);
     if (rhs_int8) {

@@ -19,7 +19,11 @@ multiples of the tile.
 ``flash_attention_bwd`` launches the two kernels of
 ``csrc/flash_attention_bwd.cu`` (dq, and dk/dv) on CUDA tensors; both take
 their plain PyTorch versions (``flash_attention_ref``,
-``flash_attention_bwd_ref``) only for tensors on the CPU.
+``flash_attention_bwd_ref``) only for tensors on the CPU. The forward has
+three device kernels; ``_fwd_variant`` picks one from the dtype, head dim
+and lengths before the launch (counted per variant): "wgmma" (Hopper:
+TMA, an mbarrier ring and wgmma; bf16, d 64 or 128), "mma" (mma.sync,
+the other bf16 head dims) and "fma" (exact f32).
 """
 from __future__ import annotations
 
@@ -36,6 +40,11 @@ __all__ = [
 ]
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128, 256)
+# head dims of the wgmma forward kernel (64 or 128 values of d: one or two
+# 128-byte swizzled boxes)
+WGMMA_HEAD_DIMS = (64, 128)
+# flash_attention_fwd_launch's ``variant``: 0 is the dtype's own kernel
+_VARIANTS = {"fma": 0, "mma": 0, "wgmma": 1}
 # the backward kernels keep their f32 accumulators in registers: up to
 # d = 128 (d = 256 would not fit the f32 kernels' shared memory either)
 BWD_HEAD_DIMS = (16, 32, 64, 128)
@@ -50,7 +59,8 @@ def _kernel(name):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if name == "flash_attention":
             lib.flash_attention_fwd_launch.argtypes = [
-                vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cf, ci, ci, vp,
+                vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cf, ci, ci, ci,
+                vp,
             ]
             lib.flash_attention_fwd_launch.restype = ci
         else:
@@ -103,7 +113,8 @@ def _check_cuda(tensors, head_dims):
 
 def _aligned(t):
     """``t`` contiguous and starting on a 16-byte boundary (the bf16
-    kernels stage rows with 16-byte loads): a copy if it is not."""
+    kernels stage rows with 16-byte loads; a TMA tensor map needs its base
+    there): a copy if it is not."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -117,17 +128,38 @@ def _raise_on(err, what):
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
+def _fwd_variant(dtype, d, sq, sk):
+    """The forward's device kernel for this dtype, head dim and lengths:
+    "wgmma" for bf16 at d 64 or 128 with keys to read, "mma" for the
+    other bf16 head dims (and sk == 0, which has no tensor map), "fma"
+    for float32."""
+    if dtype == torch.float32:
+        return "fma"
+    if d in WGMMA_HEAD_DIMS and sq > 0 and sk > 0:
+        return "wgmma"
+    return "mma"
+
+
 def flash_attention_fwd(q, k, v, *, causal=True, scale=None):
     """-> (out [b, sq, h, d] in q's dtype, lse [b, h, sq] float32)."""
     _check(q, k, v)
-    b, sq, h, d = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
     if scale is None:
-        scale = 1.0 / (d ** 0.5)
+        scale = 1.0 / (q.shape[-1] ** 0.5)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, scale=scale)
     _check_cuda((q, k, v), SUPPORTED_HEAD_DIMS)
     q, k, v = (_aligned(t) for t in (q, k, v))
+    return _launch_fwd(q, k, v, causal, scale)
+
+
+def _launch_fwd(q, k, v, causal, scale, variant=None):
+    """The forward kernel on checked, aligned CUDA inputs; ``variant``
+    forces a device kernel (``chip_smoke.py`` times the wgmma and the
+    mma.sync kernels side by side), by default ``_fwd_variant``'s."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if variant is None:
+        variant = _fwd_variant(q.dtype, d, sq, sk)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = _kernel("flash_attention")
@@ -135,10 +167,11 @@ def flash_attention_fwd(q, k, v, *, causal=True, scale=None):
         err = lib.flash_attention_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, h, hkv, sq, sk, d, float(scale),
-            int(bool(causal)), _DTYPES[q.dtype], _stream(q.device),
+            int(bool(causal)), _DTYPES[q.dtype], _VARIANTS[variant],
+            _stream(q.device),
         )
-    _raise_on(err, "flash_attention")
-    _build.count_launch("flash_attention")
+    _raise_on(err, f"flash_attention ({variant})")
+    _build.count_launch("flash_attention", variant)
     return out, lse
 
 

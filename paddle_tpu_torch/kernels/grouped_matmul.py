@@ -15,7 +15,11 @@ expert's contribution is scaled per column, ``(x @ q) * scale``, which is
 ``grouped_matmul`` launches ``csrc/grouped_matmul.cu`` on CUDA tensors
 (counted as ``grouped_matmul``, and ``grouped_matmul_quant`` for int8
 rhs) and takes the plain PyTorch version ``grouped_matmul_ref`` only for
-tensors on the CPU. The float path is differentiable through
+tensors on the CPU. Which device kernel serves is decided from the
+dtypes and shapes before the launch (``_gmm_variant``, counted per
+variant): bf16 lhs with bf16 rhs runs the wgmma/TMA kernel (the mma.sync
+kernel below 2^25 multiply-adds), int8 rhs the mma.sync kernel, f32 lhs
+the FMA kernel. The float path is differentiable through
 ``GroupedMatmulFunction``, the counterpart of the JAX custom VJP: the
 JAX backward has no kernel (it runs the fallback's contraction), so here
 ``dlhs`` is the forward on ``rhs`` transposed over the same segments and
@@ -41,6 +45,16 @@ from .flash_attention import _aligned
 __all__ = ["grouped_matmul", "grouped_matmul_ref", "GroupedMatmulFunction"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# device kernels of grouped_matmul_launch's ``variant`` argument: 0 picks
+# the dtypes' own kernel (f32 FMA, or mma.sync for bf16 lhs)
+_VARIANTS = {"fma": 0, "mma": 0, "wgmma": 1}
+# the measured crossover in multiply-adds (n k m). Below it the mma.sync
+# kernel is ahead: by 8-9 % at n 512 x k 128 x m 256 (16.8M) and x k 136 x
+# m 200 (13.9M), 12 % at the JAX sweeps' n 32 x k 24 x m 40; from n 512 x
+# k 256 x m 256 (2^25) up the wgmma kernel is: by 2 % there, 15 % at 50M,
+# 35 % at 134M. Medians of two turns of chip_sweeps.py gmm_crossover on an
+# NVIDIA H100 80GB HBM3 at 700 W.
+WGMMA_MIN_MACS = 1 << 25
 _lib = None
 
 
@@ -50,7 +64,7 @@ def _kernel():
         lib = _build.load("grouped_matmul")
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.grouped_matmul_launch.argtypes = [
-            vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp,
+            vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp,
         ]
         lib.grouped_matmul_launch.restype = ci
         _lib = lib
@@ -76,8 +90,24 @@ def _check(lhs, rhs, group_sizes, rhs_scales):
         )
 
 
-def _launch(lhs, rhs, group_sizes, rhs_scales):
-    """The kernel on checked CUDA inputs -> [n, m] in lhs's dtype."""
+def _gmm_variant(lhs_dtype, rhs_dtype, n, k, m):
+    """The device kernel for these dtypes and shapes: "wgmma" (Hopper:
+    TMA, an mbarrier ring, wgmma) for bf16 lhs and rhs with at least
+    ``WGMMA_MIN_MACS`` multiply-adds (so k > 0); "mma" (mma.sync) for the
+    other bf16 lhs (int8 rhs, small or k == 0 products); "fma" for f32
+    lhs. bf16 shapes off the gate (k or m not a multiple of 8) are
+    refused by ``_launch`` before this is asked."""
+    if lhs_dtype == torch.float32:
+        return "fma"
+    if rhs_dtype == torch.bfloat16 and n * k * m >= WGMMA_MIN_MACS:
+        return "wgmma"
+    return "mma"
+
+
+def _launch(lhs, rhs, group_sizes, rhs_scales, variant=None):
+    """The kernel on checked CUDA inputs -> [n, m] in lhs's dtype.
+    ``variant`` forces a device kernel (``chip_smoke.py`` times them side
+    by side); by default ``_gmm_variant`` picks it."""
     dtype = _DTYPES.get(lhs.dtype)
     quant = rhs_scales is not None
     if dtype is None:
@@ -111,7 +141,10 @@ def _launch(lhs, rhs, group_sizes, rhs_scales):
             f"grouped_matmul kernel: bf16 needs k % 8 == 0 and m % 8 == 0, "
             f"got k {k}, m {m}"
         )
-    # whole 16-byte (int8: 8-byte) vectors from the start of each tensor
+    if variant is None:
+        variant = _gmm_variant(lhs.dtype, rhs.dtype, n, k, m)
+    # whole 16-byte (int8: 8-byte) vectors from the start of each tensor;
+    # TMA also needs its base on 16 bytes
     lhs, rhs = _aligned(lhs), _aligned(rhs)
     gs = group_sizes.to(torch.int32).contiguous()
     scales = rhs_scales.float().contiguous() if quant else None
@@ -122,12 +155,14 @@ def _launch(lhs, rhs, group_sizes, rhs_scales):
             lhs.data_ptr(), rhs.data_ptr(),
             scales.data_ptr() if quant else None, gs.data_ptr(),
             out.data_ptr(), n, k, m, e, dtype, int(quant),
+            _VARIANTS[variant],
             torch.cuda.current_stream(lhs.device).cuda_stream,
         )
     name = "grouped_matmul_quant" if quant else "grouped_matmul"
     if err:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    _build.count_launch(name)
+        raise RuntimeError(
+            f"{name} ({variant}) kernel launch failed: CUDA error {err}")
+    _build.count_launch(name, variant)
     return out
 
 

@@ -21,7 +21,11 @@ from paddle_tpu.kernels.pallas import paged_attention as jpa
 from paddle_tpu.ops.impl.nn_ops import (
     scaled_dot_product_attention as jax_sdpa,
 )
-from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+from paddle_tpu_torch.kernels import (
+    launch_counts,
+    reset_launch_counts,
+    variant_counts,
+)
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import paged_attention as pa
 from paddle_tpu_torch.ops import scaled_dot_product_attention as port_sdpa
@@ -280,3 +284,67 @@ def test_flash_function_gradcheck_float64():
         lambda q, k, v: fa.flash_attention(q, k, v, causal=True),
         (q, k, v), eps=1e-6, atol=1e-7, rtol=1e-5,
     )
+
+
+# the device kernel the forward wrapper picks, before the launch
+@pytest.mark.parametrize("dtype,d,sq,sk,want", [
+    (torch.bfloat16, 128, 1024, 1024, "wgmma"),   # the training shape
+    (torch.bfloat16, 128, 2048, 2048, "wgmma"),
+    (torch.bfloat16, 64, 512, 512, "wgmma"),      # GQA d 64
+    (torch.bfloat16, 128, 100, 100, "wgmma"),     # ragged: masked tail
+    (torch.bfloat16, 128, 7, 300, "wgmma"),       # sq != sk (full)
+    (torch.bfloat16, 16, 128, 128, "mma"),
+    (torch.bfloat16, 32, 128, 128, "mma"),
+    (torch.bfloat16, 256, 1024, 1024, "mma"),
+    (torch.bfloat16, 128, 5, 0, "mma"),           # no keys: no tensor map
+    (torch.float32, 128, 1024, 1024, "fma"),
+    (torch.float32, 64, 100, 100, "fma"),
+    (torch.float32, 16, 8, 8, "fma"),
+])
+def test_fwd_variant(dtype, d, sq, sk, want):
+    assert fa._fwd_variant(dtype, d, sq, sk) == want
+    assert want in fa._VARIANTS
+
+
+@pytest.mark.parametrize("d", fa.WGMMA_HEAD_DIMS)
+def test_forward_wrapper_plain_on_cpu_at_wgmma_shapes(d):
+    # bf16 at a head dim the card would run on the wgmma kernel: on the
+    # CPU the wrapper still returns the plain version, launching nothing
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+               for x in _qkv(41, 1, 33, 4, d, hkv=2))
+    assert fa._fwd_variant(q.dtype, d, 33, 33) == "wgmma"
+    reset_launch_counts()
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    ref, ref_lse = fa.flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=0)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert set(launch_counts().values()) == {0}
+    assert variant_counts() == {}
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_ref_matches_jax_kernel_at_wgmma_head_dims(causal, d):
+    # the head dims of the wgmma kernel (one and two 64-wide boxes), JAX
+    # forward kernel in interpret mode with 16 x 16 blocks
+    q, k, v = _qkv(100 + d, 1, 32, 2, d)
+    out, lse = fa.flash_attention_ref(*_t(q, k, v), causal=causal)
+    jout = jfa.flash_attention(*map(jnp.asarray, (q, k, v)), causal=causal,
+                               block_q=16, block_k=16)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), **TOL)
+    merge = lambda x: jnp.swapaxes(jnp.asarray(x), 1, 2).reshape(2, 32, d)
+    _, jlse = jfa._flash_fwd(merge(q), merge(k), merge(v), d ** -0.5,
+                             causal, 16, 16)
+    np.testing.assert_allclose(
+        lse.numpy().reshape(2, 32), np.asarray(jlse)[:, 0, :], **TOL
+    )
+
+
+def test_flash_ref_ragged_gqa_at_d64_matches_math_sdpa():
+    # the kernel phase's GQA d 64 case, at a ragged length (masked tail)
+    q, k, v = _qkv(110, 1, 45, 8, 64, hkv=2)
+    out, _ = fa.flash_attention_ref(*_t(q, k, v), causal=True)
+    ref = jax_sdpa(jnp.asarray(q), jnp.repeat(jnp.asarray(k), 4, axis=2),
+                   jnp.repeat(jnp.asarray(v), 4, axis=2), is_causal=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)

@@ -42,7 +42,11 @@ from paddle_tpu.models.llama import LlamaConfig as JaxLlamaConfig
 from paddle_tpu.models.llama import LlamaForCausalLM as JaxLlama
 from paddle_tpu_torch import ops as TF
 from paddle_tpu_torch.incubate import MoELayer, TopKGate
-from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+from paddle_tpu_torch.kernels import (
+    launch_counts,
+    reset_launch_counts,
+    variant_counts,
+)
 from paddle_tpu_torch.kernels import grouped_matmul as gmm
 from paddle_tpu_torch.models import (
     LlamaConfig,
@@ -212,6 +216,63 @@ def test_grouped_matmul_checks_shapes():
     with pytest.raises(ValueError, match="rhs_scales"):
         gmm.grouped_matmul(torch.from_numpy(lhs), torch.from_numpy(rhs),
                            torch.from_numpy(gsa), torch.ones(2, 3))
+
+
+# the device kernel the grouped GEMM wrapper picks, before the launch
+BF, F32, I8 = torch.bfloat16, torch.float32, torch.int8
+
+
+@pytest.mark.parametrize("lhs,rhs,n,k,m,want", [
+    (BF, BF, 16384, 1024, 2816, "wgmma"),   # the MoE layer's up projection
+    (BF, BF, 16384, 2816, 1024, "wgmma"),   # and down
+    (BF, BF, 512, 1024, 256, "wgmma"),      # 2^27 multiply-adds
+    (BF, BF, 1024, 32, 1024, "wgmma"),      # exactly 2^25
+    (BF, BF, 1023, 32, 1024, "mma"),        # one row fewer: latency-bound
+    (BF, BF, 506, 136, 200, "mma"),
+    (BF, BF, 32, 24, 40, "mma"),            # the JAX sweeps
+    (BF, BF, 16384, 0, 2816, "mma"),        # k == 0: zeros, no ring
+    (BF, I8, 16384, 1024, 2816, "mma"),     # int8 rhs keeps mma.sync
+    (BF, I8, 32, 24, 40, "mma"),
+    (F32, F32, 16384, 1024, 2816, "fma"),
+    (F32, I8, 32, 24, 40, "fma"),
+    (F32, F32, 7, 3, 5, "fma"),             # f32 takes any k and m
+])
+def test_gmm_variant(lhs, rhs, n, k, m, want):
+    assert gmm._gmm_variant(lhs, rhs, n, k, m) == want
+    assert want in gmm._VARIANTS
+
+
+def test_grouped_matmul_plain_on_cpu_at_a_wgmma_shape():
+    # bf16 at a shape the card would run on the wgmma kernel: the CPU
+    # wrapper returns the plain version and launches nothing
+    rng = np.random.RandomState(8)
+    gs = torch.tensor([300, 0, 500, 224], dtype=torch.int32)
+    lhs = torch.from_numpy(rng.randn(1024, 32).astype(np.float32)).to(BF)
+    rhs = torch.from_numpy(rng.randn(4, 32, 1024).astype(np.float32)).to(BF)
+    assert gmm._gmm_variant(lhs.dtype, rhs.dtype, 1024, 32, 1024) == "wgmma"
+    reset_launch_counts()
+    out = gmm.grouped_matmul(lhs, rhs, gs)
+    torch.testing.assert_close(out, gmm.grouped_matmul_ref(lhs, rhs, gs),
+                               rtol=0, atol=0)
+    assert out.dtype == BF and out.shape == (1024, 1024)
+    assert set(launch_counts().values()) == {0}
+    assert variant_counts() == {}
+
+
+@pytest.mark.parametrize("gs", [[0, 37, 0, 90], [45, 0, 83, 0]],
+                         ids=["ragged_n", "empty_groups"])
+def test_grouped_matmul_ref_matches_jax_at_wgmma_box_widths(gs):
+    # k 64 and m 128: one k box and two 64-column boxes of the wgmma
+    # kernel's tile; n = 127 and 128 rows with empty leading, interior
+    # and trailing groups
+    lhs, rhs, gsa = _gmm_case(gs, seed=9, k=64, m=128)
+    out = _np(gmm.grouped_matmul(*map(torch.from_numpy, (lhs, rhs, gsa))))
+    jargs = tuple(map(jnp.asarray, (lhs, rhs, gsa)))
+    np.testing.assert_allclose(
+        out, np.asarray(jgmm.grouped_matmul_xla(*jargs)), **GMM_TOL)
+    np.testing.assert_allclose(
+        out, np.asarray(jgmm.grouped_matmul(*jargs, impl="pallas")),
+        **GMM_TOL)
 
 
 # ---------------------------------------------------------------- layer
