@@ -15,8 +15,9 @@ Phases, in order; any failure exits non-zero:
                in the working dtype, at the serving and training shapes
                and the ones listed below; kernel, plain and library times
                from CUDA events, and the bound for the same work. Where a
-               wrapper chooses among device kernels (the flash forward:
-               wgmma or mma.sync; the grouped GEMM: wgmma or mma.sync),
+               wrapper chooses among device kernels (the flash forward
+               and backward: wgmma or mma.sync; the grouped GEMM: wgmma
+               or mma.sync),
                every one that takes the inputs is held to the gate and
                timed side by side through the same host path (mean and
                median of 20 launches each); ``ms`` is the wrapper's own
@@ -24,7 +25,8 @@ Phases, in order; any failure exits non-zero:
                mma.sync (or FMA) kernel that served these shapes before
                the wgmma kernels. The
                gate (``GATE``) must also reject two planted faults of
-               the backward at the training shape. The int8 paged kernel
+               the backward at the training shape (a wrong ``out``, from
+               which the wgmma dq kernel computes delta). The int8 paged kernel
                also stays within 0.05 of the float kernel on the
                unquantized pages; the grouped GEMM runs at the MoE
                layer's shapes, the JAX sweeps of empty and one-row
@@ -52,8 +54,10 @@ Phases, in order; any failure exits non-zero:
                parameter's gradient against the same step with plain
                attention, then 14 ``TrainStep`` steps (1 + 3 warm-up + 10
                timed) with 12 forward, 12 dq and 12 dk/dv flash launches
-               per step, one profiled step, 2 steps with ``recompute`` and
-               1 step without the fused loss.
+               per step, all on the wgmma kernels (``attention_delta``
+               never runs: the dq kernel computes delta), one profiled
+               step, 2 steps with ``recompute`` and 1 step without the
+               fused loss.
 8. moe      — ``bench.py``'s MoE layer (``bench_kernels``: d_model 1024,
                8 experts, d_ff 2816, top-2, 8 x 1024 tokens, bf16):
                ``impl="ragged"`` runs 3 grouped GEMM launches and agrees
@@ -523,9 +527,18 @@ def flash_case(torch, fa, flush, s, dtype=None, h=16, d=128, b=1,
 
 def flash_bwd_case(torch, fa, flush, name, s, dtype=None, h=16, hkv=None,
                    d=128, b=1, causal=True, offset=0):
-    """Both backward kernels against ``flash_attention_bwd_ref`` on the
+    """The backward kernels against ``flash_attention_bwd_ref`` on the
     forward kernel's out and lse; ``offset`` > 0 starts every input that
-    many elements into its buffer (off the 16-byte grid)."""
+    many elements into its buffer (off the 16-byte grid). ``ms`` is the
+    wrapper's call (``flash_attention_bwd``: its aligning copies, delta
+    and both kernels of the design ``_bwd_variant`` picks), the mean of
+    20, as every ``ms``; ``median_ms`` its median. Every design that takes
+    the inputs (bf16 at d 64 or 128: the wgmma kernels and the mma.sync
+    kernels) is held to the gate and timed side by side through the
+    wrapper's own steps (``fa._bwd``: ``variants``), and each kernel alone
+    on aligned inputs (``dq_ms``, ``dkv_ms`` and their medians: the wgmma
+    dq kernel computes delta, the mma.sync one reads it); ``prev_ms`` is
+    the dtype's design before the wgmma kernels."""
     import torch.nn.functional as F
 
     dtype = dtype or torch.bfloat16
@@ -541,23 +554,42 @@ def flash_bwd_case(torch, fa, flush, name, s, dtype=None, h=16, hkv=None,
     q, k, v, do = make(h), make(hkv), make(hkv), make(h)
     scale = 1.0 / d ** 0.5
     out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    variant = fa._bwd_variant(dtype, d, s, s)
+    prev = "fma" if dtype == torch.float32 else "mma"
+    kinds = [variant, prev] if variant != prev else [variant]
     grads = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
     refs = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal)
     torch.cuda.synchronize()
-    gate = {}
-    for gname, got, ref in zip(("dq", "dk", "dv"), grads, refs):
-        ok, gate[gname] = compare(got, ref)
-        check(ok, f"flash_attention_bwd {name}: {gname} {gate[gname]} "
-                  f"outside the gate")
-    # per-kernel times on the aligned inputs the wrapper hands them
-    qa, ka, va, da = (fa._aligned(t) for t in (q, k, v, do))
-    delta = fa.attention_delta(out, da)
-    dq_ms = cuda_ms(torch, lambda: fa._launch_bwd_dq(
-        qa, ka, va, da, lse, delta, causal, scale), 20, flush)
-    dkv_ms = cuda_ms(torch, lambda: fa._launch_bwd_dkv(
-        qa, ka, va, da, lse, delta, causal, scale), 20, flush)
-    ms = cuda_ms(torch, lambda: fa.flash_attention_bwd(
+
+    def held(vname, got):
+        gate = {}
+        for gname, x, ref in zip(("dq", "dk", "dv"), got, refs):
+            ok, gate[gname] = compare(x, ref)
+            check(ok, f"flash_attention_bwd {name} ({vname}): {gname} "
+                      f"{gate[gname]} outside the gate")
+        return {"gate": gate, "max_abs_err": {
+            gn: st["max_abs_err"] for gn, st in gate.items()}}
+
+    stats = held(variant, grads)
+    ms, median_ms = cuda_times(torch, lambda: fa.flash_attention_bwd(
         q, k, v, out, lse, do, causal=causal), 20, flush)
+    qa, ka, va, oa, da = (fa._aligned(t) for t in (q, k, v, out, do))
+    variants = _timed_variants(
+        torch, held, kinds,
+        lambda vn: fa._bwd(qa, ka, va, oa, lse, da, causal, scale, vn),
+        flush, 20)
+    for vn in kinds:
+        # each kernel alone; the dk/dv kernel on the delta of a dq launch
+        delta = fa._delta(oa, da, vn)
+        fa._launch_bwd_dq(qa, ka, va, da, oa, lse, delta, causal, scale, vn)
+        t = variants[vn]
+        t["dq_ms"], t["dq_median_ms"] = cuda_times(
+            torch, lambda: fa._launch_bwd_dq(qa, ka, va, da, oa, lse, delta,
+                                             causal, scale, vn), 20, flush)
+        t["dkv_ms"], t["dkv_median_ms"] = cuda_times(
+            torch, lambda: fa._launch_bwd_dkv(qa, ka, va, da, lse, delta,
+                                              causal, scale, vn), 20, flush)
+        t["kernel_median_ms"] = t["dq_median_ms"] + t["dkv_median_ms"]
     plain_ms = cuda_ms(torch, lambda: fa.flash_attention_bwd_ref(
         q, k, v, out, lse, do, causal=causal), 5, flush)
     # yardstick: PyTorch's own attention backward (never called by the
@@ -585,9 +617,12 @@ def flash_bwd_case(torch, fa, flush, name, s, dtype=None, h=16, hkv=None,
     case = {
         "case": name, "dtype": str(dtype).split(".")[-1], "batch": b,
         "heads": h, "kv_heads": hkv, "d": d, "seq": s, "causal": causal,
-        "offset": offset, "gate": gate,
-        "max_abs_err": {g: st["max_abs_err"] for g, st in gate.items()},
-        "ms": ms, "dq_ms": dq_ms, "dkv_ms": dkv_ms, "plain_ms": plain_ms,
+        "offset": offset, "variant": variant, **stats,
+        "ms": ms, "median_ms": median_ms,
+        "dq_ms": variants[variant]["dq_ms"],
+        "dkv_ms": variants[variant]["dkv_ms"],
+        "prev_ms": variants[prev]["ms"], "variants": variants,
+        "plain_ms": plain_ms,
         "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
         "dq_bound_ms": dq_b, "dq_bound_by": dq_by, "dkv_bound_ms": dkv_b,
         "dkv_bound_by": dkv_by, "flops": 5 * prod,
@@ -598,28 +633,26 @@ def flash_bwd_case(torch, fa, flush, name, s, dtype=None, h=16, hkv=None,
 
 def gate_faults(torch, fa, s=TRAIN_SEQ, b=TRAIN_BATCH, h=16, d=128):
     """``GATE`` must reject a bf16 backward with a planted fault, at the
-    training shape. Both kernels run on a wrong delta: "no_delta" on
-    delta = 0 (dS = P dP scale), "late_delta" on delta x 0.9 in the second
-    half of the rows only, a fault that changes each late gradient by a
+    training shape. The wrapper runs on a wrong ``out``, from which the
+    dq kernel computes delta: "no_delta" on out = 0 (delta = 0, dS = P dP
+    scale), "late_delta" on out x 0.9 in the second half of the rows only
+    (delta 10 % off there), a fault that changes each late gradient by a
     few ulps of its own (``FIXED_BOUND`` lets its dk through). dq and dk
     must fail; dv, which does not read delta, and the correct run must
     pass. Returns what the gate read on each."""
     g = torch.Generator(device="cuda").manual_seed(7)
     q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda")
                    .to(torch.bfloat16) for _ in range(4))
-    scale = d ** -0.5
     out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
     refs = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=True)
-    delta = fa.attention_delta(out, do)
-    late = delta.clone()
-    late[..., s // 2:] *= 0.9
+    late = out.clone()
+    late[:, s // 2:] *= 0.9
     changed = {"none": (), "no_delta": ("dq", "dk"),
                "late_delta": ("dq", "dk")}
     result = {}
-    for fault, dl in (("none", delta), ("no_delta", torch.zeros_like(delta)),
-                      ("late_delta", late)):
-        got = (fa._launch_bwd_dq(q, k, v, do, lse, dl, True, scale),
-               *fa._launch_bwd_dkv(q, k, v, do, lse, dl, True, scale))
+    for fault, o in (("none", out), ("no_delta", torch.zeros_like(out)),
+                     ("late_delta", late)):
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
         for gname, x, ref in zip(("dq", "dk", "dv"), got, refs):
             ok, stats = compare(x, ref)
             result[f"{fault}.{gname}"] = dict(stats, gate_ok=ok)
@@ -668,10 +701,14 @@ def phase_kernels(torch):
     bwd += [
         flash_bwd_case(torch, fa, flush, "train", TRAIN_SEQ, b=TRAIN_BATCH),
         flash_bwd_case(torch, fa, flush, "gqa", 512, h=32, hkv=4, d=64),
+        flash_bwd_case(torch, fa, flush, "d64", 512, d=64),
         flash_bwd_case(torch, fa, flush, "full", 128, causal=False),
         flash_bwd_case(torch, fa, flush, "ragged", 100),
+        flash_bwd_case(torch, fa, flush, "ragged_gqa_d64", 100, h=32, hkv=4,
+                       d=64),
         flash_bwd_case(torch, fa, flush, "ragged_full", 100, causal=False),
         flash_bwd_case(torch, fa, flush, "unaligned", 100, offset=1),
+        flash_bwd_case(torch, fa, flush, "d32", 128, d=32),   # mma.sync
         flash_bwd_case(torch, fa, flush, "f32", 100, dtype=torch.float32),
     ]
     for c in paged + flash:
@@ -936,6 +973,24 @@ FLASH = ("flash_attention", "flash_attention_bwd_dq",
          "flash_attention_bwd_dkv")
 
 
+@contextlib.contextmanager
+def counted(module, name):
+    """Inside: calls of ``module.<name>`` are counted into the yielded
+    one-element list."""
+    calls = [0]
+    real = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        calls[0] += 1
+        return real(*args, **kwargs)
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
 def _flash_counts(counts):
     return {n: counts[n] for n in FLASH}
 
@@ -1113,22 +1168,28 @@ def phase_train(torch):
         f"{rel[worst]:.3g} ({worst}), median "
         f"{float(np.median(list(rel.values()))):.3g}")
 
-    # 1 first step + 3 warm-up + 10 timed, one launch count over all 14
+    # 1 first step + 3 warm-up + 10 timed, one launch count over all 14;
+    # the wgmma dq kernel computes delta, so attention_delta never runs
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
-    t0 = time.perf_counter()
-    losses = [step(ids)]
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    losses += [step(ids) for _ in range(3)]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    losses += [step(ids) for _ in range(10)]
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / 10 * 1e3
+    with counted(fa, "attention_delta") as delta_calls:
+        t0 = time.perf_counter()
+        losses = [step(ids)]
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        losses += [step(ids) for _ in range(3)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [step(ids) for _ in range(10)]
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / 10 * 1e3
     counts = _flash_counts(_build.launch_counts())
     variant_counts = _build.variant_counts()
+    check(delta_calls[0] == 0 and all(
+        variant_counts.get(f"{n}/wgmma") == 14 * L for n in FLASH),
+        f"train: attention_delta ran {delta_calls[0]} times, launches by "
+        f"design {variant_counts}: want every flash launch on wgmma")
     peak = torch.cuda.max_memory_allocated()
     losses = [x.item() for x in losses]
     check(all(np.isfinite(losses)), f"train: non-finite loss {losses}")
@@ -1527,8 +1588,10 @@ def main(argv=None):
             f"{time.perf_counter() - t0:.1f}s")
         report["build"] = {}
         for name, text in _build.build_logs().items():
+            # each kernel's name (mangled), then its spills and registers
             lines = [line.strip() for line in text.splitlines()
-                     if "registers" in line or "spill" in line]
+                     if "entry function" in line or "registers" in line
+                     or "spill" in line]
             report["build"][name] = lines
             for line in lines:
                 log(f"[build] {name}: {line}")
@@ -1561,10 +1624,10 @@ def main(argv=None):
             # inputs, run and host path: reported, not gated (the small
             # cases are ~0.01 ms), by the mean and by the median, and by
             # the median of the kernels alone (the unaligned flash case
-            # without its copies)
+            # without its copies; the backward's dq plus dk/dv kernels)
             for stat in ("ms", "median_ms", "kernel_median_ms"):
                 slower = {}
-                for c in flash + gmm + gmm_quant:
+                for c in flash + bwd + gmm + gmm_quant:
                     now, was = (
                         c["variants"][x].get(stat,
                                              c["variants"][x]["median_ms"])
@@ -1649,27 +1712,48 @@ def main(argv=None):
                 for v, case in (("wgmma", head), ("mma", head),
                                 ("fma", f32))],
         })
-        # the training shape; plain and library times are of the whole
-        # backward (dq, dk and dv), the function both kernels make up
+        # the training shape, on the wrapper's choice (wgmma), the
+        # mma.sync kernels there as prev_ms; each kernel alone (the wgmma
+        # dq kernel with delta), plain and library times of the whole
+        # backward (dq, dk and dv), the function both kernels make up;
+        # "variants" lists every design (the f32 FMA one at its own case)
         head = next(c for c in bwd if c["case"] == "train")
+        f32 = next(c for c in bwd if c["dtype"] == "float32")
         for part, line in (("dq", 138), ("dkv", 191)):
-            errs = [c["max_abs_err"][g] for c in bwd
-                    for g in (("dq",) if part == "dq" else ("dk", "dv"))]
+            grads = ("dq",) if part == "dq" else ("dk", "dv")
+            name = f"flash_attention_bwd_{part}"
             kernels.append({
-                "name": f"flash_attention_bwd_{part}", "route": "cuda",
+                "name": name, "route": "cuda",
                 "source":
                     "paddle_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
                 "replaces":
                     f"paddle_tpu/kernels/pallas/flash_attention.py:{line}",
-                **launches(f"flash_attention_bwd_{part}"),
-                "max_abs_err": max(errs),
-                "ms": head[f"{part}_ms"], "plain_ms": head["plain_ms"],
+                **launches(name),
+                "max_abs_err": max(c["max_abs_err"][g] for c in bwd
+                                   for g in grads),
+                "variant": head["variant"], "ms": head[f"{part}_ms"],
+                "median_ms": head["variants"][head["variant"]][
+                    f"{part}_median_ms"],
+                "prev_ms": head["variants"]["mma"][f"{part}_ms"],
+                "plain_ms": head["plain_ms"],
                 "bound_ms": head[f"{part}_bound_ms"],
                 "bound_by": head[f"{part}_bound_by"],
                 "library_ms": head["library_ms"],
                 "shape": f"b{TRAIN_BATCH} h16 d128 s{TRAIN_SEQ} causal",
                 "backward_ms": head["ms"],
+                "backward_median_ms": head["median_ms"],
+                "backward_prev_ms": head["prev_ms"],
                 "backward_bound_ms": head["bound_ms"],
+                "variants": [{
+                    "variant": v, **launches(f"{name}/{v}"),
+                    "max_abs_err": max(c["variants"][v]["max_abs_err"][g]
+                                       for c in bwd if v in c["variants"]
+                                       for g in grads),
+                    "ms": case["variants"][v][f"{part}_ms"],
+                    "median_ms": case["variants"][v][f"{part}_median_ms"],
+                    "shape": case["case"]}
+                    for v, case in (("wgmma", head), ("mma", head),
+                                    ("fma", f32))],
             })
         head = quant[0]
         kernels.append({

@@ -25,6 +25,11 @@ Sweeps:
   (the heaviest query tiles of every head first), at the training shape
   and at shapes whose K and V fit in L2;
 * ``flash_stages``: its K/V ring at 2 and 3 stages (d 128);
+* ``flash_bwd_stages``: the flash backward's dk/dv ring (Q/dO tiles) at
+  2 and 3 stages (the dq ring has room for 2 only at d 128);
+* ``flash_bwd_tile``: its tiles: the dk/dv query-tile height at 128
+  where it is 64 (d 128: more registers) and the dq key-tile width at 64
+  against 128, timed through ``_bwd`` (delta and both kernels);
 * ``gmm_tile``: the grouped GEMM's output tile 128 x 256
   (wgmma.m64n256k16) against 128 x 128;
 * ``gmm_epilogue``: the grouped GEMM's output through a TMA store from
@@ -64,6 +69,15 @@ SWEEPS = {
         "stages_2": {},
         "stages_3": {"flash_stages": "3"},
     }),
+    "flash_bwd_stages": ("flash_attention_bwd", {
+        "stages_2": {},
+        "stages_3": {"flash_bwd_stages": "3"},
+    }),
+    "flash_bwd_tile": ("flash_attention_bwd", {
+        "as_built": {},
+        "dkv_rows_128": {"flash_bwd_dkv_rows": "128"},
+        "dq_keys_64": {"flash_bwd_dq_keys": "64"},
+    }),
     "gmm_tile": ("grouped_matmul", {
         "n256": {},
         "n128": {"gmm_tile_n": "128"},
@@ -79,6 +93,12 @@ FLASH_SHAPES = [  # b, s, h, hkv, d, causal
     (1, 2048, 16, 16, 128, True),
     (2, 1024, 16, 16, 128, True),
     (4, 4096, 16, 16, 128, False),
+    (1, 512, 32, 4, 64, True),
+]
+BWD_SHAPES = [  # b, s, h, hkv, d, causal
+    (12, 1024, 16, 16, 128, True),   # the training shape
+    (1, 2048, 16, 16, 128, True),
+    (1, 512, 16, 16, 64, True),
     (1, 512, 32, 4, 64, True),
 ]
 # name, tokens routed top-2 over 8 experts (n = 2 tokens; 0: the JAX
@@ -172,6 +192,25 @@ def child(kind, csrc, build, shapes):
             out[name] = cs.cuda_times(torch, lambda: fa._launch_fwd(
                 q, k, v, causal, d ** -0.5, "wgmma"), 20, flush)
         return out
+    if kind == "flash_attention_bwd":
+        from paddle_tpu_torch.kernels import flash_attention as fa
+
+        for b, s, h, hkv, d, causal in shapes:
+            g = torch.Generator(device="cuda").manual_seed(s)
+            q, k, v, do = (torch.randn(b, s, heads, d, generator=g,
+                                       device="cuda").bfloat16()
+                           for heads in (h, hkv, hkv, h))
+            o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+            refs = fa.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                              causal=causal)
+            got = fa._bwd(q, k, v, o, lse, do, causal, d ** -0.5, "wgmma")
+            assert all(cs.compare(x, r)[0] for x, r in zip(got, refs)), \
+                "gate"
+            del refs, got
+            name = f"b{b}_s{s}_h{h}x{hkv}_d{d}" + ("" if causal else "_full")
+            out[name] = cs.cuda_times(torch, lambda: fa._bwd(
+                q, k, v, o, lse, do, causal, d ** -0.5, "wgmma"), 20, flush)
+        return out
     from paddle_tpu_torch.kernels import grouped_matmul as gk
 
     for name, tokens, k, m, variants in shapes:
@@ -238,7 +277,8 @@ def main(argv=None):
                       flush=True)
             continue
         kind, variants = SWEEPS[sweep]
-        shapes = FLASH_SHAPES if kind == "flash_attention" else GMM_SHAPES
+        shapes = {"flash_attention": FLASH_SHAPES,
+                  "flash_attention_bwd": BWD_SHAPES}.get(kind, GMM_SHAPES)
         if sweep == "flash_stages":
             shapes = [x for x in shapes if x[4] == 128]
         for turn in range(2):

@@ -19,30 +19,37 @@
 // masked.
 //
 // Two kernels, as in the TPU version:
-//  * dq:  one block per (b * heads, 64-row query tile); it walks the key
-//         tiles up to the diagonal and accumulates dq in f32 registers.
-//  * dkv: one block per (b * kv_heads, 64-key tile); it walks, for every
+//  * dq:  one block per (b * heads, query tile); it walks the key tiles
+//         up to the diagonal and accumulates dq in f32 registers.
+//  * dkv: one block per (b * kv_heads, key tile); it walks, for every
 //         query head of the group, the query tiles at or below the
 //         diagonal and accumulates dk and dv in f32 registers.
 // Each kernel recomputes S and dP for its own tiles, so together they
-// run seven s x s x d products where the least work is five.
+// run seven s x s x d products where the least work is five: the price
+// of keeping dq out of atomics (a single kernel would sum dq across key
+// tiles in f32 by atomics and convert it in a third pass, and lose
+// run-to-run determinism).
 //
 // What bounds it on an H100: at the training shapes (s = 1024, d = 128)
-// the products dominate, so it is bound by operations; the design keeps
-// every s x s tile (S, P, dP, dS) in registers or shared memory and reads
-// each q, k, v and dout element once per tile pair. Per dtype:
-//  * bf16 (*_tc kernels): mma.sync.m16n8k16 on the tensor cores (bf16 in,
-//    f32 accumulate), with the fragment layouts and 16-byte staging of
-//    flash_attention.cu. Every operand fragment read from shared memory
-//    comes through ldmatrix (.trans for the B operands of the second
-//    products, whose tiles hold k along their rows). P and dS go from
-//    the first products' accumulators to the second products' A
-//    operands in registers, rounded to bf16 only there; every
-//    accumulator is f32. The s x s work is done 32 columns at a time to
-//    keep the f32 accumulators of dk and dv (or dq) in registers at
-//    d = 128. Not yet wgmma/TMA: it stays below the card's bf16 peak.
-//    q, k, v and dout must start on a 16-byte boundary (the Python
-//    wrapper copies any that do not).
+// the products dominate, so it is bound by operations; the designs keep
+// every s x s tile (S, P, dP, dS) in registers and read each q, k, v and
+// dout element once per tile pair. Three designs, by dtype and head dim
+// (the launch functions' `variant`):
+//  * bf16, d 64 and 128 (*_wgmma kernels, variant 1): Hopper's wgmma fed
+//    by TMA through an mbarrier ring, a producer thread and two consumer
+//    warpgroups; the dq kernel also computes delta. See the section
+//    "bf16 on Hopper" below.
+//  * bf16, d 16 and 32, and every bf16 call of variant 0 (*_tc kernels,
+//    the design every bf16 call ran before the wgmma kernels; kept at d
+//    64 and 128 as their yardstick): mma.sync.m16n8k16 on the tensor
+//    cores (bf16 in, f32 accumulate), with the fragment layouts and
+//    16-byte staging of flash_attention.cu. Every operand fragment read
+//    from shared memory comes through ldmatrix (.trans for the B operands
+//    of the second products, whose tiles hold k along their rows). P and
+//    dS go from the first products' accumulators to the second products'
+//    A operands in registers, rounded to bf16 only there. The s x s work
+//    is done 32 columns at a time. q, k, v and dout must start on a
+//    16-byte boundary (the Python wrapper copies any that do not).
 //  * f32: exact FMAs from shared memory (rows padded by one float), 256
 //    threads in a 16 x 16 grid, each owning a 4 x 4 block of the 64 x 64
 //    score tile and a 4 x (d / 16) block of its accumulators.
@@ -55,6 +62,8 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -739,6 +748,693 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dkv_tc_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on Hopper, d in {64, 128}: wgmma fed by TMA through mbarrier rings
+// (hopper.cuh), as the forward's flash_fwd_wgmma_kernel.
+//
+// Both kernels: warpgroups 0 and 1 are consumers, each owning 64 rows of
+// the block's 128 (query rows for dq, keys for dk/dv). Tiles are read
+// with 4-D tensor maps over (d, heads, seq, batch) of the [b, s, h, d]
+// layout, 64-wide boxes along d (two at d = 128): a box never crosses a
+// batch, rows past the sequence read as zeros, and the TMA stores of dq,
+// dk and dv clip them. Every accumulator is f32; P and dS are rounded to
+// bf16 only as the register A operand of the second products (two
+// adjacent n8 column blocks of an accumulator are one k16 A fragment).
+// Scores run in base 2: P = 2^(S scale log2e - lse log2e), one FMA and
+// one ex2. The softmax scale of dS is applied once, to dq and dk at the
+// end.
+//
+//  * flash_bwd_dq_wgmma_kernel: one block per (b * heads, 128 query
+//    rows). Q and dO are loaded once; K and V tiles of kBK keys stream
+//    through a ring of kDqStages stages. Prologue: each consumer lane
+//    reads its two rows of O and dO from device memory (a quarter of d
+//    each, summed over the quad) and computes delta = rowsum(dO O) in
+//    f32; it keeps it in registers and writes it, beside lse in base 2
+//    (+inf where a row has no mass or lies past sq), to the rows buffer
+//    the dk/dv kernel reads next on the stream. Per key tile:
+//      S  = Q K^T, dP = dO V^T   wgmma, A and B from shared memory, both
+//                                 K-major (d contiguous);
+//      dS = P (dP - delta)       in registers, masked only on the causal
+//                                 diagonal and the ragged key tail;
+//      dq += dS K                 register A, B = K MN-major (the
+//                                 transpose bit).
+//    A warpgroup computes up to its own last causal key tile.
+//  * flash_bwd_dkv_wgmma_kernel: one block per (b * kv_heads, 128 keys).
+//    K and V stay in shared memory; the Q and dO tiles of kBM query rows
+//    of every query head of the GQA group stream through a ring of
+//    kDkvStages stages, each with its rows' (lse, delta) pairs (one bulk
+//    copy). Per query tile:
+//      S^T = K Q^T, dP^T = V dO^T   shared-memory A and B, K-major, so
+//                                   that P^T and dS^T land in the
+//                                   accumulator layout wgmma takes as A;
+//      dV += P^T dO, dK += dS^T Q   register A, B = dO and Q MN-major.
+//    The group sum stays in the registers: no atomics, deterministic.
+//    Keys past sk compute what the store then clips.
+// Both have 256 threads, the two consumer warpgroups; thread 0 also
+// issues every TMA load, a ring's tiles one stage ahead of the
+// consumers.
+//
+// Block order: the heaviest causal blocks first (the last query tiles for
+// dq, the first key tiles for dk/dv), inside chunks of (batch, head)
+// pairs whose streamed operands (K and V for dq; Q and dO of a group for
+// dk/dv) take ~8 MB, as the forward orders its blocks: the tiles in
+// flight stay in L2.
+//
+// Registers: ptxas gives a thread at most 65536 / (block threads rounded
+// up to whole warpgroups) registers, setmaxnreg.inc notwithstanding: 168
+// with a producer warp or warpgroup beside the consumers, 255 without.
+// The dq consumer holds S and dP (64 each at 128 keys), dq (64) and dS;
+// a dk/dv consumer dK and dV (128 at d 128) beside S^T and dP^T (32 each
+// at kBM = 64): held to 168 it spilled ~800 bytes. A product left in flight while
+// other registers are computed made ptxas serialize every wgmma (its
+// warning C7515), so each product is waited for before the registers it
+// feeds are touched; the other warpgroup's products fill the tensor
+// cores meanwhile.
+
+constexpr int kHRows = 128;  // rows of a block: dq's queries, dk/dv's keys
+constexpr float kLog2e = 1.4426950408889634f;
+// both kernels: consumer warpgroups 0 and 1 only, thread 0 also issuing
+// the loads, so that ptxas gives each thread up to 255 registers (see
+// "Registers" above)
+constexpr int kBwdThreads = 256;
+// depth of the dq kernel's K/V ring: two 64 KB stages at d 128 beside Q
+// and dO (a third would not fit)
+constexpr int kDqStages = 2;
+// depth of the dk/dv kernel's Q/dO ring
+constexpr int kDkvStages = 2;  // sweep: flash_bwd_stages
+static_assert(kDqStages >= 2 && kDkvStages >= 2,
+              "thread 0 loads a ring's tiles one stage ahead");
+
+template <int D>
+struct DqCfg {
+  static constexpr int kBoxes = D / 64;  // 64-wide boxes along d
+  // keys per K/V tile: S, dP and dq take 64 + 64 + 64 registers a thread
+  // at d 128
+  static constexpr int kBK = 128;  // sweep: flash_bwd_dq_keys
+  static constexpr int kQBox = kHRows * 128;  // bytes of a [128][64] box
+  static constexpr int kKBox = kBK * 128;
+  static constexpr int kQBytes = kBoxes * kQBox;  // Q (and dO)
+  static constexpr int kKBytes = kBoxes * kKBox;  // one K (or V) tile
+  static constexpr int kStageBytes = 2 * kKBytes;  // K, then V
+  static constexpr int kTiles = 2 * kQBytes + kDqStages * kStageBytes;
+  // alignment slack, tiles, q_full + full/empty per stage
+  static constexpr int kSmem = 1024 + kTiles + (1 + 2 * kDqStages) * 8;
+};
+
+template <int D>
+struct DkvCfg {
+  static constexpr int kBoxes = D / 64;
+  // query rows per Q/dO tile: the n of S^T and dP^T, the k of dV and dK
+  // (chip_sweeps.py flash_bwd_tile: 128 rows cost 17 % at d 128, where
+  // S^T and dP^T would take 128 registers, and gain 8 % with GQA at d 64)
+  static constexpr int kBM = D == 128 ? 64 : 128;  // sweep: flash_bwd_dkv_rows
+  static constexpr int kKBox = kHRows * 128;
+  static constexpr int kKBytes = kBoxes * kKBox;  // K (or V)
+  static constexpr int kQBox = kBM * 128;
+  static constexpr int kQBytes = kBoxes * kQBox;  // one Q (or dO) tile
+  static constexpr int kStageBytes = 2 * kQBytes;  // Q, then dO
+  static constexpr int kRowBytes = kBM * 8;  // (lse base 2, delta) a row
+  static constexpr int kTiles = 2 * kKBytes + kDkvStages * kStageBytes;
+  // alignment slack, tiles, rows per stage, kv_full + full/empty
+  static constexpr int kSmem =
+      1024 + kTiles + kDkvStages * kRowBytes + (1 + 2 * kDkvStages) * 8;
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// lse in base 2 for the scores' exponent; +inf (no probability mass) for
+// a row whose every key is masked (lse = -inf) or past the sequence
+__device__ __forceinline__ float row_lse2(const float* lse, size_t base,
+                                          int row, int n) {
+  if (row >= n) return INFINITY;
+  const float x = lse[base + row];
+  return x == -INFINITY ? INFINITY : x * kLog2e;
+}
+
+// sum over part `part` (of 4) of d of a[row] * b[row], in f32; 0 past n
+template <int D>
+__device__ __forceinline__ float row_dot(const __nv_bfloat16* a,
+                                         const __nv_bfloat16* b, size_t base,
+                                         size_t stride, int row, int n,
+                                         int part) {
+  if (row >= n) return 0.f;
+  constexpr int kPart = D / 4;
+  const size_t at = base + (size_t)row * stride + part * kPart;
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < kPart; i += 8) {
+    const uint4 x = *reinterpret_cast<const uint4*>(a + at + i);
+    const uint4 y = *reinterpret_cast<const uint4*>(b + at + i);
+    const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
+    const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 xf = __bfloat1622float2(xp[e]);
+      const float2 yf = __bfloat1622float2(yp[e]);
+      acc = fmaf(xf.x, yf.x, acc);
+      acc = fmaf(xf.y, yf.y, acc);
+    }
+  }
+  return acc;
+}
+
+// the block's (batch x head, row tile) in the order described above:
+// chunk c of `chunk` heads, and inside it tile level `level` of every
+// head before level + 1 (level 0 is the heaviest)
+struct BlockSlot {
+  int head, level;
+};
+__device__ __forceinline__ BlockSlot block_slot(int n_tiles, int n_heads,
+                                                int chunk) {
+  const int c = (int)(blockIdx.x / ((unsigned)chunk * n_tiles));
+  const int r = (int)(blockIdx.x - (unsigned)c * chunk * n_tiles);
+  const int in_chunk = min(chunk, n_heads - c * chunk);
+  return {c * chunk + r % in_chunk, r / in_chunk};
+}
+
+// a warpgroup's 64 rows of an f32 accumulator [64 x D], times `mul`, as
+// bf16 into the rows of `half` (its 64 rows inside boxes of `box_bytes`
+// each, 128-byte swizzled as TMA reads them), then stored by TMA
+// to coordinates (., c1, c2, c3) of `map`; the warpgroup's thread 0
+// waits until the store has read shared memory
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
+                                           float mul, unsigned char* half,
+                                           int box_bytes,
+                                           const CUtensorMap* map, int c1,
+                                           int c2, int c3, int wg) {
+  const int tid = threadIdx.x & 127;
+  const int lane = tid & 31;
+  const int r = (tid >> 5) * 16 + (lane >> 2);  // rows r and r + 8
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    // 16-byte chunk j % 8 of its 128-byte row, swizzled by row % 8
+    unsigned char* box = half + (j >> 3) * box_bytes;
+    const int chunk = ((j & 7) ^ (r & 7)) * 16 + 4 * (lane & 3);
+    *reinterpret_cast<uint32_t*>(box + r * 128 + chunk) =
+        hopper::pack_bf16(acc[4 * j] * mul, acc[4 * j + 1] * mul);
+    *reinterpret_cast<uint32_t*>(box + (r + 8) * 128 + chunk) =
+        hopper::pack_bf16(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
+  }
+  hopper::fence_proxy_async();
+  hopper::named_bar_sync(1 + wg, 128);
+  if (tid == 0) {
+#pragma unroll
+    for (int b = 0; b < D / 64; ++b) {
+      hopper::tma_store_4d(map, half + b * box_bytes, 64 * b, c1, c2, c3);
+    }
+    hopper::bulk_commit();
+    hopper::bulk_wait<0>();
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dq_wgmma_kernel(
+    const __grid_constant__ CUtensorMap q_map,
+    const __grid_constant__ CUtensorMap do_map,
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map,
+    const __grid_constant__ CUtensorMap dq_map,
+    const __nv_bfloat16* __restrict__ out,
+    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+    float2* __restrict__ rows, int heads, int kv_heads, int sq, int sk,
+    float scale, int causal, int n_bh, int chunk) {
+  using C = DqCfg<D>;
+  constexpr int BK = C::kBK;
+  extern __shared__ __align__(1024) unsigned char dq_smem[];
+  unsigned char* q_s = align1024(dq_smem);
+  unsigned char* do_s = q_s + C::kQBytes;
+  unsigned char* ring = do_s + C::kQBytes;  // per stage: K tile, V tile
+  uint64_t* q_full =
+      reinterpret_cast<uint64_t*>(ring + kDqStages * C::kStageBytes);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kDqStages;
+
+  const int n_qt = (sq + kHRows - 1) / kHRows;
+  const BlockSlot slot = block_slot(n_qt, n_bh, chunk);
+  const int bh = slot.head;
+  const int q0 = (n_qt - 1 - slot.level) * kHRows;  // last tiles first
+  const int bi = bh / heads;
+  const int hh = bh - bi * heads;
+  const int kvh = hh / (heads / kv_heads);
+  const int k_end = causal ? min(sk, q0 + kHRows) : sk;
+  const int n_kt = (k_end + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+
+  // thread 0 also produces: K and V tile t into ring stage t % kDqStages,
+  // once both warpgroups have released the tile that stage held before
+  auto load_tile = [&](int t) {
+    const int st = t % kDqStages;
+    hopper::mbar_wait(&empty[st], ((t / kDqStages) & 1) ^ 1);
+    hopper::mbar_arrive_expect_tx(&full[st], C::kStageBytes);
+    unsigned char* kb = ring + st * C::kStageBytes;
+#pragma unroll
+    for (int j = 0; j < C::kBoxes; ++j) {
+      hopper::tma_load_4d(kb + j * C::kKBox, &k_map, &full[st], 64 * j, kvh,
+                          t * BK, bi);
+      hopper::tma_load_4d(kb + C::kKBytes + j * C::kKBox, &v_map, &full[st],
+                          64 * j, kvh, t * BK, bi);
+    }
+  };
+  if (threadIdx.x == 0) {
+    hopper::mbar_arrive_expect_tx(q_full, 2 * C::kQBytes);
+#pragma unroll
+    for (int j = 0; j < C::kBoxes; ++j) {
+      hopper::tma_load_4d(q_s + j * C::kQBox, &q_map, q_full, 64 * j, hh, q0,
+                          bi);
+      hopper::tma_load_4d(do_s + j * C::kQBox, &do_map, q_full, 64 * j, hh,
+                          q0, bi);
+    }
+    for (int t = 0; t < kDqStages - 1 && t < n_kt; ++t) load_tile(t);
+  }
+
+  // ---- consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
+  const int tid = threadIdx.x & 127;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const float sl2 = scale * kLog2e;
+  const int r_lo = q0 + wg * 64 + warp * 16 + (lane >> 2);  // this lane's
+  const int r_hi = r_lo + 8;                                // two rows
+
+  // delta = rowsum(dO O), while the producer's first loads are in flight;
+  // it leaves beside lse in base 2 for the dk/dv kernel, one (lse, delta)
+  // pair a row, every row of the block (past sq: +inf and 0)
+  const size_t row_stride = (size_t)heads * D;
+  const size_t base = (size_t)bi * sq * row_stride + (size_t)hh * D;
+  float dl_lo = row_dot<D>(out, dout, base, row_stride, r_lo, sq, lane & 3);
+  float dl_hi = row_dot<D>(out, dout, base, row_stride, r_hi, sq, lane & 3);
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    dl_lo += __shfl_xor_sync(0xffffffffu, dl_lo, x);
+    dl_hi += __shfl_xor_sync(0xffffffffu, dl_hi, x);
+  }
+  const float l_lo = row_lse2(lse, (size_t)bh * sq, r_lo, sq);
+  const float l_hi = row_lse2(lse, (size_t)bh * sq, r_hi, sq);
+  if ((lane & 3) == 0) {
+    float2* rw = rows + (size_t)bh * n_qt * kHRows;
+    rw[r_lo] = make_float2(l_lo, dl_lo);
+    rw[r_hi] = make_float2(l_hi, dl_hi);
+  }
+
+  const unsigned char* q_wg = q_s + wg * 64 * 128;
+  const unsigned char* do_wg = do_s + wg * 64 * 128;
+  // causal: this warpgroup's rows see keys up to q0 + 64 wg + 63
+  const int wg_end = causal ? min(sk, q0 + wg * 64 + 64) : sk;
+  const int wg_kt = (wg_end + BK - 1) / BK;
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+  // per key tile: S and dP, dS in registers, dq += dS K, each product
+  // waited for before the next step (see "Registers" above)
+  // every warpgroup waits for, and releases, each of the block's tiles,
+  // computing on those its rows see
+  hopper::mbar_wait(q_full, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    if (threadIdx.x == 0 && kt + kDqStages - 1 < n_kt) {
+      load_tile(kt + kDqStages - 1);
+    }
+    hopper::mbar_wait(&full[stage], phase);
+    if (kt >= wg_kt) {
+      if (lane == 0) hopper::mbar_arrive(&empty[stage]);
+      if (++stage == kDqStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+      continue;
+    }
+    const unsigned char* kb = ring + stage * C::kStageBytes;
+    const unsigned char* vb = kb + C::kKBytes;
+    float s[BK / 2], dp[BK / 2];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int off = (kk >> 2) * C::kQBox + (kk & 3) * 32;
+      const int koff = (kk >> 2) * C::kKBox + (kk & 3) * 32;
+      hopper::wgmma_ss<BK, 0>(s, hopper::desc_k_major(q_wg + off),
+                              hopper::desc_k_major(kb + koff), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int off = (kk >> 2) * C::kQBox + (kk & 3) * 32;
+      const int koff = (kk >> 2) * C::kKBox + (kk & 3) * 32;
+      hopper::wgmma_ss<BK, 0>(dp, hopper::desc_k_major(do_wg + off),
+                              hopper::desc_k_major(vb + koff), kk > 0);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+
+    // dS = P (dP - delta) as bf16 A fragments; only the ragged key tail
+    // and the causal diagonal are masked
+    const int k0 = kt * BK;
+    const bool edge =
+        k0 + BK > sk || (causal && k0 + BK - 1 > q0 + wg * 64);
+    uint32_t ds[BK / 16][4];
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks) {
+      float x[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        // elements 0, 1, 4, 5 are row lo; 2, 3, 6, 7 row hi
+        const bool hi = (e & 2) != 0;
+        float p = fast_exp2(fmaf(s[8 * ks + e], sl2, hi ? -l_hi : -l_lo));
+        if (edge) {
+          const int col = k0 + 16 * ks + 8 * (e >> 2) + 2 * (lane & 3) +
+                          (e & 1);
+          if (col >= sk || (causal && col > (hi ? r_hi : r_lo))) p = 0.f;
+        }
+        x[e] = p * (dp[8 * ks + e] - (hi ? dl_hi : dl_lo));
+      }
+      ds[ks][0] = hopper::pack_bf16(x[0], x[1]);
+      ds[ks][1] = hopper::pack_bf16(x[2], x[3]);
+      ds[ks][2] = hopper::pack_bf16(x[4], x[5]);
+      ds[ks][3] = hopper::pack_bf16(x[6], x[7]);
+    }
+
+    hopper::fence_regs(dq);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks) {
+      hopper::wgmma_rs<D, 1>(dq, ds[ks],
+                             hopper::desc_mn_major(kb + ks * 2048, C::kKBox),
+                             1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dq);
+    if (lane == 0) hopper::mbar_arrive(&empty[stage]);
+    if (++stage == kDqStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  // dq scale, through this warpgroup's rows of the Q tile (its last
+  // reader was this warpgroup's last S product)
+  store_rows<D>(dq, scale, q_s + wg * 64 * 128, C::kQBox, &dq_map, hh,
+                q0 + wg * 64, bi, wg);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dkv_wgmma_kernel(
+    const __grid_constant__ CUtensorMap q_map,
+    const __grid_constant__ CUtensorMap do_map,
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map,
+    const __grid_constant__ CUtensorMap dk_map,
+    const __grid_constant__ CUtensorMap dv_map,
+    const float2* __restrict__ rows, int heads, int kv_heads, int sq,
+    int sk, float scale, int causal, int n_bkv, int chunk) {
+  using C = DkvCfg<D>;
+  constexpr int BM = C::kBM;
+  extern __shared__ __align__(1024) unsigned char dkv_smem[];
+  unsigned char* k_s = align1024(dkv_smem);
+  unsigned char* v_s = k_s + C::kKBytes;
+  unsigned char* ring = v_s + C::kKBytes;  // per stage: Q tile, dO tile
+  float2* rows_s =
+      reinterpret_cast<float2*>(ring + kDkvStages * C::kStageBytes);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(rows_s + kDkvStages * BM);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kDkvStages;
+
+  const int n_kt = (sk + kHRows - 1) / kHRows;
+  const BlockSlot slot = block_slot(n_kt, n_bkv, chunk);
+  const int bkv = slot.head;
+  const int k0 = slot.level * kHRows;  // first key tiles first
+  const int bi = bkv / kv_heads;
+  const int kvh = bkv - bi * kv_heads;
+  const int group = heads / kv_heads;
+  const int sq_pad = (sq + kHRows - 1) / kHRows * kHRows;  // rows' length
+  // causal: the queries that see a key of this block start at k0
+  const int q_first = causal ? k0 / BM * BM : 0;
+  const int n_qt = q_first < sq ? (sq - q_first + BM - 1) / BM : 0;
+  const int n_tiles = group * n_qt;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < kDkvStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // thread 0 also produces: tile t (of the group's query heads, then of
+  // their query tiles) into ring stage t % kDkvStages, once both
+  // warpgroups have released the tile that stage held before
+  auto load_tile = [&](int t) {
+    const int st = t % kDkvStages;
+    hopper::mbar_wait(&empty[st], ((t / kDkvStages) & 1) ^ 1);
+    const int hh = kvh * group + t / n_qt;
+    const int qs = q_first + (t % n_qt) * BM;
+    hopper::mbar_arrive_expect_tx(&full[st],
+                                  C::kStageBytes + C::kRowBytes);
+    unsigned char* qb = ring + st * C::kStageBytes;
+#pragma unroll
+    for (int j = 0; j < C::kBoxes; ++j) {
+      hopper::tma_load_4d(qb + j * C::kQBox, &q_map, &full[st], 64 * j, hh,
+                          qs, bi);
+      hopper::tma_load_4d(qb + C::kQBytes + j * C::kQBox, &do_map,
+                          &full[st], 64 * j, hh, qs, bi);
+    }
+    hopper::bulk_load(rows_s + st * BM,
+                      rows + ((size_t)bi * heads + hh) * sq_pad + qs,
+                      C::kRowBytes, &full[st]);
+  };
+  if (threadIdx.x == 0) {
+    hopper::mbar_arrive_expect_tx(kv_full, 2 * C::kKBytes);
+#pragma unroll
+    for (int j = 0; j < C::kBoxes; ++j) {
+      hopper::tma_load_4d(k_s + j * C::kKBox, &k_map, kv_full, 64 * j, kvh,
+                          k0, bi);
+      hopper::tma_load_4d(v_s + j * C::kKBox, &v_map, kv_full, 64 * j, kvh,
+                          k0, bi);
+    }
+    for (int t = 0; t < kDkvStages - 1 && t < n_tiles; ++t) load_tile(t);
+  }
+
+  // ---- consumers: warpgroup wg owns keys k0 + 64 wg .. + 63
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x & 127;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const float sl2 = scale * kLog2e;
+  const int k_wg = k0 + wg * 64;
+  const int kr_lo = k_wg + warp * 16 + (lane >> 2);  // this lane's keys
+  const int kr_hi = kr_lo + 8;
+  const unsigned char* k_wg_s = k_s + wg * 64 * 128;
+  const unsigned char* v_wg_s = v_s + wg * 64 * 128;
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  hopper::mbar_wait(kv_full, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int it = 0; it < n_tiles; ++it) {
+    if (threadIdx.x == 0 && it + kDkvStages - 1 < n_tiles) {
+      load_tile(it + kDkvStages - 1);
+    }
+    const int qs = q_first + (it % n_qt) * BM;
+    hopper::mbar_wait(&full[stage], phase);
+    // causal: a tile whose every query precedes these keys adds nothing
+    if (!causal || qs + BM - 1 >= k_wg) {
+      const unsigned char* qb = ring + stage * C::kStageBytes;
+      const unsigned char* dob = qb + C::kQBytes;
+      const float2* rw = rows_s + stage * BM;
+      float st[BM / 2], dpt[BM / 2];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int aoff = (kk >> 2) * C::kKBox + (kk & 3) * 32;
+        const int boff = (kk >> 2) * C::kQBox + (kk & 3) * 32;
+        hopper::wgmma_ss<BM, 0>(st, hopper::desc_k_major(k_wg_s + aoff),
+                                hopper::desc_k_major(qb + boff), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int aoff = (kk >> 2) * C::kKBox + (kk & 3) * 32;
+        const int boff = (kk >> 2) * C::kQBox + (kk & 3) * 32;
+        hopper::wgmma_ss<BM, 0>(dpt, hopper::desc_k_major(v_wg_s + aoff),
+                                hopper::desc_k_major(dob + boff), kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(st);
+      hopper::fence_regs(dpt);
+
+      // P^T and dS^T as bf16 A fragments; the causal mask only where
+      // some query of the tile precedes some key of the warpgroup
+      const bool edge = causal && qs < k_wg + 63;
+      uint32_t pt[BM / 16][4], dst[BM / 16][4];
+#pragma unroll
+      for (int ks = 0; ks < BM / 16; ++ks) {
+        float x[8], y[8];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // columns (queries) 16 ks + 8 h + 2 (lane % 4) + {0, 1}: their
+          // (lse, delta) pairs
+          const int col = 16 * ks + 8 * h + 2 * (lane & 3);
+          const float4 ld = *reinterpret_cast<const float4*>(rw + col);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            // element e: 0, 1 key lo; 2, 3 key hi
+            const int i = 8 * ks + 4 * h + e;
+            float p = fast_exp2(fmaf(st[i], sl2, (e & 1) ? -ld.z : -ld.x));
+            if (edge && qs + col + (e & 1) < ((e & 2) ? kr_hi : kr_lo)) {
+              p = 0.f;
+            }
+            x[4 * h + e] = p;
+            y[4 * h + e] = p * (dpt[i] - ((e & 1) ? ld.w : ld.y));
+          }
+        }
+        pt[ks][0] = hopper::pack_bf16(x[0], x[1]);
+        pt[ks][1] = hopper::pack_bf16(x[2], x[3]);
+        pt[ks][2] = hopper::pack_bf16(x[4], x[5]);
+        pt[ks][3] = hopper::pack_bf16(x[6], x[7]);
+        dst[ks][0] = hopper::pack_bf16(y[0], y[1]);
+        dst[ks][1] = hopper::pack_bf16(y[2], y[3]);
+        dst[ks][2] = hopper::pack_bf16(y[4], y[5]);
+        dst[ks][3] = hopper::pack_bf16(y[6], y[7]);
+      }
+
+      hopper::fence_regs(dv);
+      hopper::fence_regs(dk);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < BM / 16; ++ks) {
+        hopper::wgmma_rs<D, 1>(
+            dv, pt[ks], hopper::desc_mn_major(dob + ks * 2048, C::kQBox), 1);
+      }
+#pragma unroll
+      for (int ks = 0; ks < BM / 16; ++ks) {
+        hopper::wgmma_rs<D, 1>(
+            dk, dst[ks], hopper::desc_mn_major(qb + ks * 2048, C::kQBox), 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dv);
+      hopper::fence_regs(dk);
+    }
+    if (lane == 0) hopper::mbar_arrive(&empty[stage]);
+    if (++stage == kDkvStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  // dk scale and dv, through this warpgroup's rows of K and V
+  store_rows<D>(dk, scale, k_s + wg * 64 * 128, C::kKBox, &dk_map, kvh,
+                k_wg, bi, wg);
+  store_rows<D>(dv, 1.f, v_s + wg * 64 * 128, C::kKBox, &dv_map, kvh, k_wg,
+                bi, wg);
+}
+
+// a bf16 [batch, seq, heads, D] tensor map with boxes of `rows` x 64
+template <int D>
+int seq_map(CUtensorMap* map, const void* base, int batch, int seq,
+            int heads, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)seq, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)seq * heads * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  return hopper::encode_bf16_map(map, base, 4, dims, strides, box);
+}
+
+// (batch, head) pairs per chunk of the block order, as the forward's:
+// one chunk where every head's streamed operands (`per_head` bytes each)
+// fit in 24 MB, else chunks of ~8 MB
+inline int chunk_heads(long long per_head, int n_heads) {
+  const long long chunk = per_head * n_heads <= (24LL << 20)
+                              ? n_heads : (8LL << 20) / per_head;
+  return (int)(chunk < 1 ? 1 : chunk > n_heads ? n_heads : chunk);
+}
+
+template <int D>
+int launch_dq_wgmma(const void* q, const void* k, const void* v,
+                    const void* dout, const void* out, const float* lse,
+                    float2* rows, void* dq, int batch, int heads,
+                    int kv_heads, int sq, int sk, float scale, int causal,
+                    cudaStream_t stream) {
+  using C = DqCfg<D>;
+  CUtensorMap q_map, do_map, k_map, v_map, dq_map;
+  int err = seq_map<D>(&q_map, q, batch, sq, heads, kHRows);
+  if (!err) err = seq_map<D>(&do_map, dout, batch, sq, heads, kHRows);
+  if (!err) err = seq_map<D>(&k_map, k, batch, sk, kv_heads, C::kBK);
+  if (!err) err = seq_map<D>(&v_map, v, batch, sk, kv_heads, C::kBK);
+  if (!err) err = seq_map<D>(&dq_map, dq, batch, sq, heads, 64);
+  if (err) return err;
+  auto kernel = flash_bwd_dq_wgmma_kernel<D>;
+  const cudaError_t cerr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (cerr != cudaSuccess) return (int)cerr;
+  const int n_bh = batch * heads;
+  // K and V of a query head (a GQA group shares them), 2 bytes each
+  const int chunk = chunk_heads(4LL * sk * D / (heads / kv_heads) + 1, n_bh);
+  const long long blocks = (long long)((sq + kHRows - 1) / kHRows) * n_bh;
+  kernel<<<(unsigned)blocks, kBwdThreads, C::kSmem, stream>>>(
+      q_map, do_map, k_map, v_map, dq_map,
+      static_cast<const __nv_bfloat16*>(out),
+      static_cast<const __nv_bfloat16*>(dout), lse, rows, heads, kv_heads,
+      sq, sk, scale, causal, n_bh, chunk);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dkv_wgmma(const void* q, const void* k, const void* v,
+                     const void* dout, const float2* rows, void* dk,
+                     void* dv, int batch, int heads, int kv_heads, int sq,
+                     int sk, float scale, int causal, cudaStream_t stream) {
+  using C = DkvCfg<D>;
+  CUtensorMap q_map, do_map, k_map, v_map, dk_map, dv_map;
+  int err = seq_map<D>(&q_map, q, batch, sq, heads, C::kBM);
+  if (!err) err = seq_map<D>(&do_map, dout, batch, sq, heads, C::kBM);
+  if (!err) err = seq_map<D>(&k_map, k, batch, sk, kv_heads, kHRows);
+  if (!err) err = seq_map<D>(&v_map, v, batch, sk, kv_heads, kHRows);
+  if (!err) err = seq_map<D>(&dk_map, dk, batch, sk, kv_heads, 64);
+  if (!err) err = seq_map<D>(&dv_map, dv, batch, sk, kv_heads, 64);
+  if (err) return err;
+  auto kernel = flash_bwd_dkv_wgmma_kernel<D>;
+  const cudaError_t cerr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (cerr != cudaSuccess) return (int)cerr;
+  const int n_bkv = batch * kv_heads;
+  // Q and dO of every query head of a kv head's group, 2 bytes each
+  const int chunk =
+      chunk_heads(4LL * sq * D * (heads / kv_heads) + 1, n_bkv);
+  const long long blocks = (long long)((sk + kHRows - 1) / kHRows) * n_bkv;
+  kernel<<<(unsigned)blocks, kBwdThreads, C::kSmem, stream>>>(
+      q_map, do_map, k_map, v_map, dk_map, dv_map, rows, heads, kv_heads,
+      sq, sk, scale, causal, n_bkv, chunk);
+  return (int)cudaGetLastError();
+}
+
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(
@@ -813,21 +1509,43 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout and the gradients share
-// it); lse and delta are float32 [batch, heads, sq]. bf16 q, k, v and dout
-// must start on a 16-byte boundary (the caller copies them if not).
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout, out and the gradients
+// share it); lse is float32 [batch, heads, sq]. bf16 q, k, v, dout and
+// out must start on a 16-byte boundary (the caller copies them if not).
+// variant: 0 = the kernels of the dtype (f32 FMA, or mma.sync for bf16),
+// which read delta = rowsum(dout * out) from `delta`, float32 [batch,
+// heads, sq]; 1 = the Hopper wgmma/TMA kernels (bf16, d 64 or 128, sq
+// and sk > 0): `delta` is then float32 [batch * heads, sq_pad, 2], sq_pad
+// = sq rounded up to 128, which the dq kernel fills with (lse log2(e),
+// delta) pairs (computing delta from out and dout) for the dk/dv kernel,
+// launched after it on the same stream.
 int flash_attention_bwd_dq_launch(const void* q, const void* k,
                                   const void* v, const void* dout,
-                                  const void* lse, const void* delta,
-                                  void* dq, int batch, int heads,
-                                  int kv_heads, int sq, int sk, int d,
-                                  float scale, int causal, int dtype,
-                                  void* stream) {
+                                  const void* out, const void* lse,
+                                  void* delta, void* dq, int batch,
+                                  int heads, int kv_heads, int sq, int sk,
+                                  int d, float scale, int causal, int dtype,
+                                  int variant, void* stream) {
   if (batch == 0 || sq == 0) return 0;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
+  float* dl = static_cast<float*>(delta);
+  if (variant != 0) {
+    if (variant != 1 || dtype != 1 || sk == 0) {
+      return (int)cudaErrorInvalidValue;
+    }
+    float2* rows = static_cast<float2*>(delta);
+    if (d == 64) {
+      return launch_dq_wgmma<64>(q, k, v, dout, out, l, rows, dq, batch,
+                                 heads, kv_heads, sq, sk, scale, causal, s);
+    }
+    if (d == 128) {
+      return launch_dq_wgmma<128>(q, k, v, dout, out, l, rows, dq, batch,
+                                  heads, kv_heads, sq, sk, scale, causal, s);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   switch (d) {
     case 16:
       return launch_dq<16>(q, k, v, dout, l, dl, dq, batch, heads, kv_heads,
@@ -852,12 +1570,27 @@ int flash_attention_bwd_dkv_launch(const void* q, const void* k,
                                    void* dk, void* dv, int batch, int heads,
                                    int kv_heads, int sq, int sk, int d,
                                    float scale, int causal, int dtype,
-                                   void* stream) {
+                                   int variant, void* stream) {
   if (batch == 0 || sk == 0) return 0;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
+  if (variant != 0) {
+    if (variant != 1 || dtype != 1 || sq == 0) {
+      return (int)cudaErrorInvalidValue;
+    }
+    const float2* rows = static_cast<const float2*>(delta);
+    if (d == 64) {
+      return launch_dkv_wgmma<64>(q, k, v, dout, rows, dk, dv, batch, heads,
+                                  kv_heads, sq, sk, scale, causal, s);
+    }
+    if (d == 128) {
+      return launch_dkv_wgmma<128>(q, k, v, dout, rows, dk, dv, batch,
+                                   heads, kv_heads, sq, sk, scale, causal, s);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   switch (d) {
     case 16:
       return launch_dkv<16>(q, k, v, dout, l, dl, dk, dv, batch, heads,

@@ -108,6 +108,18 @@ __device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
                :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
+// `bytes` contiguous bytes from global src into shared memory at dst,
+// completing on bar (both addresses and bytes multiples of 16)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+         "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // one box of a tensor map into shared memory at dst, completing on bar;
 // coordinates innermost first, in elements, and may lie out of bounds
 // (those elements read as zeros)
@@ -156,6 +168,16 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
       "[%0, {%2, %3}], [%1];\n"
       :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)),
          "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 __device__ __forceinline__ void bulk_commit() {
@@ -238,6 +260,28 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B from shared memory
+template <int TransB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TransB));
 }
 
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B from shared memory
@@ -390,10 +434,12 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
 template <int N, int TransB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
                                          uint64_t b, int scale_d) {
-  if constexpr (N == 128) {
+  if constexpr (N == 64) {
+    wgmma_ss_n64<TransB>(d, a, b, scale_d);
+  } else if constexpr (N == 128) {
     wgmma_ss_n128<TransB>(d, a, b, scale_d);
   } else {
-    static_assert(N == 256, "wgmma_ss: N is 128 or 256");
+    static_assert(N == 256, "wgmma_ss: N is 64, 128 or 256");
     wgmma_ss_n256<TransB>(d, a, b, scale_d);
   }
 }

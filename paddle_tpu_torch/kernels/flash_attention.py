@@ -19,11 +19,13 @@ multiples of the tile.
 ``flash_attention_bwd`` launches the two kernels of
 ``csrc/flash_attention_bwd.cu`` (dq, and dk/dv) on CUDA tensors; both take
 their plain PyTorch versions (``flash_attention_ref``,
-``flash_attention_bwd_ref``) only for tensors on the CPU. The forward has
-three device kernels; ``_fwd_variant`` picks one from the dtype, head dim
-and lengths before the launch (counted per variant): "wgmma" (Hopper:
-TMA, an mbarrier ring and wgmma; bf16, d 64 or 128), "mma" (mma.sync,
-the other bf16 head dims) and "fma" (exact f32).
+``flash_attention_bwd_ref``) only for tensors on the CPU. Each has three
+device designs; ``_fwd_variant`` and ``_bwd_variant`` pick one from the
+dtype, head dim and lengths before the launch (counted per variant):
+"wgmma" (Hopper: TMA, an mbarrier ring and wgmma; bf16, d 64 or 128),
+"mma" (mma.sync, the other bf16 head dims) and "fma" (exact f32). The
+wgmma dq kernel also computes delta = rowsum(dO * O) for the dk/dv
+kernel; the other designs read it from ``attention_delta``.
 """
 from __future__ import annotations
 
@@ -40,10 +42,10 @@ __all__ = [
 ]
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128, 256)
-# head dims of the wgmma forward kernel (64 or 128 values of d: one or two
-# 128-byte swizzled boxes)
+# head dims of the wgmma kernels, forward and backward (64 or 128 values
+# of d: one or two 128-byte swizzled boxes)
 WGMMA_HEAD_DIMS = (64, 128)
-# flash_attention_fwd_launch's ``variant``: 0 is the dtype's own kernel
+# the launch functions' ``variant``: 0 is the dtype's own kernel
 _VARIANTS = {"fma": 0, "mma": 0, "wgmma": 1}
 # the backward kernels keep their f32 accumulators in registers: up to
 # d = 128 (d = 256 would not fit the f32 kernels' shared memory either)
@@ -64,15 +66,13 @@ def _kernel(name):
             ]
             lib.flash_attention_fwd_launch.restype = ci
         else:
-            lib.flash_attention_bwd_dq_launch.argtypes = [
-                vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cf, ci,
-                ci, vp,
-            ]
+            # q, k, v, dout, out (dq) or lse (dk/dv), lse or delta, delta
+            # or dk, dq or dv; batch, heads, kv_heads, sq, sk, d; scale;
+            # causal, dtype, variant; stream
+            args = [vp] * 8 + [ci] * 6 + [cf] + [ci] * 3 + [vp]
+            lib.flash_attention_bwd_dq_launch.argtypes = args
             lib.flash_attention_bwd_dq_launch.restype = ci
-            lib.flash_attention_bwd_dkv_launch.argtypes = [
-                vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cf,
-                ci, ci, vp,
-            ]
+            lib.flash_attention_bwd_dkv_launch.argtypes = args
             lib.flash_attention_bwd_dkv_launch.restype = ci
         _libs[name] = lib
     return lib
@@ -138,6 +138,11 @@ def _fwd_variant(dtype, d, sq, sk):
     if d in WGMMA_HEAD_DIMS and sq > 0 and sk > 0:
         return "wgmma"
     return "mma"
+
+
+# the backward's device kernels: the forward's rule (the wgmma kernels
+# take the same dtype, head dims and lengths)
+_bwd_variant = _fwd_variant
 
 
 def flash_attention_fwd(q, k, v, *, causal=True, scale=None):
@@ -207,7 +212,8 @@ def flash_attention_ref(q, k, v, *, causal=True, scale=None):
 
 def attention_delta(out, do):
     """delta [b, h, sq] = rowsum(do * out) in f32 (outside the kernels, as
-    in the JAX ``_flash_bwd``)."""
+    in the JAX ``_flash_bwd``): the plain version's, and the mma.sync and
+    FMA kernels'; the wgmma dq kernel computes its own."""
     acc = _acc_dtype(out)
     return (do.to(acc) * out.to(acc)).sum(-1).transpose(1, 2).contiguous()
 
@@ -227,39 +233,65 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal=True, scale=None):
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
                                        scale=scale)
-    _check_cuda((q, k, v, do), BWD_HEAD_DIMS)
-    q, k, v, do = (_aligned(t) for t in (q, k, v, do))
-    lse = lse.float().contiguous()
-    delta = attention_delta(out, do)
-    dq = _launch_bwd_dq(q, k, v, do, lse, delta, causal, scale)
-    dk, dv = _launch_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+    _check_cuda((q, k, v, do, out), BWD_HEAD_DIMS)
+    return _bwd(*(_aligned(t) for t in (q, k, v, out)),
+                lse.float().contiguous(), _aligned(do), causal, scale)
+
+
+def _bwd(q, k, v, out, lse, do, causal, scale, variant=None):
+    """Both backward kernels on checked, aligned CUDA inputs (lse f32
+    [b, h, sq]); ``variant`` forces a design (``chip_smoke.py`` times the
+    wgmma and the mma.sync kernels side by side), by default
+    ``_bwd_variant``'s. The wgmma dq kernel computes delta for the dk/dv
+    kernel; the others read ``attention_delta``'s (``_delta``)."""
+    if variant is None:
+        variant = _bwd_variant(q.dtype, q.shape[-1], q.shape[1], k.shape[1])
+    delta = _delta(out, do, variant)
+    dq = _launch_bwd_dq(q, k, v, do, out, lse, delta, causal, scale, variant)
+    dk, dv = _launch_bwd_dkv(q, k, v, do, lse, delta, causal, scale, variant)
     return dq, dk, dv
 
 
-def _bwd_args(q, k, causal, scale):
+def _delta(out, do, variant):
+    """What the dq kernel of ``variant`` takes as delta: for "wgmma" an
+    uninitialised f32 [b * h, sq rounded up to 128, 2] buffer, which that
+    kernel fills with (lse log2(e), delta) pairs for the dk/dv kernel;
+    otherwise ``attention_delta``."""
+    if variant != "wgmma":
+        return attention_delta(out, do)
+    b, sq, h, _ = out.shape
+    return torch.empty((b * h, -(-sq // 128) * 128, 2), dtype=torch.float32,
+                       device=out.device)
+
+
+def _bwd_args(q, k, causal, scale, variant):
     b, sq, h, d = q.shape
     return (b, h, k.shape[2], sq, k.shape[1], d, float(scale),
-            int(bool(causal)), _DTYPES[q.dtype], _stream(q.device))
+            int(bool(causal)), _DTYPES[q.dtype], _VARIANTS[variant],
+            _stream(q.device))
 
 
-def _launch_bwd_dq(q, k, v, do, lse, delta, causal, scale):
-    """The dq kernel alone, on checked, aligned CUDA inputs (lse and delta
-    f32 [b, h, sq]); ``chip_smoke.py`` times it by itself."""
+def _launch_bwd_dq(q, k, v, do, out, lse, delta, causal, scale, variant):
+    """The dq kernel alone, on checked, aligned CUDA inputs (lse f32
+    [b, h, sq], delta as ``_delta`` makes it: the wgmma kernel fills it
+    from out, do and lse, the others read it). ``chip_smoke.py`` times it
+    by itself."""
     dq = torch.empty_like(q)
     lib = _kernel("flash_attention_bwd")
     with torch.cuda.device(q.device):
         err = lib.flash_attention_bwd_dq_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            *_bwd_args(q, k, causal, scale),
+            out.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            *_bwd_args(q, k, causal, scale, variant),
         )
-    _raise_on(err, "flash_attention_bwd_dq")
-    _build.count_launch("flash_attention_bwd_dq")
+    _raise_on(err, f"flash_attention_bwd_dq ({variant})")
+    _build.count_launch("flash_attention_bwd_dq", variant)
     return dq
 
 
-def _launch_bwd_dkv(q, k, v, do, lse, delta, causal, scale):
-    """The dk/dv kernel alone, on the inputs of ``_launch_bwd_dq``."""
+def _launch_bwd_dkv(q, k, v, do, lse, delta, causal, scale, variant):
+    """The dk/dv kernel alone, on the inputs of ``_launch_bwd_dq`` (delta
+    as the dq kernel left it)."""
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _kernel("flash_attention_bwd")
@@ -267,10 +299,10 @@ def _launch_bwd_dkv(q, k, v, do, lse, delta, causal, scale):
         err = lib.flash_attention_bwd_dkv_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *_bwd_args(q, k, causal, scale),
+            *_bwd_args(q, k, causal, scale, variant),
         )
-    _raise_on(err, "flash_attention_bwd_dkv")
-    _build.count_launch("flash_attention_bwd_dkv")
+    _raise_on(err, f"flash_attention_bwd_dkv ({variant})")
+    _build.count_launch("flash_attention_bwd_dkv", variant)
     return dk, dv
 
 

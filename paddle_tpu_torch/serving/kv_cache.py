@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core.device import resolve_device
+
 __all__ = ["BlockManager", "KVPool"]
 
 
@@ -88,7 +90,9 @@ class BlockManager:
 class KVPool:
     """The physical page pool: per layer one K and one V entry of
     ``[num_kv_heads, num_blocks, block_size, head_dim]``, zeroed, on
-    ``device``. Updated in place by the adapter's page writes.
+    ``device`` (``None``: the CUDA device, through ``resolve_device``, as
+    every entry point of the port). Updated in place by the adapter's page
+    writes.
 
     ``quant_dtype="int8"`` makes each entry an int8 ``(pages, scales)``
     pair: ``scales`` float32 ``[num_kv_heads, num_blocks, block_size]``,
@@ -99,13 +103,14 @@ class KVPool:
     ``head_dim * itemsize``."""
 
     def __init__(self, num_layers, num_kv_heads, num_blocks, block_size,
-                 head_dim, dtype=torch.float32, device="cpu",
+                 head_dim, dtype=torch.float32, device=None,
                  quant_dtype=None):
         if quant_dtype not in (None, "int8"):
             raise ValueError(
                 f'KVPool quant_dtype must be None or "int8", got '
                 f"{quant_dtype!r}"
             )
+        device = resolve_device(device)
         shape = (num_kv_heads, num_blocks, block_size, head_dim)
 
         def mk():
@@ -122,7 +127,7 @@ class KVPool:
         self.block_size = int(block_size)
         self.dtype = dtype
         self.quant_dtype = quant_dtype
-        self.device = torch.device(device)
+        self.device = device
 
     def nbytes(self):
         total = 0

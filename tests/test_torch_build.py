@@ -115,6 +115,7 @@ def _chip_sweeps():
 
 
 @pytest.mark.parametrize("sweep", ["flash_chunk", "flash_stages",
+                                   "flash_bwd_stages", "flash_bwd_tile",
                                    "gmm_tile", "gmm_epilogue"])
 def test_every_sweep_marker_marks_one_line_of_its_source(sweep):
     # chip_sweeps.py sets the value of each `// sweep: <key>` line in a

@@ -95,6 +95,18 @@ def test_moe_layer_and_int8_engine_without_device_raise_without_cuda():
                for pair in engine.pool.k for t in pair)
 
 
+def test_kv_pool_without_device_raises_without_cuda():
+    from paddle_tpu_torch.serving import KVPool
+
+    _require_no_cuda()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        KVPool(1, 2, 4, 4, 8)
+    # the dtype is checked first: a bad one is a ValueError on any host
+    with pytest.raises(ValueError, match="quant_dtype"):
+        KVPool(1, 2, 4, 4, 8, quant_dtype="fp8")
+    assert KVPool(1, 2, 4, 4, 8, device="cpu").device == torch.device("cpu")
+
+
 def test_resolve_device_default_raises_explicit_cpu_works():
     from paddle_tpu_torch import resolve_device
 

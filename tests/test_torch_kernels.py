@@ -214,20 +214,23 @@ def test_paged_wrapper_rejects_bad_group():
                            torch.ones(1, dtype=torch.int32))
 
 
-@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("s,d", [(32, 16), (64, 32)])
-def test_flash_bwd_ref_matches_jax_kernel(causal, s, d):
+def _jax_bwd_vs_ref(causal, s, d, h, hkv, seed):
     # the JAX backward kernels in interpret mode, 16 x 16 blocks, on the
-    # JAX forward's out and lse (row 0 of its [b*h, 8, s] layout)
-    b, h = 2, 2
-    q, k, v = _qkv(50 + s, b, s, h, d)
-    do = np.random.RandomState(60 + s).randn(b, s, h, d).astype(np.float32)
+    # JAX forward's out and lse (row 0 of its [b*h, 8, s] layout); the JAX
+    # kernels take one K/V head per query head, so GQA runs them on K and
+    # V repeated over each group and sums dk and dv over it
+    b, group = 2, h // hkv
+    q, k, v = _qkv(seed, b, s, h, d, hkv=hkv)
+    do = np.random.RandomState(seed + 10).randn(b, s, h, d).astype(
+        np.float32)
     scale = 1.0 / d ** 0.5
-    merge = lambda x: jnp.swapaxes(jnp.asarray(x), 1, 2).reshape(b * h, s, d)
-    jq, jk, jv, jdo = map(merge, (q, k, v, do))
+    merge = lambda x: jnp.swapaxes(jnp.asarray(x), 1, 2).reshape(
+        b * h, s, d)
+    rep = lambda x: np.repeat(x, group, axis=2)
+    jq, jk, jv, jdo = map(merge, (q, rep(k), rep(v), do))
     jout, jlse = jfa._flash_fwd(jq, jk, jv, scale, causal, 16, 16)
-    jgrads = jfa._flash_bwd(jq, jk, jv, jout, jlse, jdo, scale, causal, 16,
-                            16)
+    jdq, jdk, jdv = jfa._flash_bwd(jq, jk, jv, jout, jlse, jdo, scale,
+                                   causal, 16, 16)
     split = lambda x: torch.from_numpy(np.array(x)).reshape(
         b, h, s, d).transpose(1, 2)
     lse = torch.from_numpy(np.array(jlse)[:, 0, :]).reshape(b, h, s)
@@ -235,11 +238,24 @@ def test_flash_bwd_ref_matches_jax_kernel(causal, s, d):
         *_t(q, k, v), split(jout), lse, torch.from_numpy(do),
         causal=causal, scale=scale,
     )
-    for got, want in zip(grads, jgrads):
-        np.testing.assert_allclose(
-            got.transpose(1, 2).reshape(b * h, s, d).numpy(),
-            np.asarray(want), **TOL,
-        )
+    group_sum = lambda x: np.asarray(x).reshape(b, hkv, group, s, d).sum(2)
+    wants = (np.asarray(jdq).reshape(b, h, s, d), group_sum(jdk),
+             group_sum(jdv))
+    for got, want in zip(grads, wants):
+        np.testing.assert_allclose(got.transpose(1, 2).numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("s,d", [(32, 16), (64, 32), (32, 64), (32, 128)])
+def test_flash_bwd_ref_matches_jax_kernel(causal, s, d):
+    # d 64 and 128: the head dims of the wgmma backward kernels
+    _jax_bwd_vs_ref(causal, s, d, 2, 2, 50 + s + d)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_bwd_ref_gqa_matches_jax_kernel(causal):
+    # four query heads on two kv heads at d 64: dk and dv sum the group
+    _jax_bwd_vs_ref(causal, 32, 64, 4, 2, 120)
 
 
 def _grads(fn, q, k, v, do):
@@ -348,3 +364,45 @@ def test_flash_ref_ragged_gqa_at_d64_matches_math_sdpa():
     ref = jax_sdpa(jnp.asarray(q), jnp.repeat(jnp.asarray(k), 4, axis=2),
                    jnp.repeat(jnp.asarray(v), 4, axis=2), is_causal=True)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+# the device kernels the backward wrapper picks, before the launch
+@pytest.mark.parametrize("dtype,d,sq,sk,want", [
+    (torch.bfloat16, 128, 1024, 1024, "wgmma"),   # the training shape
+    (torch.bfloat16, 64, 512, 512, "wgmma"),      # GQA d 64
+    (torch.bfloat16, 128, 100, 100, "wgmma"),     # ragged: masked tails
+    (torch.bfloat16, 64, 7, 300, "wgmma"),        # sq != sk (full)
+    (torch.bfloat16, 16, 128, 128, "mma"),
+    (torch.bfloat16, 32, 128, 128, "mma"),
+    (torch.bfloat16, 128, 5, 0, "mma"),           # no keys: no tensor map
+    (torch.bfloat16, 128, 0, 5, "mma"),           # no queries
+    (torch.float32, 128, 1024, 1024, "fma"),
+    (torch.float32, 64, 100, 100, "fma"),
+    (torch.float32, 16, 8, 8, "fma"),
+])
+def test_bwd_variant(dtype, d, sq, sk, want):
+    assert fa._bwd_variant(dtype, d, sq, sk) == want
+    assert want in fa._VARIANTS
+    assert d in fa.BWD_HEAD_DIMS
+
+
+@pytest.mark.parametrize("hkv", [4, 2], ids=["mha", "gqa"])
+@pytest.mark.parametrize("d", fa.WGMMA_HEAD_DIMS)
+def test_backward_wrapper_plain_on_cpu_at_wgmma_shapes(d, hkv):
+    # bf16 at a head dim the card would run on the wgmma kernels: on the
+    # CPU the wrapper returns the plain version's gradients (delta from
+    # attention_delta), launching nothing
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+               for x in _qkv(43, 1, 33, 4, d, hkv=hkv))
+    do = torch.from_numpy(np.random.RandomState(44).randn(
+        1, 33, 4, d).astype(np.float32)).to(torch.bfloat16)
+    assert fa._bwd_variant(q.dtype, d, 33, 33) == "wgmma"
+    reset_launch_counts()
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    want = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=True)
+    for g, w, x in zip(got, want, (q, k, v)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+        assert g.dtype == torch.bfloat16 and g.shape == x.shape
+    assert set(launch_counts().values()) == {0}
+    assert variant_counts() == {}

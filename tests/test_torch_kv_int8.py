@@ -150,7 +150,7 @@ def test_int8_attention_matches_jax(case):
 def test_int8_unwritten_slots_read_as_zero():
     # a zeroed pool (scales 0) dequantizes to exact zeros: attention
     # over it is the mean of zero values
-    pool = KVPool(1, 2, 4, 4, 8, quant_dtype="int8")
+    pool = KVPool(1, 2, 4, 4, 8, device="cpu", quant_dtype="int8")
     q = torch.randn(2, 2, 8)
     out = pa.paged_attention(q, pool.k[0], pool.v[0],
                              torch.zeros(2, 2, dtype=torch.int32),
@@ -159,21 +159,21 @@ def test_int8_unwritten_slots_read_as_zero():
 
 
 def test_int8_pairs_rejected_when_mixed():
-    pool = KVPool(1, 2, 4, 4, 8, quant_dtype="int8")
+    pool = KVPool(1, 2, 4, 4, 8, device="cpu", quant_dtype="int8")
     flt = torch.zeros(2, 4, 4, 8)
     with pytest.raises(ValueError, match="both"):
         pa.paged_attention(torch.zeros(1, 2, 8), pool.k[0], flt,
                            torch.zeros(1, 1, dtype=torch.int32),
                            torch.ones(1, dtype=torch.int32))
     with pytest.raises(ValueError, match="quant_dtype"):
-        KVPool(1, 2, 4, 4, 8, quant_dtype="fp8")
+        KVPool(1, 2, 4, 4, 8, device="cpu", quant_dtype="fp8")
     with pytest.raises(ValueError, match="kv_cache_dtype"):
         EngineConfig(kv_cache_dtype="fp8")
 
 
 def test_int8_pool_bytes_at_most_half_of_f32():
-    f32 = KVPool(2, 2, 4, 4, 8)
-    int8 = KVPool(2, 2, 4, 4, 8, quant_dtype="int8")
+    f32 = KVPool(2, 2, 4, 4, 8, device="cpu")
+    int8 = KVPool(2, 2, 4, 4, 8, device="cpu", quant_dtype="int8")
     # the JAX package's figure: layers * K/V * heads * (d + 4)
     assert int8.bytes_per_token() == 2 * 2 * 2 * (8 + 4)
     assert int8.bytes_per_token() <= 0.5 * f32.bytes_per_token()
@@ -209,7 +209,7 @@ def test_int8_adapter_prefill_pool_and_decode_logits(models):
     head_dim = cfg.hidden_size // cfg.num_attention_heads
     geo = (cfg.num_hidden_layers, cfg.num_key_value_heads, 8, 4, head_dim)
     jpool = jax_serving.KVPool(*geo, quant_dtype="int8")
-    tpool = KVPool(*geo, quant_dtype="int8")
+    tpool = KVPool(*geo, device="cpu", quant_dtype="int8")
     jad, tad = JaxAdapter(jax_model), LlamaServingAdapter(port)
     prompt = np.random.RandomState(9).randint(1, 128, 16).astype(np.int64)
     table = np.array([3, 0, 5, 1], np.int32)   # 13 tokens on 4 pages
