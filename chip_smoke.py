@@ -16,21 +16,24 @@ Phases, in order; any failure exits non-zero:
                and the ones listed below; kernel, plain and library times
                from CUDA events, and the bound for the same work. Where a
                wrapper chooses among device kernels (the flash forward
-               and backward: wgmma or mma.sync; the grouped GEMM: wgmma
-               or mma.sync),
-               every one that takes the inputs is held to the gate and
-               timed side by side through the same host path (mean and
-               median of 20 launches each); ``ms`` is the wrapper's own
-               call (the mean of 20, as every ``ms``), ``prev_ms`` the
-               mma.sync (or FMA) kernel that served these shapes before
-               the wgmma kernels. The
-               gate (``GATE``) must also reject two planted faults of
-               the backward at the training shape (a wrong ``out``, from
-               which the wgmma dq kernel computes delta). The int8 paged kernel
-               also stays within 0.05 of the float kernel on the
-               unquantized pages; the grouped GEMM runs at the MoE
-               layer's shapes, the JAX sweeps of empty and one-row
-               groups, f32 and int8 rhs.
+               and backward: wgmma or mma.sync; the grouped GEMM, float
+               and int8 rhs: wgmma or mma.sync; paged decode: the
+               one-launch cluster kernel or the split-K kernel), every
+               one that takes the inputs is held to the gate and timed
+               side by side through the same host path (mean and median
+               of 20 launches each, 50 for paged decode); ``ms`` is the
+               wrapper's own call (a mean, as every ``ms``), ``prev_ms``
+               the kernel that served these shapes before (mma.sync or
+               FMA before the wgmma kernels, split-K before the cluster
+               kernel). The gate (``GATE``) must also reject two planted
+               faults of the backward at the training shape (a wrong
+               ``out``, from which the wgmma dq kernel computes delta).
+               The int8 paged kernel also stays within 0.05 of the float
+               kernel on the unquantized pages; the grouped GEMM runs at
+               the MoE layer's shapes, the JAX sweeps of empty and
+               one-row groups, f32 and int8 rhs. float16: paged decode
+               over float16 and int8 pools, the grouped GEMM with
+               float16 lhs and float16 or int8 rhs.
 4. parity   — tiny f32 Llama (MHA and GQA): greedy outputs of the port's
                Engine are token-identical to the port's ``generate``.
 5. serving  — full-width bf16 Llama (the repo's serving configuration,
@@ -44,6 +47,11 @@ Phases, in order; any failure exits non-zero:
                every decode step runs the int8 paged kernel once per
                layer and the float one never; it also reports the first
                step's logit gap to the bf16 pool and the bytes per token.
+               In both, every paged launch is the cluster kernel's.
+5c. serving_f16 — the serving model in float16, 8 requests over the
+               float16 and the int8 pool: all finish, the paged kernel
+               (float16 q) runs once per layer per decode step, and the
+               first decode logits are within 5e-2 of plain attention.
 6. train_parity — tiny f32 Llama (MHA and GQA): 10 ``TrainStep`` steps
                of AdamW through the flash kernels give the losses of the
                same 10 steps with the plain attention functions.
@@ -63,10 +71,13 @@ Phases, in order; any failure exits non-zero:
                ``impl="ragged"`` runs 3 grouped GEMM launches and agrees
                with the plain grouped GEMM and with ``impl="dense"`` when
                nothing drops; its gradients agree with the plain version;
-               ``quantize_moe_experts`` gives 3 int8 launches within 5 %
-               of the float layer and refuses gradients; ragged and dense
-               tokens/s; then one forward of ``bench_moe``'s level-0
-               Llama MoE (8 layers) against plain attention.
+               ``quantize_moe_experts`` gives 3 int8 launches (on the
+               int8 wgmma kernel, timed against the mma.sync one) within
+               5 % of the float layer and refuses gradients; ragged and
+               dense tokens/s; the same layer in float16, float and int8
+               experts, 3 wgmma launches each, against the plain grouped
+               GEMM; then one forward of ``bench_moe``'s level-0 Llama
+               MoE (8 layers) against plain attention.
 
 ``--phases`` picks a subset; ``profile`` (a profiled decode step over the
 bf16 and the int8 pool) runs only when named.
@@ -102,21 +113,33 @@ F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 #    round the output to bf16 (~2^-10 RMS relative), and the tensor-core
 #    kernels also round P (and dS) to bf16 as mma operands, ~2^-10 RMS
 #    per term with random signs; f32: summation order only.
-#  - every element: |out - ref| <= atol + rtol * |ref| + row_ulps * 2^-8
+#  - every element: |out - ref| <= atol + rtol * |ref| + row_ulps * ulp
 #    * rowmax|ref| + floor * rms(ref), rowmax over the head dim of its own
-#    row. bf16: two ulps of its own (rtol 2^-7: both sides round to
-#    bf16), 4 of the row's largest element (an element that cancels to
-#    near 0 keeps its row's rounding error), and a floor of 2^-12 of the
-#    tensor's RMS for a row that cancels whole (dq's first causal row is
-#    0, its one key giving dP = delta; the kernels leave ~3e-7 there);
-#    f32: the fixed bound, as the L2 term is the tight one there.
+#    row, ulp the type's unit roundoff (bf16 2^-8). bf16: two ulps of its
+#    own (rtol 2^-7: both sides round to bf16), 4 of the row's largest
+#    element (an element that cancels to near 0 keeps its row's rounding
+#    error), and a floor of 2^-12 of the tensor's RMS for a row that
+#    cancels whole (dq's first causal row is 0, its one key giving dP =
+#    delta; the kernels leave ~3e-7 there); f32: the fixed bound, as the
+#    L2 term is the tight one there.
+#  - float16 is bf16's gate scaled by the ratio of the unit roundoffs,
+#    2^-11 / 2^-8 = 2^-3: l2 1.25e-3, rtol 2^-10, 4 ulps (2^-11) of the
+#    row's largest element, a floor of 2^-15 of the RMS; and, as float16
+#    (unlike bf16) has a narrow exponent, 4 steps of its subnormal
+#    spacing 2^-24 as atol: below 2^-14 its values keep that fixed
+#    absolute spacing (the MoE layer's outputs, ~1e-5, lie there). Its
+#    kernels (paged decode, grouped GEMM) keep f32 scores and accumulators
+#    and round only the output, as the plain versions do.
 # gate_faults() shows that a backward with delta left out, or 10 % off in
 # the late rows only, fails this gate at the training shape.
 GATE = {
     "bfloat16": {"l2": 1e-2, "rtol": 2.0 ** -7, "row_ulps": 4,
-                 "floor": 2.0 ** -12, "atol": 0.0},
-    "float32": {"l2": 1e-5, "rtol": 1e-4, "row_ulps": 0, "floor": 0.0,
-                "atol": 1e-4},
+                 "ulp": 2.0 ** -8, "floor": 2.0 ** -12, "atol": 0.0},
+    "float16": {"l2": 1.25e-3, "rtol": 2.0 ** -10, "row_ulps": 4,
+                "ulp": 2.0 ** -11, "floor": 2.0 ** -15,
+                "atol": 4 * 2.0 ** -24},
+    "float32": {"l2": 1e-5, "rtol": 1e-4, "row_ulps": 0, "ulp": 0.0,
+                "floor": 0.0, "atol": 1e-4},
 }
 # a fixed bound of the kind bf16 flash checks often use, reported beside
 # each planted fault to show what it would let through
@@ -230,7 +253,7 @@ def compare(out, ref):
     diff = (o - r).abs()
     rms = r.square().mean().sqrt()
     bound_ = (gate["atol"] + gate["rtol"] * r.abs() + gate["floor"] * rms
-              + gate["row_ulps"] * 2.0 ** -8
+              + gate["row_ulps"] * gate["ulp"]
               * r.abs().amax(dim=-1, keepdim=True))
     stats = {
         "max_abs_err": diff.max().item(),
@@ -247,17 +270,27 @@ def compare(out, ref):
 
 
 def bound(nbytes, flops, dtype, torch):
-    """(bound ms, bound_by) for moving ``nbytes`` and doing ``flops``."""
-    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    """(bound ms, bound_by) for moving ``nbytes`` and doing ``flops``
+    (16-bit types at the tensor cores' bf16/f16 rate)."""
+    peak = (BF16_FLOPS if dtype in (torch.bfloat16, torch.float16)
+            else F32_FLOPS)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
+PAGED_VARIANTS = ("cluster", "split")
+
+
 def paged_case(torch, pa, flush, name, dtype, hq, hkv, d, lengths,
                page=16, pages_per_seq=32, quant=False):
-    """The paged kernel against ``paged_attention_ref`` on the same pages.
-    ``quant``: the int8 kernel on pages built by ``quantize_tokens``,
+    """The paged kernels against ``paged_attention_ref`` on the same pages.
+    ``ms`` is the wrapper's call (on the kernel ``_paged_variant`` picks);
+    both device kernels (the cluster kernel and the split-K kernel,
+    ``prev_ms``) are held to the gate and to exact zeros at length 0 and
+    timed side by side through the wrapper (``variants``), the cluster
+    kernel also alone (``_launch``: ``kernel_ms``, ``kernel_median_ms``).
+    ``quant``: the int8 kernels on pages built by ``quantize_tokens``,
     also held to the float kernel on the unquantized pages
     (``INT8_POOL_TOL``)."""
     dev = "cuda"
@@ -274,13 +307,17 @@ def paged_case(torch, pa, flush, name, dtype, hq, hkv, d, lengths,
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     k, v = ((pa.quantize_tokens(kp), pa.quantize_tokens(vp)) if quant
             else (kp, vp))
+    variant = pa._paged_variant(dtype, torch.int8 if quant else dtype)
     out = pa.paged_attention(q, k, v, tables, lens)
     ref = pa.paged_attention_ref(q, k, v, tables, lens)
     torch.cuda.synchronize()
     ok, stats = compare(out, ref)
-    zero_ok = all(
-        bool((out[i] == 0).all()) for i, n in enumerate(lengths) if n == 0
-    )
+
+    def zeros_exact(got):
+        return all(bool((got[i] == 0).all())
+                   for i, n in enumerate(lengths) if n == 0)
+
+    zero_ok = zeros_exact(out)
     extra = {}
     if quant:
         flt = pa.paged_attention(q, kp, vp, tables, lens)
@@ -291,10 +328,29 @@ def paged_case(torch, pa, flush, name, dtype, hq, hkv, d, lengths,
                  "float_kernel_ms": cuda_ms(torch, lambda: pa.paged_attention(
                      q, kp, vp, tables, lens), 50, flush)}
     check(ok and zero_ok,
-          f"paged_attention {name} (int8 {quant}): {stats} {extra} outside "
-          f"the gate or length-0 rows not exact zeros")
+          f"paged_attention {name} (int8 {quant}, {variant}): {stats} "
+          f"{extra} outside the gate or length-0 rows not exact zeros")
+
+    def held(vname, got):
+        ok_v, st = compare(got, ref)
+        check(ok_v and zeros_exact(got),
+              f"paged_attention {name} (int8 {quant}, {vname}): {st} "
+              f"outside the gate or length-0 rows not exact zeros")
+        return st
+
     ms = cuda_ms(torch, lambda: pa.paged_attention(q, k, v, tables, lens),
                  50, flush)
+    variants = _timed_variants(
+        torch, held, PAGED_VARIANTS,
+        lambda vn: pa.paged_attention(q, k, v, tables, lens, variant=vn),
+        flush, 50)
+    # the cluster kernel alone: the inputs as the wrapper hands them over
+    kq, ks = pa.split_pages(k)
+    vq, vs = pa.split_pages(v)
+    scale = 1.0 / d ** 0.5
+    kernel_ms, kernel_median_ms = cuda_times(
+        torch, lambda: pa._launch(q, kq, vq, ks, vs, tables, lens, scale,
+                                  variant), 50, flush)
     plain_ms = cuda_ms(
         torch, lambda: pa.paged_attention_ref(q, k, v, tables, lens), 10,
         flush)
@@ -310,7 +366,10 @@ def paged_case(torch, pa, flush, name, dtype, hq, hkv, d, lengths,
         "case": name, "dtype": str(dtype).split(".")[-1], "int8": quant,
         "batch": b, "hq": hq, "hkv": hkv, "d": d, "page_size": page,
         "pages_per_seq": pages_per_seq, "lengths": list(lengths),
-        **stats, **extra, "ms": ms,
+        "variant": variant, "prev": "split",
+        **stats, **extra, "ms": ms, "prev_ms": variants["split"]["ms"],
+        "kernel_ms": kernel_ms, "kernel_median_ms": kernel_median_ms,
+        "variants": variants,
         "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
         "bound_by": bound_by, "bytes": nbytes, "flops": flops,
     }
@@ -366,11 +425,13 @@ def gmm_case(torch, gk, flush, name, dtype, k, m, group_sizes, quant=False):
         from paddle_tpu_torch.quantization import weight_quantize_grouped
 
         rhs, scales = weight_quantize_grouped(rhs.float())
-    variant = gk._gmm_variant(lhs.dtype, rhs.dtype, n, k, m)
+    variant = gk._gmm_variant(lhs.dtype, rhs.dtype, n, k, m, e)
     prev = "fma" if dtype == torch.float32 else "mma"
+    # the wgmma kernels take 16-bit lhs with k > 0 (int8 rhs: m % 16 == 0)
+    wgmma_ok = (dtype != torch.float32 and k > 0
+                and (not quant or m % 16 == 0))
     kinds = ([variant, prev] if variant != prev else [variant]) + (
-        ["wgmma"] if variant != "wgmma" and rhs.dtype == torch.bfloat16
-        and k > 0 else [])
+        ["wgmma"] if variant != "wgmma" and wgmma_ok else [])
     with torch.no_grad():
         out = gk.grouped_matmul(lhs, rhs, gs, scales)
         ref = gk.grouped_matmul_ref(lhs, rhs, gs, scales)
@@ -394,7 +455,7 @@ def gmm_case(torch, gk, flush, name, dtype, k, m, group_sizes, quant=False):
             torch, lambda: gk.grouped_matmul_ref(lhs, rhs, gs, scales), 5,
             flush)
         library_ms, library_note = None, "none: int8 or f32 rhs"
-        if not quant and dtype == torch.bfloat16:
+        if not quant and dtype != torch.float32:
             library_note = "torch._grouped_mm absent"
             if hasattr(torch, "_grouped_mm"):
                 offs = torch.cumsum(gs, 0, dtype=torch.int32)
@@ -421,7 +482,7 @@ def gmm_case(torch, gk, flush, name, dtype, k, m, group_sizes, quant=False):
         "rhs": "int8" if quant else str(dtype).split(".")[-1], "n": n,
         "k": k, "m": m, "experts": e,
         "group_sizes": [int(x) for x in gs.tolist()], "variant": variant,
-        **stats, "ms": ms, "prev_ms": variants[prev]["ms"],
+        "prev": prev, **stats, "ms": ms, "prev_ms": variants[prev]["ms"],
         "variants": variants,
         "plain_ms": plain_ms,
         "library_ms": library_ms,
@@ -680,6 +741,7 @@ def phase_kernels(torch):
         # head dim and page size that take the scalar-load path
         ("odd", torch.bfloat16, 6, 2, 20, [37, 0, 5],
          {"page": 5, "pages_per_seq": 8}),
+        ("serving_f16", torch.float16, 16, 16, 128, lengths, {}),
     ]
     paged = [paged_case(torch, pa, flush, *c[:6], **c[6]) for c in cases]
     quant = [paged_case(torch, pa, flush, *c[:6], **c[6], quant=True)
@@ -726,7 +788,11 @@ def phase_kernels(torch):
     ]
     gmm += [gmm_case(torch, gk, flush, f"sweep{gs}", bf16, 24, 40, gs)
             for gs in GMM_SWEEP]
+    f16 = torch.float16
     gmm += [
+        gmm_case(torch, gk, flush, "up_f16", f16, d, f, routed),
+        gmm_case(torch, gk, flush, "down_f16", f16, f, d, routed),
+        gmm_case(torch, gk, flush, "sweep_f16", f16, 24, 40, GMM_SWEEP[0]),
         # n = 100 rows: off the 64-row tile
         gmm_case(torch, gk, flush, "ragged_n", bf16, 24, 40, [37, 0, 50, 13]),
         gmm_case(torch, gk, flush, "f32", torch.float32, 24, 40,
@@ -739,11 +805,19 @@ def phase_kernels(torch):
         gmm_case(torch, gk, flush, "up_int8", bf16, d, f, routed, quant=True),
         gmm_case(torch, gk, flush, "down_int8", bf16, f, d, routed,
                  quant=True),
+        gmm_case(torch, gk, flush, "up_int8_f16", f16, d, f, routed,
+                 quant=True),
+        gmm_case(torch, gk, flush, "down_int8_f16", f16, f, d, routed,
+                 quant=True),
         gmm_case(torch, gk, flush, "sweep_int8", bf16, 24, 40,
                  [0, 7, 1, 24], quant=True),
         gmm_case(torch, gk, flush, "f32_int8", torch.float32, 24, 40,
                  [5, 0, 11, 16], quant=True),
     ]
+    # the JAX sweeps' groups at m 48, the nearest width the int8 wgmma
+    # kernel's tensor map takes (m % 16 == 0): both int8 kernels held
+    gmm_quant += [gmm_case(torch, gk, flush, f"sweep_int8_m48{gs}", bf16,
+                           24, 48, gs, quant=True) for gs in GMM_SWEEP]
     return (paged, flash, bwd, gate_faults(torch, fa), quant, gmm,
             gmm_quant)
 
@@ -921,6 +995,10 @@ def _serve(torch, tag, kv_cache_dtype=None):
     check(counts[paged] == m.decode_steps * L and counts[other] == 0,
           f"{tag}: {paged} launches {counts[paged]} != decode_steps "
           f"{m.decode_steps} x {L}, or {other} launched {counts[other]}")
+    # every paged launch on the one-launch cluster kernel, none on split
+    check(counts.get(f"{paged}/cluster", 0) == counts[paged]
+          and counts.get(f"{paged}/split", 0) == 0,
+          f"{tag}: paged launches by kernel {counts}")
     check(counts["flash_attention"] == m.prefill_steps * L,
           f"{tag}: flash launches {counts['flash_attention']} != "
           f"prefill_steps {m.prefill_steps} x {L}")
@@ -949,6 +1027,66 @@ def phase_serving(torch):
 
 def phase_serving_int8(torch):
     return _serve(torch, "serving_int8", kv_cache_dtype="int8")
+
+
+def phase_serving_f16(torch):
+    """The serving model in float16, with the float16 pool and the int8
+    pool: a few requests through ``Engine.generate``. All finish, no block
+    leaks, every decode step runs the (float16-q) paged kernel once per
+    layer on the cluster kernel, and the first decode step's logits are
+    within ``LOGITS_TOL`` of plain attention. Prefill takes the math
+    attention (the flash kernels take f32 and bf16)."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = LlamaConfig(**dict(SERVING_CFG, dtype="float16"))
+    model = LlamaForCausalLM(cfg, seed=0)
+    L = cfg.num_hidden_layers
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(1, cfg.vocab_size, rng.randint(8, 100)).tolist()
+               for _ in range(8)]
+    result = {"launches": {}}
+    for pool in (None, "int8"):
+        tag = f"serving_f16{'_int8' if pool else ''}"
+        ecfg = EngineConfig(max_batch_slots=8, max_model_len=512,
+                            page_size=16, kv_cache_dtype=pool)
+        compared, _ = _first_decode(torch, model, ecfg, prompts, True)
+        check(compared["max_abs_err"] <= LOGITS_TOL,
+              f"{tag}: first decode logits differ from the plain attention "
+              f"path by {compared['max_abs_err']} > {LOGITS_TOL}")
+        engine = Engine(model, ecfg)
+        _build.reset_launch_counts()
+        outs = engine.generate(prompts, SamplingParams(max_new_tokens=24))
+        torch.cuda.synchronize()
+        counts = dict(_build.launch_counts(), **_build.variant_counts())
+        m = engine.metrics
+        name = "paged_attention_quant" if pool else "paged_attention"
+        check(len(outs) == len(prompts) and all(
+            o.finish_reason in ("length", "stop") for o in outs)
+            and engine.block_manager.num_used == 0,
+            f"{tag}: not every request finished, or blocks leaked")
+        check(counts[name] == m.decode_steps * L
+              and counts.get(f"{name}/cluster", 0) == counts[name]
+              and counts["flash_attention"] == 0,
+              f"{tag}: launches {counts}, decode steps {m.decode_steps}")
+        for key, n in counts.items():
+            result["launches"][key] = result["launches"].get(key, 0) + n
+        compared = {k: v for k, v in compared.items() if k != "logits"}
+        result[tag] = {"decode_steps": m.decode_steps,
+                       "generated_tokens": sum(len(o.token_ids)
+                                               for o in outs),
+                       "first_decode_compare": compared}
+        log(f"[{tag}] {len(prompts)} requests: {m.decode_steps} decode "
+            f"steps, {counts[name]} {name} launches (cluster); first decode "
+            f"step vs plain attention max_abs_err "
+            f"{compared['max_abs_err']:.5f}")
+        del engine
+    del model
+    torch.cuda.empty_cache()
+    return result
 
 
 # ------------------------------------------------------------- training
@@ -1293,6 +1431,18 @@ def plain_gmm(gk):
         gk.grouped_matmul = saved
 
 
+@contextlib.contextmanager
+def int8_on_mma(gk):
+    """Inside: int8 rhs takes the mma.sync kernel at every size (the
+    comparison's timing only)."""
+    saved = gk.INT8_WGMMA_MIN_MACS
+    gk.INT8_WGMMA_MIN_MACS = float("inf")
+    try:
+        yield
+    finally:
+        gk.INT8_WGMMA_MIN_MACS = saved
+
+
 def _forward_ms(torch, fn, iters=10):
     """Host-clock ms of ``fn`` ending in a synchronize, after 3 warm-ups."""
     for _ in range(3):
@@ -1417,8 +1567,10 @@ def phase_moe(torch):
         counts = _build.launch_counts()
         count_into(counts)
         count_into(_build.variant_counts())
-        check(counts["grouped_matmul_quant"] == 3,
-              f"moe: int8 forward launched {counts}")
+        variants = _build.variant_counts()
+        check(counts["grouped_matmul_quant"] == 3
+              and variants.get("grouped_matmul_quant/wgmma", 0) == 3,
+              f"moe: int8 forward launched {counts} {variants}")
         with plain_gmm(gk):
             out_qp, _ = quant(x)
         ok_q, stats_q = compare(out_q, out_qp)
@@ -1427,6 +1579,10 @@ def phase_moe(torch):
               f"moe: int8 experts vs plain {stats_q}, vs float relative "
               f"L2 {int8_l2}")
         int8_ms = _forward_ms(torch, lambda: quant(x))
+        # the same forward on the mma.sync int8 kernel (the wrapper's
+        # choice before the int8 wgmma kernel), in the same run
+        with int8_on_mma(gk):
+            int8_mma_ms = _forward_ms(torch, lambda: quant(x))
     try:
         quant(x.detach().clone().requires_grad_())
     except RuntimeError as err:
@@ -1435,9 +1591,48 @@ def phase_moe(torch):
         raise PhaseError("moe: int8 experts gave an output needing a "
                          "gradient")
     log(f"[moe] int8 experts (saved {saved} bytes): 3 grouped_matmul_quant "
-        f"launches; vs plain {json.dumps(stats_q)}; vs float relative L2 "
-        f"{int8_l2:.4f}; forward {int8_ms:.3f} ms; a gradient raises")
+        f"launches (wgmma); vs plain {json.dumps(stats_q)}; vs float "
+        f"relative L2 {int8_l2:.4f}; forward {int8_ms:.3f} ms (on the "
+        f"mma.sync kernel {int8_mma_ms:.3f} ms); a gradient raises")
     del quant, ragged
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # float16: the ragged layer and its int8 experts, 3 launches each on
+    # the wgmma kernels, against the plain grouped GEMM
+    f16 = {}
+    half = MoELayer(**MOE_LAYER, impl="ragged", dtype=torch.float16, seed=0)
+    xh = x.to(torch.float16)
+    with torch.no_grad():
+        for tag, layer, name in (
+                ("ragged", half, "grouped_matmul"),
+                ("int8", None, "grouped_matmul_quant")):
+            if layer is None:
+                layer = copy.deepcopy(half)
+                quantize_moe_experts(layer)
+            _build.reset_launch_counts()
+            out_h, _ = layer(xh)
+            torch.cuda.synchronize()
+            counts = _build.launch_counts()
+            variants = _build.variant_counts()
+            count_into(counts)
+            count_into(variants)
+            check(counts[name] == 3
+                  and variants.get(f"{name}/wgmma", 0) == 3,
+                  f"moe: float16 {tag} forward launched {counts} {variants}")
+            with plain_gmm(gk):
+                out_hp, _ = layer(xh)
+            ok_h, stats_h = compare(out_h, out_hp)
+            check(ok_h and bool(out_h.isfinite().all()),
+                  f"moe: float16 {tag} forward vs plain {stats_h}")
+            f16[tag] = {"vs_plain": stats_h,
+                        "forward_ms": _forward_ms(torch, lambda: layer(xh)),
+                        "vs_bf16_rel_l2": _rel_l2(out_h, out)}
+            log(f"[moe] float16 {tag} forward: 3 {name} launches (wgmma); "
+                f"vs plain {json.dumps(stats_h)}; forward "
+                f"{f16[tag]['forward_ms']:.3f} ms")
+            del layer
+    del half
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1476,6 +1671,7 @@ def phase_moe(torch):
             "aux": layer_aux, "grad_rel_l2": grad_l2,
             "int8_vs_plain": stats_q, "int8_vs_float_rel_l2": int8_l2,
             "int8_bytes_saved": saved, "int8_forward_ms": int8_ms,
+            "int8_forward_mma_ms": int8_mma_ms, "float16": f16,
             **speed, "llama_moe": llama, "launches": path}
 
 
@@ -1543,16 +1739,18 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
         "--phases",
-        default="kernels,parity,serving,serving_int8,train_parity,train,moe",
+        default="kernels,parity,serving,serving_int8,serving_f16,"
+                "train_parity,train,moe",
         help="comma list of kernels, parity, serving, serving_int8, "
-             "train_parity, train, moe, profile (default: all but "
-             "profile)",
+             "serving_f16, train_parity, train, moe, profile (default: all "
+             "but profile)",
     )
     ap.add_argument("--out", help="write the full report as JSON here")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     unknown = phases - {"kernels", "parity", "serving", "serving_int8",
-                        "train_parity", "train", "moe", "profile"}
+                        "serving_f16", "train_parity", "train", "moe",
+                        "profile"}
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
@@ -1588,10 +1786,11 @@ def main(argv=None):
             f"{time.perf_counter() - t0:.1f}s")
         report["build"] = {}
         for name, text in _build.build_logs().items():
-            # each kernel's name (mangled), then its spills and registers
+            # each kernel's name (mangled), its spills and registers, and
+            # warning C7515 where ptxas serialized its wgmmas
             lines = [line.strip() for line in text.splitlines()
                      if "entry function" in line or "registers" in line
-                     or "spill" in line]
+                     or "spill" in line or "C7515" in line]
             report["build"][name] = lines
             for line in lines:
                 log(f"[build] {name}: {line}")
@@ -1599,6 +1798,7 @@ def main(argv=None):
         runners = {
             "kernels": phase_kernels, "parity": phase_parity,
             "serving": phase_serving, "serving_int8": phase_serving_int8,
+            "serving_f16": phase_serving_f16,
             "train_parity": phase_train_parity, "train": phase_train,
             "moe": phase_moe, "profile": phase_profile,
         }
@@ -1627,12 +1827,13 @@ def main(argv=None):
             # without its copies; the backward's dq plus dk/dv kernels)
             for stat in ("ms", "median_ms", "kernel_median_ms"):
                 slower = {}
-                for c in flash + bwd + gmm + gmm_quant:
+                for c in flash + bwd + gmm + gmm_quant + paged + quant:
+                    prev = c.get("prev") or (
+                        "fma" if c["dtype"] == "float32" else "mma")
                     now, was = (
                         c["variants"][x].get(stat,
                                              c["variants"][x]["median_ms"])
-                        for x in (c["variant"], "fma" if c["dtype"] ==
-                                  "float32" else "mma"))
+                        for x in (c["variant"], prev))
                     if now > 1.1 * was:
                         slower[f"{c['case']} ({c['variant']})"] = round(
                             now / was, 3)
@@ -1644,9 +1845,9 @@ def main(argv=None):
         if "parity" in results:
             results["parity"] = "ok"
         report["phases"].update(results)
-        serving, serving_int8, train, moe = (
-            results.get(p) for p in ("serving", "serving_int8", "train",
-                                     "moe"))
+        serving, serving_int8, serving_f16, train, moe = (
+            results.get(p) for p in ("serving", "serving_int8",
+                                     "serving_f16", "train", "moe"))
         check("jax" not in sys.modules and not any(
             m == "paddle_tpu" or m.startswith("paddle_tpu.")
             for m in sys.modules),
@@ -1657,11 +1858,12 @@ def main(argv=None):
     report["seconds"] = time.perf_counter() - t_start
 
     kernels = []
-    # launches on each main path: serving (float and int8 pools), the 14
-    # counted train steps, and the moe phase's three counted forwards
+    # launches on each main path: serving (float and int8 pools; float16
+    # with both), the 14 counted train steps, and the moe phase's counted
+    # forwards
     by_path = {p: r["launches"] if r else {} for p, r in (
         ("serving", serving), ("serving_int8", serving_int8),
-        ("train", train), ("moe", moe))}
+        ("serving_f16", serving_f16), ("train", train), ("moe", moe))}
 
     def launches(name):
         per = {p: c.get(name, 0) for p, c in by_path.items()}
@@ -1678,18 +1880,29 @@ def main(argv=None):
                 "median_ms": case["variants"][v]["median_ms"],
                 "shape": case["case"]}
 
-    if paged is not None:
-        head = paged[0]
-        kernels.append({
-            "name": "paged_attention", "route": "cuda",
+    def paged_entry(name, line, cases):
+        """The paged kernel at the serving shape, on the wrapper's choice
+        (the cluster kernel; the split-K kernel as prev_ms), and both
+        under "variants" with their launches on the main paths."""
+        head = cases[0]
+        return {
+            "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/kernels/csrc/paged_attention.cu",
-            "replaces": "paddle_tpu/kernels/pallas/paged_attention.py:73",
-            **launches("paged_attention"),
-            "max_abs_err": max(c["max_abs_err"] for c in paged),
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "replaces": f"paddle_tpu/kernels/pallas/paged_attention.py:{line}",
+            **launches(name),
+            "max_abs_err": max(c["variants"][v]["max_abs_err"]
+                               for c in cases for v in PAGED_VARIANTS),
+            "variant": head["variant"], "ms": head["ms"],
+            "prev_ms": head["prev_ms"], "kernel_ms": head["kernel_ms"],
+            "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": None, "shape": head["case"],
-        })
+            "variants": [variant_entry(name, v, head, cases)
+                         for v in PAGED_VARIANTS],
+        }
+
+    if paged is not None:
+        kernels.append(paged_entry("paged_attention", 73, paged))
         # the forward at the training shape, on the wrapper's choice
         # (wgmma), the mma.sync kernel there as prev_ms; "variants" lists
         # every device kernel of the function (the f32 FMA one at its own
@@ -1755,26 +1968,17 @@ def main(argv=None):
                     for v, case in (("wgmma", head), ("mma", head),
                                     ("fma", f32))],
             })
-        head = quant[0]
-        kernels.append({
-            "name": "paged_attention_quant", "route": "cuda",
-            "source": "paddle_tpu_torch/kernels/csrc/paged_attention.cu",
-            "replaces": "paddle_tpu/kernels/pallas/paged_attention.py:103",
-            **launches("paged_attention_quant"),
-            "max_abs_err": max(c["max_abs_err"] for c in quant),
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
-            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": None, "shape": head["case"],
-        })
+        kernels.append(paged_entry("paged_attention_quant", 103, quant))
         # the grouped GEMM at the MoE layer's up projection, bf16 rhs
         # (wgmma, the mma.sync kernel as prev_ms; the f32 FMA kernel
-        # under "variants") and int8 rhs (the mma.sync kernel)
+        # under "variants") and int8 rhs (the int8 wgmma kernel, the
+        # mma.sync kernel as prev_ms)
         f32 = next(c for c in gmm if c["dtype"] == "float32")
         for name, line, cases, variants in (
                 ("grouped_matmul", 100, gmm,
                  (("wgmma", gmm[0]), ("mma", gmm[0]), ("fma", f32))),
                 ("grouped_matmul_quant", 128, gmm_quant,
-                 (("mma", gmm_quant[0]),))):
+                 (("wgmma", gmm_quant[0]), ("mma", gmm_quant[0])))):
             head = cases[0]
             kernels.append({
                 "name": name, "route": "cuda",

@@ -34,10 +34,19 @@ Sweeps:
   (wgmma.m64n256k16) against 128 x 128;
 * ``gmm_epilogue``: the grouped GEMM's output through a TMA store from
   shared memory against bf16 pairs stored straight from the registers;
+* ``gmm_int8_stages``: the int8-rhs wgmma kernel's ring at 4 and 3 stages,
+  and two product groups left in flight while it converts against one;
 * ``gmm_crossover``: the wgmma and the mma.sync grouped GEMM side by side
   from the JAX sweep shape to the MoE layer's (the built sources as they
-  are), for ``grouped_matmul.WGMMA_MIN_MACS``, in two turns with the
-  kernels' order swapped.
+  are), bf16 rhs and int8 rhs (at the widths the int8 wgmma kernel takes,
+  m % 16 == 0), for ``grouped_matmul.WGMMA_MIN_MACS`` and
+  ``INT8_WGMMA_MIN_MACS``, in two turns with the kernels' order swapped;
+* ``paged_cluster``: the cluster paged-decode kernel alone (``_launch``)
+  at its tile and ring depth (32-token tiles in 2 or 3 stages, 16-token
+  tiles in 4), cluster size (at most 4 or 8 blocks) and least chunk (64
+  or 128 tokens), at the serving shape (bf16 and int8 pools, f32 q), GQA
+  and long context. A variant the card refuses to launch is reported as
+  its error.
 
 The last line of the output is one JSON object with every time.
 ``--sweeps`` picks a subset. Without a CUDA device the script exits 2.
@@ -86,6 +95,18 @@ SWEEPS = {
         "tma_store": {},
         "register_store": {"gmm_tma_store": "false"},
     }),
+    "gmm_int8_stages": ("grouped_matmul", {
+        "stages_4": {},
+        "stages_3": {"gmm_int8_stages": "3"},
+        "depth_2": {"gmm_int8_depth": "2"},
+    }),
+    "paged_cluster": ("paged_attention", {
+        "as_built": {},
+        "tile_16_stages_4": {"paged_tile": "16", "paged_stages": "4"},
+        "stages_3": {"paged_stages": "3"},
+        "cluster_4": {"paged_cluster": "4"},
+        "min_chunk_128": {"paged_min_chunk": "128"},
+    }),
 }
 
 FLASH_SHAPES = [  # b, s, h, hkv, d, causal
@@ -107,6 +128,8 @@ GMM_SHAPES = [
     ("up", 8192, 1024, 2816, ["wgmma"]),
     ("down", 8192, 2816, 1024, ["wgmma"]),
 ]
+# the same with int8 rhs (the int8 wgmma kernel)
+GMM_INT8_SHAPES = [(*c, True) for c in GMM_SHAPES]
 # n k m from 38K multiply-adds to the up projection's 47G
 GMM_CROSSOVER = [(name, t, k, m, ["mma", "wgmma"]) for name, t, k, m in (
     ("sweep_k24_m40", 0, 24, 40),              # 38K
@@ -121,6 +144,18 @@ GMM_CROSSOVER = [(name, t, k, m, ["mma", "wgmma"]) for name, t, k, m in (
     ("t1024_k1024_m2816", 1024, 1024, 2816),   # 5.9G
     ("up", 8192, 1024, 2816),                  # 47G
 )]
+# int8 rhs at the widths its wgmma kernel takes (m % 16 == 0)
+GMM_CROSSOVER += [(f"{name}_int8", t, k, m, v, True)
+                  for name, t, k, m, v in GMM_CROSSOVER if m % 16 == 0]
+# name, q dtype, hq, hkv, d, lengths, page, pages per sequence, int8 pool
+PAGED_LENGTHS = [0, 1, 15, 16, 17, 200, 511, 512]
+PAGED_SHAPES = [
+    ("serving", "bfloat16", 16, 16, 128, PAGED_LENGTHS, 16, 32, False),
+    ("serving_int8", "bfloat16", 16, 16, 128, PAGED_LENGTHS, 16, 32, True),
+    ("serving_f32", "float32", 16, 16, 128, PAGED_LENGTHS, 16, 32, False),
+    ("gqa", "bfloat16", 32, 4, 64, PAGED_LENGTHS, 16, 32, False),
+    ("long", "bfloat16", 16, 16, 128, [2048, 1000, 129, 3], 16, 128, False),
+]
 
 
 def marker_re(key):
@@ -211,9 +246,42 @@ def child(kind, csrc, build, shapes):
             out[name] = cs.cuda_times(torch, lambda: fa._bwd(
                 q, k, v, o, lse, do, causal, d ** -0.5, "wgmma"), 20, flush)
         return out
-    from paddle_tpu_torch.kernels import grouped_matmul as gk
+    if kind == "paged_attention":
+        from paddle_tpu_torch.kernels import paged_attention as pa
 
-    for name, tokens, k, m, variants in shapes:
+        for name, dt, hq, hkv, d, lengths, page, pps, quant in shapes:
+            dtype = getattr(torch, dt)
+            g = torch.Generator(device="cuda").manual_seed(1)
+            b, n_pages = len(lengths), len(lengths) * pps
+            q = torch.randn(b, hq, d, generator=g, device="cuda").to(dtype)
+            kp, vp = (torch.randn(hkv, n_pages, page, d, generator=g,
+                                  device="cuda").to(dtype) for _ in "kv")
+            tables = torch.randperm(n_pages, generator=g, device="cuda")
+            tables = tables.reshape(b, pps).to(torch.int32)
+            lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+            k, v = ((pa.quantize_tokens(kp), pa.quantize_tokens(vp))
+                    if quant else (kp, vp))
+            (kq, ks), (vq, vs) = pa.split_pages(k), pa.split_pages(v)
+
+            def run():
+                return pa._launch(q, kq, vq, ks, vs, tables, lens,
+                                  d ** -0.5, "cluster")
+
+            try:
+                got = run()
+                torch.cuda.synchronize()
+            except RuntimeError as err:   # a cluster the card refuses
+                out[name] = str(err)[:200]
+                continue
+            ok, _ = cs.compare(got, pa.paged_attention_ref(q, k, v, tables,
+                                                           lens))
+            assert ok, "gate"
+            out[name] = cs.cuda_times(torch, run, 50, flush)
+        return out
+    from paddle_tpu_torch.kernels import grouped_matmul as gk
+    from paddle_tpu_torch.quantization import weight_quantize_grouped
+
+    for name, tokens, k, m, variants, *quant in shapes:
         sizes = (cs._routed_group_sizes(torch, tokens, 1024, 8, 2, seed=3)
                  if tokens else cs.GMM_SWEEP[0])
         gs = torch.as_tensor(sizes, dtype=torch.int32, device="cuda")
@@ -222,12 +290,16 @@ def child(kind, csrc, build, shapes):
         lhs = torch.randn(n, k, generator=g, device="cuda").bfloat16()
         rhs = (torch.randn(e, k, m, generator=g, device="cuda")
                / k ** 0.5).bfloat16()
-        ref = gk.grouped_matmul_ref(lhs, rhs, gs)
+        scales = None
+        if quant and quant[0]:
+            rhs, scales = weight_quantize_grouped(rhs.float())
+        ref = gk.grouped_matmul_ref(lhs, rhs, gs, scales)
         for v in variants:
-            ok, _ = cs.compare(gk._launch(lhs, rhs, gs, None, variant=v), ref)
+            ok, _ = cs.compare(gk._launch(lhs, rhs, gs, scales, variant=v),
+                               ref)
             assert ok, "gate"
             out[f"{name}/{v}"] = cs.cuda_times(torch, lambda: gk._launch(
-                lhs, rhs, gs, None, variant=v), 20, flush)
+                lhs, rhs, gs, scales, variant=v), 20, flush)
     return out
 
 
@@ -269,7 +341,7 @@ def main(argv=None):
             # two turns, the kernels' order swapped in the second
             csrc, build = variant_dir(sweep, "as_built", {})
             for turn in range(2):
-                shapes = [(*c[:4], c[4][::-1] if turn else c[4])
+                shapes = [(*c[:4], c[4][::-1] if turn else c[4], *c[5:])
                           for c in GMM_CROSSOVER]
                 times = run_child("grouped_matmul", csrc, build, shapes)
                 report[sweep][f"turn{turn}"] = times
@@ -278,7 +350,10 @@ def main(argv=None):
             continue
         kind, variants = SWEEPS[sweep]
         shapes = {"flash_attention": FLASH_SHAPES,
-                  "flash_attention_bwd": BWD_SHAPES}.get(kind, GMM_SHAPES)
+                  "flash_attention_bwd": BWD_SHAPES,
+                  "paged_attention": PAGED_SHAPES}.get(kind, GMM_SHAPES)
+        if sweep == "gmm_int8_stages":
+            shapes = GMM_INT8_SHAPES
         if sweep == "flash_stages":
             shapes = [x for x in shapes if x[4] == 128]
         for turn in range(2):

@@ -15,11 +15,13 @@ expert's contribution is scaled per column, ``(x @ q) * scale``, which is
 ``grouped_matmul`` launches ``csrc/grouped_matmul.cu`` on CUDA tensors
 (counted as ``grouped_matmul``, and ``grouped_matmul_quant`` for int8
 rhs) and takes the plain PyTorch version ``grouped_matmul_ref`` only for
-tensors on the CPU. Which device kernel serves is decided from the
-dtypes and shapes before the launch (``_gmm_variant``, counted per
-variant): bf16 lhs with bf16 rhs runs the wgmma/TMA kernel (the mma.sync
-kernel below 2^25 multiply-adds), int8 rhs the mma.sync kernel, f32 lhs
-the FMA kernel. The float path is differentiable through
+tensors on the CPU. lhs is float32, bfloat16 or float16. Which device
+kernel serves is decided from the dtypes and shapes before the launch
+(``_gmm_variant``, counted per variant): 16-bit (bf16 or f16) lhs with
+rhs of its dtype runs the wgmma/TMA kernel (the mma.sync kernel below
+2^25 multiply-adds), with int8 rhs the int8 wgmma kernel (the mma.sync
+kernel below its own measured crossover), f32 lhs the FMA kernel. The
+float path is differentiable through
 ``GroupedMatmulFunction``, the counterpart of the JAX custom VJP: the
 JAX backward has no kernel (it runs the fallback's contraction), so here
 ``dlhs`` is the forward on ``rhs`` transposed over the same segments and
@@ -29,8 +31,8 @@ version stays differentiable, as ``grouped_matmul_xla`` is in JAX.
 
 Contract: ``sum(group_sizes) == lhs.shape[0]``; rows past the sum are
 unspecified (the kernel leaves them unwritten, the plain version zero).
-The card's gate for bf16 lhs: ``k % 8 == 0`` and ``m % 8 == 0`` (the
-kernel moves whole 16-byte vectors and masks the ragged tails); float32
+The card's gate for 16-bit lhs: ``k % 8 == 0`` and ``m % 8 == 0`` (the
+kernels move whole 16-byte vectors and mask the ragged tails); float32
 lhs takes any shape. Outside it the wrapper raises.
 """
 from __future__ import annotations
@@ -44,17 +46,28 @@ from .flash_attention import _aligned
 
 __all__ = ["grouped_matmul", "grouped_matmul_ref", "GroupedMatmulFunction"]
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # device kernels of grouped_matmul_launch's ``variant`` argument: 0 picks
-# the dtypes' own kernel (f32 FMA, or mma.sync for bf16 lhs)
+# the dtypes' own kernel (f32 FMA, or mma.sync for 16-bit lhs); 1 the
+# wgmma kernel of the rhs type (16-bit or int8)
 _VARIANTS = {"fma": 0, "mma": 0, "wgmma": 1}
 # the measured crossover in multiply-adds (n k m). Below it the mma.sync
 # kernel is ahead: by 8-9 % at n 512 x k 128 x m 256 (16.8M) and x k 136 x
 # m 200 (13.9M), 12 % at the JAX sweeps' n 32 x k 24 x m 40; from n 512 x
 # k 256 x m 256 (2^25) up the wgmma kernel is: by 2 % there, 15 % at 50M,
 # 35 % at 134M. Medians of two turns of chip_sweeps.py gmm_crossover on an
-# NVIDIA H100 80GB HBM3 at 700 W.
+# NVIDIA H100 80GB HBM3 at 700 W. f16 runs the same instructions at the
+# same rate, so it takes the same crossover.
 WGMMA_MIN_MACS = 1 << 25
+# int8 rhs: the int8 wgmma kernel from this many multiply-adds, where it
+# is ahead of the mma.sync kernel in every turn: level at 16.8M (1.02x
+# its time), 0.85x at 2^25, 0.65x at 134M, 0.45x at the MoE up
+# projection (medians of two turns of chip_sweeps.py gmm_crossover, int8
+# shapes, on an NVIDIA H100 80GB HBM3 at 700 W); for m % 16 == 0 (the int8
+# tensor map's row stride) and at most INT8_WGMMA_MAX_GROUPS experts (the
+# work list shares shared memory with the 192 KB ring and buffers)
+INT8_WGMMA_MIN_MACS = 1 << 25
+INT8_WGMMA_MAX_GROUPS = 128
 _lib = None
 
 
@@ -90,16 +103,24 @@ def _check(lhs, rhs, group_sizes, rhs_scales):
         )
 
 
-def _gmm_variant(lhs_dtype, rhs_dtype, n, k, m):
+def _gmm_variant(lhs_dtype, rhs_dtype, n, k, m, groups=1):
     """The device kernel for these dtypes and shapes: "wgmma" (Hopper:
-    TMA, an mbarrier ring, wgmma) for bf16 lhs and rhs with at least
-    ``WGMMA_MIN_MACS`` multiply-adds (so k > 0); "mma" (mma.sync) for the
-    other bf16 lhs (int8 rhs, small or k == 0 products); "fma" for f32
-    lhs. bf16 shapes off the gate (k or m not a multiple of 8) are
-    refused by ``_launch`` before this is asked."""
+    TMA, an mbarrier ring, wgmma) for 16-bit lhs with rhs of its dtype
+    from ``WGMMA_MIN_MACS`` multiply-adds (so k > 0), and with int8 rhs
+    from ``INT8_WGMMA_MIN_MACS`` when m % 16 == 0 and ``groups`` <=
+    ``INT8_WGMMA_MAX_GROUPS``; "mma" (mma.sync) for the other 16-bit
+    lhs (small or k == 0 products); "fma" for f32 lhs. 16-bit shapes off
+    the gate (k or m not a multiple of 8) are refused by ``_launch``
+    before this is asked."""
     if lhs_dtype == torch.float32:
         return "fma"
-    if rhs_dtype == torch.bfloat16 and n * k * m >= WGMMA_MIN_MACS:
+    macs = n * k * m
+    if rhs_dtype == torch.int8:
+        if (macs >= INT8_WGMMA_MIN_MACS and m % 16 == 0
+                and groups <= INT8_WGMMA_MAX_GROUPS):
+            return "wgmma"
+        return "mma"
+    if macs >= WGMMA_MIN_MACS:
         return "wgmma"
     return "mma"
 
@@ -112,8 +133,8 @@ def _launch(lhs, rhs, group_sizes, rhs_scales, variant=None):
     quant = rhs_scales is not None
     if dtype is None:
         raise TypeError(
-            f"grouped_matmul kernel takes float32 or bfloat16 lhs, got "
-            f"{lhs.dtype}"
+            f"grouped_matmul kernel takes float32, bfloat16 or float16 lhs, "
+            f"got {lhs.dtype}"
         )
     if quant != (rhs.dtype == torch.int8):
         raise TypeError(
@@ -136,13 +157,13 @@ def _launch(lhs, rhs, group_sizes, rhs_scales, variant=None):
             )
     n, k = lhs.shape
     e, _, m = rhs.shape
-    if dtype == 1 and (k % 8 or m % 8):
+    if dtype != 0 and (k % 8 or m % 8):
         raise ValueError(
-            f"grouped_matmul kernel: bf16 needs k % 8 == 0 and m % 8 == 0, "
-            f"got k {k}, m {m}"
+            f"grouped_matmul kernel: {lhs.dtype} needs k % 8 == 0 and "
+            f"m % 8 == 0, got k {k}, m {m}"
         )
     if variant is None:
-        variant = _gmm_variant(lhs.dtype, rhs.dtype, n, k, m)
+        variant = _gmm_variant(lhs.dtype, rhs.dtype, n, k, m, e)
     # whole 16-byte (int8: 8-byte) vectors from the start of each tensor;
     # TMA also needs its base on 16 bytes
     lhs, rhs = _aligned(lhs), _aligned(rhs)

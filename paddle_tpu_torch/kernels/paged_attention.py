@@ -22,7 +22,13 @@ cached token per kv head (``quantize_tokens``, written by
 ``paged_attention`` launches the CUDA kernel ``csrc/paged_attention.cu``
 (float pages, counted as ``paged_attention``; int8 pairs, counted as
 ``paged_attention_quant``) on CUDA tensors and takes the plain PyTorch
-version ``paged_attention_ref`` only for tensors on the CPU.
+version ``paged_attention_ref`` only for tensors on the CPU. q is
+float32, bfloat16 or float16. Two device kernels compute it, counted per
+variant: ``"cluster"`` (the default, ``_paged_variant``: one launch, the
+chunks of a sequence's kv head merged through distributed shared memory,
+no workspace) and ``"split"`` (the first design: a split-K kernel and
+its combine kernel over a per-call workspace, kept for side-by-side
+timing).
 ``update_pages`` writes one token per sequence into the pool IN PLACE
 (the JAX version returns new arrays).
 """
@@ -37,7 +43,9 @@ from . import _build
 __all__ = ["paged_attention", "paged_attention_ref", "quantize_tokens",
            "rows_below_capacity", "split_pages", "update_pages"]
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# device kernels of the launch's ``variant`` argument
+_VARIANTS = {"cluster": 0, "split": 1}
 _lib = None
 
 
@@ -48,15 +56,15 @@ def _kernel():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.paged_attention_launch.argtypes = [
             vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
-            ctypes.c_float, ci, vp,
+            ctypes.c_float, ci, ci, vp,
         ]
         lib.paged_attention_launch.restype = ci
         lib.paged_attention_quant_launch.argtypes = [
             vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
-            ctypes.c_float, ci, vp,
+            ctypes.c_float, ci, ci, vp,
         ]
         lib.paged_attention_quant_launch.restype = ci
-        lib.paged_attention_smem_bytes.argtypes = [ci, ci]
+        lib.paged_attention_smem_bytes.argtypes = [ci, ci, ci, ci, ci, ci]
         lib.paged_attention_smem_bytes.restype = ctypes.c_size_t
         lib.paged_attention_workspace_bytes.argtypes = [ci, ci, ci, ci, ci]
         lib.paged_attention_workspace_bytes.restype = ctypes.c_size_t
@@ -132,12 +140,26 @@ def _check(q, k_pages, v_pages, block_tables, lengths):
         raise ValueError("paged_attention: lengths must be [batch]")
 
 
+def _paged_variant(q_dtype, page_dtype):
+    """The device kernel the wrapper launches for these dtypes: the
+    cluster kernel for every q (f32, bf16, f16) and page type (q's, or
+    int8). The split-K kernel runs only when asked for by name."""
+    if q_dtype not in _DTYPES or page_dtype not in (q_dtype, torch.int8):
+        raise TypeError(
+            f"paged_attention kernel takes float32, bfloat16 or float16 q "
+            f"with pages of its dtype or int8 pairs, got {q_dtype}/"
+            f"{page_dtype}"
+        )
+    return "cluster"
+
+
 def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
-                    scale=None):
+                    scale=None, variant=None):
     """Decode-mode paged attention -> [batch, num_q_heads, head_dim] in
-    ``q``'s dtype. CUDA tensors run the hand-written kernel (f32 or bf16
-    q, pages of q's dtype or int8 pairs, head_dim <= 256); CPU tensors
-    run ``paged_attention_ref``."""
+    ``q``'s dtype. CUDA tensors run the hand-written kernel (f32, bf16 or
+    f16 q, pages of q's dtype or int8 pairs, head_dim <= 256) that
+    ``variant`` names, by default ``_paged_variant``'s; CPU tensors run
+    ``paged_attention_ref``."""
     kq, k_scales = split_pages(k_pages)
     vq, v_scales = split_pages(v_pages)
     _check(q, kq, vq, block_tables, lengths)
@@ -152,15 +174,16 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
     k_pages, v_pages = kq, vq
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
-    dtype = _DTYPES.get(q.dtype)
     page_dtype = torch.int8 if quant else q.dtype
-    if dtype is None or k_pages.dtype != page_dtype or \
-            v_pages.dtype != page_dtype:
+    if k_pages.dtype != page_dtype or v_pages.dtype != page_dtype:
         raise TypeError(
-            f"paged_attention kernel takes float32 or bfloat16 q with pages "
-            f"of its dtype or int8 pairs, got "
-            f"{q.dtype}/{k_pages.dtype}/{v_pages.dtype}"
+            f"paged_attention kernel takes pages of q's dtype or int8 "
+            f"pairs, got {q.dtype}/{k_pages.dtype}/{v_pages.dtype}"
         )
+    chosen = _paged_variant(q.dtype, page_dtype)   # raises off the table
+    variant = chosen if variant is None else variant
+    if variant not in _VARIANTS:
+        raise ValueError(f"paged_attention: unknown variant {variant!r}")
     if d > 256:
         raise ValueError(f"paged_attention kernel: head_dim {d} > 256")
     named = [("k_pages", k_pages), ("v_pages", v_pages),
@@ -179,49 +202,67 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
     if quant and (k_scales.dtype != torch.float32
                   or v_scales.dtype != torch.float32):
         raise TypeError("paged_attention kernel: scales must be float32")
-    q = q.contiguous()
-    tables = block_tables.to(torch.int32).contiguous()
-    lens = lengths.to(torch.int32).contiguous()
-    batch, n_q_heads, _ = q.shape
+    return _launch(q.contiguous(), k_pages, v_pages, k_scales, v_scales,
+                   block_tables.to(torch.int32).contiguous(),
+                   lengths.to(torch.int32).contiguous(), float(scale),
+                   variant)
+
+
+def _launch(q, k_pages, v_pages, k_scales, v_scales, tables, lens, scale,
+            variant):
+    """The ``variant`` kernel on checked, contiguous CUDA inputs (int32
+    tables and lengths) -> out in q's dtype. The cluster kernel allocates
+    nothing but out; the split kernel also a workspace for its chunk
+    states. ``chip_smoke.py`` times this alone, without the wrapper's
+    checks."""
+    quant = k_scales is not None
+    batch, n_q_heads, d = q.shape
     n_kv_heads, n_pages, page_size, _ = k_pages.shape
+    capacity = tables.shape[1] * page_size
     lib = _kernel()
-    smem = lib.paged_attention_smem_bytes(n_q_heads // n_kv_heads, d)
+    smem = lib.paged_attention_smem_bytes(
+        n_q_heads // n_kv_heads, d, k_pages.element_size(), page_size,
+        capacity, _VARIANTS[variant])
     if smem > 232448:
         raise ValueError(
-            f"paged_attention kernel: query group {n_q_heads // n_kv_heads} "
-            f"x head_dim {d} needs {smem} bytes of shared memory"
+            f"paged_attention kernel ({variant}): query group "
+            f"{n_q_heads // n_kv_heads} x head_dim {d} needs {smem} bytes "
+            f"of shared memory"
         )
     out = torch.empty_like(q)
-    # per-chunk softmax states of the split-K kernel. Freed on return
-    # while the kernel may still run: safe because the caching allocator
-    # hands the memory only to later work on this same stream
-    workspace = torch.empty(
-        lib.paged_attention_workspace_bytes(
-            batch, n_q_heads, n_kv_heads, d, tables.shape[1] * page_size
-        ),
-        dtype=torch.uint8, device=q.device,
-    )
+    workspace = None
+    if variant == "split":
+        # per-chunk softmax states. Freed on return while the kernel may
+        # still run: safe because the caching allocator hands the memory
+        # only to later work on this same stream
+        workspace = torch.empty(
+            lib.paged_attention_workspace_bytes(
+                batch, n_q_heads, n_kv_heads, d, capacity),
+            dtype=torch.uint8, device=q.device,
+        )
     geometry = (batch, n_q_heads, n_kv_heads, n_pages, page_size,
-                tables.shape[1], d, float(scale), dtype)
+                tables.shape[1], d, scale, _DTYPES[q.dtype],
+                _VARIANTS[variant])
+    ws = workspace.data_ptr() if workspace is not None else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if quant:
             err = lib.paged_attention_quant_launch(
                 q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 k_scales.data_ptr(), v_scales.data_ptr(), tables.data_ptr(),
-                lens.data_ptr(), out.data_ptr(), workspace.data_ptr(),
-                *geometry, stream,
+                lens.data_ptr(), out.data_ptr(), ws, *geometry, stream,
             )
         else:
             err = lib.paged_attention_launch(
                 q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                workspace.data_ptr(), *geometry, stream,
+                tables.data_ptr(), lens.data_ptr(), out.data_ptr(), ws,
+                *geometry, stream,
             )
     name = "paged_attention_quant" if quant else "paged_attention"
     if err:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    _build.count_launch(name)
+        raise RuntimeError(
+            f"{name} ({variant}) kernel launch failed: CUDA error {err}")
+    _build.count_launch(name, variant)
     return out
 
 

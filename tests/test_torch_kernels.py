@@ -7,7 +7,9 @@ which its wrapper takes for CPU tensors (the CUDA kernels themselves run
 only on the card: ``chip_smoke.py`` holds them against these plain
 versions there). f32 tolerance atol 2e-5, rtol 2e-5 for the paged cases
 (the JAX package's own kernel-vs-reference tolerance), atol 1e-5, rtol
-1e-4 elsewhere. The flash backward's gradients through
+1e-4 elsewhere; float16 paged attention atol and rtol 2e-3 (both sides
+compute in f32 and round the output to float16, whose unit roundoff is
+2^-11: one rounding apart at most). The flash backward's gradients through
 ``FlashAttentionFunction`` are also held to autograd through the math
 attention, and to finite differences in float64.
 """
@@ -31,6 +33,7 @@ from paddle_tpu_torch.kernels import paged_attention as pa
 from paddle_tpu_torch.ops import scaled_dot_product_attention as port_sdpa
 
 PAGED_TOL = dict(atol=2e-5, rtol=2e-5)
+F16_PAGED_TOL = dict(atol=2e-3, rtol=2e-3)
 TOL = dict(atol=1e-5, rtol=1e-4)
 
 
@@ -84,6 +87,64 @@ def test_paged_ref_matches_jax_kernel_and_xla(case):
     np.testing.assert_allclose(port, xla, **PAGED_TOL)
     lens = args[4]
     assert np.all(port[lens == 0] == 0.0)   # exact zeros, both sides
+
+
+@pytest.mark.parametrize("case", sorted(PAGED))
+def test_paged_ref_float16_matches_jax_xla(case):
+    # float16 q and pages, the same values on both sides: the JAX package
+    # serves such q through paged_attention_xla (its kernel takes f32 and
+    # bf16), the port's card through its float16 kernel instance, held to
+    # this plain version
+    q, kp, vp, bt, lens = PAGED[case]
+    args = (q.astype(np.float16), kp.astype(np.float16),
+            vp.astype(np.float16), bt, lens)
+    reset_launch_counts()
+    port = pa.paged_attention(*_t(*args))
+    assert port.dtype == torch.float16
+    assert set(launch_counts().values()) == {0}
+    torch.testing.assert_close(port, pa.paged_attention_ref(*_t(*args)),
+                               rtol=0, atol=0)
+    xla = np.asarray(jpa.paged_attention_xla(*map(jnp.asarray, args)))
+    assert xla.dtype == np.float16
+    np.testing.assert_allclose(port.float().numpy(), xla.astype(np.float32),
+                               **F16_PAGED_TOL)
+    assert np.all(port.numpy()[lens == 0] == 0.0)
+
+
+F16, BF16, F32, I8 = torch.float16, torch.bfloat16, torch.float32, torch.int8
+
+
+@pytest.mark.parametrize("q_dtype,page_dtype", [
+    (F16, F16), (F16, I8), (BF16, BF16), (BF16, I8), (F32, F32), (F32, I8),
+])
+def test_paged_variant_is_the_cluster_kernel(q_dtype, page_dtype):
+    # the device kernel the wrapper launches, chosen before the launch
+    assert pa._paged_variant(q_dtype, page_dtype) == "cluster"
+    assert set(pa._VARIANTS) == {"cluster", "split"}
+    assert q_dtype in pa._DTYPES
+
+
+@pytest.mark.parametrize("q_dtype,page_dtype", [
+    (F16, BF16), (BF16, F16), (F32, F16), (torch.float64, torch.float64),
+])
+def test_paged_variant_refuses_other_dtypes(q_dtype, page_dtype):
+    with pytest.raises(TypeError, match="float16"):
+        pa._paged_variant(q_dtype, page_dtype)
+
+
+def test_paged_wrapper_takes_float16_on_cpu():
+    # float16 CPU tensors: the plain version, whichever kernel is named
+    q, kp, vp, bt, lens = PAGED["gqa_partial_zero"]
+    args = _t(q.astype(np.float16), kp.astype(np.float16),
+              vp.astype(np.float16), bt, lens)
+    reset_launch_counts()
+    for variant in (None, "cluster", "split"):
+        out = pa.paged_attention(*args, variant=variant)
+        assert out.dtype == torch.float16 and out.shape == args[0].shape
+        torch.testing.assert_close(out, pa.paged_attention_ref(*args),
+                                   rtol=0, atol=0)
+    assert set(launch_counts().values()) == {0}
+    assert variant_counts() == {}
 
 
 def test_paged_block_table_reuse_after_free():

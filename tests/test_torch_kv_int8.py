@@ -10,7 +10,9 @@ card by ``chip_smoke.py``). Tolerances:
 * int8 ``update_pages``: bit-identical pools, at-capacity rows dropped;
 * int8 attention: f32 rtol 1e-4, atol 1e-5 against ``paged_attention_xla``
   and the interpreted kernel, and within 0.05 of the float pool (the
-  JAX ``test_int8_pool_tolerance`` contract);
+  JAX ``test_int8_pool_tolerance`` contract); with float16 q, rtol and
+  atol 2e-3 against ``paged_attention_xla`` (both sides compute in f32
+  and round the output to float16, unit roundoff 2^-11);
 * the int8 engine on converted weights: pools after prefill equal up to
   one int8 step in at most 0.1 % of the codes (K/V come from f32
   products whose last bits differ between the frameworks, and a value on
@@ -47,6 +49,7 @@ from paddle_tpu_torch.serving import (
 from paddle_tpu_torch.serving.adapter import LlamaServingAdapter
 
 ATTN_TOL = dict(rtol=1e-4, atol=1e-5)
+F16_ATTN_TOL = dict(rtol=2e-3, atol=2e-3)
 POOL_TOL = dict(rtol=0.05, atol=0.05)
 
 
@@ -145,6 +148,33 @@ def test_int8_attention_matches_jax(case):
     # within the int8 tolerance of the float pool
     flt = pa.paged_attention_ref(tq, *_t(kp, vp), tbt, tlens).numpy()
     np.testing.assert_allclose(port, flt, **POOL_TOL)
+
+
+@pytest.mark.parametrize("case", sorted(INT8_CASES))
+def test_int8_attention_float16_q_matches_jax(case):
+    # float16 q over the int8 pool (a float16 model's int8 serving): the
+    # JAX package runs paged_attention_xla for such q, the port's card
+    # its int8 kernel with a float16 q, held to this plain version
+    hq, hkv, lens = INT8_CASES[case]
+    kp, vp = _pool(seed=6, kvh=hkv)
+    rng = np.random.RandomState(7)
+    q = rng.randn(len(lens), hq, 32).astype(np.float16)
+    bt = rng.randint(0, 10, (len(lens), 3)).astype(np.int32)
+    lens = np.array(lens, np.int32)
+    jk, jv = jpa.quantize_tokens(jnp.asarray(kp)), \
+        jpa.quantize_tokens(jnp.asarray(vp))
+    xla = np.asarray(jpa.paged_attention_xla(
+        jnp.asarray(q), jk, jv, jnp.asarray(bt), jnp.asarray(lens)))
+    assert xla.dtype == np.float16
+    pk, pv = _pair(jk), _pair(jv)      # the same int8 codes and scales
+    tq, tbt, tlens = _t(q, bt, lens)
+    reset_launch_counts()
+    port = pa.paged_attention(tq, pk, pv, tbt, tlens)
+    assert set(launch_counts().values()) == {0}
+    assert port.dtype == torch.float16
+    np.testing.assert_allclose(port.float().numpy(), xla.astype(np.float32),
+                               **F16_ATTN_TOL)
+    assert np.all(port.numpy()[lens == 0] == 0.0)
 
 
 def test_int8_unwritten_slots_read_as_zero():

@@ -231,7 +231,7 @@ BF, F32, I8 = torch.bfloat16, torch.float32, torch.int8
     (BF, BF, 506, 136, 200, "mma"),
     (BF, BF, 32, 24, 40, "mma"),            # the JAX sweeps
     (BF, BF, 16384, 0, 2816, "mma"),        # k == 0: zeros, no ring
-    (BF, I8, 16384, 1024, 2816, "mma"),     # int8 rhs keeps mma.sync
+    (BF, I8, 16384, 1024, 2816, "wgmma"),   # int8 rhs: the int8 wgmma
     (BF, I8, 32, 24, 40, "mma"),
     (F32, F32, 16384, 1024, 2816, "fma"),
     (F32, I8, 32, 24, 40, "fma"),
@@ -240,6 +240,85 @@ BF, F32, I8 = torch.bfloat16, torch.float32, torch.int8
 def test_gmm_variant(lhs, rhs, n, k, m, want):
     assert gmm._gmm_variant(lhs, rhs, n, k, m) == want
     assert want in gmm._VARIANTS
+
+
+F16 = torch.float16
+
+
+@pytest.mark.parametrize("lhs,rhs,n,k,m,groups,want", [
+    (F16, F16, 16384, 1024, 2816, 8, "wgmma"),   # float16 MoE up projection
+    (F16, F16, 1024, 32, 1024, 8, "wgmma"),      # exactly 2^25
+    (F16, F16, 1023, 32, 1024, 8, "mma"),        # below the crossover
+    (F16, F16, 32, 24, 40, 4, "mma"),            # the JAX sweeps
+    (F16, F16, 16384, 0, 2816, 8, "mma"),        # k == 0
+    (BF, I8, 16384, 2816, 1024, 8, "wgmma"),     # int8 down projection
+    (F16, I8, 16384, 1024, 2816, 8, "wgmma"),    # float16 lhs, int8 rhs
+    (F16, I8, 1024, 32, 1024, 8, "wgmma"),       # int8 at its crossover
+    (F16, I8, 1023, 32, 1024, 8, "mma"),         # and one row below
+    (BF, I8, 32, 24, 48, 4, "mma"),              # the JAX sweeps' size
+    (BF, I8, 16384, 1024, 2808, 8, "mma"),       # m % 16 != 0: no int8 map
+    (BF, I8, 16384, 1024, 2816, 129, "mma"),     # past its work-list room
+    (BF, I8, 16384, 1024, 2816, 128, "wgmma"),
+    (F32, I8, 16384, 1024, 2816, 8, "fma"),
+])
+def test_gmm_variant_float16_and_int8_crossover(lhs, rhs, n, k, m, groups,
+                                                want):
+    assert gmm._gmm_variant(lhs, rhs, n, k, m, groups) == want
+    assert want in gmm._VARIANTS
+    if rhs == I8 and lhs != F32:
+        macs = n * k * m
+        assert (want == "wgmma") == (
+            macs >= gmm.INT8_WGMMA_MIN_MACS and m % 16 == 0
+            and groups <= gmm.INT8_WGMMA_MAX_GROUPS)
+
+
+# float16 against the JAX reference: both sides take the same float16
+# inputs, accumulate in f32 and round the output to float16 (unit
+# roundoff 2^-11): one rounding apart, rtol and atol 2e-3
+F16_TOL = dict(rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("gs", SWEEP, ids=[str(g) for g in SWEEP])
+def test_grouped_matmul_ref_float16_matches_jax(gs):
+    lhs, rhs, gsa = _gmm_case(gs, seed=11)
+    lhs16, rhs16 = lhs.astype(np.float16), rhs.astype(np.float16)
+    reset_launch_counts()
+    out = gmm.grouped_matmul(*map(torch.from_numpy, (lhs16, rhs16, gsa)))
+    assert out.dtype == torch.float16
+    assert set(launch_counts().values()) == {0}
+    want = np.asarray(jgmm.grouped_matmul_xla(
+        *map(jnp.asarray, (lhs16, rhs16, gsa))))
+    assert want.dtype == np.float16
+    np.testing.assert_allclose(_np(out), want.astype(np.float32), **F16_TOL)
+    # int8 rhs with per-channel scales and float16 lhs
+    q, sc = _int8(rhs)
+    out8 = gmm.grouped_matmul(*map(torch.from_numpy, (lhs16, q, gsa, sc)))
+    assert out8.dtype == torch.float16
+    want8 = np.asarray(jgmm.grouped_matmul_xla(
+        *map(jnp.asarray, (lhs16, q, gsa)), jnp.asarray(sc)))
+    np.testing.assert_allclose(_np(out8), want8.astype(np.float32),
+                               **F16_TOL)
+
+
+def test_grouped_matmul_plain_on_cpu_takes_float16():
+    # float16 at a shape the card runs on the wgmma kernels: the CPU
+    # wrapper returns the plain version, float and int8 rhs alike
+    rng = np.random.RandomState(12)
+    gs = torch.tensor([300, 0, 500, 224], dtype=torch.int32)
+    lhs = torch.from_numpy(rng.randn(1024, 32).astype(np.float16))
+    rhs = torch.from_numpy(rng.randn(4, 32, 1024).astype(np.float32))
+    q, sc = map(torch.from_numpy, _int8(rhs.numpy()))
+    reset_launch_counts()
+    for args in ((lhs, rhs.half(), gs), (lhs, q, gs, sc)):
+        assert gmm._gmm_variant(lhs.dtype, args[1].dtype, 1024, 32,
+                                1024) == "wgmma"
+        with torch.no_grad():
+            out = gmm.grouped_matmul(*args)
+        torch.testing.assert_close(out, gmm.grouped_matmul_ref(*args),
+                                   rtol=0, atol=0)
+        assert out.dtype == F16 and out.shape == (1024, 1024)
+    assert set(launch_counts().values()) == {0}
+    assert variant_counts() == {}
 
 
 def test_grouped_matmul_plain_on_cpu_at_a_wgmma_shape():

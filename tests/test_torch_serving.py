@@ -5,11 +5,18 @@
     ``generate`` on a mixed workload, with and without preemption;
   * greedy token ids equal the JAX ``Engine``'s on converted weights
     (the reference engine is built with the analysis gate off);
+  * a float16 model: the first decode step's logits after a prefill, the
+    port's engine programs against the JAX engine's (its adapter's
+    prefill and decode, jitted, weights cast to float16), within 8e-3
+    (4 float16 ulps at |logits| ~3: both sides round every layer to
+    float16 at other places), over the float16 and the int8 pool; the
+    float16 engine drains a workload;
   * KV blocks all return to the pool after the drain;
   * sampling: the warped distributions match JAX, and the same numpy
     noise fed to both ``sample_tokens`` gives the same tokens (a
     ``torch.Generator`` and ``jax.random`` never give the same bits).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +26,7 @@ import paddle_tpu as paddle
 from paddle_tpu import serving as jax_serving
 from paddle_tpu.models.llama import LlamaConfig as JaxLlamaConfig
 from paddle_tpu.models.llama import LlamaForCausalLM as JaxLlama
+from paddle_tpu.serving.adapter import LlamaServingAdapter as JaxAdapter
 from paddle_tpu.serving.sampler import sample_tokens as jax_sample_tokens
 from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
 from paddle_tpu_torch.models import (
@@ -30,9 +38,11 @@ from paddle_tpu_torch.serving import (
     BlockManager,
     Engine,
     EngineConfig,
+    KVPool,
     SamplingParams,
     sample_tokens,
 )
+from paddle_tpu_torch.serving.adapter import LlamaServingAdapter
 from paddle_tpu_torch.serving.sampler import pack_sampling_params
 
 
@@ -172,6 +182,62 @@ def test_engine_matches_jax_engine_on_converted_weights():
         assert eng.block_manager.num_used == 0
         # CPU tensors take the plain versions: no kernel launched
         assert set(launch_counts().values()) == {0}
+
+
+F16_LOGITS_TOL = dict(rtol=0, atol=8e-3)
+
+
+@pytest.mark.parametrize("pool", [None, "int8"], ids=["f16_pool", "int8"])
+@pytest.mark.parametrize("kv", [None, 2], ids=["mha", "gqa"])
+def test_float16_first_decode_logits_match_jax_engine(kv, pool):
+    paddle.seed(0)
+    jax_model = JaxLlama(JaxLlamaConfig.tiny(num_key_value_heads=kv))
+    port = LlamaForCausalLM(
+        LlamaConfig.tiny(num_key_value_heads=kv, dtype="float16"),
+        device="cpu")
+    load_reference_state(
+        port, {k: v.numpy() for k, v in jax_model.state_dict().items()})
+    assert port.dtype == torch.float16
+    jad, tad = JaxAdapter(jax_model), LlamaServingAdapter(port)
+    # the JAX engine's pool takes its dtype from the weights: float16
+    jad.weights = jax.tree_util.tree_map(
+        lambda a: a.astype(jnp.float16)
+        if jnp.issubdtype(a.dtype, jnp.floating) else a, jad.weights)
+    cfg = port.config
+    geo = (cfg.num_hidden_layers, cfg.num_key_value_heads, 8, 4,
+           cfg.hidden_size // cfg.num_attention_heads)
+    jpool = jax_serving.KVPool(*geo, dtype="float16", quant_dtype=pool)
+    tpool = KVPool(*geo, dtype=torch.float16, device="cpu", quant_dtype=pool)
+    prompt = np.random.RandomState(9).randint(1, 128, 16).astype(np.int64)
+    table = np.array([3, 0, 5, 1], np.int32)   # 13 tokens on 4 pages
+    _, jk, jv = jax.jit(jad.prefill)(jad.weights, jpool.k, jpool.v,
+                                     jnp.asarray(prompt), 13,
+                                     jnp.asarray(table))
+    tad.prefill(tpool.k, tpool.v, torch.from_numpy(prompt), 13,
+                torch.from_numpy(table))
+    # one decode step: slot 0 continues at position 13, slot 1 inactive
+    step = (np.array([7, 0], np.int64), np.array([13, 0], np.int64),
+            np.stack([table, np.zeros(4, np.int32)]),
+            np.array([True, False]))
+    jlog, _, _ = jax.jit(jad.decode)(jad.weights, jk, jv,
+                                     *map(jnp.asarray, step))
+    reset_launch_counts()
+    tlog = tad.decode(tpool.k, tpool.v, *map(torch.from_numpy, step))
+    assert set(launch_counts().values()) == {0}
+    assert tlog.dtype == torch.float16 == port.dtype
+    assert np.asarray(jlog).dtype == np.float16
+    np.testing.assert_allclose(tlog[0].float().numpy(),
+                               np.asarray(jlog)[0].astype(np.float32),
+                               **F16_LOGITS_TOL)
+    # the float16 engine drains a workload over the same pool type
+    prompts, max_new = _workload(n_req=6, seed=5, total=20)
+    eng = Engine(port, EngineConfig(max_batch_slots=4, max_model_len=32,
+                                    page_size=4, kv_cache_dtype=pool))
+    out = eng.generate(prompts,
+                       [SamplingParams(max_new_tokens=k) for k in max_new])
+    assert [len(o.token_ids) for o in out] == max_new
+    assert eng.block_manager.num_used == 0
+    assert set(launch_counts().values()) == {0}
 
 
 def test_stop_token_and_abort(model):
