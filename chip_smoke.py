@@ -33,16 +33,30 @@ Phases, in order; any failure exits non-zero:
                the MoE layer's shapes, the JAX sweeps of empty and
                one-row groups, f32 and int8 rhs. float16: paged decode
                over float16 and int8 pools, the grouped GEMM with
-               float16 lhs and float16 or int8 rhs.
-4. parity   — tiny f32 Llama (MHA and GQA): greedy outputs of the port's
-               Engine are token-identical to the port's ``generate``.
+               float16 lhs and float16 or int8 rhs. The fused KV write
+               (``kv_write``) at the serving decode shape (8 rows) and a
+               512-row prefill, bf16, float16, f32 and int8 pools:
+               pages and scales equal to its plain version bit for bit.
+4. parity   — tiny f32 Llama (MHA and GQA), the engine's programs
+               captured as CUDA graphs: greedy outputs token-identical to
+               the port's ``generate``, with ``decode_kernel`` "auto" and
+               "xla" (the plain paged attention, counted); one decode
+               program; a seeded sampled request's first token does not
+               follow the engine's history.
 5. serving  — full-width bf16 Llama (the repo's serving configuration,
                12 layers, random seeded weights) serving 32 mixed
-               requests through ``Engine.generate``: all finish, no KV
-               block leaks, each decode step runs the paged kernel once
-               per layer and each prefill the flash kernel once per layer,
-               and the first decode step's logits agree with the same step
-               run with the plain attention function.
+               requests through ``Engine.generate``, every step a graph
+               replay: all finish, no KV block leaks; counted from the
+               replays, each decode step runs the paged kernel (cluster)
+               once per layer, each prefill the flash kernel once per
+               layer, every step the kv_write kernel once per layer; no
+               kernel launched outside a graph, one replay per step; two
+               decode programs (greedy and mixed), at most one prefill
+               program per bucket. The warm-up engine's first decode
+               step's logits (the replay's output) agree with the same
+               step run eagerly with the plain attention function on
+               copies of the pool, and its greedy tokens equal those of
+               the same engine with its program functions run eagerly.
 5b. serving_int8 — the same with ``EngineConfig(kv_cache_dtype="int8")``:
                every decode step runs the int8 paged kernel once per
                layer and the float one never; it also reports the first
@@ -80,7 +94,8 @@ Phases, in order; any failure exits non-zero:
                MoE (8 layers) against plain attention.
 
 ``--phases`` picks a subset; ``profile`` (a profiled decode step over the
-bf16 and the int8 pool) runs only when named.
+bf16 and the int8 pool, replayed and with the program function run
+eagerly) runs only when named.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -724,9 +739,111 @@ def gate_faults(torch, fa, s=TRAIN_SEQ, b=TRAIN_BATCH, h=16, d=128):
     return result
 
 
+SERVING_GEOMETRY = dict(hkv=16, d=128, page=16, pages_per_seq=32,
+                        num_blocks=256)
+
+
+def kv_write_case(torch, kw, flush, name, dtype, n, prefill, quant):
+    """The fused KV-write kernel against ``kv_write_ref`` on the same pool
+    and rows, at the serving pool's geometry (16 kv heads, d 128, page
+    16, 32 pages a table, 256 blocks and the sink): the live pages and
+    scales equal bit for bit (the sink, which the plain version writes
+    and the kernel does not, left out). Decode: ``n`` rows, one per slot,
+    with one at capacity and one inactive; prefill: row 0, positions
+    0..n-1, the last 12 past the prompt's length. Times the wrapper's
+    call, the plain version and, for a float pool, the library call: two
+    ``index_put_`` (K and V) over the rows to write, their indices
+    precomputed."""
+    dev = "cuda"
+    geo = SERVING_GEOMETRY
+    hkv, d, page, pps, nb = (geo["hkv"], geo["d"], geo["page"],
+                             geo["pages_per_seq"], geo["num_blocks"])
+    g = torch.Generator(device=dev).manual_seed(n + 7 * quant)
+    shape = (hkv, nb + 1, page, d)
+
+    def pool():
+        if quant:
+            return (torch.randint(-127, 128, shape, generator=g, device=dev,
+                                  dtype=torch.int8),
+                    torch.rand(shape[:3], generator=g, device=dev))
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    kp, vp = pool(), pool()
+    kn = (torch.randn(n, hkv, d, generator=g, device=dev) * 3).to(dtype)
+    vn = torch.randn(n, hkv, d, generator=g, device=dev).to(dtype)
+    kn[0, 0] = 0                                 # an all-zero row
+    if prefill:
+        tables = torch.randperm(nb, generator=g, device=dev)[:pps]
+        tables = tables.view(1, pps).to(torch.int32)
+        rows = torch.zeros(n, dtype=torch.int32, device=dev)
+        positions = torch.arange(n, dtype=torch.int32, device=dev)
+        valid = positions < n - 12
+    else:
+        tables = torch.randperm(nb, generator=g, device=dev)[:n * pps]
+        tables = tables.view(n, pps).to(torch.int32)
+        rows = torch.arange(n, dtype=torch.int32, device=dev)
+        positions = torch.randint(0, pps * page, (n,), generator=g,
+                                  device=dev, dtype=torch.int32)
+        positions[1] = pps * page                # at capacity
+        valid = torch.ones(n, dtype=torch.bool, device=dev)
+        valid[2] = False                         # an inactive slot
+    args = (kn, vn, tables, rows, positions, valid)
+    copy = _pool_copy([kp, vp])
+    kw.kv_write(kp, vp, *args)
+    kw.kv_write_ref(*copy, *args)
+    torch.cuda.synchronize()
+    live = [t[:, :-1] for e in (kp, vp)
+            for t in (e if quant else (e,))]
+    want = [t[:, :-1] for e in copy for t in (e if quant else (e,))]
+    diff = max((a.float() - b.float()).abs().max().item()
+               for a, b in zip(live, want))
+    exact = all(torch.equal(a, b) for a, b in zip(live, want))
+    check(exact, f"kv_write {name}: kernel and plain version differ (max "
+                 f"abs {diff})")
+    ms = cuda_ms(torch, lambda: kw.kv_write(kp, vp, *args), 50, flush)
+    plain_ms = cuda_ms(torch, lambda: kw.kv_write_ref(*copy, *args), 20,
+                       flush)
+    write = valid & (positions < pps * page)
+    w = int(write.sum())
+    library_ms = None
+    if not quant:
+        pos = positions[write].long()
+        phys = tables[rows[write].long(), pos // page].long()
+        slot = pos % page
+        ks, vs = kn[write].transpose(0, 1), vn[write].transpose(0, 1)
+
+        def library():
+            kp[:, phys, slot] = ks
+            vp[:, phys, slot] = vs
+
+        library_ms = cuda_ms(torch, library, 50, flush)
+    elem = kn.element_size()
+    page_elem = 1 if quant else elem
+    # the rows it writes, read once and stored once (int8: their f32
+    # scales too); rows, positions and valid read once, one table entry
+    # per written row
+    nbytes = (2 * w * hkv * d * (elem + page_elem) + (2 * w * hkv * 4
+              if quant else 0) + n * 9 + w * 4)
+    # int8: absmax, division and rounding per element, in f32
+    flops = 3 * 2 * w * hkv * d if quant else 0
+    bound_ms, bound_by = bound(nbytes, flops, torch.float32, torch)
+    case = {"case": name, "dtype": str(dtype).split(".")[-1],
+            "pool": "int8" if quant else str(dtype).split(".")[-1],
+            "rows": n, "rows_written": w, "prefill": prefill, "hkv": hkv,
+            "d": d, "page_size": page, "exact": exact, "max_abs_err": diff,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": ("index_put_ of K and V" if not quant else
+                        "none: no PyTorch call quantizes and scatters"),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "flops": flops}
+    log(f"[kernels] kv_write {json.dumps(case)}")
+    return case
+
+
 def phase_kernels(torch):
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import grouped_matmul as gk
+    from paddle_tpu_torch.kernels import kv_write as kw
     from paddle_tpu_torch.kernels import paged_attention as pa
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
@@ -818,12 +935,31 @@ def phase_kernels(torch):
     # kernel's tensor map takes (m % 16 == 0): both int8 kernels held
     gmm_quant += [gmm_case(torch, gk, flush, f"sweep_int8_m48{gs}", bf16,
                            24, 48, gs, quant=True) for gs in GMM_SWEEP]
+    # the fused KV write at the serving decode shape (8 slots) and a
+    # 512-token prefill, float (bf16, f16, f32) and int8 pools
+    kvw = [kv_write_case(torch, kw, flush, f"{mode}_{pool}", dtype, n,
+                         mode == "prefill", pool == "int8")
+           for mode, n in (("decode", 8), ("prefill", 512))
+           for pool, dtype in (("bf16", torch.bfloat16),
+                               ("int8", torch.bfloat16),
+                               ("f16", torch.float16),
+                               ("f32", torch.float32))]
+    kvw.append(kv_write_case(torch, kw, flush, "decode_int8_f16",
+                             torch.float16, 8, False, True))
     return (paged, flash, bwd, gate_faults(torch, fa), quant, gmm,
-            gmm_quant)
+            gmm_quant, kvw)
 
 
 # ---------------------------------------------------------------- parity
 def phase_parity(torch):
+    """Tiny f32 Llama (MHA and GQA), captured engine: greedy outputs equal
+    ``generate``'s, with one decode program and at most one prefill
+    program per bucket; the same with ``decode_kernel="xla"`` (the plain
+    paged attention captured, counted once per layer per decode step).
+    Then a seeded sampled request's first token does not depend on the
+    engine's history (``SamplingParams(seed=)``: a busy engine and a fresh
+    one under another engine seed agree)."""
+    from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
 
@@ -831,28 +967,57 @@ def phase_parity(torch):
     lens = [int(n) for n in rng.choice([4, 7, 10, 13], 12)]
     prompts = [rng.integers(1, 128, n).tolist() for n in lens]
     max_new = [20 - n for n in lens]
+    geo = dict(max_batch_slots=4, max_model_len=32, page_size=4,
+               num_blocks=12, prefill_buckets=[16, 32])
+    result = {}
     for kv in (None, 2):
         model = LlamaForCausalLM(
             LlamaConfig.tiny(num_key_value_heads=kv), seed=0
         )
-        engine = Engine(model, EngineConfig(
-            max_batch_slots=4, max_model_len=32, page_size=4,
-            num_blocks=12, prefill_buckets=[16, 32],
-        ))
-        outs = engine.generate(
-            prompts, [SamplingParams(max_new_tokens=k) for k in max_new]
-        )
-        for p, k, o in zip(prompts, max_new, outs):
-            ref = model.generate(
-                torch.tensor([p], device="cuda"), max_new_tokens=k
-            )[0, len(p):].tolist()
-            check(o.token_ids == ref,
-                  f"parity kv_heads={kv}: engine {o.token_ids} != "
-                  f"generate {ref}")
-        check(engine.block_manager.num_used == 0, "parity: block leak")
-        log(f"[parity] kv_heads={kv or 4}: {len(prompts)} requests "
-            f"token-identical to generate (preemptions="
-            f"{engine.metrics.preemptions})")
+        refs = [model.generate(torch.tensor([p], device="cuda"),
+                               max_new_tokens=k)[0, len(p):].tolist()
+                for p, k in zip(prompts, max_new)]
+        for kernel in ("auto", "xla"):
+            engine = Engine(model, EngineConfig(**geo, decode_kernel=kernel))
+            _build.reset_launch_counts()
+            outs = engine.generate(
+                prompts, [SamplingParams(max_new_tokens=k) for k in max_new]
+            )
+            counts = _build.launch_counts()
+            m = engine.metrics
+            tag = f"parity kv_heads={kv or 4} decode_kernel={kernel}"
+            for o, ref in zip(outs, refs):
+                check(o.token_ids == ref,
+                      f"{tag}: engine {o.token_ids} != generate {ref}")
+            check(engine.block_manager.num_used == 0, f"{tag}: block leak")
+            L = model.config.num_hidden_layers
+            plain = counts["paged_attention_ref"]
+            check(m.decode_compiles == 1 and m.prefill_compiles <= 2
+                  and (plain, counts["paged_attention"]) == (
+                      (m.decode_steps * L, 0) if kernel == "xla"
+                      else (0, m.decode_steps * L)),
+                  f"{tag}: programs {m.decode_compiles} / "
+                  f"{m.prefill_compiles}, launches {counts}")
+            log(f"[parity] {tag}: {len(prompts)} requests token-identical "
+                f"to generate (preemptions={m.preemptions}, programs "
+                f"{m.decode_compiles} decode + {m.prefill_compiles} "
+                f"prefill, plain paged launches {plain})")
+    sp = SamplingParams(max_new_tokens=4, do_sample=True, temperature=0.8,
+                        seed=123)
+    busy = Engine(model, EngineConfig(**geo, seed=0))
+    busy.generate(prompts, [SamplingParams(max_new_tokens=5, do_sample=True)
+                            for _ in prompts])
+    first = [busy.generate([[1, 2, 3]], sp)[0].token_ids[0]]
+    fresh = Engine(model, EngineConfig(**geo, seed=9))
+    fresh.generate([[7, 8]], SamplingParams(max_new_tokens=2))
+    first.append(fresh.generate([[1, 2, 3]], sp)[0].token_ids[0])
+    check(first[0] == first[1],
+          f"parity: a seeded request's first token follows engine history "
+          f"({first})")
+    log(f"[parity] seeded sampled first token {first[0]} on a busy and a "
+        f"fresh engine")
+    result["seeded_first_tokens"] = first
+    return result
 
 
 # --------------------------------------------------------------- serving
@@ -869,46 +1034,153 @@ def _pool_copy(entries):
             else e.clone() for e in entries]
 
 
+def _eager_programs(engine):
+    """Make every program ``engine`` builds run its function eagerly over
+    the same static buffers instead of replaying its graph (still built
+    and captured): private to this script, the measure of what capture
+    changes."""
+    build = engine._program
+
+    def eager(fn, generator):
+        prog = build(fn, generator)
+        prog._run = prog.fn
+        return prog
+
+    engine._program = eager
+    return engine
+
+
+@contextlib.contextmanager
+def host_dispatch_probe():
+    """Counts, while inside, the kernel launches made by a wrapper outside
+    any program's build (its warm-up and capture: ``record_launches``),
+    and the graph replays. In a captured engine every launch comes from a
+    replay, so ``direct`` stays 0."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.serving import programs
+
+    state = {"depth": 0, "direct": 0, "replays": 0}
+    count, record, replay = (_build.count_launch, _build.record_launches,
+                             programs.Program._replay)
+
+    def counted(name, variant=None):
+        if state["depth"] == 0:
+            state["direct"] += 1
+        count(name, variant)
+
+    def recorded(fn):
+        state["depth"] += 1
+        try:
+            return record(fn)
+        finally:
+            state["depth"] -= 1
+
+    def replayed(self):
+        state["replays"] += 1
+        return replay(self)
+
+    _build.count_launch, _build.record_launches = counted, recorded
+    programs.Program._replay = replayed
+    try:
+        yield state
+    finally:
+        _build.count_launch, _build.record_launches = count, record
+        programs.Program._replay = replay
+
+
 def _first_decode(torch, model, ecfg, prompts, compare_plain):
-    """Run a warm-up engine over ``prompts`` (4 tokens each) and return
-    its first decode step's logits (f32, active slots); with
-    ``compare_plain`` that step is also run with the plain attention
-    function on copies of the pool, and the two are compared."""
-    from paddle_tpu_torch.kernels import paged_attention as pa
+    """Run a warm-up engine over the first 8 ``prompts`` (4 greedy tokens
+    each) and return its first decode step's logits (f32, active slots),
+    read from the captured decode program's output after its first
+    replay. With ``compare_plain`` the same step is also run eagerly with
+    the plain attention function (the adapter's ``decode_kernel="xla"``)
+    on copies of the pool taken just before the replay, over the
+    program's own staged inputs, and the two are compared. The engine
+    must build one decode program, and its greedy tokens must equal those
+    of a twin engine whose programs run their functions eagerly."""
     from paddle_tpu_torch.serving import Engine, SamplingParams
-    from paddle_tpu_torch.serving import adapter as adapter_mod
 
     warm = Engine(model, ecfg)
     got = {}
-    real_decode = warm.adapter.decode
+    real_launch = warm._launch_decode
 
-    def decode_and_compare(kp, vp, *args):
+    def launch_and_compare(idxs):
         if got:
-            return real_decode(kp, vp, *args)
-        active = args[3]
-        if compare_plain:
-            kp2, vp2 = _pool_copy(kp), _pool_copy(vp)
-            adapter_mod.paged_attention = pa.paged_attention_ref
-            try:
-                plain = real_decode(kp2, vp2, *args).float()
-            finally:
-                adapter_mod.paged_attention = pa.paged_attention
-        out = real_decode(kp, vp, *args)
-        got["logits"] = out.float()[active]
+            return real_launch(idxs)
+        kp, vp = _pool_copy(warm.pool.k), _pool_copy(warm.pool.v)
+        nxt = real_launch(idxs)
+        f = warm._decode_buffers.dev
+        active = f["active"] != 0
+        out = warm._decode_programs[False].out[1].float()
+        got["logits"] = out[active]
         got["finite"] = bool(torch.isfinite(out[active]).all())
         if compare_plain:
-            got["max_abs_err"] = (out.float() - plain)[active].abs().max(
-            ).item()
+            warm.adapter.decode_kernel = "xla"
+            try:
+                plain = warm.adapter.decode(
+                    kp, vp, f["tokens"], f["positions"],
+                    f["tables"].view(ecfg.max_batch_slots, -1),
+                    active).float()
+            finally:
+                warm.adapter.decode_kernel = ecfg.decode_kernel
+            got["max_abs_err"] = (out - plain)[active].abs().max().item()
             got["logit_absmax"] = plain[active].abs().max().item()
-        return out
+        return nxt
 
-    warm.adapter.decode = decode_and_compare
-    warm.generate(prompts[:8], SamplingParams(max_new_tokens=4))
+    warm._launch_decode = launch_and_compare
+    sp = SamplingParams(max_new_tokens=4)
+    captured = [o.token_ids for o in warm.generate(prompts[:8], sp)]
+    eager = [o.token_ids for o in _eager_programs(
+        Engine(model, ecfg)).generate(prompts[:8], sp)]
     torch.cuda.synchronize()
+    check(warm.metrics.decode_compiles == 1,
+          f"warm-up: {warm.metrics.decode_compiles} decode programs for an "
+          f"all-greedy run")
+    check(captured == eager,
+          f"warm-up: captured greedy tokens {captured} differ from the "
+          f"eager program functions' {eager}")
     bytes_per_token = warm.pool.bytes_per_token()
     del warm
     check(got.get("finite"), "serving: non-finite decode logits")
     return got, bytes_per_token
+
+
+def _serving_gates(tag, counts, m, probe, L, paged, kv_variant, flash,
+                   buckets, decode_programs):
+    """The serving phases' launch and program gates, the counts
+    replay-accounted: every decode step L paged launches on the cluster
+    kernel, every prefill L flash launches (``flash``) and every step L
+    kv_write launches; no wrapper launched outside a program's capture,
+    one replay per step; ``decode_programs`` decode programs and at most
+    one prefill program per bucket."""
+    other = ("paged_attention" if paged == "paged_attention_quant"
+             else "paged_attention_quant")
+    check(counts[paged] == m.decode_steps * L and counts[other] == 0,
+          f"{tag}: {paged} launches {counts[paged]} != decode_steps "
+          f"{m.decode_steps} x {L}, or {other} launched {counts[other]}")
+    check(counts.get(f"{paged}/cluster", 0) == counts[paged]
+          and counts.get(f"{paged}/split", 0) == 0,
+          f"{tag}: paged launches by kernel {counts}")
+    want_flash = m.prefill_steps * L if flash else 0
+    check(counts["flash_attention"] == want_flash,
+          f"{tag}: flash launches {counts['flash_attention']} != "
+          f"{want_flash}")
+    steps = m.decode_steps + m.prefill_steps
+    check(counts["kv_write"] == steps * L
+          and counts.get(f"kv_write/{kv_variant}", 0) == steps * L,
+          f"{tag}: kv_write launches {counts['kv_write']} != (decode "
+          f"{m.decode_steps} + prefill {m.prefill_steps}) x {L} on the "
+          f"{kv_variant} kernel")
+    check(counts["paged_attention_ref"] == 0,
+          f"{tag}: the plain paged attention ran {counts}")
+    check(probe["direct"] == 0 and probe["replays"] == steps,
+          f"{tag}: {probe['direct']} launches outside a graph, "
+          f"{probe['replays']} replays for {steps} steps")
+    check(m.decode_compiles == decode_programs
+          and 1 <= m.prefill_compiles <= len(buckets),
+          f"{tag}: {m.decode_compiles} decode programs (want "
+          f"{decode_programs}), {m.prefill_compiles} prefill programs for "
+          f"{len(buckets)} buckets")
 
 
 def _serve(torch, tag, kv_cache_dtype=None):
@@ -973,12 +1245,17 @@ def _serve(torch, tag, kv_cache_dtype=None):
     compared = {k: v for k, v in compared.items() if k != "logits"}
 
     engine = Engine(model, ecfg)
+    # the decode program each step asks for: greedy-only or mixed
+    kinds, program = set(), engine._decode_program
+    engine._decode_program = lambda any_sample: (
+        kinds.add(any_sample), program(any_sample))[1]
     _build.reset_launch_counts()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    outs = engine.generate(prompts, params)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    with host_dispatch_probe() as probe:
+        t0 = time.perf_counter()
+        outs = engine.generate(prompts, params)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
     counts = dict(_build.launch_counts(), **_build.variant_counts())
     m = engine.metrics
     check(len(outs) == n_req and all(
@@ -989,26 +1266,23 @@ def _serve(torch, tag, kv_cache_dtype=None):
     check(engine.block_manager.num_used == 0,
           f"{tag}: {engine.block_manager.num_used} KV blocks leaked")
     L = cfg.num_hidden_layers
-    paged, other = (("paged_attention_quant", "paged_attention")
-                    if kv_cache_dtype else
-                    ("paged_attention", "paged_attention_quant"))
-    check(counts[paged] == m.decode_steps * L and counts[other] == 0,
-          f"{tag}: {paged} launches {counts[paged]} != decode_steps "
-          f"{m.decode_steps} x {L}, or {other} launched {counts[other]}")
-    # every paged launch on the one-launch cluster kernel, none on split
-    check(counts.get(f"{paged}/cluster", 0) == counts[paged]
-          and counts.get(f"{paged}/split", 0) == 0,
-          f"{tag}: paged launches by kernel {counts}")
-    check(counts["flash_attention"] == m.prefill_steps * L,
-          f"{tag}: flash launches {counts['flash_attention']} != "
-          f"prefill_steps {m.prefill_steps} x {L}")
+    paged = "paged_attention_quant" if kv_cache_dtype else "paged_attention"
+    # one decode program per kind the steps asked for (a step with a
+    # sampled request running takes the mixed one), never more than two
+    check(kinds and kinds <= {False, True}, f"{tag}: decode kinds {kinds}")
+    _serving_gates(tag, counts, m, probe, L, paged,
+                   "int8" if kv_cache_dtype else "float", True,
+                   ecfg.prefill_buckets, len(kinds))
     n_tokens = sum(len(o.token_ids) for o in outs)
     ttft = float(np.mean([o.time_to_first_token for o in outs]))
     result = {
         "requests": n_req, "generated_tokens": n_tokens, "seconds": dt,
         "tokens_per_s": n_tokens / dt, "mean_ttft_s": ttft,
         "decode_steps": m.decode_steps, "prefill_steps": m.prefill_steps,
-        "preemptions": m.preemptions,
+        "decode_compiles": m.decode_compiles,
+        "prefill_compiles": m.prefill_compiles,
+        "graph_replays": probe["replays"], "preemptions": m.preemptions,
+        "decode_kinds": sorted("mixed" if k else "greedy" for k in kinds),
         "pool_high_water": engine.block_manager.high_water,
         "sampled_requests": sum(p.do_sample for p in params),
         "launches": counts, "first_decode_compare": compared, **extra,
@@ -1016,7 +1290,11 @@ def _serve(torch, tag, kv_cache_dtype=None):
     log(f"[{tag}] {n_req} requests x {slots} slots mml={mml}: "
         f"{n_tokens} tokens in {dt:.3f}s -> {n_tokens / dt:.1f} tokens/s, "
         f"mean TTFT {ttft * 1e3:.1f} ms, decode steps {m.decode_steps}, "
-        f"prefill steps {m.prefill_steps}, preemptions {m.preemptions}")
+        f"prefill steps {m.prefill_steps}, preemptions {m.preemptions}, "
+        f"programs {m.decode_compiles} decode ("
+        f"{'/'.join(sorted('mixed' if k else 'greedy' for k in kinds))}) + "
+        f"{m.prefill_compiles} prefill, {probe['replays']} graph replays, "
+        f"no launch outside them")
     log(f"[{tag}] launches {counts}")
     return result
 
@@ -1059,8 +1337,10 @@ def phase_serving_f16(torch):
               f"path by {compared['max_abs_err']} > {LOGITS_TOL}")
         engine = Engine(model, ecfg)
         _build.reset_launch_counts()
-        outs = engine.generate(prompts, SamplingParams(max_new_tokens=24))
-        torch.cuda.synchronize()
+        with host_dispatch_probe() as probe:
+            outs = engine.generate(prompts,
+                                   SamplingParams(max_new_tokens=24))
+            torch.cuda.synchronize()
         counts = dict(_build.launch_counts(), **_build.variant_counts())
         m = engine.metrics
         name = "paged_attention_quant" if pool else "paged_attention"
@@ -1068,14 +1348,18 @@ def phase_serving_f16(torch):
             o.finish_reason in ("length", "stop") for o in outs)
             and engine.block_manager.num_used == 0,
             f"{tag}: not every request finished, or blocks leaked")
-        check(counts[name] == m.decode_steps * L
-              and counts.get(f"{name}/cluster", 0) == counts[name]
-              and counts["flash_attention"] == 0,
-              f"{tag}: launches {counts}, decode steps {m.decode_steps}")
+        # float16 prefill takes the math attention: no flash launch
+        _serving_gates(tag, counts, m, probe, L, name,
+                       "int8" if pool else "float", False,
+                       ecfg.prefill_buckets, 1)
         for key, n in counts.items():
             result["launches"][key] = result["launches"].get(key, 0) + n
         compared = {k: v for k, v in compared.items() if k != "logits"}
         result[tag] = {"decode_steps": m.decode_steps,
+                       "prefill_steps": m.prefill_steps,
+                       "decode_compiles": m.decode_compiles,
+                       "prefill_compiles": m.prefill_compiles,
+                       "graph_replays": probe["replays"],
                        "generated_tokens": sum(len(o.token_ids)
                                                for o in outs),
                        "first_decode_compare": compared}
@@ -1675,10 +1959,21 @@ def phase_moe(torch):
             **speed, "llama_moe": llama, "launches": path}
 
 
+# host runtime calls that launch device work, as torch.profiler names them
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch")
+
+
 def phase_profile(torch):
     """Where a full-width decode step's time goes, over the bf16 pool and
-    the int8 pool: torch.profiler over 20 steps with all 8 slots
-    decoding. Not part of the default run."""
+    the int8 pool, both ways: the decode program replayed (the engine's
+    path) and its function run eagerly over the same static buffers
+    (``_eager_programs``). torch.profiler over 20 steps with all 8 slots
+    decoding: device busy time and kernels per step, and the host's
+    launch calls per step (``HOST_LAUNCH_CALLS``: one graph launch a step
+    when replayed); then the same 20 steps without the profiler (wall ms
+    per step), and 20 runs of the 128-token bucket's prefill program
+    (wall ms to a sync). Not part of the default run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1688,50 +1983,88 @@ def phase_profile(torch):
     model = LlamaForCausalLM(LlamaConfig(**SERVING_CFG), seed=0)
     result = {}
     for pool in ("bf16", "int8"):
-        engine = Engine(model, EngineConfig(
-            max_batch_slots=8, max_model_len=512, page_size=16,
-            kv_cache_dtype="int8" if pool == "int8" else None))
-        rng = np.random.RandomState(0)
-        for _ in range(8):
-            engine.add_request(rng.randint(1, 32000, 100).tolist(),
-                               SamplingParams(max_new_tokens=200))
-        for _ in range(30):   # admit, prefill, warm up
-            engine.step()
-        torch.cuda.synchronize()
-        n = 20
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        for way in ("replay", "eager"):
+            engine = Engine(model, EngineConfig(
+                max_batch_slots=8, max_model_len=512, page_size=16,
+                kv_cache_dtype="int8" if pool == "int8" else None))
+            if way == "eager":
+                _eager_programs(engine)
+            rng = np.random.RandomState(0)
+            for _ in range(8):
+                engine.add_request(rng.randint(1, 32000, 100).tolist(),
+                                   SamplingParams(max_new_tokens=200))
+            for _ in range(30):   # admit, prefill, warm up
+                engine.step()
+            # the profiler's own first-use set-up, outside the window
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]):
+                engine.step()
+            torch.cuda.synchronize()
+            n = 20
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    engine.step()
+                torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / n * 1e3
+            events = prof.key_averages()
+            # kernels only: an ATen op's own row repeats its kernels' time
+            kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+            device_us = sum(e.self_device_time_total for e in kernels)
+            launches = sum(e.count for e in kernels) / n
+            host = {e.key: e.count / n for e in events
+                    if e.key in HOST_LAUNCH_CALLS}
+            rows = sorted(kernels,
+                          key=lambda e: -e.self_device_time_total)[:12]
+            # the port's own kernels in the step, by name
+            ours = {}
+            for e in kernels:
+                for name in ("kv_write", "paged_decode"):
+                    if name in e.key:
+                        us, calls = ours.get(name, (0.0, 0.0))
+                        ours[name] = (us + e.self_device_time_total / n,
+                                      calls + e.count / n)
+            tag = f"{pool} pool, {way}"
+            log(f"[profile] {tag}, decode step (8 slots, ~130 cached tokens "
+                f"each): wall {wall:.3f} ms/step under the profiler, device "
+                f"busy {device_us / n / 1e3:.3f} ms/step in {launches:.0f} "
+                f"kernels/step; host launch calls/step {host}; the port's "
+                f"kernels (device us, calls)/step {ours}")
+            for e in rows:
+                log(f"[profile] {e.key[:60]:60s} device "
+                    f"{e.self_device_time_total / n:9.1f} us/step, "
+                    f"calls/step {e.count / n:6.1f}")
+            # the same window without the profiler's overhead
+            t0 = time.perf_counter()
             for _ in range(n):
                 engine.step()
             torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / n * 1e3
-        # kernels only: an ATen op's own row repeats its kernels' time
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA]
-        device_us = sum(e.self_device_time_total for e in kernels)
-        launches = sum(e.count for e in kernels) / n
-        rows = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
-        log(f"[profile] {pool} pool, decode step (8 slots, ~130 cached "
-            f"tokens each): wall {wall:.3f} ms/step under the profiler, "
-            f"device busy {device_us / n / 1e3:.3f} ms/step in "
-            f"{launches:.0f} kernel launches/step")
-        for e in rows:
-            log(f"[profile] {e.key[:60]:60s} device "
-                f"{e.self_device_time_total / n:9.1f} us/step, calls/step "
-                f"{e.count / n:6.1f}")
-        # the same window without the profiler's overhead
-        t0 = time.perf_counter()
-        for _ in range(n):
-            engine.step()
-        torch.cuda.synchronize()
-        plain_wall = (time.perf_counter() - t0) / n * 1e3
-        log(f"[profile] {pool} pool, decode step without the profiler: "
-            f"{plain_wall:.3f} ms/step")
-        result[pool] = {"wall_ms_profiled": wall, "wall_ms": plain_wall,
-                        "device_busy_ms": device_us / n / 1e3,
-                        "kernel_launches_per_step": launches}
-        del engine
+            plain_wall = (time.perf_counter() - t0) / n * 1e3
+            log(f"[profile] {tag}, decode step without the profiler: "
+                f"{plain_wall:.3f} ms/step")
+            # the 128-token bucket's prefill program alone, over the last
+            # prefill's staged inputs (a 100-token prompt: it rewrites the
+            # same K/V into the same pages), host clock to a sync
+            prefill = engine._prefill_programs[128]
+            engine._prefill_buffers.stage()
+            prefill()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                prefill()
+                torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) / n * 1e3
+            log(f"[profile] {tag}, prefill of a 100-token prompt (bucket "
+                f"128): {prefill_ms:.3f} ms")
+            result[f"{pool}_{way}"] = {
+                "wall_ms_profiled": wall, "wall_ms": plain_wall,
+                "device_busy_ms": device_us / n / 1e3,
+                "kernels_per_step": launches,
+                "host_launch_calls_per_step": host,
+                "port_kernels_us_calls_per_step": ours,
+                "prefill_128_ms": prefill_ms}
+            del engine
     return result
 
 
@@ -1813,12 +2146,12 @@ def main(argv=None):
                 f"{report['phase_seconds'][name]:.1f}s")
         paged = flash = bwd = None
         if "kernels" in results:
-            paged, flash, bwd, faults, quant, gmm, gmm_quant = \
+            paged, flash, bwd, faults, quant, gmm, gmm_quant, kvw = \
                 results.pop("kernels")
             report["phases"]["kernels"] = {
                 "paged": paged, "flash": flash, "flash_bwd": bwd,
                 "gate_faults": faults, "paged_quant": quant, "gmm": gmm,
-                "gmm_quant": gmm_quant,
+                "gmm_quant": gmm_quant, "kv_write": kvw,
             }
             # the wrapper's choice against the previous kernel, same
             # inputs, run and host path: reported, not gated (the small
@@ -1842,8 +2175,6 @@ def main(argv=None):
                 log(f"[kernels] cases >10% slower on the wrapper's choice "
                     f"than on the previous kernel ({stat}): "
                     f"{slower or 'none'}")
-        if "parity" in results:
-            results["parity"] = "ok"
         report["phases"].update(results)
         serving, serving_int8, serving_f16, train, moe = (
             results.get(p) for p in ("serving", "serving_int8",
@@ -1996,6 +2327,33 @@ def main(argv=None):
                 "variants": [variant_entry(name, v, case, cases)
                              for v, case in variants],
             })
+    if paged is not None:
+        # the fused KV write at the serving decode shape on the bf16 pool
+        # (library: index_put_ of K and V), with each pool type's kernel
+        # under "variants" (launches on the main paths, the decode case)
+        head = kvw[0]
+        kernels.append({
+            "name": "kv_write", "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/kv_write.cu",
+            "replaces": "paddle_tpu/kernels/pallas/paged_attention.py:292 "
+                        "(update_pages and quantize_tokens :59: XLA ops, "
+                        "no TPU kernel)",
+            **launches("kv_write"),
+            "max_abs_err": max(c["max_abs_err"] for c in kvw),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "shape": f"{head['case']}: {head['rows']} rows, hkv 16, d 128, "
+                     f"page 16",
+            "variants": [{
+                "variant": v, **launches(f"kv_write/{v}"),
+                "ms": c["ms"], "plain_ms": c["plain_ms"],
+                "library_ms": c["library_ms"], "bound_ms": c["bound_ms"],
+                "shape": c["case"]}
+                for v, c in (("float", head),
+                             ("int8", next(c for c in kvw
+                                           if c["case"] == "decode_int8")))],
+        })
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

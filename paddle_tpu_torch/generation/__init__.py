@@ -57,7 +57,8 @@ def warp_logits(logits, temperature=1.0, top_k=0, top_p=1.0):
     k_eff = torch.where(k > 0, torch.clamp(k, max=vocab),
                         torch.full_like(k, vocab))
     kth = torch.gather(sx, 1, (k_eff - 1)[:, None])
-    neg = torch.tensor(-1e30, dtype=torch.float32, device=dev)
+    # a fill, not a copy from the host: the serving programs capture this
+    neg = torch.full((), -1e30, dtype=torch.float32, device=dev)
     x = torch.where(x >= kth, x, neg)
     sx = torch.where(sx >= kth, sx, neg)
     # top-p: threshold at the smallest logit still kept

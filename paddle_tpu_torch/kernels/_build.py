@@ -22,6 +22,13 @@ runtime every kernel of the port goes through.
   the mma.sync flash forward, say), the wrapper also names the one it
   launched: ``variant_counts()`` reads those counts, keyed
   ``"<name>/<variant>"``.
+* A captured program (``serving.programs``) launches its kernels on
+  every replay without calling their wrappers. ``record_launches(fn)``
+  runs ``fn`` (a program's warm-up, or its capture) and returns the
+  launches it counted, by name and by variant, taking them back out of
+  the counters: the capture's record is what one replay launches, and
+  ``count_replay(record)`` adds it on every replay. A program's warm-up
+  launches, made once while it is built, are not counted.
 
 There is no fallback counter: a wrapper given a CUDA tensor launches its
 kernel or raises, and takes its plain PyTorch version only for a tensor
@@ -38,16 +45,20 @@ from pathlib import Path
 
 __all__ = [
     "KERNELS", "LAUNCHES", "build", "load", "count_launch", "launch_counts",
-    "variant_counts", "reset_launch_counts", "build_logs", "BUILD_DIR",
+    "variant_counts", "reset_launch_counts", "record_launches",
+    "count_replay", "build_logs", "BUILD_DIR",
 ]
 
 # kernel sources, csrc/<name>.cu
 KERNELS = ("paged_attention", "flash_attention", "flash_attention_bwd",
-           "grouped_matmul")
-# launched kernels, as counted ("flash_attention" is the forward)
+           "grouped_matmul", "kv_write")
+# launched kernels, as counted ("flash_attention" is the forward), and
+# "paged_attention_ref": the plain paged attention run by name
+# (``EngineConfig(decode_kernel="xla")``), counted per call
 LAUNCHES = ("paged_attention", "paged_attention_quant", "flash_attention",
             "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-            "grouped_matmul", "grouped_matmul_quant")
+            "grouped_matmul", "grouped_matmul_quant", "kv_write",
+            "paged_attention_ref")
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"
@@ -154,3 +165,31 @@ def reset_launch_counts():
     for name in _launches:
         _launches[name] = 0
     _variants.clear()
+
+
+def record_launches(fn):
+    """Run ``fn()`` and return the launches it counted, ``{"<name>": n,
+    "<name>/<variant>": n}`` (non-zero entries only); the counters are
+    left as they were before the call."""
+    launches, variants = dict(_launches), dict(_variants)
+    try:
+        fn()
+    finally:
+        record = {k: n - launches[k] for k, n in _launches.items()
+                  if n != launches[k]}
+        record.update({k: n - variants.get(k, 0) for k, n in _variants.items()
+                       if n != variants.get(k, 0)})
+        _launches.update(launches)
+        _variants.clear()
+        _variants.update(variants)
+    return record
+
+
+def count_replay(record):
+    """Count one replay of a program whose capture ``record_launches``
+    recorded."""
+    for key, n in record.items():
+        if "/" in key:
+            _variants[key] = _variants.get(key, 0) + n
+        else:
+            _launches[key] += n

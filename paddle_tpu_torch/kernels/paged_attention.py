@@ -16,7 +16,7 @@ are grouped per kv head.
 Int8 pages: ``k_pages``/``v_pages`` may instead be ``(pages int8, scales
 float32 [num_kv_heads, num_pages, page_size])`` pairs, one scale per
 cached token per kv head (``quantize_tokens``, written by
-``update_pages``). Every read dequantizes in attention
+``kernels.kv_write``). Every read dequantizes in attention
 (``k = int8 * scale``); no dense float copy of the pool is made.
 
 ``paged_attention`` launches the CUDA kernel ``csrc/paged_attention.cu``
@@ -28,9 +28,8 @@ variant: ``"cluster"`` (the default, ``_paged_variant``: one launch, the
 chunks of a sequence's kv head merged through distributed shared memory,
 no workspace) and ``"split"`` (the first design: a split-K kernel and
 its combine kernel over a per-call workspace, kept for side-by-side
-timing).
-``update_pages`` writes one token per sequence into the pool IN PLACE
-(the JAX version returns new arrays).
+timing). The page write, the JAX ``update_pages``, is
+``kernels.kv_write``.
 """
 from __future__ import annotations
 
@@ -41,7 +40,7 @@ import torch
 from . import _build
 
 __all__ = ["paged_attention", "paged_attention_ref", "quantize_tokens",
-           "rows_below_capacity", "split_pages", "update_pages"]
+           "split_pages"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # device kernels of the launch's ``variant`` argument
@@ -87,9 +86,13 @@ def quantize_tokens(kv):
     ``kv ~ q * scale[..., None]``. The 1e-8 floor keeps all-zero tokens
     exact (q == 0). ``torch.round`` rounds half to even like
     ``jnp.round``, and the expression order is the JAX one, so the int8
-    values are bit-identical."""
+    values are bit-identical. Both divisions are IEEE divisions by a
+    tensor: on CUDA, PyTorch turns a division by a Python scalar into a
+    product with its reciprocal, which may round the scale differently
+    from the ``kv_write`` kernel."""
     kf = kv.float()
-    scale = torch.clamp_min(kf.abs().amax(dim=-1), 1e-8) / 127.0
+    amax = torch.clamp_min(kf.abs().amax(dim=-1), 1e-8)
+    scale = amax / amax.new_full((), 127.0)
     q = torch.clamp(torch.round(kf / scale[..., None]), -127, 127)
     return q.to(torch.int8), scale
 
@@ -307,46 +310,3 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
     # nothing to attend over: exact zeros (the all-masked softmax is NaN)
     out = torch.where(lens[:, None, None, None] > 0, out, 0.0)
     return out.reshape(batch, n_q_heads, d).to(q.dtype)
-
-
-def rows_below_capacity(lengths, block_tables, page_size):
-    """The batch rows ``update_pages`` may write: those whose ``lengths``
-    is below the table's capacity (``pages_per_seq * page_size``), as a
-    1-D index tensor. One device-to-host sync, so a caller computes it
-    once and passes it to every layer's ``update_pages``."""
-    capacity = block_tables.shape[1] * page_size
-    return torch.nonzero(lengths < capacity).squeeze(1)
-
-
-def update_pages(k_pages, v_pages, k_new, v_new, block_tables, lengths,
-                 rows):
-    """Write one new token per sequence into its current page slot, IN
-    PLACE. k_new/v_new: [batch, num_kv_heads, head_dim], the token at
-    position ``lengths[b]`` of sequence b. Returns (k_pages, v_pages).
-
-    With int8 ``(pages, scales)`` pairs the token is quantized on write
-    (``quantize_tokens``) and its scale lands in the same slot of the
-    scale plane: the two writes share one routing, so a row at capacity
-    drops both.
-
-    Only the batch rows in ``rows`` are written, and each must be below
-    capacity: pass ``rows_below_capacity(lengths, ...)`` to drop the
-    sequences at capacity, as the JAX version does (it routes their
-    scatter row out of bounds and XLA drops it; PyTorch raises on an
-    out-of-range index)."""
-    kq, k_scales = split_pages(k_pages)
-    vq, v_scales = split_pages(v_pages)
-    page_size = kq.shape[2]
-    pos = lengths[rows].long()
-    phys = block_tables[rows, pos // page_size].long()
-    slot = pos % page_size
-    if k_scales is None:
-        kq[:, phys, slot] = k_new[rows].transpose(0, 1).to(kq.dtype)
-        vq[:, phys, slot] = v_new[rows].transpose(0, 1).to(vq.dtype)
-        return k_pages, v_pages
-    for pages, scales, new in ((kq, k_scales, k_new),
-                               (vq, v_scales, v_new)):
-        q8, sc = quantize_tokens(new[rows])
-        pages[:, phys, slot] = q8.transpose(0, 1)
-        scales[:, phys, slot] = sc.transpose(0, 1)
-    return k_pages, v_pages

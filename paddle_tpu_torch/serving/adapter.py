@@ -7,78 +7,59 @@ entry points:
     (padded to a length bucket) through the model, write its K/V into
     the request's pages, return the logits at position ``length - 1``.
     Attention is causal ``scaled_dot_product_attention``, which runs the
-    flash kernel on the card.
+    flash kernel on the card (bf16 and f32; float16 takes the math form).
   * ``decode(kp, vp, tokens, positions, block_tables, active)`` — one
     token for every batch slot at once: write each active slot's K/V at
-    its position (``kernels.paged_attention.update_pages``), attend over
-    its block table with the paged decode kernel, return
-    [slots, vocab] logits. Inactive slots attend over ``lengths = 1`` of
-    block-table zeros (page 0 is always a valid read) and their logits
-    are never read.
+    its position, attend over its block table with the paged decode
+    kernel, return [slots, vocab] logits. Inactive slots attend over
+    ``lengths = positions + 1`` of whatever their table names (page 0 when
+    zeroed, always a valid read) and their logits are never read.
+
+Both are shape-static and free of host syncs, so the engine can capture
+them into CUDA graphs (``serving.programs``): ``length`` may be a device
+scalar, every page write is one ``kernels.kv_write`` launch per layer for
+K and V together (decode: row = slot, position, valid = active; prefill:
+row 0, position t, valid = t < length), and the logits row is picked by
+``index_select``.
 
 Int8 pools (``EngineConfig(kv_cache_dtype="int8")``): every per-layer
 pool entry is an ``(int8 pages, f32 scales)`` pair (``split_pages``).
-Page writes quantize on write (``quantize_tokens``, the scale landing in
-the same slot of the scale plane) and decode reads through the int8
-paged kernel; prefill attends over the in-flight float K/V, as in JAX.
+Page writes quantize on write (the scale landing in the same slot of the
+scale plane) and decode reads through the int8 paged kernel; prefill
+attends over the in-flight float K/V, as in JAX.
+
+``decode_kernel`` picks decode attention as the JAX adapter's knob does:
+"auto" and "pallas" run the paged kernel, "xla" runs the plain
+``paged_attention_ref`` (on the card too, counted as
+``paged_attention_ref`` in ``kernels._build`` on every call: an explicit
+choice, never a fallback).
 
 Differences from the JAX adapter: the adapter reads the model's modules
 directly (PyTorch runs eagerly, so there is no weight snapshot to
 refresh), and page writes go into the pool IN PLACE, so the entry points
-return logits only. JAX drops out-of-range scatter rows and clamps
-out-of-range gathers; PyTorch raises on both, so the writes here select
-the rows to write explicitly and clamp the block-table index.
-``prefill_ext``, ``verify`` and tensor parallelism are not ported yet.
+return logits only. ``prefill_ext``, ``verify`` and tensor parallelism
+are not ported yet.
 """
 from __future__ import annotations
 
 import torch
 
-from ..kernels.paged_attention import (
-    paged_attention, quantize_tokens, rows_below_capacity, split_pages,
-    update_pages,
-)
+from ..kernels import _build
+from ..kernels.kv_write import kv_write
+from ..kernels.paged_attention import paged_attention, paged_attention_ref
 from ..ops.fused_ops import rope_qk
 from ..ops.nn_ops import rms_norm, scaled_dot_product_attention
 
-__all__ = ["LlamaServingAdapter", "build_adapter", "required_attrs"]
+__all__ = ["LlamaServingAdapter", "build_adapter", "required_attrs",
+           "DECODE_KERNELS"]
 
 # the duck-typed adapter surface the engine relies on
 required_attrs = (
     "num_layers", "num_kv_heads", "head_dim", "vocab_size", "device",
     "dtype", "prefill", "decode",
 )
-
-
-def _paged_attn(q, kp, vp, block_tables, lengths):
-    return paged_attention(q, kp, vp, block_tables, lengths)
-
-
-def _write_prompt_pages(pages, kv, block_table, length):
-    """Write a prompt's [S, kv_heads, d] K or V into its pages in place:
-    token t < length lands in page ``block_table[t // block_size]``, slot
-    ``t % block_size``; padded tail rows (t >= length) are not written."""
-    _write_chunk_pages(pages, kv, block_table, length, 0)
-
-
-def _write_chunk_pages(pages, kv, block_table, length, cache_len):
-    """``_write_prompt_pages`` with a position offset: chunk token t
-    lands at global position ``cache_len + t``. Only the first ``length``
-    rows are written; the block-table index is clamped to the table, as
-    the JAX gather clamps. An int8 entry quantizes on write, and each
-    token's per-head scale goes to the same slot of the scale plane."""
-    buf, scales = split_pages(pages)
-    block_size = buf.shape[2]
-    gpos = cache_len + torch.arange(length, device=buf.device)
-    logical = torch.clamp(gpos // block_size, max=block_table.shape[0] - 1)
-    phys = block_table.long()[logical]
-    slot = gpos % block_size
-    if scales is None:
-        buf[:, phys, slot] = kv[:length].transpose(0, 1).to(buf.dtype)
-        return
-    q8, sc = quantize_tokens(kv[:length])      # [L, kvh, d], [L, kvh]
-    buf[:, phys, slot] = q8.transpose(0, 1)
-    scales[:, phys, slot] = sc.transpose(0, 1)
+# ``decode_kernel`` values, as ``EngineConfig(decode_kernel=)`` takes them
+DECODE_KERNELS = ("auto", "pallas", "xla")
 
 
 class LlamaServingAdapter:
@@ -99,6 +80,7 @@ class LlamaServingAdapter:
         self.rope_theta = cfg.rope_theta
         self.eps = cfg.rms_norm_eps
         self.model = model
+        self.decode_kernel = "auto"
 
     @property
     def device(self):
@@ -120,30 +102,45 @@ class LlamaServingAdapter:
         h = rms_norm(x, blk.post_attention_layernorm.weight, epsilon=self.eps)
         return x + blk.mlp(h)
 
+    def _paged_attn(self, q, kp, vp, block_tables, lengths):
+        if self.decode_kernel == "xla":
+            _build.count_launch("paged_attention_ref")
+            return paged_attention_ref(q, kp, vp, block_tables, lengths)
+        return paged_attention(q, kp, vp, block_tables, lengths)
+
     @torch.no_grad()
     def prefill(self, kp, vp, ids, length, block_table):
-        """ids [S] (padded to a bucket), length int, block_table [P] on
-        the adapter's device. Writes the prompt's K/V into ``kp``/``vp``
-        (per-layer page tensors) in place; returns logits [vocab] at
-        position ``length - 1``."""
+        """ids [S] (padded to a bucket), length an int or a device scalar
+        tensor, block_table [P] int32 on the adapter's device. Writes the
+        prompt's K/V into ``kp``/``vp`` (per-layer page tensors) in place;
+        returns logits [vocab] at position ``length - 1``."""
         m = self.model
-        s = ids.shape[0]
+        s, dev = ids.shape[0], ids.device
+        if not isinstance(length, torch.Tensor):
+            length = torch.tensor(int(length), device=dev)
+        t = torch.arange(s, dtype=torch.int32, device=dev)
+        # prompt token t goes to row 0 at position t while t < length;
+        # the padded tail (t >= length) is not written
+        valid = t < length
+        rows = torch.zeros_like(t)
+        table = block_table.to(torch.int32)[None]
         x = m.llama.embed_tokens(ids)[None]               # [1, S, hid]
-        pos = torch.arange(s, dtype=torch.int32, device=ids.device)[None]
         for li, blk in enumerate(m.llama.layers):
             attn = blk.self_attn
             h = rms_norm(x, blk.input_layernorm.weight, epsilon=self.eps)
             q, k, v = self._qkv(attn, h, 1, s)
-            q, k = rope_qk(q, k, pos, base=self.rope_theta)
-            _write_prompt_pages(kp[li], k[0], block_table, length)
-            _write_prompt_pages(vp[li], v[0], block_table, length)
+            q, k = rope_qk(q, k, t[None], base=self.rope_theta)
+            kv_write(kp[li], vp[li], k[0], v[0], table, rows, t, valid)
             # causal attention over the in-flight prompt; right-padding
             # is invisible to valid queries under causality
             o = scaled_dot_product_attention(q, k, v, is_causal=True)
             x = x + attn.o_proj(o.reshape(1, s, -1))
             x = self._mlp(blk, x)
         x = rms_norm(x, m.llama.norm.weight, epsilon=self.eps)
-        return m.logits(x[0, length - 1])
+        # clamped: a program's warm-up runs at length 0
+        last = x[0].index_select(
+            0, (length.reshape(1) - 1).clamp(min=0).long())[0]
+        return m.logits(last)
 
     @torch.no_grad()
     def decode(self, kp, vp, tokens, positions, block_tables, active):
@@ -152,24 +149,21 @@ class LlamaServingAdapter:
         active slot's new K/V in place; returns logits [slots, vocab]."""
         m = self.model
         b = tokens.shape[0]
-        page_size = split_pages(kp[0])[0].shape[2]
-        capacity = block_tables.shape[1] * page_size
-        # inactive slots: write position at capacity -> not written; the
-        # rows to write are found once for all layers
-        write_pos = torch.where(active, positions,
-                                torch.full_like(positions, capacity))
-        rows = rows_below_capacity(write_pos, block_tables, page_size)
-        # the new token attends to itself; int32 once for all layers
-        lengths = (positions + 1).to(torch.int32)
+        # int32 once for all layers; the new token attends to itself
+        pos = positions.to(torch.int32)
+        lengths = pos + 1
+        tables = block_tables.to(torch.int32)
+        rows = torch.arange(b, dtype=torch.int32, device=tokens.device)
+        valid = active.to(torch.bool)
         x = m.llama.embed_tokens(tokens)                  # [slots, hid]
         for li, blk in enumerate(m.llama.layers):
             attn = blk.self_attn
             h = rms_norm(x, blk.input_layernorm.weight, epsilon=self.eps)
             q, k, v = self._qkv(attn, h[:, None, :], b, 1)
-            q, k = rope_qk(q, k, positions[:, None], base=self.rope_theta)
-            update_pages(kp[li], vp[li], k[:, 0], v[:, 0], block_tables,
-                         write_pos, rows)
-            o = _paged_attn(q[:, 0], kp[li], vp[li], block_tables, lengths)
+            q, k = rope_qk(q, k, pos[:, None], base=self.rope_theta)
+            kv_write(kp[li], vp[li], k[:, 0], v[:, 0], tables, rows, pos,
+                     valid)
+            o = self._paged_attn(q[:, 0], kp[li], vp[li], tables, lengths)
             x = x + attn.o_proj(o.reshape(b, -1))
             x = self._mlp(blk, x)
         x = rms_norm(x, m.llama.norm.weight, epsilon=self.eps)

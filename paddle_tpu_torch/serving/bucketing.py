@@ -1,8 +1,8 @@
 """Prompt-length bucketing (``next_bucket`` of
 ``paddle_tpu/jit/bucketing.py``). The engine pads each prompt to the
-smallest bucket holding it, as the JAX engine does; eager PyTorch needs
-no bucketing to bound compiles, but keeping it keeps the prefill shapes
-(and so the flash kernel's launch shapes) the same as the JAX engine's.
+smallest bucket holding it, as the JAX engine does: one prefill program
+(a CUDA graph on the card) per bucket bounds the programs built, as the
+buckets bound the JAX engine's compiles.
 """
 from __future__ import annotations
 

@@ -3,11 +3,13 @@
 Counterpart of ``paddle_tpu/serving/kv_cache.py``: ``BlockManager`` whole,
 ``KVPool`` for float and int8 pools (its snapshot, rebind and spill
 helpers wait for their slices). The physical cache is one entry per
-layer and per K/V, ``[num_kv_heads, num_blocks, block_size, head_dim]``
+layer and per K/V, ``[num_kv_heads, num_blocks + 1, block_size, head_dim]``
 — the layout ``kernels.paged_attention`` reads — or, for an int8 pool, an
-``(int8 pages, float32 scales [num_kv_heads, num_blocks, block_size])``
-pair; the adapter writes into it in place. Allocation policy lives in
-the engine.
+``(int8 pages, float32 scales [num_kv_heads, num_blocks + 1,
+block_size])`` pair; the adapter writes into it in place. Page
+``num_blocks`` is the sink page of ``kernels.kv_write``: the block
+manager never hands it out, no block table names it, and the pool's byte
+counts leave it out. Allocation policy lives in the engine.
 """
 from __future__ import annotations
 
@@ -89,7 +91,9 @@ class BlockManager:
 
 class KVPool:
     """The physical page pool: per layer one K and one V entry of
-    ``[num_kv_heads, num_blocks, block_size, head_dim]``, zeroed, on
+    ``[num_kv_heads, num_blocks + 1, block_size, head_dim]`` (the last
+    page is ``sink_page``, the plain page write's target for the rows it
+    must not write; nothing reads it), zeroed, on
     ``device`` (``None``: the CUDA device, through ``resolve_device``, as
     every entry point of the port). Updated in place by the adapter's page
     writes.
@@ -111,7 +115,7 @@ class KVPool:
                 f"{quant_dtype!r}"
             )
         device = resolve_device(device)
-        shape = (num_kv_heads, num_blocks, block_size, head_dim)
+        shape = (num_kv_heads, num_blocks + 1, block_size, head_dim)
 
         def mk():
             if quant_dtype is None:
@@ -124,17 +128,20 @@ class KVPool:
         self.v = [mk() for _ in range(num_layers)]
         self.num_layers = int(num_layers)
         self.num_blocks = int(num_blocks)
+        self.sink_page = self.num_blocks
         self.block_size = int(block_size)
         self.dtype = dtype
         self.quant_dtype = quant_dtype
         self.device = device
 
     def nbytes(self):
+        """Bytes of the ``num_blocks`` pages the block manager hands out
+        (the sink page left out)."""
         total = 0
         for entry in self.k + self.v:
             for t in (entry if isinstance(entry, tuple) else (entry,)):
-                total += t.numel() * t.element_size()
-        return total
+                total += t.numel() // t.shape[1] * t.element_size()
+        return total * self.num_blocks
 
     def bytes_per_token(self):
         """Cache bytes per token slot across all layers and kv heads, the

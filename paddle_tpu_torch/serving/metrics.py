@@ -11,7 +11,14 @@ class EngineMetrics:
     def __init__(self):
         self.requests_received = 0
         self.requests_finished = 0
+        self.requests_timeout = 0
+        self.requests_shed = 0
         self.preemptions = 0
+        # programs built: one per capture on the card (one per program
+        # on the CPU, where the same function runs eagerly) — the JAX
+        # engine's compile probes
+        self.decode_compiles = 0
+        self.prefill_compiles = 0
         # prefill_tokens counts tokens a prefill launch computed
         # (re-prefills after preemption included)
         self.prefill_tokens = 0

@@ -1,8 +1,10 @@
 """Request lifecycle for the serving engine.
 
 Counterpart of ``paddle_tpu/serving/request.py``, cut to what this slice
-of the port runs: per-request sampling params, token accounting and stop
-conditions. Stop semantics mirror ``generate``: the stop token itself is
+of the port runs: per-request sampling params (with the TTL and the
+sampling seed), token accounting, deadlines and stop conditions. The
+journal's ``to_dict``/``from_dict``, tenants and timelines wait for their
+slices. Stop semantics mirror ``generate``: the stop token itself is
 kept in the output.
 """
 from __future__ import annotations
@@ -56,17 +58,26 @@ def _check_float(field, value, allow_none=False):
 
 class SamplingParams:
     """Per-request sampling knobs (greedy unless ``do_sample``; warps are
-    temperature -> top-k -> top-p). The JAX version's ``ttl_s`` and
-    ``seed`` are not ported yet."""
+    temperature -> top-k -> top-p). ``ttl_s``: a wall-clock budget from
+    arrival, after which the engine finishes the request with
+    ``finish_reason="timeout"``, queued or running. ``seed``: on a
+    sampled request, its single-request launch (the prefill) draws its
+    noise from ``(seed, tokens generated so far)`` instead of the
+    engine's stream, so its first token does not depend on engine
+    history; batched decode keeps the engine's per-step stream, as in
+    JAX."""
 
     def __init__(self, max_new_tokens=16, do_sample=False, temperature=1.0,
-                 top_k=0, top_p=1.0, eos_token_id=None, stop_token_ids=()):
+                 top_k=0, top_p=1.0, eos_token_id=None, stop_token_ids=(),
+                 ttl_s=None, seed=None):
         max_new_tokens = _check_int("max_new_tokens", max_new_tokens)
         temperature = _check_float("temperature", temperature)
         top_k = _check_int("top_k", top_k)
         top_p = _check_float("top_p", top_p)
         eos_token_id = _check_int("eos_token_id", eos_token_id,
                                   allow_none=True)
+        ttl_s = _check_float("ttl_s", ttl_s, allow_none=True)
+        seed = _check_int("seed", seed, allow_none=True)
         if max_new_tokens < 1:
             raise ValueError(
                 f"max_new_tokens must be >= 1, got {max_new_tokens}"
@@ -95,6 +106,10 @@ class SamplingParams:
         self.stop_token_ids = tuple(
             _check_int("stop_token_ids", t) for t in stop_token_ids
         )
+        if ttl_s is not None and ttl_s < 0:
+            raise ValueError(f"ttl_s must be >= 0 or None, got {ttl_s}")
+        self.ttl_s = ttl_s
+        self.seed = seed
 
     @property
     def stop_ids(self):
@@ -138,6 +153,15 @@ class Request:
         self.arrival_time = time.perf_counter()
         self.first_token_time = None
         self.finish_time = None
+        self.deadline = (
+            self.arrival_time + self.sampling_params.ttl_s
+            if self.sampling_params.ttl_s is not None else None
+        )
+
+    def expired(self, now=None):
+        return self.deadline is not None and (
+            now if now is not None else time.perf_counter()
+        ) >= self.deadline
 
     @property
     def num_tokens(self):

@@ -106,6 +106,50 @@ def test_variant_counts_are_kept_beside_the_function_counts():
     assert _build.variant_counts() == {}
 
 
+def test_replay_counts_what_the_capture_recorded():
+    # a captured program launches its kernels without calling their
+    # wrappers: record_launches takes the capture's launches out of the
+    # counters and keeps them, count_replay adds them per replay
+    _build.reset_launch_counts()
+    _build.count_launch("paged_attention", "cluster")   # before: kept
+
+    def capture():
+        for _ in range(3):
+            _build.count_launch("kv_write", "int8")
+            _build.count_launch("paged_attention_quant", "cluster")
+        _build.count_launch("flash_attention")
+
+    record = _build.record_launches(capture)
+    assert record == {"kv_write": 3, "kv_write/int8": 3,
+                      "paged_attention_quant": 3,
+                      "paged_attention_quant/cluster": 3,
+                      "flash_attention": 1}
+    assert _build.launch_counts()["kv_write"] == 0       # taken back out
+    assert _build.variant_counts() == {"paged_attention/cluster": 1}
+    for _ in range(5):
+        _build.count_replay(record)
+    counts = _build.launch_counts()
+    assert counts["kv_write"] == 15 and counts["flash_attention"] == 5
+    assert counts["paged_attention"] == 1
+    assert _build.variant_counts() == {"paged_attention/cluster": 1,
+                                       "kv_write/int8": 15,
+                                       "paged_attention_quant/cluster": 15}
+    # a capture that raises leaves the counters as they were
+    with pytest.raises(RuntimeError, match="capture failed"):
+        _build.record_launches(lambda: (
+            _build.count_launch("kv_write", "float"),
+            (_ for _ in ()).throw(RuntimeError("capture failed"))))
+    assert _build.launch_counts()["kv_write"] == 15
+    assert "kv_write/float" not in _build.variant_counts()
+    _build.reset_launch_counts()
+
+
+def test_launch_names_cover_the_new_kernel_and_the_plain_choice():
+    assert "kv_write" in _build.KERNELS
+    assert {"kv_write", "paged_attention_ref"} <= set(_build.LAUNCHES)
+    assert (_build.CSRC_DIR / "kv_write.cu").exists()
+
+
 def _chip_sweeps():
     path = Path(__file__).resolve().parent.parent / "chip_sweeps.py"
     spec = importlib.util.spec_from_file_location("chip_sweeps", path)

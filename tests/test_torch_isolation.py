@@ -19,6 +19,8 @@ import paddle_tpu_torch.models
 import paddle_tpu_torch.kernels.paged_attention
 import paddle_tpu_torch.kernels.flash_attention
 import paddle_tpu_torch.kernels.grouped_matmul
+import paddle_tpu_torch.kernels.kv_write
+import paddle_tpu_torch.serving.programs
 import paddle_tpu_torch.ops.moe_ops
 import paddle_tpu_torch.incubate
 import paddle_tpu_torch.quantization
@@ -134,4 +136,5 @@ def test_kernel_build_needs_nvcc_not_at_import():
 
     assert _build._libs == {}
     assert _build.KERNELS == ("paged_attention", "flash_attention",
-                              "flash_attention_bwd", "grouped_matmul")
+                              "flash_attention_bwd", "grouped_matmul",
+                              "kv_write")

@@ -28,6 +28,7 @@ from paddle_tpu_torch.kernels import (
     reset_launch_counts,
     variant_counts,
 )
+from paddle_tpu_torch.kernels.kv_write import kv_write_ref
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import paged_attention as pa
 from paddle_tpu_torch.ops import scaled_dot_product_attention as port_sdpa
@@ -162,11 +163,27 @@ def test_paged_block_table_reuse_after_free():
     np.testing.assert_allclose(short, jshort, **PAGED_TOL)
 
 
+def _with_sink(pages):
+    """A pool entry with the sink page ``kernels.kv_write`` needs after
+    its pages (the layout ``serving.KVPool`` allocates)."""
+    return np.concatenate([pages, np.zeros_like(pages[:, :1])], axis=1)
+
+
+def _decode_routing(lens):
+    """kv_write's arguments for a decode step: slot b writes at its
+    length, every slot valid (at-capacity rows are dropped by position)."""
+    n = len(lens)
+    return (np.arange(n, dtype=np.int32), np.asarray(lens, np.int32),
+            np.ones(n, bool))
+
+
 @pytest.mark.parametrize(
     "lens", [[5, 8], [0, 3], [7, 8]],
     ids=["partial_and_capacity_slot", "zero", "last_slot_and_at_capacity"],
 )
 def test_update_pages_matches_jax(lens):
+    # the port's page write (kv_write_ref, decode routing) against JAX's
+    # update_pages: the live pages bit-identical
     kp, vp = _pool(seed=6, kvh=2, pages=4, bs=4, d=16)
     rng = np.random.RandomState(7)
     kn = rng.randn(2, 2, 16).astype(np.float32)
@@ -175,26 +192,20 @@ def test_update_pages_matches_jax(lens):
     bt = np.array([[0, 1], [2, 3]], np.int32)
     lens = np.array(lens, np.int32)   # a length of 8 is at capacity
     jk, jv = jpa.update_pages(*map(jnp.asarray, (kp, vp, kn, vn, bt, lens)))
-    tk, tv = _t(kp, vp)
-    tbt, tlens = _t(bt, lens)
-    rows = pa.rows_below_capacity(tlens, tbt, 4)
-    pk, pv = pa.update_pages(tk, tv, *_t(kn, vn), tbt, tlens, rows)
-    assert pk is tk and pv is tv              # written in place
-    np.testing.assert_array_equal(pk.numpy(), np.asarray(jk))
-    np.testing.assert_array_equal(pv.numpy(), np.asarray(jv))
+    tk, tv = _t(_with_sink(kp), _with_sink(vp))
+    kv_write_ref(tk, tv, *_t(kn, vn, bt, *_decode_routing(lens)))
+    np.testing.assert_array_equal(tk.numpy()[:, :-1], np.asarray(jk))
+    np.testing.assert_array_equal(tv.numpy()[:, :-1], np.asarray(jv))
 
 
 def test_update_pages_drops_at_capacity():
     kp, vp = _pool(seed=8, kvh=1, pages=2, bs=4, d=8)
     kn = np.ones((1, 1, 8), np.float32)
     bt = np.array([[0, 1]], np.int32)
-    tk, tv = _t(kp, vp)
-    tbt, tlens = _t(bt, np.array([8], np.int32))
-    rows = pa.rows_below_capacity(tlens, tbt, 4)
-    assert rows.numel() == 0
-    pa.update_pages(tk, tv, *_t(kn, kn), tbt, tlens, rows)
-    np.testing.assert_array_equal(tk.numpy(), kp)   # nothing written
-    np.testing.assert_array_equal(tv.numpy(), vp)
+    tk, tv = _t(_with_sink(kp), _with_sink(vp))
+    kv_write_ref(tk, tv, *_t(kn, kn, bt, *_decode_routing([8])))
+    np.testing.assert_array_equal(tk.numpy()[:, :-1], kp)   # nothing written
+    np.testing.assert_array_equal(tv.numpy()[:, :-1], vp)
 
 
 def _qkv(seed, b, s, h, d, hkv=None):

@@ -7,7 +7,8 @@ wrappers take for CPU tensors (the CUDA kernel is held to them on the
 card by ``chip_smoke.py``). Tolerances:
 
 * ``quantize_tokens``: int8 values bit-identical, scales rtol 1e-6;
-* int8 ``update_pages``: bit-identical pools, at-capacity rows dropped;
+* the int8 page write (``kv_write_ref``) against JAX's ``update_pages``:
+  bit-identical pools, at-capacity rows dropped;
 * int8 attention: f32 rtol 1e-4, atol 1e-5 against ``paged_attention_xla``
   and the interpreted kernel, and within 0.05 of the float pool (the
   JAX ``test_int8_pool_tolerance`` contract); with float16 q, rtol and
@@ -35,6 +36,7 @@ from paddle_tpu.models.llama import LlamaForCausalLM as JaxLlama
 from paddle_tpu.serving.adapter import LlamaServingAdapter as JaxAdapter
 from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
 from paddle_tpu_torch.kernels import paged_attention as pa
+from paddle_tpu_torch.kernels.kv_write import kv_write_ref
 from paddle_tpu_torch.models import (
     LlamaConfig,
     LlamaForCausalLM,
@@ -87,6 +89,9 @@ def test_quantize_tokens_bit_identical(shape, seed):
     ids=["partial_and_capacity_slot", "zero", "last_slot_and_at_capacity"],
 )
 def test_int8_update_pages_matches_jax(lens):
+    # the port's page write (kv_write_ref, decode routing: slot b at its
+    # length) against JAX's update_pages; the port's pool ends in the
+    # sink page, which the comparison leaves out
     kp, vp = _pool(seed=6, kvh=2, pages=4, bs=4, d=16)
     rng = np.random.RandomState(7)
     kn = rng.randn(2, 2, 16).astype(np.float32)
@@ -98,19 +103,22 @@ def test_int8_update_pages_matches_jax(lens):
     (jk2, jks2), (jv2, jvs2) = jpa.update_pages(
         jk, jv, jnp.asarray(kn), jnp.asarray(vn), jnp.asarray(bt),
         jnp.asarray(lens))
-    tk, tv = _pair(jk), _pair(jv)
-    tbt, tlens = _t(bt, lens)
-    rows = pa.rows_below_capacity(tlens, tbt, 4)
-    pk, pv = pa.update_pages(tk, tv, *_t(kn, vn), tbt, tlens, rows)
-    assert pk is tk and pv is tv                      # written in place
+
+    def with_sink(pair):
+        return tuple(torch.cat([t, torch.zeros_like(t[:, :1])], dim=1)
+                     for t in _pair(pair))
+
+    pk, pv = with_sink(jk), with_sink(jv)
+    kv_write_ref(pk, pv, *_t(kn, vn, bt, np.arange(2, dtype=np.int32),
+                             lens, np.ones(2, bool)))
     for got, want in ((pk[0], jk2), (pk[1], jks2), (pv[0], jv2),
                       (pv[1], jvs2)):
-        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(got.numpy()[:, :-1], np.asarray(want))
     # an at-capacity row writes neither its page slot nor its scale
     if lens[1] == 8:
-        np.testing.assert_array_equal(pk[0].numpy()[:, 2:],
+        np.testing.assert_array_equal(pk[0].numpy()[:, 2:-1],
                                       np.asarray(jk[0])[:, 2:])
-        np.testing.assert_array_equal(pk[1].numpy()[:, 2:],
+        np.testing.assert_array_equal(pk[1].numpy()[:, 2:-1],
                                       np.asarray(jk[1])[:, 2:])
 
 
@@ -190,7 +198,8 @@ def test_int8_unwritten_slots_read_as_zero():
 
 def test_int8_pairs_rejected_when_mixed():
     pool = KVPool(1, 2, 4, 4, 8, device="cpu", quant_dtype="int8")
-    flt = torch.zeros(2, 4, 4, 8)
+    # a float entry of the pool's page shape (its 4 pages and the sink)
+    flt = torch.zeros(pool.k[0][0].shape)
     with pytest.raises(ValueError, match="both"):
         pa.paged_attention(torch.zeros(1, 2, 8), pool.k[0], flt,
                            torch.zeros(1, 1, dtype=torch.int32),
@@ -249,12 +258,14 @@ def test_int8_adapter_prefill_pool_and_decode_logits(models):
                                      jnp.asarray(table))
     tad.prefill(tpool.k, tpool.v, torch.from_numpy(prompt), 13,
                 torch.from_numpy(table))
+    # the port's pool ends in the sink page (the padded prompt rows land
+    # there), which JAX's has not: the live pages are compared
     for jside, tside in ((jk, tpool.k), (jv, tpool.v)):
         for (jq8, js), (tq8, ts) in zip(jside, tside):
-            diff = np.abs(tq8.numpy().astype(np.int32)
+            diff = np.abs(tq8.numpy()[:, :-1].astype(np.int32)
                           - np.asarray(jq8).astype(np.int32))
             assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
-            np.testing.assert_allclose(ts.numpy(), np.asarray(js),
+            np.testing.assert_allclose(ts.numpy()[:, :-1], np.asarray(js),
                                        rtol=1e-5, atol=0)
     # one decode step over both pools: slot 0 continues the prompt at
     # position 13, slot 1 is inactive
