@@ -37,12 +37,25 @@ Phases, in order; any failure exits non-zero:
                (``kv_write``) at the serving decode shape (8 rows) and a
                512-row prefill, bf16, float16, f32 and int8 pools:
                pages and scales equal to its plain version bit for bit.
+               The continuation kernel (``paged_prefill``) at the serving
+               shape, (cache_len, chunk) of (192, 128), (0, 128), (37, 61)
+               and (496, 16); GQA hq 32, hkv 4, d 64; f32 and float16 q;
+               int8 pages with bf16, float16 and f32 q: the chunk's rows
+               within
+               the gate, every row finite; its time beside the library's
+               (the page gather and SDPA with the mask) and, at cache_len
+               0, the flash kernel's on the same tokens.
 4. parity   — tiny f32 Llama (MHA and GQA), the engine's programs
                captured as CUDA graphs: greedy outputs token-identical to
                the port's ``generate``, with ``decode_kernel`` "auto" and
                "xla" (the plain paged attention, counted); one decode
                program; a seeded sampled request's first token does not
-               follow the engine's history.
+               follow the engine's history. The JAX package's prefix-cache
+               workload (32 requests, prompt + new = 16, staggered) twice
+               through an engine with the prefix cache and 8-token chunks:
+               token-identical to ``generate``, cache hits and at least one
+               copy-on-write, every chunk one replay launching the
+               continuation kernel once per layer.
 5. serving  — full-width bf16 Llama (the repo's serving configuration,
                12 layers, random seeded weights) serving 32 mixed
                requests through ``Engine.generate``, every step a graph
@@ -66,6 +79,23 @@ Phases, in order; any failure exits non-zero:
                float16 and the int8 pool: all finish, the paged kernel
                (float16 q) runs once per layer per decode step, and the
                first decode logits are within 5e-2 of plain attention.
+5d. serving_prefix — the bf16 serving model behind the prefix cache and
+               chunked prefill (128-token chunks, one a step), over the
+               bf16 and the int8 pool: 32 requests sharing a 192-token
+               system prompt (tails of 8-127 tokens, at least 4 prompts of
+               whole pages; 32-96 new tokens, every fourth sampled),
+               served twice. Pass 2 hits the cache for at least 32 x 192
+               prompt tokens and computes at most the rest; at least 4
+               copy-on-writes; at most one continuation program per
+               bucket and one copy program; counted from the replays, every
+               chunk runs the continuation kernel once per layer, every
+               one-shot prefill the flash kernel, every step kv_write and
+               every decode step the paged kernel, no launch outside a
+               graph. The first continuation after cached tokens (the
+               replay's logits) agrees with the same program run eagerly
+               with the plain continuation attention on copies of the pool
+               within 5e-2. Tokens/s, mean TTFT and computed prefill
+               tokens per pass and pool.
 6. train_parity — tiny f32 Llama (MHA and GQA): 10 ``TrainStep`` steps
                of AdamW through the flash kernels give the losses of the
                same 10 steps with the plain attention functions.
@@ -840,11 +870,112 @@ def kv_write_case(torch, kw, flush, name, dtype, n, prefill, quant):
     return case
 
 
+def paged_prefill_case(torch, pp, fa, flush, name, dtype, hq, hkv, d,
+                       cache_len, n, quant=False):
+    """The continuation kernel against ``paged_prefill_ref`` on the same
+    pages (the serving pool's geometry: page 16, 32 pages a table, 256
+    blocks and the sink), ``n`` chunk tokens after ``cache_len`` cached
+    ones, q padded to the engine's bucket (the next power of two from 16):
+    rows below ``n`` within ``GATE``, every row finite. Times (mean and
+    median of 20) the wrapper's call, the plain version, and the library:
+    the same function in PyTorch calls (the gather of the table's pages
+    and ``F.scaled_dot_product_attention`` with the boolean mask, which
+    is precomputed); at ``cache_len`` 0 also the flash kernel on the same
+    n tokens' contiguous K/V (what one-shot prefill runs)."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels.paged_attention import quantize_tokens
+
+    dev = "cuda"
+    geo = SERVING_GEOMETRY
+    page, pps, nb = geo["page"], geo["pages_per_seq"], geo["num_blocks"]
+    g = torch.Generator(device=dev).manual_seed(cache_len * 1000 + n)
+    s = 16
+    while s < n:
+        s *= 2
+    q = torch.randn(s, hq, d, generator=g, device=dev).to(dtype)
+    kp = torch.randn(hkv, nb + 1, page, d, generator=g, device=dev).to(dtype)
+    vp = torch.randn(hkv, nb + 1, page, d, generator=g, device=dev).to(dtype)
+    table = torch.randperm(nb, generator=g, device=dev)[:pps].to(torch.int32)
+    k, v = ((quantize_tokens(kp), quantize_tokens(vp)) if quant
+            else (kp, vp))
+    cl = torch.tensor(cache_len, dtype=torch.int32, device=dev)
+    ln = torch.tensor(n, dtype=torch.int32, device=dev)
+    out = pp.paged_prefill(q, k, v, table, cl, ln)
+    ref = pp.paged_prefill_ref(q, k, v, table, cl, ln)
+    torch.cuda.synchronize()
+    ok, stats = compare(out[:n], ref[:n])
+    check(ok and bool(out.isfinite().all()),
+          f"paged_prefill {name}: {stats} outside the gate, or a padded row "
+          f"not finite")
+    ms, median_ms = cuda_times(
+        torch, lambda: pp.paged_prefill(q, k, v, table, cl, ln), 20, flush)
+    # the kernel alone: the inputs as the wrapper hands them over
+    kq, ks = pp.split_pages(k)
+    vq, vs = pp.split_pages(v)
+    kernel_ms, kernel_median_ms = cuda_times(
+        torch, lambda: pp._launch(q, kq, vq, ks, vs, table, cl, ln,
+                                  d ** -0.5), 20, flush)
+    plain_ms = cuda_ms(
+        torch, lambda: pp.paged_prefill_ref(q, k, v, table, cl, ln), 10,
+        flush)
+    cap = pps * page
+    keep = (torch.arange(cap, device=dev)[None, :]
+            <= cache_len + torch.arange(s, device=dev)[:, None])
+    keep = keep[None, None]
+    qt = q.transpose(0, 1)[None]
+    tl = table.long()
+
+    def gathered(pages):
+        pq, sc = pages if quant else (pages, None)
+        x = pq[:, tl]
+        if quant:
+            x = (x.float() * sc[:, tl][..., None]).to(dtype)
+        return x.reshape(hkv, cap, d)[None]
+
+    gqa = {"enable_gqa": True} if hkv != hq else {}
+    library_ms = cuda_ms(
+        torch, lambda: F.scaled_dot_product_attention(
+            qt, gathered(k), gathered(v), attn_mask=keep, **gqa), 20, flush)
+    extra = {}
+    if cache_len == 0 and not quant and dtype != torch.float16:
+        # one-shot prefill's kernel over the same tokens' K/V, contiguous
+        kc, vc = (gathered(x)[0, :, :n].transpose(0, 1)[None].contiguous()
+                  for x in (kp, vp))
+        qc = q[None, :n].contiguous()
+        extra["flash_ms"], extra["flash_median_ms"] = cuda_times(
+            torch, lambda: fa.flash_attention(qc, kc, vc, causal=True), 20,
+            flush)
+    keys = cache_len + n
+    row_bytes = d + 4 if quant else d * q.element_size()
+    # q in, out; each K/V row the chunk sees once (int8: its bytes and
+    # its scale); the table and the two scalars
+    nbytes = (2 * q.numel() * q.element_size() + 2 * keys * hkv * row_bytes
+              + table.numel() * 4 + 8)
+    # causal over the timeline: chunk token t sees cache_len + t + 1 keys
+    pairs = n * cache_len + n * (n + 1) // 2
+    flops = 4 * hq * d * pairs
+    bound_ms, bound_by = bound(nbytes, flops, dtype, torch)
+    case = {"case": name, "dtype": str(dtype).split(".")[-1], "int8": quant,
+            "hq": hq, "hkv": hkv, "d": d, "cache_len": cache_len,
+            "chunk": n, "q_rows": s, **stats, "ms": ms,
+            "median_ms": median_ms, "kernel_ms": kernel_ms,
+            "kernel_median_ms": kernel_median_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "library": "page gather + F.scaled_dot_product_attention "
+                       "(bool mask)",
+            **extra, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": nbytes, "flops": flops}
+    log(f"[kernels] paged_prefill {json.dumps(case)}")
+    return case
+
+
 def phase_kernels(torch):
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import grouped_matmul as gk
     from paddle_tpu_torch.kernels import kv_write as kw
     from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.kernels import paged_prefill as pp
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     lengths = [0, 1, 15, 16, 17, 200, 511, 512]   # 0, partial, full pages
@@ -946,8 +1077,32 @@ def phase_kernels(torch):
                                ("f32", torch.float32))]
     kvw.append(kv_write_case(torch, kw, flush, "decode_int8_f16",
                              torch.float16, 8, False, True))
+    # the continuation kernel at the serving shape: a 128-token chunk after
+    # the 192-token system prefix, from 0, off every page and tile (37,
+    # 61), at the end of max_model_len 512 (496, 16); GQA d 64; f32 and
+    # float16 q; int8 pages with bf16, float16 and f32 q
+    bf16 = torch.bfloat16
+    pfx = [paged_prefill_case(torch, pp, fa, flush,
+                              f"serving_{c}_{n}", bf16, 16, 16, 128, c, n)
+           for c, n in ((192, 128), (0, 128), (37, 61), (496, 16))]
+    pfx += [
+        paged_prefill_case(torch, pp, fa, flush, "gqa_192_128", bf16, 32, 4,
+                           64, 192, 128),
+        paged_prefill_case(torch, pp, fa, flush, "f32_37_61",
+                           torch.float32, 16, 16, 128, 37, 61),
+        paged_prefill_case(torch, pp, fa, flush, "f16_192_128", f16, 16, 16,
+                           128, 192, 128),
+        paged_prefill_case(torch, pp, fa, flush, "int8_192_128", bf16, 16,
+                           16, 128, 192, 128, quant=True),
+        paged_prefill_case(torch, pp, fa, flush, "int8_37_61", bf16, 16, 16,
+                           128, 37, 61, quant=True),
+        paged_prefill_case(torch, pp, fa, flush, "int8_f16_192_128", f16,
+                           16, 16, 128, 192, 128, quant=True),
+        paged_prefill_case(torch, pp, fa, flush, "int8_f32_37_61",
+                           torch.float32, 16, 16, 128, 37, 61, quant=True),
+    ]
     return (paged, flash, bwd, gate_faults(torch, fa), quant, gmm,
-            gmm_quant, kvw)
+            gmm_quant, kvw, pfx)
 
 
 # ---------------------------------------------------------------- parity
@@ -1002,6 +1157,8 @@ def phase_parity(torch):
                 f"to generate (preemptions={m.preemptions}, programs "
                 f"{m.decode_compiles} decode + {m.prefill_compiles} "
                 f"prefill, plain paged launches {plain})")
+        result[f"prefix_kv_heads={kv or 4}"] = _prefix_parity(
+            torch, model, kv)
     sp = SamplingParams(max_new_tokens=4, do_sample=True, temperature=0.8,
                         seed=123)
     busy = Engine(model, EngineConfig(**geo, seed=0))
@@ -1018,6 +1175,83 @@ def phase_parity(torch):
         f"fresh engine")
     result["seeded_first_tokens"] = first
     return result
+
+
+# the JAX package's prefix_engine fixture (tests/test_serving.py:581)
+PREFIX_PARITY_CFG = dict(max_batch_slots=4, max_model_len=32, page_size=4,
+                         num_blocks=96, prefill_buckets=[8, 16, 32],
+                         enable_prefix_cache=True, prefill_chunk_tokens=8,
+                         max_prefill_chunks_per_step=1, seed=3)
+
+
+def _prefix_parity(torch, model, kv):
+    """The JAX prefix-cache acceptance workload on the tiny f32 model,
+    captured: 32 requests (prompt + new = 16, 8 up front, the rest
+    joining mid-flight) served twice by an engine with the prefix cache
+    and 8-token chunks; every greedy output equals ``generate``'s, pass 2
+    hits the cache and copies on write, every chunk is one replay
+    launching the continuation kernel once per layer."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
+
+    rng = np.random.default_rng(42)
+    lens = [int(n) for n in rng.choice([4, 7, 10, 13], 32)]
+    prompts = [rng.integers(1, 128, n).tolist() for n in lens]
+    max_new = [16 - n for n in lens]
+    arrivals = sorted([0] * 8 + rng.integers(1, 20, 24).tolist())
+    refs = [model.generate(torch.tensor([p], device="cuda"),
+                           max_new_tokens=k)[0, len(p):].tolist()
+            for p, k in zip(prompts, max_new)]
+    engine = Engine(model, EngineConfig(**PREFIX_PARITY_CFG))
+    tag = f"parity prefix kv_heads={kv or 4}"
+    _build.reset_launch_counts()
+    with host_dispatch_probe() as probe:
+        for _pass in (1, 2):
+            pending = list(zip(prompts, max_new, arrivals))
+            submitted, done, step = [], {}, 0
+            while pending or engine.has_unfinished():
+                while pending and pending[0][2] <= step:
+                    p, k, _ = pending.pop(0)
+                    submitted.append(engine.add_request(
+                        p, SamplingParams(max_new_tokens=k)))
+                for o in engine.step():
+                    done[o.request_id] = o
+                step += 1
+                check(step < 500, f"{tag}: engine failed to drain")
+            for r, ref in zip(submitted, refs):
+                check(done[r.request_id].token_ids == ref,
+                      f"{tag} pass {_pass}: engine "
+                      f"{done[r.request_id].token_ids} != generate {ref}")
+        torch.cuda.synchronize()
+    counts = dict(_build.launch_counts(), **_build.variant_counts())
+    m = engine.metrics
+    L = model.config.num_hidden_layers
+    check(m.prefix_hit_tokens > 0 and m.cow_copies >= 1,
+          f"{tag}: prefix_hit_tokens {m.prefix_hit_tokens}, cow_copies "
+          f"{m.cow_copies}")
+    check(m.decode_compiles == 1 and m.prefill_compiles <= 3
+          and m.prefill_ext_compiles <= 3 and m.cow_compiles <= 1,
+          f"{tag}: programs {m.decode_compiles} decode, "
+          f"{m.prefill_compiles} prefill, {m.prefill_ext_compiles} "
+          f"prefill_ext, {m.cow_compiles} cow")
+    check(counts["paged_prefill"] == m.prefill_chunks * L
+          and counts["paged_prefill_ref"] == 0
+          and probe["direct"] == 0
+          and probe["replays"] == (m.decode_steps + m.prefill_steps
+                                   + m.cow_copies),
+          f"{tag}: launches {counts}, probe {probe}, chunks "
+          f"{m.prefill_chunks}")
+    check(engine.block_manager.num_used
+          == engine.prefix_cache.reclaimable_blocks(),
+          f"{tag}: blocks held after the drain beyond the cache's")
+    out = {"requests": 2 * len(prompts),
+           "prefix_hit_tokens": m.prefix_hit_tokens,
+           "cow_copies": m.cow_copies, "prefill_chunks": m.prefill_chunks,
+           "prefill_ext_compiles": m.prefill_ext_compiles,
+           "paged_prefill_launches": counts["paged_prefill"]}
+    log(f"[parity] {tag}: 2 x {len(prompts)} requests token-identical to "
+        f"generate {out}")
+    return out
 
 
 # --------------------------------------------------------------- serving
@@ -1149,10 +1383,12 @@ def _serving_gates(tag, counts, m, probe, L, paged, kv_variant, flash,
                    buckets, decode_programs):
     """The serving phases' launch and program gates, the counts
     replay-accounted: every decode step L paged launches on the cluster
-    kernel, every prefill L flash launches (``flash``) and every step L
+    kernel, every one-shot prefill L flash launches (``flash``), every
+    continuation chunk L ``paged_prefill`` launches and every step L
     kv_write launches; no wrapper launched outside a program's capture,
-    one replay per step; ``decode_programs`` decode programs and at most
-    one prefill program per bucket."""
+    one replay per step and per copy-on-write; ``decode_programs`` decode
+    programs and at most one prefill program (and one continuation
+    program) per bucket, at most one copy-on-write program."""
     other = ("paged_attention" if paged == "paged_attention_quant"
              else "paged_attention_quant")
     check(counts[paged] == m.decode_steps * L and counts[other] == 0,
@@ -1161,10 +1397,17 @@ def _serving_gates(tag, counts, m, probe, L, paged, kv_variant, flash,
     check(counts.get(f"{paged}/cluster", 0) == counts[paged]
           and counts.get(f"{paged}/split", 0) == 0,
           f"{tag}: paged launches by kernel {counts}")
-    want_flash = m.prefill_steps * L if flash else 0
+    one_shot = m.prefill_steps - m.prefill_chunks
+    want_flash = one_shot * L if flash else 0
     check(counts["flash_attention"] == want_flash,
           f"{tag}: flash launches {counts['flash_attention']} != "
-          f"{want_flash}")
+          f"{want_flash} ({one_shot} one-shot prefills)")
+    ext = "int8" if kv_variant == "int8" else "float"
+    check(counts["paged_prefill"] == m.prefill_chunks * L
+          and counts.get(f"paged_prefill/{ext}", 0) == counts["paged_prefill"]
+          and counts["paged_prefill_ref"] == 0,
+          f"{tag}: paged_prefill launches {counts['paged_prefill']} != "
+          f"chunks {m.prefill_chunks} x {L} on the {ext} kernel")
     steps = m.decode_steps + m.prefill_steps
     check(counts["kv_write"] == steps * L
           and counts.get(f"kv_write/{kv_variant}", 0) == steps * L,
@@ -1173,14 +1416,20 @@ def _serving_gates(tag, counts, m, probe, L, paged, kv_variant, flash,
           f"{kv_variant} kernel")
     check(counts["paged_attention_ref"] == 0,
           f"{tag}: the plain paged attention ran {counts}")
-    check(probe["direct"] == 0 and probe["replays"] == steps,
+    check(probe["direct"] == 0
+          and probe["replays"] == steps + m.cow_copies,
           f"{tag}: {probe['direct']} launches outside a graph, "
-          f"{probe['replays']} replays for {steps} steps")
+          f"{probe['replays']} replays for {steps} steps and "
+          f"{m.cow_copies} copies")
     check(m.decode_compiles == decode_programs
-          and 1 <= m.prefill_compiles <= len(buckets),
+          and m.prefill_compiles <= len(buckets)
+          and m.prefill_ext_compiles <= len(buckets)
+          and (m.prefill_compiles or m.prefill_ext_compiles)
+          and m.cow_compiles <= 1,
           f"{tag}: {m.decode_compiles} decode programs (want "
-          f"{decode_programs}), {m.prefill_compiles} prefill programs for "
-          f"{len(buckets)} buckets")
+          f"{decode_programs}), {m.prefill_compiles} prefill and "
+          f"{m.prefill_ext_compiles} continuation programs for "
+          f"{len(buckets)} buckets, {m.cow_compiles} copy programs")
 
 
 def _serve(torch, tag, kv_cache_dtype=None):
@@ -1369,6 +1618,204 @@ def phase_serving_f16(torch):
             f"{compared['max_abs_err']:.5f}")
         del engine
     del model
+    torch.cuda.empty_cache()
+    return result
+
+
+# the serving_prefix cell: a shared system prompt, chunked prefill
+PREFIX_SYSTEM_TOKENS = 192
+PREFIX_CHUNK = 128
+
+
+def _first_continuation(torch, model, ecfg, prompts):
+    """A warm-up engine over the first 8 ``prompts`` (4 tokens each): its
+    first continuation launch after cached tokens (cache_len > 0), the
+    replay's logits against the same program function run eagerly with
+    the plain continuation attention (the adapter's ``decode_kernel=
+    "xla"``: ``paged_prefill_ref``) on copies of the pool taken just
+    before the replay, over the program's own staged inputs."""
+    from paddle_tpu_torch.serving import Engine, SamplingParams
+    from paddle_tpu_torch.serving.bucketing import next_bucket
+
+    warm = Engine(model, ecfg)
+    got = {}
+    real = warm._prefill_chunk
+
+    def chunk_and_compare(req, chunk, final):
+        if got or req.num_cached == 0:
+            return real(req, chunk, final)
+        cache_len = req.num_cached
+        kp, vp = _pool_copy(warm.pool.k), _pool_copy(warm.pool.v)
+        real(req, chunk, final)
+        bucket = next_bucket(len(chunk), ecfg.prefill_buckets)
+        f = warm._prefill_ext_buffers.dev
+        out = warm._prefill_ext_programs[bucket].out[1].float()
+        warm.adapter.decode_kernel = "xla"
+        try:
+            plain = warm.adapter.prefill_ext(
+                kp, vp, f["ids"][:bucket], f["length"][0],
+                f["cache_len"][0], f["table"]).float()
+        finally:
+            warm.adapter.decode_kernel = ecfg.decode_kernel
+        got.update(cache_len=cache_len, chunk=len(chunk),
+                   finite=bool(torch.isfinite(out).all()),
+                   max_abs_err=(out - plain).abs().max().item(),
+                   logit_absmax=plain.abs().max().item())
+
+    warm._prefill_chunk = chunk_and_compare
+    warm.generate(prompts[:8], SamplingParams(max_new_tokens=4))
+    torch.cuda.synchronize()
+    check(got.get("finite"), "serving_prefix: no continuation compared, or "
+                             "non-finite continuation logits")
+    del warm
+    return got
+
+
+def _serve_prefix(torch, model, kv_cache_dtype):
+    """The full-width model behind the prefix cache and 128-token chunks:
+    32 requests sharing a 192-token system prompt, served twice."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
+
+    tag = "serving_prefix" + ("_int8" if kv_cache_dtype else "")
+    cfg = model.config
+    n_req = 32
+    ecfg = EngineConfig(max_batch_slots=8, max_model_len=512, page_size=16,
+                        kv_cache_dtype=kv_cache_dtype,
+                        enable_prefix_cache=True,
+                        prefill_chunk_tokens=PREFIX_CHUNK,
+                        max_prefill_chunks_per_step=1)
+    rng = np.random.RandomState(0)
+    system = rng.randint(1, cfg.vocab_size, PREFIX_SYSTEM_TOKENS).tolist()
+    tails = [int(rng.randint(8, 128)) for _ in range(n_req)]
+    for i in range(0, n_req, 8):
+        # a prompt of whole pages: pass 2 matches all of it but the last
+        # token, which cuts into the last cached page (copy-on-write)
+        tails[i] = 16 * int(rng.randint(1, 8))
+    prompts = [system + rng.randint(1, cfg.vocab_size, n).tolist()
+               for n in tails]
+    max_new = [int(rng.randint(32, 97)) for _ in range(n_req)]
+    params = [
+        SamplingParams(max_new_tokens=k, do_sample=True, temperature=0.8,
+                       top_k=50, top_p=0.95) if i % 4 == 3
+        else SamplingParams(max_new_tokens=k)
+        for i, k in enumerate(max_new)
+    ]
+    whole_pages = sum(len(p) % 16 == 0 for p in prompts)
+    check(whole_pages >= 4, f"{tag}: {whole_pages} prompts of whole pages")
+    compared = _first_continuation(torch, model, ecfg, prompts)
+    check(compared["max_abs_err"] <= LOGITS_TOL,
+          f"{tag}: first continuation's logits differ from the plain "
+          f"attention path by {compared['max_abs_err']} > {LOGITS_TOL}")
+    log(f"[{tag}] first continuation (cache_len {compared['cache_len']}, "
+        f"{compared['chunk']} tokens), replay vs plain attention: "
+        f"max_abs_err {compared['max_abs_err']:.5f} (tolerance "
+        f"{LOGITS_TOL}, |logits| max {compared['logit_absmax']:.3f})")
+
+    engine = Engine(model, ecfg)
+    kinds, program = set(), engine._decode_program
+    engine._decode_program = lambda any_sample: (
+        kinds.add(any_sample), program(any_sample))[1]
+    m = engine.metrics
+    fields = ("prefill_tokens", "prefix_hit_tokens", "prefix_hits",
+              "cow_copies", "prefill_chunks", "prefill_steps",
+              "decode_steps", "preemptions", "prefix_evictions")
+    total_prompt = sum(len(p) for p in prompts)
+    passes, tokens = [], []
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    with host_dispatch_probe() as probe:
+        for n_pass in (1, 2):
+            before = {f: getattr(m, f) for f in fields}
+            t0 = time.perf_counter()
+            outs = engine.generate(prompts, params)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            check(len(outs) == n_req and all(
+                o.finish_reason in ("length", "stop") for o in outs),
+                f"{tag} pass {n_pass}: not every request finished")
+            check(all(0 <= t < cfg.vocab_size for o in outs
+                      for t in o.token_ids),
+                  f"{tag} pass {n_pass}: token id out of range")
+            n_tokens = sum(len(o.token_ids) for o in outs)
+            tokens.append([o.token_ids for o in outs])
+            passes.append(dict(
+                {f: getattr(m, f) - before[f] for f in fields},
+                seconds=dt, generated_tokens=n_tokens,
+                tokens_per_s=n_tokens / dt,
+                mean_ttft_s=float(np.mean([o.time_to_first_token
+                                           for o in outs]))))
+    counts = dict(_build.launch_counts(), **_build.variant_counts())
+    p2 = passes[1]
+    shared = n_req * PREFIX_SYSTEM_TOKENS
+    check(p2["prefix_hit_tokens"] >= shared
+          and p2["prefill_tokens"] <= total_prompt - shared,
+          f"{tag}: pass 2 hit {p2['prefix_hit_tokens']} tokens (want >= "
+          f"{shared}) and computed {p2['prefill_tokens']} of "
+          f"{total_prompt} prompt tokens")
+    check(m.cow_copies >= 4, f"{tag}: {m.cow_copies} copy-on-writes")
+    check(engine.block_manager.num_used
+          == engine.prefix_cache.reclaimable_blocks(),
+          f"{tag}: blocks held after the drain beyond the cache's")
+    L = cfg.num_hidden_layers
+    paged = "paged_attention_quant" if kv_cache_dtype else "paged_attention"
+    check(kinds and kinds <= {False, True}, f"{tag}: decode kinds {kinds}")
+    _serving_gates(tag, counts, m, probe, L, paged,
+                   "int8" if kv_cache_dtype else "float", True,
+                   ecfg.prefill_buckets, len(kinds))
+    same = sum(a == b for a, b, sp in zip(tokens[0], tokens[1], params)
+               if not sp.do_sample)
+    result = {
+        "requests_per_pass": n_req, "system_tokens": PREFIX_SYSTEM_TOKENS,
+        "prompt_tokens_per_pass": total_prompt, "passes": passes,
+        "greedy_same_both_passes": same,
+        "greedy_requests": sum(not sp.do_sample for sp in params),
+        "prefill_compiles": m.prefill_compiles,
+        "prefill_ext_compiles": m.prefill_ext_compiles,
+        "cow_compiles": m.cow_compiles, "decode_compiles": m.decode_compiles,
+        "graph_replays": probe["replays"], "launches": counts,
+        "first_continuation_compare": compared,
+        "pool_high_water": engine.block_manager.high_water,
+        "prefix_cache_blocks": len(engine.prefix_cache),
+    }
+    for i, p in enumerate(passes, 1):
+        log(f"[{tag}] pass {i}: {p['generated_tokens']} tokens in "
+            f"{p['seconds']:.3f}s -> {p['tokens_per_s']:.1f} tokens/s, mean "
+            f"TTFT {p['mean_ttft_s'] * 1e3:.1f} ms, computed prefill tokens "
+            f"{p['prefill_tokens']} of {total_prompt}, prefix hits "
+            f"{p['prefix_hits']} ({p['prefix_hit_tokens']} tokens), "
+            f"{p['prefill_chunks']} chunks, {p['cow_copies']} copy-on-writes, "
+            f"{p['preemptions']} preemptions")
+    log(f"[{tag}] programs {m.decode_compiles} decode + "
+        f"{m.prefill_compiles} prefill + {m.prefill_ext_compiles} "
+        f"continuation + {m.cow_compiles} copy; {probe['replays']} graph "
+        f"replays, no launch outside them; greedy outputs equal in both "
+        f"passes: {same} of {result['greedy_requests']}")
+    log(f"[{tag}] launches {counts}")
+    del engine
+    return result
+
+
+def phase_serving_prefix(torch):
+    """``serving_prefix``: the full-width bf16 serving model behind the
+    prefix cache and chunked prefill (8 slots, max_model_len 512, page
+    16, 128-token chunks, one chunk a step), over the bf16 and the int8
+    pool. 32 requests share a 192-token system prompt and add 8-127
+    tokens of their own (at least 4 prompts of whole pages), 32-96 new
+    tokens, every fourth sampled; the mix is served twice."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = LlamaForCausalLM(LlamaConfig(**SERVING_CFG), seed=0)
+    result = {"launches": {}}
+    for pool in (None, "int8"):
+        r = _serve_prefix(torch, model, pool)
+        for key, n in r["launches"].items():
+            result["launches"][key] = result["launches"].get(key, 0) + n
+        result["int8" if pool else "bf16"] = r
+    del model
+    gc.collect()
     torch.cuda.empty_cache()
     return result
 
@@ -2073,17 +2520,17 @@ def main(argv=None):
     ap.add_argument(
         "--phases",
         default="kernels,parity,serving,serving_int8,serving_f16,"
-                "train_parity,train,moe",
+                "serving_prefix,train_parity,train,moe",
         help="comma list of kernels, parity, serving, serving_int8, "
-             "serving_f16, train_parity, train, moe, profile (default: all "
-             "but profile)",
+             "serving_f16, serving_prefix, train_parity, train, moe, "
+             "profile (default: all but profile)",
     )
     ap.add_argument("--out", help="write the full report as JSON here")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     unknown = phases - {"kernels", "parity", "serving", "serving_int8",
-                        "serving_f16", "train_parity", "train", "moe",
-                        "profile"}
+                        "serving_f16", "serving_prefix", "train_parity",
+                        "train", "moe", "profile"}
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
@@ -2132,6 +2579,7 @@ def main(argv=None):
             "kernels": phase_kernels, "parity": phase_parity,
             "serving": phase_serving, "serving_int8": phase_serving_int8,
             "serving_f16": phase_serving_f16,
+            "serving_prefix": phase_serving_prefix,
             "train_parity": phase_train_parity, "train": phase_train,
             "moe": phase_moe, "profile": phase_profile,
         }
@@ -2146,12 +2594,13 @@ def main(argv=None):
                 f"{report['phase_seconds'][name]:.1f}s")
         paged = flash = bwd = None
         if "kernels" in results:
-            paged, flash, bwd, faults, quant, gmm, gmm_quant, kvw = \
-                results.pop("kernels")
+            (paged, flash, bwd, faults, quant, gmm, gmm_quant, kvw,
+             pfx) = results.pop("kernels")
             report["phases"]["kernels"] = {
                 "paged": paged, "flash": flash, "flash_bwd": bwd,
                 "gate_faults": faults, "paged_quant": quant, "gmm": gmm,
                 "gmm_quant": gmm_quant, "kv_write": kvw,
+                "paged_prefill": pfx,
             }
             # the wrapper's choice against the previous kernel, same
             # inputs, run and host path: reported, not gated (the small
@@ -2176,9 +2625,10 @@ def main(argv=None):
                     f"than on the previous kernel ({stat}): "
                     f"{slower or 'none'}")
         report["phases"].update(results)
-        serving, serving_int8, serving_f16, train, moe = (
+        serving, serving_int8, serving_f16, serving_prefix, train, moe = (
             results.get(p) for p in ("serving", "serving_int8",
-                                     "serving_f16", "train", "moe"))
+                                     "serving_f16", "serving_prefix",
+                                     "train", "moe"))
         check("jax" not in sys.modules and not any(
             m == "paddle_tpu" or m.startswith("paddle_tpu.")
             for m in sys.modules),
@@ -2190,11 +2640,12 @@ def main(argv=None):
 
     kernels = []
     # launches on each main path: serving (float and int8 pools; float16
-    # with both), the 14 counted train steps, and the moe phase's counted
-    # forwards
+    # with both; the prefix cache with chunked prefill, both pools), the 14
+    # counted train steps, and the moe phase's counted forwards
     by_path = {p: r["launches"] if r else {} for p, r in (
         ("serving", serving), ("serving_int8", serving_int8),
-        ("serving_f16", serving_f16), ("train", train), ("moe", moe))}
+        ("serving_f16", serving_f16), ("serving_prefix", serving_prefix),
+        ("train", train), ("moe", moe))}
 
     def launches(name):
         per = {p: c.get(name, 0) for p, c in by_path.items()}
@@ -2353,6 +2804,36 @@ def main(argv=None):
                 for v, c in (("float", head),
                              ("int8", next(c for c in kvw
                                            if c["case"] == "decode_int8")))],
+        })
+    if paged is not None:
+        # the continuation kernel at the serving shape (a 128-token chunk
+        # after 192 cached tokens, bf16 pages; library: the page gather and
+        # F.scaled_dot_product_attention with the mask), the int8-page
+        # instance under "variants"
+        head = pfx[0]
+        kernels.append({
+            "name": "paged_prefill", "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/paged_prefill.cu",
+            "replaces": "paddle_tpu/serving/adapter.py:428 (_gather_context "
+                        ":246 + masked _sdpa: XLA, no TPU kernel)",
+            **launches("paged_prefill"),
+            "max_abs_err": max(c["max_abs_err"] for c in pfx),
+            "ms": head["ms"], "median_ms": head["median_ms"],
+            "kernel_ms": head["kernel_ms"],
+            "kernel_median_ms": head["kernel_median_ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "shape": f"{head['case']}: hq 16, hkv 16, d 128, page 16, "
+                     f"cache_len {head['cache_len']}, chunk {head['chunk']}",
+            "variants": [{
+                "variant": v, **launches(f"paged_prefill/{v}"),
+                "ms": c["ms"], "median_ms": c["median_ms"],
+                "kernel_ms": c["kernel_ms"],
+                "plain_ms": c["plain_ms"], "library_ms": c["library_ms"],
+                "bound_ms": c["bound_ms"], "shape": c["case"]}
+                for v, c in (("float", head),
+                             ("int8", next(c for c in pfx
+                                           if c["case"] == "int8_192_128")))],
         })
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -1,13 +1,22 @@
 """Model adapter: the compute behind the serving engine.
 
-Counterpart of ``paddle_tpu/serving/adapter.py``, with its two main-path
+Counterpart of ``paddle_tpu/serving/adapter.py``, with its main-path
 entry points:
 
   * ``prefill(kp, vp, ids, length, block_table)`` — run one prompt
     (padded to a length bucket) through the model, write its K/V into
     the request's pages, return the logits at position ``length - 1``.
-    Attention is causal ``scaled_dot_product_attention``, which runs the
-    flash kernel on the card (bf16 and f32; float16 takes the math form).
+    Attention is causal ``scaled_dot_product_attention`` over the
+    in-flight K/V, which runs the flash kernel on the card (bf16 and
+    f32; float16 takes the math form).
+  * ``prefill_ext(kp, vp, ids, length, cache_len, block_table)`` — a
+    prefill CONTINUATION (chunked prefill, or the suffix after a prefix
+    forked from the prefix cache): the chunk's tokens sit at global
+    positions ``cache_len + t``; their K/V are written into the pages
+    first, then every chunk token attends over the pages through the
+    block table (cached prefix + chunk so far, causal) with the
+    ``kernels.paged_prefill`` kernel; returns the logits at the chunk's
+    position ``length - 1``.
   * ``decode(kp, vp, tokens, positions, block_tables, active)`` — one
     token for every batch slot at once: write each active slot's K/V at
     its position, attend over its block table with the paged decode
@@ -15,30 +24,45 @@ entry points:
     ``lengths = positions + 1`` of whatever their table names (page 0 when
     zeroed, always a valid read) and their logits are never read.
 
-Both are shape-static and free of host syncs, so the engine can capture
-them into CUDA graphs (``serving.programs``): ``length`` may be a device
-scalar, every page write is one ``kernels.kv_write`` launch per layer for
-K and V together (decode: row = slot, position, valid = active; prefill:
-row 0, position t, valid = t < length), and the logits row is picked by
+All three are shape-static and free of host syncs, so the engine can
+capture them into CUDA graphs (``serving.programs``): ``length`` and
+``cache_len`` may be device scalars, every page write is one
+``kernels.kv_write`` launch per layer for K and V together (decode: row =
+slot, position, valid = active; prefill: row 0, position ``cache_len +
+t``, valid = t < length), and the logits row is picked by
 ``index_select``.
+
+The attention choice for prefill. JAX's one-shot ``prefill`` and its
+``prefill_ext`` use the same ``_sdpa`` form, so in JAX any chunking of a
+prompt is bit-identical to one shot (in f32). The port keeps the flash
+kernel for one-shot ``prefill`` over the in-flight K/V, as JAX keeps its
+``prefill`` program, and runs continuations through ``paged_prefill``,
+which reads K/V through the block table from any ``cache_len``. On the
+card, chunked and one-shot prefill of the same prompt therefore agree to
+a tolerance, not to the bit, as the engine and ``generate`` already do
+there; on the CPU in f32 both are plain PyTorch, and a chunked prefill
+gives one shot's logits and pages bit for bit.
 
 Int8 pools (``EngineConfig(kv_cache_dtype="int8")``): every per-layer
 pool entry is an ``(int8 pages, f32 scales)`` pair (``split_pages``).
 Page writes quantize on write (the scale landing in the same slot of the
-scale plane) and decode reads through the int8 paged kernel; prefill
-attends over the in-flight float K/V, as in JAX.
+scale plane); decode and continuations read through the int8 kernels
+(continuations see the cached prefix dequantized, as JAX's
+``_gather_context``); one-shot prefill attends over the in-flight float
+K/V, as in JAX.
 
-``decode_kernel`` picks decode attention as the JAX adapter's knob does:
-"auto" and "pallas" run the paged kernel, "xla" runs the plain
-``paged_attention_ref`` (on the card too, counted as
-``paged_attention_ref`` in ``kernels._build`` on every call: an explicit
-choice, never a fallback).
+``decode_kernel`` picks the paged reads as the JAX adapter's knob picks
+decode attention: "auto" and "pallas" run the kernels, "xla" runs the
+plain ``paged_attention_ref`` for decode and ``paged_prefill_ref`` for
+continuations (on the card too, counted as ``paged_attention_ref`` /
+``paged_prefill_ref`` in ``kernels._build`` on every call: an explicit
+choice, never a fallback; JAX's continuation is always its XLA form).
 
 Differences from the JAX adapter: the adapter reads the model's modules
 directly (PyTorch runs eagerly, so there is no weight snapshot to
 refresh), and page writes go into the pool IN PLACE, so the entry points
-return logits only. ``prefill_ext``, ``verify`` and tensor parallelism
-are not ported yet.
+return logits only. ``verify`` and tensor parallelism are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -47,17 +71,21 @@ import torch
 from ..kernels import _build
 from ..kernels.kv_write import kv_write
 from ..kernels.paged_attention import paged_attention, paged_attention_ref
+from ..kernels.paged_prefill import paged_prefill, paged_prefill_ref
 from ..ops.fused_ops import rope_qk
 from ..ops.nn_ops import rms_norm, scaled_dot_product_attention
 
 __all__ = ["LlamaServingAdapter", "build_adapter", "required_attrs",
-           "DECODE_KERNELS"]
+           "optional_attrs", "DECODE_KERNELS"]
 
 # the duck-typed adapter surface the engine relies on
 required_attrs = (
     "num_layers", "num_kv_heads", "head_dim", "vocab_size", "device",
     "dtype", "prefill", "decode",
 )
+# entry points the engine needs only for some EngineConfig flags (it
+# names the missing one and the flags at build time)
+optional_attrs = ("prefill_ext",)
 # ``decode_kernel`` values, as ``EngineConfig(decode_kernel=)`` takes them
 DECODE_KERNELS = ("auto", "pallas", "xla")
 
@@ -108,6 +136,13 @@ class LlamaServingAdapter:
             return paged_attention_ref(q, kp, vp, block_tables, lengths)
         return paged_attention(q, kp, vp, block_tables, lengths)
 
+    def _context_attn(self, q, kp, vp, block_table, cache_len, length):
+        if self.decode_kernel == "xla":
+            _build.count_launch("paged_prefill_ref")
+            return paged_prefill_ref(q, kp, vp, block_table, cache_len,
+                                     length)
+        return paged_prefill(q, kp, vp, block_table, cache_len, length)
+
     @torch.no_grad()
     def prefill(self, kp, vp, ids, length, block_table):
         """ids [S] (padded to a bucket), length an int or a device scalar
@@ -138,6 +173,44 @@ class LlamaServingAdapter:
             x = self._mlp(blk, x)
         x = rms_norm(x, m.llama.norm.weight, epsilon=self.eps)
         # clamped: a program's warm-up runs at length 0
+        last = x[0].index_select(
+            0, (length.reshape(1) - 1).clamp(min=0).long())[0]
+        return m.logits(last)
+
+    @torch.no_grad()
+    def prefill_ext(self, kp, vp, ids, length, cache_len, block_table):
+        """Prefill CONTINUATION: one chunk of a prompt whose first
+        ``cache_len`` tokens are already in the pages. ids [S] (padded to
+        a bucket) hold the chunk, ``length`` its valid token count;
+        ``length`` and ``cache_len`` are ints or device scalar tensors.
+        Writes the chunk's K/V into ``kp``/``vp`` in place (positions
+        ``cache_len + t``, t < length), attends every chunk token over the
+        page timeline (keys ``c <= cache_len + t``), returns logits
+        [vocab] at chunk position ``length - 1``."""
+        m = self.model
+        s, dev = ids.shape[0], ids.device
+        if not isinstance(length, torch.Tensor):
+            length = torch.tensor(int(length), device=dev)
+        if not isinstance(cache_len, torch.Tensor):
+            cache_len = torch.tensor(int(cache_len), device=dev)
+        t = torch.arange(s, dtype=torch.int32, device=dev)
+        pos = cache_len.to(torch.int32) + t
+        valid = t < length
+        rows = torch.zeros_like(t)
+        table = block_table.to(torch.int32)
+        x = m.llama.embed_tokens(ids)[None]               # [1, S, hid]
+        for li, blk in enumerate(m.llama.layers):
+            attn = blk.self_attn
+            h = rms_norm(x, blk.input_layernorm.weight, epsilon=self.eps)
+            q, k, v = self._qkv(attn, h, 1, s)
+            q, k = rope_qk(q, k, pos[None], base=self.rope_theta)
+            kv_write(kp[li], vp[li], k[0], v[0], table[None], rows, pos,
+                     valid)
+            o = self._context_attn(q[0], kp[li], vp[li], table, cache_len,
+                                   length)
+            x = x + attn.o_proj(o.reshape(1, s, -1))
+            x = self._mlp(blk, x)
+        x = rms_norm(x, m.llama.norm.weight, epsilon=self.eps)
         last = x[0].index_select(
             0, (length.reshape(1) - 1).clamp(min=0).long())[0]
         return m.logits(last)

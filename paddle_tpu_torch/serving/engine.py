@@ -10,9 +10,17 @@ Each ``step()``:
   * admits waiting requests FCFS into free slots, gated on KV blocks for
     the whole prompt plus one decode write (``max_waiting`` bounds the
     queue; ``kv_shed_threshold`` sheds new requests under KV pressure
-    with ``EngineOverloadedError``);
-  * prefills each admitted request with one prefill program of its
-    length bucket and samples its first token;
+    with ``EngineOverloadedError``); with the prefix cache on, a prompt
+    whose leading full blocks are cached forks them instead of
+    allocating, and copies (copy-on-write) the last one when the
+    one-token-to-prefill cap cuts into it;
+  * prefills each admitted request: one prefill program of its length
+    bucket when nothing is cached and the prompt fits one chunk, else
+    continuation launches (``prefill_ext``) of at most
+    ``prefill_chunk_tokens`` tokens each, at most
+    ``max_prefill_chunks_per_step`` of them a step, so a long prompt
+    never stalls the decode batch; the final one samples the first
+    token;
   * makes sure every running request owns a block for the token it is
     about to write, preempting the YOUNGEST running request when the
     pool is exhausted (recompute-style: its tokens are kept and a later
@@ -23,8 +31,10 @@ Each ``step()``:
 
 The programs (``serving.programs``) are the JAX engine's compiled steps:
 at most two decode programs (greedy and mixed, chosen by a host bool as
-JAX's static ``any_sample``) and one prefill program per bucket, counted
-by ``metrics.decode_compiles`` / ``prefill_compiles``. On the card each
+JAX's static ``any_sample``), one prefill program per bucket, one
+continuation program per bucket and one copy-on-write program, counted
+by ``metrics.decode_compiles`` / ``prefill_compiles`` /
+``prefill_ext_compiles`` / ``cow_compiles``. On the card each
 is a CUDA graph: a step stages its inputs into one pinned host buffer,
 issues one host-to-device copy, replays the decode graph and reads the
 [slots] next tokens back with one device-to-host copy, the step's one
@@ -42,16 +52,21 @@ with ``EngineConfig.seed`` (each replay of the mixed decode program
 advances it); each prefill reseeds the prefill generator from the
 engine's request stream, or, for a sampled request with
 ``SamplingParams(seed=)``, from ``(seed, tokens generated)``, as JAX's
-``_request_key``. The KV pool is updated in place.
+``_request_key`` (every chunk launch reseeds it the same way; only the
+final chunk's token is kept, non-final chunks are greedy). The KV pool
+is updated in place.
 
 ``submit``/``resume``/``release`` move Request objects between engines
 (the fleet's migration primitive, without the spill tier); ``health()``
-reports status, flags, the queue and the pool.
+reports status, flags, the queue and the pool. Cached prefix blocks no
+running request holds are reclaimable: they are freed before an
+admission waits or a request is preempted, and they are not pressure
+for ``kv_shed_threshold`` or ``health()``.
 
-Not ported yet (later slices): prefix cache, chunked prefill and COW,
-speculative decoding, journal, QoS, HTTP front door, fleet, tensor
-parallelism, spill tier, step observatory, SLO tracking, access log,
-poison isolation (it needs ``resilience/faults.py``), the watchdog, the
+Not ported yet (later slices): speculative decoding, journal, QoS, HTTP
+front door, fleet, tensor parallelism, spill tier, step observatory, SLO
+tracking, access log, poison isolation (it needs
+``resilience/faults.py``), the watchdog, the
 analysis gate and the compile cache.
 """
 from __future__ import annotations
@@ -66,6 +81,7 @@ from .adapter import DECODE_KERNELS, build_adapter
 from .bucketing import next_bucket
 from .kv_cache import BlockManager, KVPool
 from .metrics import EngineMetrics
+from .prefix_cache import PrefixCache
 from .programs import Program, StepBuffers
 from .request import (
     Request,
@@ -123,7 +139,9 @@ class EngineConfig:
     def __init__(self, max_batch_slots=8, max_model_len=2048, page_size=16,
                  num_blocks=None, prefill_buckets=None, max_waiting=None,
                  seed=0, kv_cache_dtype=None, kv_shed_threshold=None,
-                 decode_kernel="auto"):
+                 decode_kernel="auto", enable_prefix_cache=False,
+                 prefix_cache_blocks=None, prefill_chunk_tokens=None,
+                 max_prefill_chunks_per_step=1):
         if max_batch_slots < 1:
             raise ValueError("max_batch_slots must be >= 1")
         if page_size < 1 or max_model_len < 2:
@@ -180,6 +198,45 @@ class EngineConfig:
                 f"{kv_cache_dtype!r}"
             )
         self.kv_cache_dtype = kv_cache_dtype
+        # automatic prefix caching (serving/prefix_cache.py): share
+        # read-only prompt blocks across requests, retain them after
+        # release under an LRU budget of prefix_cache_blocks entries
+        # (None: the whole pool is eligible)
+        self.enable_prefix_cache = bool(enable_prefix_cache)
+        if prefix_cache_blocks is not None and prefix_cache_blocks < 1:
+            raise ValueError(
+                f"prefix_cache_blocks must be >= 1 or None, got "
+                f"{prefix_cache_blocks}"
+            )
+        self.prefix_cache_blocks = (
+            int(prefix_cache_blocks) if prefix_cache_blocks is not None
+            else self.num_blocks
+        )
+        # chunked prefill: None prefills a prompt in one launch; an int
+        # splits the remaining prompt into chunks of that many tokens,
+        # each padded through the prefill bucket set
+        if prefill_chunk_tokens is not None:
+            if prefill_chunk_tokens < 1:
+                raise ValueError(
+                    f"prefill_chunk_tokens must be >= 1 or None, got "
+                    f"{prefill_chunk_tokens}"
+                )
+            if prefill_chunk_tokens > self.prefill_buckets[-1]:
+                raise ValueError(
+                    f"prefill_chunk_tokens ({prefill_chunk_tokens}) "
+                    f"exceeds the largest prefill bucket "
+                    f"({self.prefill_buckets[-1]})"
+                )
+        self.prefill_chunk_tokens = (
+            None if prefill_chunk_tokens is None
+            else int(prefill_chunk_tokens)
+        )
+        if max_prefill_chunks_per_step < 1:
+            raise ValueError(
+                f"max_prefill_chunks_per_step must be >= 1, got "
+                f"{max_prefill_chunks_per_step}"
+            )
+        self.max_prefill_chunks_per_step = int(max_prefill_chunks_per_step)
 
 
 class Engine:
@@ -209,6 +266,21 @@ class Engine:
                 f"{cfg.decode_kernel!r}) needs an adapter that can select "
                 "its decode attention path"
             )
+        self._chunking = cfg.prefill_chunk_tokens is not None
+        # optional entry points are checked at build: one error naming
+        # the missing method and the flags that need it
+        if ((self._chunking or cfg.enable_prefix_cache)
+                and not hasattr(self.adapter, "prefill_ext")):
+            flags = [f for f, on in (
+                ("enable_prefix_cache=True", cfg.enable_prefix_cache),
+                (f"prefill_chunk_tokens={cfg.prefill_chunk_tokens}",
+                 self._chunking)) if on]
+            raise TypeError(
+                f"{type(self.adapter).__name__} has no prefill_ext entry "
+                f"point, but EngineConfig({', '.join(flags)}) needs an "
+                "adapter that can continue a prefill at a nonzero cache "
+                "length"
+            )
         self.device = dev = torch.device(self.adapter.device)
         self.metrics = EngineMetrics()
         self.pool = KVPool(
@@ -217,6 +289,10 @@ class Engine:
             self.adapter.dtype, dev, quant_dtype=cfg.kv_cache_dtype,
         )
         self.block_manager = BlockManager(cfg.num_blocks, cfg.page_size)
+        self.prefix_cache = (
+            PrefixCache(self.block_manager, cfg.prefix_cache_blocks,
+                        metrics=self.metrics)
+            if cfg.enable_prefix_cache else None)
         self.waiting: collections.deque = collections.deque()
         self.slots: list = [None] * cfg.max_batch_slots
         # requests aborted between steps, emitted by the next step()
@@ -243,8 +319,16 @@ class Engine:
             [("ids", cfg.prefill_buckets[-1], "int32"),
              ("length", 1, "int32"), ("table", pps, "int32")] + sampling,
             dev)
+        self._prefill_ext_buffers = StepBuffers(
+            [("ids", cfg.prefill_buckets[-1], "int32"),
+             ("length", 1, "int32"), ("cache_len", 1, "int32"),
+             ("table", pps, "int32")] + sampling, dev)
+        self._cow_buffers = StepBuffers(
+            [("src", 1, "int32"), ("dst", 1, "int32")], dev)
         self._decode_programs: dict = {}
         self._prefill_programs: dict = {}
+        self._prefill_ext_programs: dict = {}
+        self._cow_prog = None
         self._graph_pool = self._capture_stream = None
         if dev.type == "cuda":
             self._graph_pool = torch.cuda.graph_pool_handle()
@@ -314,6 +398,52 @@ class Engine:
         self.metrics.prefill_compiles += 1
         return prog
 
+    def _prefill_ext_program(self, bucket):
+        """The continuation program of one length bucket: the chunk's
+        logits at ``length - 1`` after ``cache_len`` cached tokens, then
+        its token (the host stages greedy parameters for a non-final
+        chunk, whose token is discarded)."""
+        prog = self._prefill_ext_programs.get(bucket)
+        if prog is not None:
+            return prog
+        f, pool, adapter = (self._prefill_ext_buffers.dev, self.pool,
+                            self.adapter)
+        gen = self._prefill_generator
+        ids = f["ids"][:bucket]
+
+        def prefill_ext_fn():
+            logits = adapter.prefill_ext(pool.k, pool.v, ids, f["length"][0],
+                                         f["cache_len"][0], f["table"])
+            u = uniform_noise((1, logits.shape[-1]), gen, logits.device)
+            tok = sample_tokens(logits[None], f["temperature"], f["top_k"],
+                                f["top_p"], f["do_sample"], u)
+            return tok, logits
+
+        self._pin_adapter()
+        # the build runs prefill_ext_fn once eagerly: over zeroed inputs
+        # (a chunk of length 0) it writes no page
+        self._prefill_ext_buffers.device.zero_()
+        prog = self._program(prefill_ext_fn, gen)
+        self._prefill_ext_programs[bucket] = prog
+        self.metrics.prefill_ext_compiles += 1
+        return prog
+
+    def _cow_program(self):
+        """The copy-on-write program: block ``src`` over block ``dst`` in
+        every layer's pages (``KVPool.copy_block``)."""
+        if self._cow_prog is not None:
+            return self._cow_prog
+        f, pool = self._cow_buffers.dev, self.pool
+
+        def cow_fn():
+            pool.copy_block(f["src"][0], f["dst"][0])
+
+        # the build runs cow_fn once eagerly: the sink page over itself
+        self._cow_buffers.device.fill_(pool.sink_page)
+        self._cow_prog = self._program(cow_fn, None)
+        self.metrics.cow_compiles += 1
+        return self._cow_prog
+
     def _pin_adapter(self):
         """Re-assert this engine's decode attention on a shared adapter
         before a program reads it."""
@@ -362,13 +492,13 @@ class Engine:
                 f"room to generate under max_model_len={cfg.max_model_len}"
             )
         if cfg.kv_shed_threshold is not None:
-            # with no prefix cache or speculation yet no block is
-            # reclaimable: the pressure is the pool's utilization
+            # pressure is ACTIVE utilization: cached prefix blocks no
+            # request holds are capacity the engine takes back at will
             bm = self.block_manager
-            util = bm.utilization()
+            reclaimable, util = self._active_pressure()
             admissible_now = (
                 not self.waiting and None in self.slots
-                and bm.num_free >= bm.blocks_needed(
+                and bm.num_free + reclaimable >= bm.blocks_needed(
                     len(req.prompt_token_ids) + 1
                 )
             )
@@ -381,6 +511,17 @@ class Engine:
         self.waiting.append(req)
         self.metrics.requests_received += 1
         return req
+
+    def _active_pressure(self):
+        """``(reclaimable_blocks, active_utilization)``: the pressure
+        split shedding and ``health()`` agree on. Cached prefix blocks
+        no running request holds are reclaimable capacity, not pressure,
+        so a pool kept warm by the prefix cache neither sheds admissions
+        nor reads as overloaded."""
+        bm = self.block_manager
+        reclaimable = (self.prefix_cache.reclaimable_blocks()
+                       if self.prefix_cache is not None else 0)
+        return reclaimable, (bm.num_used - reclaimable) / bm.num_blocks
 
     def resume(self, req):
         """Re-enqueue a request whose KV state was lost outside this
@@ -477,18 +618,22 @@ class Engine:
 
     def health(self):
         """Health snapshot: ``status`` is "ok", "degraded" (requests
-        expired) or "overloaded" (admission queue full, or KV pressure at
-        the shedding threshold; overloaded beats degraded); ``flags``
-        carries both signals. The JAX engine's watchdog, SLO, spill,
-        prefix-cache (reclaimable blocks, active utilization),
-        speculation and tensor-parallel fields wait for their
-        modules."""
+        expired) or "overloaded" (admission queue full, or ACTIVE KV
+        pressure at the shedding threshold; overloaded beats degraded);
+        ``flags`` carries both signals. ``kv_utilization`` is the pool's
+        raw use, ``kv_active_utilization`` leaves out the
+        ``kv_reclaimable_blocks`` the prefix cache alone holds;
+        ``prefix_cache_digests`` are the cached chain keys a router
+        matches ``prompt_chain_digests`` against. The JAX engine's
+        watchdog, SLO, spill, speculation and tensor-parallel fields wait
+        for their modules."""
         m, bm, cfg = self.metrics, self.block_manager, self.config
         util = bm.utilization()
+        reclaimable, util_active = self._active_pressure()
         queue_full = (cfg.max_waiting is not None
                       and len(self.waiting) >= cfg.max_waiting)
         shedding = (cfg.kv_shed_threshold is not None
-                    and util >= cfg.kv_shed_threshold)
+                    and util_active >= cfg.kv_shed_threshold)
         degraded = bool(m.requests_timeout)
         overloaded = queue_full or shedding
         status = "ok"
@@ -507,7 +652,14 @@ class Engine:
                 self.pool.dtype).replace("torch.", ""),
             "kv_bytes_per_token": self.pool.bytes_per_token(),
             "kv_utilization": util,
-            "kv_headroom_blocks": bm.num_free,
+            "kv_active_utilization": util_active,
+            "kv_reclaimable_blocks": reclaimable,
+            "kv_headroom_blocks": bm.num_free + reclaimable,
+            "prefix_cache_blocks": (len(self.prefix_cache)
+                                    if self.prefix_cache is not None else 0),
+            "prefix_cache_digests": (
+                list(self.prefix_cache.chain_digests())
+                if self.prefix_cache is not None else []),
             "requests_timeout": m.requests_timeout,
             "requests_shed": m.requests_shed,
             "preemptions": m.preemptions,
@@ -522,12 +674,14 @@ class Engine:
         self._aborted.clear()
         self._expire(finished)
         self._admit()
-        self._prefill_admitted(finished)
+        self._prefill_chunks(finished)
         if self._running():
             self._ensure_capacity()
             idxs = self._running()
             if idxs:
                 self._decode(idxs, finished)
+        if self.prefix_cache is not None:
+            self.metrics.prefix_cache_blocks = len(self.prefix_cache)
         return finished
 
     def _expire(self, finished):
@@ -550,36 +704,94 @@ class Engine:
         ]
 
     def _admit(self):
-        """FCFS admission into free slots, each with its full block
-        budget (whole prompt plus one decode write)."""
-        bm = self.block_manager
+        """FCFS admission into free slots. A request is admitted with its
+        full block budget (whole prompt plus one decode write) but no
+        compute: the prefix cache may cover a prefix through ``fork()``
+        (copy-on-write when the one-token cap cuts into the last shared
+        block), and the prefill itself runs in ``_prefill_chunks``."""
+        bm, pc = self.block_manager, self.prefix_cache
         while self.waiting and None in self.slots:
             req = self.waiting[0]
-            n_alloc = bm.blocks_needed(len(req.tokens_to_prefill()) + 1)
+            tokens = req.tokens_to_prefill()
+            # at least one token must remain to prefill: its logits seed
+            # the first sampled token
+            match = (pc.lookup(tokens, limit=len(tokens) - 1)
+                     if pc is not None else None)
+            n_fork = match.num_shared if match is not None else 0
+            n_alloc = bm.blocks_needed(len(tokens) + 1) - n_fork
             if not bm.can_allocate(n_alloc):
-                break
+                if pc is not None:
+                    # retained cache blocks are reclaimable capacity, but
+                    # never the ones this match is about to fork or copy
+                    protect = set(match.shared_blocks if match else ())
+                    if match is not None and match.cow_src is not None:
+                        protect.add(match.cow_src)
+                    pc.reclaim(n_alloc - bm.num_free, protect=protect)
+                if not bm.can_allocate(n_alloc):
+                    break
             self.waiting.popleft()
-            req.block_ids = bm.allocate(n_alloc)
-            req.num_cached = 0
+            if pc is not None:
+                # one lookup per admission (blocked retries don't count)
+                self.metrics.prefix_lookups += 1
+            if match is not None:
+                bm.fork(match.shared_blocks)
+                req.block_ids = (list(match.shared_blocks)
+                                 + bm.allocate(n_alloc))
+                req.num_cached = match.cache_len
+                pc.commit(match)
+            else:
+                req.block_ids = bm.allocate(n_alloc)
+                req.num_cached = 0
             req.slot = self.slots.index(None)
             self.slots[req.slot] = req
             req.state = RequestState.PREFILLING
             req.admit_seq = self._admit_counter
             self._admit_counter += 1
+            if match is not None and match.cow_src is not None:
+                # the cap cut into the last shared block: this request
+                # WRITES its final prefill token there, so it gets a
+                # private copy (block n_fork, freshly allocated)
+                self._cow(match.cow_src, req.block_ids[n_fork])
 
-    def _prefill_admitted(self, finished):
-        """One prefill launch per admitted request, oldest first."""
+    def _prefill_chunks(self, finished):
+        """Prefill launches for the PREFILLING slots, oldest first.
+        Without chunking every pending prefill completes this step (one
+        launch each); with it at most ``max_prefill_chunks_per_step``
+        chunk launches run, then the decode batch gets the step. Nothing
+        cached and everything in one chunk runs the one-shot prefill
+        program; every other case is a continuation launch."""
         cfg = self.config
+        budget = cfg.max_prefill_chunks_per_step if self._chunking else None
+        used = 0
         for req in sorted(
             (r for r in self.slots
              if r is not None and r.state is RequestState.PREFILLING),
             key=lambda r: r.admit_seq,
         ):
-            self._prefill(req, req.tokens_to_prefill())
-            req.state = RequestState.RUNNING
-            reason = req.check_stop(cfg.max_model_len)
-            if reason:
-                self._finish(req, reason, finished)
+            while req.state is RequestState.PREFILLING:
+                if budget is not None and used >= budget:
+                    return
+                used += 1
+                tokens = req.tokens_to_prefill()
+                remaining = tokens[req.num_cached:]
+                chunk = (remaining[:cfg.prefill_chunk_tokens]
+                         if self._chunking else remaining)
+                final = req.num_cached + len(chunk) >= len(tokens)
+                if req.num_cached == 0 and final:
+                    self._prefill(req, tokens)
+                else:
+                    self._prefill_chunk(req, chunk, final)
+                if final:
+                    req.state = RequestState.RUNNING
+                    if self.prefix_cache is not None:
+                        # publish the full PROMPT blocks (decode writes
+                        # only at positions >= the prompt's length)
+                        self.prefix_cache.register(
+                            req.prompt_token_ids, req.block_ids,
+                            req.num_cached)
+                    reason = req.check_stop(cfg.max_model_len)
+                    if reason:
+                        self._finish(req, reason, finished)
 
     def _prefill(self, req, tokens):
         """Stage the prompt into the prefill buffer, run its bucket's
@@ -602,6 +814,42 @@ class Engine:
         req.num_cached = len(tokens)
         self.metrics.prefill_tokens += len(tokens)
         self.metrics.prefill_steps += 1
+        self._finish_prefill(req, tok)
+
+    def _prefill_chunk(self, req, chunk, final):
+        """One continuation launch: ``chunk`` appended at cache position
+        ``req.num_cached`` through its bucket's ``prefill_ext`` program.
+        A non-final chunk is staged greedy (its token is discarded) and
+        its token is not read back."""
+        cfg = self.config
+        bucket = next_bucket(len(chunk), cfg.prefill_buckets)
+        bufs = self._prefill_ext_buffers
+        h = bufs.np
+        bufs.clear()
+        h["ids"][: len(chunk)] = chunk
+        h["length"][0] = len(chunk)
+        h["cache_len"][0] = req.num_cached
+        h["table"][: len(req.block_ids)] = req.block_ids
+        self._stage_sampling(h, [req], slice(0, 1))
+        if not final:
+            h["do_sample"][0] = 0
+        prog = self._prefill_ext_program(bucket)
+        # after the build: its warm-up draws from the generator too; every
+        # chunk keys the generator as JAX's _request_key keys a launch
+        self._prefill_generator.manual_seed(self._request_seed(req))
+        self._pin_adapter()
+        bufs.stage()
+        out = prog()
+        req.num_cached += len(chunk)
+        self.metrics.prefill_tokens += len(chunk)
+        self.metrics.prefill_steps += 1
+        self.metrics.prefill_chunks += 1
+        if final:
+            self._finish_prefill(req, int(out[0].cpu()[0]))
+
+    def _finish_prefill(self, req, tok):
+        """Book the first token once a request's whole prefill has landed
+        (one-shot or final chunk)."""
         if req.output_token_ids:
             # re-prefill after preemption: the sampled token re-derives
             # output[-1]; keep the one already emitted
@@ -611,6 +859,19 @@ class Engine:
             self.metrics.record_ttft(req.first_token_time - req.arrival_time)
             req.output_token_ids.append(tok)
             req.last_token = tok
+
+    def _cow(self, src, dst):
+        """Copy-on-write one physical block (every layer's pages) so a
+        prefill can diverge from a shared partial block without touching
+        the original: one replay of the copy program."""
+        bufs = self._cow_buffers
+        bufs.clear()
+        bufs.np["src"][0] = src
+        bufs.np["dst"][0] = dst
+        prog = self._cow_program()
+        bufs.stage()
+        prog()
+        self.metrics.cow_copies += 1
 
     def _ensure_capacity(self):
         """Every running request needs a block for the KV slot its next
@@ -627,6 +888,9 @@ class Engine:
                 if bm.can_allocate(1):
                     req.block_ids += bm.allocate(1)
                     continue
+                if (self.prefix_cache is not None
+                        and self.prefix_cache.reclaim(1)):
+                    continue  # a cached block freed: retry the allocate
                 victims = [
                     r for r in self.slots if r is not None and r is not req
                 ]

@@ -1,8 +1,9 @@
 """Paged KV cache: ref-counted block manager over a preallocated pool.
 
 Counterpart of ``paddle_tpu/serving/kv_cache.py``: ``BlockManager`` whole,
-``KVPool`` for float and int8 pools (its snapshot, rebind and spill
-helpers wait for their slices). The physical cache is one entry per
+``KVPool`` for float and int8 pools, with ``copy_block`` for the prefix
+cache's copy-on-write (its snapshot, rebind and spill helpers wait for
+their slices). The physical cache is one entry per
 layer and per K/V, ``[num_kv_heads, num_blocks + 1, block_size, head_dim]``
 — the layout ``kernels.paged_attention`` reads — or, for an int8 pool, an
 ``(int8 pages, float32 scales [num_kv_heads, num_blocks + 1,
@@ -133,6 +134,17 @@ class KVPool:
         self.dtype = dtype
         self.quant_dtype = quant_dtype
         self.device = device
+
+    def copy_block(self, src, dst):
+        """Copy physical block ``src`` over block ``dst`` in every layer's
+        K and V pages (and, in an int8 pool, their scale planes): the
+        prefix cache's copy-on-write. ``src`` and ``dst`` are one-element
+        int tensors on the pool's device, so the copy can be captured
+        into a CUDA graph and replayed for any pair of blocks."""
+        src, dst = src.reshape(1).long(), dst.reshape(1).long()
+        for entry in self.k + self.v:
+            for t in (entry if isinstance(entry, tuple) else (entry,)):
+                t.index_copy_(1, dst, t.index_select(1, src))
 
     def nbytes(self):
         """Bytes of the ``num_blocks`` pages the block manager hands out

@@ -1,5 +1,5 @@
 """Engine counters (counterpart of ``paddle_tpu/serving/metrics.py``, cut
-to the ones this slice's engine moves). Plain python attributes, bumped
+to the ones the port's engine moves). Plain python attributes, bumped
 host-side once per event. The registry view and the latency digests of
 the JAX version wait for the observability slice."""
 from __future__ import annotations
@@ -19,12 +19,27 @@ class EngineMetrics:
         # engine's compile probes
         self.decode_compiles = 0
         self.prefill_compiles = 0
-        # prefill_tokens counts tokens a prefill launch computed
-        # (re-prefills after preemption included)
+        self.prefill_ext_compiles = 0   # continuation programs (buckets)
+        self.cow_compiles = 0
+        # prefill_tokens counts tokens a prefill launch COMPUTED
+        # (re-prefills after preemption included): prefix-cache hits
+        # subtract from it, the saving prefix_hit_tokens measures
         self.prefill_tokens = 0
         self.decode_tokens = 0
         self.prefill_steps = 0
+        self.prefill_chunks = 0   # chunk launches through prefill_ext
         self.decode_steps = 0
+        # prefix cache (serving/prefix_cache.py): lookups and hits at
+        # admission, hit_tokens = prompt tokens served from shared blocks
+        # instead of recomputed, cow_copies = partial-block copy-on-write
+        # divergences, evictions = cached blocks released
+        self.prefix_lookups = 0
+        self.prefix_hits = 0
+        self.prefix_hit_tokens = 0
+        self.prefix_evictions = 0
+        self.cow_copies = 0
+        # gauge: entries the prefix cache holds, refreshed every step
+        self.prefix_cache_blocks = 0
         self._ttft = []
 
     def record_ttft(self, seconds):

@@ -2,8 +2,10 @@
 
 Counterpart of the JAX engine's compiled programs (``_build_steps``,
 ``paddle_tpu/serving/engine.py:723``): a decode program (at most two, the
-greedy one and the mixed one, as JAX's static ``any_sample`` makes them)
-and one prefill program per length bucket. Each is a function of no
+greedy one and the mixed one, as JAX's static ``any_sample`` makes them),
+one prefill program per length bucket, and, with the prefix cache or
+chunked prefill on, one continuation program (``prefill_ext``) per
+bucket and one copy-on-write program. Each is a function of no
 arguments over static device buffers (``StepBuffers``), built once:
 
 * on the card it is captured into one CUDA graph, and every call replays
@@ -19,7 +21,12 @@ arguments over static device buffers (``StepBuffers``), built once:
   overwrites: the engine reads them back before it replays again. There
   is no eager route on the card: a capture or replay error raises.
 * on the CPU the same function runs eagerly on every call (the caller
-  asked for the CPU, and the tests run it so).
+  asked for the CPU, and the tests run it so); ``out`` holds the last
+  call's outputs, as a graph's static outputs hold its last replay's.
+
+The capture runs with Python's cyclic garbage collector paused
+(``gc_paused``): collecting an old engine there would destroy its graphs
+inside the capture.
 
 Kernel launches inside a graph do not pass through their wrappers, so
 the launches the capture recorded (``kernels._build.record_launches``)
@@ -32,12 +39,31 @@ so each replay draws fresh numbers from where the generator stands.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
+
 import numpy as np
 import torch
 
 from ..kernels import _build
 
-__all__ = ["Program", "StepBuffers"]
+__all__ = ["Program", "StepBuffers", "gc_paused"]
+
+
+@contextlib.contextmanager
+def gc_paused():
+    """Python's cyclic garbage collector off for the duration. A capture
+    runs under it: an engine dropped earlier (an engine is a reference
+    cycle) would otherwise be collected at any allocation inside the
+    capture, and destroying its graphs or events there is an operation a
+    capturing stream does not permit, which invalidates the capture."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
 
 
 class StepBuffers:
@@ -52,6 +78,12 @@ class StepBuffers:
         self.device = torch.zeros(total, dtype=torch.int32, device=device)
         self.host = torch.zeros(total, dtype=torch.int32,
                                 pin_memory=device.type == "cuda")
+        # marks the end of the last staging copy, which reads the pinned
+        # host buffer asynchronously: a program whose output is not read
+        # back (a non-final prefill chunk, a copy-on-write) leaves no
+        # sync behind it
+        self._staged = (torch.cuda.Event() if device.type == "cuda"
+                        else None)
         words = self.host.numpy()
         self.np, self.dev = {}, {}
         off = 0
@@ -64,13 +96,18 @@ class StepBuffers:
         self._words = words
 
     def clear(self):
+        """Zero the host buffer for the next fill, once the last staging
+        copy has read it."""
+        if self._staged is not None:
+            self._staged.synchronize()
         self._words[:] = 0
 
     def stage(self):
         """One host-to-device copy of every field. Non-blocking on the
-        card: the host buffer is refilled only after the step's read-back
-        has synchronised the stream."""
+        card: ``clear`` waits for it before the host buffer is refilled."""
         self.device.copy_(self.host, non_blocking=True)
+        if self._staged is not None:
+            self._staged.record()
 
 
 class Program:
@@ -85,7 +122,7 @@ class Program:
         self.out = None
         self.launches = {}
         if device.type != "cuda":
-            self._run = fn
+            self._run = self._eager
             return
         current = torch.cuda.current_stream(device)
         stream.wait_stream(current)
@@ -102,12 +139,17 @@ class Program:
             graph.register_generator_state(gen)
 
         def capture():
-            with torch.cuda.graph(graph, pool=pool, stream=stream):
+            with gc_paused(), torch.cuda.graph(graph, pool=pool,
+                                               stream=stream):
                 self.out = fn()
 
         self.launches = _build.record_launches(capture)
         self.graph = graph
         self._run = self._replay
+
+    def _eager(self):
+        self.out = self.fn()
+        return self.out
 
     def _replay(self):
         self.graph.replay()

@@ -2,15 +2,19 @@
 with a stand-in ``nvcc``: a failed build raises with the compiler's
 output, every kernel source gets its own compiler process, and a built
 library is reused instead of rebuilt. Also the markers by which
-``chip_sweeps.py`` varies the kernel sources."""
+``chip_sweeps.py`` varies the kernel sources, and a kernel wrapper given
+CUDA tensors it does not take raises instead of taking its plain
+version."""
 import importlib.util
 import re
 import stat
 from pathlib import Path
 
 import pytest
+import torch
 
 from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels import paged_prefill as ppf
 
 FAKE_NVCC = """#!/bin/sh
 echo "$@" >> "{log}"
@@ -145,9 +149,27 @@ def test_replay_counts_what_the_capture_recorded():
 
 
 def test_launch_names_cover_the_new_kernel_and_the_plain_choice():
-    assert "kv_write" in _build.KERNELS
-    assert {"kv_write", "paged_attention_ref"} <= set(_build.LAUNCHES)
+    assert {"kv_write", "paged_prefill"} <= set(_build.KERNELS)
+    assert {"kv_write", "paged_attention_ref", "paged_prefill",
+            "paged_prefill_ref"} <= set(_build.LAUNCHES)
     assert (_build.CSRC_DIR / "kv_write.cu").exists()
+    assert (_build.CSRC_DIR / "paged_prefill.cu").exists()
+
+
+def test_paged_prefill_source_is_built_with_the_others(tmp_path, build_dir,
+                                                       monkeypatch):
+    # the continuation kernel's source gets its own compiler process in
+    # the one parallel build, so `python3 chip_smoke.py` alone builds it
+    home, log = _fake_cuda(
+        tmp_path,
+        'while [ $# -gt 0 ]; do [ "$1" = "-o" ] && touch "$2"; shift; done',
+    )
+    monkeypatch.setenv("CUDA_HOME", str(home))
+    _build.build()
+    (line,) = [x for x in log.read_text().splitlines()
+               if "csrc/paged_prefill.cu" in x]
+    assert "arch=compute_90a,code=sm_90a" in line
+    assert len(list(build_dir.glob("paged_prefill-*.so"))) == 1
 
 
 def _chip_sweeps():
@@ -186,3 +208,45 @@ def test_a_missing_sweep_marker_is_an_error():
     with pytest.raises(ValueError, match="on 2 lines"):
         sweeps.apply_variant("int x = 1;  // sweep: a\nint y = 1;  // sweep: a"
                              "\n", {"a": "2"})
+
+
+class _OnCuda(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: takes the wrapper down its
+    kernel path on a host with no card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def test_paged_prefill_on_cuda_raises_rather_than_falls_back(monkeypatch):
+    def no_launch():
+        raise AssertionError("the kernel was about to launch")
+
+    def no_plain(*a, **k):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(ppf, "_kernel", no_launch)
+    monkeypatch.setattr(ppf, "paged_prefill_ref", no_plain)
+
+    def cuda(t):
+        return t.as_subclass(_OnCuda)
+
+    pages = cuda(torch.zeros(2, 5, 4, 16))
+    table = cuda(torch.zeros(4, dtype=torch.int32))
+    scalar = cuda(torch.zeros((), dtype=torch.int32))
+    _build.reset_launch_counts()
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        ppf.paged_prefill(cuda(torch.zeros(8, 4, 16, dtype=torch.float64)),
+                          pages, pages, table, scalar, scalar)
+    with pytest.raises(TypeError, match="pages of q's dtype"):
+        ppf.paged_prefill(cuda(torch.zeros(8, 4, 16, dtype=torch.bfloat16)),
+                          pages, pages, table, scalar, scalar)
+    odd = cuda(torch.zeros(2, 5, 4, 24))
+    with pytest.raises(ValueError, match="head_dim 24"):
+        ppf.paged_prefill(cuda(torch.zeros(8, 4, 24)), odd, odd, table,
+                          scalar, scalar)
+    with pytest.raises(ValueError, match="block_table"):
+        ppf.paged_prefill(cuda(torch.zeros(8, 4, 16)), pages, pages,
+                          torch.zeros(4, dtype=torch.int32), scalar, scalar)
+    assert _build.launch_counts()["paged_prefill"] == 0

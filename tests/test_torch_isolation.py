@@ -20,7 +20,9 @@ import paddle_tpu_torch.kernels.paged_attention
 import paddle_tpu_torch.kernels.flash_attention
 import paddle_tpu_torch.kernels.grouped_matmul
 import paddle_tpu_torch.kernels.kv_write
+import paddle_tpu_torch.kernels.paged_prefill
 import paddle_tpu_torch.serving.programs
+import paddle_tpu_torch.serving.prefix_cache
 import paddle_tpu_torch.ops.moe_ops
 import paddle_tpu_torch.incubate
 import paddle_tpu_torch.quantization
@@ -137,4 +139,25 @@ def test_kernel_build_needs_nvcc_not_at_import():
     assert _build._libs == {}
     assert _build.KERNELS == ("paged_attention", "flash_attention",
                               "flash_attention_bwd", "grouped_matmul",
-                              "kv_write")
+                              "kv_write", "paged_prefill")
+
+
+def test_prefill_ext_on_cpu_tensors_takes_the_plain_version():
+    # a continuation on CPU tensors runs paged_prefill_ref through the
+    # kernel wrapper (uncounted); it never reaches the kernel
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import KVPool
+    from paddle_tpu_torch.serving.adapter import LlamaServingAdapter
+
+    model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
+    ad = LlamaServingAdapter(model)
+    pool = KVPool(ad.num_layers, ad.num_kv_heads, 8, 4, ad.head_dim,
+                  device="cpu")
+    _build.reset_launch_counts()
+    logits = ad.prefill_ext(pool.k, pool.v, torch.arange(1, 9), 5, 6,
+                            torch.arange(8, dtype=torch.int32))
+    assert logits.shape == (model.config.vocab_size,)
+    assert bool(torch.isfinite(logits).all())
+    assert set(_build.launch_counts().values()) == {0}
+    assert _build._libs == {}

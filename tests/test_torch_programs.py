@@ -327,3 +327,44 @@ def test_programs_are_built_over_inert_inputs(tiny):
         max_new_tokens=3, do_sample=True))
     assert eng.metrics.prefill_compiles == 2 == eng.metrics.decode_compiles
     assert seen == [True] * 4
+
+
+def test_capture_pauses_the_cyclic_gc():
+    # a capture on the card runs under gc_paused: an engine dropped
+    # earlier is a reference cycle, and collecting it inside the capture
+    # destroys its graphs there, which invalidates the capture (seen on
+    # the card). With the collector's threshold at 1, allocations inside
+    # the guard leave the cycle alone; it is collected after.
+    import gc
+
+    from paddle_tpu_torch.serving.programs import gc_paused
+
+    freed = []
+
+    class Cycle:
+        def __init__(self):
+            self.me = self
+
+        def __del__(self):
+            freed.append(True)
+
+    old = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        with gc_paused():
+            Cycle()
+            _ = [[] for _ in range(2000)]
+            assert freed == [] and not gc.isenabled()
+        gc.collect()
+        assert freed == [True]
+        with pytest.raises(RuntimeError, match="inside"):
+            with gc_paused():
+                raise RuntimeError("inside")
+        assert gc.isenabled()
+        gc.disable()
+        with gc_paused():
+            pass
+        assert not gc.isenabled()      # a caller's choice is kept
+    finally:
+        gc.enable()
+        gc.set_threshold(*old)
