@@ -44,7 +44,15 @@ Phases, in order; any failure exits non-zero:
                within
                the gate, every row finite; its time beside the library's
                (the page gather and SDPA with the mask) and, at cache_len
-               0, the flash kernel's on the same tokens.
+               0, the flash kernel's on the same tokens. Its batched form
+               (one launch for every slot: the verify window) at the
+               serving_spec cell's verify shape, 8 slots of 5 rows at
+               positions over 0-507, two slots inactive, one window
+               reaching the table's capacity: bf16, int8 pages, GQA hq 32,
+               hkv 4, d 64, f32 and float16 q; the active slots' valid
+               rows within the gate, every row finite; its time beside the
+               library's (the batched page gather and one SDPA call with
+               the [slots, 1, S, C] mask).
 4. parity   — tiny f32 Llama (MHA and GQA), the engine's programs
                captured as CUDA graphs: greedy outputs token-identical to
                the port's ``generate``, with ``decode_kernel`` "auto" and
@@ -55,7 +63,14 @@ Phases, in order; any failure exits non-zero:
                through an engine with the prefix cache and 8-token chunks:
                token-identical to ``generate``, cache hits and at least one
                copy-on-write, every chunk one replay launching the
-               continuation kernel once per layer.
+               continuation kernel once per layer. The JAX package's
+               speculative-decoding workload (its ``spec_engine``: 4 slots,
+               K = 3; the 32-request mix, every fourth sampled): greedy
+               outputs token-identical to ``generate`` and to the
+               spec-disabled engine, one verify program, drafts proposed,
+               every verify step one replay launching the batched
+               continuation kernel and kv_write once per layer, no launch
+               outside a graph.
 5. serving  — full-width bf16 Llama (the repo's serving configuration,
                12 layers, random seeded weights) serving 32 mixed
                requests through ``Engine.generate``, every step a graph
@@ -96,6 +111,24 @@ Phases, in order; any failure exits non-zero:
                with the plain continuation attention on copies of the pool
                within 5e-2. Tokens/s, mean TTFT and computed prefill
                tokens per pass and pool.
+5e. serving_spec — ``bench.py``'s speculative workload (:706-760) at its
+               TPU geometry on the bf16 serving model: 8 slots,
+               max_model_len 512, page 16, ``speculate_tokens=4``, over the
+               bf16 and the int8 pool, each beside a spec-disabled engine
+               of the same config; 8 prompts of 12 copies of one token,
+               496 greedy new tokens each, after a 32-token warm-up pass,
+               served three times (the fastest kept, as the bench does).
+               All finish, no block leaks, one verify program; counted
+               from the replays, every verify step runs the batched
+               continuation kernel once per layer (and kv_write), no
+               launch outside a graph. The first verify replay's logits
+               (the active slots' valid rows) agree with the same program
+               function run eagerly with the plain window attention on
+               copies of the pool within 5e-2. Recorded, not gated:
+               tokens/s with and without speculation, the accept rate,
+               tokens per verify launch, verify and decode steps, a verify
+               replay's host wall ms against a decode replay's, and per
+               request the first token where spec and base diverge.
 6. train_parity — tiny f32 Llama (MHA and GQA): 10 ``TrainStep`` steps
                of AdamW through the flash kernels give the losses of the
                same 10 steps with the plain attention functions.
@@ -914,8 +947,9 @@ def paged_prefill_case(torch, pp, fa, flush, name, dtype, hq, hkv, d,
     kq, ks = pp.split_pages(k)
     vq, vs = pp.split_pages(v)
     kernel_ms, kernel_median_ms = cuda_times(
-        torch, lambda: pp._launch(q, kq, vq, ks, vs, table, cl, ln,
-                                  d ** -0.5), 20, flush)
+        torch, lambda: pp._launch(q[None], kq, vq, ks, vs, table[None],
+                                  cl.reshape(1), ln.reshape(1), d ** -0.5),
+        20, flush)
     plain_ms = cuda_ms(
         torch, lambda: pp.paged_prefill_ref(q, k, v, table, cl, ln), 10,
         flush)
@@ -967,6 +1001,110 @@ def paged_prefill_case(torch, pp, fa, flush, name, dtype, hq, hkv, d,
             **extra, "bound_ms": bound_ms, "bound_by": bound_by,
             "bytes": nbytes, "flops": flops}
     log(f"[kernels] paged_prefill {json.dumps(case)}")
+    return case
+
+
+# the verify window of the serving_spec cell (8 slots, K = 4): each slot's
+# position (its cache length), draft length and whether it is active.
+# Positions spread over 0-507, two slots inactive, the last window
+# reaching the table's capacity (508 + 4 = 512 of 512)
+VERIFY_POSITIONS = [0, 37, 130, 255, 300, 411, 480, 508]
+VERIFY_DRAFTS = [4, 2, 4, 0, 3, 4, 1, 4]
+VERIFY_ACTIVE = [1, 1, 0, 1, 1, 0, 1, 1]
+
+
+def paged_prefill_batched_case(torch, pp, flush, name, dtype, hq, hkv, d,
+                               quant=False):
+    """The continuation kernel's batched form (the verify window: one
+    launch for every slot) against the batched ``paged_prefill_ref`` on
+    the same pages (the serving pool's geometry: page 16, 32 pages a
+    table, 256 blocks and the sink), 8 slots of S = 5 rows at
+    ``VERIFY_POSITIONS`` with ``VERIFY_DRAFTS`` + 1 valid rows and
+    ``VERIFY_ACTIVE``: the active slots' valid rows within ``GATE``,
+    every row finite. Times (mean and median of 20) the wrapper's call,
+    the kernel alone, the plain version and the library: the batched page
+    gather and one ``F.scaled_dot_product_attention`` with the [slots, 1,
+    S, C] boolean mask (precomputed)."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels.paged_attention import quantize_tokens
+
+    dev = "cuda"
+    geo = SERVING_GEOMETRY
+    page, pps, nb = geo["page"], geo["pages_per_seq"], geo["num_blocks"]
+    n, s = len(VERIFY_POSITIONS), 5
+    g = torch.Generator(device=dev).manual_seed(hq * 100 + d + quant)
+    q = torch.randn(n, s, hq, d, generator=g, device=dev).to(dtype)
+    kp = torch.randn(hkv, nb + 1, page, d, generator=g, device=dev).to(dtype)
+    vp = torch.randn(hkv, nb + 1, page, d, generator=g, device=dev).to(dtype)
+    tables = torch.stack([torch.randperm(nb, generator=g, device=dev)[:pps]
+                          for _ in range(n)]).to(torch.int32)
+    k, v = ((quantize_tokens(kp), quantize_tokens(vp)) if quant
+            else (kp, vp))
+    active = torch.tensor(VERIFY_ACTIVE, device=dev).bool()
+    cl = torch.tensor(VERIFY_POSITIONS, dtype=torch.int32, device=dev)
+    ln = torch.where(active, torch.tensor(VERIFY_DRAFTS, device=dev) + 1,
+                     0).to(torch.int32)
+    out = pp.paged_prefill(q, k, v, tables, cl, ln)
+    ref = pp.paged_prefill_ref(q, k, v, tables, cl, ln)
+    torch.cuda.synchronize()
+    rows = torch.arange(s, device=dev)[None] < ln[:, None]     # [n, S]
+    ok, stats = compare(out[rows], ref[rows])
+    check(ok and bool(out.isfinite().all()),
+          f"paged_prefill {name}: {stats} outside the gate, or a row not "
+          f"finite")
+    ms, median_ms = cuda_times(
+        torch, lambda: pp.paged_prefill(q, k, v, tables, cl, ln), 20, flush)
+    kq, ks = pp.split_pages(k)
+    vq, vs = pp.split_pages(v)
+    kernel_ms, kernel_median_ms = cuda_times(
+        torch, lambda: pp._launch(q, kq, vq, ks, vs, tables, cl, ln,
+                                  d ** -0.5), 20, flush)
+    plain_ms = cuda_ms(
+        torch, lambda: pp.paged_prefill_ref(q, k, v, tables, cl, ln), 10,
+        flush)
+    cap = pps * page
+    keep = (torch.arange(cap, device=dev)[None, None, :]
+            <= (cl[:, None] + torch.arange(s, device=dev)[None])[:, :, None])
+    keep = keep[:, None]                                      # [n, 1, S, C]
+    qt = q.transpose(1, 2)
+    tl = tables.long()
+
+    def gathered(pages):
+        pq, sc = pages if quant else (pages, None)
+        x = pq[:, tl]                                 # [hkv, n, P, page, d]
+        if quant:
+            x = (x.float() * sc[:, tl][..., None]).to(dtype)
+        return x.reshape(hkv, n, cap, d).transpose(0, 1)
+
+    gqa = {"enable_gqa": True} if hkv != hq else {}
+    library_ms = cuda_ms(
+        torch, lambda: F.scaled_dot_product_attention(
+            qt, gathered(k), gathered(v), attn_mask=keep, **gqa), 20, flush)
+    lens = [int(x) for x in ln.tolist()]
+    keys = sum(min(c + n_, cap) for c, n_ in zip(VERIFY_POSITIONS, lens)
+               if n_)
+    row_bytes = d + 4 if quant else d * q.element_size()
+    # q in, out; each K/V row an active window sees once (int8: its bytes
+    # and its scale); the tables and the two [slots] vectors
+    nbytes = (2 * q.numel() * q.element_size() + 2 * keys * hkv * row_bytes
+              + tables.numel() * 4 + 8 * n)
+    # window row t of slot s sees min(position + t + 1, capacity) keys
+    pairs = sum(min(c + t + 1, cap) for c, n_ in zip(VERIFY_POSITIONS, lens)
+                for t in range(n_))
+    flops = 4 * hq * d * pairs
+    bound_ms, bound_by = bound(nbytes, flops, dtype, torch)
+    case = {"case": name, "dtype": str(dtype).split(".")[-1], "int8": quant,
+            "hq": hq, "hkv": hkv, "d": d, "slots": n, "window": s,
+            "positions": VERIFY_POSITIONS, "lengths": lens, **stats,
+            "ms": ms, "median_ms": median_ms, "kernel_ms": kernel_ms,
+            "kernel_median_ms": kernel_median_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "library": "batched page gather + F.scaled_dot_product_"
+                       "attention ([slots, 1, S, C] bool mask)",
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "flops": flops}
+    log(f"[kernels] paged_prefill batched {json.dumps(case)}")
     return case
 
 
@@ -1101,8 +1239,22 @@ def phase_kernels(torch):
         paged_prefill_case(torch, pp, fa, flush, "int8_f32_37_61",
                            torch.float32, 16, 16, 128, 37, 61, quant=True),
     ]
+    # its batched form at the serving cell's verify shape (8 slots, a
+    # 5-token window each), the int8 pool, GQA d 64, f32 and float16 q
+    pfx_batched = [
+        paged_prefill_batched_case(torch, pp, flush, "verify_serving", bf16,
+                                   16, 16, 128),
+        paged_prefill_batched_case(torch, pp, flush, "verify_int8", bf16,
+                                   16, 16, 128, quant=True),
+        paged_prefill_batched_case(torch, pp, flush, "verify_gqa", bf16, 32,
+                                   4, 64),
+        paged_prefill_batched_case(torch, pp, flush, "verify_f32",
+                                   torch.float32, 16, 16, 128),
+        paged_prefill_batched_case(torch, pp, flush, "verify_f16", f16, 16,
+                                   16, 128),
+    ]
     return (paged, flash, bwd, gate_faults(torch, fa), quant, gmm,
-            gmm_quant, kvw, pfx)
+            gmm_quant, kvw, pfx, pfx_batched)
 
 
 # ---------------------------------------------------------------- parity
@@ -1159,6 +1311,7 @@ def phase_parity(torch):
                 f"prefill, plain paged launches {plain})")
         result[f"prefix_kv_heads={kv or 4}"] = _prefix_parity(
             torch, model, kv)
+        result[f"spec_kv_heads={kv or 4}"] = _spec_parity(torch, model, kv)
     sp = SamplingParams(max_new_tokens=4, do_sample=True, temperature=0.8,
                         seed=123)
     busy = Engine(model, EngineConfig(**geo, seed=0))
@@ -1251,6 +1404,76 @@ def _prefix_parity(torch, model, kv):
            "paged_prefill_launches": counts["paged_prefill"]}
     log(f"[parity] {tag}: 2 x {len(prompts)} requests token-identical to "
         f"generate {out}")
+    return out
+
+
+# the JAX package's spec_engine fixture (tests/test_serving.py:834)
+SPEC_PARITY_CFG = dict(max_batch_slots=4, max_model_len=32, page_size=4,
+                       num_blocks=48, prefill_buckets=[16, 32],
+                       speculate_tokens=3, seed=3)
+
+
+def _spec_parity(torch, model, kv):
+    """The JAX speculative-decoding acceptance workload on the tiny f32
+    model, captured: the 32-request mix (prompt + new = 16), every fourth
+    request sampled, through an engine with ``speculate_tokens=3``; every
+    greedy output equals ``generate``'s and the spec-disabled engine's;
+    one verify program, drafts proposed; counted from the replays, every
+    verify step launches the batched continuation kernel and kv_write
+    once per layer; no launch outside a graph."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
+
+    rng = np.random.default_rng(42)
+    lens = [int(n) for n in rng.choice([4, 7, 10, 13], 32)]
+    prompts = [rng.integers(1, 128, n).tolist() for n in lens]
+    max_new = [16 - n for n in lens]
+    params = [SamplingParams(max_new_tokens=k, do_sample=(i % 4 == 3),
+                             temperature=0.8, top_k=20)
+              for i, k in enumerate(max_new)]
+    tag = f"parity spec kv_heads={kv or 4}"
+    plain = Engine(model, EngineConfig(**dict(SPEC_PARITY_CFG,
+                                              speculate_tokens=None)))
+    plain_out = plain.generate(prompts, params)
+    engine = Engine(model, EngineConfig(**SPEC_PARITY_CFG))
+    _build.reset_launch_counts()
+    with host_dispatch_probe() as probe:
+        outs = engine.generate(prompts, params)
+        torch.cuda.synchronize()
+    counts = dict(_build.launch_counts(), **_build.variant_counts())
+    m = engine.metrics
+    L = model.config.num_hidden_layers
+    greedy = 0
+    for o, p, k, sp, po in zip(outs, prompts, max_new, params, plain_out):
+        check(len(o.token_ids) == k, f"{tag}: {len(o.token_ids)} of {k} "
+                                     f"tokens")
+        if sp.do_sample:
+            continue
+        greedy += 1
+        ref = model.generate(torch.tensor([p], device="cuda"),
+                             max_new_tokens=k)[0, len(p):].tolist()
+        check(o.token_ids == ref == po.token_ids,
+              f"{tag}: engine {o.token_ids}, generate {ref}, spec-disabled "
+              f"engine {po.token_ids}")
+    check(m.verify_compiles == 1 and m.spec_proposed > 0
+          and m.verify_steps > 0,
+          f"{tag}: {m.verify_compiles} verify programs, {m.spec_proposed} "
+          f"drafts, {m.verify_steps} verify steps")
+    steps = m.decode_steps + m.prefill_steps + m.verify_steps
+    check(counts["paged_prefill"] == m.verify_steps * L
+          and counts["kv_write"] == steps * L
+          and counts["paged_prefill_ref"] == 0
+          and probe["direct"] == 0 and probe["replays"] == steps,
+          f"{tag}: launches {counts}, probe {probe}, verify steps "
+          f"{m.verify_steps}")
+    check(engine.block_manager.num_used == 0, f"{tag}: block leak")
+    out = {"greedy_requests": greedy, "verify_steps": m.verify_steps,
+           "decode_steps": m.decode_steps,
+           "spec_proposed": m.spec_proposed,
+           "spec_accepted": m.spec_accepted,
+           "paged_prefill_launches": counts["paged_prefill"]}
+    log(f"[parity] {tag}: {greedy} greedy requests token-identical to "
+        f"generate and the spec-disabled engine {out}")
     return out
 
 
@@ -1384,11 +1607,12 @@ def _serving_gates(tag, counts, m, probe, L, paged, kv_variant, flash,
     """The serving phases' launch and program gates, the counts
     replay-accounted: every decode step L paged launches on the cluster
     kernel, every one-shot prefill L flash launches (``flash``), every
-    continuation chunk L ``paged_prefill`` launches and every step L
-    kv_write launches; no wrapper launched outside a program's capture,
-    one replay per step and per copy-on-write; ``decode_programs`` decode
-    programs and at most one prefill program (and one continuation
-    program) per bucket, at most one copy-on-write program."""
+    continuation chunk and every verify step L ``paged_prefill``
+    launches and every step L kv_write launches; no wrapper launched
+    outside a program's capture, one replay per step and per
+    copy-on-write; ``decode_programs`` decode programs and at most one
+    prefill program (and one continuation program) per bucket, at most
+    one copy-on-write program and one verify program."""
     other = ("paged_attention" if paged == "paged_attention_quant"
              else "paged_attention_quant")
     check(counts[paged] == m.decode_steps * L and counts[other] == 0,
@@ -1403,17 +1627,18 @@ def _serving_gates(tag, counts, m, probe, L, paged, kv_variant, flash,
           f"{tag}: flash launches {counts['flash_attention']} != "
           f"{want_flash} ({one_shot} one-shot prefills)")
     ext = "int8" if kv_variant == "int8" else "float"
-    check(counts["paged_prefill"] == m.prefill_chunks * L
+    check(counts["paged_prefill"] == (m.prefill_chunks + m.verify_steps) * L
           and counts.get(f"paged_prefill/{ext}", 0) == counts["paged_prefill"]
           and counts["paged_prefill_ref"] == 0,
           f"{tag}: paged_prefill launches {counts['paged_prefill']} != "
-          f"chunks {m.prefill_chunks} x {L} on the {ext} kernel")
-    steps = m.decode_steps + m.prefill_steps
+          f"(chunks {m.prefill_chunks} + verify steps {m.verify_steps}) x "
+          f"{L} on the {ext} kernel")
+    steps = m.decode_steps + m.prefill_steps + m.verify_steps
     check(counts["kv_write"] == steps * L
           and counts.get(f"kv_write/{kv_variant}", 0) == steps * L,
           f"{tag}: kv_write launches {counts['kv_write']} != (decode "
-          f"{m.decode_steps} + prefill {m.prefill_steps}) x {L} on the "
-          f"{kv_variant} kernel")
+          f"{m.decode_steps} + prefill {m.prefill_steps} + verify "
+          f"{m.verify_steps}) x {L} on the {kv_variant} kernel")
     check(counts["paged_attention_ref"] == 0,
           f"{tag}: the plain paged attention ran {counts}")
     check(probe["direct"] == 0
@@ -1425,11 +1650,12 @@ def _serving_gates(tag, counts, m, probe, L, paged, kv_variant, flash,
           and m.prefill_compiles <= len(buckets)
           and m.prefill_ext_compiles <= len(buckets)
           and (m.prefill_compiles or m.prefill_ext_compiles)
-          and m.cow_compiles <= 1,
+          and m.cow_compiles <= 1 and m.verify_compiles <= 1,
           f"{tag}: {m.decode_compiles} decode programs (want "
           f"{decode_programs}), {m.prefill_compiles} prefill and "
           f"{m.prefill_ext_compiles} continuation programs for "
-          f"{len(buckets)} buckets, {m.cow_compiles} copy programs")
+          f"{len(buckets)} buckets, {m.cow_compiles} copy programs, "
+          f"{m.verify_compiles} verify programs")
 
 
 def _serve(torch, tag, kv_cache_dtype=None):
@@ -1811,6 +2037,239 @@ def phase_serving_prefix(torch):
     result = {"launches": {}}
     for pool in (None, "int8"):
         r = _serve_prefix(torch, model, pool)
+        for key, n in r["launches"].items():
+            result["launches"][key] = result["launches"].get(key, 0) + n
+        result["int8" if pool else "bf16"] = r
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+# the serving_spec cell: bench.py's speculative workload (:706-760) at its
+# TPU geometry, K = 4
+SPEC_K = 4
+SPEC_PROMPT_COPIES = 12
+SPEC_WARM_TOKENS = 32
+SPEC_RUNS = 3
+
+
+def _first_verify(torch, model, ecfg, prompts):
+    """A warm-up engine over ``prompts`` (``SPEC_WARM_TOKENS`` greedy
+    tokens each): its first verify launch, the replay's logits against
+    the same program function run eagerly with the plain window attention
+    (the adapter's ``decode_kernel="xla"``: the batched
+    ``paged_prefill_ref``) on copies of the pool taken just before the
+    replay, over the program's own staged inputs; compared on the active
+    slots' valid rows (the pending token and its draft)."""
+    from paddle_tpu_torch.serving import Engine, SamplingParams
+
+    warm = Engine(model, ecfg)
+    got = {}
+    real = warm._launch_verify
+
+    def verify_and_compare(idxs, drafts):
+        if got:
+            return real(idxs, drafts)
+        kp, vp = _pool_copy(warm.pool.k), _pool_copy(warm.pool.v)
+        tgt = real(idxs, drafts)
+        f = warm._verify_buffers.dev
+        n = ecfg.max_batch_slots
+        out = warm._verify_prog.out[1].float()
+        warm.adapter.decode_kernel = "xla"
+        try:
+            plain = warm.adapter.verify(
+                kp, vp, f["tokens"].view(n, -1), f["positions"],
+                f["draft_lens"], f["tables"].view(n, -1),
+                f["active"] != 0).float()
+        finally:
+            warm.adapter.decode_kernel = ecfg.decode_kernel
+        rows = ((torch.arange(out.shape[1], device=out.device)[None]
+                 <= f["draft_lens"][:, None]) & (f["active"] != 0)[:, None])
+        got.update(active=len(idxs),
+                   drafted=sum(bool(d) for d in drafts.values()),
+                   rows=int(rows.sum()),
+                   finite=bool(torch.isfinite(out[rows]).all()),
+                   max_abs_err=(out - plain)[rows].abs().max().item(),
+                   logit_absmax=plain[rows].abs().max().item())
+        return tgt
+
+    warm._launch_verify = verify_and_compare
+    warm.generate(prompts, SamplingParams(max_new_tokens=SPEC_WARM_TOKENS))
+    torch.cuda.synchronize()
+    check(got.get("finite"), "serving_spec: no verify launch compared, or "
+                             "non-finite verify logits")
+    del warm
+    return got
+
+
+def _timed_launches(engine, name, times):
+    """Wrap ``engine.<name>`` to append each call's host wall seconds (the
+    call ends in its read-back, so the replay has finished)."""
+    real = getattr(engine, name)
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        out = real(*args)
+        times.append(time.perf_counter() - t0)
+        return out
+
+    setattr(engine, name, timed)
+
+
+def _serve_spec(torch, model, kv_cache_dtype):
+    """bench.py's speculative workload on the full-width model with
+    ``kv_cache_dtype``: a speculative engine and a spec-disabled one of
+    the same config, each warmed with the same prompts and then timed
+    over the whole workload ``SPEC_RUNS`` times, the fastest run kept."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
+
+    tag = "serving_spec" + ("_int8" if kv_cache_dtype else "")
+    cfg = model.config
+    slots, mml = 8, 512
+    rng = np.random.RandomState(3)
+    prompts = [[int(t)] * SPEC_PROMPT_COPIES
+               for t in rng.randint(1, cfg.vocab_size, slots)]
+    params = SamplingParams(max_new_tokens=mml - 16)
+    base_kw = dict(max_batch_slots=slots, max_model_len=mml, page_size=16,
+                   kv_cache_dtype=kv_cache_dtype)
+    spec_cfg = EngineConfig(**base_kw, speculate_tokens=SPEC_K)
+    compared = _first_verify(torch, model, spec_cfg, prompts)
+    check(compared["max_abs_err"] <= LOGITS_TOL,
+          f"{tag}: first verify logits differ from the plain window "
+          f"attention by {compared['max_abs_err']} > {LOGITS_TOL}")
+    log(f"[{tag}] first verify launch ({compared['active']} slots, "
+        f"{compared['drafted']} with drafts, {compared['rows']} rows), "
+        f"replay vs plain attention: max_abs_err "
+        f"{compared['max_abs_err']:.5f} (tolerance {LOGITS_TOL}, |logits| "
+        f"max {compared['logit_absmax']:.3f})")
+    L = cfg.num_hidden_layers
+    paged = "paged_attention_quant" if kv_cache_dtype else "paged_attention"
+    runs, tokens = {}, {}
+    for kind, ecfg in (("base", EngineConfig(**base_kw)), ("spec", spec_cfg)):
+        engine = Engine(model, ecfg)
+        kinds, program = set(), engine._decode_program
+        engine._decode_program = lambda any_sample: (
+            kinds.add(any_sample), program(any_sample))[1]
+        verify_s, decode_s = [], []
+        _timed_launches(engine, "_launch_decode", decode_s)
+        if kind == "spec":
+            _timed_launches(engine, "_launch_verify", verify_s)
+        m = engine.metrics
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        fields = ("verify_steps", "decode_steps", "spec_proposed",
+                  "spec_accepted")
+        timed = []
+        with host_dispatch_probe() as probe:
+            # warm-up: builds every program the timed runs replay
+            engine.generate(prompts, SamplingParams(
+                max_new_tokens=SPEC_WARM_TOKENS))
+            # the workload SPEC_RUNS times, the fastest kept (bench.py's
+            # best of 3): the host's share of a step varies from run to run
+            for _ in range(SPEC_RUNS):
+                before = {f: getattr(m, f) for f in fields}
+                del verify_s[:], decode_s[:]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs = engine.generate(prompts, params)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                timed.append((dt, outs, list(verify_s), list(decode_s),
+                              {f: getattr(m, f) - before[f] for f in fields}))
+        counts = dict(_build.launch_counts(), **_build.variant_counts())
+        check(all([o.token_ids for o in t[1]] == [o.token_ids for o in outs]
+                  for t in timed),
+              f"{tag} {kind}: the timed runs' greedy tokens differ")
+        dt, outs, verify_s, decode_s, d = min(timed, key=lambda t: t[0])
+        check(len(outs) == slots and all(
+            o.finish_reason in ("length", "stop") for o in outs),
+            f"{tag} {kind}: not every request finished")
+        check(all(0 <= t < cfg.vocab_size for o in outs for t in o.token_ids),
+              f"{tag} {kind}: token id out of range")
+        check(engine.block_manager.num_used == 0,
+              f"{tag} {kind}: {engine.block_manager.num_used} KV blocks "
+              f"leaked")
+        check(kinds <= {False}, f"{tag} {kind}: decode kinds {kinds}")
+        _serving_gates(f"{tag} {kind}", counts, m, probe, L, paged,
+                       "int8" if kv_cache_dtype else "float", True,
+                       ecfg.prefill_buckets, 1 if m.decode_steps else 0)
+        if kind == "spec":
+            check(m.verify_compiles == 1 and m.verify_steps > 0,
+                  f"{tag}: {m.verify_compiles} verify programs, "
+                  f"{m.verify_steps} verify steps")
+        n_tokens = sum(len(o.token_ids) for o in outs)
+        tokens[kind] = [o.token_ids for o in outs]
+        runs[kind] = dict(
+            d, seconds=dt, generated_tokens=n_tokens,
+            tokens_per_s=n_tokens / dt,
+            tokens_per_s_runs=[n_tokens / t[0] for t in timed],
+            accept_rate=(d["spec_accepted"] / d["spec_proposed"]
+                         if d["spec_proposed"] else None),
+            tokens_per_verify_launch=(n_tokens / d["verify_steps"]
+                                      if d["verify_steps"] else None),
+            verify_replay_ms=(float(np.mean(verify_s)) * 1e3
+                              if verify_s else None),
+            decode_replay_ms=(float(np.mean(decode_s)) * 1e3
+                              if decode_s else None),
+            # the run's host wall outside its verify and decode launches:
+            # drafting, the accept loop, scheduling and the 8 prefills
+            outside_launches_s=dt - sum(verify_s) - sum(decode_s),
+            verify_compiles=m.verify_compiles,
+            decode_compiles=m.decode_compiles,
+            graph_replays=probe["replays"], launches=counts)
+        log(f"[{tag}] {kind}: {n_tokens} tokens in {dt:.3f}s -> "
+            f"{n_tokens / dt:.1f} tokens/s (best of "
+            f"{[round(x, 1) for x in runs[kind]['tokens_per_s_runs']]}); "
+            f"verify steps "
+            f"{d['verify_steps']}, decode steps {d['decode_steps']}, "
+            f"proposed {d['spec_proposed']}, accepted {d['spec_accepted']}; "
+            f"verify replay {runs[kind]['verify_replay_ms']} ms, decode "
+            f"replay {runs[kind]['decode_replay_ms']} ms (host wall, "
+            f"read-back included); {runs[kind]['outside_launches_s']:.3f}s "
+            f"outside those launches")
+        log(f"[{tag}] {kind} launches {counts}")
+        del engine
+    # greedy bf16 agrees to a tolerance, not to the bit: where each
+    # request's spec and base tokens first differ (None: nowhere)
+    diverge = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b),
+                    None) for x, y in zip(tokens["spec"], tokens["base"])]
+    spec, base = runs["spec"], runs["base"]
+    result = {"slots": slots, "max_model_len": mml, "k": SPEC_K,
+              "new_tokens_per_request": params.max_new_tokens,
+              "spec": spec, "base": base,
+              "speedup": spec["tokens_per_s"] / base["tokens_per_s"],
+              "first_divergence": diverge,
+              "first_verify_compare": compared,
+              "launches": {k: spec["launches"].get(k, 0)
+                           + base["launches"].get(k, 0)
+                           for k in set(spec["launches"])
+                           | set(base["launches"])}}
+    log(f"[{tag}] spec {spec['tokens_per_s']:.1f} tokens/s against base "
+        f"{base['tokens_per_s']:.1f} ({result['speedup']:.3f}x), accept "
+        f"rate {spec['accept_rate']}, tokens per verify launch (all "
+        f"slots) {spec['tokens_per_verify_launch']}; first divergence per "
+        f"request "
+        f"{diverge}")
+    return result
+
+
+def phase_serving_spec(torch):
+    """``serving_spec``: bench.py's speculative workload (:706-760) at the
+    TPU geometry on the full-width bf16 serving model: 8 slots,
+    max_model_len 512, page 16, ``speculate_tokens=4``, over the bf16 and
+    the int8 pool, each beside a spec-disabled engine of the same config;
+    8 prompts of 12 copies of one token (``np.random.RandomState(3)``),
+    496 greedy new tokens each."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = LlamaForCausalLM(LlamaConfig(**SERVING_CFG), seed=0)
+    result = {"launches": {}}
+    for pool in (None, "int8"):
+        r = _serve_spec(torch, model, pool)
         for key, n in r["launches"].items():
             result["launches"][key] = result["launches"].get(key, 0) + n
         result["int8" if pool else "bf16"] = r
@@ -2411,6 +2870,60 @@ HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                      "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch")
 
 
+def _profiled_steps(torch, engine, n, tag, port_names):
+    """``n`` engine steps under torch.profiler (after one profiled step
+    that takes the profiler's first-use set-up out of the window), then
+    the same ``n`` without it: wall ms per step both ways, device busy ms
+    and kernels per step, the host's launch calls per step
+    (``HOST_LAUNCH_CALLS``) and the port's kernels named in
+    ``port_names`` (device us and calls per step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        engine.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            engine.step()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n * 1e3
+    events = prof.key_averages()
+    # kernels only: an ATen op's own row repeats its kernels' time
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    launches = sum(e.count for e in kernels) / n
+    host = {e.key: e.count / n for e in events if e.key in HOST_LAUNCH_CALLS}
+    ours = {}
+    for e in kernels:
+        for name in port_names:
+            if name in e.key:
+                us, calls = ours.get(name, (0.0, 0.0))
+                ours[name] = (us + e.self_device_time_total / n,
+                              calls + e.count / n)
+    log(f"[profile] {tag}: wall {wall:.3f} ms/step under the profiler, "
+        f"device busy {device_us / n / 1e3:.3f} ms/step in {launches:.0f} "
+        f"kernels/step; host launch calls/step {host}; the port's kernels "
+        f"(device us, calls)/step {ours}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"[profile] {e.key[:60]:60s} device "
+            f"{e.self_device_time_total / n:9.1f} us/step, "
+            f"calls/step {e.count / n:6.1f}")
+    t0 = time.perf_counter()
+    for _ in range(n):
+        engine.step()
+    torch.cuda.synchronize()
+    plain_wall = (time.perf_counter() - t0) / n * 1e3
+    log(f"[profile] {tag} without the profiler: {plain_wall:.3f} ms/step")
+    return {"wall_ms_profiled": wall, "wall_ms": plain_wall,
+            "device_busy_ms": device_us / n / 1e3,
+            "kernels_per_step": launches,
+            "host_launch_calls_per_step": host,
+            "port_kernels_us_calls_per_step": ours}
+
+
 def phase_profile(torch):
     """Where a full-width decode step's time goes, over the bf16 pool and
     the int8 pool, both ways: the decode program replayed (the engine's
@@ -2420,20 +2933,22 @@ def phase_profile(torch):
     launch calls per step (``HOST_LAUNCH_CALLS``: one graph launch a step
     when replayed); then the same 20 steps without the profiler (wall ms
     per step), and 20 runs of the 128-token bucket's prefill program
-    (wall ms to a sync). Not part of the default run."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    (wall ms to a sync). Then the serving_spec cell's step, replayed:
+    ``speculate_tokens=4`` over 8 prompts of one repeated token, 20 steps
+    after 40 (verify steps, each with its drafting). Not part of the
+    default run."""
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
 
     model = LlamaForCausalLM(LlamaConfig(**SERVING_CFG), seed=0)
     result = {}
+    n = 20
     for pool in ("bf16", "int8"):
+        kv = "int8" if pool == "int8" else None
         for way in ("replay", "eager"):
             engine = Engine(model, EngineConfig(
                 max_batch_slots=8, max_model_len=512, page_size=16,
-                kv_cache_dtype="int8" if pool == "int8" else None))
+                kv_cache_dtype=kv))
             if way == "eager":
                 _eager_programs(engine)
             rng = np.random.RandomState(0)
@@ -2442,54 +2957,11 @@ def phase_profile(torch):
                                    SamplingParams(max_new_tokens=200))
             for _ in range(30):   # admit, prefill, warm up
                 engine.step()
-            # the profiler's own first-use set-up, outside the window
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]):
-                engine.step()
-            torch.cuda.synchronize()
-            n = 20
-            t0 = time.perf_counter()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(n):
-                    engine.step()
-                torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / n * 1e3
-            events = prof.key_averages()
-            # kernels only: an ATen op's own row repeats its kernels' time
-            kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-            device_us = sum(e.self_device_time_total for e in kernels)
-            launches = sum(e.count for e in kernels) / n
-            host = {e.key: e.count / n for e in events
-                    if e.key in HOST_LAUNCH_CALLS}
-            rows = sorted(kernels,
-                          key=lambda e: -e.self_device_time_total)[:12]
-            # the port's own kernels in the step, by name
-            ours = {}
-            for e in kernels:
-                for name in ("kv_write", "paged_decode"):
-                    if name in e.key:
-                        us, calls = ours.get(name, (0.0, 0.0))
-                        ours[name] = (us + e.self_device_time_total / n,
-                                      calls + e.count / n)
             tag = f"{pool} pool, {way}"
-            log(f"[profile] {tag}, decode step (8 slots, ~130 cached tokens "
-                f"each): wall {wall:.3f} ms/step under the profiler, device "
-                f"busy {device_us / n / 1e3:.3f} ms/step in {launches:.0f} "
-                f"kernels/step; host launch calls/step {host}; the port's "
-                f"kernels (device us, calls)/step {ours}")
-            for e in rows:
-                log(f"[profile] {e.key[:60]:60s} device "
-                    f"{e.self_device_time_total / n:9.1f} us/step, "
-                    f"calls/step {e.count / n:6.1f}")
-            # the same window without the profiler's overhead
-            t0 = time.perf_counter()
-            for _ in range(n):
-                engine.step()
-            torch.cuda.synchronize()
-            plain_wall = (time.perf_counter() - t0) / n * 1e3
-            log(f"[profile] {tag}, decode step without the profiler: "
-                f"{plain_wall:.3f} ms/step")
+            r = _profiled_steps(
+                torch, engine, n, f"{tag}, decode step (8 slots, ~130 "
+                                  f"cached tokens each)",
+                ("kv_write", "paged_decode"))
             # the 128-token bucket's prefill program alone, over the last
             # prefill's staged inputs (a 100-token prompt: it rewrites the
             # same K/V into the same pages), host clock to a sync
@@ -2501,17 +2973,34 @@ def phase_profile(torch):
             for _ in range(n):
                 prefill()
                 torch.cuda.synchronize()
-            prefill_ms = (time.perf_counter() - t0) / n * 1e3
+            r["prefill_128_ms"] = (time.perf_counter() - t0) / n * 1e3
             log(f"[profile] {tag}, prefill of a 100-token prompt (bucket "
-                f"128): {prefill_ms:.3f} ms")
-            result[f"{pool}_{way}"] = {
-                "wall_ms_profiled": wall, "wall_ms": plain_wall,
-                "device_busy_ms": device_us / n / 1e3,
-                "kernels_per_step": launches,
-                "host_launch_calls_per_step": host,
-                "port_kernels_us_calls_per_step": ours,
-                "prefill_128_ms": prefill_ms}
+                f"128): {r['prefill_128_ms']:.3f} ms")
+            result[f"{pool}_{way}"] = r
             del engine
+        engine = Engine(model, EngineConfig(
+            max_batch_slots=8, max_model_len=512, page_size=16,
+            kv_cache_dtype=kv, speculate_tokens=SPEC_K))
+        rng = np.random.RandomState(3)
+        for t in rng.randint(1, 32000, 8):
+            engine.add_request([int(t)] * SPEC_PROMPT_COPIES,
+                               SamplingParams(max_new_tokens=496))
+        for _ in range(40):
+            engine.step()
+        m = engine.metrics
+        v0, d0 = m.verify_steps, m.decode_steps
+        r = _profiled_steps(
+            torch, engine, n, f"{pool} pool, speculative step (K = "
+                              f"{SPEC_K}, 8 slots)",
+            ("kv_write", "paged_decode", "paged_prefill"))
+        # the window ran 2n steps (profiled, then plain)
+        r["verify_steps"] = m.verify_steps - v0
+        r["decode_steps"] = m.decode_steps - d0
+        log(f"[profile] {pool} pool, speculative window: "
+            f"{r['verify_steps']} verify and {r['decode_steps']} decode "
+            f"steps in {2 * n} steps")
+        result[f"{pool}_spec"] = r
+        del engine
     return result
 
 
@@ -2520,17 +3009,17 @@ def main(argv=None):
     ap.add_argument(
         "--phases",
         default="kernels,parity,serving,serving_int8,serving_f16,"
-                "serving_prefix,train_parity,train,moe",
+                "serving_prefix,serving_spec,train_parity,train,moe",
         help="comma list of kernels, parity, serving, serving_int8, "
-             "serving_f16, serving_prefix, train_parity, train, moe, "
-             "profile (default: all but profile)",
+             "serving_f16, serving_prefix, serving_spec, train_parity, "
+             "train, moe, profile (default: all but profile)",
     )
     ap.add_argument("--out", help="write the full report as JSON here")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     unknown = phases - {"kernels", "parity", "serving", "serving_int8",
-                        "serving_f16", "serving_prefix", "train_parity",
-                        "train", "moe", "profile"}
+                        "serving_f16", "serving_prefix", "serving_spec",
+                        "train_parity", "train", "moe", "profile"}
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
@@ -2580,6 +3069,7 @@ def main(argv=None):
             "serving": phase_serving, "serving_int8": phase_serving_int8,
             "serving_f16": phase_serving_f16,
             "serving_prefix": phase_serving_prefix,
+            "serving_spec": phase_serving_spec,
             "train_parity": phase_train_parity, "train": phase_train,
             "moe": phase_moe, "profile": phase_profile,
         }
@@ -2595,12 +3085,12 @@ def main(argv=None):
         paged = flash = bwd = None
         if "kernels" in results:
             (paged, flash, bwd, faults, quant, gmm, gmm_quant, kvw,
-             pfx) = results.pop("kernels")
+             pfx, pfx_batched) = results.pop("kernels")
             report["phases"]["kernels"] = {
                 "paged": paged, "flash": flash, "flash_bwd": bwd,
                 "gate_faults": faults, "paged_quant": quant, "gmm": gmm,
                 "gmm_quant": gmm_quant, "kv_write": kvw,
-                "paged_prefill": pfx,
+                "paged_prefill": pfx, "paged_prefill_batched": pfx_batched,
             }
             # the wrapper's choice against the previous kernel, same
             # inputs, run and host path: reported, not gated (the small
@@ -2625,10 +3115,10 @@ def main(argv=None):
                     f"than on the previous kernel ({stat}): "
                     f"{slower or 'none'}")
         report["phases"].update(results)
-        serving, serving_int8, serving_f16, serving_prefix, train, moe = (
-            results.get(p) for p in ("serving", "serving_int8",
-                                     "serving_f16", "serving_prefix",
-                                     "train", "moe"))
+        (serving, serving_int8, serving_f16, serving_prefix, serving_spec,
+         train, moe) = (results.get(p) for p in (
+             "serving", "serving_int8", "serving_f16", "serving_prefix",
+             "serving_spec", "train", "moe"))
         check("jax" not in sys.modules and not any(
             m == "paddle_tpu" or m.startswith("paddle_tpu.")
             for m in sys.modules),
@@ -2640,12 +3130,13 @@ def main(argv=None):
 
     kernels = []
     # launches on each main path: serving (float and int8 pools; float16
-    # with both; the prefix cache with chunked prefill, both pools), the 14
+    # with both; the prefix cache with chunked prefill, both pools;
+    # speculative decoding and its spec-disabled twin, both pools), the 14
     # counted train steps, and the moe phase's counted forwards
     by_path = {p: r["launches"] if r else {} for p, r in (
         ("serving", serving), ("serving_int8", serving_int8),
         ("serving_f16", serving_f16), ("serving_prefix", serving_prefix),
-        ("train", train), ("moe", moe))}
+        ("serving_spec", serving_spec), ("train", train), ("moe", moe))}
 
     def launches(name):
         per = {p: c.get(name, 0) for p, c in by_path.items()}
@@ -2834,6 +3325,43 @@ def main(argv=None):
                 for v, c in (("float", head),
                              ("int8", next(c for c in pfx
                                            if c["case"] == "int8_192_128")))],
+        })
+    if paged is not None:
+        # the same kernel's batched form at the serving cell's verify shape
+        # (8 slots, a 5-token window each, bf16 pages; library: the batched
+        # page gather and one SDPA call with the [slots, 1, S, C] mask);
+        # its launches are serving_spec's paged_prefill launches (there,
+        # every one is a verify step's), the int8 instance under "variants"
+        head = pfx_batched[0]
+        spec_counts = by_path["serving_spec"]
+        kernels.append({
+            "name": "paged_prefill_batched", "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/paged_prefill.cu",
+            "replaces": "paddle_tpu/serving/adapter.py:544 (verify: "
+                        "_gather_context_batch :232 + masked _sdpa: XLA, "
+                        "no TPU kernel)",
+            "launches": spec_counts.get("paged_prefill", 0),
+            "launches_by_path": {
+                "serving_spec": spec_counts.get("paged_prefill", 0)},
+            "max_abs_err": max(c["max_abs_err"] for c in pfx_batched),
+            "ms": head["ms"], "median_ms": head["median_ms"],
+            "kernel_ms": head["kernel_ms"],
+            "kernel_median_ms": head["kernel_median_ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "shape": f"{head['case']}: 8 slots x 5 rows, hq 16, hkv 16, "
+                     f"d 128, page 16, positions {head['positions']}, "
+                     f"lengths {head['lengths']}",
+            "variants": [{
+                "variant": v, "launches": spec_counts.get(
+                    f"paged_prefill/{v}", 0),
+                "ms": c["ms"], "median_ms": c["median_ms"],
+                "kernel_ms": c["kernel_ms"],
+                "plain_ms": c["plain_ms"], "library_ms": c["library_ms"],
+                "bound_ms": c["bound_ms"], "shape": c["case"]}
+                for v, c in (("float", head),
+                             ("int8", next(c for c in pfx_batched
+                                           if c["case"] == "verify_int8")))],
         })
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -8,29 +8,36 @@
 // layer and chunk; here the keys are read through the block table in
 // place.
 //
-// Computes, for chunk token t < length (global position cache_len + t),
-// query head h and kv head kvh = h / (heads / kv_heads) (GQA read in
-// place):
-//   out[t, h] = softmax_c(q[t, h] . K[c, kvh] * scale) V[c, kvh]
-// over the keys c <= cache_len + t of the sequence's timeline, key c read
-// from physical page table[c / page_size], slot c % page_size. Layout: q
-// and out [S, heads, d]; pages [kv_heads, n_pages, page_size, d] of q's
-// dtype, or int8 pages with f32 scales [kv_heads, n_pages, page_size]
-// (k = int8 * scale, dequantized as the tile is staged); table
-// [pages_per_seq] int32; cache_len and length int32 scalars in DEVICE
-// memory. The grid is fixed by S and the heads alone: each block reads
-// cache_len and length itself and walks the 64-key tiles from absolute
-// position 0 up to cache_len + min(its last query row + 1, length), so a
-// CUDA graph captured once replays any chunk at any offset. Rows t >=
+// Computes, for each slot s (a sequence: one per launch for a prefill
+// chunk, one per batch slot for the speculative verify window of
+// serving/adapter.py's verify, JAX adapter.py:493), its token t <
+// length[s] (global position cache_len[s] + t), query head h and kv head
+// kvh = h / (heads / kv_heads) (GQA read in place):
+//   out[s, t, h] = softmax_c(q[s, t, h] . K[c, kvh] * scale) V[c, kvh]
+// over the keys c <= cache_len[s] + t of slot s's timeline, key c read
+// from physical page table[s][c / page_size], slot c % page_size.
+// Layout: q and out [slots, S, heads, d]; pages [kv_heads, n_pages,
+// page_size, d] of q's dtype, or int8 pages with f32 scales [kv_heads,
+// n_pages, page_size] (k = int8 * scale, dequantized as the tile is
+// staged); table [slots, pages_per_seq] int32; cache_len and length
+// int32 [slots] in DEVICE memory. The grid is fixed by S, the heads and
+// the slots alone: each block reads its slot's cache_len and length
+// itself and walks the 64-key tiles from absolute position 0 up to
+// cache_len + min(its last query row + 1, length), so a CUDA graph
+// captured once replays any chunk or window at any offsets. Rows t >=
 // length are finite (they see the keys below that end; a tile with no
-// row below length writes zeros) and are never read. A table entry
-// outside [0, n_pages) reads as a zero row.
+// row below length writes zeros, so an inactive slot, length 0, writes
+// zeros and reads nothing) and are never read. A table entry outside
+// [0, n_pages) reads as a zero row.
 //
 // What bounds it on an H100: at the serving shape (16 heads, d 128, a
 // 128-token bf16 chunk after 192 cached tokens) it moves ~3.6 MB (q, out
 // and 320 K/V rows) and does ~0.27 GFLOP: ~1 us either way. At serving
 // shapes it is bound by its launch and latency; each K/V row is read
-// once per (query tile, head), from L2 after the first.
+// once per (query tile, head), from L2 after the first. A verify step of
+// the serving cell (8 slots, a 5-token window each over up to 512 cached
+// tokens) has 128 blocks of one partly used query tile each: ~1 block an
+// SM, each walking its slot's whole cache, so it is latency bound too.
 //
 // Design (a first, simple kernel; wgmma and TMA are later work): the
 // flash forward's two non-wgmma kernels (flash_attention.cu) with the key
@@ -51,7 +58,10 @@
 //    of the output, as the flash FMA kernel; float rows are copied with
 //    cp.async, all of a tile's copies in flight at once; int8 rows
 //    dequantize in f32 as the plain version does.
-// Launch contract: grid (ceil(S / 64), heads); the launch function sets
+// Launch contract: grid (ceil(S / 64), heads, slots); each block offsets
+// q, out and the table by its slot (blockIdx.z) and loads its own table
+// entries, so a block of an inactive slot skips nothing another needs.
+// The launch function sets
 // the dynamic shared memory, launches on the given stream and returns
 // cudaGetLastError() (0 on success).
 
@@ -168,17 +178,20 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_fma_kernel(
 
   const int q0 = blockIdx.x * kBQ;
   const int hh = blockIdx.y;
+  const int sl = blockIdx.z;
   const int kvh = hh / (heads / kv_heads);
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int cache_len = max(*cache_len_p, 0);
-  const int length = min(max(*length_p, 0), sq);
+  const int cache_len = max(cache_len_p[sl], 0);
+  const int length = min(max(length_p[sl], 0), sq);
   const size_t q_row = (size_t)heads * D;
-  const float* q_b = q + (size_t)hh * D;
-  float* o_b = out + (size_t)hh * D;
+  const size_t q_slot = (size_t)sl * sq * q_row;
+  const float* q_b = q + q_slot + (size_t)hh * D;
+  float* o_b = out + q_slot + (size_t)hh * D;
+  table += (size_t)sl * pages_per_seq;
 
   if (q0 >= length) {  // padding only: finite zeros
     for (int i = tid; i < kBQ * D; i += kThreads) {
@@ -507,16 +520,19 @@ __global__ void __launch_bounds__(kTcThreads) paged_prefill_tc_kernel(
 
   const int q0 = blockIdx.x * kBQ;
   const int hh = blockIdx.y;
+  const int sl = blockIdx.z;
   const int kvh = hh / (heads / kv_heads);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int cache_len = max(*cache_len_p, 0);
-  const int length = min(max(*length_p, 0), sq);
+  const int cache_len = max(cache_len_p[sl], 0);
+  const int length = min(max(length_p[sl], 0), sq);
   const size_t q_row = (size_t)heads * D;
-  const T* q_b = q + (size_t)hh * D;
-  T* o_b = out + (size_t)hh * D;
+  const size_t q_slot = (size_t)sl * sq * q_row;
+  const T* q_b = q + q_slot + (size_t)hh * D;
+  T* o_b = out + q_slot + (size_t)hh * D;
+  table += (size_t)sl * pages_per_seq;
 
   if (q0 >= length) {  // padding only: finite zeros
     for (int i = threadIdx.x; i < kBQ * D; i += kTcThreads) {
@@ -548,7 +564,8 @@ __global__ void __launch_bounds__(kTcThreads) paged_prefill_tc_kernel(
                         ksc_s + slot * kBK, vsc_s + slot * kBK);
   };
 
-  // the table entries the tiles will read, once
+  // the slot's table entries the tiles will read, once (every block
+  // loads its own: none relies on another block of its slot)
   for (int i = threadIdx.x; i < (k_end + page_size - 1) / page_size;
        i += kTcThreads) {
     table_s[i] = table[i];
@@ -713,7 +730,7 @@ struct Args {
   const int* cache_len;
   const int* length;
   void* out;
-  int s, heads, kv_heads, n_pages, page_size, pages_per_seq;
+  int slots, s, heads, kv_heads, n_pages, page_size, pages_per_seq;
   float scale;
 };
 
@@ -723,7 +740,7 @@ int launch(Kernel kernel, size_t smem, int threads, const Args& a,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.s + kBQ - 1) / kBQ, a.heads);
+  dim3 grid((a.s + kBQ - 1) / kBQ, a.heads, a.slots);
   kernel<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const P*>(a.k_pages),
       static_cast<const P*>(a.v_pages), a.k_scales, a.v_scales, a.table,
@@ -764,19 +781,20 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q and out; float pages
 // share it). quant: int8 pages with f32 scales (k_scales, v_scales), else
-// both null. cache_len and length point to int32 scalars on the device.
-// d: 16, 32, 64, 128 or 256. q, out and 16-bit pages start on a 16-byte
-// boundary (the wrapper copies q if not).
+// both null. table is [slots, pages_per_seq]; cache_len and length point
+// to int32 [slots] on the device. d: 16, 32, 64, 128 or 256. q, out and
+// 16-bit pages start on a 16-byte boundary (the wrapper copies q if
+// not).
 int paged_prefill_launch(const void* q, const void* k_pages,
                          const void* v_pages, const void* k_scales,
                          const void* v_scales, const void* table,
                          const void* cache_len, const void* length, void* out,
-                         int s, int heads, int kv_heads, int n_pages,
-                         int page_size, int pages_per_seq, int d, float scale,
-                         int dtype, int quant, void* stream) {
-  if (s == 0 || heads == 0) return 0;
+                         int slots, int s, int heads, int kv_heads,
+                         int n_pages, int page_size, int pages_per_seq, int d,
+                         float scale, int dtype, int quant, void* stream) {
+  if (slots == 0 || s == 0 || heads == 0) return 0;
   if (dtype < 0 || dtype > 2 || kv_heads < 1 || heads % kv_heads ||
-      page_size < 1 || pages_per_seq < 1) {
+      page_size < 1 || pages_per_seq < 1 || slots < 0 || slots > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   if (quant && (k_scales == nullptr || v_scales == nullptr)) {
@@ -791,6 +809,7 @@ int paged_prefill_launch(const void* q, const void* k_pages,
                static_cast<const int*>(cache_len),
                static_cast<const int*>(length),
                out,
+               slots,
                s,
                heads,
                kv_heads,

@@ -23,14 +23,22 @@ entry points:
     kernel, return [slots, vocab] logits. Inactive slots attend over
     ``lengths = positions + 1`` of whatever their table names (page 0 when
     zeroed, always a valid read) and their logits are never read.
+  * ``verify(kp, vp, tokens, positions, draft_lens, block_tables,
+    active)`` — speculative verification: every slot's K+1-token window
+    (its pending token, then its draft) at global positions
+    ``positions[s] + j``, written into the pages, then attended over each
+    slot's block table in one batched ``kernels.paged_prefill`` launch
+    per layer; returns [slots, K+1, vocab] logits, row j scoring the
+    token after window position j.
 
-All three are shape-static and free of host syncs, so the engine can
+All four are shape-static and free of host syncs, so the engine can
 capture them into CUDA graphs (``serving.programs``): ``length`` and
 ``cache_len`` may be device scalars, every page write is one
 ``kernels.kv_write`` launch per layer for K and V together (decode: row =
 slot, position, valid = active; prefill: row 0, position ``cache_len +
-t``, valid = t < length), and the logits row is picked by
-``index_select``.
+t``, valid = t < length; verify: row = slot, position ``positions[s] +
+j``, valid = active and j <= draft_lens[s]), and the logits row is
+picked by ``index_select``.
 
 The attention choice for prefill. JAX's one-shot ``prefill`` and its
 ``prefill_ext`` use the same ``_sdpa`` form, so in JAX any chunking of a
@@ -54,15 +62,24 @@ K/V, as in JAX.
 ``decode_kernel`` picks the paged reads as the JAX adapter's knob picks
 decode attention: "auto" and "pallas" run the kernels, "xla" runs the
 plain ``paged_attention_ref`` for decode and ``paged_prefill_ref`` for
-continuations (on the card too, counted as ``paged_attention_ref`` /
-``paged_prefill_ref`` in ``kernels._build`` on every call: an explicit
-choice, never a fallback; JAX's continuation is always its XLA form).
+continuations and verify windows (on the card too, counted as
+``paged_attention_ref`` / ``paged_prefill_ref`` in ``kernels._build`` on
+every call: an explicit choice, never a fallback; JAX's continuation and
+verify are always their XLA form).
+
+Verify and decode. A verify window's row 0 must give the decode step's
+token. The port's verify runs the continuation attention
+(``paged_prefill``) and its decode the paged decode attention: on the
+card they agree to a tolerance, as chunked and one-shot prefill do. On
+the CPU the window's plain attention reduces each row as decode's does,
+so row 0's attention is the decode step's bit for bit; the projections
+over slots * (K+1) rows may round an ulp apart from decode's over slots
+rows, and greedy tokens agree (``tests/test_torch_speculation.py``).
 
 Differences from the JAX adapter: the adapter reads the model's modules
 directly (PyTorch runs eagerly, so there is no weight snapshot to
 refresh), and page writes go into the pool IN PLACE, so the entry points
-return logits only. ``verify`` and tensor parallelism are not ported
-yet.
+return logits only. Tensor parallelism is not ported yet.
 """
 from __future__ import annotations
 
@@ -70,7 +87,11 @@ import torch
 
 from ..kernels import _build
 from ..kernels.kv_write import kv_write
-from ..kernels.paged_attention import paged_attention, paged_attention_ref
+from ..kernels.paged_attention import (
+    paged_attention,
+    paged_attention_ref,
+    split_pages,
+)
 from ..kernels.paged_prefill import paged_prefill, paged_prefill_ref
 from ..ops.fused_ops import rope_qk
 from ..ops.nn_ops import rms_norm, scaled_dot_product_attention
@@ -85,7 +106,7 @@ required_attrs = (
 )
 # entry points the engine needs only for some EngineConfig flags (it
 # names the missing one and the flags at build time)
-optional_attrs = ("prefill_ext",)
+optional_attrs = ("prefill_ext", "verify")
 # ``decode_kernel`` values, as ``EngineConfig(decode_kernel=)`` takes them
 DECODE_KERNELS = ("auto", "pallas", "xla")
 
@@ -137,6 +158,8 @@ class LlamaServingAdapter:
         return paged_attention(q, kp, vp, block_tables, lengths)
 
     def _context_attn(self, q, kp, vp, block_table, cache_len, length):
+        """Continuation attention through the block table: one chunk, or
+        (batched) every verify window, one launch either way."""
         if self.decode_kernel == "xla":
             _build.count_launch("paged_prefill_ref")
             return paged_prefill_ref(q, kp, vp, block_table, cache_len,
@@ -242,6 +265,59 @@ class LlamaServingAdapter:
         x = rms_norm(x, m.llama.norm.weight, epsilon=self.eps)
         return m.logits(x)
 
+    @torch.no_grad()
+    def verify(self, kp, vp, tokens, positions, draft_lens, block_tables,
+               active):
+        """Speculative verification: score a K+1-token window for every
+        slot in one pass. tokens [slots, K+1] hold each slot's pending
+        token at column 0 and its draft after it; window token j sits at
+        global position ``positions[s] + j``. ``draft_lens`` [slots]
+        counts the valid draft tokens, so columns j <= draft_lens are real
+        and later ones padding: their page writes are dropped (the kernel
+        skips them, the plain ``kv_write_ref`` routes them to the sink
+        page) and their logits are never read, as for inactive slots.
+        block_tables [slots, P] int32, active [slots] bool, all on the
+        adapter's device. Writes the windows' K/V in place; returns logits
+        [slots, K+1, vocab], row j scoring the token FOLLOWING position
+        ``positions[s] + j``.
+
+        A rejected draft's write is dead: the engine advances
+        ``num_cached`` by the accepted count only, every later query's
+        mask ends at its own position, and the next write at that
+        position overwrites it."""
+        m = self.model
+        b, s = tokens.shape
+        dev = tokens.device
+        tables = block_tables.to(torch.int32)
+        capacity = tables.shape[1] * split_pages(kp[0])[0].shape[2]
+        offs = torch.arange(s, dtype=torch.int32, device=dev)
+        pos = positions.to(torch.int32)[:, None] + offs[None]   # [slots, S]
+        act = active.to(torch.bool)
+        dl = draft_lens.to(torch.int32)
+        valid = (act[:, None] & (offs[None] <= dl[:, None])
+                 & (pos < capacity)).reshape(-1)
+        rows = torch.arange(b, dtype=torch.int32, device=dev) \
+            .repeat_interleave(s)
+        flat = pos.reshape(-1)
+        # attention: slot s sees its keys c <= positions[s] + j, over
+        # length = draft_lens + 1 valid rows (0 when inactive)
+        cache_len = pos[:, 0]
+        lengths = torch.where(act, dl + 1, torch.zeros_like(dl))
+        x = m.llama.embed_tokens(tokens)                  # [slots, S, hid]
+        for li, blk in enumerate(m.llama.layers):
+            attn = blk.self_attn
+            h = rms_norm(x, blk.input_layernorm.weight, epsilon=self.eps)
+            q, k, v = self._qkv(attn, h, b, s)
+            q, k = rope_qk(q, k, pos, base=self.rope_theta)
+            kv_write(kp[li], vp[li], k.reshape(b * s, *k.shape[2:]),
+                     v.reshape(b * s, *v.shape[2:]), tables, rows, flat,
+                     valid)
+            o = self._context_attn(q, kp[li], vp[li], tables, cache_len,
+                                   lengths)
+            x = x + attn.o_proj(o.reshape(b, s, -1))
+            x = self._mlp(blk, x)
+        x = rms_norm(x, m.llama.norm.weight, epsilon=self.eps)
+        return m.logits(x)
 
 def build_adapter(model):
     """Pass-through for objects already exposing the adapter surface,

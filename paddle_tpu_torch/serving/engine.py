@@ -27,18 +27,28 @@ Each ``step()``:
     prefill over ``prompt + output[:-1]`` rebuilds its cache exactly, so
     greedy outputs are unchanged by preemption);
   * runs one decode program over all slots and samples every slot at
-    once.
+    once; with speculative decoding (``speculate_tokens=K``) the greedy
+    slots first draft up to K tokens each by prompt lookup
+    (``serving.speculation``), and when any slot drafted, one verify
+    program scores every greedy slot's K+1-token window (its pending
+    token and its draft) and each accepts the longest draft prefix that
+    matches the model's own argmax, emitting the accepted tokens and the
+    one after them; the sampled slots then take the decode program. A
+    step where nothing was drafted runs the plain decode over every
+    slot. Greedy outputs are the plain decode's either way.
 
 The programs (``serving.programs``) are the JAX engine's compiled steps:
 at most two decode programs (greedy and mixed, chosen by a host bool as
 JAX's static ``any_sample``), one prefill program per bucket, one
-continuation program per bucket and one copy-on-write program, counted
-by ``metrics.decode_compiles`` / ``prefill_compiles`` /
-``prefill_ext_compiles`` / ``cow_compiles``. On the card each
+continuation program per bucket, one copy-on-write program and one
+verify program, counted by ``metrics.decode_compiles`` /
+``prefill_compiles`` / ``prefill_ext_compiles`` / ``cow_compiles`` /
+``verify_compiles``. On the card each
 is a CUDA graph: a step stages its inputs into one pinned host buffer,
 issues one host-to-device copy, replays the decode graph and reads the
 [slots] next tokens back with one device-to-host copy, the step's one
-sync (JAX has it too). On the CPU the same functions run eagerly.
+sync (JAX has it too); a verify step does the same with the [slots,
+K+1] argmax targets. On the CPU the same functions run eagerly.
 
 ``EngineConfig(kv_cache_dtype="int8")`` stores the pool as int8 pages
 with one f32 scale per token per kv head (``KVPool(quant_dtype=)``),
@@ -63,11 +73,17 @@ running request holds are reclaimable: they are freed before an
 admission waits or a request is preempted, and they are not pressure
 for ``kv_shed_threshold`` or ``health()``.
 
-Not ported yet (later slices): speculative decoding, journal, QoS, HTTP
-front door, fleet, tensor parallelism, spill tier, step observatory, SLO
-tracking, access log, poison isolation (it needs
-``resilience/faults.py``), the watchdog, the
-analysis gate and the compile cache.
+Speculative draft headroom: a greedy running slot grabs blocks for its
+next window while the pool has free ones, never by preempting or
+reclaiming; that headroom is reclaimable like cached prefix blocks (freed
+before an admission waits, before a preemption, and not counted as
+pressure).
+
+Not ported yet (later slices): journal, QoS, HTTP front door, fleet,
+tensor parallelism, spill tier, step observatory (and its speculative
+reject count), SLO tracking, access log, poison isolation (it needs
+``resilience/faults.py``), the watchdog, the analysis gate (and its
+``check_verify``) and the compile cache.
 """
 from __future__ import annotations
 
@@ -77,6 +93,7 @@ import time
 import torch
 
 from ..generation import uniform_noise
+from . import speculation
 from .adapter import DECODE_KERNELS, build_adapter
 from .bucketing import next_bucket
 from .kv_cache import BlockManager, KVPool
@@ -141,7 +158,8 @@ class EngineConfig:
                  seed=0, kv_cache_dtype=None, kv_shed_threshold=None,
                  decode_kernel="auto", enable_prefix_cache=False,
                  prefix_cache_blocks=None, prefill_chunk_tokens=None,
-                 max_prefill_chunks_per_step=1):
+                 max_prefill_chunks_per_step=1, speculate_tokens=None,
+                 speculate_ngram=3):
         if max_batch_slots < 1:
             raise ValueError("max_batch_slots must be >= 1")
         if page_size < 1 or max_model_len < 2:
@@ -237,6 +255,31 @@ class EngineConfig:
                 f"{max_prefill_chunks_per_step}"
             )
         self.max_prefill_chunks_per_step = int(max_prefill_chunks_per_step)
+        # speculative decoding: None disables it; an int K routes greedy
+        # slots through the verify program (up to K prompt-lookup draft
+        # tokens scored beside the pending token in one launch, the
+        # longest prefix matching the model's argmax accepted). Sampled
+        # slots keep the plain decode path.
+        if speculate_tokens is not None:
+            if speculate_tokens < 1:
+                raise ValueError(
+                    f"speculate_tokens must be >= 1 or None (disabled), "
+                    f"got {speculate_tokens}"
+                )
+            if speculate_tokens >= self.max_model_len:
+                raise ValueError(
+                    f"speculate_tokens ({speculate_tokens}) must be "
+                    f"smaller than max_model_len ({self.max_model_len})"
+                )
+        self.speculate_tokens = (
+            None if speculate_tokens is None else int(speculate_tokens)
+        )
+        if speculate_ngram < 1:
+            raise ValueError(
+                f"speculate_ngram must be >= 1, got {speculate_ngram}"
+            )
+        # longest trailing n-gram the prompt-lookup drafter matches on
+        self.speculate_ngram = int(speculate_ngram)
 
 
 class Engine:
@@ -280,6 +323,14 @@ class Engine:
                 f"point, but EngineConfig({', '.join(flags)}) needs an "
                 "adapter that can continue a prefill at a nonzero cache "
                 "length"
+            )
+        self._speculating = cfg.speculate_tokens is not None
+        if self._speculating and not hasattr(self.adapter, "verify"):
+            raise TypeError(
+                f"{type(self.adapter).__name__} has no verify entry point, "
+                f"but EngineConfig(speculate_tokens={cfg.speculate_tokens}) "
+                "needs an adapter that can score a K+1-token draft window "
+                "in one launch"
             )
         self.device = dev = torch.device(self.adapter.device)
         self.metrics = EngineMetrics()
@@ -325,10 +376,15 @@ class Engine:
              ("table", pps, "int32")] + sampling, dev)
         self._cow_buffers = StepBuffers(
             [("src", 1, "int32"), ("dst", 1, "int32")], dev)
+        self._verify_buffers = (StepBuffers(
+            [("tokens", n * (cfg.speculate_tokens + 1), "int32"),
+             ("positions", n, "int32"), ("draft_lens", n, "int32"),
+             ("active", n, "int32"), ("tables", n * pps, "int32")], dev)
+            if self._speculating else None)
         self._decode_programs: dict = {}
         self._prefill_programs: dict = {}
         self._prefill_ext_programs: dict = {}
-        self._cow_prog = None
+        self._cow_prog = self._verify_prog = None
         self._graph_pool = self._capture_stream = None
         if dev.type == "cuda":
             self._graph_pool = torch.cuda.graph_pool_handle()
@@ -444,6 +500,33 @@ class Engine:
         self.metrics.cow_compiles += 1
         return self._cow_prog
 
+    def _verify_program(self):
+        """The verify program: every slot's K+1-token window scored in one
+        pass, returning ``(argmax targets int32 [slots, K+1], logits)``
+        (JAX's ``verify_fn``). Greedy-only, so it takes no generator: one
+        per engine."""
+        if self._verify_prog is not None:
+            return self._verify_prog
+        f, pool, adapter = self._verify_buffers.dev, self.pool, self.adapter
+        cfg = self.config
+        n = cfg.max_batch_slots
+        tokens = f["tokens"].view(n, cfg.speculate_tokens + 1)
+        tables = f["tables"].view(n, cfg.pages_per_seq)
+
+        def verify_fn():
+            logits = adapter.verify(pool.k, pool.v, tokens, f["positions"],
+                                    f["draft_lens"], tables,
+                                    f["active"] != 0)
+            return logits.argmax(-1).to(torch.int32), logits
+
+        self._pin_adapter()
+        # the build runs verify_fn once eagerly: over zeroed inputs (no
+        # active slot) it writes no page and reads page 0 only
+        self._verify_buffers.device.zero_()
+        self._verify_prog = self._program(verify_fn, None)
+        self.metrics.verify_compiles += 1
+        return self._verify_prog
+
     def _pin_adapter(self):
         """Re-assert this engine's decode attention on a shared adapter
         before a program reads it."""
@@ -515,13 +598,27 @@ class Engine:
     def _active_pressure(self):
         """``(reclaimable_blocks, active_utilization)``: the pressure
         split shedding and ``health()`` agree on. Cached prefix blocks
-        no running request holds are reclaimable capacity, not pressure,
-        so a pool kept warm by the prefix cache neither sheds admissions
-        nor reads as overloaded."""
+        no running request holds and idle speculative draft headroom are
+        reclaimable capacity, not pressure, so a pool kept warm by the
+        prefix cache (or padded by headroom) neither sheds admissions nor
+        reads as overloaded."""
         bm = self.block_manager
         reclaimable = (self.prefix_cache.reclaimable_blocks()
                        if self.prefix_cache is not None else 0)
+        if self._speculating:
+            reclaimable += sum(self._spec_headroom(r) for r in self.slots)
         return reclaimable, (bm.num_used - reclaimable) / bm.num_blocks
+
+    def _spec_headroom(self, req):
+        """Idle draft-headroom blocks a greedy RUNNING slot holds beyond
+        its required ``num_cached + 1`` coverage (0 for every other slot):
+        the one definition behind pressure (``_active_pressure``) and
+        reclaim (``_reclaim_spec_headroom``)."""
+        if (req is None or req.state is not RequestState.RUNNING
+                or req.sampling_params.do_sample):
+            return 0
+        return max(len(req.block_ids)
+                   - self.block_manager.blocks_needed(req.num_cached + 1), 0)
 
     def resume(self, req):
         """Re-enqueue a request whose KV state was lost outside this
@@ -624,8 +721,9 @@ class Engine:
         raw use, ``kv_active_utilization`` leaves out the
         ``kv_reclaimable_blocks`` the prefix cache alone holds;
         ``prefix_cache_digests`` are the cached chain keys a router
-        matches ``prompt_chain_digests`` against. The JAX engine's
-        watchdog, SLO, spill, speculation and tensor-parallel fields wait
+        matches ``prompt_chain_digests`` against; ``spec_accept_rate`` is
+        accepted over proposed draft tokens (None before any draft). The
+        JAX engine's watchdog, SLO, spill and tensor-parallel fields wait
         for their modules."""
         m, bm, cfg = self.metrics, self.block_manager, self.config
         util = bm.utilization()
@@ -660,6 +758,7 @@ class Engine:
             "prefix_cache_digests": (
                 list(self.prefix_cache.chain_digests())
                 if self.prefix_cache is not None else []),
+            "spec_accept_rate": m.spec_accept_rate,
             "requests_timeout": m.requests_timeout,
             "requests_shed": m.requests_shed,
             "preemptions": m.preemptions,
@@ -727,6 +826,10 @@ class Engine:
                     if match is not None and match.cow_src is not None:
                         protect.add(match.cow_src)
                     pc.reclaim(n_alloc - bm.num_free, protect=protect)
+                if not bm.can_allocate(n_alloc):
+                    # idle draft headroom is reclaimable too: an admission
+                    # never waits while speculation holds unused blocks
+                    self._reclaim_spec_headroom(n_alloc - bm.num_free)
                 if not bm.can_allocate(n_alloc):
                     break
             self.waiting.popleft()
@@ -875,7 +978,9 @@ class Engine:
 
     def _ensure_capacity(self):
         """Every running request needs a block for the KV slot its next
-        decode step writes; preempt the youngest on exhaustion."""
+        decode step writes; preempt the youngest on exhaustion (after
+        reclaiming cached blocks and draft headroom). With speculation,
+        then grab draft headroom where the pool has free blocks."""
         bm = self.block_manager
         for req in sorted(
             (r for r in self.slots if r is not None),
@@ -891,6 +996,8 @@ class Engine:
                 if (self.prefix_cache is not None
                         and self.prefix_cache.reclaim(1)):
                     continue  # a cached block freed: retry the allocate
+                if self._reclaim_spec_headroom(1):
+                    continue  # idle draft headroom freed: retry
                 victims = [
                     r for r in self.slots if r is not None and r is not req
                 ]
@@ -901,6 +1008,48 @@ class Engine:
                         "max_model_len"
                     )
                 self._preempt(max(victims, key=lambda r: r.admit_seq))
+        if self._speculating:
+            self._grab_spec_headroom()
+
+    def _grab_spec_headroom(self):
+        """Opportunistic draft headroom: a greedy slot's verify window
+        writes up to K positions past the required one, so it takes free
+        blocks for them, but never preempts or reclaims for them (the
+        draft budget clamps each window to the blocks the slot owns, so
+        speculation gives way to plain decode under pressure)."""
+        cfg, bm = self.config, self.block_manager
+        for req in self.slots:
+            if (req is None or req.state is not RequestState.RUNNING
+                    or req.sampling_params.do_sample):
+                continue
+            # no headroom beyond the drafts the request can still use
+            # before its length cap, nor beyond the block table
+            want = min(cfg.speculate_tokens,
+                       req.sampling_params.max_new_tokens
+                       - len(req.output_token_ids) - 1)
+            if want <= 0:
+                continue
+            need = min(bm.blocks_needed(req.num_cached + 1 + want),
+                       cfg.pages_per_seq)
+            while len(req.block_ids) < need and bm.can_allocate(1):
+                req.block_ids += bm.allocate(1)
+
+    def _reclaim_spec_headroom(self, need):
+        """Free up to ``need`` draft-headroom blocks (the tail blocks past
+        a greedy running slot's required coverage; they hold at most dead
+        draft writes, never shared). Returns the number freed."""
+        if not self._speculating:
+            return 0
+        freed = 0
+        for req in self.slots:
+            extra = self._spec_headroom(req)
+            while extra > 0 and freed < need:
+                self.block_manager.free([req.block_ids.pop()])
+                extra -= 1
+                freed += 1
+            if freed >= need:
+                break
+        return freed
 
     def _preempt(self, req):
         """Recompute-style preemption: free the blocks, keep the tokens,
@@ -937,7 +1086,113 @@ class Engine:
         return nxt
 
     def _decode(self, idxs, finished):
+        """The step's decode over the running slots ``idxs``. With
+        speculation, greedy slots draft first (``speculation.propose``,
+        called through the module so it can be replaced); if any drafted,
+        the greedy slots take one verify launch and the sampled ones the
+        decode program, else every slot takes the decode program (it is
+        cheaper than a draft-less window)."""
+        if not self._speculating:
+            self._decode_subset(idxs, finished)
+            return
+        greedy = [i for i in idxs
+                  if not self.slots[i].sampling_params.do_sample]
+        sampled = [i for i in idxs if self.slots[i].sampling_params.do_sample]
+        drafts = {
+            i: speculation.propose(
+                self._draft_history(self.slots[i]),
+                self._draft_budget(self.slots[i]),
+                max_ngram=self.config.speculate_ngram,
+            )
+            for i in greedy
+        }
+        if not any(drafts.values()):
+            self._decode_subset(idxs, finished)
+            return
+        self._verify_subset(greedy, finished, drafts)
+        self._decode_subset(sampled, finished)
+
+    def _draft_history(self, req):
+        """The drafter's window: the last ``DEFAULT_LOOKBACK`` tokens of
+        prompt + output, without copying the whole history each step."""
+        lb = speculation.DEFAULT_LOOKBACK
+        out = req.output_token_ids
+        if len(out) >= lb:
+            return out[-lb:]
+        return req.prompt_token_ids[-(lb - len(out)):] + out
+
+    def _draft_budget(self, req):
+        """Draft tokens the slot may take this step: its window's writes
+        stay inside the blocks it owns and inside ``max_model_len``, and
+        it can use at most ``remaining - 1`` drafts before its length cap.
+        0 makes the slot a plain decode row of the verify launch."""
+        cfg = self.config
+        ceiling = min(len(req.block_ids) * cfg.page_size, cfg.max_model_len)
+        remaining = (req.sampling_params.max_new_tokens
+                     - len(req.output_token_ids))
+        return max(min(cfg.speculate_tokens, ceiling - (req.num_cached + 1),
+                       remaining - 1), 0)
+
+    def _launch_verify(self, idxs, drafts):
+        """Run the verify program with only ``idxs`` active: stage each
+        slot's window (pending token, then its draft), position, draft
+        length and block table, one copy to the device, one replay, one
+        read-back of the [slots, K+1] argmax targets."""
+        cfg = self.config
+        bufs = self._verify_buffers
+        h = bufs.np
+        bufs.clear()
+        n = cfg.max_batch_slots
+        tokens = h["tokens"].reshape(n, cfg.speculate_tokens + 1)
+        tables = h["tables"].reshape(n, -1)
+        for i in idxs:
+            req, draft = self.slots[i], drafts.get(i, [])
+            tokens[i, 0] = req.last_token
+            tokens[i, 1:1 + len(draft)] = draft
+            h["positions"][i] = req.num_cached
+            h["draft_lens"][i] = len(draft)
+            h["active"][i] = 1
+            tables[i, : len(req.block_ids)] = req.block_ids
+        prog = self._verify_program()
+        self._pin_adapter()
+        bufs.stage()
+        tgt = prog()[0].cpu().numpy()
+        self.metrics.verify_steps += 1
+        return tgt
+
+    def _verify_subset(self, idxs, finished, drafts):
+        """Speculative decode of the greedy slots ``idxs``: each accepts
+        the longest draft prefix equal to the targets and emits targets
+        0..accepted (the accepted drafts' successors and the token after
+        them), each through the per-token stop check, so an EOS inside an
+        accepted draft stops exactly where plain decode would. Their K/V
+        is in the pages already; a rejected position's write is dead
+        (``num_cached`` stops short of it)."""
+        tgt = self._launch_verify(idxs, drafts)
+        cfg, m = self.config, self.metrics
+        for i in idxs:
+            req, draft = self.slots[i], drafts.get(i, [])
+            a = speculation.accept_length(draft, tgt[i, :len(draft)])
+            if draft:
+                # draft-less slots are plain decodes, not samples
+                m.spec_proposed += len(draft)
+                m.spec_accepted += a
+                m.record_spec_accept(a)
+            for j in range(a + 1):
+                tok = int(tgt[i, j])
+                req.num_cached += 1
+                req.output_token_ids.append(tok)
+                req.last_token = tok
+                m.decode_tokens += 1
+                reason = req.check_stop(cfg.max_model_len)
+                if reason:
+                    self._finish(req, reason, finished)
+                    break
+
+    def _decode_subset(self, idxs, finished):
         """One decode step with ``idxs`` active; book each slot's token."""
+        if not idxs:
+            return
         cfg = self.config
         nxt = self._launch_decode(idxs)
         for i in idxs:

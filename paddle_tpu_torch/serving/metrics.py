@@ -21,6 +21,7 @@ class EngineMetrics:
         self.prefill_compiles = 0
         self.prefill_ext_compiles = 0   # continuation programs (buckets)
         self.cow_compiles = 0
+        self.verify_compiles = 0        # the speculative verify program
         # prefill_tokens counts tokens a prefill launch COMPUTED
         # (re-prefills after preemption included): prefix-cache hits
         # subtract from it, the saving prefix_hit_tokens measures
@@ -29,6 +30,14 @@ class EngineMetrics:
         self.prefill_steps = 0
         self.prefill_chunks = 0   # chunk launches through prefill_ext
         self.decode_steps = 0
+        # speculative decoding: verify launches, draft tokens proposed by
+        # the prompt-lookup drafter, and drafts the target argmax accepted
+        # (the spec_accept_rate numerator); the per-slot accepted-length
+        # distribution of every verify launch that had a draft
+        self.verify_steps = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self._spec_accept_counts = {}
         # prefix cache (serving/prefix_cache.py): lookups and hits at
         # admission, hit_tokens = prompt tokens served from shared blocks
         # instead of recomputed, cow_copies = partial-block copy-on-write
@@ -44,6 +53,21 @@ class EngineMetrics:
 
     def record_ttft(self, seconds):
         self._ttft.append(seconds)
+
+    def record_spec_accept(self, n):
+        """One verify launch accepted ``n`` draft tokens for one slot."""
+        n = int(n)
+        self._spec_accept_counts[n] = self._spec_accept_counts.get(n, 0) + 1
+
+    def spec_accept_hist(self):
+        """{accepted_length: observations} (a copy)."""
+        return dict(self._spec_accept_counts)
+
+    @property
+    def spec_accept_rate(self):
+        """Accepted over proposed draft tokens; None before any draft."""
+        return (self.spec_accepted / self.spec_proposed
+                if self.spec_proposed else None)
 
     @property
     def mean_ttft(self):

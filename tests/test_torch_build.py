@@ -250,3 +250,26 @@ def test_paged_prefill_on_cuda_raises_rather_than_falls_back(monkeypatch):
         ppf.paged_prefill(cuda(torch.zeros(8, 4, 16)), pages, pages,
                           torch.zeros(4, dtype=torch.int32), scalar, scalar)
     assert _build.launch_counts()["paged_prefill"] == 0
+
+
+def test_paged_prefill_abi_matches_the_c_signature(monkeypatch):
+    # the ctypes argument types the wrapper declares follow the C launch
+    # function's parameters one for one (pointers, ints, the float scale),
+    # the slot count first among the ints
+    import ctypes
+    from types import SimpleNamespace
+
+    src = (_build.CSRC_DIR / "paged_prefill.cu").read_text()
+    (sig,) = re.findall(r"int paged_prefill_launch\(([^)]*)\)", src)
+    params = [" ".join(p.split()) for p in sig.split(",")]
+    want = [ctypes.c_void_p if "*" in p else
+            ctypes.c_float if p.startswith("float") else ctypes.c_int
+            for p in params]
+    names = [p.split()[-1].lstrip("*") for p in params]
+    assert names[9:12] == ["slots", "s", "heads"]
+    lib = SimpleNamespace(paged_prefill_launch=SimpleNamespace())
+    monkeypatch.setattr(ppf, "_lib", None)
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+    assert ppf._kernel() is lib
+    assert lib.paged_prefill_launch.argtypes == want
+    assert lib.paged_prefill_launch.restype is ctypes.c_int

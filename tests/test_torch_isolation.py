@@ -23,6 +23,7 @@ import paddle_tpu_torch.kernels.kv_write
 import paddle_tpu_torch.kernels.paged_prefill
 import paddle_tpu_torch.serving.programs
 import paddle_tpu_torch.serving.prefix_cache
+import paddle_tpu_torch.serving.speculation
 import paddle_tpu_torch.ops.moe_ops
 import paddle_tpu_torch.incubate
 import paddle_tpu_torch.quantization
