@@ -129,6 +129,46 @@ Phases, in order; any failure exits non-zero:
                tokens per verify launch, verify and decode steps, a verify
                replay's host wall ms against a decode replay's, and per
                request the first token where spec and base diverge.
+5f. server  — the serving cell behind the HTTP front door: the bf16
+               serving model over an engine with a journal, an access log
+               and an SLO, behind ``serve(port=0)`` with two API keys for
+               two tenants of weights 2:1. A client process (this script
+               with ``--http-client``, threads over ``http.client``, no
+               torch) sends the serving cell's 32 requests at t = 0 (every
+               fourth sampled with a per-request seed; half SSE, half
+               blocking; tenants alternating) and one more SSE request
+               that hangs up after its third chunk. The first pass is
+               cold: the server's driver thread captures every program.
+               Gated: every greedy request's tokens (SSE chunks joined)
+               equal in-process ``generate`` on the same engine; every
+               request answers once with its usage and tenant; the
+               disconnect is aborted (an ``aborted`` log line, no stream
+               left, no KV block used); ``/metrics`` has the engine's
+               ttft quantiles and both tenants' series, ``/healthz`` is
+               ok; the access log has one line per request with its
+               tenant; counted from the replays, the launches of
+               ``serving``; nothing launched outside a graph; no step
+               error and no stream fault; the drain leaves nothing.
+               Recorded, in turns (HTTP at poll 0.002 and 0, in process,
+               in process, HTTP at 0 and 0.002): tokens/s, client (first
+               SSE chunk) and engine TTFT p50/p99, and the driver loop's
+               wall per step against the step's and the decode launch's.
+5g. journal — the durable request journal on the serving model: a worker
+               process (this script with ``--journal-worker``) serves the
+               first 8 serving-cell prompts (128 greedy new tokens each)
+               over a journaled engine and SIGKILLs itself once 200
+               tokens have decoded; a fresh engine on its directory
+               replays and drains it. Gated: the worker died by SIGKILL,
+               the replay found exactly the unfinished requests, each
+               one's journaled tokens are a prefix of its output, the
+               deliveries before and after the kill hold each request
+               once at full length, and the recovered engine passes the
+               serving launch gates. Recorded: the first token where each
+               request differs from an uninterrupted run (bf16 re-prefill
+               and decode round apart), engine build to the first
+               recovered token, journal bytes per generated token and
+               fsyncs per run, and in-process tokens/s of the serving
+               cell's workload with the journal on and off (best of 3).
 6. train_parity — tiny f32 Llama (MHA and GQA): 10 ``TrainStep`` steps
                of AdamW through the flash kernels give the losses of the
                same 10 steps with the plain attention functions.
@@ -2279,6 +2319,711 @@ def phase_serving_spec(torch):
     return result
 
 
+# ------------------------------------------------------- the front door
+# the server cell: the serving cell's model, geometry and 32 requests,
+# through the HTTP front door from a client process; two tenants (API
+# keys) of weights 2:1
+SERVER_TENANTS = {"key-a": "a", "key-b": "b"}
+SERVER_WEIGHTS = {"a": 2.0, "b": 1.0}
+# the cell's TTFT is queueing (32 requests at t = 0 on 8 slots, the cold
+# pass also captures every program), its TPOT the decode step: an SLO
+# the cell meets, so /healthz must answer ok
+SERVER_SLO = dict(ttft_p99_ms=30000.0, tpot_p99_ms=50.0)
+# JAX's poll interval, and none: the driver's pause after a step that
+# finished no request
+SERVER_POLLS = (0.002, 0.0)
+SERVER_TIMEOUT_S = 300
+# the extra streaming request that hangs up after this many chunks
+DISCONNECT_AFTER_CHUNKS = 3
+
+
+def _serving_workload(cfg, n_req=32, mml=512, seeded=False):
+    """The serving cell's requests (``_serve``'s): prompts of 8-127
+    tokens, 64-255 new tokens, every fourth sampled (with a per-request
+    seed when ``seeded``)."""
+    from paddle_tpu_torch.serving import SamplingParams
+
+    rng = np.random.RandomState(0)
+    prompts = [
+        rng.randint(1, cfg.vocab_size, rng.randint(8, mml // 4)).tolist()
+        for _ in range(n_req)
+    ]
+    max_new = [int(rng.randint(mml // 8, mml // 2)) for _ in range(n_req)]
+    params = [
+        SamplingParams(max_new_tokens=k, do_sample=True, temperature=0.8,
+                       top_k=50, top_p=0.95, seed=i if seeded else None)
+        if i % 4 == 3 else SamplingParams(max_new_tokens=k)
+        for i, k in enumerate(max_new)
+    ]
+    return prompts, params
+
+
+def http_client_main(spec_path, out_path):
+    """The load generator of the ``server`` phase, run as its own process
+    (``chip_smoke.py --http-client SPEC OUT``, no torch imported) so it
+    never takes the server's GIL: one thread per request of SPEC, all
+    released together; SSE requests record the time of their first chunk.
+    The ``disconnect`` request reads its first chunks over a raw socket
+    and hangs up with a reset. Writes one JSON object to OUT."""
+    import http.client
+    import socket
+    import struct
+    import threading
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    port, reqs = spec["port"], spec["requests"]
+    results = [None] * len(reqs)
+    start = threading.Barrier(len(reqs) + (1 if spec.get("disconnect")
+                                           else 0))
+
+    def one(i, r):
+        body = dict(r["body"])
+        headers = {"Content-Type": "application/json",
+                   "Authorization": f"Bearer {r['key']}"}
+        conn = http.client.HTTPConnection("127.0.0.1", port,
+                                          timeout=SERVER_TIMEOUT_S)
+        rec = {"index": i}
+        try:
+            start.wait()
+            rec["t_send"] = time.perf_counter()
+            conn.request("POST", "/v1/completions",
+                         body=json.dumps(body).encode(), headers=headers)
+            resp = conn.getresponse()
+            rec["status"] = resp.status
+            if not body.get("stream"):
+                payload = json.loads(resp.read())
+                rec["t_done"] = time.perf_counter()
+                rec["id"] = payload.get("id")
+                if resp.status == 200:
+                    ch = payload["choices"][0]
+                    rec.update(tokens=ch["token_ids"],
+                               finish_reason=ch["finish_reason"],
+                               usage=payload["usage"],
+                               tenant=payload["tenant"])
+                else:
+                    rec["error"] = payload
+            else:
+                streamed, events = [], []
+                while True:
+                    line = resp.fp.readline()
+                    if not line:
+                        rec["error"] = "stream ended before [DONE]"
+                        break
+                    line = line.strip()
+                    if not line:
+                        continue
+                    data = line[len(b"data: "):]
+                    if data == b"[DONE]":
+                        break
+                    ev = json.loads(data)
+                    if "t_first" not in rec:
+                        rec["t_first"] = time.perf_counter()
+                    events.append(ev)
+                rec["t_done"] = time.perf_counter()
+                if events:
+                    final = events[-1]
+                    streamed = [t for ev in events[:-1]
+                                for t in ev["choices"][0]["token_ids"]]
+                    rec.update(
+                        id=final["id"], tokens=streamed,
+                        final_tokens=final["choices"][0]["token_ids"],
+                        finish_reason=final["choices"][0]["finish_reason"],
+                        usage=final.get("usage"), tenant=final.get("tenant"),
+                        chunks=len(events) - 1)
+        except Exception as e:  # recorded: the phase fails on it
+            rec["error"] = f"{type(e).__name__}: {e}"
+        finally:
+            conn.close()
+        results[i] = rec
+
+    def disconnect(r):
+        payload = json.dumps(r["body"]).encode()
+        rec = {"chunks": 0}
+        sock = socket.create_connection(("127.0.0.1", port),
+                                        timeout=SERVER_TIMEOUT_S)
+        try:
+            start.wait()
+            sock.sendall(
+                b"POST /v1/completions HTTP/1.1\r\nHost: localhost\r\n"
+                b"Content-Type: application/json\r\nAuthorization: Bearer "
+                + r["key"].encode() + b"\r\nContent-Length: "
+                + str(len(payload)).encode() + b"\r\n\r\n" + payload)
+            buf = b""
+            while buf.count(b"\ndata: ") < DISCONNECT_AFTER_CHUNKS:
+                chunk = sock.recv(65536)
+                if not chunk:
+                    rec["error"] = "closed before the chunks"
+                    break
+                buf += chunk
+            rec["chunks"] = buf.count(b"\ndata: ")
+            for line in buf.split(b"\r\n"):
+                if line.lower().startswith(b"x-request-id:"):
+                    rec["id"] = line.split(b":", 1)[1].strip().decode()
+        finally:
+            # RST on close: the server's next chunk write fails
+            sock.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                            struct.pack("ii", 1, 0))
+            sock.close()
+        results.append(dict(rec, disconnect=True))
+
+    threads = [threading.Thread(target=one, args=(i, r))
+               for i, r in enumerate(reqs)]
+    if spec.get("disconnect"):
+        threads.append(threading.Thread(target=disconnect,
+                                        args=(spec["disconnect"],)))
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(SERVER_TIMEOUT_S)
+    with open(out_path, "w") as f:
+        json.dump({"results": results,
+                   "alive": sum(t.is_alive() for t in threads)}, f)
+    return 0
+
+
+def _http_pass(tmp, port, prompts, params, keys, disconnect=None):
+    """One client process over the workload: request i streams when
+    (i // 2) is even and uses ``keys[i % 2]``. Returns its records (the
+    disconnect one last) and the wall from the first send to the last
+    answer."""
+    reqs = []
+    for i, (p, sp) in enumerate(zip(prompts, params)):
+        body = {"prompt": p, "max_tokens": sp.max_new_tokens,
+                "stream": (i // 2) % 2 == 0}
+        if sp.do_sample:
+            body.update(do_sample=True, temperature=sp.temperature,
+                        top_k=sp.top_k, top_p=sp.top_p, seed=sp.seed)
+        reqs.append({"body": body, "key": keys[i % 2]})
+    spec_path = os.path.join(tmp, "client_spec.json")
+    out_path = os.path.join(tmp, "client_out.json")
+    with open(spec_path, "w") as f:
+        json.dump({"port": port, "requests": reqs,
+                   "disconnect": disconnect}, f)
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--http-client",
+         spec_path, out_path], capture_output=True, text=True,
+        timeout=SERVER_TIMEOUT_S + 60)
+    check(proc.returncode == 0,
+          f"server: the client process failed: {proc.stderr[-2000:]}")
+    with open(out_path) as f:
+        out = json.load(f)
+    check(out["alive"] == 0, "server: client threads still waiting")
+    recs = out["results"]
+    bad = [r for r in recs if r.get("error") or (
+        not r.get("disconnect") and r.get("status") != 200)]
+    check(not bad, f"server: requests failed: {bad[:3]}")
+    main = [r for r in recs if not r.get("disconnect")]
+    wall = max(r["t_done"] for r in main) - min(r["t_send"] for r in main)
+    return recs, wall
+
+
+def _quantiles(xs):
+    return ({"p50": float(np.quantile(xs, 0.5)),
+             "p99": float(np.quantile(xs, 0.99))} if len(xs) else None)
+
+
+def _check_http_results(tag, recs, prompts, params, ref):
+    """Every request answered once with its usage; greedy token ids (SSE
+    chunks concatenated, and the final chunk's list) equal the in-process
+    ``generate`` tokens of ``ref``."""
+    main = [r for r in recs if not r.get("disconnect")]
+    check(sorted(r["index"] for r in main) == list(range(len(prompts)))
+          and len({r["id"] for r in main}) == len(prompts),
+          f"{tag}: not every request answered exactly once")
+    mismatched = []
+    for r in main:
+        i = r["index"]
+        p, sp, toks = prompts[i], params[i], r["tokens"]
+        check(r["usage"] == {"prompt_tokens": len(p),
+                             "completion_tokens": len(toks),
+                             "total_tokens": len(p) + len(toks)},
+              f"{tag}: request {i} usage {r['usage']}")
+        check(r["finish_reason"] in ("length", "stop")
+              and (r["finish_reason"] == "stop"
+                   or len(toks) == sp.max_new_tokens),
+              f"{tag}: request {i} finished {r['finish_reason']} with "
+              f"{len(toks)} of {sp.max_new_tokens} tokens")
+        if "final_tokens" in r:
+            check(r["final_tokens"] == toks,
+                  f"{tag}: request {i}'s SSE chunks differ from its final "
+                  f"chunk")
+        check(r["tenant"] == SERVER_TENANTS[("key-a", "key-b")[i % 2]],
+              f"{tag}: request {i} answered for tenant {r['tenant']}")
+        if not sp.do_sample and toks != ref[i]:
+            mismatched.append(i)
+    check(not mismatched,
+          f"{tag}: greedy HTTP tokens differ from in-process generate for "
+          f"requests {mismatched}")
+
+
+def phase_server(torch):
+    """``server``: the serving cell behind ``serve()`` (the front door's
+    driver thread steps the engine and captures its programs), loaded by
+    a client process over HTTP. Gates: greedy token parity with
+    in-process ``generate`` on the same engine, usage and tenants, one
+    disconnect aborted cleanly, ``/metrics`` and ``/healthz``, the access
+    log, the launches from the replays, nothing launched outside a graph,
+    no step error. Records HTTP against in-process tokens/s, client and
+    engine TTFT, and the driver's wall per step against the replay's, at
+    both poll intervals."""
+    import http.client
+    import shutil
+    import signal
+    import tempfile
+
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.observability import LatencyDigest, SLOConfig
+    from paddle_tpu_torch.serving import (
+        Engine, EngineConfig, QoSConfig, TenantPolicy, serve,
+    )
+    from paddle_tpu_torch.serving.access_log import iter_records
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = LlamaConfig(**SERVING_CFG)
+    model = LlamaForCausalLM(cfg, seed=0)
+    L = cfg.num_hidden_layers
+    prompts, params = _serving_workload(cfg, seeded=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_server_")
+    ecfg = EngineConfig(
+        max_batch_slots=8, max_model_len=512, page_size=16,
+        journal=os.path.join(tmp, "journal"),
+        access_log=os.path.join(tmp, "access"), slo=SLOConfig(**SERVER_SLO))
+    engine = Engine(model, ecfg)
+    kinds, program = set(), engine._decode_program
+    engine._decode_program = lambda any_sample: (
+        kinds.add(any_sample), program(any_sample))[1]
+    # per step: its wall inside Engine.step, and the decode launch's
+    # (staging, replay, read-back)
+    steps, decodes = [], []
+    real_step = engine.step
+
+    def timed_step():
+        t0 = time.perf_counter()
+        out = real_step()
+        steps.append((t0, time.perf_counter()))
+        return out
+
+    engine.step = timed_step
+    _timed_launches(engine, "_launch_decode", decodes)
+    qos = QoSConfig(tenants={t: TenantPolicy(weight=w)
+                             for t, w in SERVER_WEIGHTS.items()},
+                    api_keys=SERVER_TENANTS, default_tenant=None)
+    sigterm = signal.getsignal(signal.SIGTERM)
+    srv = serve(engine, port=0, qos=qos)
+    keys = list(SERVER_TENANTS)
+    result = {"requests": len(prompts), "tenants": SERVER_WEIGHTS,
+              "passes": []}
+    try:
+        srv.poll_interval_s = SERVER_POLLS[0]
+        _build.reset_launch_counts()
+        with host_dispatch_probe() as probe:
+            # pass 1, cold: the driver thread captures every program; one
+            # more streaming request hangs up after its third chunk
+            recs, wall = _http_pass(
+                tmp, srv.port, prompts, params, keys,
+                disconnect={"body": {"prompt": prompts[0],
+                                     "max_tokens": 255, "stream": True},
+                            "key": keys[0]})
+            deadline = time.monotonic() + 60
+            while srv._streams and time.monotonic() < deadline:
+                time.sleep(0.01)
+            torch.cuda.synchronize()
+        counts = dict(_build.launch_counts(), **_build.variant_counts())
+        m = engine.metrics
+        check(kinds and kinds <= {False, True}, f"server: decode kinds "
+              f"{kinds}")
+        _serving_gates("server", counts, m, probe, L, "paged_attention",
+                       "float", True, ecfg.prefill_buckets, len(kinds))
+        # programs bound their replay while the probe counted: read now
+        replays = probe["replays"]
+        gone = next(r for r in recs if r.get("disconnect"))
+        check(gone.get("chunks", 0) >= DISCONNECT_AFTER_CHUNKS
+              and "id" in gone, f"server: the disconnect client {gone}")
+        check(not srv._streams and srv.metrics.disconnects >= 1
+              and engine.block_manager.num_used == 0,
+              f"server: after the disconnect {len(srv._streams)} streams, "
+              f"{srv.metrics.disconnects} disconnects, "
+              f"{engine.block_manager.num_used} KV blocks in use")
+        # the side channels: /metrics (engine latency, both tenants) and
+        # /healthz, then the access log (one line per request, its tenant)
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=60)
+        try:
+            conn.request("GET", "/metrics")
+            text = conn.getresponse().read().decode()
+            conn.request("GET", "/healthz")
+            hz = conn.getresponse()
+            health = json.loads(hz.read())
+        finally:
+            conn.close()
+        check(f'paddle_tpu_serving_latency_seconds{{engine="'
+              f'{engine.engine_id}",phase="ttft",quantile="0.5"}}' in text,
+              "server: /metrics has no engine ttft quantiles")
+        for t in SERVER_WEIGHTS:
+            for series in ("paddle_tpu_serving_tenant_requests_total",
+                           "paddle_tpu_serving_tenant_finished_total"):
+                check(f'{series}{{tenant="{t}"}}' in text,
+                      f"server: /metrics has no {series} for tenant {t}")
+        check(hz.status == 200 and health["status"] == "ok",
+              f"server: /healthz {hz.status} {health}")
+        lines = {str(r["rid"]): r for r in iter_records(
+            os.path.join(tmp, "access"))}
+        for r in recs:
+            line = lines.get(str(r["id"]))
+            if r.get("disconnect"):
+                check(line is not None and line["finish_reason"] == "aborted",
+                      f"server: the disconnected request's log line {line}")
+            else:
+                check(line is not None and line["tenant"] == r["tenant"]
+                      and line["output_tokens"] == len(r["tokens"]),
+                      f"server: request {r['index']}'s log line {line}")
+        check(len(lines) == len(prompts) + 1,
+              f"server: {len(lines)} access-log lines for "
+              f"{len(prompts)} requests and one disconnect")
+
+        # the in-process reference on the same engine (its programs are
+        # built); the driver holds no request, the lock keeps it off
+        def in_process():
+            with srv._backend_lock:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs = engine.generate(prompts, params)
+                torch.cuda.synchronize()
+                return outs, time.perf_counter() - t0
+
+        outs, _ = in_process()
+        ref = [o.token_ids for o in outs]
+        _check_http_results("server pass 1", recs, prompts, params, ref)
+        n_tokens = sum(len(o.token_ids) for o in outs)
+
+        # timed passes, in turns: HTTP at each poll interval, in process
+        order = [SERVER_POLLS[0], SERVER_POLLS[1], None, None,
+                 SERVER_POLLS[1], SERVER_POLLS[0]]
+        for poll in order:
+            engine.metrics.latency = {p: LatencyDigest() for p in
+                                      ("queue", "ttft", "tpot", "e2e")}
+            del steps[:], decodes[:]
+            if poll is None:
+                outs, wall = in_process()
+                check(all(o.token_ids == ref[i]
+                          for i, o in enumerate(outs)
+                          if not params[i].do_sample),
+                      "server: in-process greedy tokens changed between runs")
+                entry = {"mode": "in_process", "seconds": wall,
+                         "tokens_per_s": n_tokens / wall}
+                # generate's loop beside the driver's: its wall per step,
+                # the step's own and the decode launch's
+                busy = steps[-1][1] - steps[0][0]
+                entry.update(
+                    steps=len(steps),
+                    loop_ms_per_step=busy / len(steps) * 1e3,
+                    step_ms=float(np.mean([b - a for a, b in steps])) * 1e3,
+                    decode_launch_ms=float(np.mean(decodes)) * 1e3)
+            else:
+                srv.poll_interval_s = poll
+                recs, wall = _http_pass(tmp, srv.port, prompts, params, keys)
+                _check_http_results(f"server poll {poll}", recs, prompts,
+                                    params, ref)
+                got = sum(len(r["tokens"]) for r in recs)
+                sse = [r["t_first"] - r["t_send"] for r in recs
+                       if "t_first" in r]
+                d = engine.metrics.latency["ttft"]
+                busy = steps[-1][1] - steps[0][0]
+                entry = {
+                    "mode": "http", "poll_interval_s": poll,
+                    "seconds": wall, "generated_tokens": got,
+                    "tokens_per_s": got / wall,
+                    "client_ttft_s": _quantiles(sse),
+                    "engine_ttft_s": {"p50": d.quantile(0.5),
+                                      "p99": d.quantile(0.99)},
+                    "steps": len(steps),
+                    "loop_ms_per_step": busy / len(steps) * 1e3,
+                    "step_ms": float(np.mean([b - a for a, b in steps]))
+                    * 1e3,
+                    "decode_launch_ms": float(np.mean(decodes)) * 1e3,
+                }
+            result["passes"].append(entry)
+            log(f"[server] {entry}")
+        check(srv.metrics.step_errors == 0
+              and srv.metrics.stream_faults == 0
+              and srv.metrics.accept_faults == 0,
+              f"server: step errors {srv.metrics.step_errors}, stream "
+              f"faults {srv.metrics.stream_faults}, accept faults "
+              f"{srv.metrics.accept_faults}")
+        check(srv.drain(timeout=60) and not srv._streams
+              and engine.block_manager.num_used == 0,
+              "server: the drain left streams or KV blocks")
+    finally:
+        srv.close()
+        signal.signal(signal.SIGTERM, sigterm)
+
+    def best(mode, poll=None):
+        runs = [p["tokens_per_s"] for p in result["passes"]
+                if p["mode"] == mode and p.get("poll_interval_s") == poll]
+        return max(runs)
+
+    inproc = best("in_process")
+    for poll in SERVER_POLLS:
+        result[f"http_tokens_per_s_poll_{poll}"] = best("http", poll)
+        result[f"http_vs_in_process_poll_{poll}"] = best("http",
+                                                         poll) / inproc
+    result.update(in_process_tokens_per_s=inproc, launches=counts,
+                  decode_kinds=sorted("mixed" if k else "greedy"
+                                      for k in kinds),
+                  graph_replays=replays,
+                  disconnects=srv.metrics.disconnects,
+                  step_errors=srv.metrics.step_errors)
+    log(f"[server] in-process {inproc:.1f} tokens/s; HTTP "
+        + ", ".join(f"poll {p}: {result[f'http_tokens_per_s_poll_{p}']:.1f}"
+                    f" ({result[f'http_vs_in_process_poll_{p}']:.3f}x)"
+                    for p in SERVER_POLLS))
+    del engine, model
+    shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+# the journal cell: the first 8 serving-cell prompts, 128 greedy new
+# tokens each; the worker kills itself once this many tokens decoded
+JOURNAL_REQUESTS = 8
+JOURNAL_NEW_TOKENS = 128
+JOURNAL_KILL_AT = 200
+JOURNAL_RUNS = 3
+
+
+def _journal_engine_config(journal_dir=None):
+    from paddle_tpu_torch.serving import EngineConfig
+
+    return EngineConfig(max_batch_slots=8, max_model_len=512, page_size=16,
+                        journal=journal_dir)
+
+
+def _journal_prompts(cfg):
+    prompts, _ = _serving_workload(cfg)
+    return prompts[:JOURNAL_REQUESTS]
+
+
+def _weights_digest(model):
+    import torch
+
+    with torch.no_grad():
+        return float(sum(p.double().sum().item()
+                         for p in model.parameters()))
+
+
+def journal_worker_main(journal_dir, out_path, kill_at):
+    """The killed life of the ``journal`` phase, run as its own process
+    (``chip_smoke.py --journal-worker DIR OUT KILL_AT``): the serving
+    model over a journaled engine, the journal cell's requests submitted,
+    every finished output appended to OUT (fsync'd), and SIGKILL to
+    itself between two steps once ``kill_at`` tokens have decoded."""
+    import signal
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import Engine, SamplingParams
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LlamaConfig(**SERVING_CFG)
+    model = LlamaForCausalLM(cfg, seed=0)
+    engine = Engine(model, _journal_engine_config(journal_dir))
+    params = SamplingParams(max_new_tokens=JOURNAL_NEW_TOKENS)
+    for i, p in enumerate(_journal_prompts(cfg)):
+        engine.add_request(p, params, request_id=f"req-{i}")
+    with open(out_path, "a") as out:
+        out.write(json.dumps({"weights": _weights_digest(model)}) + "\n")
+        out.flush()
+        while engine.has_unfinished():
+            if engine.metrics.decode_tokens >= kill_at:
+                # a hard kill between steps, mid-decode: no cleanup runs
+                os.kill(os.getpid(), signal.SIGKILL)
+            for o in engine.step():
+                out.write(json.dumps({"rid": o.request_id,
+                                      "tokens": o.token_ids,
+                                      "reason": o.finish_reason}) + "\n")
+                out.flush()
+                os.fsync(out.fileno())
+    return 0
+
+
+def phase_journal(torch):
+    """``journal``: the durable request journal on the serving model. A
+    worker process is SIGKILLed mid-decode; a fresh engine on its
+    directory replays exactly the unfinished requests (their journaled
+    tokens a prefix of the final output), and the union of the pre-kill
+    and recovered deliveries holds each request once at full length. The
+    recovered engine passes the serving launch gates. Recorded: where
+    each recovered request first differs from an uninterrupted run (bf16
+    re-prefill and decode round apart on the card), the replay's wall
+    from engine build to the first recovered token, the journal's bytes
+    per generated token and fsyncs, and in-process tokens/s with the
+    journal on and off (best of 3)."""
+    import shutil
+    import signal
+    import tempfile
+
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import Engine, SamplingParams
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = LlamaConfig(**SERVING_CFG)
+    L = cfg.num_hidden_layers
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_journal_")
+    jdir = os.path.join(tmp, "killed")
+    out_path = os.path.join(tmp, "killed.jsonl")
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--journal-worker",
+         jdir, out_path, str(JOURNAL_KILL_AT)],
+        capture_output=True, text=True, timeout=600)
+    check(proc.returncode == -signal.SIGKILL,
+          f"journal: the worker exited {proc.returncode}, not by SIGKILL: "
+          f"{proc.stderr[-2000:]}")
+    with open(out_path) as f:
+        lines = [json.loads(line) for line in f if line.strip()]
+    killed = {}
+    for rec in lines[1:]:
+        check(rec["rid"] not in killed, f"journal: {rec['rid']} delivered "
+              f"twice before the kill")
+        killed[rec["rid"]] = rec
+
+    model = LlamaForCausalLM(cfg, seed=0)
+    check(_weights_digest(model) == lines[0]["weights"],
+          "journal: the worker's weights differ from this process's")
+    prompts = _journal_prompts(cfg)
+    params = SamplingParams(max_new_tokens=JOURNAL_NEW_TOKENS)
+    rids = [f"req-{i}" for i in range(len(prompts))]
+
+    # the uninterrupted reference, on a fresh journal directory
+    ref_engine = Engine(model, _journal_engine_config(
+        os.path.join(tmp, "reference")))
+    for rid, p in zip(rids, prompts):
+        ref_engine.add_request(p, params, request_id=rid)
+    ref = {}
+    while ref_engine.has_unfinished():
+        for o in ref_engine.step():
+            ref[o.request_id] = o.token_ids
+    del ref_engine
+
+    # recovery: a fresh engine on the killed worker's directory
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    with host_dispatch_probe() as probe:
+        t0 = time.perf_counter()
+        engine = Engine(model, _journal_engine_config(jdir))
+        report = dict(engine.journal.replay_report)
+        journaled = {r.request_id: list(r.output_token_ids)
+                     for r in engine.waiting}
+        recovered, first_token_s = {}, None
+        while engine.has_unfinished():
+            for o in engine.step():
+                check(o.request_id not in recovered,
+                      f"journal: {o.request_id} recovered twice")
+                recovered[o.request_id] = o
+            if first_token_s is None and any(
+                    r is not None and len(r.output_token_ids)
+                    > len(journaled[r.request_id]) for r in engine.slots):
+                torch.cuda.synchronize()
+                first_token_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    counts = dict(_build.launch_counts(), **_build.variant_counts())
+    unfinished = set(rids) - set(killed)
+    check(set(journaled) == unfinished
+          and report["unfinished"] == len(unfinished),
+          f"journal: replay found {sorted(journaled)} for the unfinished "
+          f"{sorted(unfinished)} ({report})")
+    check(not set(killed) & set(recovered)
+          and set(killed) | set(recovered) == set(rids),
+          f"journal: delivered before the kill {sorted(killed)}, after "
+          f"{sorted(recovered)}")
+    for rid, o in recovered.items():
+        check(o.token_ids[:len(journaled[rid])] == journaled[rid],
+              f"journal: {rid}'s journaled tokens are not a prefix of its "
+              f"output")
+    final = {rid: (killed[rid]["tokens"] if rid in killed
+                   else recovered[rid].token_ids) for rid in rids}
+    check(all(len(t) == JOURNAL_NEW_TOKENS for t in final.values()),
+          f"journal: lengths {[len(t) for t in final.values()]}")
+    check(engine.block_manager.num_used == 0,
+          "journal: the recovered engine leaked KV blocks")
+    m = engine.metrics
+    _serving_gates("journal recovery", counts, m, probe, L,
+                   "paged_attention", "float", True,
+                   engine.config.prefill_buckets, 1)
+    check(engine.journal.open_requests() == set(),
+          "journal: requests left open after the recovered drain")
+    diverge = {rid: next((i for i, (a, b) in enumerate(zip(final[rid],
+                                                          ref[rid]))
+                          if a != b), None) for rid in rids}
+    result = {
+        "killed_at_decode_tokens": JOURNAL_KILL_AT,
+        "delivered_before_kill": sorted(killed),
+        "replay_report": report,
+        "journaled_tokens": {rid: len(t) for rid, t in journaled.items()},
+        "replay_to_first_token_ms": first_token_s * 1e3,
+        "first_divergence": diverge,
+        "launches": counts, "graph_replays": probe["replays"],
+    }
+    log(f"[journal] worker SIGKILLed after {JOURNAL_KILL_AT} decoded "
+        f"tokens; replay found {report['unfinished']} unfinished "
+        f"(journaled tokens {result['journaled_tokens']}), recovered "
+        f"exactly once; engine build to first recovered token "
+        f"{first_token_s * 1e3:.1f} ms; first divergence from the "
+        f"uninterrupted run {diverge}")
+    del engine
+
+    # in-process serving with the journal on and off, best of 3 in turns
+    wl_prompts, wl_params = _serving_workload(cfg)
+    engines = {"off": Engine(model, _journal_engine_config()),
+               "on": Engine(model, _journal_engine_config(
+                   os.path.join(tmp, "serving")))}
+    warm = [SamplingParams(**dict(p.to_dict(), max_new_tokens=2))
+            for p in wl_params]
+    for e in engines.values():
+        # builds every program the timed runs replay
+        e.generate(wl_prompts, warm)
+    j = engines["on"].journal
+    rates = {"off": [], "on": []}
+    for kind in ("on", "off", "off", "on", "on", "off"):
+        before = (j.bytes_written, j.fsyncs, j.writes)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = engines[kind].generate(wl_prompts, wl_params)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = sum(len(o.token_ids) for o in outs)
+        rates[kind].append(n / dt)
+        if kind == "on":
+            result["journal_bytes_per_token"] = (j.bytes_written
+                                                 - before[0]) / n
+            result["journal_fsyncs_per_run"] = j.fsyncs - before[1]
+            result["journal_writes_per_run"] = j.writes - before[2]
+            result["generated_tokens_per_run"] = n
+    result.update(
+        tokens_per_s_journal_on=max(rates["on"]),
+        tokens_per_s_journal_off=max(rates["off"]),
+        tokens_per_s_runs=rates,
+        journal_overhead=1 - max(rates["on"]) / max(rates["off"]))
+    log(f"[journal] in-process serving, best of {JOURNAL_RUNS}: journal on "
+        f"{result['tokens_per_s_journal_on']:.1f} tokens/s, off "
+        f"{result['tokens_per_s_journal_off']:.1f} (overhead "
+        f"{result['journal_overhead'] * 100:.2f} %); "
+        f"{result['journal_bytes_per_token']:.1f} journal bytes per token, "
+        f"{result['journal_fsyncs_per_run']} fsyncs and "
+        f"{result['journal_writes_per_run']} writes per run")
+    del engines, model
+    shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
 # ------------------------------------------------------------- training
 def _lm_loss(model, ids):
     return model(ids, labels=ids)[1]
@@ -3009,17 +3754,30 @@ def main(argv=None):
     ap.add_argument(
         "--phases",
         default="kernels,parity,serving,serving_int8,serving_f16,"
-                "serving_prefix,serving_spec,train_parity,train,moe",
+                "serving_prefix,serving_spec,server,journal,train_parity,"
+                "train,moe",
         help="comma list of kernels, parity, serving, serving_int8, "
-             "serving_f16, serving_prefix, serving_spec, train_parity, "
-             "train, moe, profile (default: all but profile)",
+             "serving_f16, serving_prefix, serving_spec, server, journal, "
+             "train_parity, train, moe, profile (default: all but profile)",
     )
     ap.add_argument("--out", help="write the full report as JSON here")
+    # the processes the server and journal phases start
+    ap.add_argument("--http-client", nargs=2, metavar=("SPEC", "OUT"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--journal-worker", nargs=3,
+                    metavar=("DIR", "OUT", "KILL_AT"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.http_client:
+        return http_client_main(*args.http_client)
+    if args.journal_worker:
+        jdir, out, kill_at = args.journal_worker
+        return journal_worker_main(jdir, out, int(kill_at))
     phases = set(args.phases.split(","))
     unknown = phases - {"kernels", "parity", "serving", "serving_int8",
                         "serving_f16", "serving_prefix", "serving_spec",
-                        "train_parity", "train", "moe", "profile"}
+                        "server", "journal", "train_parity", "train", "moe",
+                        "profile"}
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
@@ -3070,6 +3828,7 @@ def main(argv=None):
             "serving_f16": phase_serving_f16,
             "serving_prefix": phase_serving_prefix,
             "serving_spec": phase_serving_spec,
+            "server": phase_server, "journal": phase_journal,
             "train_parity": phase_train_parity, "train": phase_train,
             "moe": phase_moe, "profile": phase_profile,
         }
@@ -3116,9 +3875,9 @@ def main(argv=None):
                     f"{slower or 'none'}")
         report["phases"].update(results)
         (serving, serving_int8, serving_f16, serving_prefix, serving_spec,
-         train, moe) = (results.get(p) for p in (
+         server, journal, train, moe) = (results.get(p) for p in (
              "serving", "serving_int8", "serving_f16", "serving_prefix",
-             "serving_spec", "train", "moe"))
+             "serving_spec", "server", "journal", "train", "moe"))
         check("jax" not in sys.modules and not any(
             m == "paddle_tpu" or m.startswith("paddle_tpu.")
             for m in sys.modules),
@@ -3131,12 +3890,14 @@ def main(argv=None):
     kernels = []
     # launches on each main path: serving (float and int8 pools; float16
     # with both; the prefix cache with chunked prefill, both pools;
-    # speculative decoding and its spec-disabled twin, both pools), the 14
+    # speculative decoding and its spec-disabled twin, both pools), the
+    # HTTP front door's first pass, the journal's recovered engine, the 14
     # counted train steps, and the moe phase's counted forwards
     by_path = {p: r["launches"] if r else {} for p, r in (
         ("serving", serving), ("serving_int8", serving_int8),
         ("serving_f16", serving_f16), ("serving_prefix", serving_prefix),
-        ("serving_spec", serving_spec), ("train", train), ("moe", moe))}
+        ("serving_spec", serving_spec), ("server", server),
+        ("journal", journal), ("train", train), ("moe", moe))}
 
     def launches(name):
         per = {p: c.get(name, 0) for p, c in by_path.items()}

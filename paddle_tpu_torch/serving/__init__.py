@@ -1,18 +1,38 @@
-"""Continuous-batching serving (counterpart of ``paddle_tpu.serving``, the
-main-path slice: engine and its step programs, paged KV pool, prefix
-cache, adapter, sampler)."""
+"""Continuous-batching serving (counterpart of ``paddle_tpu.serving``: the
+engine and its step programs, paged KV pool, prefix cache, adapter,
+sampler; the request journal, the access log, multi-tenant QoS and the
+streaming HTTP front door with its CLI, ``python -m
+paddle_tpu_torch.serving serve``)."""
+from .access_log import AccessLog
 from .adapter import LlamaServingAdapter, build_adapter
 from .engine import Engine, EngineConfig, EngineOverloadedError
+from .journal import Journal, ReplayEntry
 from .kv_cache import BlockManager, KVPool
 from .metrics import EngineMetrics
 from .prefix_cache import PrefixCache, PrefixMatch, prompt_chain_digests
-from .request import Request, RequestOutput, RequestState, SamplingParams
+from .qos import (
+    QoS,
+    QoSConfig,
+    QoSRejection,
+    TenantPolicy,
+    UnknownTenantError,
+)
+from .request import (
+    Request,
+    RequestOutput,
+    RequestState,
+    RequestTimeline,
+    SamplingParams,
+)
 from .sampler import pack_sampling_params, sample_tokens
+from .server import Server, serve
 
 __all__ = [
-    "BlockManager", "Engine", "EngineConfig", "EngineMetrics",
-    "EngineOverloadedError", "KVPool", "LlamaServingAdapter",
-    "PrefixCache", "PrefixMatch", "Request", "RequestOutput",
-    "RequestState", "SamplingParams", "build_adapter",
-    "pack_sampling_params", "prompt_chain_digests", "sample_tokens",
+    "AccessLog", "BlockManager", "Engine", "EngineConfig", "EngineMetrics",
+    "EngineOverloadedError", "Journal", "KVPool", "LlamaServingAdapter",
+    "PrefixCache", "PrefixMatch", "QoS", "QoSConfig", "QoSRejection",
+    "ReplayEntry", "Request", "RequestOutput", "RequestState",
+    "RequestTimeline", "SamplingParams", "Server", "TenantPolicy",
+    "UnknownTenantError", "build_adapter", "pack_sampling_params",
+    "prompt_chain_digests", "sample_tokens", "serve",
 ]

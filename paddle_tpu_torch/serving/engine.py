@@ -79,21 +79,44 @@ reclaiming; that headroom is reclaimable like cached prefix blocks (freed
 before an admission waits, before a preemption, and not counted as
 pressure).
 
-Not ported yet (later slices): journal, QoS, HTTP front door, fleet,
-tensor parallelism, spill tier, step observatory (and its speculative
-reject count), SLO tracking, access log, poison isolation (it needs
-``resilience/faults.py``), the watchdog, the analysis gate (and its
+Durability and observability (the JAX engine's hooks):
+``EngineConfig(journal=)`` write-ahead logs every admission, the tokens
+of each step and every finish (``serving.journal``), and an engine built
+on a journal directory replays it before its first step: the unfinished
+requests join the head of the queue through ``resume``'s re-prefill, and
+the request-id counter moves past the journaled ids.
+``EngineConfig(access_log=)`` writes one JSONL line per finished request
+(``serving.access_log``); ``EngineConfig(slo=)`` tracks the windowed
+TTFT/TPOT error-budget burn behind ``health()["slo_burn_rates"]`` and
+its ``slo_burn`` flag. Every request carries a ``RequestTimeline``
+(queue wait, TTFT, prefill chunks, preemptions, resumes, speculation),
+fed into the per-phase latency digests that ``/metrics`` exports; the
+engine registers its ``health()`` for ``/healthz``. The HTTP front door
+over an engine is ``serving.server``.
+
+Not ported yet (later slices): fleet (placement, supervisor), tensor
+parallelism, spill tier, step observatory (and its speculative reject
+count), poison isolation, the watchdog, the analysis gate (and its
 ``check_verify``) and the compile cache.
 """
 from __future__ import annotations
 
 import collections
+import itertools
 import time
+import weakref
 
 import torch
 
 from ..generation import uniform_noise
+from ..observability import flight as _flight
+from ..observability import (
+    register_health_provider,
+    unregister_health_provider,
+)
+from ..observability.latency import SLOConfig, SLOTracker
 from . import speculation
+from .access_log import record_finish, resolve_access_log
 from .adapter import DECODE_KERNELS, build_adapter
 from .bucketing import next_bucket
 from .kv_cache import BlockManager, KVPool
@@ -118,6 +141,10 @@ class EngineOverloadedError(RuntimeError):
 
 
 _MASK63 = (1 << 63) - 1
+
+# monotonic engine ids (labels of the registry views and the health
+# provider): id(self) is reused after an engine is collected
+_engine_counter = itertools.count(1)
 
 
 def _mix(a, b):
@@ -159,7 +186,8 @@ class EngineConfig:
                  decode_kernel="auto", enable_prefix_cache=False,
                  prefix_cache_blocks=None, prefill_chunk_tokens=None,
                  max_prefill_chunks_per_step=1, speculate_tokens=None,
-                 speculate_ngram=3):
+                 speculate_ngram=3, journal=None, access_log=None,
+                 slo=None):
         if max_batch_slots < 1:
             raise ValueError("max_batch_slots must be >= 1")
         if page_size < 1 or max_model_len < 2:
@@ -280,6 +308,22 @@ class EngineConfig:
             )
         # longest trailing n-gram the prompt-lookup drafter matches on
         self.speculate_ngram = int(speculate_ngram)
+        # durable request journal (serving/journal.py): a directory path
+        # or a Journal. Every admission, step's tokens and finish is
+        # WAL-logged, and an engine built on the directory replays it
+        # before its first step
+        self.journal = journal
+        # JSONL access log (serving/access_log.py): a directory path or
+        # an AccessLog; one line per finished request
+        self.access_log = access_log
+        # latency SLO: windowed TTFT/TPOT error-budget burn; sustained
+        # burn flips health()["flags"] (and /healthz) to degraded
+        if slo is not None and not isinstance(slo, SLOConfig):
+            raise TypeError(
+                f"slo must be an observability.SLOConfig or None, got "
+                f"{type(slo).__name__}"
+            )
+        self.slo = slo
 
 
 class Engine:
@@ -333,7 +377,14 @@ class Engine:
                 "in one launch"
             )
         self.device = dev = torch.device(self.adapter.device)
-        self.metrics = EngineMetrics()
+        self.engine_id = f"{next(_engine_counter):x}"
+        # the metrics object doubles as a registry collector view
+        # (paddle_tpu_serving_* series labeled engine=<id>)
+        self.metrics = EngineMetrics(engine_id=self.engine_id)
+        self.access_log = (resolve_access_log(cfg.access_log)
+                           if cfg.access_log is not None else None)
+        self.slo = SLOTracker(cfg.slo) if cfg.slo is not None else None
+        self.metrics.slo = self.slo
         self.pool = KVPool(
             self.adapter.num_layers, self.adapter.num_kv_heads,
             cfg.num_blocks, cfg.page_size, self.adapter.head_dim,
@@ -389,6 +440,62 @@ class Engine:
         if dev.type == "cuda":
             self._graph_pool = torch.cuda.graph_pool_handle()
             self._capture_stream = torch.cuda.Stream(dev)
+        # the journal replays before any traffic (the programs are
+        # captured on first use, so before the first step): unfinished
+        # journaled requests join the queue head
+        self.journal = None
+        self._journal_replaying = False
+        if cfg.journal is not None:
+            from .journal import resolve_journal
+
+            self.journal = resolve_journal(cfg.journal, seed=cfg.seed)
+            self._replay_journal()
+        # /healthz aggregates this engine's health() through a weakref
+        # (the provider never pins a dead engine's pool); finalize drops
+        # it when the engine is collected
+        probe_name = f"serving.engine.{self.engine_id}"
+
+        def _probe(ref=weakref.ref(self)):
+            eng = ref()
+            return None if eng is None else eng.health()
+
+        register_health_provider(probe_name, _probe)
+        weakref.finalize(self, unregister_health_provider, probe_name)
+
+    # -- durable request journal (serving/journal.py) ------------------------
+    def _replay_journal(self):
+        """Crash recovery: fold the journal into unfinished requests and
+        re-admit them at the HEAD of the queue, oldest first. Each
+        carries its emitted tokens, so ``resume``'s re-prefill rebuilds
+        its KV over ``prompt + output[:-1]`` and no journaled token is
+        emitted again. Requests whose TTL lapsed while the process was
+        down retire as ``"timeout"``. The re-admissions are journaled
+        again (ADMIT with the cursor) so the dead incarnation's segments
+        compact once the recovered work drains."""
+        from .journal import restore_entries
+
+        entries = self.journal.replay()
+        if not entries:
+            self.journal.flush()
+            return
+        live, expired = restore_entries(
+            self.journal, entries,
+            lambda e, params: Request(e.prompt, params, request_id=e.rid),
+        )
+        self.metrics.requests_timeout += expired
+        self._journal_replaying = True
+        try:
+            for req in reversed(live):
+                self.resume(req)
+        finally:
+            self._journal_replaying = False
+        for req in live:   # re-ADMIT in admission order, cursor kept
+            self.journal.admit(req)
+        self.journal.flush()
+        _flight.record(
+            "serving", "journal-recovered", engine=self.engine_id,
+            requests=len(live), expired=len(entries) - len(live),
+        )
 
     # -- programs ------------------------------------------------------------
     def _program(self, fn, generator):
@@ -593,6 +700,10 @@ class Engine:
                 )
         self.waiting.append(req)
         self.metrics.requests_received += 1
+        if self.journal is not None and not self._journal_replaying:
+            # WAL the admission (buffered urgent; the step's flush makes
+            # it durable before any of its tokens can be)
+            self.journal.admit(req)
         return req
 
     def _active_pressure(self):
@@ -637,6 +748,11 @@ class Engine:
         req.state = RequestState.WAITING
         self.waiting.appendleft(req)
         self.metrics.requests_received += 1
+        req.timeline.resumes += 1
+        if self.journal is not None and not self._journal_replaying:
+            # re-ADMIT with the emit cursor: replay must not count the
+            # tokens this request already produced elsewhere again
+            self.journal.admit(req)
         return req
 
     def release(self, request_id):
@@ -722,9 +838,12 @@ class Engine:
         ``kv_reclaimable_blocks`` the prefix cache alone holds;
         ``prefix_cache_digests`` are the cached chain keys a router
         matches ``prompt_chain_digests`` against; ``spec_accept_rate`` is
-        accepted over proposed draft tokens (None before any draft). The
-        JAX engine's watchdog, SLO, spill and tensor-parallel fields wait
-        for their modules."""
+        accepted over proposed draft tokens (None before any draft).
+        Sustained SLO burn (``EngineConfig(slo=)``) is degraded too and
+        adds the ``slo_burn`` flag; ``slo_burn_rates`` is the windowed
+        burn per signal (None without an SLO). The JAX engine's
+        watchdog, spill and tensor-parallel fields wait for their
+        modules."""
         m, bm, cfg = self.metrics, self.block_manager, self.config
         util = bm.utilization()
         reclaimable, util_active = self._active_pressure()
@@ -732,7 +851,8 @@ class Engine:
                       and len(self.waiting) >= cfg.max_waiting)
         shedding = (cfg.kv_shed_threshold is not None
                     and util_active >= cfg.kv_shed_threshold)
-        degraded = bool(m.requests_timeout)
+        slo_burning = self.slo is not None and self.slo.burning()
+        degraded = bool(m.requests_timeout or slo_burning)
         overloaded = queue_full or shedding
         status = "ok"
         if degraded:
@@ -742,7 +862,10 @@ class Engine:
         return {
             "status": status,
             "flags": [f for f, on in (("degraded", degraded),
-                                      ("overloaded", overloaded)) if on],
+                                      ("overloaded", overloaded),
+                                      ("slo_burn", slo_burning)) if on],
+            "slo_burn_rates": (self.slo.burn_rates()
+                               if self.slo is not None else None),
             "queue_depth": len(self.waiting),
             "num_running": sum(r is not None for r in self.slots),
             "decode_kernel": cfg.decode_kernel,
@@ -779,8 +902,22 @@ class Engine:
             idxs = self._running()
             if idxs:
                 self._decode(idxs, finished)
+        if self.journal is not None:
+            # batched EMIT + group write (finished requests buffered
+            # theirs in _finish); a steady-state step is a near no-op
+            # until the write interval elapses or a completion makes the
+            # buffer urgent
+            self.journal.step_flush(self.slots)
+        m, bm = self.metrics, self.block_manager
+        m.queue_depth = len(self.waiting)
+        m.num_running = sum(r is not None for r in self.slots)
+        m.cache_utilization = bm.utilization()
+        m.kv_reclaimable_blocks, m.kv_active_utilization = (
+            self._active_pressure())
+        m.kv_headroom_blocks = bm.num_free + m.kv_reclaimable_blocks
+        m.pool_high_water = bm.high_water
         if self.prefix_cache is not None:
-            self.metrics.prefix_cache_blocks = len(self.prefix_cache)
+            m.prefix_cache_blocks = len(self.prefix_cache)
         return finished
 
     def _expire(self, finished):
@@ -850,6 +987,15 @@ class Engine:
             req.state = RequestState.PREFILLING
             req.admit_seq = self._admit_counter
             self._admit_counter += 1
+            # queue wait ends at the FIRST slot assignment (re-admissions
+            # after preemption keep the original stamp)
+            tl = req.timeline
+            first_admission = tl.admitted is None
+            tl.mark_admitted(self.engine_id)
+            if first_admission:
+                self.metrics.latency["queue"].record(tl.queue_wait_s)
+            if match is not None:
+                tl.prefix_hit_tokens += match.cache_len
             if match is not None and match.cow_src is not None:
                 # the cap cut into the last shared block: this request
                 # WRITES its final prefill token there, so it gets a
@@ -917,6 +1063,8 @@ class Engine:
         req.num_cached = len(tokens)
         self.metrics.prefill_tokens += len(tokens)
         self.metrics.prefill_steps += 1
+        req.timeline.prefill_chunks += 1
+        req.timeline.prefill_tokens += len(tokens)
         self._finish_prefill(req, tok)
 
     def _prefill_chunk(self, req, chunk, final):
@@ -947,6 +1095,8 @@ class Engine:
         self.metrics.prefill_tokens += len(chunk)
         self.metrics.prefill_steps += 1
         self.metrics.prefill_chunks += 1
+        req.timeline.prefill_chunks += 1
+        req.timeline.prefill_tokens += len(chunk)
         if final:
             self._finish_prefill(req, int(out[0].cpu()[0]))
 
@@ -959,6 +1109,7 @@ class Engine:
             req.last_token = req.output_token_ids[-1]
         else:
             req.first_token_time = time.perf_counter()
+            req.timeline.first_token = req.first_token_time
             self.metrics.record_ttft(req.first_token_time - req.arrival_time)
             req.output_token_ids.append(tok)
             req.last_token = tok
@@ -1059,6 +1210,9 @@ class Engine:
         req.num_cached = 0
         self.waiting.appendleft(req)
         self.metrics.preemptions += 1
+        req.timeline.preemptions += 1
+        _flight.record("serving", "preemption", engine=self.engine_id,
+                       request_id=req.request_id)
 
     def _launch_decode(self, idxs):
         """Run the decode program with only ``idxs`` active: stage every
@@ -1173,17 +1327,20 @@ class Engine:
         for i in idxs:
             req, draft = self.slots[i], drafts.get(i, [])
             a = speculation.accept_length(draft, tgt[i, :len(draft)])
+            req.timeline.verify_steps += 1
             if draft:
                 # draft-less slots are plain decodes, not samples
                 m.spec_proposed += len(draft)
                 m.spec_accepted += a
                 m.record_spec_accept(a)
+                req.timeline.spec_accepted += a
             for j in range(a + 1):
                 tok = int(tgt[i, j])
                 req.num_cached += 1
                 req.output_token_ids.append(tok)
                 req.last_token = tok
                 m.decode_tokens += 1
+                req.timeline.decode_tokens += 1
                 reason = req.check_stop(cfg.max_model_len)
                 if reason:
                     self._finish(req, reason, finished)
@@ -1202,6 +1359,7 @@ class Engine:
             req.output_token_ids.append(tok)
             req.last_token = tok
             self.metrics.decode_tokens += 1
+            req.timeline.decode_tokens += 1
             reason = req.check_stop(cfg.max_model_len)
             if reason:
                 self._finish(req, reason, finished)
@@ -1217,9 +1375,27 @@ class Engine:
             req.slot = None
 
     def _finish(self, req, reason, finished):
+        if reason == "timeout":
+            # degradation events belong in the postmortem ring; normal
+            # completions would only drown them out
+            _flight.record("serving", reason, engine=self.engine_id,
+                           request_id=req.request_id)
         req.finish_reason = reason
         req.state = RequestState.FINISHED
         req.finish_time = time.perf_counter()
+        # close the phase record, then the finish accounting: e2e/tpot
+        # digests and the SLO window (client aborts excluded), the
+        # access-log line and the flight timeline ring (aborts included)
+        req.timeline.mark_finish(reason, req.finish_time)
+        record_finish(
+            req, latency=self.metrics.latency, slo=self.slo,
+            access_log=self.access_log, engine=self.engine_id,
+        )
         self._release(req)
         self.metrics.requests_finished += 1
+        if self.journal is not None:
+            # trailing tokens + terminal record, buffered; the step's
+            # flush (the next one, for between-step aborts) makes the
+            # completion durable
+            self.journal.finish(req, reason)
         finished.append(RequestOutput(req))

@@ -1,11 +1,14 @@
 """Request lifecycle for the serving engine.
 
-Counterpart of ``paddle_tpu/serving/request.py``, cut to what this slice
-of the port runs: per-request sampling params (with the TTL and the
-sampling seed), token accounting, deadlines and stop conditions. The
-journal's ``to_dict``/``from_dict``, tenants and timelines wait for their
-slices. Stop semantics mirror ``generate``: the stop token itself is
-kept in the output.
+Counterpart of ``paddle_tpu/serving/request.py``: per-request sampling
+params (with the TTL and the sampling seed, and the journal's
+``to_dict``/``from_dict``), token accounting, deadlines and stop
+conditions, the tenant and trace id a request carries, and its
+``RequestTimeline`` (phase stamps and counters, surfaced on
+``RequestOutput.metrics``, the access log and the latency digests). The
+spill tier's handle and the goodput ledger's ``resume_cause`` wait for
+their modules. Stop semantics mirror ``generate``: the stop token itself
+is kept in the output.
 """
 from __future__ import annotations
 
@@ -13,8 +16,10 @@ import enum
 import itertools
 import time
 
+from ..observability.spans import current_trace_id
+
 __all__ = ["RequestState", "SamplingParams", "Request", "RequestOutput",
-           "normalize_sampling_params"]
+           "RequestTimeline", "normalize_sampling_params"]
 
 
 def normalize_sampling_params(prompts, sampling_params):
@@ -119,6 +124,129 @@ class SamplingParams:
             ids.add(int(self.eos_token_id))
         return ids
 
+    def to_dict(self):
+        """JSON-able form (the request journal's ADMIT payload, the same
+        keys as the JAX package's)."""
+        return {
+            "max_new_tokens": self.max_new_tokens,
+            "do_sample": self.do_sample,
+            "temperature": self.temperature,
+            "top_k": self.top_k,
+            "top_p": self.top_p,
+            "eos_token_id": self.eos_token_id,
+            "stop_token_ids": list(self.stop_token_ids),
+            "ttl_s": self.ttl_s,
+            "seed": self.seed,
+        }
+
+    @classmethod
+    def from_dict(cls, d):
+        """Inverse of :meth:`to_dict`. Unknown keys are ignored so a
+        journal written by a newer build still replays."""
+        known = (
+            "max_new_tokens", "do_sample", "temperature", "top_k",
+            "top_p", "eos_token_id", "stop_token_ids", "ttl_s", "seed",
+        )
+        return cls(**{k: d[k] for k in known if k in d})
+
+
+class RequestTimeline:
+    """Per-request lifecycle record: monotonic phase stamps plus the
+    event counters that explain a tail sample (chunks, prefix-cache
+    tokens, speculation, preemptions). Plain attributes bumped host-side
+    by the engine. Surfaced on ``RequestOutput.metrics`` and fed into
+    the engine's latency digests at finish.
+
+    Phase definitions (all from ``arrival``, ``time.perf_counter``):
+
+      queue_wait  arrival -> first slot assignment (``admitted``)
+      ttft        arrival -> first generated token
+      e2e         arrival -> finish
+      tpot        (finish - first token) / (output_tokens - 1), the
+                  steady-state inter-token latency (None for
+                  single-token outputs)
+    """
+
+    __slots__ = (
+        "arrival", "admitted", "first_token", "finish", "finish_reason",
+        "prefill_chunks", "prefill_tokens", "prefix_hit_tokens",
+        "decode_tokens", "verify_steps", "spec_accepted", "preemptions",
+        "resumes", "hops", "recovered",
+    )
+
+    def __init__(self, arrival):
+        self.arrival = arrival      # perf_counter at Request creation
+        self.admitted = None        # first slot assignment
+        self.first_token = None
+        self.finish = None
+        self.finish_reason = None
+        self.prefill_chunks = 0     # prefill launches (1 = one-shot)
+        self.prefill_tokens = 0     # tokens actually computed
+        self.prefix_hit_tokens = 0  # prompt tokens served from cache
+        self.decode_tokens = 0      # tokens emitted by decode/verify
+        self.verify_steps = 0       # speculative verify launches
+        self.spec_accepted = 0      # draft tokens accepted
+        self.preemptions = 0        # KV-pressure recompute preemptions
+        self.resumes = 0            # external resume() calls
+        self.hops = []              # engine ids that admitted it
+        self.recovered = False      # re-admitted from the journal
+
+    def mark_admitted(self, engine_id, now=None):
+        if now is None:
+            now = time.perf_counter()
+        if self.admitted is None:
+            self.admitted = now
+        if not self.hops or self.hops[-1] != engine_id:
+            self.hops.append(engine_id)
+        return now
+
+    def mark_finish(self, reason, now=None):
+        self.finish = now if now is not None else time.perf_counter()
+        self.finish_reason = reason
+        return self.finish
+
+    # -- derived phases (None until the transition happened) ---------------
+    @property
+    def queue_wait_s(self):
+        return (self.admitted - self.arrival
+                if self.admitted is not None else None)
+
+    @property
+    def ttft_s(self):
+        return (self.first_token - self.arrival
+                if self.first_token is not None else None)
+
+    @property
+    def e2e_s(self):
+        return self.finish - self.arrival if self.finish is not None else None
+
+    def tpot_s(self, n_output_tokens):
+        if (self.finish is None or self.first_token is None
+                or n_output_tokens < 2):
+            return None
+        return (self.finish - self.first_token) / (n_output_tokens - 1)
+
+    def snapshot(self, n_output_tokens=0):
+        """JSON-friendly phase breakdown: the access-log line body, the
+        flight-recorder timeline entry and ``RequestOutput.metrics``."""
+        return {
+            "queue_wait_s": self.queue_wait_s,
+            "ttft_s": self.ttft_s,
+            "tpot_s": self.tpot_s(n_output_tokens),
+            "e2e_s": self.e2e_s,
+            "finish_reason": self.finish_reason,
+            "prefill_chunks": self.prefill_chunks,
+            "prefill_tokens": self.prefill_tokens,
+            "prefix_hit_tokens": self.prefix_hit_tokens,
+            "decode_tokens": self.decode_tokens,
+            "verify_steps": self.verify_steps,
+            "spec_accepted": self.spec_accepted,
+            "preemptions": self.preemptions,
+            "resumes": self.resumes,
+            "hops": list(self.hops),
+            "recovered": self.recovered,
+        }
+
 
 _request_counter = itertools.count()
 
@@ -144,15 +272,29 @@ class Request:
         self.state = RequestState.WAITING
         self.output_token_ids: list = []
         self.finish_reason = None
+        self.error = None         # "ExcType: msg" when finish_reason="error"
         # scheduling fields (engine-owned while in a slot)
         self.block_ids: list = []
         self.num_cached = 0
         self.last_token = None
         self.slot = None
         self.admit_seq = -1       # admission order, for preemption policy
+        # output tokens already written to the request journal (the emit
+        # cursor; journal.admit/emit own it)
+        self.journal_cursor = 0
+        # QoS tenant (serving/qos.py); None for in-process callers.
+        # Journaled in ADMIT ("tn") so a replay restores its accounting
+        self.tenant = None
         self.arrival_time = time.perf_counter()
         self.first_token_time = None
         self.finish_time = None
+        # phase stamps and counters; journal replay re-anchors .arrival
+        # at the journaled wall-clock arrival
+        self.timeline = RequestTimeline(self.arrival_time)
+        # trace attribution captured at CREATION, on the submitting
+        # thread: at finish the stepping thread's ambient span belongs
+        # to no client
+        self.trace_id = current_trace_id()
         self.deadline = (
             self.arrival_time + self.sampling_params.ttl_s
             if self.sampling_params.ttl_s is not None else None
@@ -195,6 +337,7 @@ class RequestOutput:
         self.prompt_token_ids = list(request.prompt_token_ids)
         self.token_ids = list(request.output_token_ids)
         self.finish_reason = request.finish_reason
+        self.error = request.error
         self.time_to_first_token = (
             request.first_token_time - request.arrival_time
             if request.first_token_time is not None else None
@@ -202,6 +345,11 @@ class RequestOutput:
         self.latency = (
             request.finish_time - request.arrival_time
             if request.finish_time is not None else None
+        )
+        # phase breakdown + lifecycle counters (the per-request view the
+        # latency digests aggregate)
+        self.metrics = request.timeline.snapshot(
+            len(request.output_token_ids)
         )
 
     def __repr__(self):

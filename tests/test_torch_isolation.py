@@ -1,7 +1,8 @@
 """paddle_tpu_torch stands alone: importing it (its serving, training,
-MoE and quantization modules too) loads neither jax nor anything of
-paddle_tpu, and its entry points refuse to fall back to the CPU quietly
-when no CUDA device exists."""
+MoE and quantization modules, the journal, QoS, the HTTP server and its
+CLI too) loads neither jax nor anything of paddle_tpu, and its entry
+points refuse to fall back to the CPU quietly when no CUDA device
+exists."""
 import os
 import subprocess
 import sys
@@ -31,6 +32,13 @@ import paddle_tpu_torch.optimizer
 import paddle_tpu_torch.nn
 import paddle_tpu_torch.jit
 import paddle_tpu_torch.distributed
+import paddle_tpu_torch.resilience
+import paddle_tpu_torch.observability
+import paddle_tpu_torch.serving.journal
+import paddle_tpu_torch.serving.access_log
+import paddle_tpu_torch.serving.qos
+import paddle_tpu_torch.serving.server
+import paddle_tpu_torch.serving.__main__
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.")
@@ -162,3 +170,32 @@ def test_prefill_ext_on_cpu_tensors_takes_the_plain_version():
     assert bool(torch.isfinite(logits).all())
     assert set(_build.launch_counts().values()) == {0}
     assert _build._libs == {}
+
+
+def test_cli_and_serve_default_to_the_card(capsys):
+    """``python -m paddle_tpu_torch.serving serve`` without ``--device``
+    builds its engine on the card: without one it exits with the named
+    error and starts nothing; ``serve`` fronts whatever engine it is
+    given, and an engine over a default-device model cannot be built."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import Engine, EngineConfig, serve
+    from paddle_tpu_torch.serving.__main__ import main
+
+    _require_no_cuda()
+    assert main(["serve", "--model", "tiny", "--port", "0"]) == 2
+    err = capsys.readouterr().err
+    assert "error: ConfigError" in err and "no CUDA device" in err
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LlamaForCausalLM(LlamaConfig.tiny())
+    engine = Engine(LlamaForCausalLM(LlamaConfig.tiny(), device="cpu"),
+                    EngineConfig(max_batch_slots=2, max_model_len=16,
+                                 page_size=4))
+    import signal
+
+    term = signal.getsignal(signal.SIGTERM)
+    srv = serve(engine, port=0)     # installs the SIGTERM drain
+    try:
+        assert srv.backend.device == torch.device("cpu")
+    finally:
+        srv.close()
+        signal.signal(signal.SIGTERM, term)
