@@ -41,8 +41,10 @@ Phases, in order; any failure exits non-zero:
                shape, (cache_len, chunk) of (192, 128), (0, 128), (37, 61)
                and (496, 16); GQA hq 32, hkv 4, d 64; f32 and float16 q;
                int8 pages with bf16, float16 and f32 q: the chunk's rows
-               within
-               the gate, every row finite; its time beside the library's
+               within the gate, every row finite, on both designs (the
+               split design the wrapper takes, and ``design="ring"``, the
+               earlier kernel; f32 q: the FMA kernel), each timed through
+               the wrapper and alone; beside them the library's time
                (the page gather and SDPA with the mask) and, at cache_len
                0, the flash kernel's on the same tokens. Its batched form
                (one launch for every slot: the verify window) at the
@@ -50,9 +52,10 @@ Phases, in order; any failure exits non-zero:
                positions over 0-507, two slots inactive, one window
                reaching the table's capacity: bf16, int8 pages, GQA hq 32,
                hkv 4, d 64, f32 and float16 q; the active slots' valid
-               rows within the gate, every row finite; its time beside the
-               library's (the batched page gather and one SDPA call with
-               the [slots, 1, S, C] mask).
+               rows within the gate, every row finite, both designs; its
+               times beside the library's (the batched page gather and
+               one SDPA call with the [slots, 1, S, C] mask). The split
+               design's median against the ring's is reported per case.
 4. parity   — tiny f32 Llama (MHA and GQA), the engine's programs
                captured as CUDA graphs: greedy outputs token-identical to
                the port's ``generate``, with ``decode_kernel`` "auto" and
@@ -943,18 +946,63 @@ def kv_write_case(torch, kw, flush, name, dtype, n, prefill, quant):
     return case
 
 
+def _prefill_designs(torch, pp, flush, name, run, launch, rows, dtype, d,
+                     page):
+    """Both designs of the continuation kernel on one case: the wrapper's
+    default (``split``; ``fma`` for f32 q) and ``design="ring"`` (the
+    earlier kernel; f32: the same FMA kernel, run once). Each is held to
+    ``GATE`` against the plain version (``run("plain")``) on the rows
+    ``rows`` picks, every row finite, and timed (mean and median of 20)
+    through the
+    wrapper (``run(design)``) and alone (``launch(design)``). Returns
+    {design: stats}, the default first."""
+    ref = run("plain")
+    variants = {}
+    for req in (None, "ring"):
+        design = pp.design_for(dtype, d, page, req)
+        if design in variants:
+            continue
+        out = run(req)
+        torch.cuda.synchronize()
+        ok, stats = compare(rows(out), rows(ref))
+        check(ok and bool(out.isfinite().all()),
+              f"paged_prefill {name} ({design}): {stats} outside the gate, "
+              f"or a row not finite")
+        ms, median_ms = cuda_times(torch, lambda: run(req), 20, flush)
+        kernel_ms, kernel_median_ms = cuda_times(
+            torch, lambda: launch(req), 20, flush)
+        variants[design] = {**stats, "ms": ms, "median_ms": median_ms,
+                            "kernel_ms": kernel_ms,
+                            "kernel_median_ms": kernel_median_ms}
+    return variants
+
+
+def _prefill_case_times(variants):
+    """The case's headline numbers: the default design's, and the ring
+    design's beside them (``ring_*``; f32: the FMA kernel's own)."""
+    design = next(iter(variants))
+    head, ring = variants[design], variants.get("ring", variants[design])
+    return {"design": design, **head,
+            "ring_ms": ring["ms"], "ring_median_ms": ring["median_ms"],
+            "ring_kernel_ms": ring["kernel_ms"],
+            "ring_kernel_median_ms": ring["kernel_median_ms"],
+            "max_abs_err": max(v["max_abs_err"] for v in variants.values()),
+            "variants": variants}
+
+
 def paged_prefill_case(torch, pp, fa, flush, name, dtype, hq, hkv, d,
                        cache_len, n, quant=False):
     """The continuation kernel against ``paged_prefill_ref`` on the same
     pages (the serving pool's geometry: page 16, 32 pages a table, 256
     blocks and the sink), ``n`` chunk tokens after ``cache_len`` cached
     ones, q padded to the engine's bucket (the next power of two from 16):
-    rows below ``n`` within ``GATE``, every row finite. Times (mean and
-    median of 20) the wrapper's call, the plain version, and the library:
-    the same function in PyTorch calls (the gather of the table's pages
-    and ``F.scaled_dot_product_attention`` with the boolean mask, which
-    is precomputed); at ``cache_len`` 0 also the flash kernel on the same
-    n tokens' contiguous K/V (what one-shot prefill runs)."""
+    rows below ``n`` within ``GATE``, every row finite, on both designs
+    (``_prefill_designs``). Times (mean and median of 20) the wrapper's
+    call and the kernel alone on each design, the plain version, and the
+    library: the same function in PyTorch calls (the gather of the
+    table's pages and ``F.scaled_dot_product_attention`` with the boolean
+    mask, which is precomputed); at ``cache_len`` 0 also the flash kernel
+    on the same n tokens' contiguous K/V (what one-shot prefill runs)."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels.paged_attention import quantize_tokens
@@ -974,25 +1022,21 @@ def paged_prefill_case(torch, pp, fa, flush, name, dtype, hq, hkv, d,
             else (kp, vp))
     cl = torch.tensor(cache_len, dtype=torch.int32, device=dev)
     ln = torch.tensor(n, dtype=torch.int32, device=dev)
-    out = pp.paged_prefill(q, k, v, table, cl, ln)
-    ref = pp.paged_prefill_ref(q, k, v, table, cl, ln)
-    torch.cuda.synchronize()
-    ok, stats = compare(out[:n], ref[:n])
-    check(ok and bool(out.isfinite().all()),
-          f"paged_prefill {name}: {stats} outside the gate, or a padded row "
-          f"not finite")
-    ms, median_ms = cuda_times(
-        torch, lambda: pp.paged_prefill(q, k, v, table, cl, ln), 20, flush)
-    # the kernel alone: the inputs as the wrapper hands them over
     kq, ks = pp.split_pages(k)
     vq, vs = pp.split_pages(v)
-    kernel_ms, kernel_median_ms = cuda_times(
-        torch, lambda: pp._launch(q[None], kq, vq, ks, vs, table[None],
-                                  cl.reshape(1), ln.reshape(1), d ** -0.5),
-        20, flush)
-    plain_ms = cuda_ms(
-        torch, lambda: pp.paged_prefill_ref(q, k, v, table, cl, ln), 10,
-        flush)
+
+    def run(design):
+        if design == "plain":
+            return pp.paged_prefill_ref(q, k, v, table, cl, ln)
+        return pp.paged_prefill(q, k, v, table, cl, ln, design=design)
+
+    def launch(design):   # the inputs as the wrapper hands them over
+        return pp._launch(q[None], kq, vq, ks, vs, table[None],
+                          cl.reshape(1), ln.reshape(1), d ** -0.5, design)
+
+    variants = _prefill_designs(torch, pp, flush, name, run, launch,
+                                lambda x: x[:n], dtype, d, page)
+    plain_ms = cuda_ms(torch, lambda: run("plain"), 10, flush)
     cap = pps * page
     keep = (torch.arange(cap, device=dev)[None, :]
             <= cache_len + torch.arange(s, device=dev)[:, None])
@@ -1032,10 +1076,8 @@ def paged_prefill_case(torch, pp, fa, flush, name, dtype, hq, hkv, d,
     bound_ms, bound_by = bound(nbytes, flops, dtype, torch)
     case = {"case": name, "dtype": str(dtype).split(".")[-1], "int8": quant,
             "hq": hq, "hkv": hkv, "d": d, "cache_len": cache_len,
-            "chunk": n, "q_rows": s, **stats, "ms": ms,
-            "median_ms": median_ms, "kernel_ms": kernel_ms,
-            "kernel_median_ms": kernel_median_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms,
+            "chunk": n, "q_rows": s, **_prefill_case_times(variants),
+            "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "page gather + F.scaled_dot_product_attention "
                        "(bool mask)",
             **extra, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1061,10 +1103,11 @@ def paged_prefill_batched_case(torch, pp, flush, name, dtype, hq, hkv, d,
     table, 256 blocks and the sink), 8 slots of S = 5 rows at
     ``VERIFY_POSITIONS`` with ``VERIFY_DRAFTS`` + 1 valid rows and
     ``VERIFY_ACTIVE``: the active slots' valid rows within ``GATE``,
-    every row finite. Times (mean and median of 20) the wrapper's call,
-    the kernel alone, the plain version and the library: the batched page
-    gather and one ``F.scaled_dot_product_attention`` with the [slots, 1,
-    S, C] boolean mask (precomputed)."""
+    every row finite, on both designs (``_prefill_designs``, each timed
+    through the wrapper and alone). Times the plain version and the
+    library: the batched page gather and one
+    ``F.scaled_dot_product_attention`` with the [slots, 1, S, C] boolean
+    mask (precomputed)."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels.paged_attention import quantize_tokens
@@ -1085,24 +1128,22 @@ def paged_prefill_batched_case(torch, pp, flush, name, dtype, hq, hkv, d,
     cl = torch.tensor(VERIFY_POSITIONS, dtype=torch.int32, device=dev)
     ln = torch.where(active, torch.tensor(VERIFY_DRAFTS, device=dev) + 1,
                      0).to(torch.int32)
-    out = pp.paged_prefill(q, k, v, tables, cl, ln)
-    ref = pp.paged_prefill_ref(q, k, v, tables, cl, ln)
-    torch.cuda.synchronize()
     rows = torch.arange(s, device=dev)[None] < ln[:, None]     # [n, S]
-    ok, stats = compare(out[rows], ref[rows])
-    check(ok and bool(out.isfinite().all()),
-          f"paged_prefill {name}: {stats} outside the gate, or a row not "
-          f"finite")
-    ms, median_ms = cuda_times(
-        torch, lambda: pp.paged_prefill(q, k, v, tables, cl, ln), 20, flush)
     kq, ks = pp.split_pages(k)
     vq, vs = pp.split_pages(v)
-    kernel_ms, kernel_median_ms = cuda_times(
-        torch, lambda: pp._launch(q, kq, vq, ks, vs, tables, cl, ln,
-                                  d ** -0.5), 20, flush)
-    plain_ms = cuda_ms(
-        torch, lambda: pp.paged_prefill_ref(q, k, v, tables, cl, ln), 10,
-        flush)
+
+    def run(design):
+        if design == "plain":
+            return pp.paged_prefill_ref(q, k, v, tables, cl, ln)
+        return pp.paged_prefill(q, k, v, tables, cl, ln, design=design)
+
+    def launch(design):
+        return pp._launch(q, kq, vq, ks, vs, tables, cl, ln, d ** -0.5,
+                          design)
+
+    variants = _prefill_designs(torch, pp, flush, name, run, launch,
+                                lambda x: x[rows], dtype, d, page)
+    plain_ms = cuda_ms(torch, lambda: run("plain"), 10, flush)
     cap = pps * page
     keep = (torch.arange(cap, device=dev)[None, None, :]
             <= (cl[:, None] + torch.arange(s, device=dev)[None])[:, :, None])
@@ -1136,9 +1177,8 @@ def paged_prefill_batched_case(torch, pp, flush, name, dtype, hq, hkv, d,
     bound_ms, bound_by = bound(nbytes, flops, dtype, torch)
     case = {"case": name, "dtype": str(dtype).split(".")[-1], "int8": quant,
             "hq": hq, "hkv": hkv, "d": d, "slots": n, "window": s,
-            "positions": VERIFY_POSITIONS, "lengths": lens, **stats,
-            "ms": ms, "median_ms": median_ms, "kernel_ms": kernel_ms,
-            "kernel_median_ms": kernel_median_ms, "plain_ms": plain_ms,
+            "positions": VERIFY_POSITIONS, "lengths": lens,
+            **_prefill_case_times(variants), "plain_ms": plain_ms,
             "library_ms": library_ms,
             "library": "batched page gather + F.scaled_dot_product_"
                        "attention ([slots, 1, S, C] bool mask)",
@@ -1560,10 +1600,10 @@ def host_dispatch_probe():
     count, record, replay = (_build.count_launch, _build.record_launches,
                              programs.Program._replay)
 
-    def counted(name, variant=None):
+    def counted(name, *variants):
         if state["depth"] == 0:
             state["direct"] += 1
-        count(name, variant)
+        count(name, *variants)
 
     def recorded(fn):
         state["depth"] += 1
@@ -1648,7 +1688,8 @@ def _serving_gates(tag, counts, m, probe, L, paged, kv_variant, flash,
     replay-accounted: every decode step L paged launches on the cluster
     kernel, every one-shot prefill L flash launches (``flash``), every
     continuation chunk and every verify step L ``paged_prefill``
-    launches and every step L kv_write launches; no wrapper launched
+    launches, all on its split design, and every step L kv_write
+    launches; no wrapper launched
     outside a program's capture, one replay per step and per
     copy-on-write; ``decode_programs`` decode programs and at most one
     prefill program (and one continuation program) per bucket, at most
@@ -1669,10 +1710,11 @@ def _serving_gates(tag, counts, m, probe, L, paged, kv_variant, flash,
     ext = "int8" if kv_variant == "int8" else "float"
     check(counts["paged_prefill"] == (m.prefill_chunks + m.verify_steps) * L
           and counts.get(f"paged_prefill/{ext}", 0) == counts["paged_prefill"]
+          and counts.get("paged_prefill/split", 0) == counts["paged_prefill"]
           and counts["paged_prefill_ref"] == 0,
           f"{tag}: paged_prefill launches {counts['paged_prefill']} != "
           f"(chunks {m.prefill_chunks} + verify steps {m.verify_steps}) x "
-          f"{L} on the {ext} kernel")
+          f"{L} on the {ext} kernel's split design ({counts})")
     steps = m.decode_steps + m.prefill_steps + m.verify_steps
     check(counts["kv_write"] == steps * L
           and counts.get(f"kv_write/{kv_variant}", 0) == steps * L,
@@ -3669,6 +3711,66 @@ def _profiled_steps(torch, engine, n, tag, port_names):
             "port_kernels_us_calls_per_step": ours}
 
 
+@contextlib.contextmanager
+def _ring_paged_prefill():
+    """Every continuation-kernel launch made inside takes the ring design
+    (the engine has no such knob: its programs take the split design), so
+    the profile can set the two designs side by side in one run."""
+    from paddle_tpu_torch.kernels import paged_prefill as pp
+
+    design_for = pp.design_for
+    pp.design_for = lambda dtype, d, page, design=None: design_for(
+        dtype, d, page, "ring")
+    try:
+        yield
+    finally:
+        pp.design_for = design_for
+
+
+def _spec_profile(torch, model, kv, pool, design, n):
+    """The serving_spec cell's step, replayed, under torch.profiler
+    (``_profiled_steps``): ``speculate_tokens=4`` over 8 prompts of one
+    repeated token, n steps after 40, with the verify step's device time
+    and the continuation kernel's share of it."""
+    from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
+
+    engine = Engine(model, EngineConfig(
+        max_batch_slots=8, max_model_len=512, page_size=16,
+        kv_cache_dtype=kv, speculate_tokens=SPEC_K))
+    rng = np.random.RandomState(3)
+    for t in rng.randint(1, 32000, 8):
+        engine.add_request([int(t)] * SPEC_PROMPT_COPIES,
+                           SamplingParams(max_new_tokens=496))
+    for _ in range(40):
+        engine.step()
+    m = engine.metrics
+    v0, d0 = m.verify_steps, m.decode_steps
+    r = _profiled_steps(
+        torch, engine, n, f"{pool} pool, speculative step (K = {SPEC_K}, 8 "
+                          f"slots, {design} design)",
+        ("kv_write", "paged_decode", "paged_prefill"))
+    # the window ran 2n steps (profiled, then plain)
+    r["verify_steps"] = m.verify_steps - v0
+    r["decode_steps"] = m.decode_steps - d0
+    # the verify step's device time and the continuation kernel's share
+    # of it: L paged_prefill launches a verify step
+    us, calls = r["port_kernels_us_calls_per_step"].get(
+        "paged_prefill", (0.0, 0.0))
+    L = SERVING_CFG["num_hidden_layers"]
+    r["verify_fraction"] = calls / L
+    r["paged_prefill_ms_per_verify_step"] = (
+        us / 1e3 / r["verify_fraction"] if calls else None)
+    r["paged_prefill_share"] = us / 1e3 / r["device_busy_ms"]
+    log(f"[profile] {pool} pool, {design} design: {r['verify_steps']} "
+        f"verify and {r['decode_steps']} decode steps in {2 * n} steps; "
+        f"device busy {r['device_busy_ms']:.3f} ms/step with "
+        f"{r['verify_fraction']:.2f} verify steps a step; paged_prefill "
+        f"{us / 1e3:.4f} ms/step ({calls:.1f} launches), "
+        f"{100 * r['paged_prefill_share']:.1f} % of the device time")
+    del engine
+    return r
+
+
 def phase_profile(torch):
     """Where a full-width decode step's time goes, over the bf16 pool and
     the int8 pool, both ways: the decode program replayed (the engine's
@@ -3678,10 +3780,11 @@ def phase_profile(torch):
     launch calls per step (``HOST_LAUNCH_CALLS``: one graph launch a step
     when replayed); then the same 20 steps without the profiler (wall ms
     per step), and 20 runs of the 128-token bucket's prefill program
-    (wall ms to a sync). Then the serving_spec cell's step, replayed:
-    ``speculate_tokens=4`` over 8 prompts of one repeated token, 20 steps
-    after 40 (verify steps, each with its drafting). Not part of the
-    default run."""
+    (wall ms to a sync). Then the serving_spec cell's step, replayed
+    (``_spec_profile``), with the continuation kernel's split design (the
+    engine's) and then its ring design (``_ring_paged_prefill``): the
+    verify step's device time and the kernel's share of it on each. Not
+    part of the default run."""
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
 
@@ -3723,29 +3826,21 @@ def phase_profile(torch):
                 f"128): {r['prefill_128_ms']:.3f} ms")
             result[f"{pool}_{way}"] = r
             del engine
-        engine = Engine(model, EngineConfig(
-            max_batch_slots=8, max_model_len=512, page_size=16,
-            kv_cache_dtype=kv, speculate_tokens=SPEC_K))
-        rng = np.random.RandomState(3)
-        for t in rng.randint(1, 32000, 8):
-            engine.add_request([int(t)] * SPEC_PROMPT_COPIES,
-                               SamplingParams(max_new_tokens=496))
-        for _ in range(40):
-            engine.step()
-        m = engine.metrics
-        v0, d0 = m.verify_steps, m.decode_steps
-        r = _profiled_steps(
-            torch, engine, n, f"{pool} pool, speculative step (K = "
-                              f"{SPEC_K}, 8 slots)",
-            ("kv_write", "paged_decode", "paged_prefill"))
-        # the window ran 2n steps (profiled, then plain)
-        r["verify_steps"] = m.verify_steps - v0
-        r["decode_steps"] = m.decode_steps - d0
-        log(f"[profile] {pool} pool, speculative window: "
-            f"{r['verify_steps']} verify and {r['decode_steps']} decode "
-            f"steps in {2 * n} steps")
-        result[f"{pool}_spec"] = r
-        del engine
+        # the speculative step on each design of the continuation kernel,
+        # split (the engine's) then ring, each engine capturing its own
+        # programs
+        result[f"{pool}_spec"] = _spec_profile(torch, model, kv, pool,
+                                               "split", n)
+        with _ring_paged_prefill():
+            result[f"{pool}_spec_ring"] = _spec_profile(torch, model, kv,
+                                                        pool, "ring", n)
+        split, ring = result[f"{pool}_spec"], result[f"{pool}_spec_ring"]
+        log(f"[profile] {pool} pool, verify step device time: split "
+            f"{split['device_busy_ms']:.3f} ms against ring "
+            f"{ring['device_busy_ms']:.3f} ms; paged_prefill "
+            f"{split['paged_prefill_ms_per_verify_step'] or 0:.4f} against "
+            f"{ring['paged_prefill_ms_per_verify_step'] or 0:.4f} ms a "
+            f"verify step")
     return result
 
 
@@ -3873,6 +3968,16 @@ def main(argv=None):
                 log(f"[kernels] cases >10% slower on the wrapper's choice "
                     f"than on the previous kernel ({stat}): "
                     f"{slower or 'none'}")
+            # the continuation kernel's split design against the ring
+            # design, kernels alone, same inputs and run: reported, not
+            # gated (the cases are 0.01-0.04 ms)
+            ratio = {c["case"]: round(c["kernel_median_ms"]
+                                      / c["ring_kernel_median_ms"], 3)
+                     for c in pfx + pfx_batched if c["design"] == "split"}
+            report["phases"]["kernels"]["paged_prefill_split_vs_ring"] = ratio
+            log(f"[kernels] paged_prefill split / ring median (kernel "
+                f"alone): {ratio}; slower than the ring: "
+                f"{[k for k, r in ratio.items() if r > 1] or 'none'}")
         report["phases"].update(results)
         (serving, serving_int8, serving_f16, serving_prefix, serving_spec,
          server, journal, train, moe) = (results.get(p) for p in (
@@ -4057,73 +4162,72 @@ def main(argv=None):
                              ("int8", next(c for c in kvw
                                            if c["case"] == "decode_int8")))],
         })
+    def prefill_entry(name, replaces, cases, head, int8, paths, shape):
+        """The continuation kernel at ``head``'s shape on its default
+        design (``split``), the ring design's times beside it, both
+        designs under "designs" and the int8-page instance under
+        "variants", each with its launches on ``paths`` ({path:
+        counts})."""
+        def count(key):
+            per = {p: c.get(key, 0) for p, c in paths.items()}
+            return {"launches": sum(per.values()), "launches_by_path": per}
+
+        return {
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/paged_prefill.cu",
+            "replaces": replaces, **count("paged_prefill"),
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "design": head["design"], "ms": head["ms"],
+            "median_ms": head["median_ms"], "kernel_ms": head["kernel_ms"],
+            "kernel_median_ms": head["kernel_median_ms"],
+            "ring_ms": head["ring_ms"],
+            "ring_median_ms": head["ring_median_ms"],
+            "ring_kernel_median_ms": head["ring_kernel_median_ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "shape": shape,
+            "designs": [{
+                "design": design, **count(f"paged_prefill/{design}"),
+                **{k: v[k] for k in ("ms", "median_ms", "kernel_ms",
+                                     "kernel_median_ms", "max_abs_err")}}
+                for design, v in head["variants"].items()],
+            "variants": [{
+                "variant": v, **count(f"paged_prefill/{v}"),
+                **{k: c[k] for k in ("ms", "median_ms", "kernel_ms",
+                                     "kernel_median_ms", "ring_ms",
+                                     "ring_median_ms", "plain_ms",
+                                     "library_ms", "bound_ms")},
+                "shape": c["case"]}
+                for v, c in (("float", head), ("int8", int8))],
+        }
+
     if paged is not None:
         # the continuation kernel at the serving shape (a 128-token chunk
         # after 192 cached tokens, bf16 pages; library: the page gather and
-        # F.scaled_dot_product_attention with the mask), the int8-page
-        # instance under "variants"
+        # F.scaled_dot_product_attention with the mask)
         head = pfx[0]
-        kernels.append({
-            "name": "paged_prefill", "route": "cuda",
-            "source": "paddle_tpu_torch/kernels/csrc/paged_prefill.cu",
-            "replaces": "paddle_tpu/serving/adapter.py:428 (_gather_context "
-                        ":246 + masked _sdpa: XLA, no TPU kernel)",
-            **launches("paged_prefill"),
-            "max_abs_err": max(c["max_abs_err"] for c in pfx),
-            "ms": head["ms"], "median_ms": head["median_ms"],
-            "kernel_ms": head["kernel_ms"],
-            "kernel_median_ms": head["kernel_median_ms"],
-            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "shape": f"{head['case']}: hq 16, hkv 16, d 128, page 16, "
-                     f"cache_len {head['cache_len']}, chunk {head['chunk']}",
-            "variants": [{
-                "variant": v, **launches(f"paged_prefill/{v}"),
-                "ms": c["ms"], "median_ms": c["median_ms"],
-                "kernel_ms": c["kernel_ms"],
-                "plain_ms": c["plain_ms"], "library_ms": c["library_ms"],
-                "bound_ms": c["bound_ms"], "shape": c["case"]}
-                for v, c in (("float", head),
-                             ("int8", next(c for c in pfx
-                                           if c["case"] == "int8_192_128")))],
-        })
-    if paged is not None:
-        # the same kernel's batched form at the serving cell's verify shape
-        # (8 slots, a 5-token window each, bf16 pages; library: the batched
-        # page gather and one SDPA call with the [slots, 1, S, C] mask);
-        # its launches are serving_spec's paged_prefill launches (there,
-        # every one is a verify step's), the int8 instance under "variants"
+        kernels.append(prefill_entry(
+            "paged_prefill",
+            "paddle_tpu/serving/adapter.py:428 (_gather_context :246 + "
+            "masked _sdpa: XLA, no TPU kernel)", pfx, head,
+            next(c for c in pfx if c["case"] == "int8_192_128"), by_path,
+            f"{head['case']}: hq 16, hkv 16, d 128, page 16, cache_len "
+            f"{head['cache_len']}, chunk {head['chunk']}"))
+        # its batched form at the serving cell's verify shape (8 slots, a
+        # 5-token window each, bf16 pages; library: the batched page gather
+        # and one SDPA call with the [slots, 1, S, C] mask); its launches
+        # are serving_spec's paged_prefill launches (there, every one is a
+        # verify step's)
         head = pfx_batched[0]
-        spec_counts = by_path["serving_spec"]
-        kernels.append({
-            "name": "paged_prefill_batched", "route": "cuda",
-            "source": "paddle_tpu_torch/kernels/csrc/paged_prefill.cu",
-            "replaces": "paddle_tpu/serving/adapter.py:544 (verify: "
-                        "_gather_context_batch :232 + masked _sdpa: XLA, "
-                        "no TPU kernel)",
-            "launches": spec_counts.get("paged_prefill", 0),
-            "launches_by_path": {
-                "serving_spec": spec_counts.get("paged_prefill", 0)},
-            "max_abs_err": max(c["max_abs_err"] for c in pfx_batched),
-            "ms": head["ms"], "median_ms": head["median_ms"],
-            "kernel_ms": head["kernel_ms"],
-            "kernel_median_ms": head["kernel_median_ms"],
-            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "shape": f"{head['case']}: 8 slots x 5 rows, hq 16, hkv 16, "
-                     f"d 128, page 16, positions {head['positions']}, "
-                     f"lengths {head['lengths']}",
-            "variants": [{
-                "variant": v, "launches": spec_counts.get(
-                    f"paged_prefill/{v}", 0),
-                "ms": c["ms"], "median_ms": c["median_ms"],
-                "kernel_ms": c["kernel_ms"],
-                "plain_ms": c["plain_ms"], "library_ms": c["library_ms"],
-                "bound_ms": c["bound_ms"], "shape": c["case"]}
-                for v, c in (("float", head),
-                             ("int8", next(c for c in pfx_batched
-                                           if c["case"] == "verify_int8")))],
-        })
+        kernels.append(prefill_entry(
+            "paged_prefill_batched",
+            "paddle_tpu/serving/adapter.py:544 (verify: "
+            "_gather_context_batch :232 + masked _sdpa: XLA, no TPU kernel)",
+            pfx_batched, head,
+            next(c for c in pfx_batched if c["case"] == "verify_int8"),
+            {"serving_spec": by_path["serving_spec"]},
+            f"{head['case']}: 8 slots x 5 rows, hq 16, hkv 16, d 128, page "
+            f"16, positions {head['positions']}, lengths {head['lengths']}"))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

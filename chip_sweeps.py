@@ -41,6 +41,16 @@ Sweeps:
   are), bf16 rhs and int8 rhs (at the widths the int8 wgmma kernel takes,
   m % 16 == 0), for ``grouped_matmul.WGMMA_MIN_MACS`` and
   ``INT8_WGMMA_MIN_MACS``, in two turns with the kernels' order swapped;
+* ``prefill_split``: the continuation kernel's split design at forced
+  geometries (splits 1, 2, 4 and 8 in a build whose clusters go to 8
+  blocks; ring depth 3 and 6) beside the wrapper's choice and the ring
+  design, at the chunk shapes and the serving cell's verify windows;
+* ``prefill_slices``: its 64-row tiles at d 128 with one key slice (4
+  warps, as built) against two (8 warps), at the chunk shapes;
+* ``prefill_mma``: the continuation kernel's split design alone
+  (``_launch``) with its 64-row tiles at d 128 on wgmma (as built) and on
+  mma.sync, at the serving pool's chunk shapes, bf16 and int8 pages
+  (the 16-row (496, 16) case, mma.sync in both, as a control);
 * ``paged_cluster``: the cluster paged-decode kernel alone (``_launch``)
   at its tile and ring depth (32-token tiles in 2 or 3 stages, 16-token
   tiles in 4), cluster size (at most 4 or 8 blocks) and least chunk (64
@@ -100,6 +110,14 @@ SWEEPS = {
         "stages_3": {"gmm_int8_stages": "3"},
         "depth_2": {"gmm_int8_depth": "2"},
     }),
+    "prefill_mma": ("paged_prefill", {
+        "wgmma": {},
+        "mma_sync": {"prefill_wgmma": "false"},
+    }),
+    "prefill_slices": ("paged_prefill", {
+        "as_built": {},
+        "two_slices_d128": {"prefill_slices_d128": "2"},
+    }),
     "paged_cluster": ("paged_attention", {
         "as_built": {},
         "tile_16_stages_4": {"paged_tile": "16", "paged_stages": "4"},
@@ -147,6 +165,27 @@ GMM_CROSSOVER = [(name, t, k, m, ["mma", "wgmma"]) for name, t, k, m in (
 # int8 rhs at the widths its wgmma kernel takes (m % 16 == 0)
 GMM_CROSSOVER += [(f"{name}_int8", t, k, m, v, True)
                   for name, t, k, m, v in GMM_CROSSOVER if m % 16 == 0]
+# the continuation kernel's split design: name, hq, hkv, d, cache_len,
+# chunk tokens, int8 pool; the serving pool's geometry (page 16, 32
+# pages a table), bf16 q
+PREFILL_SHAPES = [
+    ("serving_192_128", 16, 16, 128, 192, 128, False),
+    ("serving_0_128", 16, 16, 128, 0, 128, False),
+    ("serving_37_61", 16, 16, 128, 37, 61, False),
+    ("serving_496_16", 16, 16, 128, 496, 16, False),
+    ("int8_192_128", 16, 16, 128, 192, 128, True),
+]
+# the split design's geometry forced (prefill_split): the chunk shapes and
+# the serving cell's verify windows (chip_smoke's VERIFY_*): name, hq,
+# hkv, d, cache_len (None: the verify window), chunk tokens, int8 pool
+PREFILL_SPLIT_SHAPES = PREFILL_SHAPES + [
+    ("gqa_192_128", 32, 4, 64, 192, 128, False),
+    ("verify_serving", 16, 16, 128, None, 5, False),
+    ("verify_gqa", 32, 4, 64, None, 5, False),
+    ("verify_int8", 16, 16, 128, None, 5, True),
+]
+# (splits, ring stages) forced in a build whose clusters go to 8 blocks
+PREFILL_SPLIT_GEOMETRIES = [(1, 3), (1, 6), (2, 3), (4, 3), (8, 3)]
 # name, q dtype, hq, hkv, d, lengths, page, pages per sequence, int8 pool
 PAGED_LENGTHS = [0, 1, 15, 16, 17, 200, 511, 512]
 PAGED_SHAPES = [
@@ -179,15 +218,16 @@ def apply_variant(text, values):
     return text
 
 
-def variant_dir(sweep, variant, values):
-    """An edited copy of csrc for one variant, under build/sweeps (its
-    library, named by the sources' hash, is reused by the next turn)."""
+def variant_dir(sweep, variant, values, source=None):
+    """An edited copy of csrc for one variant (``values`` set in
+    ``source``, by default the sweep's), under build/sweeps (its library,
+    named by the sources' hash, is reused by the next turn)."""
     root = os.path.join(REPO, "build", "sweeps", f"{sweep}-{variant}")
     csrc = os.path.join(root, "csrc")
     shutil.rmtree(csrc, ignore_errors=True)
     shutil.copytree(CSRC, csrc)
     if values:
-        src = os.path.join(csrc, f"{SWEEPS[sweep][0]}.cu")
+        src = os.path.join(csrc, f"{source or SWEEPS[sweep][0]}.cu")
         with open(src) as f:
             text = apply_variant(f.read(), values)
         with open(src, "w") as f:
@@ -278,6 +318,66 @@ def child(kind, csrc, build, shapes):
             assert ok, "gate"
             out[name] = cs.cuda_times(torch, run, 50, flush)
         return out
+    if kind in ("paged_prefill", "paged_prefill_split"):
+        from paddle_tpu_torch.kernels import paged_prefill as pp
+        from paddle_tpu_torch.kernels.paged_attention import quantize_tokens
+
+        lib = pp._kernel()
+        for name, hq, hkv, d, cache_len, n, quant in shapes:
+            g = torch.Generator(device="cuda").manual_seed(hq + n + d)
+            if cache_len is None:   # the verify window: 8 slots of 5 rows
+                slots, s = len(cs.VERIFY_POSITIONS), n
+                cl = torch.tensor(cs.VERIFY_POSITIONS, dtype=torch.int32,
+                                  device="cuda")
+                ln = torch.tensor([(x + 1) * a for x, a in zip(
+                    cs.VERIFY_DRAFTS, cs.VERIFY_ACTIVE)], dtype=torch.int32,
+                    device="cuda")
+            else:
+                slots, s = 1, max(16, 1 << (n - 1).bit_length())  # bucket
+                cl = torch.tensor([cache_len], dtype=torch.int32,
+                                  device="cuda")
+                ln = torch.tensor([n], dtype=torch.int32, device="cuda")
+            q = torch.randn(slots, s, hq, d, generator=g,
+                            device="cuda").bfloat16()
+            kp, vp = (torch.randn(hkv, 257, 16, d, generator=g,
+                                  device="cuda").bfloat16() for _ in "kv")
+            table = torch.stack([torch.randperm(256, generator=g,
+                                                device="cuda")[:32]
+                                 for _ in range(slots)]).to(torch.int32)
+            k, v = ((quantize_tokens(kp), quantize_tokens(vp)) if quant
+                    else (kp, vp))
+            (kq, ks), (vq, vs) = pp.split_pages(k), pp.split_pages(v)
+            ref = pp.paged_prefill_ref(q, k, v, table, cl, ln)
+            rows = torch.arange(s, device="cuda")[None] < ln[:, None]
+
+            def forced(splits, stages):
+                # the split kernel at a geometry of our own
+                o = torch.empty_like(q)
+                err = lib.paged_prefill_launch(
+                    q.data_ptr(), kq.data_ptr(), vq.data_ptr(),
+                    ks.data_ptr() if quant else None,
+                    vs.data_ptr() if quant else None, table.data_ptr(),
+                    cl.data_ptr(), ln.data_ptr(), o.data_ptr(), slots, s,
+                    hq, hkv, 257, 16, 32, d, d ** -0.5, 1, int(quant), 1,
+                    pp.split_rows(s, hq // hkv), splits, stages,
+                    torch.cuda.current_stream().cuda_stream)
+                assert err == 0, f"launch failed: CUDA error {err}"
+                return o
+
+            runs = {"wrapper": lambda: pp._launch(
+                q, kq, vq, ks, vs, table, cl, ln, d ** -0.5)}
+            if kind == "paged_prefill_split":
+                runs["ring"] = lambda: pp._launch(
+                    q, kq, vq, ks, vs, table, cl, ln, d ** -0.5, "ring")
+                for sp, st in PREFILL_SPLIT_GEOMETRIES:
+                    runs[f"s{sp}_st{st}"] = \
+                        lambda sp=sp, st=st: forced(sp, st)
+            for key, run in runs.items():
+                ok, _ = cs.compare(run()[rows], ref[rows])
+                assert ok, f"gate {name} {key}"
+                label = name if key == "wrapper" else f"{name}/{key}"
+                out[label] = cs.cuda_times(torch, run, 20, flush)
+        return out
     from paddle_tpu_torch.kernels import grouped_matmul as gk
     from paddle_tpu_torch.quantization import weight_quantize_grouped
 
@@ -316,7 +416,8 @@ def run_child(kind, csrc, build, shapes):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--sweeps", default=",".join([*SWEEPS, "gmm_crossover"]))
+    ap.add_argument("--sweeps", default=",".join(
+        [*SWEEPS, "gmm_crossover", "prefill_split"]))
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
@@ -337,6 +438,19 @@ def main(argv=None):
     report = {"device": card}
     for sweep in args.sweeps.split(","):
         report[sweep] = {}
+        if sweep == "prefill_split":
+            # one build with clusters up to 8 blocks, geometries forced,
+            # in two turns
+            csrc, build = variant_dir(sweep, "max_8",
+                                      {"prefill_max_splits": "8"},
+                                      "paged_prefill")
+            for turn in range(2):
+                times = run_child("paged_prefill_split", csrc, build,
+                                  PREFILL_SPLIT_SHAPES)
+                report[sweep][f"turn{turn}"] = times
+                print(f"[{sweep}] (turn {turn}) {json.dumps(times)}",
+                      flush=True)
+            continue
         if sweep == "gmm_crossover":
             # two turns, the kernels' order swapped in the second
             csrc, build = variant_dir(sweep, "as_built", {})
@@ -351,7 +465,8 @@ def main(argv=None):
         kind, variants = SWEEPS[sweep]
         shapes = {"flash_attention": FLASH_SHAPES,
                   "flash_attention_bwd": BWD_SHAPES,
-                  "paged_attention": PAGED_SHAPES}.get(kind, GMM_SHAPES)
+                  "paged_attention": PAGED_SHAPES,
+                  "paged_prefill": PREFILL_SHAPES}.get(kind, GMM_SHAPES)
         if sweep == "gmm_int8_stages":
             shapes = GMM_INT8_SHAPES
         if sweep == "flash_stages":

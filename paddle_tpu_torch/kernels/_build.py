@@ -21,7 +21,9 @@ runtime every kernel of the port goes through.
   names. Where a function has more than one device kernel (the wgmma and
   the mma.sync flash forward, say), the wrapper also names the one it
   launched: ``variant_counts()`` reads those counts, keyed
-  ``"<name>/<variant>"``.
+  ``"<name>/<variant>"``. ``paged_prefill`` is counted two ways: by its
+  pages (``float``, ``int8``) and by its design (``split``, ``ring``,
+  ``fma``).
 * A captured program (``serving.programs``) launches its kernels on
   every replay without calling their wrappers. ``record_launches(fn)``
   runs ``fn`` (a program's warm-up, or its capture) and returns the
@@ -145,9 +147,13 @@ def load(name):
     return lib
 
 
-def count_launch(name, variant=None):
+def count_launch(name, *variants):
+    """One launch of kernel ``name``, also counted under each of
+    ``variants`` (``"<name>/<variant>"``): its device kernel, and where a
+    function is counted two ways (``paged_prefill``: the page variant and
+    the design), both."""
     _launches[name] += 1
-    if variant is not None:
+    for variant in variants:
         key = f"{name}/{variant}"
         _variants[key] = _variants.get(key, 0) + 1
 

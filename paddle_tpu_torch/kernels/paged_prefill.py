@@ -32,14 +32,48 @@ read; the kernel writes zeros there and reads no page.
 In the JAX package this is XLA, not a TPU kernel: ``_gather_context``
 (:246) or ``_gather_context_batch`` (:232) then the masked ``_sdpa``
 (:428-432, :544). ``paged_prefill`` launches the hand-written kernel
-``csrc/paged_prefill.cu`` on CUDA tensors, once for all slots (counted
-``paged_prefill``, variant ``float`` or ``int8``): its grid is fixed by
-S, the heads and the slots, and it reads ``cache_len`` and ``length``
-from device memory, so one CUDA graph replays any chunk or window at any
-offsets. CPU tensors take the plain version ``paged_prefill_ref`` (a
-gather of the context, then the masked product; fixed-shape and free of
-host syncs, like the kernel), which the serving adapter also runs by
-name when its ``decode_kernel`` is ``"xla"``.
+``csrc/paged_prefill.cu`` on CUDA tensors, once for all slots: its grid
+is fixed by S, the heads, the slots and the table's capacity, and it
+reads ``cache_len`` and ``length`` from device memory, so one CUDA graph
+replays any chunk or window at any offsets. CPU tensors take the plain
+version ``paged_prefill_ref`` (a gather of the context, then the masked
+product; fixed-shape and free of host syncs, like the kernel), which the
+serving adapter also runs by name when its ``decode_kernel`` is
+``"xla"``.
+
+What bounds it on an H100 is latency, not bytes or operations: a verify
+window of the serving cell moves ~13 MB (~4 us), a 128-token chunk ~3.6
+MB (~1 us), but one block walking a (query tile, head)'s key tiles one
+after the other takes ~10x that: a block waits on its chain of
+dependent steps (its table, then its tiles, then the products).
+The kernel has two designs for 16-bit q
+(``design_for``), each launch counted under ``paged_prefill``, its page
+variant (``float`` or ``int8``) and its design:
+
+* ``split`` (the default): a block takes 16, 32 or 64 packed query rows
+  of one (slot, kv head) (``split_geometry``: a window's S x group rows,
+  under GQA the group's query heads packed into the rows so each K/V row
+  is read once per kv head), its warps split each 64-key tile, and the
+  key tiles are split over a thread-block cluster of up to 4 blocks
+  (``split_range``): the warps' partial softmax states are merged in the
+  block, the blocks' through distributed shared memory. Pages come in
+  by TMA into a ring of 3 stages (6 when one split leaves the grid
+  small). It takes d 64 and 128 and page sizes that are multiples of 8
+  dividing 64 or multiples of 64; its 64-row tiles at d 128 with bf16 q
+  run QK^T and PV on wgmma, the rest on mma.sync.
+* ``ring``: the first design (one block per 64-row query tile and head
+  walking every key tile through a ``cp.async`` ring), for the head dims
+  and page sizes ``split`` does not take, and by request
+  (``design="ring"``) for side-by-side timing.
+* ``fma``: f32 q, exact f32 FMAs (off the serving path), whichever design
+  is asked for.
+
+Measured by ``chip_smoke.py`` on an NVIDIA H100 80GB HBM3 at a 700 W
+power limit (kernel alone, median of 20 launches, cold L2), split against
+ring in the same run: the serving verify window (8 slots x 5 rows, 16
+heads, d 128) 0.0217 against 0.0369 ms; a 16-token chunk after 496
+cached tokens 0.0155 against 0.0372; a 128-token chunk after 192 cached
+0.0199 against 0.0265; the rest in ``PERF.md``.
 """
 from __future__ import annotations
 
@@ -51,14 +85,25 @@ import torch
 from . import _build
 from .paged_attention import split_pages
 
-__all__ = ["paged_prefill", "paged_prefill_ref", "HEAD_DIMS"]
+__all__ = ["paged_prefill", "paged_prefill_ref", "HEAD_DIMS", "DESIGNS",
+           "design_for", "split_geometry", "split_range"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (16, 32, 64, 128, 256)
-# the 16-bit kernels keep the block table in shared memory beside their
+# the ring kernel keeps the block table in shared memory beside its
 # tiles: 8192 entries fit at every head dim
 MAX_PAGES_PER_SEQ = 8192
+# device kernels, as counted ("paged_prefill/<design>")
+DESIGNS = ("split", "ring", "fma")
+_DESIGN_IDS = {"split": 1, "ring": 0, "fma": 0}
+# the split design: keys a ring stage (and a tile of the range split),
+# head dims it takes, blocks a cluster at most (csrc: kMaxSplits)
+KEY_TILE = 64
+SPLIT_HEAD_DIMS = (64, 128)
+MAX_SPLITS = 4
+SPLIT_STAGES, MAX_STAGES = 3, 6    # ring stages: usual, deepest (csrc)
 _lib = None
+_resident: dict = {}
 
 
 def _kernel():
@@ -67,10 +112,108 @@ def _kernel():
         lib = _build.load("paged_prefill")
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.paged_prefill_launch.argtypes = (
-            [vp] * 9 + [ci] * 8 + [ctypes.c_float, ci, ci, vp])
+            [vp] * 9 + [ci] * 8 + [ctypes.c_float] + [ci] * 6 + [vp])
         lib.paged_prefill_launch.restype = ci
+        lib.paged_prefill_split_occupancy.argtypes = [ci] * 7
+        lib.paged_prefill_split_occupancy.restype = ci
         _lib = lib
     return _lib
+
+
+def design_for(dtype, head_dim, page_size, design=None):
+    """The device kernel a launch takes (``DESIGNS``): ``"fma"`` for f32
+    q, whatever ``design`` asks; for 16-bit q ``"split"`` where it takes
+    the head dim and page size, else ``"ring"``; ``design="ring"`` asks
+    for the first design, ``design="split"`` raises on a shape it does
+    not take."""
+    if design not in (None, "split", "ring"):
+        raise ValueError(f"paged_prefill: design must be None, 'split' or "
+                         f"'ring', got {design!r}")
+    if dtype == torch.float32:
+        return "fma"
+    if design == "ring":
+        return "ring"
+    if (head_dim in SPLIT_HEAD_DIMS and page_size % 8 == 0
+            and (KEY_TILE % page_size == 0 or page_size % KEY_TILE == 0)):
+        return "split"
+    if design == "split":
+        raise ValueError(
+            f"paged_prefill: the split design takes head_dim "
+            f"{SPLIT_HEAD_DIMS} and page sizes that are multiples of 8 "
+            f"dividing {KEY_TILE} or multiples of it, got head_dim "
+            f"{head_dim}, page_size {page_size}")
+    return "ring"
+
+
+def split_rows(s, group):
+    """Packed query rows a block of the split design takes: 16, 32 or 64,
+    the least that holds a window's ``s`` x ``group`` rows."""
+    packed = s * group
+    return 16 if packed <= 16 else (32 if packed <= 32 else 64)
+
+
+def split_geometry(slots, s, heads, kv_heads, capacity, head_dim, quant,
+                   resident):
+    """(rows, row_tiles, splits, stages) of a split-design launch: ``rows``
+    packed (token, query head of the group) rows a block, ``row_tiles``
+    tiles of them per (slot, kv head), ``splits`` blocks a cluster
+    sharing a row tile's key tiles and ``stages`` ring stages.
+    ``resident(stages, splits)`` is how many blocks the card holds at
+    once at that ring depth in clusters of ``splits``. The grid is
+    (splits, row_tiles x kv_heads, slots): fixed by the shapes and the
+    capacity, never by ``cache_len`` or ``length``.
+
+    ``splits`` is the largest power of two, at most ``MAX_SPLITS`` and the
+    capacity's key tiles, whose grid the card holds in one wave; but one
+    where a block's merged state is a 64-row x 128 f32 tile over 16-bit
+    pages (pushing it through the cluster cost more than the shorter key
+    ranges saved at every such case on the H100: ``chip_sweeps.py
+    prefill_split``).
+    ``stages`` is ``SPLIT_STAGES``, or up to ``MAX_STAGES`` where one
+    split leaves the grid within one wave at that depth."""
+    group = heads // kv_heads
+    rows = split_rows(s, group)
+    row_tiles = -(-s * group // rows)
+    pairs = slots * kv_heads * row_tiles
+    cap_tiles = -(-capacity // KEY_TILE)
+    most = 1 if (rows == 64 and head_dim == 128 and not quant) else \
+        min(MAX_SPLITS, cap_tiles)
+    splits = 1
+    while (splits * 2 <= most
+           and pairs * splits * 2 <= resident(SPLIT_STAGES, splits * 2)):
+        splits *= 2
+    stages = SPLIT_STAGES
+    if splits == 1 and cap_tiles > stages and \
+            pairs <= resident(MAX_STAGES, 1):
+        stages = min(MAX_STAGES, cap_tiles)
+    return rows, row_tiles, splits, stages
+
+
+def split_range(rank, splits, n_tiles):
+    """Key tiles [lo, hi) block ``rank`` of a cluster of ``splits`` takes
+    when its row tile needs ``n_tiles`` (read from device memory at run
+    time: ``cache_len`` + the tile's last token + 1, within the
+    capacity); the kernel computes the same."""
+    return rank * n_tiles // splits, (rank + 1) * n_tiles // splits
+
+
+def _resident_blocks(device, d, dtype, quant, rows, stages, pages_per_seq,
+                     splits):
+    """Blocks of the split kernel the card holds at once in clusters of
+    ``splits``, asked of the CUDA runtime once per shape."""
+    key = (device, d, dtype, quant, rows, stages, pages_per_seq, splits)
+    n = _resident.get(key)
+    if n is None:
+        with torch.cuda.device(device):
+            n = _kernel().paged_prefill_split_occupancy(
+                d, _DTYPES[dtype], int(quant), rows, stages, pages_per_seq,
+                splits)
+        if n < 0:   # 0: the card holds none (that ring depth won't fit)
+            raise RuntimeError(
+                f"paged_prefill (split) occupancy query failed: CUDA error "
+                f"{-n}")
+        _resident[key] = n
+    return n
 
 
 def _check(q, kq, ks, vq, vs, block_table, cache_len, length):
@@ -114,16 +257,18 @@ def _check(q, kq, ks, vq, vs, block_table, cache_len, length):
 
 
 def paged_prefill(q, k_pages, v_pages, block_table, cache_len, length, *,
-                  scale=None):
+                  scale=None, design=None):
     """Continuation attention -> q's shape ([S, num_q_heads, head_dim],
     or [slots, S, num_q_heads, head_dim] batched) in q's dtype (see the
     module). CUDA tensors launch ``csrc/paged_prefill.cu`` once for all
     slots (float32, bfloat16 or float16 q; pages of q's dtype or int8
-    pairs; head_dim 16, 32, 64, 128 or 256); CPU tensors run
+    pairs; head_dim 16, 32, 64, 128 or 256) on the kernel ``design_for``
+    picks (``design="ring"``: the first design); CPU tensors run
     ``paged_prefill_ref``."""
     kq, ks = split_pages(k_pages)
     vq, vs = split_pages(v_pages)
     _check(q, kq, ks, vq, vs, block_table, cache_len, length)
+    design_for(q.dtype, q.shape[-1], kq.shape[2], design)   # a bad name raises
     d = q.shape[-1]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -174,19 +319,35 @@ def paged_prefill(q, k_pages, v_pages, block_table, cache_len, length, *,
                   .contiguous(),
                   cache_len.to(torch.int32).reshape(-1).contiguous(),
                   length.to(torch.int32).reshape(-1).contiguous(),
-                  float(scale))
+                  float(scale), design)
     return out[0] if one else out
 
 
-def _launch(q, kq, vq, ks, vs, table, cache_len, length, scale):
+def _launch(q, kq, vq, ks, vs, table, cache_len, length, scale,
+            design=None):
     """The kernel on checked inputs (q [slots, S, hq, d] contiguous and
     16-byte aligned; int32 table [slots, P], cache_len and length
-    [slots], contiguous) -> out in q's dtype, counted. ``chip_smoke.py``
-    times this alone, without the wrapper's checks."""
+    [slots], contiguous) -> out in q's dtype, counted by page variant and
+    design. ``chip_smoke.py`` times this alone, without the wrapper's
+    checks."""
     quant = ks is not None
     out = torch.empty_like(q)
     slots, s, hq, d = q.shape
     hkv, n_pages, page_size, _ = kq.shape
+    name = design_for(q.dtype, d, page_size, design)
+    if name == "split" and any(t.data_ptr() % 16 for t in (
+            (kq, vq, ks, vs) if quant else (kq, vq))):
+        if design == "split":
+            raise ValueError("paged_prefill: the split design reads pages "
+                             "and scales starting on a 16-byte boundary")
+        name = "ring"
+    rows = splits = stages = 0
+    if name == "split":
+        rows = split_rows(s, hq // hkv)
+        rows, _, splits, stages = split_geometry(
+            slots, s, hq, hkv, table.shape[1] * page_size, d, quant,
+            lambda depth, n: _resident_blocks(q.device, d, q.dtype, quant,
+                                              rows, depth, table.shape[1], n))
     lib = _kernel()
     with torch.cuda.device(q.device):
         err = lib.paged_prefill_launch(
@@ -195,15 +356,15 @@ def _launch(q, kq, vq, ks, vs, table, cache_len, length, scale):
             vs.data_ptr() if quant else None, table.data_ptr(),
             cache_len.data_ptr(), length.data_ptr(), out.data_ptr(),
             slots, s, hq, hkv, n_pages, page_size, table.shape[1], d, scale,
-            _DTYPES[q.dtype], int(quant),
-            torch.cuda.current_stream(q.device).cuda_stream,
+            _DTYPES[q.dtype], int(quant), _DESIGN_IDS[name], rows, splits,
+            stages, torch.cuda.current_stream(q.device).cuda_stream,
         )
     variant = "int8" if quant else "float"
     if err:
         raise RuntimeError(
-            f"paged_prefill ({variant}) kernel launch failed: CUDA error "
-            f"{err}")
-    _build.count_launch("paged_prefill", variant)
+            f"paged_prefill ({variant}, {name}) kernel launch failed: CUDA "
+            f"error {err}")
+    _build.count_launch("paged_prefill", variant, name)
     return out
 
 

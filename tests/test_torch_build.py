@@ -102,9 +102,17 @@ def test_variant_counts_are_kept_beside_the_function_counts():
     _build.count_launch("grouped_matmul", "wgmma")
     _build.count_launch("grouped_matmul", "mma")
     _build.count_launch("flash_attention_bwd_dq")
+    # a function counted two ways: its page variant and its design
+    _build.count_launch("paged_prefill", "float", "split")
+    _build.count_launch("paged_prefill", "int8", "ring")
     assert _build.launch_counts()["grouped_matmul"] == 3
+    assert _build.launch_counts()["paged_prefill"] == 2
     assert _build.variant_counts() == {"grouped_matmul/wgmma": 2,
-                                       "grouped_matmul/mma": 1}
+                                       "grouped_matmul/mma": 1,
+                                       "paged_prefill/float": 1,
+                                       "paged_prefill/split": 1,
+                                       "paged_prefill/int8": 1,
+                                       "paged_prefill/ring": 1}
     _build.reset_launch_counts()
     assert set(_build.launch_counts().values()) == {0}
     assert _build.variant_counts() == {}
@@ -154,6 +162,12 @@ def test_launch_names_cover_the_new_kernel_and_the_plain_choice():
             "paged_prefill_ref"} <= set(_build.LAUNCHES)
     assert (_build.CSRC_DIR / "kv_write.cu").exists()
     assert (_build.CSRC_DIR / "paged_prefill.cu").exists()
+    # the continuation kernel's designs, as its launches are counted
+    assert ppf.DESIGNS == ("split", "ring", "fma")
+    src = (_build.CSRC_DIR / "paged_prefill.cu").read_text()
+    for kernel in ("paged_prefill_split_kernel", "paged_prefill_tc_kernel",
+                   "paged_prefill_fma_kernel"):
+        assert f"__global__ void __launch_bounds__" in src and kernel in src
 
 
 def test_paged_prefill_source_is_built_with_the_others(tmp_path, build_dir,
@@ -183,7 +197,8 @@ def _chip_sweeps():
 @pytest.mark.parametrize("sweep", ["flash_chunk", "flash_stages",
                                    "flash_bwd_stages", "flash_bwd_tile",
                                    "gmm_tile", "gmm_epilogue",
-                                   "gmm_int8_stages", "paged_cluster"])
+                                   "gmm_int8_stages", "paged_cluster",
+                                   "prefill_mma", "prefill_slices"])
 def test_every_sweep_marker_marks_one_line_of_its_source(sweep):
     # chip_sweeps.py sets the value of each `// sweep: <key>` line in a
     # copy of the sources; an edit that drops or repeats a marker fails
@@ -199,6 +214,17 @@ def test_every_sweep_marker_marks_one_line_of_its_source(sweep):
             (line,) = [x for x in edited.splitlines()
                        if re.search(rf"//\s*sweep:\s*{key}\b", x)]
             assert f"= {value};" in line
+
+
+def test_the_prefill_split_sweep_finds_its_cluster_cap():
+    # prefill_split builds one copy with clusters up to 8 blocks: its
+    # marker marks the cap in the continuation kernel's source once
+    sweeps = _chip_sweeps()
+    text = (_build.CSRC_DIR / "paged_prefill.cu").read_text()
+    edited = sweeps.apply_variant(text, {"prefill_max_splits": "8"})
+    (line,) = [x for x in edited.splitlines() if "prefill_max_splits" in x]
+    assert "kMaxSplits = 8;" in line
+    assert max(sp for sp, _ in sweeps.PREFILL_SPLIT_GEOMETRIES) == 8
 
 
 def test_a_missing_sweep_marker_is_an_error():
@@ -255,21 +281,38 @@ def test_paged_prefill_on_cuda_raises_rather_than_falls_back(monkeypatch):
 def test_paged_prefill_abi_matches_the_c_signature(monkeypatch):
     # the ctypes argument types the wrapper declares follow the C launch
     # function's parameters one for one (pointers, ints, the float scale),
-    # the slot count first among the ints
+    # the slot count first among the ints and the split design's design,
+    # rows and splits last before the stream; the same for the split
+    # design's occupancy query
     import ctypes
     from types import SimpleNamespace
 
     src = (_build.CSRC_DIR / "paged_prefill.cu").read_text()
-    (sig,) = re.findall(r"int paged_prefill_launch\(([^)]*)\)", src)
-    params = [" ".join(p.split()) for p in sig.split(",")]
-    want = [ctypes.c_void_p if "*" in p else
-            ctypes.c_float if p.startswith("float") else ctypes.c_int
-            for p in params]
-    names = [p.split()[-1].lstrip("*") for p in params]
+
+    def c_params(fn):
+        (sig,) = re.findall(rf"int {fn}\(([^)]*)\)", src)
+        params = [" ".join(p.split()) for p in sig.split(",")]
+        types = [ctypes.c_void_p if "*" in p else
+                 ctypes.c_float if p.startswith("float") else ctypes.c_int
+                 for p in params]
+        return [p.split()[-1].lstrip("*") for p in params], types
+
+    names, want = c_params("paged_prefill_launch")
     assert names[9:12] == ["slots", "s", "heads"]
-    lib = SimpleNamespace(paged_prefill_launch=SimpleNamespace())
+    assert names[-7:] == ["dtype", "quant", "design", "rows", "splits",
+                          "stages", "stream"]
+    occ_names, occ_want = c_params("paged_prefill_split_occupancy")
+    assert occ_names == ["d", "dtype", "quant", "rows", "stages",
+                         "pages_per_seq", "splits"]
+    lib = SimpleNamespace(paged_prefill_launch=SimpleNamespace(),
+                          paged_prefill_split_occupancy=SimpleNamespace())
     monkeypatch.setattr(ppf, "_lib", None)
     monkeypatch.setattr(_build, "load", lambda name: lib)
     assert ppf._kernel() is lib
     assert lib.paged_prefill_launch.argtypes == want
     assert lib.paged_prefill_launch.restype is ctypes.c_int
+    assert lib.paged_prefill_split_occupancy.argtypes == occ_want
+    assert lib.paged_prefill_split_occupancy.restype is ctypes.c_int
+    # the design ids the wrapper passes are the ones the source reads
+    assert "design == 1" in src and ppf._DESIGN_IDS["split"] == 1
+    assert ppf._DESIGN_IDS["ring"] == ppf._DESIGN_IDS["fma"] == 0
