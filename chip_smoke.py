@@ -37,6 +37,15 @@ Phases, in order; any failure exits non-zero:
                (``kv_write``) at the serving decode shape (8 rows) and a
                512-row prefill, bf16, float16, f32 and int8 pools:
                pages and scales equal to its plain version bit for bit.
+               The rotating write the serving programs launch
+               (``rope_kv_write``: RoPE of q and k, then the page write)
+               at each program's shape (decode 8 rows, a verify window of
+               8 x 5 rows crossing capacity, a 128-row chunk after 192
+               cached, a 512-row prefill with 500 valid returning k) and
+               GQA hq 32, hkv 4, d 64, over bf16, int8, float16 and f32
+               pools: q, k, pages and scales equal to its plain version
+               bit for bit; ``prev_ms`` the ``rope_qk`` + ``kv_write``
+               chain it replaced, at the same shape.
                The continuation kernel (``paged_prefill``) at the serving
                shape, (cache_len, chunk) of (192, 128), (0, 128), (37, 61)
                and (496, 16); GQA hq 32, hkv 4, d 64; f32 and float16 q;
@@ -72,16 +81,18 @@ Phases, in order; any failure exits non-zero:
                outputs token-identical to ``generate`` and to the
                spec-disabled engine, one verify program, drafts proposed,
                every verify step one replay launching the batched
-               continuation kernel and kv_write once per layer, no launch
-               outside a graph.
+               continuation kernel and rope_kv_write once per layer
+               (kv_write never), no launch outside a graph.
 5. serving  — full-width bf16 Llama (the repo's serving configuration,
                12 layers, random seeded weights) serving 32 mixed
                requests through ``Engine.generate``, every step a graph
                replay: all finish, no KV block leaks; counted from the
                replays, each decode step runs the paged kernel (cluster)
                once per layer, each prefill the flash kernel once per
-               layer, every step the kv_write kernel once per layer; no
-               kernel launched outside a graph, one replay per step; two
+               layer, every step the rotating page write
+               (``rope_kv_write``, the pool's variant) once per layer and
+               ``kv_write`` never; no kernel launched outside a graph, one
+               replay per step; two
                decode programs (greedy and mixed), at most one prefill
                program per bucket. The warm-up engine's first decode
                step's logits (the replay's output) agree with the same
@@ -107,12 +118,12 @@ Phases, in order; any failure exits non-zero:
                copy-on-writes; at most one continuation program per
                bucket and one copy program; counted from the replays, every
                chunk runs the continuation kernel once per layer, every
-               one-shot prefill the flash kernel, every step kv_write and
-               every decode step the paged kernel, no launch outside a
-               graph. The first continuation after cached tokens (the
-               replay's logits) agrees with the same program run eagerly
-               with the plain continuation attention on copies of the pool
-               within 5e-2. Tokens/s, mean TTFT and computed prefill
+               one-shot prefill the flash kernel, every step
+               rope_kv_write and every decode step the paged kernel, no
+               launch outside a graph. The first continuation after
+               cached tokens (the replay's logits) agrees with the same
+               program run eagerly with the plain continuation attention
+               on copies of the pool within 5e-2. Tokens/s, mean TTFT and computed prefill
                tokens per pass and pool.
 5e. serving_spec — ``bench.py``'s speculative workload (:706-760) at its
                TPU geometry on the bf16 serving model: 8 slots,
@@ -123,7 +134,7 @@ Phases, in order; any failure exits non-zero:
                served three times (the fastest kept, as the bench does).
                All finish, no block leaks, one verify program; counted
                from the replays, every verify step runs the batched
-               continuation kernel once per layer (and kv_write), no
+               continuation kernel once per layer (and rope_kv_write), no
                launch outside a graph. The first verify replay's logits
                (the active slots' valid rows) agree with the same program
                function run eagerly with the plain window attention on
@@ -201,7 +212,8 @@ Phases, in order; any failure exits non-zero:
 
 ``--phases`` picks a subset; ``profile`` (a profiled decode step over the
 bf16 and the int8 pool, replayed and with the program function run
-eagerly) runs only when named.
+eagerly, and the speculative cell's verify step: device busy ms and
+kernels per step, the port's kernels among them) runs only when named.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -216,6 +228,7 @@ import contextlib
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -946,6 +959,157 @@ def kv_write_case(torch, kw, flush, name, dtype, n, prefill, quant):
     return case
 
 
+# the rotating page write's cases: (name, rows, hq, hkv, d, routing);
+# routing as the serving programs write: decode (one row a slot), verify
+# (8 slots x 5-row windows), chunk (a 128-token continuation after 192
+# cached), prefill (a 512-token bucket, 500 valid, k returned for flash)
+ROPE_KV_SHAPES = (("decode", 8, 16, 16, 128, "decode"),
+                  ("verify", 40, 16, 16, 128, "verify"),
+                  ("chunk", 128, 16, 16, 128, "chunk"),
+                  ("prefill", 512, 16, 16, 128, "prefill"),
+                  ("gqa", 8, 32, 4, 64, "decode"))
+ROPE_KV_POOLS = (("bf16", "bfloat16", False),
+                 ("int8", "bfloat16", True),
+                 ("f16", "float16", False),
+                 ("f32", "float32", False))
+
+
+def _bit_equal(torch, a, b):
+    """Bit for bit (so -0.0 differs from 0.0), any dtype."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def rope_kv_write_case(torch, kw, flush, name, dtype, n, hq, hkv, d,
+                       routing, quant):
+    """The rotating page write (``rope_kv_write``) against
+    ``rope_kv_write_ref`` on a copy of the same pool, at the serving
+    pool's page geometry (page 16, 32 pages a table, 256 blocks and the
+    sink) with ``hkv`` heads of ``d``: the rotated q (and k, in the
+    prefill routing), the live pages and scales equal bit for bit (the
+    sink, which the plain version writes and the kernel does not, left
+    out). Angles from ``rope_table`` at the rows' positions. Times the
+    wrapper's call, the plain version, and (``prev_ms``) what the serving
+    programs ran before it at the same shape: ``rope_qk`` then the
+    ``kv_write`` kernel. No one PyTorch call rotates and pages, so no
+    library time."""
+    from paddle_tpu_torch.ops.fused_ops import rope_qk, rope_table
+
+    dev = "cuda"
+    geo = SERVING_GEOMETRY
+    page, pps, nb = geo["page"], geo["pages_per_seq"], geo["num_blocks"]
+    capacity = pps * page
+    g = torch.Generator(device=dev).manual_seed(n + 7 * quant + hq)
+    shape = (hkv, nb + 1, page, d)
+
+    def pool():
+        if quant:
+            return (torch.randint(-127, 128, shape, generator=g, device=dev,
+                                  dtype=torch.int8),
+                    torch.rand(shape[:3], generator=g, device=dev))
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    kp, vp = pool(), pool()
+    q = (torch.randn(n, hq, d, generator=g, device=dev) * 2).to(dtype)
+    k = (torch.randn(n, hkv, d, generator=g, device=dev) * 3).to(dtype)
+    v = torch.randn(n, hkv, d, generator=g, device=dev).to(dtype)
+    k[0, 0] = 0                                  # an all-zero row
+    want_k = routing == "prefill"
+    if routing in ("chunk", "prefill"):
+        tables = torch.randperm(nb, generator=g, device=dev)[:pps]
+        tables = tables.view(1, pps).to(torch.int32)
+        rows = torch.zeros(n, dtype=torch.int32, device=dev)
+        t = torch.arange(n, dtype=torch.int32, device=dev)
+        positions = t + (192 if routing == "chunk" else 0)
+        valid = t < (n if routing == "chunk" else n - 12)
+    else:
+        slots = n if routing == "decode" else n // 5
+        tables = torch.randperm(nb, generator=g, device=dev)[:slots * pps]
+        tables = tables.view(slots, pps).to(torch.int32)
+        base = torch.randint(0, capacity - 4, (slots,), generator=g,
+                             device=dev, dtype=torch.int32)
+        active = torch.ones(slots, dtype=torch.bool, device=dev)
+        if routing == "decode":
+            rows = torch.arange(slots, dtype=torch.int32, device=dev)
+            positions = base.clone()
+            positions[1] = capacity                  # at capacity
+            active[2] = False                        # an inactive slot
+            valid = active
+        else:
+            # 8 slots x 5 rows: slot 1's window crosses capacity, slots 2
+            # and 5 inactive, draft lengths 0-4
+            w = n // slots
+            base[1] = capacity - 2
+            active[2] = active[5] = False
+            drafts = torch.arange(slots, device=dev, dtype=torch.int32) % w
+            drafts[1] = w - 1
+            j = torch.arange(w, device=dev, dtype=torch.int32)
+            pos = base[:, None] + j[None]
+            rows = torch.arange(slots, dtype=torch.int32,
+                                device=dev).repeat_interleave(w)
+            positions = pos.reshape(-1)
+            valid = (active[:, None] & (j[None] <= drafts[:, None])
+                     & (pos < capacity)).reshape(-1)
+    cos, sin = rope_table(positions, d)
+    args = (tables, rows, positions, valid)
+    copy = _pool_copy([kp, vp])
+    got = kw.rope_kv_write(q, k, v, cos, sin, kp, vp, *args, want_k=want_k)
+    want = kw.rope_kv_write_ref(q, k, v, cos, sin, *copy, *args,
+                                want_k=want_k)
+    torch.cuda.synchronize()
+    got = got if want_k else (got,)
+    want = want if want_k else (want,)
+    live = [t[:, :-1] for e in (kp, vp) for t in (e if quant else (e,))]
+    ref = [t[:, :-1] for e in copy for t in (e if quant else (e,))]
+    pairs = list(zip(got, want)) + list(zip(live, ref))
+    diff = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
+    exact = all(_bit_equal(torch, a, b) for a, b in pairs)
+    check(exact, f"rope_kv_write {name}: kernel and plain version differ "
+                 f"(max abs {diff})")
+    ms, median_ms = cuda_times(torch, lambda: kw.rope_kv_write(
+        q, k, v, cos, sin, kp, vp, *args, want_k=want_k), 50, flush)
+    plain_ms = cuda_ms(torch, lambda: kw.rope_kv_write_ref(
+        q, k, v, cos, sin, *copy, *args, want_k=want_k), 20, flush)
+
+    def prev():   # the parent's chain: rope_qk, then the kv_write kernel
+        qr, kr = rope_qk(q[None], k[None], positions[None])
+        kw.kv_write(*copy, kr[0], v, *args)
+
+    prev_ms, prev_median_ms = cuda_times(torch, prev, 50, flush)
+    capacity_ok = valid & (positions < capacity)
+    written = int(capacity_ok.sum())
+    elem = q.element_size()
+    page_elem = 1 if quant else elem
+    k_read = n if want_k else written
+    # q read and q_out written; the k rows it needs (all with k_out);
+    # k_out; the written rows' v; the page rows (int8: and scales); the
+    # angles; rows, positions and valid, one table entry per written row
+    nbytes = (2 * n * hq * d * elem + k_read * hkv * d * elem
+              + (n * hkv * d * elem if want_k else 0)
+              + written * hkv * d * elem
+              + 2 * written * hkv * d * page_elem
+              + (2 * written * hkv * 4 if quant else 0)
+              + 2 * n * (d // 2) * 4 + n * 9 + written * 4)
+    # 3 f32 operations an element of a rotated row (2 products, a sum);
+    # int8: absmax, division and rounding per written element
+    flops = (3 * d * (n * hq + k_read * hkv)
+             + (3 * 2 * written * hkv * d if quant else 0))
+    bound_ms, bound_by = bound(nbytes, flops, torch.float32, torch)
+    case = {"case": name, "dtype": str(dtype).split(".")[-1],
+            "pool": "int8" if quant else str(dtype).split(".")[-1],
+            "routing": routing, "rows": n, "rows_written": written,
+            "hq": hq, "hkv": hkv, "d": d, "page_size": page,
+            "want_k": want_k, "exact": exact, "max_abs_err": diff,
+            "ms": ms, "median_ms": median_ms, "plain_ms": plain_ms,
+            "prev_ms": prev_ms, "prev_median_ms": prev_median_ms,
+            "prev": "rope_qk + kv_write kernel", "library_ms": None,
+            "library": "none: no PyTorch call rotates and pages",
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "flops": flops}
+    log(f"[kernels] rope_kv_write {json.dumps(case)}")
+    return case
+
+
 def _prefill_designs(torch, pp, flush, name, run, launch, rows, dtype, d,
                      page):
     """Both designs of the continuation kernel on one case: the wrapper's
@@ -1295,6 +1459,13 @@ def phase_kernels(torch):
                                ("f32", torch.float32))]
     kvw.append(kv_write_case(torch, kw, flush, "decode_int8_f16",
                              torch.float16, 8, False, True))
+    # the rotating write every serving program makes, at each program's
+    # shape and GQA, over bf16, int8, float16 and f32 pools
+    rkv = [rope_kv_write_case(torch, kw, flush, f"{shape}_{pool}",
+                              getattr(torch, dtype), n, hq, hkv, d, routing,
+                              quant)
+           for shape, n, hq, hkv, d, routing in ROPE_KV_SHAPES
+           for pool, dtype, quant in ROPE_KV_POOLS]
     # the continuation kernel at the serving shape: a 128-token chunk after
     # the 192-token system prefix, from 0, off every page and tile (37,
     # 61), at the end of max_model_len 512 (496, 16); GQA d 64; f32 and
@@ -1334,7 +1505,7 @@ def phase_kernels(torch):
                                    16, 128),
     ]
     return (paged, flash, bwd, gate_faults(torch, fa), quant, gmm,
-            gmm_quant, kvw, pfx, pfx_batched)
+            gmm_quant, kvw, rkv, pfx, pfx_batched)
 
 
 # ---------------------------------------------------------------- parity
@@ -1499,8 +1670,9 @@ def _spec_parity(torch, model, kv):
     request sampled, through an engine with ``speculate_tokens=3``; every
     greedy output equals ``generate``'s and the spec-disabled engine's;
     one verify program, drafts proposed; counted from the replays, every
-    verify step launches the batched continuation kernel and kv_write
-    once per layer; no launch outside a graph."""
+    verify step launches the batched continuation kernel once per layer,
+    every step the rotating page write once per layer (``kv_write``
+    never); no launch outside a graph."""
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
 
@@ -1541,7 +1713,8 @@ def _spec_parity(torch, model, kv):
           f"drafts, {m.verify_steps} verify steps")
     steps = m.decode_steps + m.prefill_steps + m.verify_steps
     check(counts["paged_prefill"] == m.verify_steps * L
-          and counts["kv_write"] == steps * L
+          and counts["rope_kv_write"] == steps * L
+          and counts["kv_write"] == 0
           and counts["paged_prefill_ref"] == 0
           and probe["direct"] == 0 and probe["replays"] == steps,
           f"{tag}: launches {counts}, probe {probe}, verify steps "
@@ -1688,8 +1861,9 @@ def _serving_gates(tag, counts, m, probe, L, paged, kv_variant, flash,
     replay-accounted: every decode step L paged launches on the cluster
     kernel, every one-shot prefill L flash launches (``flash``), every
     continuation chunk and every verify step L ``paged_prefill``
-    launches, all on its split design, and every step L kv_write
-    launches; no wrapper launched
+    launches, all on its split design, and every step L rope_kv_write
+    launches on the pool's variant (``kv_write`` none: the programs
+    rotate and write in one launch); no wrapper launched
     outside a program's capture, one replay per step and per
     copy-on-write; ``decode_programs`` decode programs and at most one
     prefill program (and one continuation program) per bucket, at most
@@ -1716,11 +1890,13 @@ def _serving_gates(tag, counts, m, probe, L, paged, kv_variant, flash,
           f"(chunks {m.prefill_chunks} + verify steps {m.verify_steps}) x "
           f"{L} on the {ext} kernel's split design ({counts})")
     steps = m.decode_steps + m.prefill_steps + m.verify_steps
-    check(counts["kv_write"] == steps * L
-          and counts.get(f"kv_write/{kv_variant}", 0) == steps * L,
-          f"{tag}: kv_write launches {counts['kv_write']} != (decode "
-          f"{m.decode_steps} + prefill {m.prefill_steps} + verify "
-          f"{m.verify_steps}) x {L} on the {kv_variant} kernel")
+    check(counts["rope_kv_write"] == steps * L
+          and counts.get(f"rope_kv_write/{kv_variant}", 0) == steps * L
+          and counts["kv_write"] == 0,
+          f"{tag}: rope_kv_write launches {counts['rope_kv_write']} != "
+          f"(decode {m.decode_steps} + prefill {m.prefill_steps} + verify "
+          f"{m.verify_steps}) x {L} on the {kv_variant} kernel, or "
+          f"kv_write launched {counts['kv_write']}")
     check(counts["paged_attention_ref"] == 0,
           f"{tag}: the plain paged attention ran {counts}")
     check(probe["direct"] == 0
@@ -3686,7 +3862,8 @@ def _profiled_steps(torch, engine, n, tag, port_names):
     ours = {}
     for e in kernels:
         for name in port_names:
-            if name in e.key:
+            # a whole name: "kv_write" is not "rope_kv_write_kernel"
+            if re.search(rf"(?<!\w){name}", e.key):
                 us, calls = ours.get(name, (0.0, 0.0))
                 ours[name] = (us + e.self_device_time_total / n,
                               calls + e.count / n)
@@ -3748,7 +3925,7 @@ def _spec_profile(torch, model, kv, pool, design, n):
     r = _profiled_steps(
         torch, engine, n, f"{pool} pool, speculative step (K = {SPEC_K}, 8 "
                           f"slots, {design} design)",
-        ("kv_write", "paged_decode", "paged_prefill"))
+        ("rope_kv_write", "kv_write", "paged_decode", "paged_prefill"))
     # the window ran 2n steps (profiled, then plain)
     r["verify_steps"] = m.verify_steps - v0
     r["decode_steps"] = m.decode_steps - d0
@@ -3809,7 +3986,7 @@ def phase_profile(torch):
             r = _profiled_steps(
                 torch, engine, n, f"{tag}, decode step (8 slots, ~130 "
                                   f"cached tokens each)",
-                ("kv_write", "paged_decode"))
+                ("rope_kv_write", "kv_write", "paged_decode"))
             # the 128-token bucket's prefill program alone, over the last
             # prefill's staged inputs (a 100-token prompt: it rewrites the
             # same K/V into the same pages), host clock to a sync
@@ -3938,12 +4115,13 @@ def main(argv=None):
                 f"{report['phase_seconds'][name]:.1f}s")
         paged = flash = bwd = None
         if "kernels" in results:
-            (paged, flash, bwd, faults, quant, gmm, gmm_quant, kvw,
+            (paged, flash, bwd, faults, quant, gmm, gmm_quant, kvw, rkv,
              pfx, pfx_batched) = results.pop("kernels")
             report["phases"]["kernels"] = {
                 "paged": paged, "flash": flash, "flash_bwd": bwd,
                 "gate_faults": faults, "paged_quant": quant, "gmm": gmm,
                 "gmm_quant": gmm_quant, "kv_write": kvw,
+                "rope_kv_write": rkv,
                 "paged_prefill": pfx, "paged_prefill_batched": pfx_batched,
             }
             # the wrapper's choice against the previous kernel, same
@@ -4138,7 +4316,9 @@ def main(argv=None):
     if paged is not None:
         # the fused KV write at the serving decode shape on the bf16 pool
         # (library: index_put_ of K and V), with each pool type's kernel
-        # under "variants" (launches on the main paths, the decode case)
+        # under "variants" (launches on the main paths, the decode case):
+        # the serving programs write through rope_kv_write, so its
+        # launches there are 0 and it is held in the kernels phase only
         head = kvw[0]
         kernels.append({
             "name": "kv_write", "route": "cuda",
@@ -4162,6 +4342,40 @@ def main(argv=None):
                              ("int8", next(c for c in kvw
                                            if c["case"] == "decode_int8")))],
         })
+    if paged is not None:
+        # the rotating page write at the serving decode shape on the bf16
+        # pool (prev_ms: rope_qk then the kv_write kernel, what the
+        # programs ran before it), each pool type's kernel under
+        # "variants" (launches on the main paths, the decode case)
+        head = rkv[0]
+        kernels.append({
+            "name": "rope_kv_write", "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/kv_write.cu",
+            "replaces": "paddle_tpu/ops/impl/fused_ops.py:87 (rope_qk, "
+                        "_apply_rope :29) + paddle_tpu/kernels/pallas/"
+                        "paged_attention.py:292 (update_pages, "
+                        "quantize_tokens :59): XLA ops, no TPU kernel",
+            **launches("rope_kv_write"),
+            "max_abs_err": max(c["max_abs_err"] for c in rkv),
+            "ms": head["ms"], "median_ms": head["median_ms"],
+            "prev_ms": head["prev_ms"],
+            "prev_median_ms": head["prev_median_ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": None,
+            "shape": f"{head['case']}: {head['rows']} rows, hq "
+                     f"{head['hq']}, hkv {head['hkv']}, d {head['d']}, "
+                     f"page 16",
+            "variants": [{
+                "variant": v, **launches(f"rope_kv_write/{v}"),
+                **{key: c[key] for key in ("ms", "median_ms", "prev_ms",
+                                           "prev_median_ms", "plain_ms",
+                                           "library_ms", "bound_ms")},
+                "shape": c["case"]}
+                for v, c in (("float", head),
+                             ("int8", next(c for c in rkv
+                                           if c["case"] == "decode_int8")))],
+        })
+
     def prefill_entry(name, replaces, cases, head, int8, paths, shape):
         """The continuation kernel at ``head``'s shape on its default
         design (``split``), the ring design's times beside it, both

@@ -16,7 +16,8 @@ runtime every kernel of the port goes through.
   launches the kernel, and nowhere else; ``launch_counts()`` and
   ``reset_launch_counts()`` read and zero the counts. Counts are per
   kernel (``LAUNCHES``), not per source: ``flash_attention_bwd.cu``
-  holds two kernels, counted apart, and the int8 variants of
+  holds two kernels, counted apart, as are ``kv_write.cu``'s two entry
+  points (``kv_write``, ``rope_kv_write``), and the int8 variants of
   ``paged_attention.cu`` and ``grouped_matmul.cu`` count under their own
   names. Where a function has more than one device kernel (the wgmma and
   the mma.sync flash forward, say), the wrapper also names the one it
@@ -61,7 +62,8 @@ KERNELS = ("paged_attention", "flash_attention", "flash_attention_bwd",
 LAUNCHES = ("paged_attention", "paged_attention_quant", "flash_attention",
             "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
             "grouped_matmul", "grouped_matmul_quant", "kv_write",
-            "paged_prefill", "paged_attention_ref", "paged_prefill_ref")
+            "rope_kv_write", "paged_prefill", "paged_attention_ref",
+            "paged_prefill_ref")
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"

@@ -6,33 +6,40 @@ Counterparts in ``paddle_tpu/ops/impl/fused_ops.py``:
   uses: rotation angles built from the base, per-row ``position_ids``,
   neox (rotate-halves) style, f32 math cast back to the input dtype. q/k
   are [batch, seq, heads, head_dim]. The GPT-J (interleaved) style is not
-  ported: Llama does not use it.
+  ported: Llama does not use it. Its two halves, ``rope_table`` (the
+  angles, JAX's ``_build_rope_cache``) and ``apply_rope`` (JAX's
+  ``_apply_rope``), serve the serving adapter, which builds the table
+  once per program and rotates inside ``kernels.rope_kv_write``.
 * ``fused_linear_cross_entropy``: the chunked LM head plus loss.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["rope_qk", "fused_linear_cross_entropy"]
+__all__ = ["rope_qk", "rope_table", "apply_rope",
+           "fused_linear_cross_entropy"]
 
 
-def _rope_cache(seq_len, head_dim, base, device, position_ids=None):
+def rope_table(positions, head_dim, base=10000.0):
+    """The rotation angles' ``(cos, sin)``, f32 ``[*positions.shape,
+    head_dim / 2]``, for integer or float ``positions``. The serving
+    adapter builds it once per program call for the rows it writes;
+    ``rope_qk`` builds it per call."""
     inv_freq = 1.0 / (
         base ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
-                              device=device) / head_dim)
+                              device=positions.device) / head_dim)
     )
-    if position_ids is None:
-        t = torch.arange(seq_len, dtype=torch.float32, device=device)[None]
-    else:
-        t = position_ids.to(device=device, dtype=torch.float32)
-    freqs = t[..., None] * inv_freq                 # [b, s, d/2]
+    freqs = positions.to(torch.float32)[..., None] * inv_freq
     return torch.cos(freqs), torch.sin(freqs)
 
 
-def _apply_rope(x, cos, sin):
+def apply_rope(x, cos, sin):
+    """Rotate ``x`` [..., heads, head_dim] neox style by ``cos``/``sin``
+    [..., head_dim / 2] (one row per row of x, shared by its heads): f32
+    math, cast back to x's dtype."""
     xf = x.float()
-    c = cos[:, :, None, :]
-    s = sin[:, :, None, :]
+    c = cos.unsqueeze(-2)
+    s = sin.unsqueeze(-2)
     d2 = x.shape[-1] // 2
     x1, x2 = xf[..., :d2], xf[..., d2:]
     out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
@@ -43,12 +50,12 @@ def rope_qk(q, k, position_ids=None, *, base=10000.0):
     """Rotate q and k. ``position_ids`` ([b, s] or [s]) gives each token's
     absolute position (decode rotates the new token at its cache
     position); None means positions 0..s-1."""
-    if position_ids is not None and position_ids.dim() == 1:
+    if position_ids is None:
+        position_ids = torch.arange(q.shape[1], device=q.device)[None]
+    elif position_ids.dim() == 1:
         position_ids = position_ids[None, :]
-    cos, sin = _rope_cache(
-        q.shape[1], q.shape[-1], base, q.device, position_ids
-    )
-    return _apply_rope(q, cos, sin), _apply_rope(k, cos, sin)
+    cos, sin = rope_table(position_ids.to(q.device), q.shape[-1], base)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin)
 
 
 class _FusedLinearCrossEntropy(torch.autograd.Function):

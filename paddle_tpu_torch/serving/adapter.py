@@ -33,12 +33,15 @@ entry points:
 
 All four are shape-static and free of host syncs, so the engine can
 capture them into CUDA graphs (``serving.programs``): ``length`` and
-``cache_len`` may be device scalars, every page write is one
-``kernels.kv_write`` launch per layer for K and V together (decode: row =
-slot, position, valid = active; prefill: row 0, position ``cache_len +
-t``, valid = t < length; verify: row = slot, position ``positions[s] +
-j``, valid = active and j <= draft_lens[s]), and the logits row is
-picked by ``index_select``.
+``cache_len`` may be device scalars, RoPE and the page write are one
+``kernels.rope_kv_write`` launch per layer (q and k rotated, the rotated
+K and V written together; decode: row = slot, position, valid = active;
+prefill: row 0, position ``cache_len + t``, valid = t < length; verify:
+row = slot, position ``positions[s] + j``, valid = active and j <=
+draft_lens[s]), its angles built once per call by ``ops.rope_table`` at
+the same positions (JAX rotates by ``rope_qk`` and writes by
+``update_pages`` in each layer, XLA fusing both into the program), and
+the logits row is picked by ``index_select``.
 
 The attention choice for prefill. JAX's one-shot ``prefill`` and its
 ``prefill_ext`` use the same ``_sdpa`` form, so in JAX any chunking of a
@@ -86,14 +89,14 @@ from __future__ import annotations
 import torch
 
 from ..kernels import _build
-from ..kernels.kv_write import kv_write
+from ..kernels.kv_write import rope_kv_write
 from ..kernels.paged_attention import (
     paged_attention,
     paged_attention_ref,
     split_pages,
 )
 from ..kernels.paged_prefill import paged_prefill, paged_prefill_ref
-from ..ops.fused_ops import rope_qk
+from ..ops.fused_ops import rope_table
 from ..ops.nn_ops import rms_norm, scaled_dot_product_attention
 
 __all__ = ["LlamaServingAdapter", "build_adapter", "required_attrs",
@@ -182,16 +185,18 @@ class LlamaServingAdapter:
         valid = t < length
         rows = torch.zeros_like(t)
         table = block_table.to(torch.int32)[None]
+        cos, sin = rope_table(t, self.head_dim, self.rope_theta)
         x = m.llama.embed_tokens(ids)[None]               # [1, S, hid]
         for li, blk in enumerate(m.llama.layers):
             attn = blk.self_attn
             h = rms_norm(x, blk.input_layernorm.weight, epsilon=self.eps)
             q, k, v = self._qkv(attn, h, 1, s)
-            q, k = rope_qk(q, k, t[None], base=self.rope_theta)
-            kv_write(kp[li], vp[li], k[0], v[0], table, rows, t, valid)
+            q, k = rope_kv_write(q[0], k[0], v[0], cos, sin, kp[li], vp[li],
+                                 table, rows, t, valid, want_k=True)
             # causal attention over the in-flight prompt; right-padding
             # is invisible to valid queries under causality
-            o = scaled_dot_product_attention(q, k, v, is_causal=True)
+            o = scaled_dot_product_attention(q[None], k[None], v,
+                                             is_causal=True)
             x = x + attn.o_proj(o.reshape(1, s, -1))
             x = self._mlp(blk, x)
         x = rms_norm(x, m.llama.norm.weight, epsilon=self.eps)
@@ -221,15 +226,15 @@ class LlamaServingAdapter:
         valid = t < length
         rows = torch.zeros_like(t)
         table = block_table.to(torch.int32)
+        cos, sin = rope_table(pos, self.head_dim, self.rope_theta)
         x = m.llama.embed_tokens(ids)[None]               # [1, S, hid]
         for li, blk in enumerate(m.llama.layers):
             attn = blk.self_attn
             h = rms_norm(x, blk.input_layernorm.weight, epsilon=self.eps)
             q, k, v = self._qkv(attn, h, 1, s)
-            q, k = rope_qk(q, k, pos[None], base=self.rope_theta)
-            kv_write(kp[li], vp[li], k[0], v[0], table[None], rows, pos,
-                     valid)
-            o = self._context_attn(q[0], kp[li], vp[li], table, cache_len,
+            q = rope_kv_write(q[0], k[0], v[0], cos, sin, kp[li], vp[li],
+                              table[None], rows, pos, valid)
+            o = self._context_attn(q, kp[li], vp[li], table, cache_len,
                                    length)
             x = x + attn.o_proj(o.reshape(1, s, -1))
             x = self._mlp(blk, x)
@@ -251,15 +256,15 @@ class LlamaServingAdapter:
         tables = block_tables.to(torch.int32)
         rows = torch.arange(b, dtype=torch.int32, device=tokens.device)
         valid = active.to(torch.bool)
+        cos, sin = rope_table(pos, self.head_dim, self.rope_theta)
         x = m.llama.embed_tokens(tokens)                  # [slots, hid]
         for li, blk in enumerate(m.llama.layers):
             attn = blk.self_attn
             h = rms_norm(x, blk.input_layernorm.weight, epsilon=self.eps)
             q, k, v = self._qkv(attn, h[:, None, :], b, 1)
-            q, k = rope_qk(q, k, pos[:, None], base=self.rope_theta)
-            kv_write(kp[li], vp[li], k[:, 0], v[:, 0], tables, rows, pos,
-                     valid)
-            o = self._paged_attn(q[:, 0], kp[li], vp[li], tables, lengths)
+            q = rope_kv_write(q[:, 0], k[:, 0], v[:, 0], cos, sin, kp[li],
+                              vp[li], tables, rows, pos, valid)
+            o = self._paged_attn(q, kp[li], vp[li], tables, lengths)
             x = x + attn.o_proj(o.reshape(b, -1))
             x = self._mlp(blk, x)
         x = rms_norm(x, m.llama.norm.weight, epsilon=self.eps)
@@ -274,8 +279,8 @@ class LlamaServingAdapter:
         global position ``positions[s] + j``. ``draft_lens`` [slots]
         counts the valid draft tokens, so columns j <= draft_lens are real
         and later ones padding: their page writes are dropped (the kernel
-        skips them, the plain ``kv_write_ref`` routes them to the sink
-        page) and their logits are never read, as for inactive slots.
+        skips them, the plain ``rope_kv_write_ref`` routes them to the
+        sink page) and their logits are never read, as for inactive slots.
         block_tables [slots, P] int32, active [slots] bool, all on the
         adapter's device. Writes the windows' K/V in place; returns logits
         [slots, K+1, vocab], row j scoring the token FOLLOWING position
@@ -303,17 +308,18 @@ class LlamaServingAdapter:
         # length = draft_lens + 1 valid rows (0 when inactive)
         cache_len = pos[:, 0]
         lengths = torch.where(act, dl + 1, torch.zeros_like(dl))
+        cos, sin = rope_table(flat, self.head_dim, self.rope_theta)
         x = m.llama.embed_tokens(tokens)                  # [slots, S, hid]
         for li, blk in enumerate(m.llama.layers):
             attn = blk.self_attn
             h = rms_norm(x, blk.input_layernorm.weight, epsilon=self.eps)
             q, k, v = self._qkv(attn, h, b, s)
-            q, k = rope_qk(q, k, pos, base=self.rope_theta)
-            kv_write(kp[li], vp[li], k.reshape(b * s, *k.shape[2:]),
-                     v.reshape(b * s, *v.shape[2:]), tables, rows, flat,
-                     valid)
-            o = self._context_attn(q, kp[li], vp[li], tables, cache_len,
-                                   lengths)
+            q = rope_kv_write(q.reshape(b * s, *q.shape[2:]),
+                              k.reshape(b * s, *k.shape[2:]),
+                              v.reshape(b * s, *v.shape[2:]), cos, sin,
+                              kp[li], vp[li], tables, rows, flat, valid)
+            o = self._context_attn(q.view(b, s, *q.shape[1:]), kp[li],
+                                   vp[li], tables, cache_len, lengths)
             x = x + attn.o_proj(o.reshape(b, s, -1))
             x = self._mlp(blk, x)
         x = rms_norm(x, m.llama.norm.weight, epsilon=self.eps)

@@ -8,9 +8,9 @@ layer and per K/V, ``[num_kv_heads, num_blocks + 1, block_size, head_dim]``
 — the layout ``kernels.paged_attention`` reads — or, for an int8 pool, an
 ``(int8 pages, float32 scales [num_kv_heads, num_blocks + 1,
 block_size])`` pair; the adapter writes into it in place. Page
-``num_blocks`` is the sink page of ``kernels.kv_write``: the block
-manager never hands it out, no block table names it, and the pool's byte
-counts leave it out. Allocation policy lives in the engine.
+``num_blocks`` is the sink page of ``kernels.kv_write`` and
+``rope_kv_write``: the block manager never hands it out, no block table
+names it, and the pool's byte counts leave it out. Allocation policy lives in the engine.
 """
 from __future__ import annotations
 
