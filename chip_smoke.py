@@ -183,6 +183,47 @@ Phases, in order; any failure exits non-zero:
                recovered token, journal bytes per generated token and
                fsyncs per run, and in-process tokens/s of the serving
                cell's workload with the journal on and off (best of 3).
+5h. poison  — poison isolation on the serving model and geometry (bf16
+               pool, 8 slots): 8 greedy requests served clean, then again
+               with a ``serving.step`` fault on one of them after 6 steps.
+               Unattributed decode fault: the launches holding it fail at
+               sizes 8, 4, 2, 1 and the step makes exactly 3 successful
+               replays of the captured decode program, building none; an
+               attributed one fails one launch of 8 and replays the other
+               7 once; a prefill fault poisons only its request; a verify
+               fault on the serving_spec engine (K = 4) bisects the same
+               way. Gated: the other 7 token-identical to the clean run
+               on the same engine, the poisoned one ``"error"``, no block
+               left, ``requests_errored`` and ``health()`` "degraded";
+               the decode run's launches as serving's, none outside a
+               graph. A ``torch.AcceleratorError`` from the site
+               re-raises from ``Engine.step`` after one attempt, no replay.
+5i. fleet   — the self-healing fleet: 2 replicas of the serving model (8
+               slots each, bf16 pool, one model's weights). The serving
+               cell's 32 requests at t = 0 through the fleet, one 16-slot
+               engine and one 8-slot engine, twice each: tokens/s, mean
+               TTFT and requests per replica recorded (best run); gated:
+               the fleet's greedy tokens equal the 8-slot engine's, every
+               request at full length, no block left, launches as in
+               serving and none outside a graph. Failover: r0 killed
+               (``serving.replica``) after 200 decoded tokens; its restart
+               is held until the survivor captures a prefill bucket it
+               has not used (a 300-token prompt sent at the death), inside
+               that capture, so the restart's device setup waits at the
+               capture lock; gated: one failover, every request delivered
+               once at full length, the restart adopted and serving later
+               requests; recorded: the restart's build and first captures,
+               ``failover_recovery_s``, the first token where each
+               failed-over greedy request differs from the 8-slot engine
+               (bf16 re-prefill). A device fault from a replica step
+               re-raises from ``Fleet.step`` with no failover and no
+               restart. Warm routing (serving_prefix geometry): one of 16
+               requests sharing a 192-token system prompt warms a
+               replica, then the 16 hit its prefix cache there
+               (``paged_prefill`` launches on the split design). 8 requests
+               over HTTP through ``serving.server``, two tenants: each
+               answered once with its tenant, ``/healthz`` lists both
+               replicas.
 6. train_parity — tiny f32 Llama (MHA and GQA): 10 ``TrainStep`` steps
                of AdamW through the flash kernels give the losses of the
                same 10 steps with the plain attention functions.
@@ -1767,11 +1808,10 @@ def host_dispatch_probe():
     and the graph replays. In a captured engine every launch comes from a
     replay, so ``direct`` stays 0."""
     from paddle_tpu_torch.kernels import _build
-    from paddle_tpu_torch.serving import programs
 
     state = {"depth": 0, "direct": 0, "replays": 0}
     count, record, replay = (_build.count_launch, _build.record_launches,
-                             programs.Program._replay)
+                             _build.count_replay)
 
     def counted(name, *variants):
         if state["depth"] == 0:
@@ -1785,17 +1825,19 @@ def host_dispatch_probe():
         finally:
             state["depth"] -= 1
 
-    def replayed(self):
+    def replayed(launches):
+        # every replay counts its capture's launches, programs built
+        # before the probe too
         state["replays"] += 1
-        return replay(self)
+        return replay(launches)
 
     _build.count_launch, _build.record_launches = counted, recorded
-    programs.Program._replay = replayed
+    _build.count_replay = replayed
     try:
         yield state
     finally:
         _build.count_launch, _build.record_launches = count, record
-        programs.Program._replay = replay
+        _build.count_replay = replay
 
 
 def _first_decode(torch, model, ecfg, prompts, compare_plain):
@@ -3242,6 +3284,740 @@ def phase_journal(torch):
     return result
 
 
+# ------------------------------------------------- poison isolation, fleet
+# the poison phase: the serving cell's first 8 prompts, greedy, this many
+# new tokens; the fault is armed after POISON_AT_STEP steps
+POISON_NEW_TOKENS = 48
+POISON_AT_STEP = 6
+POISON_VICTIM = 3
+# the fleet phase: replica r0 dies once it has decoded this many tokens
+FLEET_KILL_AFTER = 200
+FLEET_RUNS = 2
+# a prompt of a prefill bucket no replica has used (the serving cell's
+# prompts take buckets up to 128): the survivor captures its program
+FLEET_LONG_PROMPT = 300
+FLEET_HTTP_REQUESTS = 8
+
+
+def _serving_model(torch, tag):
+    """The serving cell's model (``SERVING_CFG``, seeded bf16 weights)."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(LlamaConfig(**SERVING_CFG), seed=0)
+    torch.cuda.synchronize()
+    log(f"[{tag}] model: {model.num_params() / 1e6:.1f}M params bf16, "
+        f"built in {time.perf_counter() - t0:.1f}s")
+    return model
+
+
+def _serving_geometry(**kw):
+    from paddle_tpu_torch.serving import EngineConfig
+
+    return EngineConfig(**dict(dict(max_batch_slots=8, max_model_len=512,
+                                    page_size=16), **kw))
+
+
+def _poisoned_run(torch, engine, prompts, params, phase, attributed=False,
+                  victim=POISON_VICTIM):
+    """Serve ``prompts`` on ``engine`` with a ``serving.step`` fault at
+    ``phase`` on request ``victim``, armed after ``POISON_AT_STEP`` steps
+    (a prefill fault from the start) and held until it fires: every
+    launch of that phase holding the victim fails (unattributed: the
+    bisection must find it) or one does, naming it (``attributed``).
+    Returns the outputs in order, the launch sizes the fault saw, and the
+    poisoned step's successful launches (metric deltas) and replays."""
+    from paddle_tpu_torch.resilience import FaultSpec, faults
+
+    reqs = [engine.add_request(p, sp) for p, sp in zip(prompts, params)]
+    rid = reqs[victim].request_id
+    armed, sizes, out = [phase == "prefill"], [], {}
+
+    def when(c):
+        if not armed[0] or c.get("phase") != phase:
+            return False
+        if phase == "prefill":
+            return c.get("request_id") == rid
+        if rid not in c.get("request_ids", ()):
+            return False
+        sizes.append(len(c["request_ids"]))
+        return True
+
+    def name_the_victim(_ctx):
+        e = RuntimeError("adapter swap failed")
+        e.request_id = rid
+        raise e
+
+    spec = FaultSpec(RuntimeError("poisoned logits"), when=when,
+                     action=name_the_victim if attributed else None)
+    m = engine.metrics
+    step = {}
+    steps = 0
+    with faults.inject({"serving.step": spec}) as inj:
+        while engine.has_unfinished():
+            if steps == POISON_AT_STEP:
+                armed[0] = True
+            before = (m.decode_steps, m.verify_steps, m.prefill_steps,
+                      m.decode_compiles, m.verify_compiles)
+            fired = inj.fired.get("serving.step", 0)
+            with host_dispatch_probe() as probe:
+                for o in engine.step():
+                    check(o.request_id not in out,
+                          f"poison: {o.request_id} delivered twice")
+                    out[o.request_id] = o
+            steps += 1
+            check(steps < 2000, "poison: the engine did not drain")
+            if inj.fired.get("serving.step", 0) > fired and not step:
+                after = (m.decode_steps, m.verify_steps, m.prefill_steps,
+                         m.decode_compiles, m.verify_compiles)
+                step = dict(zip(("decode", "verify", "prefill",
+                                 "decode_programs", "verify_programs"),
+                                (a - b for a, b in zip(after, before))),
+                            replays=probe["replays"],
+                            direct=probe["direct"])
+                armed[0] = phase == "prefill"
+    torch.cuda.synchronize()
+    return [out[r.request_id] for r in reqs], sizes, step
+
+
+_STEP_FIELDS = ("decode_steps", "prefill_steps", "prefill_chunks",
+                "verify_steps", "cow_copies")
+_PROGRAM_FIELDS = ("decode_compiles", "prefill_compiles",
+                   "prefill_ext_compiles", "cow_compiles", "verify_compiles")
+
+
+def _check_survivors(tag, outs, ref, victim=POISON_VICTIM):
+    for i, (o, r) in enumerate(zip(outs, ref)):
+        if i == victim:
+            check(o.finish_reason == "error",
+                  f"{tag}: the poison request finished "
+                  f"{o.finish_reason!r}, not 'error'")
+            continue
+        check(o.finish_reason == "length" and o.token_ids == r.token_ids,
+              f"{tag}: request {i} differs from the uninjected run on the "
+              f"same engine ({o.finish_reason}, first tokens "
+              f"{o.token_ids[:4]} vs {r.token_ids[:4]})")
+
+
+def phase_poison(torch):
+    """Poison isolation on the serving cell's model and geometry (bf16
+    pool): an unattributed decode fault bisected out in 3 replays of the
+    captured decode program (8 -> 4 -> 2 -> 1, no new capture), an
+    attributed one in one launch, a prefill fault, a verify fault on the
+    serving_spec engine, and a device fault that re-raises with no
+    launch; the survivors token-identical to an uninjected run on the
+    same engine."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.resilience import FaultSpec, faults
+    from paddle_tpu_torch.serving import Engine, SamplingParams
+
+    model = _serving_model(torch, "poison")
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    # the postmortems the faults dump
+    flight_dir = tempfile.mkdtemp(prefix="chip_smoke_flight_")
+    os.environ["PADDLE_TPU_FLIGHT_DIR"] = flight_dir
+    prompts = _serving_workload(cfg)[0][:8]
+    params = [SamplingParams(max_new_tokens=POISON_NEW_TOKENS)] * 8
+    engine = Engine(model, _serving_geometry())
+    ref = engine.generate(prompts, params)
+    result = {}
+
+    # 1. unattributed decode fault: bisected over the same program
+    m = engine.metrics
+    steps0 = {f: getattr(m, f) for f in _STEP_FIELDS}
+    _build.reset_launch_counts()
+    with host_dispatch_probe() as run_probe:
+        outs, sizes, step = _poisoned_run(torch, engine, prompts, params,
+                                          "decode")
+    counts = dict(_build.launch_counts(), **_build.variant_counts())
+    _check_survivors("poison decode", outs, ref)
+    # the run's launches as in serving: steps counted over this run,
+    # programs over the engine's life
+    _serving_gates("poison", counts, type("Run", (), dict(
+        {f: getattr(m, f) for f in _PROGRAM_FIELDS},
+        **{f: getattr(m, f) - steps0[f] for f in _STEP_FIELDS})),
+        run_probe, L, "paged_attention", "float", True,
+        engine.config.prefill_buckets, m.decode_compiles)
+    check(sizes == [8, 4, 2, 1] and step["decode"] == 3
+          and step["replays"] == 3 and step["direct"] == 0
+          and step["decode_programs"] == 0,
+          f"poison decode: failing launch sizes {sizes}, the step's "
+          f"successful launches / replays {step} (want [8, 4, 2, 1], 3 "
+          f"replays, no new program)")
+    h = engine.health()
+    check(engine.block_manager.num_used == 0 and m.requests_errored == 1
+          and h["status"] == "degraded" and h["requests_errored"] == 1
+          and "poisoned logits" in h["last_error"],
+          f"poison decode: {engine.block_manager.num_used} blocks left, "
+          f"health {h['status']}, errored {m.requests_errored}, "
+          f"{h['last_error']}")
+    result["decode"] = {"fault_launch_sizes": sizes, "poisoned_step": step,
+                        "errored_tokens": len(outs[POISON_VICTIM].token_ids),
+                        "launches": counts}
+    log(f"[poison] decode: launches of sizes {sizes} failed, the poisoned "
+        f"step made {step['replays']} replays of the captured program and "
+        f"built none; 7 survivors token-identical, request 3 'error' after "
+        f"{len(outs[POISON_VICTIM].token_ids)} tokens; health "
+        f"{h['status']}")
+
+    # 2. attributed: one launch, no bisection
+    outs, sizes, step = _poisoned_run(torch, engine, prompts, params,
+                                      "decode", attributed=True)
+    _check_survivors("poison attributed", outs, ref)
+    check(sizes == [8] and step["decode"] == 1 and step["replays"] == 1,
+          f"poison attributed: launch sizes {sizes}, step {step} (want one "
+          f"failed launch of 8 and one replay of the other 7)")
+    result["attributed"] = {"fault_launch_sizes": sizes,
+                            "poisoned_step": step}
+
+    # 3. prefill: only its own request
+    outs, _, step = _poisoned_run(torch, engine, prompts, params, "prefill")
+    _check_survivors("poison prefill", outs, ref)
+    check(outs[POISON_VICTIM].token_ids == [] and step["prefill"] == 7,
+          f"poison prefill: the victim has {outs[POISON_VICTIM].token_ids}, "
+          f"{step['prefill']} prefills ran in its step")
+    result["prefill"] = {"poisoned_step": step}
+    check(engine.block_manager.num_used == 0
+          and m.requests_errored == 3,
+          f"poison: {engine.block_manager.num_used} blocks left, "
+          f"{m.requests_errored} errored after three faults")
+
+    # 4. the verify launch of the serving_spec engine
+    rng = np.random.RandomState(3)
+    spec_prompts = [[int(t)] * SPEC_PROMPT_COPIES
+                    for t in rng.randint(1, cfg.vocab_size, 8)]
+    spec_engine = Engine(model, _serving_geometry(speculate_tokens=SPEC_K))
+    spec_ref = spec_engine.generate(spec_prompts, params)
+    outs, sizes, step = _poisoned_run(torch, spec_engine, spec_prompts,
+                                      params, "verify")
+    _check_survivors("poison verify", outs, spec_ref)
+    check(sizes == [8, 4, 2, 1] and step["verify"] == 3
+          and step["replays"] == 3 and step["verify_programs"] == 0
+          and spec_engine.block_manager.num_used == 0
+          and spec_engine.metrics.requests_errored == 1,
+          f"poison verify: launch sizes {sizes}, step {step}, "
+          f"{spec_engine.block_manager.num_used} blocks left")
+    result["verify"] = {"fault_launch_sizes": sizes, "poisoned_step": step}
+    log(f"[poison] verify: sizes {sizes}, {step['replays']} replays of the "
+        f"verify program; attributed decode: one failed launch, "
+        f"{result['attributed']['poisoned_step']['replays']} replay; "
+        f"prefill: the victim alone")
+
+    # 5. a device fault re-raises at once: no launch, no bisection
+    reqs = [engine.add_request(p, sp) for p, sp in zip(prompts, params)]
+    for _ in range(2):
+        engine.step()
+    tried = []
+
+    def device_fault(ctx):
+        tried.append(len(ctx["request_ids"]))
+        raise torch.AcceleratorError("CUDA error: injected device fault")
+
+    spec = FaultSpec(action=device_fault,
+                     when=lambda c: c.get("phase") == "decode")
+    before = (m.decode_steps, m.requests_errored)
+    raised = None
+    with faults.inject({"serving.step": spec}), \
+            host_dispatch_probe() as probe:
+        try:
+            engine.step()
+        except torch.AcceleratorError as e:
+            raised = e
+    check(raised is not None and tried == [8] and probe["replays"] == 0
+          and (m.decode_steps, m.requests_errored) == before,
+          f"poison device fault: raised {raised!r}, launches tried "
+          f"{tried}, {probe['replays']} replays, errored "
+          f"{m.requests_errored - before[1]}")
+    for r in reqs:
+        engine.abort(r.request_id)
+    while engine.has_unfinished():
+        engine.step()
+    check(engine.block_manager.num_used == 0,
+          "poison: blocks left after the device-fault case")
+    result["device_fault"] = {"launches_tried": tried,
+                              "replays": probe["replays"]}
+    log("[poison] device fault: re-raised after one attempt, no replay, "
+        "nothing poisoned")
+    result["launches"] = counts
+    del engine, spec_engine, model
+    shutil.rmtree(flight_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def _fleet_rate(torch, model, prompts, params):
+    """The serving cell's requests at t = 0 through a 2-replica fleet, one
+    16-slot engine and one 8-slot engine, ``FLEET_RUNS`` times each: the
+    fleet's launch gates, its greedy tokens against the 8-slot engine's,
+    tokens/s and mean TTFT (best run) per backend."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.serving import Engine, Fleet, FleetConfig
+
+    L = model.config.num_hidden_layers
+    out, tokens, fleet_counts = {}, {}, None
+    for kind in ("fleet", "engine16", "engine8"):
+        if kind == "fleet":
+            backend = Fleet(model, _serving_geometry(),
+                            FleetConfig(num_replicas=2))
+            engines = [s.engine for s in backend.replicas]
+        else:
+            backend = Engine(model, _serving_geometry(
+                max_batch_slots=16 if kind == "engine16" else 8))
+            engines = [backend]
+        runs = []
+        _build.reset_launch_counts()
+        with host_dispatch_probe() as probe:
+            for _ in range(FLEET_RUNS):
+                served = [e.metrics.requests_finished for e in engines]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs = backend.generate(prompts, params)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                n = sum(len(o.token_ids) for o in outs)
+                runs.append({
+                    "seconds": dt, "generated_tokens": n,
+                    "tokens_per_s": n / dt,
+                    "mean_ttft_s": float(np.mean(
+                        [o.time_to_first_token for o in outs])),
+                    "requests_per_replica": [
+                        e.metrics.requests_finished - s
+                        for e, s in zip(engines, served)]})
+                check(all(o.finish_reason == "length"
+                          and len(o.token_ids) == sp.max_new_tokens
+                          for o, sp in zip(outs, params)),
+                      f"fleet rate ({kind}): a request did not finish at "
+                      f"full length")
+                greedy = [o.token_ids for o, sp in zip(outs, params)
+                          if not sp.do_sample]
+                check(tokens.setdefault(kind, greedy) == greedy,
+                      f"fleet rate ({kind}): greedy tokens differ between "
+                      f"runs")
+        check(all(e.block_manager.num_used == 0 for e in engines),
+              f"fleet rate ({kind}): KV blocks left")
+        if kind == "fleet":
+            counts = dict(_build.launch_counts(), **_build.variant_counts())
+            summed = type("Summed", (), {
+                f: sum(getattr(e.metrics, f) for e in engines)
+                for f in _STEP_FIELDS + _PROGRAM_FIELDS})
+            check(all(e.metrics.decode_compiles <= 2 for e in engines),
+                  "fleet: more than two decode programs on a replica")
+            _serving_gates("fleet", counts, summed, probe, L,
+                           "paged_attention", "float", True,
+                           _serving_geometry().prefill_buckets * 2,
+                           summed.decode_compiles)
+            fleet_counts = counts
+        best = max(runs, key=lambda r: r["tokens_per_s"])
+        out[kind] = dict(best, runs=runs)
+        log(f"[fleet] {kind}: best of {FLEET_RUNS} "
+            f"{best['tokens_per_s']:.1f} tokens/s, mean TTFT "
+            f"{best['mean_ttft_s'] * 1e3:.1f} ms, requests per replica "
+            f"{best['requests_per_replica']} (runs: "
+            + ", ".join(f"{r['tokens_per_s']:.1f}" for r in runs) + ")")
+        del backend, engines
+        gc.collect()
+    check(tokens["fleet"] == tokens["engine8"],
+          "fleet: greedy tokens differ from the 8-slot engine's")
+    out["greedy_equal_to_engine8"] = True
+    out["greedy_equal_engine16_to_engine8"] = (
+        tokens["engine16"] == tokens["engine8"])
+    out["fleet_vs_engine16"] = (out["fleet"]["tokens_per_s"]
+                                / out["engine16"]["tokens_per_s"])
+    out["fleet_vs_engine8"] = (out["fleet"]["tokens_per_s"]
+                               / out["engine8"]["tokens_per_s"])
+    return out, fleet_counts, tokens["engine8"]
+
+
+def _first_divergence(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def _fleet_failover(torch, model, prompts, params, ref_greedy):
+    """Kill r0 once it has decoded ``FLEET_KILL_AFTER`` tokens; its
+    restart's engine build is held until the survivor captures a prefill
+    bucket it has not used (a long prompt sent at the death), inside that
+    capture, so the two meet at the capture lock. Every request delivered
+    once at full length, the restart adopted and serving a later
+    request."""
+    import threading
+
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.resilience import FaultSpec, faults
+    from paddle_tpu_torch.serving import Fleet, FleetConfig, SamplingParams
+
+    fleet = Fleet(model, _serving_geometry(), FleetConfig(num_replicas=2))
+    r0, r1 = fleet.replicas
+    survivor = r1.engine
+    state = {"armed": False, "bucket": None, "failed_over": []}
+    times, capturing = {}, threading.Event()
+
+    real_prefill_program = survivor._prefill_program
+
+    def prefill_program(bucket):
+        if (state["armed"] and state["bucket"] is None
+                and bucket not in survivor._prefill_programs):
+            state["bucket"] = bucket
+        return real_prefill_program(bucket)
+
+    survivor._prefill_program = prefill_program
+    record = _build.record_launches
+
+    def recorded(fn):
+        if (state["bucket"] is None or capturing.is_set()
+                or fn.__name__ != "capture"):
+            return record(fn)
+        times["capture_start"] = time.perf_counter()
+        capturing.set()
+        # hold the capture open: the restart thread runs into the lock
+        time.sleep(0.2)
+        try:
+            return record(fn)
+        finally:
+            times["capture_end"] = time.perf_counter()
+
+    real_factory = r0._factory
+
+    def factory():
+        t0 = time.perf_counter()
+        eng = real_factory()
+        times["built"] = time.perf_counter()
+        times["build_s"] = times["built"] - t0
+        build = eng._program
+
+        def timed(fn, generator):
+            t1 = time.perf_counter()
+            prog = build(fn, generator)
+            times["capture_s"] = (times.get("capture_s", 0.0)
+                                  + time.perf_counter() - t1)
+            return prog
+
+        eng._program = timed
+        return eng
+
+    r0._factory = factory
+
+    def kill_when(c):
+        if (c.get("phase") != "step" or c.get("replica") != "r0"
+                or r0.engine is None
+                or r0.engine.metrics.decode_tokens < FLEET_KILL_AFTER):
+            return False
+        eng = r0.engine
+        state["failed_over"] = [r.request_id for r in list(eng.slots)
+                                + list(eng.waiting) if r is not None]
+        state["armed"] = True
+        return True
+
+    def restart_action(_ctx):
+        times["restart_waits"] = time.perf_counter()
+        times["overlap"] = capturing.wait(120)
+        times["restart_go"] = time.perf_counter()
+
+    specs = {"serving.replica": [
+        FaultSpec(RuntimeError("replica r0 killed"), when=kill_when,
+                  max_fires=1),
+        FaultSpec(action=restart_action, max_fires=1,
+                  when=lambda c: c.get("phase") == "restart")]}
+    reqs = [fleet.add_request(p, sp) for p, sp in zip(prompts, params)]
+    rng = np.random.RandomState(7)
+    long_req, later, out = None, [], {}
+    _build.record_launches = recorded
+    try:
+        with faults.inject(specs):
+            t0 = time.perf_counter()
+            while True:
+                for o in fleet.step():
+                    check(o.request_id not in out,
+                          f"fleet failover: {o.request_id} delivered twice")
+                    out[o.request_id] = o
+                if fleet.metrics.failovers and long_req is None:
+                    long_req = fleet.add_request(
+                        rng.randint(1, model.config.vocab_size,
+                                    FLEET_LONG_PROMPT).tolist(),
+                        SamplingParams(max_new_tokens=16))
+                if (r0.status == "healthy" and fleet.metrics.restarts
+                        and not later):
+                    later = [fleet.add_request(p, SamplingParams(
+                        max_new_tokens=16)) for p in prompts[:4]]
+                everything = reqs + ([long_req] if long_req else []) + later
+                if (later and all(r.done for r in everything)
+                        and not fleet.has_unfinished()):
+                    break
+                check(time.perf_counter() - t0 < 300,
+                      f"fleet failover: not drained in 300 s (r0 "
+                      f"{r0.status}, failovers {fleet.metrics.failovers})")
+            torch.cuda.synchronize()
+    finally:
+        _build.record_launches = record
+    m = fleet.metrics
+    check(m.failovers == 1 and m.failover_requests == len(
+        state["failed_over"]) > 0,
+        f"fleet failover: {m.failovers} failovers, "
+        f"{m.failover_requests} requests failed over")
+    for r in everything:
+        o = out.get(r.request_id)
+        check(o is not None and o.finish_reason == "length"
+              and len(o.token_ids) == r.sampling_params.max_new_tokens,
+              f"fleet failover: {r.request_id} not delivered at full length "
+              f"({o!r})")
+    check(times.get("overlap") and times["restart_go"]
+          < times["capture_end"] < times["built"],
+          f"fleet failover: the restart did not meet the survivor's capture "
+          f"of bucket {state['bucket']} ({times})")
+    check(m.restarts == 1 and r0.status == "healthy"
+          and r0.engine.metrics.requests_finished >= 1,
+          f"fleet failover: restart adopted {m.restarts}, r0 {r0.status}, "
+          f"served {r0.engine and r0.engine.metrics.requests_finished}")
+    check(all(s.engine.block_manager.num_used == 0 for s in fleet.replicas),
+          "fleet failover: KV blocks left")
+    greedy = [(r, o) for r, sp in zip(reqs, params) if not sp.do_sample
+              for o in (out[r.request_id],)]
+    diverged = {r.request_id: _first_divergence(o.token_ids, want)
+                for (r, o), want in zip(greedy, ref_greedy)}
+    moved = [rid for rid in state["failed_over"] if rid in diverged]
+    result = {
+        "failovers": m.failovers, "failover_requests": m.failover_requests,
+        "failover_recovery_s": m.failover_recovery_s,
+        "restart_build_s": times["build_s"],
+        "restart_lock_wait_s": times["capture_end"] - times["restart_go"],
+        "restart_first_captures_s": times.get("capture_s", 0.0),
+        "survivor_new_bucket": state["bucket"],
+        "restarted_replica_served": r0.engine.metrics.requests_finished,
+        "first_divergence_failed_over": {rid: diverged[rid]
+                                         for rid in moved},
+        "greedy_equal_not_failed_over": sum(
+            diverged[rid] is None for rid in diverged if rid not in moved),
+        "greedy_not_failed_over": sum(rid not in moved for rid in diverged),
+    }
+    log(f"[fleet] failover: r0 killed after {FLEET_KILL_AFTER} decoded "
+        f"tokens, {m.failover_requests} requests failed over, every request "
+        f"delivered once at full length; failover_recovery_s "
+        f"{m.failover_recovery_s:.4f}; the restart waited "
+        f"{result['restart_lock_wait_s']:.3f} s at the capture lock while "
+        f"r1 captured bucket {state['bucket']}, built in "
+        f"{times['build_s']:.3f} s with the wait, first captures "
+        f"{result['restart_first_captures_s']:.3f} s; adopted, served "
+        f"{result['restarted_replica_served']} later requests; first "
+        f"divergence of the failed-over greedy requests "
+        f"{result['first_divergence_failed_over']}")
+    return fleet, result
+
+
+def _fleet_device_fault(torch, fleet, prompts):
+    """A device fault from a replica step re-raises from ``Fleet.step``:
+    no failover, no restart."""
+    from paddle_tpu_torch.resilience import FaultSpec, faults
+    from paddle_tpu_torch.serving import SamplingParams
+
+    reqs = [fleet.add_request(p, SamplingParams(max_new_tokens=8))
+            for p in prompts[:4]]
+    fleet.step()
+    before = (fleet.metrics.failovers, [s.restarts for s in fleet.replicas],
+              [s._restart_thread for s in fleet.replicas])
+
+    def device_fault(_ctx):
+        raise torch.AcceleratorError("CUDA error: injected device fault")
+
+    spec = FaultSpec(action=device_fault, max_fires=1,
+                     when=lambda c: (c.get("phase") == "step"
+                                     and c.get("replica") == "r1"))
+    raised = None
+    with faults.inject({"serving.replica": spec}):
+        try:
+            fleet.step()
+        except torch.AcceleratorError as e:
+            raised = e
+    after = (fleet.metrics.failovers, [s.restarts for s in fleet.replicas],
+             [s._restart_thread for s in fleet.replicas])
+    check(raised is not None and after == before
+          and all(s.status == "healthy" for s in fleet.replicas),
+          f"fleet device fault: raised {raised!r}, failovers/restarts "
+          f"{before} -> {after}")
+    for r in reqs:
+        fleet.abort(r.request_id)
+    while fleet.has_unfinished():
+        fleet.step()
+    check(all(s.engine.block_manager.num_used == 0 for s in fleet.replicas),
+          "fleet device fault: KV blocks left")
+    log("[fleet] device fault: Fleet.step re-raised it, no failover, no "
+        "restart")
+    return {"reraised": True}
+
+
+def _fleet_warm_routing(torch, model):
+    """The serving_prefix geometry behind a 2-replica fleet: one request
+    of 16 sharing a 192-token system prompt warms a replica, then all 16:
+    the warm replica's prefix cache serves them (hit tokens), its chunks
+    launching the continuation kernel."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.serving import Fleet, FleetConfig, SamplingParams
+
+    cfg = model.config
+    ecfg = _serving_geometry(enable_prefix_cache=True,
+                             prefill_chunk_tokens=PREFIX_CHUNK)
+    rng = np.random.RandomState(5)
+    system = rng.randint(1, cfg.vocab_size, PREFIX_SYSTEM_TOKENS).tolist()
+    prompts = [system + rng.randint(1, cfg.vocab_size,
+                                    int(rng.randint(8, 128))).tolist()
+               for _ in range(16)]
+    params = SamplingParams(max_new_tokens=32)
+    fleet = Fleet(model, ecfg, FleetConfig(num_replicas=2))
+    fleet.generate(prompts[:1], params)
+    warm = next(s for s in fleet.replicas
+                if s.engine.metrics.prefill_tokens > 0)
+    hits0 = {s.name: s.engine.metrics.prefix_hit_tokens
+             for s in fleet.replicas}
+    served0 = {s.name: s.engine.metrics.requests_finished
+               for s in fleet.replicas}
+    _build.reset_launch_counts()
+    with host_dispatch_probe() as probe:
+        outs = fleet.generate(prompts, params)
+        torch.cuda.synchronize()
+    counts = dict(_build.launch_counts(), **_build.variant_counts())
+    hits = {s.name: s.engine.metrics.prefix_hit_tokens - hits0[s.name]
+            for s in fleet.replicas}
+    served = {s.name: s.engine.metrics.requests_finished - served0[s.name]
+              for s in fleet.replicas}
+    check(all(o.finish_reason == "length" for o in outs)
+          and hits[warm.name] > 0 and fleet.metrics.route_prefix_hits >= 1
+          and counts["paged_prefill"] > 0 and probe["direct"] == 0
+          and counts.get("paged_prefill/split", 0) == counts["paged_prefill"],
+          f"fleet warm routing: hit tokens {hits} (warm {warm.name}), "
+          f"prefix routes {fleet.metrics.route_prefix_hits}, launches "
+          f"{counts}, {probe['direct']} outside a graph")
+    check(all(s.engine.block_manager.num_used == len(s.engine.prefix_cache)
+              for s in fleet.replicas), "fleet warm routing: blocks leaked")
+    log(f"[fleet] warm routing: {warm.name} served pass 1; pass 2 hit "
+        f"tokens {hits}, requests {served}, prefix-affinity routes "
+        f"{fleet.metrics.route_prefix_hits}, paged_prefill launches "
+        f"{counts['paged_prefill']}")
+    result = {"warm_replica": warm.name, "hit_tokens": hits,
+              "requests": served,
+              "route_prefix_hits": fleet.metrics.route_prefix_hits}
+    del fleet
+    gc.collect()
+    return result, counts
+
+
+def _fleet_http(torch, model, prompts):
+    """``FLEET_HTTP_REQUESTS`` requests over HTTP to a 2-replica fleet,
+    two tenants, half SSE: each answered once with its tenant; /healthz
+    lists both replicas."""
+    import http.client
+    import threading
+
+    from paddle_tpu_torch.serving import Fleet, FleetConfig, Server
+    from paddle_tpu_torch.serving.qos import QoSConfig, TenantPolicy
+
+    fleet = Fleet(model, _serving_geometry(), FleetConfig(num_replicas=2))
+    srv = Server(fleet, port=0, qos=QoSConfig(
+        api_keys=SERVER_TENANTS,
+        tenants={t: TenantPolicy(weight=w)
+                 for t, w in SERVER_WEIGHTS.items()}))
+    keys = sorted(SERVER_TENANTS)
+    results = [None] * FLEET_HTTP_REQUESTS
+
+    def go(i):
+        key = keys[i % 2]
+        stream = i % 4 >= 2
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port,
+                                          timeout=SERVER_TIMEOUT_S)
+        try:
+            conn.request("POST", "/v1/completions", body=json.dumps({
+                "prompt": prompts[i], "max_tokens": 32,
+                "stream": stream}).encode(), headers={
+                "Content-Type": "application/json",
+                "Authorization": f"Bearer {key}"})
+            resp = conn.getresponse()
+            body = None
+            if not stream:
+                body = json.loads(resp.read())
+            while stream:
+                raw = resp.fp.readline()
+                line = raw.strip()
+                if not raw or line == b"data: [DONE]":
+                    break
+                if line.startswith(b"data: "):
+                    body = json.loads(line[len(b"data: "):])
+            results[i] = (resp.status, SERVER_TENANTS[key], body)
+        finally:
+            conn.close()
+
+    try:
+        threads = [threading.Thread(target=go, args=(i,))
+                   for i in range(FLEET_HTTP_REQUESTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(SERVER_TIMEOUT_S)
+        check(not any(t.is_alive() for t in threads),
+              "fleet http: client threads still waiting")
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=30)
+        conn.request("GET", "/healthz")
+        health = json.loads(conn.getresponse().read())
+        conn.close()
+    finally:
+        srv.close()
+    for status, tenant, body in results:
+        check(status == 200 and body["tenant"] == tenant
+              and len(body["choices"][0]["token_ids"]) == 32,
+              f"fleet http: answer {status} {body}")
+    probe = health["providers"][f"serving.fleet.{fleet.fleet_id}"]
+    check(probe["replicas"] == {"r0": "healthy", "r1": "healthy"}
+          and fleet.metrics.requests_finished == FLEET_HTTP_REQUESTS
+          and fleet.qos is srv.qos,
+          f"fleet http: /healthz {probe}, "
+          f"{fleet.metrics.requests_finished} finished")
+    per = [s.engine.metrics.requests_finished for s in fleet.replicas]
+    log(f"[fleet] http: {FLEET_HTTP_REQUESTS} requests, two tenants, each "
+        f"answered once; per replica {per}; /healthz {probe['replicas']}")
+    return {"requests": FLEET_HTTP_REQUESTS, "per_replica": per,
+            "healthz_replicas": probe["replicas"]}
+
+
+def phase_fleet(torch):
+    """The self-healing fleet on the card: 2 replicas of the serving
+    cell's model (8 slots each, bf16 pool) against one 16-slot and one
+    8-slot engine; failover with a restart that meets a capture; a
+    device fault; warm routing; the fleet behind the HTTP server."""
+    import shutil
+    import tempfile
+
+    model = _serving_model(torch, "fleet")
+    flight_dir = tempfile.mkdtemp(prefix="chip_smoke_flight_")
+    os.environ["PADDLE_TPU_FLIGHT_DIR"] = flight_dir
+    prompts, params = _serving_workload(model.config)
+    result, counts, ref_greedy = _fleet_rate(torch, model, prompts, params)
+    fleet, result["failover"] = _fleet_failover(torch, model, prompts,
+                                                params, ref_greedy)
+    result["device_fault"] = _fleet_device_fault(torch, fleet, prompts)
+    del fleet
+    gc.collect()
+    result["warm_routing"], warm_counts = _fleet_warm_routing(torch, model)
+    result["http"] = _fleet_http(torch, model, prompts)
+    result["launches"] = {k: counts.get(k, 0) + warm_counts.get(k, 0)
+                          for k in set(counts) | set(warm_counts)}
+    r = result
+    log(f"[fleet] 32 requests: fleet of 2 {r['fleet']['tokens_per_s']:.1f} "
+        f"tokens/s ({r['fleet_vs_engine16']:.3f}x the 16-slot engine's "
+        f"{r['engine16']['tokens_per_s']:.1f}, {r['fleet_vs_engine8']:.3f}x "
+        f"the 8-slot engine's {r['engine8']['tokens_per_s']:.1f}); mean "
+        f"TTFT {r['fleet']['mean_ttft_s'] * 1e3:.1f} / "
+        f"{r['engine16']['mean_ttft_s'] * 1e3:.1f} / "
+        f"{r['engine8']['mean_ttft_s'] * 1e3:.1f} ms")
+    del model
+    shutil.rmtree(flight_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
 # ------------------------------------------------------------- training
 def _lm_loss(model, ids):
     return model(ids, labels=ids)[1]
@@ -4026,11 +4802,12 @@ def main(argv=None):
     ap.add_argument(
         "--phases",
         default="kernels,parity,serving,serving_int8,serving_f16,"
-                "serving_prefix,serving_spec,server,journal,train_parity,"
-                "train,moe",
+                "serving_prefix,serving_spec,server,journal,poison,fleet,"
+                "train_parity,train,moe",
         help="comma list of kernels, parity, serving, serving_int8, "
              "serving_f16, serving_prefix, serving_spec, server, journal, "
-             "train_parity, train, moe, profile (default: all but profile)",
+             "poison, fleet, train_parity, train, moe, profile (default: "
+             "all but profile)",
     )
     ap.add_argument("--out", help="write the full report as JSON here")
     # the processes the server and journal phases start
@@ -4048,8 +4825,8 @@ def main(argv=None):
     phases = set(args.phases.split(","))
     unknown = phases - {"kernels", "parity", "serving", "serving_int8",
                         "serving_f16", "serving_prefix", "serving_spec",
-                        "server", "journal", "train_parity", "train", "moe",
-                        "profile"}
+                        "server", "journal", "poison", "fleet",
+                        "train_parity", "train", "moe", "profile"}
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
@@ -4101,6 +4878,7 @@ def main(argv=None):
             "serving_prefix": phase_serving_prefix,
             "serving_spec": phase_serving_spec,
             "server": phase_server, "journal": phase_journal,
+            "poison": phase_poison, "fleet": phase_fleet,
             "train_parity": phase_train_parity, "train": phase_train,
             "moe": phase_moe, "profile": phase_profile,
         }
@@ -4158,9 +4936,11 @@ def main(argv=None):
                 f"{[k for k, r in ratio.items() if r > 1] or 'none'}")
         report["phases"].update(results)
         (serving, serving_int8, serving_f16, serving_prefix, serving_spec,
-         server, journal, train, moe) = (results.get(p) for p in (
-             "serving", "serving_int8", "serving_f16", "serving_prefix",
-             "serving_spec", "server", "journal", "train", "moe"))
+         server, journal, poison, fleet, train, moe) = (
+             results.get(p) for p in (
+                 "serving", "serving_int8", "serving_f16", "serving_prefix",
+                 "serving_spec", "server", "journal", "poison", "fleet",
+                 "train", "moe"))
         check("jax" not in sys.modules and not any(
             m == "paddle_tpu" or m.startswith("paddle_tpu.")
             for m in sys.modules),
@@ -4174,13 +4954,16 @@ def main(argv=None):
     # launches on each main path: serving (float and int8 pools; float16
     # with both; the prefix cache with chunked prefill, both pools;
     # speculative decoding and its spec-disabled twin, both pools), the
-    # HTTP front door's first pass, the journal's recovered engine, the 14
-    # counted train steps, and the moe phase's counted forwards
+    # HTTP front door's first pass, the journal's recovered engine, the
+    # poisoned decode run, the fleet's counted runs (the 2-replica rate
+    # runs and the warm-routing pass), the 14 counted train steps, and the
+    # moe phase's counted forwards
     by_path = {p: r["launches"] if r else {} for p, r in (
         ("serving", serving), ("serving_int8", serving_int8),
         ("serving_f16", serving_f16), ("serving_prefix", serving_prefix),
         ("serving_spec", serving_spec), ("server", server),
-        ("journal", journal), ("train", train), ("moe", moe))}
+        ("journal", journal), ("poison", poison), ("fleet", fleet),
+        ("train", train), ("moe", moe))}
 
     def launches(name):
         per = {p: c.get(name, 0) for p, c in by_path.items()}

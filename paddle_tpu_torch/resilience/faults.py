@@ -15,12 +15,30 @@ Tests activate a seeded schedule with a context manager:
 
 Sites the port fires (each failure degrades, none is fatal):
 
+    serving.step       one engine prefill/decode/verify launch, fired on
+                       the host before the staging copy and the replay
+                       (context: phase= "prefill"/"decode"/"verify",
+                       request_id= for a prefill, request_ids= of the
+                       active subset for a batched launch): the engine
+                       finishes the poison request with "error" and keeps
+                       the rest of the batch
+    serving.replica    one fleet replica lifecycle event (context:
+                       replica=, phase= "spawn"/"restart"/"step") —
+                       phase="step" fires before the engine step, so an
+                       injected death lands on a step boundary where the
+                       recompute-preemption KV invariant holds
+    fleet.route        one fleet request placement attempt (context:
+                       request_id=, replica=): the request stays pending
+                       and is placed on a later fleet step
+    fleet.scale        one fleet scale-down (context: fleet=, action=,
+                       replica=, reason=): counted, the fleet stays as
+                       it was
     journal.append     one request-journal flush (context: path=,
                        records=): the records are dropped, counted and
                        warned once; serving continues
-    journal.replay     one request-journal replay at engine build
-                       (context: path=): an empty recovery, warned and
-                       counted
+    journal.replay     one request-journal replay at engine or fleet
+                       build (context: path=): an empty recovery, warned
+                       and counted
     obs.accesslog      one access-log line (context: path=, rid=): the
                        line is dropped, counted and warned once
     obs.export         one exporter call (context: what= "scrape"/

@@ -1,11 +1,13 @@
 """Continuous-batching serving (counterpart of ``paddle_tpu.serving``: the
 engine and its step programs, paged KV pool, prefix cache, adapter,
-sampler; the request journal, the access log, multi-tenant QoS and the
-streaming HTTP front door with its CLI, ``python -m
-paddle_tpu_torch.serving serve``)."""
+sampler; the self-healing fleet of engine replicas and their supervisor;
+the request journal, the access log, multi-tenant QoS and the streaming
+HTTP front door with its CLI, ``python -m paddle_tpu_torch.serving
+serve``)."""
 from .access_log import AccessLog
 from .adapter import LlamaServingAdapter, build_adapter
 from .engine import Engine, EngineConfig, EngineOverloadedError
+from .fleet import Fleet, FleetConfig, FleetMetrics, NoReplicaError
 from .journal import Journal, ReplayEntry
 from .kv_cache import BlockManager, KVPool
 from .metrics import EngineMetrics
@@ -26,13 +28,16 @@ from .request import (
 )
 from .sampler import pack_sampling_params, sample_tokens
 from .server import Server, serve
+from .supervisor import ReplicaSupervisor
 
 __all__ = [
     "AccessLog", "BlockManager", "Engine", "EngineConfig", "EngineMetrics",
-    "EngineOverloadedError", "Journal", "KVPool", "LlamaServingAdapter",
+    "EngineOverloadedError", "Fleet", "FleetConfig", "FleetMetrics",
+    "Journal", "KVPool", "LlamaServingAdapter", "NoReplicaError",
     "PrefixCache", "PrefixMatch", "QoS", "QoSConfig", "QoSRejection",
-    "ReplayEntry", "Request", "RequestOutput", "RequestState",
-    "RequestTimeline", "SamplingParams", "Server", "TenantPolicy",
-    "UnknownTenantError", "build_adapter", "pack_sampling_params",
-    "prompt_chain_digests", "sample_tokens", "serve",
+    "ReplayEntry", "ReplicaSupervisor", "Request", "RequestOutput",
+    "RequestState", "RequestTimeline", "SamplingParams", "Server",
+    "TenantPolicy", "UnknownTenantError", "build_adapter",
+    "pack_sampling_params", "prompt_chain_digests", "sample_tokens",
+    "serve",
 ]

@@ -2,14 +2,16 @@
 (counterpart of ``python -m paddle_tpu.serving``).
 
     python -m paddle_tpu_torch.serving serve --model tiny --port 8000 \
-        [--device cpu] [--journal-dir DIR] [--api-key KEY=TENANT ...]
+        [--device cpu] [--replicas 2 --max-pending N] [--journal-dir DIR] \
+        [--api-key KEY=TENANT ...]
 
 The engine runs on the CUDA device unless ``--device`` names another
-one. Bad configuration exits non-zero with a named error on stderr
-(``error: ConfigError: ...``) instead of a stack trace; so do the flags
-whose modules are not ported yet (``--replicas`` N > 0: the fleet,
-``--tp-degree`` > 1: tensor parallelism, ``--compile-cache``: the
-compile cache).
+one; ``--replicas N`` (N >= 1) serves through a ``Fleet`` of N replicas
+sharing the model, whose front-door journal is ``--journal-dir``. Bad
+configuration exits non-zero with a named error on stderr (``error:
+ConfigError: ...``) instead of a stack trace; so do the flags whose
+modules are not ported yet (``--tp-degree`` > 1: tensor parallelism,
+``--compile-cache``: the compile cache).
 """
 from __future__ import annotations
 
@@ -56,7 +58,7 @@ def _parse_api_keys(pairs):
 
 
 def _build_backend(args):
-    from . import Engine, EngineConfig
+    from . import Engine, EngineConfig, Fleet, FleetConfig
 
     if args.tp_degree < 1:
         raise ConfigError(
@@ -69,7 +71,6 @@ def _build_backend(args):
             f"--replicas must be >= 0, got {args.replicas}"
         )
     for flag, value, module in (
-            ("--replicas", args.replicas > 0, "the fleet (serving/fleet.py)"),
             ("--tp-degree", args.tp_degree > 1,
              "tensor parallelism (serving/sharding.py)"),
             ("--compile-cache", args.compile_cache is not None,
@@ -84,11 +85,17 @@ def _build_backend(args):
         engine_cfg = EngineConfig(
             max_batch_slots=args.max_batch_slots,
             max_model_len=args.max_model_len,
-            journal=args.journal_dir,
+            journal=args.journal_dir if args.replicas == 0 else None,
         )
+        if args.replicas > 0:
+            return Fleet(model, engine_cfg, FleetConfig(
+                num_replicas=args.replicas,
+                max_pending=args.max_pending,
+                journal_dir=args.journal_dir,
+            ))
         return Engine(model, engine_cfg)
     except ValueError as e:
-        # engine config validation becomes a named CLI error
+        # engine/fleet config validation becomes a named CLI error
         raise ConfigError(str(e))
 
 
@@ -115,7 +122,9 @@ def main(argv=None):
     sp.add_argument("--tp-degree", type=int, default=1,
                     help="tensor-parallel degree (only 1 is ported)")
     sp.add_argument("--replicas", type=int, default=0,
-                    help="0 = single engine (a fleet is not ported)")
+                    help="0 = single engine, N >= 1 = fleet of N")
+    sp.add_argument("--max-pending", type=int, default=None,
+                    help="fleet bounded-admission queue depth")
     sp.add_argument("--max-batch-slots", type=int, default=8)
     sp.add_argument("--max-model-len", type=int, default=2048)
     sp.add_argument("--api-key", action="append", metavar="KEY=TENANT",
@@ -140,11 +149,13 @@ def main(argv=None):
     except OSError as e:
         print(f"error: BindError: {e}", file=sys.stderr)
         return 2
-    print(
-        f"paddle_tpu_torch serving on {srv.url} "
-        f"(model={args.model}, engine on {backend.device})",
-        flush=True,
-    )
+    if args.replicas:
+        what = (f"fleet of {args.replicas} on "
+                f"{backend.replicas[0].engine.device}")
+    else:
+        what = f"engine on {backend.device}"
+    print(f"paddle_tpu_torch serving on {srv.url} (model={args.model}, "
+          f"{what})", flush=True)
     try:
         # foreground until SIGTERM drains + closes (or Ctrl-C)
         while not srv._closed:

@@ -94,10 +94,25 @@ fed into the per-phase latency digests that ``/metrics`` exports; the
 engine registers its ``health()`` for ``/healthz``. The HTTP front door
 over an engine is ``serving.server``.
 
-Not ported yet (later slices): fleet (placement, supervisor), tensor
-parallelism, spill tier, step observatory (and its speculative reject
-count), poison isolation, the watchdog, the analysis gate (and its
-``check_verify``) and the compile cache.
+Poison isolation (the JAX engine's ``_poison``/``_isolate``): a
+prefill, chunk or copy-on-write that raises finishes its own request
+with ``"error"``; a decode or verify launch that raises is retried over
+subsets of its active mask (one request named by the exception's
+``request_id``, else halves, down to the one that fails), each subset a
+replay of the same captured program with another staged ``active``
+mask. ``metrics.requests_errored``/``last_error`` count them and
+``health()`` turns "degraded". A ``torch.AcceleratorError`` is never
+contained: a CUDA error is sticky for the process, so it re-raises at
+once. The ``serving.step`` fault site fires on the host before each
+launch's staging copy. Anything that escapes ``step()`` is flight-
+recorded with the engine's health probe, then re-raised. A
+``serving.Fleet`` of engines (``serving/fleet.py``) supervises replicas
+above this.
+
+Not ported yet (later slices): tensor parallelism and placement, spill
+tier, step observatory (and its speculative reject count), the comm
+watchdog (``health()["watchdog"]`` reports it disabled), the analysis
+gate (and its ``check_verify``) and the compile cache.
 """
 from __future__ import annotations
 
@@ -115,6 +130,7 @@ from ..observability import (
     unregister_health_provider,
 )
 from ..observability.latency import SLOConfig, SLOTracker
+from ..resilience import faults
 from . import speculation
 from .access_log import record_finish, resolve_access_log
 from .adapter import DECODE_KERNELS, build_adapter
@@ -122,7 +138,7 @@ from .bucketing import next_bucket
 from .kv_cache import BlockManager, KVPool
 from .metrics import EngineMetrics
 from .prefix_cache import PrefixCache
-from .programs import Program, StepBuffers
+from .programs import Program, StepBuffers, capture_lock
 from .request import (
     Request,
     RequestOutput,
@@ -141,6 +157,11 @@ class EngineOverloadedError(RuntimeError):
 
 
 _MASK63 = (1 << 63) - 1
+
+# failures a launch can raise that poison isolation must not contain: a
+# CUDA error is sticky for the process (every later launch fails too), so
+# bisecting or retrying past it would only hide it
+_DEVICE_FAULTS = (torch.AcceleratorError,)
 
 # monotonic engine ids (labels of the registry views and the health
 # provider): id(self) is reused after an engine is collected
@@ -376,7 +397,7 @@ class Engine:
                 "needs an adapter that can score a K+1-token draft window "
                 "in one launch"
             )
-        self.device = dev = torch.device(self.adapter.device)
+        self.device = torch.device(self.adapter.device)
         self.engine_id = f"{next(_engine_counter):x}"
         # the metrics object doubles as a registry collector view
         # (paddle_tpu_serving_* series labeled engine=<id>)
@@ -385,6 +406,39 @@ class Engine:
                            if cfg.access_log is not None else None)
         self.slo = SLOTracker(cfg.slo) if cfg.slo is not None else None
         self.metrics.slo = self.slo
+        # the device setup (pool, pinned staging buffers, generators,
+        # graph pool, capture stream) takes the capture lock: a fleet
+        # builds a restarted replica on another thread, and a cudaMalloc
+        # or cudaHostAlloc there would invalidate a capture in progress
+        with capture_lock:
+            self._setup_device(cfg)
+        # the journal replays before any traffic (the programs are
+        # captured on first use, so before the first step): unfinished
+        # journaled requests join the queue head
+        self.journal = None
+        self._journal_replaying = False
+        if cfg.journal is not None:
+            from .journal import resolve_journal
+
+            self.journal = resolve_journal(cfg.journal, seed=cfg.seed)
+            self._replay_journal()
+        # /healthz aggregates this engine's health() through a weakref
+        # (the provider never pins a dead engine's pool); finalize drops
+        # it when the engine is collected
+        probe_name = f"serving.engine.{self.engine_id}"
+
+        def _probe(ref=weakref.ref(self)):
+            eng = ref()
+            return None if eng is None else eng.health()
+
+        register_health_provider(probe_name, _probe)
+        weakref.finalize(self, unregister_health_provider, probe_name)
+
+    def _setup_device(self, cfg):
+        """The KV pool, the scheduler's queues and slots, the generators
+        and the programs' static buffers (``__init__``, under the capture
+        lock)."""
+        dev = self.device
         self.pool = KVPool(
             self.adapter.num_layers, self.adapter.num_kv_heads,
             cfg.num_blocks, cfg.page_size, self.adapter.head_dim,
@@ -440,27 +494,6 @@ class Engine:
         if dev.type == "cuda":
             self._graph_pool = torch.cuda.graph_pool_handle()
             self._capture_stream = torch.cuda.Stream(dev)
-        # the journal replays before any traffic (the programs are
-        # captured on first use, so before the first step): unfinished
-        # journaled requests join the queue head
-        self.journal = None
-        self._journal_replaying = False
-        if cfg.journal is not None:
-            from .journal import resolve_journal
-
-            self.journal = resolve_journal(cfg.journal, seed=cfg.seed)
-            self._replay_journal()
-        # /healthz aggregates this engine's health() through a weakref
-        # (the provider never pins a dead engine's pool); finalize drops
-        # it when the engine is collected
-        probe_name = f"serving.engine.{self.engine_id}"
-
-        def _probe(ref=weakref.ref(self)):
-            eng = ref()
-            return None if eng is None else eng.health()
-
-        register_health_provider(probe_name, _probe)
-        weakref.finalize(self, unregister_health_provider, probe_name)
 
     # -- durable request journal (serving/journal.py) ------------------------
     def _replay_journal(self):
@@ -831,8 +864,9 @@ class Engine:
 
     def health(self):
         """Health snapshot: ``status`` is "ok", "degraded" (requests
-        expired) or "overloaded" (admission queue full, or ACTIVE KV
-        pressure at the shedding threshold; overloaded beats degraded);
+        poisoned or expired) or "overloaded" (admission queue full, or
+        ACTIVE KV pressure at the shedding threshold; overloaded beats
+        degraded);
         ``flags`` carries both signals. ``kv_utilization`` is the pool's
         raw use, ``kv_active_utilization`` leaves out the
         ``kv_reclaimable_blocks`` the prefix cache alone holds;
@@ -841,8 +875,10 @@ class Engine:
         accepted over proposed draft tokens (None before any draft).
         Sustained SLO burn (``EngineConfig(slo=)``) is degraded too and
         adds the ``slo_burn`` flag; ``slo_burn_rates`` is the windowed
-        burn per signal (None without an SLO). The JAX engine's
-        watchdog, spill and tensor-parallel fields wait for their
+        burn per signal (None without an SLO). ``requests_errored`` and
+        ``last_error`` report poison isolation; ``watchdog`` is JAX's
+        value without a comm watchdog (the port has none). The JAX
+        engine's spill and tensor-parallel fields wait for their
         modules."""
         m, bm, cfg = self.metrics, self.block_manager, self.config
         util = bm.utilization()
@@ -852,7 +888,8 @@ class Engine:
         shedding = (cfg.kv_shed_threshold is not None
                     and util_active >= cfg.kv_shed_threshold)
         slo_burning = self.slo is not None and self.slo.burning()
-        degraded = bool(m.requests_timeout or slo_burning)
+        degraded = bool(m.requests_errored or m.requests_timeout
+                        or slo_burning)
         overloaded = queue_full or shedding
         status = "ok"
         if degraded:
@@ -882,9 +919,12 @@ class Engine:
                 list(self.prefix_cache.chain_digests())
                 if self.prefix_cache is not None else []),
             "spec_accept_rate": m.spec_accept_rate,
+            "requests_errored": m.requests_errored,
             "requests_timeout": m.requests_timeout,
             "requests_shed": m.requests_shed,
             "preemptions": m.preemptions,
+            "last_error": m.last_error,
+            "watchdog": {"enabled": False, "fired": None},
         }
 
     # -- scheduler -----------------------------------------------------------
@@ -894,14 +934,28 @@ class Engine:
         RequestOutputs of the requests that finished in this step."""
         finished = list(self._aborted)
         self._aborted.clear()
-        self._expire(finished)
-        self._admit()
-        self._prefill_chunks(finished)
-        if self._running():
-            self._ensure_capacity()
-            idxs = self._running()
-            if idxs:
-                self._decode(idxs, finished)
+        try:
+            self._expire(finished)
+            self._admit(finished)
+            self._prefill_chunks(finished)
+            if self._running():
+                self._ensure_capacity()
+                idxs = self._running()
+                if idxs:
+                    self._decode(idxs, finished)
+        except Exception as e:
+            _flight.record("serving", "engine-error", engine=self.engine_id,
+                           error=f"{type(e).__name__}: {e}")
+            # the engine is broken here: health() may raise over torn
+            # state, and nothing on the postmortem path may displace the
+            # exception being re-raised
+            try:
+                probe = self.health()
+            except Exception as he:
+                probe = {"error": f"health() failed: {he!r}"}
+            _flight.dump("engine-error",
+                         probes={f"serving.engine.{self.engine_id}": probe})
+            raise
         if self.journal is not None:
             # batched EMIT + group write (finished requests buffered
             # theirs in _finish); a steady-state step is a near no-op
@@ -933,13 +987,22 @@ class Engine:
                 self.metrics.requests_timeout += 1
                 self._finish(req, "timeout", finished)
 
+    def _poison(self, req, exc, finished):
+        """Contain a per-request failure: record it, finish the request
+        with ``"error"``, keep the engine stepping."""
+        req.error = f"{type(exc).__name__}: {exc}"
+        m = self.metrics
+        m.requests_errored += 1
+        m.last_error = f"request {req.request_id}: {req.error}"
+        self._finish(req, "error", finished)
+
     def _running(self):
         return [
             i for i, r in enumerate(self.slots)
             if r is not None and r.state is RequestState.RUNNING
         ]
 
-    def _admit(self):
+    def _admit(self, finished):
         """FCFS admission into free slots. A request is admitted with its
         full block budget (whole prompt plus one decode write) but no
         compute: the prefix cache may cover a prefix through ``fork()``
@@ -1000,7 +1063,12 @@ class Engine:
                 # the cap cut into the last shared block: this request
                 # WRITES its final prefill token there, so it gets a
                 # private copy (block n_fork, freshly allocated)
-                self._cow(match.cow_src, req.block_ids[n_fork])
+                try:
+                    self._cow(match.cow_src, req.block_ids[n_fork])
+                except _DEVICE_FAULTS:
+                    raise
+                except Exception as e:
+                    self._poison(req, e, finished)
 
     def _prefill_chunks(self, finished):
         """Prefill launches for the PREFILLING slots, oldest first.
@@ -1026,10 +1094,16 @@ class Engine:
                 chunk = (remaining[:cfg.prefill_chunk_tokens]
                          if self._chunking else remaining)
                 final = req.num_cached + len(chunk) >= len(tokens)
-                if req.num_cached == 0 and final:
-                    self._prefill(req, tokens)
-                else:
-                    self._prefill_chunk(req, chunk, final)
+                try:
+                    if req.num_cached == 0 and final:
+                        self._prefill(req, tokens)
+                    else:
+                        self._prefill_chunk(req, chunk, final)
+                except _DEVICE_FAULTS:
+                    raise
+                except Exception as e:
+                    self._poison(req, e, finished)
+                    break
                 if final:
                     req.state = RequestState.RUNNING
                     if self.prefix_cache is not None:
@@ -1045,6 +1119,8 @@ class Engine:
     def _prefill(self, req, tokens):
         """Stage the prompt into the prefill buffer, run its bucket's
         program, read its token back."""
+        faults.fire("serving.step", phase="prefill",
+                    request_id=req.request_id)
         cfg = self.config
         bucket = next_bucket(len(tokens), cfg.prefill_buckets)
         bufs = self._prefill_buffers
@@ -1072,6 +1148,8 @@ class Engine:
         ``req.num_cached`` through its bucket's ``prefill_ext`` program.
         A non-final chunk is staged greedy (its token is discarded) and
         its token is not read back."""
+        faults.fire("serving.step", phase="prefill",
+                    request_id=req.request_id)
         cfg = self.config
         bucket = next_bucket(len(chunk), cfg.prefill_buckets)
         bufs = self._prefill_ext_buffers
@@ -1219,7 +1297,12 @@ class Engine:
         slot's token, position, block table and sampling parameters into
         the host buffer, one copy to the device, one replay, one read-back
         of the [slots] next tokens. Slots are independent (each attends to
-        its own pages)."""
+        its own pages), so any subset of the active mask gives its members
+        the tokens the full batch would: the property poison isolation's
+        bisection relies on."""
+        faults.fire("serving.step", phase="decode",
+                    request_ids=tuple(self.slots[i].request_id
+                                      for i in idxs))
         bufs = self._decode_buffers
         h = bufs.np
         bufs.clear()
@@ -1291,7 +1374,11 @@ class Engine:
         """Run the verify program with only ``idxs`` active: stage each
         slot's window (pending token, then its draft), position, draft
         length and block table, one copy to the device, one replay, one
-        read-back of the [slots, K+1] argmax targets."""
+        read-back of the [slots, K+1] argmax targets (slots independent,
+        as in ``_launch_decode``)."""
+        faults.fire("serving.step", phase="verify",
+                    request_ids=tuple(self.slots[i].request_id
+                                      for i in idxs))
         cfg = self.config
         bufs = self._verify_buffers
         h = bufs.np
@@ -1321,8 +1408,15 @@ class Engine:
         them), each through the per-token stop check, so an EOS inside an
         accepted draft stops exactly where plain decode would. Their K/V
         is in the pages already; a rejected position's write is dead
-        (``num_cached`` stops short of it)."""
-        tgt = self._launch_verify(idxs, drafts)
+        (``num_cached`` stops short of it). Poison isolation as
+        ``_decode_subset``'s."""
+        if not idxs:
+            return
+        tgt = self._isolate(
+            idxs, finished, lambda s: self._launch_verify(s, drafts),
+            lambda s: self._verify_subset(s, finished, drafts))
+        if tgt is None:
+            return
         cfg, m = self.config, self.metrics
         for i in idxs:
             req, draft = self.slots[i], drafts.get(i, [])
@@ -1346,12 +1440,45 @@ class Engine:
                     self._finish(req, reason, finished)
                     break
 
+    def _isolate(self, idxs, finished, launch, recurse):
+        """Poison isolation for a batched launch (decode or verify): run
+        ``launch(idxs)``; on failure carve the poison request out, by the
+        exception's ``request_id`` or by bisecting the active mask through
+        ``recurse(subset)``, and finish it with an error while the rest
+        still run this step. Returns the launch's result, or None when
+        the failure was contained (the subsets booked their own tokens).
+        A device fault re-raises at once."""
+        try:
+            return launch(idxs)
+        except _DEVICE_FAULTS:
+            raise
+        except Exception as e:
+            rid = getattr(e, "request_id", None)
+            hit = ([i for i in idxs if self.slots[i].request_id == rid]
+                   if rid is not None else [])
+            if hit:
+                # attributed: finish the culprit, run the rest
+                self._poison(self.slots[hit[0]], e, finished)
+                recurse([i for i in idxs if i != hit[0]])
+            elif len(idxs) == 1:
+                self._poison(self.slots[idxs[0]], e, finished)
+            else:
+                mid = len(idxs) // 2
+                recurse(idxs[:mid])
+                recurse(idxs[mid:])
+            return None
+
     def _decode_subset(self, idxs, finished):
-        """One decode step with ``idxs`` active; book each slot's token."""
+        """One decode step with ``idxs`` active, with poison isolation
+        (``_isolate``); book each slot's token."""
         if not idxs:
             return
+        nxt = self._isolate(
+            idxs, finished, self._launch_decode,
+            lambda s: self._decode_subset(s, finished))
+        if nxt is None:
+            return
         cfg = self.config
-        nxt = self._launch_decode(idxs)
         for i in idxs:
             req = self.slots[i]
             req.num_cached += 1
@@ -1375,11 +1502,11 @@ class Engine:
             req.slot = None
 
     def _finish(self, req, reason, finished):
-        if reason == "timeout":
+        if reason in ("timeout", "error"):
             # degradation events belong in the postmortem ring; normal
             # completions would only drown them out
             _flight.record("serving", reason, engine=self.engine_id,
-                           request_id=req.request_id)
+                           request_id=req.request_id, error=req.error)
         req.finish_reason = reason
         req.state = RequestState.FINISHED
         req.finish_time = time.perf_counter()

@@ -26,6 +26,7 @@ _EXPORT_KINDS = {
     "requests_received": ("counter", "_total"),
     "requests_finished": ("counter", "_total"),
     "preemptions": ("counter", "_total"),
+    "requests_errored": ("counter", "_total"),
     "requests_timeout": ("counter", "_total"),
     "requests_shed": ("counter", "_total"),
     "prefill_tokens": ("counter", "_total"),
@@ -87,7 +88,7 @@ def _register_view(metrics, engine_id):
         for key, value in m.snapshot().items():
             kind_suffix = _EXPORT_KINDS.get(key)
             if kind_suffix is None or value is None:
-                continue  # unset latencies / rates
+                continue  # non-numeric (last_error) / unset latencies
             kind, suffix = kind_suffix
             fams.append(MetricFamily(
                 f"paddle_tpu_serving_{key}{suffix}", kind,
@@ -132,6 +133,10 @@ class EngineMetrics:
         self.start_time = time.perf_counter()
         self.requests_received = 0
         self.requests_finished = 0
+        # poison requests the engine finished with "error" (and the last
+        # one's "request <id>: <ExcType>: <msg>"), keeping the batch
+        self.requests_errored = 0
+        self.last_error = None
         self.requests_timeout = 0
         self.requests_shed = 0
         self.preemptions = 0
@@ -225,6 +230,7 @@ class EngineMetrics:
             "requests_received": self.requests_received,
             "requests_finished": self.requests_finished,
             "preemptions": self.preemptions,
+            "requests_errored": self.requests_errored,
             "requests_timeout": self.requests_timeout,
             "requests_shed": self.requests_shed,
             "queue_depth": self.queue_depth,
@@ -256,4 +262,5 @@ class EngineMetrics:
             "pool_high_water": self.pool_high_water,
             "mean_ttft_s": self.mean_ttft,
             "tokens_per_s": self.tokens_per_second(),
+            "last_error": self.last_error,
         }

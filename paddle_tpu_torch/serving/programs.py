@@ -26,7 +26,12 @@ arguments over static device buffers (``StepBuffers``), built once:
 
 The capture runs with Python's cyclic garbage collector paused
 (``gc_paused``): collecting an old engine there would destroy its graphs
-inside the capture.
+inside the capture. The warm-up and the capture hold ``capture_lock``,
+which an engine's device setup takes too: ``torch.cuda.graph`` captures
+in the "global" error mode, where a ``cudaMalloc`` or ``cudaHostAlloc``
+from any thread invalidates the capture, and a fleet builds a restarted
+replica's engine on another thread while the stepping thread may be
+capturing a survivor's program.
 
 Kernel launches inside a graph do not pass through their wrappers, so
 the launches the capture recorded (``kernels._build.record_launches``)
@@ -41,13 +46,18 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import threading
 
 import numpy as np
 import torch
 
 from ..kernels import _build
 
-__all__ = ["Program", "StepBuffers", "gc_paused"]
+__all__ = ["Program", "StepBuffers", "capture_lock", "gc_paused"]
+
+# held by every program's warm-up and capture and by an engine's device
+# setup (see the module docstring)
+capture_lock = threading.Lock()
 
 
 @contextlib.contextmanager
@@ -124,27 +134,29 @@ class Program:
         if device.type != "cuda":
             self._run = self._eager
             return
-        current = torch.cuda.current_stream(device)
-        stream.wait_stream(current)
-        with torch.cuda.stream(stream):
-            _build.record_launches(fn)          # warm-up, not counted
-        current.wait_stream(stream)
-        graph = torch.cuda.CUDAGraph()
-        for gen in generators:
-            if not hasattr(graph, "register_generator_state"):
-                raise RuntimeError(
-                    "this PyTorch cannot register a private generator with "
-                    "a CUDA graph (CUDAGraph.register_generator_state): "
-                    "sampled serving programs cannot be captured")
-            graph.register_generator_state(gen)
+        with capture_lock:
+            current = torch.cuda.current_stream(device)
+            stream.wait_stream(current)
+            with torch.cuda.stream(stream):
+                _build.record_launches(fn)          # warm-up, not counted
+            current.wait_stream(stream)
+            graph = torch.cuda.CUDAGraph()
+            for gen in generators:
+                if not hasattr(graph, "register_generator_state"):
+                    raise RuntimeError(
+                        "this PyTorch cannot register a private generator "
+                        "with a CUDA graph (CUDAGraph."
+                        "register_generator_state): sampled serving "
+                        "programs cannot be captured")
+                graph.register_generator_state(gen)
 
-        def capture():
-            with gc_paused(), torch.cuda.graph(graph, pool=pool,
-                                               stream=stream):
-                self.out = fn()
+            def capture():
+                with gc_paused(), torch.cuda.graph(graph, pool=pool,
+                                                   stream=stream):
+                    self.out = fn()
 
-        self.launches = _build.record_launches(capture)
-        self.graph = graph
+            self.launches = _build.record_launches(capture)
+            self.graph = graph
         self._run = self._replay
 
     def _eager(self):

@@ -11,15 +11,16 @@ One noisy tenant must not eat another's p99:
     a class: start-time-fair-queuing virtual time, each admission
     advancing its tenant's virtual finish tag by ``cost / weight`` (cost
     = ``max_new_tokens``); :meth:`QoS.select` picks the lowest
-    ``(priority, tag)`` from a pending queue. The JAX package's fleet
-    dispatches through it; the port's server fronts one engine, whose
-    admission stays first come, first served, so here the tags are
-    stamped and the selection waits for the fleet.
+    ``(priority, tag)`` from a pending queue. A ``serving.Fleet`` with
+    this QoS attached (:meth:`QoS.attach`, as the server does) dispatches
+    its pending queue through it; a single engine's admission stays first
+    come, first served, and the tags are only stamped.
   * **Shedding** — per-tenant quotas (``max_inflight``) and token-rate
     limits (a token bucket over estimated decode tokens) reject with a
     :class:`QoSRejection` the server maps to HTTP 429 + ``Retry-After``;
     a tenant whose own SLO burn is *sustained* is shed first once the
-    waiting queue crosses ``shed_burning_at x capacity``.
+    waiting (or the fleet's pending) queue crosses ``shed_burning_at x
+    capacity``.
 
 Telemetry: per-tenant latency digests and SLO burn reuse
 ``LatencyDigest`` / ``SLOTracker``, exported at pull time as
@@ -207,6 +208,7 @@ class _TenantState:
         self.shed_queue = 0
         self.output_tokens = 0
         self.restored = 0
+        self.migrated = 0
 
 
 class QoS:
@@ -337,10 +339,20 @@ class QoS:
         req._qos_vstart = start
         req._qos_vtag = st.vtime
 
+    def on_migrate(self, req):
+        """A scale-down or rolling restart moved this in-flight request
+        off its replica: count it, nothing else. No re-stamp (the
+        admission-time fair-queue tags survive: a migrated request keeps
+        its place in the tenant's virtual timeline, it did not arrive
+        again), no ``received`` increment, and the rid stays in the
+        tenant's ``inflight`` set (it still is)."""
+        with self._lock:
+            self._state(getattr(req, "tenant", None)).migrated += 1
+
     def count_queue_shed(self, tenant):
-        """The backend's bounded queue refused (engine ``max_waiting``
-        or KV shedding): counted per tenant so a saturated queue's
-        pushback is attributable."""
+        """The backend's bounded queue refused (fleet ``max_pending``,
+        engine ``max_waiting`` or KV shedding): counted per tenant so a
+        saturated queue's pushback is attributable."""
         with self._lock:
             self._state(tenant).shed_queue += 1
 
@@ -407,6 +419,18 @@ class QoS:
             if st.slo is not None:
                 st.slo.record(ttft_s=tl.ttft_s, tpot_s=tpot)
 
+    def attach(self, fleet):
+        """Install this QoS on a Fleet: the fleet's dispatch sweep
+        consults :meth:`select`/:meth:`on_dispatch`, and any requests the
+        fleet already holds (its journal replay ran in its constructor)
+        are folded into the inflight accounting."""
+        if fleet.qos is self:
+            return  # already attached; don't re-account pending
+        fleet.qos = self
+        for freq in list(fleet._pending):
+            if not freq.done:
+                self.on_admit(freq.request, restored=True)
+
     # -- introspection -------------------------------------------------------
     def tenants(self):
         with self._lock:
@@ -426,6 +450,7 @@ class QoS:
                     "finished": st.finished,
                     "aborted": st.aborted,
                     "restored": st.restored,
+                    "migrated": st.migrated,
                     "shed_quota": st.shed_quota,
                     "shed_rate": st.shed_rate,
                     "shed_burn": st.shed_burn,
@@ -442,6 +467,7 @@ _TENANT_COUNTERS = {
     "finished": "paddle_tpu_serving_tenant_finished_total",
     "aborted": "paddle_tpu_serving_tenant_aborted_total",
     "restored": "paddle_tpu_serving_tenant_restored_total",
+    "migrated": "paddle_tpu_serving_tenant_migrated_total",
     "shed_quota": "paddle_tpu_serving_tenant_shed_quota_total",
     "shed_rate": "paddle_tpu_serving_tenant_shed_rate_total",
     "shed_burn": "paddle_tpu_serving_tenant_shed_burn_total",

@@ -2,11 +2,10 @@
 ``paddle_tpu/serving/server.py``, the same wire format, errors and
 series).
 
-An OpenAI-style ``POST /v1/completions`` endpoint over a single
-``Engine``, on the stdlib ``ThreadingHTTPServer`` the observability
-scrape endpoint uses (``ThreadedHTTPHost``; no framework dependency).
-The JAX package's server also fronts a ``Fleet``; that branch waits for
-the port of the fleet.
+An OpenAI-style ``POST /v1/completions`` endpoint over a ``Fleet`` or a
+single ``Engine``, on the stdlib ``ThreadingHTTPServer`` the
+observability scrape endpoint uses (``ThreadedHTTPHost``; no framework
+dependency):
 
   * **Streaming** — ``"stream": true`` responds as Server-Sent Events:
     one ``data: {...}`` chunk per token batch (the handler watches
@@ -19,7 +18,8 @@ the port of the fleet.
     trace; the offending field is named when known.
   * **Multi-tenant QoS** (``serving/qos.py``) — tenant identity from
     ``Authorization: Bearer``/``X-Tenant``, quota / token-rate /
-    sustained-burn shedding as 429 + ``Retry-After``, per-tenant
+    sustained-burn shedding as 429 + ``Retry-After``, weighted
+    fair-share dispatch over a fleet's pending queue, per-tenant
     latency/SLO series on the co-hosted ``/metrics``.
   * **Co-hosting** — ``GET /metrics`` + ``GET /healthz`` answer on the
     same port.
@@ -32,12 +32,13 @@ the port of the fleet.
     in-flight request finishes with ``"error"`` (a 500, or a final SSE
     chunk saying so), new requests answer 503 ``backend_failed`` and
     ``/healthz`` reports ``failed`` — the fault is never hidden behind
-    retries.
+    retries (a fleet re-raises it too, instead of failing a replica
+    over).
   * **Drain** — SIGTERM (or :meth:`Server.drain`) stops admitting (503
     ``server_draining``), lets in-flight streams finish, then closes the
     listener.
 
-One driver thread steps the engine (and so captures its programs on
+One driver thread steps the backend (and so captures its programs on
 first use); handler threads only submit, watch token growth, and write
 bytes — the engine never runs on a client's thread.
 """
@@ -51,8 +52,6 @@ import time
 import warnings
 import weakref
 
-import torch
-
 from ..observability import metrics as _obs_metrics
 from ..observability.scrape import (
     ObservabilityHandler, ThreadedHTTPHost, register_health_provider,
@@ -60,7 +59,7 @@ from ..observability.scrape import (
 )
 from ..observability.spans import remote_span, span
 from ..resilience import faults
-from .engine import EngineOverloadedError
+from .engine import _DEVICE_FAULTS, EngineOverloadedError
 from .qos import QoS, QoSConfig, QoSRejection, UnknownTenantError
 from .request import Request, RequestOutput, SamplingParams
 
@@ -78,10 +77,6 @@ _SAMPLING_FIELDS = (
 )
 
 _RESPONSE_CLASSES = ("2xx", "3xx", "4xx", "5xx")
-
-# a step failure of these types leaves the device unusable (a CUDA error
-# is sticky in its context): the driver stops instead of retrying
-_DEVICE_FAULTS = (torch.AcceleratorError,)
 
 
 def _parse_traceparent(header):
@@ -276,8 +271,9 @@ class _ApiHandler(ObservabilityHandler):
 
 
 class Server(ThreadedHTTPHost):
-    """The HTTP front door. ``backend`` is an ``Engine`` (on the card,
-    or on the CPU when its model is); ``qos`` a :class:`~.qos.QoS`,
+    """The HTTP front door. ``backend`` is a ``Fleet`` or a single
+    ``Engine`` (on the card, or on the CPU when its model is); ``qos`` a
+    :class:`~.qos.QoS`,
     :class:`~.qos.QoSConfig` or None (default policy: one shared tenant,
     no limits). ``port=0`` binds an ephemeral port (read
     ``.port``/``.url``). ``poll_interval_s``: the driver's pause after a
@@ -294,11 +290,16 @@ class Server(ThreadedHTTPHost):
     def __init__(self, backend, host="127.0.0.1", port=0, qos=None,
                  registry=None, drain_timeout_s=30.0,
                  poll_interval_s=0.0):
+        from .fleet import Fleet
+
         self.backend = backend
+        self._is_fleet = isinstance(backend, Fleet)
         if isinstance(qos, QoS):
             self.qos = qos
         else:
             self.qos = QoS(qos if isinstance(qos, QoSConfig) else None)
+        if self._is_fleet:
+            self.qos.attach(backend)
         self.server_id = f"{next(_server_counter)}"
         self.metrics = _ServerMetrics(self.server_id)
         self.drain_timeout_s = float(drain_timeout_s)
@@ -488,16 +489,21 @@ class Server(ThreadedHTTPHost):
                     retry_after=e.retry_after,
                 )
             try:
-                req = Request(prompt, params)
-                req.tenant = tenant
-                self.backend.submit(req)
+                if self._is_fleet:
+                    req = self.backend.add_request(
+                        prompt, params, tenant=tenant).request
+                else:
+                    req = Request(prompt, params)
+                    req.tenant = tenant
+                    self.backend.submit(req)
             except EngineOverloadedError as e:
                 self.qos.count_queue_shed(tenant)
                 raise _ApiError(
                     429, "overloaded_error", str(e), retry_after=1.0
                 )
             except RuntimeError as e:
-                # engine bounded admission queue (max_waiting)
+                # engine bounded admission queue (max_waiting), or a
+                # fleet with no live replica
                 self.qos.count_queue_shed(tenant)
                 raise _ApiError(
                     429, "overloaded_error", str(e), retry_after=1.0
@@ -510,9 +516,11 @@ class Server(ThreadedHTTPHost):
             stream = _Stream(req, tenant, streaming=False)
             self._streams[req.request_id] = stream
             self.metrics.active_streams = len(self._streams)
-            # still under the lock: the accounting must land before the
-            # next handler's quota check runs
-            self.qos.on_admit(req)
+            if not self._is_fleet:
+                # the fleet's add_request already accounted the
+                # admission. Still under the lock: the accounting must
+                # land before the next handler's quota check runs
+                self.qos.on_admit(req)
         with self._progress:
             self._progress.notify_all()
         return stream
@@ -524,6 +532,8 @@ class Server(ThreadedHTTPHost):
     def _backlog(self):
         """(live backlog, capacity-or-None) for burn-first shedding."""
         b = self.backend
+        if self._is_fleet:
+            return sum(not f.done for f in b._pending), b.config.max_pending
         return len(b.waiting), b.config.max_waiting
 
     # -- request handling ----------------------------------------------------

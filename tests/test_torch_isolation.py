@@ -1,8 +1,8 @@
 """paddle_tpu_torch stands alone: importing it (its serving, training,
 MoE and quantization modules, the journal, QoS, the HTTP server and its
-CLI too) loads neither jax nor anything of paddle_tpu, and its entry
-points refuse to fall back to the CPU quietly when no CUDA device
-exists."""
+CLI, the retry policy, the replica supervisor and the fleet too) loads
+neither jax nor anything of paddle_tpu, and its entry points refuse to
+fall back to the CPU quietly when no CUDA device exists."""
 import os
 import subprocess
 import sys
@@ -39,6 +39,9 @@ import paddle_tpu_torch.serving.access_log
 import paddle_tpu_torch.serving.qos
 import paddle_tpu_torch.serving.server
 import paddle_tpu_torch.serving.__main__
+import paddle_tpu_torch.resilience.retry
+import paddle_tpu_torch.serving.supervisor
+import paddle_tpu_torch.serving.fleet
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.")
@@ -199,3 +202,25 @@ def test_cli_and_serve_default_to_the_card(capsys):
     finally:
         srv.close()
         signal.signal(signal.SIGTERM, term)
+
+
+def test_fleet_replicas_run_on_the_models_device(capsys):
+    """A fleet's replicas follow their shared model's device; the CLI's
+    ``--replicas`` without ``--device`` needs the card like the engine."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import EngineConfig, Fleet, FleetConfig
+    from paddle_tpu_torch.serving.__main__ import main
+
+    model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
+    fleet = Fleet(model, EngineConfig(max_batch_slots=2, max_model_len=16,
+                                      page_size=4),
+                  FleetConfig(num_replicas=2))
+    assert [s.engine.device for s in fleet.replicas] == [
+        torch.device("cpu")] * 2
+    assert fleet.replicas[0].engine.pool.k[0].data_ptr() != \
+        fleet.replicas[1].engine.pool.k[0].data_ptr()
+    _require_no_cuda()
+    assert main(["serve", "--model", "tiny", "--port", "0",
+                 "--replicas", "2"]) == 2
+    err = capsys.readouterr().err
+    assert "error: ConfigError" in err and "no CUDA device" in err

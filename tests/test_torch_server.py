@@ -13,10 +13,14 @@ gate off):
   * a mid-stream disconnect aborts that request and leaks no slot; the
     ``http.accept`` and ``http.stream`` faults degrade one request; drain
     finishes the in-flight stream, then 503; a device fault in a step
-    fails the in-flight requests and the server instead of retrying;
-  * the CLI's named config errors, its refusals of unported flags, and
-    SIGTERM draining a ``python -m paddle_tpu_torch.serving serve
-    --device cpu`` process.
+    fails the in-flight requests and the server instead of retrying,
+    over an engine and over a fleet;
+  * a 2-replica ``Fleet`` behind the server: QoS attached to the fleet,
+    two tenants' blocking and SSE requests each answered once with the
+    in-process tokens, ``/healthz`` listing both replicas;
+  * the CLI's named config errors, its refusals of unported flags,
+    ``--replicas 2`` building a 2-replica fleet, and SIGTERM draining a
+    ``python -m paddle_tpu_torch.serving serve --device cpu`` process.
 """
 import http.client
 import json
@@ -55,7 +59,7 @@ from paddle_tpu_torch.serving import (
     Server,
     TenantPolicy,
 )
-from paddle_tpu_torch.serving import Engine, EngineConfig
+from paddle_tpu_torch.serving import Engine, EngineConfig, Fleet, FleetConfig
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROMPT = [1, 2, 3]
@@ -576,10 +580,9 @@ def test_cli_named_config_errors_as_jax(capsys, argv, needle):
 
 
 @pytest.mark.parametrize("argv,module", [
-    (["--replicas", "2"], "fleet"),
     (["--tp-degree", "2"], "tensor parallelism"),
     (["--compile-cache", "/nonexistent"], "compile cache"),
-], ids=["replicas", "tp_degree", "compile_cache"])
+], ids=["tp_degree", "compile_cache"])
 def test_cli_refuses_unported_flags(capsys, argv, module):
     from paddle_tpu_torch.serving.__main__ import main
 
@@ -588,6 +591,128 @@ def test_cli_refuses_unported_flags(capsys, argv, module):
     err = capsys.readouterr().err
     assert "error: ConfigError" in err and module in err
     assert "does not port yet" in err
+
+
+def test_cli_replicas_builds_a_fleet(capsys, monkeypatch, tmp_path):
+    """``--replicas 2`` serves through a 2-replica Fleet, as JAX's CLI
+    does, with ``--max-pending`` and ``--journal-dir`` on the fleet (the
+    server is replaced by a stub that returns at once)."""
+    from paddle_tpu_torch.serving import server as server_mod
+    from paddle_tpu_torch.serving.__main__ import main
+
+    seen = {}
+
+    class _Stub:
+        url, _closed = "http://stub", True
+
+    def fake_serve(backend, **kw):
+        seen["backend"], seen["kw"] = backend, kw
+        return _Stub()
+
+    monkeypatch.setattr(server_mod, "serve", fake_serve)
+    jdir = str(tmp_path / "wal")
+    assert main(["serve", "--model", "tiny", "--device", "cpu",
+                 "--replicas", "2", "--max-pending", "3",
+                 "--journal-dir", jdir, "--max-model-len", "64"]) == 0
+    fleet = seen["backend"]
+    assert isinstance(fleet, Fleet) and fleet.size() == 2
+    assert [s.status for s in fleet.replicas] == ["healthy", "healthy"]
+    assert fleet.config.max_pending == 3
+    assert fleet.config.journal_dir == jdir and fleet.journal is not None
+    # the journal is the fleet's, not each replica's
+    assert all(s.engine.journal is None for s in fleet.replicas)
+    assert "fleet of 2 on cpu" in capsys.readouterr().out
+    assert main(["serve", "--model", "tiny", "--device", "cpu",
+                 "--replicas", "1", "--max-pending", "0"]) == 2
+    assert "max_pending" in capsys.readouterr().err
+
+
+def _fleet_server(twins, **srv_kw):
+    fleet = Fleet(twins[1], EngineConfig(**GEO),
+                  FleetConfig(num_replicas=2))
+    return fleet, Server(fleet, port=0, **srv_kw)
+
+
+def test_http_over_a_two_replica_fleet(twins):
+    fleet, srv = _fleet_server(twins, qos=QoSConfig(
+        api_keys={"key-a": "a", "key-b": "b"},
+        tenants={"a": TenantPolicy(weight=2.0),
+                 "b": TenantPolicy(weight=1.0)}))
+    prompts = [[i + 1, i + 2, i + 3] for i in range(8)]
+    results = [None] * len(prompts)
+    try:
+        assert fleet.qos is srv.qos
+
+        def go(i):
+            tenant = "a" if i % 2 == 0 else "b"
+            body = {"prompt": prompts[i], "max_tokens": N_NEW}
+            headers = {"Authorization": f"Bearer key-{tenant}"}
+            if i % 4 < 2:
+                status, _, resp = _post(srv.port, body, headers)
+                results[i] = (tenant, status, resp["tenant"],
+                              resp["choices"][0]["token_ids"])
+            else:
+                events = _post_stream(srv.port, body, headers)
+                results[i] = (tenant, 200, events[-1]["tenant"],
+                              events[-1]["choices"][0]["token_ids"])
+
+        threads = [threading.Thread(target=go, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+        ref = Engine(twins[1], EngineConfig(**GEO)).generate(
+            prompts, SamplingParams(max_new_tokens=N_NEW))
+        for (tenant, status, got_tenant, tokens), want in zip(results, ref):
+            assert status == 200 and got_tenant == tenant
+            assert tokens == want.token_ids
+        m = fleet.metrics
+        assert m.requests_received == m.requests_finished == len(prompts)
+        snap = srv.qos.snapshot()
+        assert snap["a"]["finished"] == snap["b"]["finished"] == 4
+        assert snap["a"]["inflight"] == snap["b"]["inflight"] == 0
+        assert sum(s.engine.metrics.requests_finished
+                   for s in fleet.replicas) == len(prompts)
+        code, text = _get(srv.port, "/healthz")
+        assert code == 200
+        probe = json.loads(text)["providers"][
+            f"serving.fleet.{fleet.fleet_id}"]
+        assert probe["replicas"] == {"r0": "healthy", "r1": "healthy"}
+        assert probe["routable"] == 2
+        assert "paddle_tpu_fleet_requests_finished_total" in _get(
+            srv.port, "/metrics")[1]
+    finally:
+        srv.close()
+
+
+def test_device_fault_in_a_fleet_stops_the_server(twins):
+    """A fleet re-raises a replica's device fault instead of failing the
+    replica over; the server's driver then fails the in-flight requests
+    and stops, as over one engine."""
+    fleet, srv = _fleet_server(twins)
+
+    def device_fault(_ctx):
+        raise torch.AcceleratorError(
+            "CUDA error: an illegal memory access was encountered")
+
+    spec = FaultSpec(action=device_fault, at=3,
+                     when=lambda c: c.get("phase") == "step")
+    try:
+        with faults.inject({"serving.replica": spec}):
+            with pytest.warns(UserWarning, match="device fault"):
+                status, _, body = _post(srv.port, {"prompt": PROMPT,
+                                                   "max_tokens": 16})
+        assert status == 500 and "illegal memory access" in \
+            body["error"]["message"]
+        assert fleet.metrics.failovers == 0
+        assert all(s.restarts == 0 for s in fleet.replicas)
+        status, _, body = _post(srv.port, {"prompt": PROMPT})
+        assert status == 503 and body["error"]["type"] == "backend_failed"
+        assert srv.metrics.device_faults == 1
+    finally:
+        srv.close()
 
 
 def test_cli_usage_moe_refusal_and_default_device(capsys):

@@ -483,7 +483,7 @@ def test_headroom_is_reclaimable_and_reclaimed_first(model):
     bm = eng.block_manager
     a = eng.add_request([5, 6, 5, 6, 5, 6], SamplingParams(max_new_tokens=20))
     b = eng.add_request([7, 8, 7, 8, 7, 8], SamplingParams(max_new_tokens=20))
-    eng._admit()
+    eng._admit([])
     eng._prefill_chunks([])
     eng._ensure_capacity()
     assert [len(r.block_ids) for r in (a, b)] == [3, 3]
@@ -503,7 +503,7 @@ def test_headroom_is_reclaimable_and_reclaimed_first(model):
     eng.config.kv_shed_threshold = None
     # the 14-token prompt needs 4 blocks and 2 are free: admission takes
     # the headroom back instead of waiting
-    eng._admit()
+    eng._admit([])
     assert late.slot is not None and bm.num_free == 0
     assert eng._spec_headroom(a) == eng._spec_headroom(b) == 0
     # with the pool full, running growth reclaims headroom before it
