@@ -224,6 +224,49 @@ Phases, in order; any failure exits non-zero:
                over HTTP through ``serving.server``, two tenants: each
                answered once with its tenant, ``/healthz`` lists both
                replicas.
+5j. spill   — the host KV spill tier on the serving model: the serving
+               cell's 32 requests over 8 slots and 96 blocks (144 MiB of
+               bf16 pages against the default 256 blocks), so the running
+               requests outgrow the pool and preemption occurs, with a
+               2 GiB host tier (``host_spill_bytes``), beside its
+               recompute twin (no tier) and the unconstrained engine (256
+               blocks); bf16 and int8 pools. Gated: every request once at
+               full length; preemptions; restores and no recomputed token
+               in the spill engine; every greedy request's tokens equal
+               the unconstrained engine's; no block leaked; the ledger
+               identities; the serving launch gates, nothing launched
+               outside a graph, no program built inside a restore; blocks
+               read and written back on the card equal bit for bit (pages
+               and scales). The three engines then serve the same
+               requests 3 more times each, warm and in turns (no
+               program built, greedy tokens equal the first pass's, the
+               ledger identities). Recorded: tokens/s of the three
+               engines, best of the warm passes (the first pass's,
+               captures included, beside it), the
+               twin's first divergent token per greedy request and its
+               recomputed tokens, spilled and restored bytes, spill and
+               restore ms per handle and their GB/s against the host link
+               (PCIe Gen5 x16, 64 GB/s a direction). Cases: a pool of
+               60000 blocks (more than the card) refused as
+               ``EngineOverloadedError`` with ``memory_allocated()`` back
+               at its level, then the same process serves; injected
+               ``kv.spill`` and ``kv.restore`` faults (every call)
+               degrade to recompute, warned once, no block leaked; the
+               disk tier (a one-byte host budget, ``spill_dir``) serves 8
+               requests over 48 blocks back from disk, greedy tokens
+               equal the unconstrained engine's; prefix chains (the
+               serving_prefix workload, 512 blocks, a cache of 16
+               entries) evicted to the host tier and restored: greedy
+               tokens in both passes equal an engine that never evicts.
+5k. stepstats — the step observatory on the serving cell: tokens/s with it
+               on and off (best of 3, in turns), the replayed decode
+               step's kernels and host launch calls equal on and off
+               (torch.profiler), per-program p50 launch walls, host
+               overhead, goodput fraction and MFU against the H100's
+               989e12 bf16 peak; both ledger identities on the
+               serving_spec cell's traffic (rejected drafts counted); a
+               flight dump with the step samples and a compile log
+               holding every capture, no retrace after warm-up.
 6. train_parity — tiny f32 Llama (MHA and GQA): 10 ``TrainStep`` steps
                of AdamW through the flash kernels give the losses of the
                same 10 steps with the plain attention functions.
@@ -253,8 +296,9 @@ Phases, in order; any failure exits non-zero:
 
 ``--phases`` picks a subset; ``profile`` (a profiled decode step over the
 bf16 and the int8 pool, replayed and with the program function run
-eagerly, and the speculative cell's verify step: device busy ms and
-kernels per step, the port's kernels among them) runs only when named.
+eagerly, the speculative cell's verify step, and the decode step with the
+observatory on and off: device busy ms and kernels per step, the port's
+kernels among them) runs only when named.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -4018,6 +4062,659 @@ def phase_fleet(torch):
     return result
 
 
+# ------------------------------------------------ spill tier, observatory
+SPILL_BLOCKS = 96              # 144 MiB of bf16 pages at 1.5 MiB a page
+SPILL_HOST_BYTES = 2 << 30
+SPILL_FAULT_REQUESTS = 16
+SPILL_DISK_REQUESTS = 8
+SPILL_DISK_BLOCKS = 48
+SPILL_OOM_BLOCKS = 60000       # ~94 GB of bf16 pages: more than the card
+PREFIX_SPILL_CACHE_BLOCKS = 16
+PREFIX_SPILL_POOL_BLOCKS = 512
+HOST_LINK_BYTES_PER_S = 64e9   # PCIe Gen5 x16, per direction
+STEPSTATS_RUNS = 3
+
+
+def _ledger_holds(tag, engine):
+    """The goodput ledger's two identities (exact)."""
+    st, m = engine.stepstats, engine.metrics
+    check(st.useful_tokens + st.wasted_preempt_tokens
+          + st.wasted_migration_tokens + st.wasted_aborted_tokens
+          == m.prefill_tokens + m.decode_tokens,
+          f"{tag}: ledger {st.ledger()} does not add up to prefill "
+          f"{m.prefill_tokens} + decode {m.decode_tokens}")
+    check(st.wasted_spec_tokens == m.spec_proposed - m.spec_accepted,
+          f"{tag}: spec_reject {st.wasted_spec_tokens} != proposed "
+          f"{m.spec_proposed} - accepted {m.spec_accepted}")
+
+
+def _timed_block_moves(engine):
+    """Wrap the engine pool's ``read_blocks``/``write_blocks`` (each ends
+    in its own sync) to record, per handle, the host wall ms and bytes.
+    The queue is drained first (a sync the engine does not make), so the
+    wall is the handle's own, not the launches queued before it."""
+    import torch
+
+    moves = {"read": [], "write": []}
+    pool = engine.pool
+
+    def timed(name, fn):
+        def run(block_ids, payload_or_slab):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(block_ids, payload_or_slab)
+            moves[name].append(((time.perf_counter() - t0) * 1e3,
+                                len(block_ids) * pool.layout.nbytes))
+            return out
+        return run
+
+    pool.read_blocks = timed("read", pool.read_blocks)
+    pool.write_blocks = timed("write", pool.write_blocks)
+    return moves
+
+
+def _move_rates(moves):
+    out = {}
+    for name, rows in moves.items():
+        if not rows:
+            out[name] = None
+            continue
+        ms = [r[0] for r in rows]
+        nbytes = sum(r[1] for r in rows)
+        out[name] = {"handles": len(rows), "bytes": nbytes,
+                     "ms": ms, "ms_mean": float(np.mean(ms)),
+                     "ms_median": float(np.median(ms)),
+                     "gb_per_s": nbytes / (sum(ms) / 1e3) / 1e9,
+                     "link_share": nbytes / (sum(ms) / 1e3)
+                     / HOST_LINK_BYTES_PER_S}
+    return out
+
+
+def _spill_serve(torch, tag, model, prompts, params, **kw):
+    """One engine of the spill phase over the serving geometry + ``kw``:
+    serves ``prompts``; returns (engine, outputs, seconds, counts, probe,
+    decode kinds, block moves, programs built inside a restore)."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.serving import Engine
+
+    gc.collect()
+    engine = Engine(model, _serving_geometry(**kw))
+    kinds, program = set(), engine._decode_program
+    engine._decode_program = lambda any_sample: (
+        kinds.add(any_sample), program(any_sample))[1]
+    moves = _timed_block_moves(engine)
+    in_restore, built = [False], [0]
+    restore, build = engine._spill_restore, engine._program
+
+    def restore_flagged(req, n):
+        in_restore[0] = True
+        try:
+            return restore(req, n)
+        finally:
+            in_restore[0] = False
+
+    def build_counted(fn, generator):
+        built[0] += in_restore[0]
+        return build(fn, generator)
+
+    engine._spill_restore, engine._program = restore_flagged, build_counted
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    with host_dispatch_probe() as probe:
+        t0 = time.perf_counter()
+        outs = engine.generate(prompts, params)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    counts = dict(_build.launch_counts(), **_build.variant_counts())
+    check(len(outs) == len(prompts) and all(
+        o.finish_reason == "length"
+        and len(o.token_ids) == p.max_new_tokens
+        for o, p in zip(outs, params)),
+        f"{tag}: not every request finished once at full length")
+    check(engine.block_manager.num_used == 0,
+          f"{tag}: {engine.block_manager.num_used} KV blocks leaked")
+    _ledger_holds(tag, engine)
+    return engine, outs, dt, counts, probe, kinds, moves, built[0]
+
+
+def _compile_total(m):
+    """Programs an engine has captured, all kinds."""
+    return (m.prefill_compiles + m.prefill_ext_compiles + m.decode_compiles
+            + m.verify_compiles + m.cow_compiles)
+
+
+def _handle_bandwidth(torch, engine, n_blocks=24, reps=10):
+    """A max-length handle (``n_blocks`` pages, what one request of the
+    cell grows to) read off the pool into the slab and written back,
+    ``reps`` times each after one warm-up: median host wall ms per handle
+    (each call ends in its own sync) and GB/s."""
+    pool, slab = engine.pool, engine.spill.slab
+    ids = list(range(n_blocks))
+    out = {}
+    for name in ("read", "write"):
+        times = []
+        for i in range(reps + 1):
+            torch.cuda.synchronize()
+            payload = pool.read_blocks(ids, slab) if name == "write" else None
+            t0 = time.perf_counter()
+            if name == "read":
+                payload = pool.read_blocks(ids, slab)
+            else:
+                pool.write_blocks(ids, payload)
+            dt = time.perf_counter() - t0
+            payload.release()
+            if i:
+                times.append(dt)
+        ms = float(np.median(times)) * 1e3
+        nbytes = n_blocks * pool.layout.nbytes
+        out[name] = {"blocks": n_blocks, "bytes": nbytes, "ms_median": ms,
+                     "gb_per_s": nbytes / ms / 1e6,
+                     "link_share": nbytes / (ms / 1e3)
+                     / HOST_LINK_BYTES_PER_S}
+    return out
+
+
+def _restore_bytes_equal(torch, engine):
+    """Read four used-then-freed blocks of the engine's pool and write them
+    into four others: pages (and the int8 pool's scales) equal bit for
+    bit, on the card."""
+    pool = engine.pool
+    src, dst = [0, 5, 17, 40], [60, 61, 70, 90]
+    payload = pool.read_blocks(src, engine.spill.slab)
+    pool.write_blocks(dst, payload)
+    payload.release()
+    ok = True
+    for entry in pool.k + pool.v:
+        for t in (entry if isinstance(entry, tuple) else (entry,)):
+            ok &= torch.equal(t[:, src], t[:, dst])
+    torch.cuda.synchronize()
+    return bool(ok)
+
+
+def _spill_pool(torch, model, kv, prompts, params):
+    """The spill cell over one pool type: the unconstrained engine (256
+    blocks), the spill engine (96 blocks, a 2 GiB host tier) and its
+    recompute twin (96 blocks, no tier). The gates read each engine's
+    first pass; its tokens/s is the best of 3 warm passes of the same
+    requests, the three engines in turns."""
+    pool = "int8" if kv else "bf16"
+    tag = f"spill_{pool}"
+    greedy = [i for i, p in enumerate(params) if not p.do_sample]
+    L = SERVING_CFG["num_hidden_layers"]
+    paged = "paged_attention_quant" if kv else "paged_attention"
+    runs, engines = {}, {}
+    for name, kw in (("unconstrained", {}),
+                     ("spill", dict(num_blocks=SPILL_BLOCKS,
+                                    host_spill_bytes=SPILL_HOST_BYTES)),
+                     ("recompute", dict(num_blocks=SPILL_BLOCKS))):
+        engine, outs, dt, counts, probe, kinds, moves, built = _spill_serve(
+            torch, f"{tag}/{name}", model, prompts, params,
+            kv_cache_dtype=kv, **kw)
+        m, st = engine.metrics, engine.stepstats
+        _serving_gates(f"{tag}/{name}", counts, m, probe, L, paged,
+                       "int8" if kv else "float", True,
+                       engine.config.prefill_buckets, len(kinds))
+        n_tokens = sum(len(o.token_ids) for o in outs)
+        r = {"seconds": dt, "generated_tokens": n_tokens,
+             "tokens_per_s": n_tokens / dt,
+             "preemptions": m.preemptions, "ledger": st.ledger(),
+             "prefill_tokens": m.prefill_tokens,
+             "decode_steps": m.decode_steps,
+             "prefill_steps": m.prefill_steps,
+             "programs_built_in_restores": built,
+             "tokens": [o.token_ids for o in outs], "launches": counts}
+        if engine.spill is not None:
+            s = engine.spill.stats()
+            r["tier"] = {k: s[k] for k in (
+                "spilled_blocks", "spilled_bytes", "restored_blocks",
+                "restored_bytes", "restore_hits", "restore_misses",
+                "restores", "spill_errors", "restore_errors",
+                "host_evictions")}
+            r["moves"] = _move_rates(moves)
+            r["handle_bandwidth"] = _handle_bandwidth(torch, engine)
+            r["restore_bytes_equal"] = _restore_bytes_equal(torch, engine)
+        del engine.pool.read_blocks, engine.pool.write_blocks
+        r["compiles"] = _compile_total(m)
+        runs[name], engines[name] = r, engine
+        del engine
+    # the rates: the same requests again on each warm engine (the first
+    # pass captured every program, and its gates stand), without the
+    # move timers' syncs; best of 3, in turns
+    warm = {name: [] for name in engines}
+    for _ in range(3):
+        for name, engine in engines.items():
+            m = engine.metrics
+            preempted = m.preemptions
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = engine.generate(prompts, params)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            bad = [i for i in greedy
+                   if again[i].token_ids != runs[name]["tokens"][i]]
+            check(not bad, f"{tag}/{name}: greedy requests {bad} differ "
+                           f"between the first and a warm pass")
+            warm[name].append(
+                (sum(len(o.token_ids) for o in again) / dt,
+                 m.preemptions - preempted))
+    for name, engine in engines.items():
+        r, m = runs[name], engine.metrics
+        built = _compile_total(m) - r.pop("compiles")
+        check(built == 0, f"{tag}/{name}: the warm passes built {built} "
+                          f"programs")
+        _ledger_holds(f"{tag}/{name}", engine)
+        r.update(first_pass_seconds=r.pop("seconds"),
+                 first_pass_tokens_per_s=r.pop("tokens_per_s"),
+                 tokens_per_s=max(w[0] for w in warm[name]),
+                 warm_tokens_per_s=[w[0] for w in warm[name]],
+                 warm_pass_preemptions=[w[1] for w in warm[name]])
+    engines.clear()
+    ref, sp, twin = runs["unconstrained"], runs["spill"], runs["recompute"]
+    check(sp["preemptions"] > 0 and twin["preemptions"] > 0,
+          f"{tag}: no preemption ({sp['preemptions']}, "
+          f"{twin['preemptions']}) in {SPILL_BLOCKS} blocks")
+    check(sp["tier"]["restores"] > 0
+          and sp["ledger"]["preempt_recompute"] == 0,
+          f"{tag}: {sp['tier']['restores']} restores, "
+          f"{sp['ledger']['preempt_recompute']} tokens recomputed")
+    check(sp["programs_built_in_restores"] == 0,
+          f"{tag}: a restore built {sp['programs_built_in_restores']} "
+          f"programs")
+    check(sp["restore_bytes_equal"],
+          f"{tag}: a restored block differs from the block read")
+    bad = [i for i in greedy if sp["tokens"][i] != ref["tokens"][i]]
+    check(not bad, f"{tag}: spilled-and-restored greedy requests {bad} "
+                   f"differ from the unconstrained engine's tokens")
+    diverged = {i: _first_divergence(twin["tokens"][i], ref["tokens"][i])
+                for i in greedy}
+    result = {
+        "blocks": SPILL_BLOCKS, "host_spill_bytes": SPILL_HOST_BYTES,
+        "greedy_requests": len(greedy),
+        "recompute_first_divergence": {
+            str(i): d for i, d in diverged.items() if d is not None},
+        "recompute_tokens": twin["ledger"]["preempt_recompute"],
+        "launches": {},
+    }
+    ref_tokens = ref["tokens"]
+    for name, r in runs.items():
+        for key, n in r.pop("launches").items():
+            result["launches"][key] = result["launches"].get(key, 0) + n
+        r.pop("tokens")
+        result[name] = r
+    mv, bw = sp["moves"], sp["handle_bandwidth"]
+    log(f"[{tag}] tokens/s, warm, best of 3: unconstrained "
+        f"{ref['tokens_per_s']:.1f}, spill {sp['tokens_per_s']:.1f}, "
+        f"recompute {twin['tokens_per_s']:.1f} (first pass, captures "
+        f"included: {ref['first_pass_tokens_per_s']:.1f} / "
+        f"{sp['first_pass_tokens_per_s']:.1f} / "
+        f"{twin['first_pass_tokens_per_s']:.1f}; warm passes "
+        f"{[round(x, 1) for x in ref['warm_tokens_per_s']]} / "
+        f"{[round(x, 1) for x in sp['warm_tokens_per_s']]} / "
+        f"{[round(x, 1) for x in twin['warm_tokens_per_s']]}; "
+        f"warm-pass preemptions "
+        f"{sp['warm_pass_preemptions']} / "
+        f"{twin['warm_pass_preemptions']}); preemptions "
+        f"{sp['preemptions']} / "
+        f"{twin['preemptions']}; restores {sp['tier']['restores']}, spilled "
+        f"{sp['tier']['spilled_bytes']['request']} B, restored "
+        f"{sp['tier']['restored_bytes']['request']} B; recompute twin "
+        f"recomputed {result['recompute_tokens']} tokens, "
+        f"{len(result['recompute_first_divergence'])} of {len(greedy)} "
+        f"greedy requests diverged (first tokens "
+        f"{sorted(result['recompute_first_divergence'].values())})")
+    log(f"[{tag}] per handle: spill {mv['read']['ms_mean']:.3f} ms "
+        f"({mv['read']['gb_per_s']:.2f} GB/s), restore "
+        f"{mv['write']['ms_mean']:.3f} ms ({mv['write']['gb_per_s']:.2f} "
+        f"GB/s) against the host link's {HOST_LINK_BYTES_PER_S / 1e9:.0f} "
+        f"GB/s a direction; a {bw['read']['blocks']}-page handle: spill "
+        f"{bw['read']['ms_median']:.3f} ms ({bw['read']['gb_per_s']:.2f} "
+        f"GB/s), restore {bw['write']['ms_median']:.3f} ms "
+        f"({bw['write']['gb_per_s']:.2f} GB/s); every greedy request equal "
+        f"to the unconstrained engine's")
+    return result, ref_tokens
+
+
+def _spill_faults(torch, model, prompts, params):
+    """Injected ``kv.spill`` and ``kv.restore`` faults on every call:
+    preemption degrades to recompute, warned once, no block leaked."""
+    import warnings
+
+    from paddle_tpu_torch.resilience import FaultSpec, faults
+
+    out = {}
+    for site in ("kv.spill", "kv.restore"):
+        with faults.inject({site: FaultSpec(OSError("injected"), every=1)}), \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            engine, outs, dt, _, _, _, _, _ = _spill_serve(
+                torch, f"spill_faults/{site}", model, prompts, params,
+                num_blocks=SPILL_BLOCKS, host_spill_bytes=256 << 20)
+        s, m = engine.spill.stats(), engine.metrics
+        errors = s["spill_errors" if site == "kv.spill" else "restore_errors"]
+        warned = sum(site in str(w.message) for w in caught)
+        check(m.preemptions > 0 and errors > 0 and warned == 1
+              and engine.stepstats.wasted_preempt_tokens > 0,
+              f"spill_faults/{site}: {m.preemptions} preemptions, {errors} "
+              f"errors, warned {warned} times")
+        out[site] = {"preemptions": m.preemptions, "errors": errors,
+                     "recomputed_tokens":
+                         engine.stepstats.wasted_preempt_tokens}
+        del engine
+    log(f"[spill] faults: {out}")
+    return out
+
+
+def _spill_disk(torch, model, prompts, params, ref_tokens):
+    """The disk tier: a host budget of one byte sends every handle to
+    ``spill_dir``; the preempted requests are served back from disk."""
+    import shutil
+    import tempfile
+
+    sdir = tempfile.mkdtemp(prefix="chip_smoke_spill_")
+    try:
+        engine, outs, dt, _, _, _, moves, _ = _spill_serve(
+            torch, "spill_disk", model, prompts, params,
+            num_blocks=SPILL_DISK_BLOCKS, host_spill_bytes=1,
+            spill_dir=sdir)
+        s = engine.spill.stats()
+        check(s["disk_writes"] > 0 and s["disk_reads"] > 0
+              and s["restored_blocks"]["request"] > 0,
+              f"spill_disk: disk writes {s['disk_writes']}, reads "
+              f"{s['disk_reads']}, restored {s['restored_blocks']}")
+        bad = [i for i, (o, p) in enumerate(zip(outs, params))
+               if not p.do_sample and o.token_ids != ref_tokens[i]]
+        check(not bad, f"spill_disk: greedy requests {bad} differ from the "
+                       f"unconstrained engine's tokens")
+        r = {"preemptions": engine.metrics.preemptions,
+             "disk_writes": s["disk_writes"], "disk_reads": s["disk_reads"],
+             "restored_blocks": s["restored_blocks"]["request"],
+             "seconds": dt, "moves": _move_rates(moves)}
+        del engine
+    finally:
+        shutil.rmtree(sdir, ignore_errors=True)
+    log(f"[spill] disk tier: {r}")
+    return r
+
+
+def _spill_oom(torch, model, prompts, params):
+    """A pool larger than the card: ``EngineOverloadedError``, the device
+    memory back at its level before the build, then the same process
+    serves."""
+    from paddle_tpu_torch.serving import Engine, EngineOverloadedError
+
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    try:
+        Engine(model, _serving_geometry(num_blocks=SPILL_OOM_BLOCKS))
+        raised = None
+    except EngineOverloadedError as e:
+        raised = str(e)
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    torch.cuda.empty_cache()
+    check(raised is not None and "num_blocks" in raised,
+          f"spill_oom: a {SPILL_OOM_BLOCKS}-block pool was not refused")
+    check(after == before, f"spill_oom: {after - before} bytes still "
+                           f"allocated after the refused build")
+    engine, outs, dt, _, _, _, _, _ = _spill_serve(
+        torch, "spill_oom/after", model, prompts, params)
+    del engine
+    log(f"[spill] a {SPILL_OOM_BLOCKS}-block pool: EngineOverloadedError, "
+        f"device memory back to {before} B allocated; the same process "
+        f"then served {len(prompts)} requests")
+    return {"num_blocks": SPILL_OOM_BLOCKS, "allocated_before": before,
+            "allocated_after": after, "error": raised[:200]}
+
+
+def _prefix_spill(torch, model):
+    """Prefix-chain spill on the serving_prefix workload: an engine whose
+    cache keeps 16 entries (chains evicted and demoted to a 2 GiB host
+    tier) against one that never evicts; both 512 blocks. Restored chains
+    hit, and the greedy tokens equal the never-evicted engine's."""
+    from paddle_tpu_torch.serving import Engine, SamplingParams
+
+    cfg = model.config
+    rng = np.random.RandomState(0)
+    system = rng.randint(1, cfg.vocab_size, PREFIX_SYSTEM_TOKENS).tolist()
+    tails = [int(rng.randint(8, 128)) for _ in range(32)]
+    prompts = [system + rng.randint(1, cfg.vocab_size, n).tolist()
+               for n in tails]
+    max_new = [int(rng.randint(32, 97)) for _ in range(32)]
+    params = [SamplingParams(max_new_tokens=k, do_sample=True,
+                             temperature=0.8, top_k=50, top_p=0.95)
+              if i % 4 == 3 else SamplingParams(max_new_tokens=k)
+              for i, k in enumerate(max_new)]
+    greedy = [i for i, p in enumerate(params) if not p.do_sample]
+    out = {}
+    for name, kw in (("never_evicted", {}),
+                     ("spill", dict(
+                         prefix_cache_blocks=PREFIX_SPILL_CACHE_BLOCKS,
+                         host_spill_bytes=SPILL_HOST_BYTES))):
+        gc.collect()
+        engine = Engine(model, _serving_geometry(
+            num_blocks=PREFIX_SPILL_POOL_BLOCKS, enable_prefix_cache=True,
+            prefill_chunk_tokens=PREFIX_CHUNK, **kw))
+        passes = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            outs = engine.generate(prompts, params)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            passes.append(([o.token_ids for o in outs], dt))
+        m = engine.metrics
+        r = {"prefix_evictions": m.prefix_evictions,
+             "prefix_restores": m.prefix_restores,
+             "prefix_hit_tokens": m.prefix_hit_tokens,
+             "prefill_tokens": m.prefill_tokens,
+             "tokens_per_s": [sum(len(t) for t in toks) / dt
+                              for toks, dt in passes],
+             "tokens": [toks for toks, _ in passes]}
+        if engine.spill is not None:
+            s = engine.spill.stats()
+            r.update(spilled_blocks=s["spilled_blocks"]["prefix"],
+                     restored_blocks=s["restored_blocks"]["prefix"])
+        check(engine.block_manager.num_used
+              == engine.prefix_cache.reclaimable_blocks(),
+              f"prefix_spill/{name}: blocks held beyond the cache's")
+        _ledger_holds(f"prefix_spill/{name}", engine)
+        out[name] = r
+        del engine
+    ref, sp = out["never_evicted"], out["spill"]
+    check(ref["prefix_evictions"] == 0,
+          f"prefix_spill: the reference engine evicted "
+          f"{ref['prefix_evictions']} entries")
+    check(sp["prefix_restores"] > 0 and sp["restored_blocks"] > 0,
+          f"prefix_spill: {sp['prefix_restores']} chain restores")
+    for p in (0, 1):
+        bad = [i for i in greedy
+               if sp["tokens"][p][i] != ref["tokens"][p][i]]
+        check(not bad, f"prefix_spill pass {p + 1}: greedy requests {bad} "
+                       f"differ from the never-evicted engine's")
+    for r in out.values():
+        r.pop("tokens")
+    log(f"[spill] prefix chains: {sp['prefix_evictions']} evictions, "
+        f"{sp['spilled_blocks']} blocks spilled, {sp['prefix_restores']} "
+        f"restored; hit tokens {sp['prefix_hit_tokens']} against the "
+        f"never-evicted engine's {ref['prefix_hit_tokens']}; greedy tokens "
+        f"equal in both passes")
+    return out
+
+
+def phase_spill(torch):
+    """The host KV spill tier on the serving cell (see the docstring's
+    5j): preemption under memory pressure over the bf16 and the int8
+    pool, injected faults, the disk tier, prefix-chain spill and a
+    pool-build OOM."""
+    model = _serving_model(torch, "spill")
+    prompts, params = _serving_workload(model.config)
+    result = {"launches": {}}
+    ref_tokens = None
+    for kv in (None, "int8"):
+        r, tokens = _spill_pool(torch, model, kv, prompts, params)
+        for key, n in r["launches"].items():
+            result["launches"][key] = result["launches"].get(key, 0) + n
+        result["int8" if kv else "bf16"] = r
+        ref_tokens = ref_tokens or tokens
+    n = SPILL_FAULT_REQUESTS
+    result["faults"] = _spill_faults(torch, model, prompts[:n], params[:n])
+    n = SPILL_DISK_REQUESTS
+    result["disk"] = _spill_disk(torch, model, prompts[:n], params[:n],
+                                 ref_tokens)
+    result["prefix"] = _prefix_spill(torch, model)
+    # last: the refused pool empties the allocator's cache, and the next
+    # allocations would pay cudaMalloc again inside the timed runs
+    result["oom"] = _spill_oom(torch, model, prompts[:4], params[:4])
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def _observatory_profile(torch, model, n=10):
+    """The replayed decode step (bf16 pool, 8 slots) with the observatory
+    on and off under torch.profiler (``_profiled_steps``): kernels per
+    step and the host's launch calls per step must be equal."""
+    from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
+
+    out = {}
+    for name, on in (("on", True), ("off", False)):
+        engine = Engine(model, EngineConfig(
+            max_batch_slots=8, max_model_len=512, page_size=16,
+            stepstats=on))
+        rng = np.random.RandomState(0)
+        for _ in range(8):
+            engine.add_request(rng.randint(1, 32000, 100).tolist(),
+                               SamplingParams(max_new_tokens=200))
+        for _ in range(30):
+            engine.step()
+        out[name] = _profiled_steps(
+            torch, engine, n, f"observatory {name}, decode step (8 slots)",
+            ("rope_kv_write", "paged_decode"))
+        del engine
+    on, off = out["on"], out["off"]
+    check(on["kernels_per_step"] == off["kernels_per_step"]
+          and on["host_launch_calls_per_step"]
+          == off["host_launch_calls_per_step"],
+          f"observatory: {on['kernels_per_step']} kernels and "
+          f"{on['host_launch_calls_per_step']} launch calls a step on, "
+          f"{off['kernels_per_step']} and "
+          f"{off['host_launch_calls_per_step']} off")
+    return out
+
+
+def phase_stepstats(torch):
+    """The step observatory on the serving cell: tokens/s with it on and
+    off (best of 3, in turns), the replayed decode step's kernels and
+    host launch calls on and off, the per-program walls, host overhead,
+    goodput and MFU, the ledger identities on the serving_spec cell's
+    traffic, and the flight dump's step samples and compile log."""
+    import tempfile
+
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.observability import flight, jit_events
+    from paddle_tpu_torch.serving import Engine, SamplingParams
+
+    model = _serving_model(torch, "stepstats")
+    prompts, params = _serving_workload(model.config)
+    engines = {name: Engine(model, _serving_geometry(stepstats=on))
+               for name, on in (("on", True), ("off", False))}
+    for e in engines.values():        # capture every program first
+        e.generate(prompts, params)
+    rates = {name: [] for name in engines}
+    on = engines["on"]
+    _build.reset_launch_counts()
+    for _ in range(STEPSTATS_RUNS):
+        for name in ("on", "off"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = engines[name].generate(prompts, params)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            rates[name].append(sum(len(o.token_ids) for o in outs) / dt)
+            if name == "on":
+                # MFU's window ends here: the off engine's run is idle
+                # time for this one
+                summary = on.stepstats.summary()
+    launches = dict(_build.launch_counts(), **_build.variant_counts())
+    check(engines["off"].stepstats is None
+          and engines["off"].health()["stepstats"] is None,
+          "stepstats: the engine built with stepstats=False samples")
+    _ledger_holds("stepstats", on)
+    check(summary["tokens"]["useful"] > 0 and summary["mfu"] is not None,
+          f"stepstats: summary {summary}")
+    result = {
+        "tokens_per_s_on": max(rates["on"]),
+        "tokens_per_s_off": max(rates["off"]),
+        "runs_on": rates["on"], "runs_off": rates["off"],
+        "on_vs_off": max(rates["on"]) / max(rates["off"]),
+        "step_ms": summary["step_ms"],
+        "goodput_fraction": summary["goodput_fraction"],
+        "mfu": summary["mfu"], "peak": summary["peak_flops_per_chip"],
+        "peak_source": summary["peak_source"],
+        "flops_per_token": summary["flops_per_token"],
+        "launches": launches,
+    }
+    del on
+    engines.clear()
+    # the speculative cell's traffic (K = 4): both identities
+    spec = Engine(model, _serving_geometry(speculate_tokens=SPEC_K))
+    rng = np.random.RandomState(3)
+    spec.generate([[int(t)] * SPEC_PROMPT_COPIES
+                   for t in rng.randint(1, 32000, 8)],
+                  SamplingParams(max_new_tokens=496))
+    _ledger_holds("stepstats/spec", spec)
+    st = spec.stepstats
+    check(spec.metrics.spec_proposed > 0,
+          "stepstats/spec: no draft proposed")
+    result["spec_ledger"] = st.ledger()
+    result["spec_goodput_fraction"] = st.goodput_fraction()
+    # the flight dump: step samples and every capture, no retrace
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_flight_") as d:
+        path = flight.dump("chip_smoke-stepstats",
+                           path=os.path.join(d, "dump.json"))
+        with open(path) as f:
+            dump = json.load(f)
+    mine = [s for s in dump["step_samples"]
+            if s.get("engine") == spec.engine_id]
+    captures = [ev for ev in dump["compile_log"]
+                if ev["signature"].startswith(f"{spec.engine_id}:")]
+    m = spec.metrics
+    built = (m.prefill_compiles + m.prefill_ext_compiles + m.decode_compiles
+             + m.verify_compiles + m.cow_compiles)
+    retraces = jit_events.retraces_after_warmup()
+    check(mine and len(captures) == built and retraces == 0
+          and not any(ev["retrace"] for ev in dump["compile_log"]),
+          f"stepstats: {len(mine)} step samples, {len(captures)} captures "
+          f"logged for {built} programs, {retraces} retraces after warm-up")
+    result["flight"] = {"step_samples": len(dump["step_samples"]),
+                        "compile_events": len(dump["compile_log"]),
+                        "spec_engine_captures": len(captures),
+                        "retraces_after_warmup": retraces}
+    del spec
+    result["profile"] = _observatory_profile(torch, model)
+    p = result["profile"]
+    log(f"[stepstats] tokens/s on {result['tokens_per_s_on']:.1f}, off "
+        f"{result['tokens_per_s_off']:.1f} (best of {STEPSTATS_RUNS}, "
+        f"{result['on_vs_off']:.4f}x); decode step kernels "
+        f"{p['on']['kernels_per_step']:.0f} / "
+        f"{p['off']['kernels_per_step']:.0f}, launch calls "
+        f"{p['on']['host_launch_calls_per_step']} / "
+        f"{p['off']['host_launch_calls_per_step']} (on / off)")
+    log(f"[stepstats] step ms by program: "
+        + ", ".join(f"{k} p50 {v['p50']:.3f} (n {v['count']})"
+                    for k, v in result["step_ms"].items())
+        + f"; goodput {result['goodput_fraction']:.4f}, MFU "
+        f"{result['mfu']:.4f} against {result['peak']:.3g} FLOP/s "
+        f"({result['peak_source']}); spec cell ledger "
+        f"{result['spec_ledger']}; flight {result['flight']}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
 # ------------------------------------------------------------- training
 def _lm_loss(model, ids):
     return model(ids, labels=ids)[1]
@@ -4736,7 +5433,9 @@ def phase_profile(torch):
     (wall ms to a sync). Then the serving_spec cell's step, replayed
     (``_spec_profile``), with the continuation kernel's split design (the
     engine's) and then its ring design (``_ring_paged_prefill``): the
-    verify step's device time and the kernel's share of it on each. Not
+    verify step's device time and the kernel's share of it on each; and
+    the decode step with the step observatory on and off
+    (``_observatory_profile``: equal kernels and host launch calls). Not
     part of the default run."""
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
@@ -4794,6 +5493,9 @@ def phase_profile(torch):
             f"{split['paged_prefill_ms_per_verify_step'] or 0:.4f} against "
             f"{ring['paged_prefill_ms_per_verify_step'] or 0:.4f} ms a "
             f"verify step")
+    # the step observatory on and off: the same kernels and host launch
+    # calls per replayed decode step
+    result["observatory"] = _observatory_profile(torch, model, n)
     return result
 
 
@@ -4803,11 +5505,11 @@ def main(argv=None):
         "--phases",
         default="kernels,parity,serving,serving_int8,serving_f16,"
                 "serving_prefix,serving_spec,server,journal,poison,fleet,"
-                "train_parity,train,moe",
+                "spill,stepstats,train_parity,train,moe",
         help="comma list of kernels, parity, serving, serving_int8, "
              "serving_f16, serving_prefix, serving_spec, server, journal, "
-             "poison, fleet, train_parity, train, moe, profile (default: "
-             "all but profile)",
+             "poison, fleet, spill, stepstats, train_parity, train, moe, "
+             "profile (default: all but profile)",
     )
     ap.add_argument("--out", help="write the full report as JSON here")
     # the processes the server and journal phases start
@@ -4825,8 +5527,9 @@ def main(argv=None):
     phases = set(args.phases.split(","))
     unknown = phases - {"kernels", "parity", "serving", "serving_int8",
                         "serving_f16", "serving_prefix", "serving_spec",
-                        "server", "journal", "poison", "fleet",
-                        "train_parity", "train", "moe", "profile"}
+                        "server", "journal", "poison", "fleet", "spill",
+                        "stepstats", "train_parity", "train", "moe",
+                        "profile"}
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
@@ -4879,6 +5582,7 @@ def main(argv=None):
             "serving_spec": phase_serving_spec,
             "server": phase_server, "journal": phase_journal,
             "poison": phase_poison, "fleet": phase_fleet,
+            "spill": phase_spill, "stepstats": phase_stepstats,
             "train_parity": phase_train_parity, "train": phase_train,
             "moe": phase_moe, "profile": phase_profile,
         }
@@ -4936,11 +5640,11 @@ def main(argv=None):
                 f"{[k for k, r in ratio.items() if r > 1] or 'none'}")
         report["phases"].update(results)
         (serving, serving_int8, serving_f16, serving_prefix, serving_spec,
-         server, journal, poison, fleet, train, moe) = (
+         server, journal, poison, fleet, spill, stepstats, train, moe) = (
              results.get(p) for p in (
                  "serving", "serving_int8", "serving_f16", "serving_prefix",
                  "serving_spec", "server", "journal", "poison", "fleet",
-                 "train", "moe"))
+                 "spill", "stepstats", "train", "moe"))
         check("jax" not in sys.modules and not any(
             m == "paddle_tpu" or m.startswith("paddle_tpu.")
             for m in sys.modules),
@@ -4956,14 +5660,17 @@ def main(argv=None):
     # speculative decoding and its spec-disabled twin, both pools), the
     # HTTP front door's first pass, the journal's recovered engine, the
     # poisoned decode run, the fleet's counted runs (the 2-replica rate
-    # runs and the warm-routing pass), the 14 counted train steps, and the
-    # moe phase's counted forwards
+    # runs and the warm-routing pass), the spill cell's counted engines
+    # (unconstrained, spill and recompute, both pools), the observatory's
+    # timed runs (on and off), the 14 counted train steps, and the moe
+    # phase's counted forwards
     by_path = {p: r["launches"] if r else {} for p, r in (
         ("serving", serving), ("serving_int8", serving_int8),
         ("serving_f16", serving_f16), ("serving_prefix", serving_prefix),
         ("serving_spec", serving_spec), ("server", server),
         ("journal", journal), ("poison", poison), ("fleet", fleet),
-        ("train", train), ("moe", moe))}
+        ("spill", spill), ("stepstats", stepstats), ("train", train),
+        ("moe", moe))}
 
     def launches(name):
         per = {p: c.get(name, 0) for p, c in by_path.items()}

@@ -1,6 +1,6 @@
 """Always-on telemetry for the serving front door (counterpart of
 ``paddle_tpu.observability``, cut to what the serving path uses; the
-compile log and the step observatory wait for their slices):
+``top``/``dump`` CLI waits for its slice):
 
   * **metrics** — a process-wide registry of labeled
     Counter/Gauge/Histogram with Prometheus text exposition and a JSON
@@ -10,16 +10,22 @@ compile log and the step observatory wait for their slices):
   * **latency** — mergeable latency digests and SLO error-budget burn.
   * **spans** — trace/span ids, continued from an inbound
     ``traceparent`` and recorded on every request.
-  * **flight recorder** — a bounded ring of recent events and finished
-    request timelines, dumped to a postmortem JSON file on demand or on
+  * **flight recorder** — a bounded ring of recent events, finished
+    request timelines and serving step samples, dumped with the compile
+    log to a postmortem JSON file on demand, on an engine error or on
     SIGUSR2.
+  * **jit_events** — the compile log: one event per program capture,
+    and the retrace-after-warmup alarm.
+  * **stepstats** — the serving step observatory: per-program launch
+    walls, host overhead, the goodput ledger and MFU.
   * **scrape** — ``/metrics`` and ``/healthz`` on a thread, and the HTTP
     host the serving front door builds on.
 """
-from . import flight, latency, metrics, scrape, spans
+from . import flight, jit_events, latency, metrics, scrape, spans, stepstats
 from .flight import (
     FlightRecorder,
     dump,
+    find_dumps,
     get_flight_recorder,
     install_signal_handler,
     record,
@@ -67,10 +73,11 @@ __all__ = [
     "current_traceparent", "finished_spans", "export_chrome_trace",
     # flight recorder
     "FlightRecorder", "get_flight_recorder", "record", "dump",
-    "install_signal_handler",
+    "find_dumps", "install_signal_handler",
     # scrape endpoint
     "ScrapeServer", "start_scrape_server", "register_health_provider",
     "unregister_health_provider", "health_snapshot",
     # submodules
-    "flight", "latency", "metrics", "scrape", "spans",
+    "flight", "jit_events", "latency", "metrics", "scrape", "spans",
+    "stepstats",
 ]

@@ -1,13 +1,14 @@
 """Flight recorder: a bounded ring of recent events + crash-time dump
-(counterpart of ``paddle_tpu/observability/flight.py``, without the
-compile log and the step-sample ring, whose modules are not ported).
+(counterpart of ``paddle_tpu/observability/flight.py``).
 
-Product code appends cheap host-side events (fault-injection fires,
-journal replays and append errors, finished-request timelines) into a
-ring that costs one deque append per event and never grows. ``dump``
-writes the ring, the finished-request timelines, a metrics snapshot and
-the caller's probe snapshots to one JSON file, on ``SIGUSR2``
-(:func:`install_signal_handler`) or when a caller asks.
+Product code appends cheap host-side events (program captures from the
+compile log, ``jit_events``; fault-injection fires, journal replays and
+append errors, preemptions, finished-request timelines, one sample per
+non-idle serving step from ``stepstats``) into bounded rings that cost
+one deque append per event and never grow. ``dump`` writes the rings,
+the compile log, a metrics snapshot and the caller's probe snapshots to
+one JSON file, on ``SIGUSR2`` (:func:`install_signal_handler`), on an
+engine error, or when a caller asks; :func:`find_dumps` lists them.
 
 Dumps land under ``$PADDLE_TPU_FLIGHT_DIR`` (default: the system temp
 dir) as ``paddle_tpu-flight-<pid>-<n>.json``. Dumping is an exporter: it
@@ -29,7 +30,8 @@ from collections import deque
 __all__ = [
     "FlightRecorder", "get_flight_recorder", "record", "dump",
     "record_timeline", "timelines",
-    "dump_dir", "install_signal_handler",
+    "record_step_sample", "step_samples",
+    "dump_dir", "find_dumps", "install_signal_handler",
 ]
 
 _DUMP_PREFIX = "paddle_tpu-flight-"
@@ -38,13 +40,19 @@ _DUMP_PREFIX = "paddle_tpu-flight-"
 class FlightRecorder:
     """Thread-safe bounded event ring."""
 
-    def __init__(self, capacity=512, timeline_capacity=64):
+    def __init__(self, capacity=512, timeline_capacity=64,
+                 step_sample_capacity=64):
         self._events = deque(maxlen=int(capacity))
         # last-N finished/aborted request timelines (serving feeds one
         # phase-breakdown dict per completed request): a postmortem
         # shows what requests were DOING — queue waits, chunk counts,
         # preemptions — not just counters
         self._timelines = deque(maxlen=int(timeline_capacity))
+        # last-N serving step samples (observability/stepstats.py feeds
+        # one per non-idle engine step): where step time went right
+        # before the failure — launch walls per program, occupancy,
+        # queue depth, KV headroom
+        self._step_samples = deque(maxlen=int(step_sample_capacity))
         self._lock = threading.Lock()
         self.dumps = 0          # postmortems written by this recorder
 
@@ -72,10 +80,21 @@ class FlightRecorder:
         with self._lock:
             return [dict(t) for t in self._timelines]
 
+    def record_step_sample(self, entry):
+        """Append one serving step sample (a JSON-friendly dict; one
+        deque append — same cost contract as :meth:`record`)."""
+        with self._lock:
+            self._step_samples.append(entry)
+
+    def step_samples(self):
+        with self._lock:
+            return [dict(s) for s in self._step_samples]
+
     def clear(self):
         with self._lock:
             self._events.clear()
             self._timelines.clear()
+            self._step_samples.clear()
 
     def __len__(self):
         with self._lock:
@@ -105,6 +124,16 @@ def timelines():
     return _recorder.timelines()
 
 
+def record_step_sample(entry):
+    """Append a serving step sample to the process-wide ring."""
+    _recorder.record_step_sample(entry)
+
+
+def step_samples():
+    """The process-wide recorder's last-N serving step samples."""
+    return _recorder.step_samples()
+
+
 def dump_dir():
     return os.environ.get("PADDLE_TPU_FLIGHT_DIR") or tempfile.gettempdir()
 
@@ -122,12 +151,12 @@ def _json_safe(obj):
 
 
 def dump(reason, path=None, probes=None):
-    """Write the postmortem file: ring events, request timelines, a
-    metrics snapshot, and ``probes`` (name -> snapshot dict, e.g.
-    ``Engine.health()``). Returns the file path, or None after degrading
-    a failure to a warning."""
+    """Write the postmortem file: ring events, request timelines, step
+    samples, the compile log, a metrics snapshot, and ``probes`` (name ->
+    snapshot dict, e.g. ``Engine.health()``). Returns the file path, or
+    None after degrading a failure to a warning."""
     from ..resilience import faults
-    from . import metrics
+    from . import jit_events, metrics
 
     try:
         faults.fire("obs.export", what="flight", reason=reason)
@@ -150,6 +179,8 @@ def dump(reason, path=None, probes=None):
             "argv": sys.argv,
             "events": _json_safe(_recorder.events()),
             "request_timelines": _json_safe(_recorder.timelines()),
+            "step_samples": _json_safe(_recorder.step_samples()),
+            "compile_log": _json_safe(jit_events.compile_log()),
             "metrics": _json_safe(metrics.get_registry().snapshot()),
             "probes": _json_safe(probes or {}),
         }
@@ -166,6 +197,29 @@ def dump(reason, path=None, probes=None):
             stacklevel=2,
         )
         return None
+
+
+def find_dumps(directory=None):
+    """Postmortem files in ``directory`` (default: :func:`dump_dir`),
+    newest first."""
+    d = directory or dump_dir()
+    try:
+        names = [
+            n for n in os.listdir(d)
+            if n.startswith(_DUMP_PREFIX) and n.endswith(".json")
+        ]
+    except OSError:
+        return []
+    paths = [os.path.join(d, n) for n in names]
+
+    def mtime(p):
+        # a dump deleted between listdir and stat sorts last, not crash
+        try:
+            return os.path.getmtime(p)
+        except OSError:
+            return 0.0
+
+    return sorted(paths, key=mtime, reverse=True)
 
 
 _signal_installed = False

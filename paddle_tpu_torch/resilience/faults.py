@@ -13,7 +13,9 @@ Tests activate a seeded schedule with a context manager:
         ...                                          # 3rd flush raises
     assert inj.fired["journal.append"] == 1
 
-Sites the port fires (each failure degrades, none is fatal):
+Sites the port fires (each failure degrades, none is fatal, except an
+injected ``torch.AcceleratorError`` at a serving site: a CUDA error is
+sticky for the process, so the engine re-raises it):
 
     serving.step       one engine prefill/decode/verify launch, fired on
                        the host before the staging copy and the replay
@@ -43,6 +45,20 @@ Sites the port fires (each failure degrades, none is fatal):
                        line is dropped, counted and warned once
     obs.export         one exporter call (context: what= "scrape"/
                        "healthz"/"flight"/"chrome_trace")
+    obs.stepstats      one serving step-observatory sample (context:
+                       engine=), fired at the step tail before the
+                       sample folds — a crashing sampler warns once and
+                       disables itself (the engine drops its StepStats;
+                       the weakref collector view follows), never
+                       perturbing the step that carried it
+    kv.spill           one KV spill to the host tier (context: key=,
+                       cls= "prefix"/"request", nbytes=) — the old
+                       destructive path applies (the block is freed, the
+                       request recomputes at resume; warned once,
+                       ``spill_errors``)
+    kv.restore         one KV fetch from the host tier (context: key=) —
+                       the recompute path the spill replaced (warned
+                       once, ``restore_errors``, no block leak)
     http.accept        one POST /v1/completions accept (context: path=,
                        client=): a structured 500 for that request
     http.stream        one SSE chunk write (context: rid=, seq=): that

@@ -144,6 +144,30 @@ class LlamaServingAdapter:
         scales in f32)."""
         return self.model.dtype
 
+    @property
+    def weights(self):
+        """The model's weights as the JAX adapter's tree (``embed``,
+        ``layers`` of per-block dicts, ``norm``, ``head``: None when the
+        embedding is tied), the tensors themselves: what the step
+        observatory counts parameters from."""
+        m = self.model
+        layers = [{
+            "ln1": blk.input_layernorm.weight,
+            "wq": blk.self_attn.q_proj.weight,
+            "wk": blk.self_attn.k_proj.weight,
+            "wv": blk.self_attn.v_proj.weight,
+            "wo": blk.self_attn.o_proj.weight,
+            "ln2": blk.post_attention_layernorm.weight,
+            "wg": blk.mlp.gate_proj.weight,
+            "wu": blk.mlp.up_proj.weight,
+            "wd": blk.mlp.down_proj.weight,
+        } for blk in m.llama.layers]
+        return {
+            "embed": m.llama.embed_tokens.weight, "layers": layers,
+            "norm": m.llama.norm.weight,
+            "head": m.lm_head.weight if m.lm_head is not None else None,
+        }
+
     def _qkv(self, attn, h, b, s):
         q = attn.q_proj(h).view(b, s, self.num_heads, self.head_dim)
         k = attn.k_proj(h).view(b, s, self.num_kv_heads, self.head_dim)

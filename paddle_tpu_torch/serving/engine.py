@@ -67,8 +67,10 @@ final chunk's token is kept, non-final chunks are greedy). The KV pool
 is updated in place.
 
 ``submit``/``resume``/``release`` move Request objects between engines
-(the fleet's migration primitive, without the spill tier); ``health()``
-reports status, flags, the queue and the pool. Cached prefix blocks no
+(the fleet's migration primitive; with the spill tier a released
+request's KV rides along, see below); ``health()`` reports status,
+flags, the queue, the pool, the spill tier and the step observatory.
+Cached prefix blocks no
 running request holds are reclaimable: they are freed before an
 admission waits or a request is preempted, and they are not pressure
 for ``kv_shed_threshold`` or ``health()``.
@@ -109,27 +111,53 @@ recorded with the engine's health probe, then re-raised. A
 ``serving.Fleet`` of engines (``serving/fleet.py``) supervises replicas
 above this.
 
-Not ported yet (later slices): tensor parallelism and placement, spill
-tier, step observatory (and its speculative reject count), the comm
-watchdog (``health()["watchdog"]`` reports it disabled), the analysis
-gate (and its ``check_verify``) and the compile cache.
+Step observatory (``EngineConfig(stepstats=True, stepstats_ring=256)``,
+``observability/stepstats.py``): each launch's host wall (to its
+read-back where it has one: no sync and no launch is added), per-program
+digests, host overhead, the goodput ledger (useful, spec_reject,
+preempt_recompute, migration_reprefill, aborted; classified by
+``Request.resume_cause``) and MFU, one sample a non-idle step into the
+flight recorder's step ring; a crashing sampler (the ``obs.stepstats``
+site) warns once and disables itself. Every program capture is logged
+(``observability/jit_events.py``).
+
+Host spill tier (``EngineConfig(host_spill_bytes=, spill_dir=)``,
+``serving/spill.py``): preemption and ``release`` park the victim's
+cached blocks in host memory (a pinned slab allocated at build) as one
+handle, and its re-admission writes them back instead of re-prefilling
+(a partial handle continues through the ``prefill_ext`` program); prefix
+chains evicted from the cache are demoted there and restored by a later
+match; ``spill_dir`` adds a disk tier that a fresh process (journal
+replay) restores from. The ``kv.spill``/``kv.restore`` sites degrade to
+recompute; a ``torch.AcceleratorError`` re-raises. A pool too large for
+the card is refused as ``EngineOverloadedError``, its partial
+allocation released.
+
+Not ported yet (later slices): tensor parallelism and placement (the
+``tp_*`` fields of ``health()`` report one card), the comm watchdog
+(``health()["watchdog"]`` reports it disabled), the analysis gate (and
+its ``check_verify``, the memory budget behind
+``device_memory_budget``) and the compile cache.
 """
 from __future__ import annotations
 
 import collections
 import itertools
 import time
+import warnings
 import weakref
 
 import torch
 
 from ..generation import uniform_noise
 from ..observability import flight as _flight
+from ..observability import jit_events
 from ..observability import (
     register_health_provider,
     unregister_health_provider,
 )
 from ..observability.latency import SLOConfig, SLOTracker
+from ..observability.stepstats import StepStats, register_stepstats_view
 from ..resilience import faults
 from . import speculation
 from .access_log import record_finish, resolve_access_log
@@ -146,6 +174,13 @@ from .request import (
     normalize_sampling_params,
 )
 from .sampler import pack_sampling_params, sample_tokens
+from .spill import (
+    HostSpillTier,
+    PinnedSlab,
+    drop_handle,
+    is_resource_exhausted,
+    register_spill_view,
+)
 
 __all__ = ["Engine", "EngineConfig", "EngineOverloadedError"]
 
@@ -208,7 +243,8 @@ class EngineConfig:
                  prefix_cache_blocks=None, prefill_chunk_tokens=None,
                  max_prefill_chunks_per_step=1, speculate_tokens=None,
                  speculate_ngram=3, journal=None, access_log=None,
-                 slo=None):
+                 slo=None, stepstats=True, stepstats_ring=256,
+                 host_spill_bytes=None, spill_dir=None):
         if max_batch_slots < 1:
             raise ValueError("max_batch_slots must be >= 1")
         if page_size < 1 or max_model_len < 2:
@@ -345,6 +381,35 @@ class EngineConfig:
                 f"{type(slo).__name__}"
             )
         self.slo = slo
+        # serving step observatory (observability/stepstats.py): every
+        # step folds into per-program launch-wall digests, a goodput
+        # ledger, and a bounded ring of the last ``stepstats_ring``
+        # non-idle steps; stepstats=False removes the sampler entirely
+        self.stepstats = bool(stepstats)
+        stepstats_ring = int(stepstats_ring)
+        if stepstats_ring < 1:
+            raise ValueError(
+                f"stepstats_ring must be >= 1, got {stepstats_ring}"
+            )
+        self.stepstats_ring = stepstats_ring
+        # host KV spill tier (serving/spill.py): preemption/release and
+        # prefix-cache eviction demote KV blocks to a host LRU of this
+        # many bytes (restored instead of recomputed); spill_dir adds the
+        # disk tier under it
+        if host_spill_bytes is not None:
+            host_spill_bytes = int(host_spill_bytes)
+            if host_spill_bytes < 1:
+                raise ValueError(
+                    f"host_spill_bytes must be >= 1 byte or None, got "
+                    f"{host_spill_bytes}"
+                )
+        self.host_spill_bytes = host_spill_bytes
+        if spill_dir is not None and host_spill_bytes is None:
+            raise ValueError(
+                "EngineConfig(spill_dir=) is the DISK tier under the "
+                "host spill tier: set host_spill_bytes= too"
+            )
+        self.spill_dir = str(spill_dir) if spill_dir is not None else None
 
 
 class Engine:
@@ -375,6 +440,9 @@ class Engine:
                 "its decode attention path"
             )
         self._chunking = cfg.prefill_chunk_tokens is not None
+        # a continuation (prefill_ext) program can run: chunks, a prefix
+        # hit's suffix, a partial spill restore's suffix
+        self._use_ext = self._chunking or cfg.enable_prefix_cache
         # optional entry points are checked at build: one error naming
         # the missing method and the flags that need it
         if ((self._chunking or cfg.enable_prefix_cache)
@@ -412,6 +480,18 @@ class Engine:
         # or cudaHostAlloc there would invalidate a capture in progress
         with capture_lock:
             self._setup_device(cfg)
+        if self.spill is not None:
+            register_spill_view(self.spill, self.engine_id)
+        # step observatory: per-program launch walls, goodput ledger,
+        # bounded sample ring, live MFU, as its own weakref collector
+        # view; a sampler crash (the obs.stepstats site) warns once and
+        # disables it (_disable_stepstats)
+        self.stepstats = None
+        self._stepstats_warned = False
+        if cfg.stepstats:
+            self.stepstats = StepStats(adapter=self.adapter,
+                                       ring=cfg.stepstats_ring)
+            register_stepstats_view(self.stepstats, self.engine_id)
         # the journal replays before any traffic (the programs are
         # captured on first use, so before the first step): unfinished
         # journaled requests join the queue head
@@ -435,19 +515,51 @@ class Engine:
         weakref.finalize(self, unregister_health_provider, probe_name)
 
     def _setup_device(self, cfg):
-        """The KV pool, the scheduler's queues and slots, the generators
-        and the programs' static buffers (``__init__``, under the capture
-        lock)."""
+        """The KV pool, the spill tier, the scheduler's queues and slots,
+        the generators and the programs' static buffers (``__init__``,
+        under the capture lock). A pool that does not fit the card is
+        refused as ``EngineOverloadedError`` (the pool released what it
+        had allocated)."""
         dev = self.device
-        self.pool = KVPool(
-            self.adapter.num_layers, self.adapter.num_kv_heads,
-            cfg.num_blocks, cfg.page_size, self.adapter.head_dim,
-            self.adapter.dtype, dev, quant_dtype=cfg.kv_cache_dtype,
-        )
+        try:
+            self.pool = KVPool(
+                self.adapter.num_layers, self.adapter.num_kv_heads,
+                cfg.num_blocks, cfg.page_size, self.adapter.head_dim,
+                self.adapter.dtype, dev, quant_dtype=cfg.kv_cache_dtype,
+            )
+        except RuntimeError as e:
+            if isinstance(e, _DEVICE_FAULTS) or not is_resource_exhausted(e):
+                raise
+            # an admission-style refusal an operator (or a fleet
+            # supervisor) can act on, instead of an opaque crash
+            raise EngineOverloadedError(
+                f"KV pool allocation exhausted device memory "
+                f"({cfg.num_blocks} blocks x {cfg.page_size} tokens): "
+                f"reduce num_blocks or quantize the cache "
+                f"(kv_cache_dtype='int8') — {type(e).__name__}: {e}"
+            ) from e
         self.block_manager = BlockManager(cfg.num_blocks, cfg.page_size)
+        # host spill tier under the pool: its payload rows are one slab
+        # allocated here (pinned on the card), sized to the byte budget
+        # plus one max-length handle (a put lands before the LRU trims)
+        self.spill = None
+        self._spill_seq = 0
+        self._spill_signature = None
+        self._spill_warned = False
+        if cfg.host_spill_bytes is not None:
+            lay = self.pool.layout
+            slab = PinnedSlab(
+                lay.row_bytes,
+                cfg.host_spill_bytes // lay.nbytes + cfg.pages_per_seq,
+                pin=dev.type == "cuda")
+            self.spill = HostSpillTier(
+                cfg.host_spill_bytes, spill_dir=cfg.spill_dir,
+                engine_id=self.engine_id, slab=slab)
+            self._spill_signature = self.pool.block_signature()
         self.prefix_cache = (
             PrefixCache(self.block_manager, cfg.prefix_cache_blocks,
-                        metrics=self.metrics)
+                        metrics=self.metrics, spill=self.spill,
+                        pool=self.pool)
             if cfg.enable_prefix_cache else None)
         self.waiting: collections.deque = collections.deque()
         self.slots: list = [None] * cfg.max_batch_slots
@@ -536,6 +648,13 @@ class Engine:
                        stream=self._capture_stream, generators=(generator,)
                        if generator is not None else ())
 
+    def _capture(self, name, signature):
+        """The compile log's watch around one program build: the engine
+        id in the signature (a second engine building its own programs is
+        a fresh capture, not a retrace)."""
+        return jit_events.watch(f"serving.{name}", kind="serving",
+                                signature=f"{self.engine_id}:{signature}")
+
     def _decode_program(self, any_sample):
         """The decode program over every slot; ``any_sample`` (a host
         bool) adds the sampling warp and the noise, as JAX's static
@@ -560,7 +679,8 @@ class Engine:
         # the build runs decode_fn once eagerly: over zeroed inputs (no
         # active slot) it writes no page
         self._decode_buffers.device.zero_()
-        prog = self._program(decode_fn, gen if any_sample else None)
+        with self._capture("decode", f"any_sample={any_sample}"):
+            prog = self._program(decode_fn, gen if any_sample else None)
         self._decode_programs[any_sample] = prog
         self.metrics.decode_compiles += 1
         return prog
@@ -589,7 +709,8 @@ class Engine:
         # the build runs prefill_fn once eagerly: over zeroed inputs (a
         # prompt of length 0) it writes no page
         self._prefill_buffers.device.zero_()
-        prog = self._program(prefill_fn, gen)
+        with self._capture("prefill", f"bucket={bucket}"):
+            prog = self._program(prefill_fn, gen)
         self._prefill_programs[bucket] = prog
         self.metrics.prefill_compiles += 1
         return prog
@@ -619,7 +740,8 @@ class Engine:
         # the build runs prefill_ext_fn once eagerly: over zeroed inputs
         # (a chunk of length 0) it writes no page
         self._prefill_ext_buffers.device.zero_()
-        prog = self._program(prefill_ext_fn, gen)
+        with self._capture("prefill_ext", f"bucket={bucket}"):
+            prog = self._program(prefill_ext_fn, gen)
         self._prefill_ext_programs[bucket] = prog
         self.metrics.prefill_ext_compiles += 1
         return prog
@@ -636,7 +758,8 @@ class Engine:
 
         # the build runs cow_fn once eagerly: the sink page over itself
         self._cow_buffers.device.fill_(pool.sink_page)
-        self._cow_prog = self._program(cow_fn, None)
+        with self._capture("cow", "copy"):
+            self._cow_prog = self._program(cow_fn, None)
         self.metrics.cow_compiles += 1
         return self._cow_prog
 
@@ -663,7 +786,8 @@ class Engine:
         # the build runs verify_fn once eagerly: over zeroed inputs (no
         # active slot) it writes no page and reads page 0 only
         self._verify_buffers.device.zero_()
-        self._verify_prog = self._program(verify_fn, None)
+        with self._capture("verify", f"k={cfg.speculate_tokens}"):
+            self._verify_prog = self._program(verify_fn, None)
         self.metrics.verify_compiles += 1
         return self._verify_prog
 
@@ -769,8 +893,10 @@ class Engine:
         engine (``release`` on another engine): scheduling state is
         reset, prompt and generated tokens kept, so the next prefill
         rebuilds the cache over ``prompt + output[:-1]`` and greedy
-        continuation is byte-identical. Joins the head of the queue and
-        bypasses ``max_waiting`` and shedding."""
+        continuation is byte-identical — or, when the request carries a
+        spill handle a tier in this process (or the disk tier) still
+        holds, its admission restores the blocks instead. Joins the head
+        of the queue and bypasses ``max_waiting`` and shedding."""
         if req.state is RequestState.FINISHED:
             raise ValueError(
                 f"cannot resume finished request {req.request_id!r}"
@@ -779,6 +905,10 @@ class Engine:
         req.num_cached = 0
         req.slot = None
         req.state = RequestState.WAITING
+        # goodput attribution: the re-prefill recomputes context built on
+        # another engine — migration waste, not preemption (a spill
+        # restore on admission makes it "restored")
+        req.resume_cause = "migration"
         self.waiting.appendleft(req)
         self.metrics.requests_received += 1
         req.timeline.resumes += 1
@@ -794,7 +924,10 @@ class Engine:
         ``num_cached=0``, and the Request (prompt, generated tokens,
         arrival and deadline) is returned for ``resume`` on another
         engine. No finish accounting and no RequestOutput. None when the
-        id is not here."""
+        id is not here. With the spill tier the cached blocks are parked
+        first under a handle the request carries (and the journal's
+        re-ADMIT records), so a ``resume`` in this process restores them
+        from the peer tier instead of re-prefilling."""
         req = next((r for r in self.waiting if r.request_id == request_id),
                    None)
         if req is not None:
@@ -805,6 +938,7 @@ class Engine:
                        None)
         if req is None or req.state is RequestState.FINISHED:
             return None
+        self._spill_request(req)
         self._release(req)
         req.state = RequestState.WAITING
         req.num_cached = 0
@@ -877,9 +1011,13 @@ class Engine:
         adds the ``slo_burn`` flag; ``slo_burn_rates`` is the windowed
         burn per signal (None without an SLO). ``requests_errored`` and
         ``last_error`` report poison isolation; ``watchdog`` is JAX's
-        value without a comm watchdog (the port has none). The JAX
-        engine's spill and tensor-parallel fields wait for their
-        modules."""
+        value without a comm watchdog (the port has none). ``stepstats``
+        is the observatory's summary and ``spill`` the tier's stats (None
+        when off); ``kv_headroom_bytes_per_chip`` scales the headroom
+        blocks by a block's bytes. The tensor-parallel fields report one
+        card (``tp_degree`` 1), and the memory gate's
+        (``device_memory_budget``, ``predicted_peak_bytes_per_chip``) are
+        None: the analyzer is not ported."""
         m, bm, cfg = self.metrics, self.block_manager, self.config
         util = bm.utilization()
         reclaimable, util_active = self._active_pressure()
@@ -906,18 +1044,34 @@ class Engine:
             "queue_depth": len(self.waiting),
             "num_running": sum(r is not None for r in self.slots),
             "decode_kernel": cfg.decode_kernel,
+            # the path the programs were built with: the configured one
+            # on one card (JAX resolves a sharded engine's to "xla")
+            "decode_kernel_effective": cfg.decode_kernel,
+            "tp_degree": 1,
+            "tp_numerics": None,
+            "tp_devices": [],
             "kv_cache_dtype": cfg.kv_cache_dtype or str(
                 self.pool.dtype).replace("torch.", ""),
             "kv_bytes_per_token": self.pool.bytes_per_token(),
+            "kv_bytes_per_token_per_chip":
+                self.pool.bytes_per_token_per_chip(),
+            "device_memory_budget": None,
+            "predicted_peak_bytes_per_chip": None,
             "kv_utilization": util,
             "kv_active_utilization": util_active,
             "kv_reclaimable_blocks": reclaimable,
             "kv_headroom_blocks": bm.num_free + reclaimable,
+            "kv_headroom_bytes_per_chip": int(
+                (bm.num_free + reclaimable)
+                * self.pool.block_bytes_per_chip()),
+            "stepstats": (self.stepstats.summary()
+                          if self.stepstats is not None else None),
             "prefix_cache_blocks": (len(self.prefix_cache)
                                     if self.prefix_cache is not None else 0),
             "prefix_cache_digests": (
                 list(self.prefix_cache.chain_digests())
                 if self.prefix_cache is not None else []),
+            "spill": self.spill.stats() if self.spill is not None else None,
             "spec_accept_rate": m.spec_accept_rate,
             "requests_errored": m.requests_errored,
             "requests_timeout": m.requests_timeout,
@@ -934,6 +1088,8 @@ class Engine:
         RequestOutputs of the requests that finished in this step."""
         finished = list(self._aborted)
         self._aborted.clear()
+        if self.stepstats is not None:
+            self.stepstats.begin_step()
         try:
             self._expire(finished)
             self._admit(finished)
@@ -972,7 +1128,62 @@ class Engine:
         m.pool_high_water = bm.high_water
         if self.prefix_cache is not None:
             m.prefix_cache_blocks = len(self.prefix_cache)
+        st = self.stepstats
+        if st is not None:
+            try:
+                faults.fire("obs.stepstats", engine=self.engine_id)
+                sample = st.end_step(
+                    occupancy=m.num_running / self.config.max_batch_slots,
+                    queue_depth=m.queue_depth,
+                    kv_free_blocks=bm.num_free,
+                    kv_reclaimable_blocks=m.kv_reclaimable_blocks,
+                )
+                if sample is not None:
+                    # the flight recorder's step ring: a postmortem shows
+                    # the last steps' attribution
+                    _flight.record_step_sample(
+                        dict(sample, engine=self.engine_id))
+            except _DEVICE_FAULTS:
+                raise
+            except Exception as e:
+                # degradable by contract: the observatory never takes the
+                # step down with it
+                self._disable_stepstats(e)
         return finished
+
+    def _disable_stepstats(self, exc):
+        """``obs.stepstats`` degradation: a crashing sampler is warned
+        ONCE and dropped (its collector view unregisters through the
+        weakref at the next scrape); serving goes on without it."""
+        if not self._stepstats_warned:
+            self._stepstats_warned = True
+            warnings.warn(
+                f"step observatory disabled for engine {self.engine_id} "
+                f"after sampler failure: {type(exc).__name__}: {exc}",
+                RuntimeWarning, stacklevel=2,
+            )
+        self.stepstats = None
+
+    def _stepstats_launch(self, program, t0):
+        """Record one launch's host wall since ``t0`` (taken before the
+        launch's staging; a launch that reads back ends with that sync,
+        so its wall is device-inclusive)."""
+        st = self.stepstats
+        if st is None:
+            return
+        try:
+            st.record_launch(program, time.perf_counter() - t0)
+        except Exception as e:
+            self._disable_stepstats(e)
+
+    def _note_prefill(self, req, n):
+        """Goodput: a re-prefill over already-produced context (output
+        tokens exist) recomputes, attributed to what forced it
+        (``req.resume_cause``); a restore's residual prefill is useful."""
+        if self.stepstats is not None:
+            self.stepstats.note_prefill(
+                n, cause=(req.resume_cause or "preempt")
+                if req.output_token_ids else None)
 
     def _expire(self, finished):
         """Finish requests (queued or running) whose TTL has lapsed, with
@@ -1007,15 +1218,21 @@ class Engine:
         full block budget (whole prompt plus one decode write) but no
         compute: the prefix cache may cover a prefix through ``fork()``
         (copy-on-write when the one-token cap cuts into the last shared
-        block), and the prefill itself runs in ``_prefill_chunks``."""
+        block), and the prefill itself runs in ``_prefill_chunks``. A
+        request carrying a live spill handle skips the lookup: its own
+        blocks come back from the host tier into its fresh allocation,
+        and a handle covering every token to prefill makes it RUNNING
+        with no prefill launch."""
         bm, pc = self.block_manager, self.prefix_cache
         while self.waiting and None in self.slots:
             req = self.waiting[0]
             tokens = req.tokens_to_prefill()
+            restore_tokens = self._spill_restorable(req, tokens)
             # at least one token must remain to prefill: its logits seed
             # the first sampled token
             match = (pc.lookup(tokens, limit=len(tokens) - 1)
-                     if pc is not None else None)
+                     if pc is not None and restore_tokens is None
+                     else None)
             n_fork = match.num_shared if match is not None else 0
             n_alloc = bm.blocks_needed(len(tokens) + 1) - n_fork
             if not bm.can_allocate(n_alloc):
@@ -1033,10 +1250,17 @@ class Engine:
                 if not bm.can_allocate(n_alloc):
                     break
             self.waiting.popleft()
-            if pc is not None:
+            if pc is not None and restore_tokens is None:
                 # one lookup per admission (blocked retries don't count)
                 self.metrics.prefix_lookups += 1
-            if match is not None:
+            if restore_tokens is not None:
+                req.block_ids = bm.allocate(n_alloc)
+                # a failed restore keeps the blocks and recomputes:
+                # num_cached=0 sends the whole prompt back through prefill
+                req.num_cached = (restore_tokens
+                                  if self._spill_restore(req, restore_tokens)
+                                  else 0)
+            elif match is not None:
                 bm.fork(match.shared_blocks)
                 req.block_ids = (list(match.shared_blocks)
                                  + bm.allocate(n_alloc))
@@ -1069,6 +1293,22 @@ class Engine:
                     raise
                 except Exception as e:
                     self._poison(req, e, finished)
+                    continue
+            if (restore_tokens is not None
+                    and req.num_cached >= len(tokens)):
+                # fully covered restore: the cache holds prompt +
+                # output[:-1], the pre-preemption decode state — no
+                # prefill launch; RUNNING with the last token re-armed
+                req.state = RequestState.RUNNING
+                req.last_token = req.output_token_ids[-1]
+                if pc is not None:
+                    # publish the restored PROMPT blocks for reuse, as
+                    # the post-prefill register does
+                    pc.register(req.prompt_token_ids, req.block_ids,
+                                req.num_cached)
+                reason = req.check_stop(self.config.max_model_len)
+                if reason:
+                    self._finish(req, reason, finished)
 
     def _prefill_chunks(self, finished):
         """Prefill launches for the PREFILLING slots, oldest first.
@@ -1121,6 +1361,7 @@ class Engine:
         program, read its token back."""
         faults.fire("serving.step", phase="prefill",
                     request_id=req.request_id)
+        t0 = time.perf_counter()
         cfg = self.config
         bucket = next_bucket(len(tokens), cfg.prefill_buckets)
         bufs = self._prefill_buffers
@@ -1136,20 +1377,24 @@ class Engine:
         self._pin_adapter()
         bufs.stage()
         tok = int(prog()[0].cpu()[0])
+        self._stepstats_launch("prefill", t0)
         req.num_cached = len(tokens)
         self.metrics.prefill_tokens += len(tokens)
         self.metrics.prefill_steps += 1
         req.timeline.prefill_chunks += 1
         req.timeline.prefill_tokens += len(tokens)
+        self._note_prefill(req, len(tokens))
         self._finish_prefill(req, tok)
 
     def _prefill_chunk(self, req, chunk, final):
         """One continuation launch: ``chunk`` appended at cache position
         ``req.num_cached`` through its bucket's ``prefill_ext`` program.
         A non-final chunk is staged greedy (its token is discarded) and
-        its token is not read back."""
+        its token is not read back (its observatory wall is the host's
+        enqueue time)."""
         faults.fire("serving.step", phase="prefill",
                     request_id=req.request_id)
+        t0 = time.perf_counter()
         cfg = self.config
         bucket = next_bucket(len(chunk), cfg.prefill_buckets)
         bufs = self._prefill_ext_buffers
@@ -1169,14 +1414,17 @@ class Engine:
         self._pin_adapter()
         bufs.stage()
         out = prog()
+        tok = int(out[0].cpu()[0]) if final else None
+        self._stepstats_launch("prefill_ext", t0)
         req.num_cached += len(chunk)
         self.metrics.prefill_tokens += len(chunk)
         self.metrics.prefill_steps += 1
         self.metrics.prefill_chunks += 1
         req.timeline.prefill_chunks += 1
         req.timeline.prefill_tokens += len(chunk)
+        self._note_prefill(req, len(chunk))
         if final:
-            self._finish_prefill(req, int(out[0].cpu()[0]))
+            self._finish_prefill(req, tok)
 
     def _finish_prefill(self, req, tok):
         """Book the first token once a request's whole prefill has landed
@@ -1195,7 +1443,9 @@ class Engine:
     def _cow(self, src, dst):
         """Copy-on-write one physical block (every layer's pages) so a
         prefill can diverge from a shared partial block without touching
-        the original: one replay of the copy program."""
+        the original: one replay of the copy program (nothing read back:
+        its observatory wall is the host's enqueue time)."""
+        t0 = time.perf_counter()
         bufs = self._cow_buffers
         bufs.clear()
         bufs.np["src"][0] = src
@@ -1203,6 +1453,7 @@ class Engine:
         prog = self._cow_program()
         bufs.stage()
         prog()
+        self._stepstats_launch("cow", t0)
         self.metrics.cow_copies += 1
 
     def _ensure_capacity(self):
@@ -1281,16 +1532,146 @@ class Engine:
         return freed
 
     def _preempt(self, req):
-        """Recompute-style preemption: free the blocks, keep the tokens,
-        requeue at the head."""
+        """Preemption: free the blocks, keep the tokens, requeue at the
+        head. With the spill tier the cached blocks are parked in host
+        memory first, so the re-admission restores them (no re-prefill);
+        without it, or when the spill fails, the re-prefill recomputes
+        them."""
+        spilled = self._spill_request(req)
         self._release(req)
         req.state = RequestState.WAITING
         req.num_cached = 0
+        # the re-prefill this forces recomputes tokens the ledger already
+        # counted: preemption waste (a restore makes it "restored")
+        req.resume_cause = "preempt"
         self.waiting.appendleft(req)
         self.metrics.preemptions += 1
         req.timeline.preemptions += 1
         _flight.record("serving", "preemption", engine=self.engine_id,
-                       request_id=req.request_id)
+                       request_id=req.request_id, spilled=spilled)
+
+    # -- host spill tier (serving/spill.py) ----------------------------------
+    def _spill_request(self, req):
+        """Park ``req``'s cached KV blocks in the host tier as ONE handle
+        (all or nothing), keyed on the Request so its re-admission — here,
+        or on a same-process survivor after ``release`` — can restore
+        them. Best effort: the tier off, nothing cached, an injected
+        ``kv.spill`` fault or the host budget return False and the
+        free-and-recompute path applies unchanged; a
+        ``torch.AcceleratorError`` re-raises. A successful spill is
+        re-ADMITted to the journal, the handle beside the emit cursor."""
+        if self.spill is None or req.num_cached < 1:
+            return False
+        need = self.block_manager.blocks_needed(req.num_cached)
+        if need > len(req.block_ids):
+            return False
+        try:
+            payload = self.pool.read_blocks(req.block_ids[:need],
+                                            self.spill.slab)
+        except _DEVICE_FAULTS:
+            raise
+        except (RuntimeError, ValueError) as e:
+            # spill is an optimization: an unreadable pool (out of
+            # memory for the staging buffer) degrades to recompute
+            self.spill.note_spill_failure("request")
+            self._warn_spill(f"KV spill read failed ({type(e).__name__}: "
+                             f"{e}); preemption degrades to recompute")
+            return False
+        key = f"req:{req.request_id}:{self._spill_seq}"
+        self._spill_seq += 1
+        if not self.spill.put(key, payload, self._spill_signature,
+                              num_tokens=req.num_cached, cls="request"):
+            return False
+        req.spill_key = key
+        req.spill_tokens = req.num_cached
+        req.spill_tier = self.spill
+        if self.journal is not None and not self._journal_replaying:
+            # latest ADMIT wins: this one carries the emit cursor and the
+            # spill handle (the journal's "kv" field)
+            self.journal.admit(req)
+        return True
+
+    def _warn_spill(self, text):
+        if not self._spill_warned:
+            self._spill_warned = True
+            warnings.warn(f"[serving] {text} (warned once, counted)",
+                          stacklevel=3)
+
+    def _spill_restorable(self, req, tokens):
+        """Admission peek: the token count a spilled handle would restore
+        for ``req``, or None for the allocate-and-prefill path. The handle
+        must be live in a tier (host, disk, a same-process peer) under
+        this pool's signature; a PARTIAL restore leaves a suffix to
+        prefill, which needs the ``prefill_ext`` program."""
+        if req.spill_key is None:
+            return None
+        if self.spill is None:
+            # a handle from a peer's tier that this engine cannot restore
+            drop_handle(req)
+            return None
+        n = int(req.spill_tokens or 0)
+        if (n < 1 or n > len(tokens)
+                or (n < len(tokens) and not self._use_ext)
+                or (n >= len(tokens) and not req.output_token_ids)
+                or not self.spill.has(req.spill_key,
+                                      self._spill_signature)):
+            # unusable here, or the tier dropped it (or it lives in
+            # another process): recompute, free it wherever it is still
+            # held, and stop peeking every step
+            drop_handle(req, self.spill)
+            return None
+        return n
+
+    def _spill_restore(self, req, n_tokens):
+        """Write ``req``'s spilled handle back into its freshly allocated
+        blocks. True = restored (``num_cached`` may be set to
+        ``n_tokens``); False degrades to recompute — the blocks stay
+        allocated and the prefill rebuilds them. An out-of-memory write
+        reclaims cold prefix blocks and retries once before degrading; a
+        ``torch.AcceleratorError`` re-raises."""
+        t0 = time.perf_counter()
+        # req.spill_tier keeps the holding tier alive through the get
+        payload = self.spill.get(req.spill_key, self._spill_signature,
+                                 pop=True)
+        # popped, or (an injected kv.restore fault) given up: either way
+        # the handle is spent, and nothing of it stays in any tier
+        drop_handle(req, self.spill)
+        if payload is None:
+            return False
+        need = self.block_manager.blocks_needed(n_tokens)
+        try:
+            if len(payload) < need:
+                return False
+            try:
+                self.pool.write_blocks(req.block_ids[:need], payload)
+            except _DEVICE_FAULTS:
+                raise
+            except RuntimeError as e:
+                if not (is_resource_exhausted(e)
+                        and self.prefix_cache is not None):
+                    raise
+                # the memory-pressure ladder: reclaim, then retry once
+                self.prefix_cache.reclaim(need, protect=req.block_ids)
+                self.pool.write_blocks(req.block_ids[:need], payload)
+        except _DEVICE_FAULTS:
+            raise
+        except (RuntimeError, ValueError) as e:
+            # a failed device write, or a disk payload whose leaves do
+            # not fit the pool: recompute
+            self.spill.note_restore_failure("request")
+            self._warn_spill(f"KV restore failed ({type(e).__name__}: "
+                             f"{e}); degrading to recompute")
+            return False
+        finally:
+            release = getattr(payload, "release", None)
+            if release is not None:
+                release()
+        # goodput: any residual prefill (partial handle) is real forward
+        # progress, not preemption waste
+        req.resume_cause = "restored"
+        self.spill.note_restored("request", payload,
+                                 time.perf_counter() - t0)
+        return True
 
     def _launch_decode(self, idxs):
         """Run the decode program with only ``idxs`` active: stage every
@@ -1303,6 +1684,7 @@ class Engine:
         faults.fire("serving.step", phase="decode",
                     request_ids=tuple(self.slots[i].request_id
                                       for i in idxs))
+        t0 = time.perf_counter()
         bufs = self._decode_buffers
         h = bufs.np
         bufs.clear()
@@ -1319,6 +1701,7 @@ class Engine:
         self._pin_adapter()
         bufs.stage()
         nxt = prog()[0].cpu().numpy()
+        self._stepstats_launch("decode", t0)
         self.metrics.decode_steps += 1
         return nxt
 
@@ -1379,6 +1762,7 @@ class Engine:
         faults.fire("serving.step", phase="verify",
                     request_ids=tuple(self.slots[i].request_id
                                       for i in idxs))
+        t0 = time.perf_counter()
         cfg = self.config
         bufs = self._verify_buffers
         h = bufs.np
@@ -1398,6 +1782,7 @@ class Engine:
         self._pin_adapter()
         bufs.stage()
         tgt = prog()[0].cpu().numpy()
+        self._stepstats_launch("verify", t0)
         self.metrics.verify_steps += 1
         return tgt
 
@@ -1417,7 +1802,7 @@ class Engine:
             lambda s: self._verify_subset(s, finished, drafts))
         if tgt is None:
             return
-        cfg, m = self.config, self.metrics
+        cfg, m, st = self.config, self.metrics, self.stepstats
         for i in idxs:
             req, draft = self.slots[i], drafts.get(i, [])
             a = speculation.accept_length(draft, tgt[i, :len(draft)])
@@ -1428,6 +1813,10 @@ class Engine:
                 m.spec_accepted += a
                 m.record_spec_accept(a)
                 req.timeline.spec_accepted += a
+                if st is not None and len(draft) > a:
+                    # rejected drafts took verify compute for tokens
+                    # nobody keeps: the ledger's spec_reject class
+                    st.note_spec_reject(len(draft) - a)
             for j in range(a + 1):
                 tok = int(tgt[i, j])
                 req.num_cached += 1
@@ -1435,6 +1824,8 @@ class Engine:
                 req.last_token = tok
                 m.decode_tokens += 1
                 req.timeline.decode_tokens += 1
+                if st is not None:
+                    st.note_decode(1)
                 reason = req.check_stop(cfg.max_model_len)
                 if reason:
                     self._finish(req, reason, finished)
@@ -1478,7 +1869,7 @@ class Engine:
             lambda s: self._decode_subset(s, finished))
         if nxt is None:
             return
-        cfg = self.config
+        cfg, st = self.config, self.stepstats
         for i in idxs:
             req = self.slots[i]
             req.num_cached += 1
@@ -1487,6 +1878,8 @@ class Engine:
             req.last_token = tok
             self.metrics.decode_tokens += 1
             req.timeline.decode_tokens += 1
+            if st is not None:
+                st.note_decode(1)
             reason = req.check_stop(cfg.max_model_len)
             if reason:
                 self._finish(req, reason, finished)
@@ -1502,6 +1895,14 @@ class Engine:
             req.slot = None
 
     def _finish(self, req, reason, finished):
+        # a parked handle for a request that will never resume is dead
+        # budget, in this engine's tier or a peer's: release it now
+        # instead of waiting for the LRU
+        drop_handle(req, self.spill)
+        if reason == "aborted" and self.stepstats is not None:
+            # the client walked away from every token this request
+            # emitted: reclassify them useful -> wasted in the ledger
+            self.stepstats.note_abort(len(req.output_token_ids))
         if reason in ("timeout", "error"):
             # degradation events belong in the postmortem ring; normal
             # completions would only drown them out

@@ -42,7 +42,12 @@ Scale" over it:
     migrate → rebuild (weight reload) → rejoin without dropping
     requests (in-flight work moves off through ``Engine.release`` to the
     pending-queue head and re-places through ``resume``);
-    ``scale_down`` releases one replica the same way.
+    ``scale_down`` releases one replica the same way. With the host
+    spill tier on (``EngineConfig(host_spill_bytes=)``) a released
+    request's KV is parked under a handle it carries, and the replica
+    that resumes it in this process restores the blocks from the peer
+    tier instead of re-prefilling; a failed-over request that was parked
+    before its replica died restores the same way.
   * **Front-door journal** — ``FleetConfig(journal_dir=)`` write-ahead
     logs every admission and completion once for the whole fleet
     (``serving.journal``); a fleet built on the directory replays it
@@ -97,6 +102,7 @@ from .request import (
     RequestState,
     normalize_sampling_params,
 )
+from .spill import drop_handle
 from .supervisor import ReplicaSupervisor, check_analysis
 
 __all__ = ["Fleet", "FleetConfig", "FleetMetrics", "FleetRequest",
@@ -317,6 +323,15 @@ def _register_view(fleet):
         headroom = MetricFamily(
             "paddle_tpu_fleet_replica_kv_headroom_blocks", "gauge",
         )
+        # host spill tier per replica (serving/spill.py): occupancy and
+        # restore hit rate, so a fleet review sees which replicas
+        # survive pressure by swapping instead of recomputing
+        spill_bytes = MetricFamily(
+            "paddle_tpu_fleet_replica_spill_host_bytes", "gauge",
+        )
+        spill_hit = MetricFamily(
+            "paddle_tpu_fleet_replica_spill_restore_hit_rate", "gauge",
+        )
         for sup in fl.replicas:
             rl = {**label, "replica": sup.name}
             up.add(1.0 if sup.status == "healthy" else 0.0, rl)
@@ -329,10 +344,20 @@ def _register_view(fleet):
                 pfill.add(em.prefill_tokens, rl)
                 reclaimable.add(em.kv_reclaimable_blocks, rl)
                 headroom.add(em.kv_headroom_blocks, rl)
+                tier = getattr(eng, "spill", None)
+                if tier is not None:
+                    ts = tier.stats()
+                    spill_bytes.add(ts["host_bytes"], rl)
+                    if ts["restore_hit_rate"] is not None:
+                        spill_hit.add(ts["restore_hit_rate"], rl)
         fams += [
             up, restarts, pfx_hits, pfx_tokens, pfill, reclaimable,
             headroom,
         ]
+        if spill_bytes.samples:
+            fams.append(spill_bytes)
+        if spill_hit.samples:
+            fams.append(spill_hit)
         # replica lifecycle states, zero-filled over every state so a
         # scale event is a visible edge (0->1 spawning, 1->0 live, ...)
         # even on a fleet that has never scaled; released replicas are
@@ -865,6 +890,8 @@ class Fleet:
         req.finish_reason = reason
         req.state = RequestState.FINISHED
         req.finish_time = time.perf_counter()
+        # a handle parked by a release on a replica will not be restored
+        drop_handle(req)
         # close the timeline too (a request that timed out parked
         # still deserves a phase breakdown on RequestOutput.metrics),
         # then the SAME finish accounting an engine would do — local

@@ -10,7 +10,9 @@ either package writes replay in the other).
                           ``seed``), wall-clock arrival, the tenant, and
                           the emit cursor (tokens already produced —
                           nonzero only for re-admissions after a
-                          recovery)
+                          recovery, a migration or a spill), and the
+                          host-spill handle ``kv`` ([key, tokens]) when
+                          the request's KV is parked in the spill tier
         EMIT   (``"E"``)  tokens appended since the last flush,
                           batched per step across every live request
         FINISH (``"F"``)  terminal reason (length/stop/timeout/error)
@@ -46,7 +48,9 @@ either package writes replay in the other).
     unfinished entries at the HEAD of its queue through ``resume()``'s
     re-prefill (``prompt + output[:-1]``), so no already-emitted token
     is produced twice; on the CPU in f32 greedy continuations are
-    token-identical to an uninterrupted run. Requests whose ``ttl_s``
+    token-identical to an uninterrupted run. An entry whose ``kv`` handle
+    the spill tier's disk level still holds (``EngineConfig(spill_dir=)``)
+    is restored from it instead of re-prefilled. Requests whose ``ttl_s``
     lapsed while the process was down are finished with ``"timeout"``
     instead of re-admitted.
 
@@ -180,10 +184,9 @@ class ReplayEntry:
         self.out = out          # tokens already emitted (the cursor)
         self.ts = ts            # wall-clock admission time (time.time)
         self.tenant = tenant    # QoS tenant id (None pre-QoS journals)
-        self.kv = kv            # [spill_key, spill_tokens]: the JAX
-        #                         package's host-spill handle, kept so its
-        #                         journals replay here; the port has no
-        #                         spill tier and re-prefills
+        self.kv = kv            # [spill_key, spill_tokens] handle into
+        #                         the host spill tier, or None (never
+        #                         spilled)
 
     def __repr__(self):
         return (
@@ -232,6 +235,13 @@ def restore_entries(journal, entries, build):
             req.output_token_ids = list(e.out)
             if getattr(e, "tenant", None) is not None:
                 req.tenant = e.tenant
+            kv = getattr(e, "kv", None)
+            if kv:
+                # re-anchor the host-spill handle: if the tier (or its
+                # disk level) still holds the key, re-admission restores
+                # the KV instead of re-prefilling it
+                req.spill_key = kv[0]
+                req.spill_tokens = int(kv[1])
             if e.ts is not None:
                 # timeline coherence: anchor arrival at the journaled
                 # wall-clock admission (the same field the TTL math
@@ -358,6 +368,13 @@ class Journal:
         tenant = getattr(req, "tenant", None)
         if tenant is not None:
             rec["tn"] = tenant
+        # the host-spill handle rides the ADMIT too: a re-admit after a
+        # preempt or release journals [key, tokens] so a crash replay
+        # re-anchors the restore (latest ADMIT wins, so a consumed handle
+        # is cleared by the next re-admit)
+        kv_key = getattr(req, "spill_key", None)
+        if kv_key is not None:
+            rec["kv"] = [kv_key, int(getattr(req, "spill_tokens", 0))]
         self._buffer.append(rec)
         self._urgent = True   # admissions are durable before dispatch
         self._open.add(_key(rid))

@@ -47,6 +47,7 @@ _EXPORT_KINDS = {
     "prefix_hits": ("counter", "_total"),
     "prefix_hit_tokens": ("counter", "_total"),
     "prefix_evictions": ("counter", "_total"),
+    "prefix_restores": ("counter", "_total"),
     "cow_copies": ("counter", "_total"),
     "queue_depth": ("gauge", ""),
     "num_running": ("gauge", ""),
@@ -172,6 +173,9 @@ class EngineMetrics:
         self.prefix_hits = 0
         self.prefix_hit_tokens = 0
         self.prefix_evictions = 0
+        # chain blocks re-materialized from the host spill tier
+        # (serving/spill.py) by a lookup that ran into a demoted chain
+        self.prefix_restores = 0
         self.cow_copies = 0
         # gauges, refreshed by the engine every step
         self.queue_depth = 0
@@ -241,6 +245,7 @@ class EngineMetrics:
             "prefix_hits": self.prefix_hits,
             "prefix_hit_tokens": self.prefix_hit_tokens,
             "prefix_evictions": self.prefix_evictions,
+            "prefix_restores": self.prefix_restores,
             "cow_copies": self.cow_copies,
             "prefill_steps": self.prefill_steps,
             "prefill_chunks": self.prefill_chunks,

@@ -30,14 +30,18 @@ Sharing rules that keep greedy outputs unchanged:
 Eviction is leaf-first along the chains (evicting a middle block would
 orphan its descendants' keys while they still hold references), oldest
 LRU entry first, and frees the block. All bookkeeping is host-side and
-deterministic — no wall-clock, no randomness. The JAX version's host
-spill tier (``spill=``, ``pool=``: eviction demotes a block to host
-memory, a lookup restores it) is not ported yet.
+deterministic — no wall-clock, no randomness. With the host spill tier
+(``spill=``, ``pool=``) eviction first demotes the block's bytes to host
+memory under its chain key, and a lookup that runs off the cached
+entries into a demoted chain restores it into a fresh pool block.
 """
 from __future__ import annotations
 
 import hashlib
+import time
 from collections import OrderedDict
+
+import torch
 
 __all__ = ["PrefixCache", "PrefixMatch", "prompt_chain_digests"]
 
@@ -113,7 +117,8 @@ class PrefixCache:
     cached entries (each pins one block); exceeding it evicts leaf
     entries oldest-first."""
 
-    def __init__(self, block_manager, capacity_blocks, metrics=None):
+    def __init__(self, block_manager, capacity_blocks, metrics=None,
+                 spill=None, pool=None):
         if capacity_blocks < 1:
             raise ValueError(
                 f"capacity_blocks must be >= 1, got {capacity_blocks}"
@@ -125,6 +130,15 @@ class PrefixCache:
         # (oldest first; commit/register touches move entries to the end)
         self._entries: OrderedDict = OrderedDict()
         self._metrics = metrics
+        # host spill tier (serving/spill.py): eviction DEMOTES full chain
+        # blocks into it instead of destroying their bytes, and lookup()
+        # restores a spilled chain continuation into fresh pool blocks.
+        # Needs the physical pool for block reads/writes; without both,
+        # eviction behaves exactly as before.
+        self._spill = spill if pool is not None else None
+        self._pool = pool
+        self._sig = (pool.block_signature()
+                     if spill is not None and pool is not None else None)
         self._digest_cache = ()   # rebuilt lazily after insert/evict
 
     def __len__(self):
@@ -148,13 +162,25 @@ class PrefixCache:
         ``None``. A pure read: no counter moves and no LRU position
         changes — an admission that stays blocked retries the lookup
         every step, and only the attempt that actually forks the blocks
-        counts as a hit (:meth:`commit`)."""
+        counts as a hit (:meth:`commit`). The one side effect is the
+        spill tier: a chain walk that runs off the cached entries into a
+        SPILLED continuation restores it into fresh pool blocks here
+        (idempotent — the restored entry is a plain cached entry, so a
+        blocked retry finds it in the cache). A restore may push the
+        entry count past ``capacity_blocks`` for a while; the next
+        :meth:`register`/:meth:`reclaim` settles it (evicting mid-walk
+        would free blocks this match is about to fork)."""
         matched = []
-        for digest, _ in _iter_chain(tokens, self._bs):
+        parent = None
+        for digest, i in _iter_chain(tokens, self._bs):
             e = self._entries.get(digest)
+            if (e is None and self._spill is not None
+                    and i * self._bs < limit):
+                e = self._restore(digest, parent)
             if e is None:
                 break
             matched.append(e)
+            parent = e
         cache_len = min(len(matched) * self._bs, int(limit))
         if cache_len <= 0:
             return None
@@ -201,12 +227,82 @@ class PrefixCache:
             parent = e
         self._enforce_budget()
 
+    # -- spill tier ----------------------------------------------------------
+    def _restore(self, digest, parent):
+        """Re-materialize a spilled chain block into a fresh pool block:
+        one host-to-device write, byte-identical to the block that was
+        evicted. Returns the new (cache-owned) entry, or ``None`` on any
+        miss — tier miss, no free pool block, an injected ``kv.restore``
+        fault, a failed device write — and the chain walk stops there: the
+        admission takes the recompute path. A ``torch.AcceleratorError``
+        propagates."""
+        key = f"prefix:{digest.hex()}"
+        if not self._spill.has(key, self._sig):
+            return None
+        if not self._bm.can_allocate(1):
+            # allocation pressure: a restore must never deepen it
+            return None
+        t0 = time.perf_counter()
+        payload = self._spill.get(key, self._sig, pop=True)
+        if payload is None:
+            return None
+        [block] = self._bm.allocate(1)   # the cache's own reference
+        try:
+            self._pool.write_blocks([block], payload)
+        except torch.AcceleratorError:
+            self._bm.free([block])
+            raise
+        except (RuntimeError, ValueError):
+            # the degradation contract: a failed device write (out of
+            # memory included) frees the block and falls back to
+            # recompute
+            self._bm.free([block])
+            self._spill.note_restore_failure("prefix")
+            return None
+        finally:
+            release = getattr(payload, "release", None)
+            if release is not None:
+                release()
+        e = _Entry(digest, block, parent)
+        self._entries[digest] = e
+        self._digest_cache = None
+        if parent is not None:
+            parent.children += 1
+        self._spill.note_restored(
+            "prefix", payload, time.perf_counter() - t0)
+        if self._metrics is not None:
+            self._metrics.prefix_restores += 1
+        return e
+
+    def _demote(self, e):
+        """Best-effort block demotion at eviction: snapshot the block into
+        the host tier under its chain key. Any failure (injected
+        ``kv.spill`` fault, budget, unreadable block) means the block dies
+        as it did before the tier existed."""
+        try:
+            payload = self._pool.read_blocks([e.block], self._spill.slab)
+        except torch.AcceleratorError:
+            raise
+        except (RuntimeError, ValueError):
+            # demotion is an optimization: a failed device read degrades
+            # to the old free-and-recompute eviction, counted on the tier
+            self._spill.note_spill_failure("prefix")
+            return
+        self._spill.put(
+            f"prefix:{e.digest.hex()}", payload, self._sig,
+            num_tokens=self._bs, cls="prefix",
+        )
+
     # -- eviction / reclaim --------------------------------------------------
     def _evict(self, digest):
         e = self._entries.pop(digest)
         self._digest_cache = None
         if e.parent is not None:
             e.parent.children -= 1
+        if self._spill is not None:
+            # demote instead of destroy: the bytes move to the host tier
+            # (keyed by chain digest) BEFORE the device block is freed
+            self._demote(e)
         self._bm.free([e.block])
         if self._metrics is not None:
             self._metrics.prefix_evictions += 1
@@ -249,3 +345,8 @@ class PrefixCache:
         an allocation-pressure path can take back at any time."""
         return sum(1 for e in self._entries.values()
                    if self._bm.ref_count(e.block) == 1)
+
+    def clear(self):
+        """Drop every entry (releasing the cache's references)."""
+        for digest in list(self._entries):
+            self._evict(digest)

@@ -5,10 +5,10 @@ params (with the TTL and the sampling seed, and the journal's
 ``to_dict``/``from_dict``), token accounting, deadlines and stop
 conditions, the tenant and trace id a request carries, and its
 ``RequestTimeline`` (phase stamps and counters, surfaced on
-``RequestOutput.metrics``, the access log and the latency digests). The
-spill tier's handle and the goodput ledger's ``resume_cause`` wait for
-their modules. Stop semantics mirror ``generate``: the stop token itself
-is kept in the output.
+``RequestOutput.metrics``, the access log and the latency digests), the
+goodput ledger's ``resume_cause`` and the spill tier's handle
+(``spill_key``, ``spill_tokens``). Stop semantics mirror ``generate``:
+the stop token itself is kept in the output.
 """
 from __future__ import annotations
 
@@ -282,6 +282,23 @@ class Request:
         # output tokens already written to the request journal (the emit
         # cursor; journal.admit/emit own it)
         self.journal_cursor = 0
+        # goodput attribution for a forced re-prefill: "preempt"
+        # (in-engine recompute preemption), "migration" (a resume after a
+        # release on another engine, fleet failover or scale-down), or
+        # "restored" (KV written back from the host spill tier: counted
+        # useful, not wasted); the step observatory's ledger classifies
+        # the recomputed tokens by it
+        self.resume_cause = None
+        # host spill tier handle (serving/spill.py): set when this
+        # request's KV blocks were parked in host memory at preemption or
+        # release; re-admission restores them instead of re-prefilling.
+        # Journaled in ADMIT ("kv") so a crash replay re-anchors it
+        self.spill_key = None
+        self.spill_tokens = 0
+        # the tier that took the handle: held while the request lives, so
+        # a handle parked by ``release`` on an engine the fleet then drops
+        # stays restorable by the engine that resumes the request
+        self.spill_tier = None
         # QoS tenant (serving/qos.py); None for in-process callers.
         # Journaled in ADMIT ("tn") so a replay restores its accounting
         self.tenant = None

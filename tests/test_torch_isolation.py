@@ -1,8 +1,9 @@
 """paddle_tpu_torch stands alone: importing it (its serving, training,
 MoE and quantization modules, the journal, QoS, the HTTP server and its
-CLI, the retry policy, the replica supervisor and the fleet too) loads
-neither jax nor anything of paddle_tpu, and its entry points refuse to
-fall back to the CPU quietly when no CUDA device exists."""
+CLI, the retry policy, the replica supervisor and the fleet, the step
+observatory, the compile log and the host spill tier too) loads neither
+jax, nor anything of paddle_tpu, nor ml_dtypes, and its entry points
+refuse to fall back to the CPU quietly when no CUDA device exists."""
 import os
 import subprocess
 import sys
@@ -42,10 +43,14 @@ import paddle_tpu_torch.serving.__main__
 import paddle_tpu_torch.resilience.retry
 import paddle_tpu_torch.serving.supervisor
 import paddle_tpu_torch.serving.fleet
+import paddle_tpu_torch.serving.spill
+import paddle_tpu_torch.observability.stepstats
+import paddle_tpu_torch.observability.jit_events
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.")
     or m == "paddle_tpu" or m.startswith("paddle_tpu.")
+    or m == "ml_dtypes" or m.startswith("ml_dtypes.")
 )
 print(",".join(bad))
 """
@@ -72,7 +77,8 @@ def test_sources_name_no_jax_import():
                     s = line.strip()
                     if s.startswith(("import ", "from ")):
                         mod = s.split()[1]
-                        assert not mod.startswith(("jax", "paddle_tpu.")), (
+                        assert not mod.startswith(("jax", "paddle_tpu.",
+                                                   "ml_dtypes")), (
                             f"{name}: {s}"
                         )
                         assert mod != "paddle_tpu", f"{name}: {s}"
@@ -121,6 +127,25 @@ def test_kv_pool_without_device_raises_without_cuda():
     with pytest.raises(ValueError, match="quant_dtype"):
         KVPool(1, 2, 4, 4, 8, quant_dtype="fp8")
     assert KVPool(1, 2, 4, 4, 8, device="cpu").device == torch.device("cpu")
+
+
+def test_spill_and_observatory_follow_the_models_device():
+    """An engine with the spill tier and the observatory on: without a
+    card a default-device model cannot be built; given the CPU the pool,
+    the slab (not pinned) and the observatory's peak row are the CPU's."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import Engine, EngineConfig
+
+    _require_no_cuda()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LlamaForCausalLM(LlamaConfig.tiny())
+    model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
+    engine = Engine(model, EngineConfig(max_batch_slots=2, max_model_len=16,
+                                        page_size=4, host_spill_bytes=1 << 20))
+    assert engine.pool.device == torch.device("cpu")
+    assert not engine.spill.slab.rows.is_pinned()
+    assert engine.stepstats.backend == "cpu"
+    assert engine.stepstats.peak_source == "CPU placeholder"
 
 
 def test_resolve_device_default_raises_explicit_cpu_works():
