@@ -33,7 +33,10 @@ Phases, in order; any failure exits non-zero:
                the MoE layer's shapes, the JAX sweeps of empty and
                one-row groups, f32 and int8 rhs. float16: paged decode
                over float16 and int8 pools, the grouped GEMM with
-               float16 lhs and float16 or int8 rhs. The fused KV write
+               float16 lhs and float16 or int8 rhs, and the flash forward
+               and backward (PR 15: the training shape, b 1 s 2048, GQA
+               hq 32 hkv 4 d 64; the backward held to its plain version
+               evaluated in float64). The fused KV write
                (``kv_write``) at the serving decode shape (8 rows) and a
                512-row prefill, bf16, float16, f32 and int8 pools:
                pages and scales equal to its plain version bit for bit.
@@ -106,8 +109,10 @@ Phases, in order; any failure exits non-zero:
                In both, every paged launch is the cluster kernel's.
 5c. serving_f16 — the serving model in float16, 8 requests over the
                float16 and the int8 pool: all finish, the paged kernel
-               (float16 q) runs once per layer per decode step, and the
-               first decode logits are within 5e-2 of plain attention.
+               (float16 q) runs once per layer per decode step, every
+               prefill the float16 flash forward once per layer (PR 15),
+               and the first decode logits are within 5e-2 of plain
+               attention.
 5d. serving_prefix — the bf16 serving model behind the prefix cache and
                chunked prefill (128-token chunks, one a step), over the
                bf16 and the int8 pool: 32 requests sharing a 192-token
@@ -281,6 +286,27 @@ Phases, in order; any failure exits non-zero:
                never runs: the dq kernel computes delta), one profiled
                step, 2 steps with ``recompute`` and 1 step without the
                fused loss.
+7b. train_amp — the same cell through ``amp`` (PR 15), three modes: O1
+               bf16 on an f32 model, O2 bf16 via ``decorate`` with AdamW
+               masters, O2 float16 with ``GradScaler(2**16)``. Each: the
+               first step's loss and gradients against plain attention
+               in the same mode, 8 steps (1 + 2 + 5 timed) with steps x
+               12 launches of each flash kernel on the AMP dtype's
+               instance (the float16 kernels in the third mode), losses
+               finite and falling; step ms, tokens/s, MFU, peak memory,
+               max |dO|, the float16 scale trajectory and skipped steps.
+7c. train_resume — ``TrainLoop`` over ``TrainState`` in worker processes
+               (this script with ``--train-worker``): full width, 2
+               layers (a 234M-parameter checkpoint is ~3.7 GB), O2 bf16,
+               AdamW with masters, LinearWarmup over
+               CosineAnnealingDecay, ClipGradByGlobalNorm, a seeded
+               DataLoader, 6 steps. Two uninterrupted runs bit-identical;
+               SIGTERM (exit 76, emergency checkpoint), a ``train.step``
+               fault, a stalled step under the watchdog (exit 68) and a
+               torn newest checkpoint each resumed bit-identical; the
+               same for float16 with its scaler state. Emergency
+               checkpoint ms and GB/s, restore ms, restore + first step,
+               SIGTERM to the first resumed step.
 8. moe      — ``bench.py``'s MoE layer (``bench_kernels``: d_model 1024,
                8 experts, d_ff 2816, top-2, 8 x 1024 tokens, bf16):
                ``impl="ragged"`` runs 3 grouped GEMM launches and agrees
@@ -466,7 +492,8 @@ def cuda_ms(torch, fn, iters, flush):
 def compare(out, ref):
     """(within ``GATE``, what the gate read) for a kernel output against
     its plain version. ``limit_frac`` is the largest element's error as a
-    fraction of its bound; ``ref_rms`` and ``ref_absmax`` give the scale."""
+    fraction of its bound, ``binds_at`` that element; ``ref_rms`` and
+    ``ref_absmax`` give the scale."""
     gate = GATE[str(out.dtype).split(".")[-1]]
     o, r = out.float(), ref.float()
     diff = (o - r).abs()
@@ -474,10 +501,19 @@ def compare(out, ref):
     bound_ = (gate["atol"] + gate["rtol"] * r.abs() + gate["floor"] * rms
               + gate["row_ulps"] * gate["ulp"]
               * r.abs().amax(dim=-1, keepdim=True))
+    frac = diff / bound_.clamp_min(1e-30)
+    worst = int(frac.argmax())
     stats = {
         "max_abs_err": diff.max().item(),
         "rel_l2": (diff.norm() / r.norm().clamp_min(1e-30)).item(),
-        "limit_frac": (diff / bound_.clamp_min(1e-30)).max().item(),
+        "limit_frac": frac.flatten()[worst].item(),
+        # where the gate binds: the element nearest its bound (its index
+        # in the output's shape, reference, error and bound)
+        "binds_at": {"index": [int(i) for i in np.unravel_index(
+                               worst, r.shape)],
+                     "ref": r.flatten()[worst].item(),
+                     "err": diff.flatten()[worst].item(),
+                     "bound": bound_.expand_as(r).flatten()[worst].item()},
         "ref_rms": rms.item(),
         "ref_absmax": r.abs().max().item(),
         "fixed_bound_ok": bool(
@@ -743,7 +779,8 @@ def flash_case(torch, fa, flush, s, dtype=None, h=16, d=128, b=1,
     name = f"s{s}" + (f"_b{b}" if b > 1 else "") + (
         f"_gqa{h}x{hkv}" if hkv != h else "") + (f"_d{d}" if d != 128
                                                  else "") + (
-        "_full" if not causal else "") + ("_unaligned" if offset else "")
+        "_full" if not causal else "") + ("_unaligned" if offset else "") + (
+        "_f16" if dtype == torch.float16 else "")
     variant = fa._fwd_variant(dtype, d, s, s)
     prev = "fma" if dtype == torch.float32 else "mma"
     kinds = [variant, prev] if variant != prev else [variant]
@@ -839,6 +876,18 @@ def flash_bwd_case(torch, fa, flush, name, s, dtype=None, h=16, hkv=None,
     kinds = [variant, prev] if variant != prev else [variant]
     grads = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
     refs = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal)
+    plain_f32 = None
+    if dtype == torch.float16:
+        # float16: the plain version evaluated in float64 on the same
+        # float16 inputs, rounded to float16. The gate's float16 floor
+        # (2^-15 of the RMS, ~3.3e-6 at the training shape) binds at dq's
+        # first causal row, whose exact value is 0 (one visible key: P =
+        # 1, O = V there, so dP = delta); the f32 plain version leaves
+        # ~2.5e-6 of rounding there itself, most of the bound. What the
+        # f32 plain version gives is kept beside it (``plain_f32``).
+        plain_f32 = refs
+        refs = tuple(r.to(dtype) for r in fa.flash_attention_bwd_ref(
+            *(t.double() for t in (q, k, v, out, lse, do)), causal=causal))
     torch.cuda.synchronize()
 
     def held(vname, got):
@@ -851,6 +900,10 @@ def flash_bwd_case(torch, fa, flush, name, s, dtype=None, h=16, hkv=None,
             gn: st["max_abs_err"] for gn, st in gate.items()}}
 
     stats = held(variant, grads)
+    if plain_f32 is not None:
+        stats["plain_f32"] = {gn: compare(x, r)[1] for gn, x, r in zip(
+            ("dq", "dk", "dv"), grads, plain_f32)}
+        del plain_f32
     ms, median_ms = cuda_times(torch, lambda: fa.flash_attention_bwd(
         q, k, v, out, lse, do, causal=causal), 20, flush)
     qa, ka, va, oa, da = (fa._aligned(t) for t in (q, k, v, out, do))
@@ -1473,6 +1526,14 @@ def phase_kernels(torch):
         flash_case(torch, fa, flush, 128, d=32),                # mma.sync
         flash_case(torch, fa, flush, TRAIN_SEQ, b=TRAIN_BATCH),
     ]
+    # the float16 instances (PR 15): the training shape, one long
+    # sequence, GQA at d 64
+    f16 = torch.float16
+    flash += [
+        flash_case(torch, fa, flush, TRAIN_SEQ, b=TRAIN_BATCH, dtype=f16),
+        flash_case(torch, fa, flush, 2048, dtype=f16),
+        flash_case(torch, fa, flush, 512, h=32, hkv=4, d=64, dtype=f16),
+    ]
     bwd = [flash_bwd_case(torch, fa, flush, f"s{s}", s)
            for s in (128, 512, 1024, 2048)]
     bwd += [
@@ -1487,6 +1548,11 @@ def phase_kernels(torch):
         flash_bwd_case(torch, fa, flush, "unaligned", 100, offset=1),
         flash_bwd_case(torch, fa, flush, "d32", 128, d=32),   # mma.sync
         flash_bwd_case(torch, fa, flush, "f32", 100, dtype=torch.float32),
+        flash_bwd_case(torch, fa, flush, "train_f16", TRAIN_SEQ,
+                       b=TRAIN_BATCH, dtype=f16),
+        flash_bwd_case(torch, fa, flush, "s2048_f16", 2048, dtype=f16),
+        flash_bwd_case(torch, fa, flush, "gqa_f16", 512, h=32, hkv=4, d=64,
+                       dtype=f16),
     ]
     for c in paged + flash:
         log(f"[kernels] {json.dumps(c)}")
@@ -2131,8 +2197,9 @@ def phase_serving_f16(torch):
     pool: a few requests through ``Engine.generate``. All finish, no block
     leaks, every decode step runs the (float16-q) paged kernel once per
     layer on the cluster kernel, and the first decode step's logits are
-    within ``LOGITS_TOL`` of plain attention. Prefill takes the math
-    attention (the flash kernels take f32 and bf16)."""
+    within ``LOGITS_TOL`` of plain attention. Every one-shot prefill
+    runs the float16 flash forward once per layer (PR 15: before it,
+    float16 prefill took the math attention)."""
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
@@ -2167,10 +2234,13 @@ def phase_serving_f16(torch):
             o.finish_reason in ("length", "stop") for o in outs)
             and engine.block_manager.num_used == 0,
             f"{tag}: not every request finished, or blocks leaked")
-        # float16 prefill takes the math attention: no flash launch
         _serving_gates(tag, counts, m, probe, L, name,
-                       "int8" if pool else "float", False,
+                       "int8" if pool else "float", True,
                        ecfg.prefill_buckets, 1)
+        check(counts.get("flash_attention/float16", 0)
+              == counts["flash_attention"] > 0,
+              f"{tag}: flash launches by dtype {counts}: want every one "
+              f"on the float16 instance")
         for key, n in counts.items():
             result["launches"][key] = result["launches"].get(key, 0) + n
         compared = {k: v for k, v in compared.items() if k != "logits"}
@@ -5039,6 +5109,589 @@ def phase_train(torch):
     }
 
 
+# ------------------------------------------------------- mixed precision
+# train_amp: the pretraining cell through amp, in three modes; each runs
+# 1 + 2 warm-up + 5 timed steps
+AMP_MODES = {
+    # name: (model dtype, decorate to, auto_cast level, AMP dtype,
+    #        GradScaler initial scale or None)
+    "o1_bf16": ("float32", None, "O1", "bfloat16", None),
+    "o2_bf16": ("float32", "bfloat16", "O2", "bfloat16", None),
+    "o2_f16": ("float32", "float16", "O2", "float16", 2.0 ** 16),
+}
+AMP_TIMED_STEPS = 5
+
+
+def _amp_mode(torch, name, ids):
+    """One amp mode of ``train_amp``: the model built in f32 (O2:
+    ``amp.decorate``d), AdamW (masters under O2), the step under
+    ``auto_cast`` (float16: through the ``GradScaler``). Returns the
+    mode's record; raises ``PhaseError`` on a failed gate."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model_dtype, decorate_to, level, amp_dtype, init_scale = AMP_MODES[name]
+    L = TRAIN_CFG["num_hidden_layers"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = LlamaForCausalLM(LlamaConfig(**dict(TRAIN_CFG,
+                                                dtype=model_dtype)), seed=0)
+    opt = AdamW(learning_rate=3e-4, weight_decay=0.1,
+                parameters=model.parameters(),
+                multi_precision=decorate_to is not None)
+    if decorate_to is not None:
+        model, opt = amp.decorate(model, opt, level=level,
+                                  dtype=decorate_to)
+    scaler = (amp.GradScaler(init_loss_scaling=init_scale)
+              if init_scale else None)
+    n_params = model.num_params()
+
+    def forward():
+        with amp.auto_cast(True, level=level, dtype=amp_dtype):
+            return _lm_loss(model, ids)
+
+    # the first step's loss and gradients, kernels vs plain attention;
+    # float16 backward runs on the scaled loss, as the scaler's steps do
+    mult = init_scale or 1.0
+
+    def loss_and_grads():
+        for p in model.parameters():
+            p.grad = None
+        loss = forward()
+        (loss * mult).backward()
+        grads = {n: p.grad.float() / mult
+                 for n, p in model.named_parameters()}
+        for p in model.parameters():
+            p.grad = None
+        return loss.item(), grads
+
+    dmax = []
+    real_bwd = fa.flash_attention_bwd
+
+    def recording_bwd(q, k, v, out, lse, do, **kw):   # max |dO| per call
+        dmax.append(do.detach().abs().amax().float())
+        return real_bwd(q, k, v, out, lse, do, **kw)
+
+    fa.flash_attention_bwd = recording_bwd
+    try:
+        loss_k, g_k = loss_and_grads()
+        with plain_attention(fa):
+            loss_p, g_p = loss_and_grads()
+    finally:
+        fa.flash_attention_bwd = real_bwd
+    rel = {n: ((g_k[n] - g_p[n]).norm() / g_p[n].norm().clamp_min(1e-30)
+               ).item() for n in g_p}
+    del g_k, g_p
+    worst = max(rel, key=rel.get)
+    check(abs(loss_k - loss_p) <= TRAIN_LOSS_TOL,
+          f"train_amp {name}: first-step loss {loss_k} vs plain attention "
+          f"{loss_p}")
+    check(all(np.isfinite(list(rel.values()))) and
+          rel[worst] <= TRAIN_GRAD_RTOL,
+          f"train_amp {name}: gradient of {worst} differs from plain "
+          f"attention by {rel[worst]} (relative L2) > {TRAIN_GRAD_RTOL}")
+
+    def step():
+        loss = forward()
+        if scaler is None:
+            loss.backward()
+            opt.step()
+        else:
+            scaler.scale(loss).backward()
+            scaler.step(opt)
+            skipped.append(scaler._found_inf)
+            scaler.update()
+            scales.append(scaler.get_scale_ratio())
+        opt.clear_grad()
+        return loss.detach()
+
+    scales, skipped = [], []
+    n_steps = 3 + AMP_TIMED_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    fa.flash_attention_bwd = recording_bwd
+    try:
+        losses = [step() for _ in range(3)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [step() for _ in range(AMP_TIMED_STEPS)]
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / AMP_TIMED_STEPS * 1e3
+    finally:
+        fa.flash_attention_bwd = real_bwd
+    peak = torch.cuda.max_memory_allocated()
+    counts = dict(_build.launch_counts(), **_build.variant_counts())
+    losses = [x.item() for x in losses]
+    want = n_steps * L
+    for n in FLASH:
+        check(counts[n] == want and counts.get(f"{n}/{amp_dtype}", 0) == want
+              and counts.get(f"{n}/wgmma", 0) == want,
+              f"train_amp {name}: {n} launches {counts[n]} ({amp_dtype}: "
+              f"{counts.get(f'{n}/{amp_dtype}', 0)}, wgmma "
+              f"{counts.get(f'{n}/wgmma', 0)}), want {want} = {n_steps} "
+              f"steps x {L} layers on the {amp_dtype} instance")
+    check(all(np.isfinite(losses)), f"train_amp {name}: non-finite loss "
+          f"{losses}")
+    check(losses[-1] < losses[0], f"train_amp {name}: loss did not fall "
+          f"({losses[0]} -> {losses[-1]})")
+    check(abs(losses[0] - loss_k) <= TRAIN_LOSS_TOL,
+          f"train_amp {name}: the first step's loss {losses[0]} != "
+          f"{loss_k}")
+    tokens_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    flops_token = 6 * n_params + 12 * L * TRAIN_CFG["hidden_size"] * \
+        TRAIN_SEQ * 0.5
+    rec = {
+        "model_dtype": model_dtype, "decorate": decorate_to, "level": level,
+        "amp_dtype": amp_dtype, "params": n_params, "step_ms": step_ms,
+        "tokens_per_s": tokens_s,
+        "mfu": tokens_s * flops_token / BF16_FLOPS, "peak_bytes": peak,
+        "losses": losses, "steps": n_steps,
+        "launches": counts,
+        "grad_check": {"loss": loss_k, "plain_loss": loss_p,
+                       "worst_rel_l2": rel[worst], "worst_param": worst,
+                       "median_rel_l2": float(np.median(list(
+                           rel.values())))},
+        "max_abs_dout": max(float(x) for x in dmax),
+    }
+    if scaler is not None:
+        rec.update(init_scale=init_scale, scales=scales,
+                   skipped_steps=int(sum(skipped)))
+    log(f"[train_amp] {name}: {step_ms:.2f} ms/step, {tokens_s:.0f} "
+        f"tokens/s, MFU {rec['mfu'] * 100:.2f}%, peak "
+        f"{peak / 2**30:.2f} GiB; losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; first step vs plain attention: loss "
+        f"{loss_k:.5f} / {loss_p:.5f}, worst gradient {rel[worst]:.3g} "
+        f"({worst}); max |dO| {rec['max_abs_dout']:.4g}"
+        + (f"; scales {scales}, skipped {rec['skipped_steps']}"
+           if scaler is not None else "")
+        + f"; flash launches on {amp_dtype}: "
+        f"{[counts.get(f'{n}/{amp_dtype}', 0) for n in FLASH]}")
+    del model, opt, scaler
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_train_amp(torch):
+    """``train_amp``: the pretraining cell (12 layers, 12 x 1024 tokens a
+    step, the fused loss) through ``amp``: O1 bf16 on an f32 model, O2
+    bf16 via ``decorate`` with AdamW masters (the ``train`` phase's
+    setup), O2 float16 with ``GradScaler(init_loss_scaling=2**16)``.
+    Gates, each mode: flash launches = steps x L per kernel, on the AMP
+    dtype's instance (the float16 ones in the third mode) and the wgmma
+    design; the first step's loss within ``TRAIN_LOSS_TOL`` and every
+    gradient within ``TRAIN_GRAD_RTOL`` (relative L2) of the same mode
+    with plain attention; losses finite and falling. Recorded: step ms,
+    tokens/s, MFU against 989e12, peak memory, max |dO| at the flash
+    backward; float16: the scale after every step and the skipped
+    steps."""
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, TRAIN_CFG["vocab_size"], (TRAIN_BATCH, TRAIN_SEQ))).to("cuda")
+    result = {"launches": {}}
+    for name in AMP_MODES:
+        result[name] = _amp_mode(torch, name, ids)
+        for key, n in result[name]["launches"].items():
+            result["launches"][key] = result["launches"].get(key, 0) + n
+    result["o1_vs_o2_step_ms"] = (result["o1_bf16"]["step_ms"]
+                                  / result["o2_bf16"]["step_ms"])
+    log(f"[train_amp] O1 / O2 bf16 step time: "
+        f"{result['o1_vs_o2_step_ms']:.3f}x (O1 casts every weight in "
+        f"each op)")
+    return result
+
+
+# ------------------------------------------------------ resumable training
+# train_resume: full width, depth cut to 2 layers (234M parameters; a
+# checkpoint of weights, f32 masters and both moments ~3.7 GB), 12 x 1024
+# tokens a step, 6 steps over 48 seeded sequences (4 steps an epoch, so
+# every run crosses an epoch boundary)
+RESUME_CFG = dict(TRAIN_CFG, num_hidden_layers=2)
+RESUME_STEPS = 6
+RESUME_SEQS = 48
+RESUME_SEED = 11
+
+
+def _tree_digest(torch, sd):
+    """sha256 over one state dict's tensors' bytes, in key order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(sd):
+        v = sd[k]
+        if isinstance(v, torch.Tensor):
+            h.update(k.encode())
+            h.update(v.detach().contiguous().cpu().view(torch.uint8)
+                     .numpy().tobytes())
+    return h.hexdigest()
+
+
+def train_worker_main(spec_path, out_path):
+    """One life of a ``train_resume`` job, run as its own process
+    (``chip_smoke.py --train-worker SPEC OUT``): the resume cell's model
+    (O2 via ``amp.decorate``, bf16 or float16 with a ``GradScaler``),
+    AdamW with masters under ``LinearWarmup`` over
+    ``CosineAnnealingDecay`` and ``ClipGradByGlobalNorm``, a seeded
+    ``DataLoader`` (``RandomSampler(seed=)``, ``BatchSampler``) and a
+    ``TrainLoop`` on the spec's checkpoint directory (auto-resume,
+    ``save_every``). The spec may plant a ``train.step`` fault or stall a
+    step under a ``CommWatchdog``. Prints ``STEP n`` after each step;
+    writes its record (losses, scales, digests of the final weights and
+    optimizer state, checkpoint and restore times, launches) to OUT on
+    any exit."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.distributed import checkpoint
+    from paddle_tpu_torch.distributed.watchdog import CommWatchdog
+    from paddle_tpu_torch.io import (
+        BatchSampler,
+        DataLoader,
+        RandomSampler,
+        TensorDataset,
+    )
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW, lr
+    from paddle_tpu_torch.resilience import (
+        FaultSpec,
+        TrainLoop,
+        TrainState,
+        faults,
+    )
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dtype = spec["dtype"]
+    rec = {"spec": spec, "losses": [], "scales": [], "skipped": 0}
+    model = LlamaForCausalLM(LlamaConfig(**dict(RESUME_CFG,
+                                                dtype="float32")), seed=0)
+    rec["params"] = model.num_params()
+    amp.decorate(model, level="O2", dtype=dtype)
+    sched = lr.LinearWarmup(lr.CosineAnnealingDecay(3e-4,
+                                                    T_max=RESUME_STEPS),
+                            warmup_steps=2, start_lr=0.0, end_lr=3e-4)
+    opt = AdamW(learning_rate=sched, parameters=model.named_parameters(),
+                weight_decay=0.1, grad_clip=ClipGradByGlobalNorm(1.0),
+                multi_precision=True)
+    scaler = (amp.GradScaler(init_loss_scaling=2.0 ** 16)
+              if dtype == "float16" else None)
+    tokens = np.random.RandomState(RESUME_SEED).randint(
+        0, RESUME_CFG["vocab_size"], (RESUME_SEQS, TRAIN_SEQ))
+    ds = TensorDataset([tokens])
+    loader = DataLoader(ds, batch_sampler=BatchSampler(
+        sampler=RandomSampler(ds, seed=RESUME_SEED),
+        batch_size=TRAIN_BATCH, drop_last=True))
+    state = TrainState(model=model, optimizer=opt, scaler=scaler,
+                       dataloader=loader)
+    real_save, real_load = state.save, state.load
+
+    def timed_save(path, keep_last_k=2, emergency=False):
+        t0 = time.perf_counter()
+        real_save(path, keep_last_k=keep_last_k, emergency=emergency)
+        ms = (time.perf_counter() - t0) * 1e3
+        with open(os.path.join(path, "latest")) as f:
+            d = os.path.join(path, f.read().strip())
+        nbytes = sum(os.path.getsize(os.path.join(d, n))
+                     for n in os.listdir(d))
+        rec.setdefault("saves", []).append(
+            {"step": state.step, "emergency": emergency, "ms": ms,
+             "bytes": nbytes, "gb_per_s": nbytes / ms / 1e6})
+        return ms / 1e3
+
+    def timed_load(path):
+        before = checkpoint._fallbacks.value
+        t0 = time.perf_counter()
+        real_load(path)
+        torch.cuda.synchronize()
+        rec["restore_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["restored_step"] = state.step
+        rec["restore_fallbacks"] = checkpoint._fallbacks.value - before
+        return state
+
+    state.save, state.load = timed_save, timed_load
+
+    def step_fn(batch, st):
+        if spec.get("stall_at") == st.step:
+            time.sleep(spec["stall_s"])     # past the watchdog's deadline
+        ids = batch[0]
+        with amp.auto_cast(True, level="O2", dtype=dtype):
+            loss = model(ids, labels=ids)[1]
+        if scaler is None:
+            loss.backward()
+            opt.step()
+        else:
+            scaler.scale(loss).backward()
+            scaler.step(opt)
+            rec["skipped"] += int(scaler._found_inf)
+            scaler.update()
+            rec["scales"].append(scaler.get_scale_ratio())
+        opt.clear_grad()
+        sched.step()
+        rec["losses"].append(loss.item())        # syncs the step
+        if "first_step_ms" not in rec:
+            rec["first_step_ms"] = (time.perf_counter() - t_run) * 1e3
+            rec["first_step_done_at"] = time.time()
+        print(f"STEP {st.step + 1}", flush=True)
+
+    wd = None
+    if spec.get("step_timeout"):
+        wd = CommWatchdog(timeout=spec["step_timeout"], poll_interval=0.05)
+    loop = TrainLoop(state, step_fn, spec["dir"],
+                     save_every=spec.get("save_every"), keep_last_k=2,
+                     watchdog=wd, step_timeout=spec.get("step_timeout"),
+                     hang_grace=30.0)
+    inject = ({"train.step": FaultSpec(
+        RuntimeError("injected train.step fault"), at=spec["fault_at"])}
+        if spec.get("fault_at") else {})
+    code = 0
+    try:
+        with faults.inject(inject):
+            t_run = time.perf_counter()
+            loop.run(RESUME_STEPS)
+        torch.cuda.synchronize()
+        rec["model_digest"] = _tree_digest(torch, model.state_dict())
+        rec["opt_digest"] = _tree_digest(torch, opt.state_dict())
+        rec["scaler_state"] = scaler.state_dict() if scaler else None
+    except SystemExit as e:
+        code = e.code
+        raise
+    except BaseException as e:
+        code = 1
+        rec["error"] = repr(e)
+        raise
+    finally:
+        rec.update(code=code, final_step=state.step,
+                   launches=dict(_build.launch_counts(),
+                                 **_build.variant_counts()),
+                   peak_bytes=torch.cuda.max_memory_allocated())
+        if wd is not None:
+            wd.shutdown()
+        with open(out_path, "w") as f:
+            json.dump(rec, f)
+    return 0
+
+
+class _Worker:
+    """A running ``--train-worker`` process and its files."""
+
+    def __init__(self, tmp, name, **spec):
+        self.name = name
+        self.spec = dict(spec, dtype=spec.get("dtype", "bfloat16"))
+        self.spec_path = os.path.join(tmp, f"{name}.spec.json")
+        self.out_path = os.path.join(tmp, f"{name}.out.json")
+        with open(self.spec_path, "w") as f:
+            json.dump(self.spec, f)
+        self.t_start = time.time()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--train-worker",
+             self.spec_path, self.out_path],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        self.killed_at = None
+
+    def sigterm_after(self, n):
+        """Send SIGTERM once the worker reports step ``n`` done."""
+        import signal
+
+        for line in self.proc.stdout:
+            if line.strip() == f"STEP {n}":
+                self.killed_at = time.time()
+                self.proc.send_signal(signal.SIGTERM)
+                return
+        raise PhaseError(f"train_resume {self.name}: the worker ended "
+                         f"before step {n}")
+
+    def finish(self, want_code):
+        """Wait (bounded), then the worker's record; fails the phase if
+        it exited with another code than ``want_code``."""
+        try:
+            _, err = self.proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.communicate()
+            raise PhaseError(f"train_resume {self.name}: timed out")
+        rec = {}
+        if os.path.exists(self.out_path):
+            with open(self.out_path) as f:
+                rec = json.load(f)
+        rec["stderr"] = err
+        rec["wall_s"] = time.time() - self.t_start
+        check(self.proc.returncode == want_code,
+              f"train_resume {self.name}: exit {self.proc.returncode}, "
+              f"want {want_code}: {err[-2000:]}")
+        return rec
+
+
+def _ckpt_meta(path):
+    """The python values of the checkpoint ``latest`` names under
+    ``path`` (its train.* counters) and that checkpoint's directory."""
+    with open(os.path.join(path, "latest")) as f:
+        d = os.path.join(path, f.read().strip())
+    with open(os.path.join(d, "metadata.json")) as f:
+        return json.load(f)["python_values"], d
+
+
+def phase_train_resume(torch):
+    """``train_resume``: worker processes train the resume cell (full
+    width, 2 layers) with O2 bf16 (float16 + GradScaler in gate 6) and
+    are stopped and resumed. Gates, every resumed run's final weights and
+    optimizer state bit-identical (sha256 over each tensor's bytes) to
+    the uninterrupted run's:
+      1. two uninterrupted runs are bit-identical (determinism);
+      2. SIGTERM mid-run: exit 76 with a verified emergency checkpoint; a
+         fresh process resumes from it;
+      3. a seeded ``train.step`` fault kills a worker (exit 1); the resume
+         starts from the last periodic checkpoint;
+      4. gate 3's job resumed, its first step stalled past
+         ``CommWatchdog(step_timeout=)``: exit 68, and a fresh process
+         resumes it (from the checkpoint of gate 5);
+      5. that job's newest checkpoint torn (bytes flipped in its
+         data.npz): the resume falls back to the previous one, counted;
+      6. float16 O2 + GradScaler, SIGTERM and resume: weights and scaler
+         state equal the uninterrupted float16 run's.
+    Recorded: emergency checkpoint ms, bytes and GB/s, restore ms, the
+    resumed incarnation's restore + first step (``bench.py``'s
+    ``train_resume_ms``), SIGTERM to the first resumed step, the phase's
+    seconds."""
+    import shutil
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the checkpoints go where there is more room: the temporary
+    # directory or the checkout's build directory (one checkpoint with
+    # the v1 view is ~7.4 GB; at most one job's directory exists at once)
+    roots = [tempfile.gettempdir(), os.path.join(REPO, "build")]
+    os.makedirs(roots[1], exist_ok=True)
+    root = max(roots, key=lambda r: shutil.disk_usage(r).free)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_", dir=root)
+    free = shutil.disk_usage(tmp).free
+    result = {"ckpt_root": root, "ckpt_root_free_bytes": free,
+              "launches": {}}
+    d = {k: os.path.join(tmp, k) for k in ("C", "D", "F")}
+    recs = {}
+
+    def done(w, code):
+        recs[w.name] = r = w.finish(code)
+        for key, n in r.get("launches", {}).items():
+            result["launches"][key] = result["launches"].get(key, 0) + n
+        return r
+
+    def same_state(r, ref):
+        return (r["model_digest"], r["opt_digest"]) == (
+            ref["model_digest"], ref["opt_digest"])
+
+    try:
+        # the two reference runs (bf16, float16) beside the fault job
+        ws = [_Worker(tmp, "A", dir=os.path.join(tmp, "A")),
+              _Worker(tmp, "B", dir=os.path.join(tmp, "B")),
+              _Worker(tmp, "F1", dir=os.path.join(tmp, "F1"),
+                      dtype="float16"),
+              _Worker(tmp, "D1", dir=d["D"], save_every=2, fault_at=5)]
+        ra, rb, rf1, rd1 = (done(w, c) for w, c in zip(ws, (0, 0, 0, 1)))
+        check(same_state(rb, ra) and rb["losses"] == ra["losses"],
+              f"train_resume gate 1: two uninterrupted runs differ "
+              f"(losses {ra['losses']} / {rb['losses']})")
+        check("injected train.step fault" in rd1["stderr"]
+              and rd1["final_step"] == 4
+              and _ckpt_meta(d["D"])[0]["train.step"] == 4,
+              f"train_resume gate 3: the fault worker stopped at step "
+              f"{rd1['final_step']}: {rd1['stderr'][-2000:]}")
+        # the resume of gate 3 beside the float16 job's SIGTERM
+        d2 = _Worker(tmp, "D2", dir=d["D"])
+        f2 = _Worker(tmp, "F2", dir=d["F"], dtype="float16")
+        f2.sigterm_after(3)
+        rd2, rf2 = done(d2, 0), done(f2, 76)
+        check(rd2["restored_step"] == 4 and same_state(rd2, ra),
+              f"train_resume gate 3: resumed at {rd2['restored_step']} "
+              f"(want 4), final state equal: {same_state(rd2, ra)}")
+        # gate 4 on the same job: resumed at step 4, its first step
+        # stalls past the watchdog's deadline; beside it the float16
+        # resume (gate 6)
+        e1 = _Worker(tmp, "E1", dir=d["D"], stall_at=4, stall_s=8.0,
+                     step_timeout=5.0)
+        f3 = _Worker(tmp, "F3", dir=d["F"], dtype="float16")
+        re1, rf3 = done(e1, 68), done(f3, 0)
+        check("[comm_watchdog]" in re1["stderr"] and "step 4 stuck" in
+              re1["stderr"] and re1["restored_step"] == 4
+              and re1["final_step"] == 4,
+              f"train_resume gate 4: the stalled worker: "
+              f"{re1['stderr'][-2000:]}")
+        check(rf2["saves"][-1]["emergency"]
+              and rf3["restored_step"] == rf2["saves"][-1]["step"]
+              and same_state(rf3, rf1)
+              and rf3["scaler_state"] == rf1["scaler_state"],
+              f"train_resume gate 6: float16 resume at step "
+              f"{rf3['restored_step']}: scaler {rf3['scaler_state']} vs "
+              f"{rf1['scaler_state']}, state equal: "
+              f"{same_state(rf3, rf1)}")
+        shutil.rmtree(d["F"], ignore_errors=True)
+        # gate 5: tear the newest checkpoint (bytes flipped mid-file);
+        # the resume of the stalled job falls back to the one before
+        raw = os.path.join(_ckpt_meta(d["D"])[1], "data.npz")
+        with open(raw, "r+b") as fh:
+            fh.seek(os.path.getsize(raw) // 2)
+            fh.write(b"\xff" * 4096)
+        re2 = done(_Worker(tmp, "E2", dir=d["D"]), 0)
+        check(re2["restore_fallbacks"] == 1 and re2["restored_step"] == 2
+              and same_state(re2, ra),
+              f"train_resume gates 4 and 5: fallbacks "
+              f"{re2['restore_fallbacks']}, restored step "
+              f"{re2['restored_step']} (want 1, 2), final state equal: "
+              f"{same_state(re2, ra)}")
+        shutil.rmtree(d["D"], ignore_errors=True)
+
+        # gate 2 last and alone, as it is timed
+        c1 = _Worker(tmp, "C1", dir=d["C"])
+        c1.sigterm_after(3)
+        rc1 = done(c1, 76)
+        c_meta, _ = _ckpt_meta(d["C"])
+        emergency = rc1["saves"][-1]
+        check(emergency["emergency"] and c_meta["train.emergency"] is True
+              and c_meta["train.step"] == emergency["step"]
+              and "emergency checkpoint saved" in rc1["stderr"],
+              f"train_resume gate 2: no emergency checkpoint: "
+              f"{rc1['stderr'][-2000:]}")
+        rc2 = done(_Worker(tmp, "C2", dir=d["C"]), 0)
+        check(rc2["restored_step"] == emergency["step"]
+              and same_state(rc2, ra),
+              f"train_resume gate 2: resumed at {rc2['restored_step']}, "
+              f"final state equal: {same_state(rc2, ra)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    result.update({
+        "params": ra["params"], "reference_losses": ra["losses"],
+        "f16_losses": rf1["losses"], "f16_scales": rf1["scales"],
+        "f16_skipped_steps": rf1["skipped"],
+        "f16_scaler_state": rf1["scaler_state"],
+        "emergency_ckpt": emergency,
+        "emergency_step": emergency["step"],
+        "restore_ms": rc2["restore_ms"],
+        "train_resume_ms": rc2["first_step_ms"],
+        "kill_to_first_resumed_step_ms":
+            (rc2["first_step_done_at"] - c1.killed_at) * 1e3,
+        "periodic_saves": rd1["saves"],
+        "worker_wall_s": {n: r["wall_s"] for n, r in recs.items()},
+        "peak_bytes": max(x["peak_bytes"] for x in (ra, rc2, rf1)),
+    })
+    log(f"[train_resume] gates 1-6 hold; emergency checkpoint at step "
+        f"{emergency['step']}: {emergency['ms']:.1f} ms, "
+        f"{emergency['bytes']} B ({emergency['gb_per_s']:.3f} GB/s); "
+        f"restore {rc2['restore_ms']:.1f} ms; restore + first step "
+        f"{rc2['first_step_ms']:.1f} ms; SIGTERM to first resumed step "
+        f"{result['kill_to_first_resumed_step_ms']:.1f} ms; float16 "
+        f"scales {rf1['scales']}, skipped {rf1['skipped']}; "
+        f"{free / 2**30:.1f} GiB free under {root}")
+    return result
+
+
 # ------------------------------------------------------------------- moe
 def _rel_l2(a, b):
     a, b = a.float(), b.float()
@@ -5499,17 +6152,72 @@ def phase_profile(torch):
     return result
 
 
+def flash_f16_entries(flash, bwd, launches):
+    """The kernels line's float16 flash entries: the forward and each
+    backward kernel at the training shape in float16 (the wgmma
+    instances), with the worst error over the float16 cases, the
+    launches of the float16 instance on the main paths, the plain
+    version's time and SDPA's (forward) or its autograd's (backward)."""
+    fwd = [c for c in flash if c["dtype"] == "float16"]
+    bw = [c for c in bwd if c["dtype"] == "float16"]
+    head = next(c for c in fwd
+                if c["case"] == f"s{TRAIN_SEQ}_b{TRAIN_BATCH}_f16")
+    shape = f"b{TRAIN_BATCH} h16 d128 s{TRAIN_SEQ} causal, float16"
+    out = [{
+        "name": "flash_attention_fwd/float16", "route": "cuda",
+        "source": "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "paddle_tpu/kernels/pallas/flash_attention.py:37",
+        **launches("flash_attention/float16"),
+        "max_abs_err": max(c["max_abs_err"] for c in fwd),
+        "variant": head["variant"], "ms": head["ms"],
+        "prev_ms": head["prev_ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"], "shape": shape,
+        "cases": {c["case"]: {k: c[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
+            for c in fwd},
+    }]
+    head = next(c for c in bw if c["case"] == "train_f16")
+    for part, line in (("dq", 138), ("dkv", 191)):
+        grads = ("dq",) if part == "dq" else ("dk", "dv")
+        name = f"flash_attention_bwd_{part}"
+        out.append({
+            "name": f"{name}/float16", "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": f"paddle_tpu/kernels/pallas/flash_attention.py:{line}",
+            **launches(f"{name}/float16"),
+            "max_abs_err": max(c["max_abs_err"][g] for c in bw
+                               for g in grads),
+            "variant": head["variant"], "ms": head[f"{part}_ms"],
+            "plain_ms": head["plain_ms"],
+            "bound_ms": head[f"{part}_bound_ms"],
+            "bound_by": head[f"{part}_bound_by"],
+            "library_ms": head["library_ms"], "shape": shape,
+            "backward_ms": head["ms"],
+            "backward_bound_ms": head["bound_ms"],
+            "cases": {c["case"]: {
+                "ms": c["ms"], f"{part}_ms": c[f"{part}_ms"],
+                "plain_ms": c["plain_ms"], "library_ms": c["library_ms"],
+                "bound_ms": c["bound_ms"],
+                "max_abs_err": {g: c["max_abs_err"][g] for g in grads}}
+                for c in bw},
+        })
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
         "--phases",
         default="kernels,parity,serving,serving_int8,serving_f16,"
                 "serving_prefix,serving_spec,server,journal,poison,fleet,"
-                "spill,stepstats,train_parity,train,moe",
+                "spill,stepstats,train_parity,train,train_amp,train_resume,"
+                "moe",
         help="comma list of kernels, parity, serving, serving_int8, "
              "serving_f16, serving_prefix, serving_spec, server, journal, "
-             "poison, fleet, spill, stepstats, train_parity, train, moe, "
-             "profile (default: all but profile)",
+             "poison, fleet, spill, stepstats, train_parity, train, "
+             "train_amp, train_resume, moe, profile (default: all but "
+             "profile)",
     )
     ap.add_argument("--out", help="write the full report as JSON here")
     # the processes the server and journal phases start
@@ -5518,18 +6226,22 @@ def main(argv=None):
     ap.add_argument("--journal-worker", nargs=3,
                     metavar=("DIR", "OUT", "KILL_AT"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--train-worker", nargs=2, metavar=("SPEC", "OUT"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.http_client:
         return http_client_main(*args.http_client)
     if args.journal_worker:
         jdir, out, kill_at = args.journal_worker
         return journal_worker_main(jdir, out, int(kill_at))
+    if args.train_worker:
+        return train_worker_main(*args.train_worker)
     phases = set(args.phases.split(","))
     unknown = phases - {"kernels", "parity", "serving", "serving_int8",
                         "serving_f16", "serving_prefix", "serving_spec",
                         "server", "journal", "poison", "fleet", "spill",
-                        "stepstats", "train_parity", "train", "moe",
-                        "profile"}
+                        "stepstats", "train_parity", "train", "train_amp",
+                        "train_resume", "moe", "profile"}
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
@@ -5584,6 +6296,8 @@ def main(argv=None):
             "poison": phase_poison, "fleet": phase_fleet,
             "spill": phase_spill, "stepstats": phase_stepstats,
             "train_parity": phase_train_parity, "train": phase_train,
+            "train_amp": phase_train_amp,
+            "train_resume": phase_train_resume,
             "moe": phase_moe, "profile": phase_profile,
         }
         results, report["phase_seconds"] = {}, {}
@@ -5640,11 +6354,13 @@ def main(argv=None):
                 f"{[k for k, r in ratio.items() if r > 1] or 'none'}")
         report["phases"].update(results)
         (serving, serving_int8, serving_f16, serving_prefix, serving_spec,
-         server, journal, poison, fleet, spill, stepstats, train, moe) = (
+         server, journal, poison, fleet, spill, stepstats, train, train_amp,
+         train_resume, moe) = (
              results.get(p) for p in (
                  "serving", "serving_int8", "serving_f16", "serving_prefix",
                  "serving_spec", "server", "journal", "poison", "fleet",
-                 "spill", "stepstats", "train", "moe"))
+                 "spill", "stepstats", "train", "train_amp", "train_resume",
+                 "moe"))
         check("jax" not in sys.modules and not any(
             m == "paddle_tpu" or m.startswith("paddle_tpu.")
             for m in sys.modules),
@@ -5662,14 +6378,16 @@ def main(argv=None):
     # poisoned decode run, the fleet's counted runs (the 2-replica rate
     # runs and the warm-routing pass), the spill cell's counted engines
     # (unconstrained, spill and recompute, both pools), the observatory's
-    # timed runs (on and off), the 14 counted train steps, and the moe
-    # phase's counted forwards
+    # timed runs (on and off), the 14 counted train steps, the amp modes'
+    # counted steps (O1 bf16, O2 bf16, O2 float16), the resume workers'
+    # steps (bf16 and float16), and the moe phase's counted forwards
     by_path = {p: r["launches"] if r else {} for p, r in (
         ("serving", serving), ("serving_int8", serving_int8),
         ("serving_f16", serving_f16), ("serving_prefix", serving_prefix),
         ("serving_spec", serving_spec), ("server", server),
         ("journal", journal), ("poison", poison), ("fleet", fleet),
         ("spill", spill), ("stepstats", stepstats), ("train", train),
+        ("train_amp", train_amp), ("train_resume", train_resume),
         ("moe", moe))}
 
     def launches(name):
@@ -5775,6 +6493,11 @@ def main(argv=None):
                     for v, case in (("wgmma", head), ("mma", head),
                                     ("fma", f32))],
             })
+        # the float16 instances (PR 15) of the forward and of both
+        # backward kernels, at the training shape: their launches on the
+        # main paths are the ``/float16`` counts (the entries above count
+        # every dtype)
+        kernels.extend(flash_f16_entries(flash, bwd, launches))
         kernels.append(paged_entry("paged_attention_quant", 103, quant))
         # the grouped GEMM at the MoE layer's up projection, bf16 rhs
         # (wgmma, the mma.sync kernel as prev_ms; the f32 FMA kernel

@@ -23,12 +23,12 @@
 // Causal tiles above the diagonal are skipped. Three kernels, chosen by
 // the wrapper (flash_attention.py:_fwd_variant) and passed as `variant`:
 //
-//  * bf16, d 64 or 128 (flash_fwd_wgmma_kernel, variant 1): the Hopper
+//  * 16-bit, d 64 or 128 (flash_fwd_wgmma_kernel, variant 1): the Hopper
 //    design, TMA loads into an mbarrier ring, a producer thread and two
 //    consumer warpgroups on wgmma. Described at the kernel.
-//  * bf16, other head dims (flash_fwd_tc_kernel, variant 0): mma.sync
-//    m16n8k16 (bf16 in, f32 accumulate), the online softmax in registers,
-//    P fed to the P V product as bf16 straight from the score
+//  * 16-bit, other head dims (flash_fwd_tc_kernel, variant 0): mma.sync
+//    m16n8k16 (16-bit in, f32 accumulate), the online softmax in
+//    registers, P fed to the P V product as 16-bit straight from the score
 //    accumulators; K and V staged synchronously. It stages rows with
 //    16-byte loads, so q, k and v must start on a 16-byte boundary (the
 //    Python wrapper copies any that do not; TMA needs the same).
@@ -41,6 +41,14 @@
 //    accumulator, in registers; Q and K rows are padded by one float in
 //    shared memory so the score loop reads them without bank conflicts.
 //
+// "16-bit" is bf16 or float16: each 16-bit kernel is a template on its
+// element type T (__nv_bfloat16 or __half), which picks the PTX operand
+// type of mma.sync and wgmma (.bf16 or .f16), the f32 -> 16-bit packing
+// of P and of the output (hopper::pack2 / store2: __floats2bfloat162_rn or
+// __floats2half2_rn) and the TMA element type; the design is the same.
+// In float16, P (in [0, 1]) keeps 3 more mantissa bits than in bf16; q, k
+// and v must lie within float16's range, as any float16 tensor does.
+//
 // Launch contract: variant 0 launches a grid (ceil(sq / 64), b * heads),
 // variant 1 one block per (128-row query tile, batch x head); the launch
 // function sets each kernel's dynamic shared memory, returns
@@ -48,8 +56,11 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -242,14 +253,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores. One block of 4 warps per (b * heads, 64-row
-// query tile); warp w owns query rows 16 w .. 16 w + 15. Q, K and V tiles
-// sit in shared memory as bf16 (rows padded by 8 elements, so the
+// 16-bit (bf16 or f16, T) on the tensor cores. One block of 4 warps per
+// (b * heads, 64-row query tile); warp w owns query rows 16 w .. 16 w +
+// 15. Q, K and V tiles sit in shared memory as T (rows padded by 8 elements, so the
 // fragment loads below hit 32 distinct banks). Per 64-key tile each warp
-// computes its 16 x 64 scores with mma.sync.m16n8k16 (bf16 in, f32
+// computes its 16 x 64 scores with mma.sync.m16n8k16 (T in, f32
 // accumulate), runs the online softmax on the accumulators in registers
 // (a row's values live in the 4 lanes of a quad), and feeds the
-// probabilities, rounded to bf16, straight back as the A operand of the
+// probabilities, rounded to T, straight back as the A operand of the
 // P V product. Fragment layouts are the PTX ISA's for m16n8k16:
 //   A (16x16): reg0 = A[g][2t..2t+1], reg1 = A[g+8][2t..], reg2 =
 //              A[g][2t+8..], reg3 = A[g+8][2t+8..]
@@ -260,44 +271,18 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 
 constexpr int kTcThreads = 128;
 
-__device__ __forceinline__ void mma_bf16(float c[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint32_t pair(const __nv_bfloat16* p) {
+__device__ __forceinline__ uint32_t pair(const void* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ uint32_t pair2(const __nv_bfloat16* lo,
-                                          const __nv_bfloat16* hi) {
-  __nv_bfloat162 h;
-  h.x = *lo;
-  h.y = *hi;
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
 constexpr size_t tc_smem_bytes(int d) {
-  return 3 * (size_t)kBQ * (d + 8) * sizeof(__nv_bfloat16);
+  return 3 * (size_t)kBQ * (d + 8) * 2;
 }
 
-// rows [r0, r0 + 64) of a [rows, stride] bf16 matrix into shared memory
+// rows [r0, r0 + 64) of a [rows, stride] 16-bit matrix into shared memory
 // [64][d + 8], 16 bytes per load; rows at or past n_rows are zeros
-template <int D>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
+template <int D, typename T>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src,
                                            size_t stride, int r0,
                                            int n_rows) {
   constexpr int V = D / 8;  // 16-byte vectors per row
@@ -313,18 +298,18 @@ __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
   }
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, T* __restrict__ out,
     float* __restrict__ lse, int heads, int kv_heads, int sq, int sk,
     float scale, int causal) {
-  constexpr int S = D + 8;    // padded smem row, bf16 elements
+  constexpr int S = D + 8;    // padded smem row, 16-bit elements
   constexpr int DT = D / 8;   // 8-wide output column tiles per row
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* k_s = q_s + kBQ * S;
-  __nv_bfloat16* v_s = k_s + kBK * S;
+  T* q_s = reinterpret_cast<T*>(smem_raw);
+  T* k_s = q_s + kBQ * S;
+  T* v_s = k_s + kBK * S;
 
   const int q0 = blockIdx.x * kBQ;
   const int bh = blockIdx.y;
@@ -338,15 +323,15 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(
 
   const size_t q_row = (size_t)heads * D;
   const size_t kv_row = (size_t)kv_heads * D;
-  const __nv_bfloat16* q_b = q + (size_t)bi * sq * q_row + (size_t)hh * D;
-  const __nv_bfloat16* k_b = k + (size_t)bi * sk * kv_row + (size_t)kvh * D;
-  const __nv_bfloat16* v_b = v + (size_t)bi * sk * kv_row + (size_t)kvh * D;
+  const T* q_b = q + (size_t)bi * sq * q_row + (size_t)hh * D;
+  const T* k_b = k + (size_t)bi * sk * kv_row + (size_t)kvh * D;
+  const T* v_b = v + (size_t)bi * sk * kv_row + (size_t)kvh * D;
 
-  stage_rows<D>(q_s, q_b, q_row, q0, sq);
+  stage_rows<D, T>(q_s, q_b, q_row, q0, sq);
 
   const int r_lo = q0 + warp * 16 + g;  // this lane's two query rows
   const int r_hi = r_lo + 8;
-  const __nv_bfloat16* qa = q_s + (warp * 16 + g) * S + 2 * t;
+  const T* qa = q_s + (warp * 16 + g) * S + 2 * t;
   float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
   float o[DT][4];
 #pragma unroll
@@ -355,8 +340,8 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(
   const int k_end = causal ? min(sk, q0 + kBQ) : sk;
   for (int k0 = 0; k0 < k_end; k0 += kBK) {
     __syncthreads();  // the previous tile's readers are done
-    stage_rows<D>(k_s, k_b, kv_row, k0, sk);
-    stage_rows<D>(v_s, v_b, kv_row, k0, sk);
+    stage_rows<D, T>(k_s, k_b, kv_row, k0, sk);
+    stage_rows<D, T>(v_s, v_b, kv_row, k0, sk);
     __syncthreads();
 
     // scores: 16 rows x 64 keys = 8 tiles of 8 keys
@@ -371,8 +356,8 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(
       const uint32_t a3 = pair(qa + 8 * S + kk + 8);
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
-        const __nv_bfloat16* kb = k_s + (n * 8 + g) * S + kk + 2 * t;
-        mma_bf16(s[n], a0, a1, a2, a3, pair(kb), pair(kb + 8));
+        const T* kb = k_s + (n * 8 + g) * S + kk + 2 * t;
+        hopper::mma16816<T>(s[n], a0, a1, a2, a3, pair(kb), pair(kb + 8));
       }
     }
 
@@ -436,33 +421,36 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(
     // o += P V: 4 steps of 16 keys; P's A fragment is two score tiles
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {
-      const uint32_t a0 = pack_bf16(s[2 * ks][0], s[2 * ks][1]);
-      const uint32_t a1 = pack_bf16(s[2 * ks][2], s[2 * ks][3]);
-      const uint32_t a2 = pack_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1]);
-      const uint32_t a3 = pack_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3]);
-      const __nv_bfloat16* vb = v_s + (ks * 16 + 2 * t) * S + g;
+      const uint32_t a0 = hopper::pack2<T>(s[2 * ks][0], s[2 * ks][1]);
+      const uint32_t a1 = hopper::pack2<T>(s[2 * ks][2], s[2 * ks][3]);
+      const uint32_t a2 =
+          hopper::pack2<T>(s[2 * ks + 1][0], s[2 * ks + 1][1]);
+      const uint32_t a3 =
+          hopper::pack2<T>(s[2 * ks + 1][2], s[2 * ks + 1][3]);
+      const T* vb = v_s + (ks * 16 + 2 * t) * S + g;
 #pragma unroll
       for (int j = 0; j < DT; ++j) {
-        const __nv_bfloat16* vj = vb + j * 8;
-        mma_bf16(o[j], a0, a1, a2, a3, pair2(vj, vj + S),
-                 pair2(vj + 8 * S, vj + 9 * S));
+        const T* vj = vb + j * 8;
+        hopper::mma16816<T>(o[j], a0, a1, a2, a3,
+                            hopper::pair2(vj, vj + S),
+                 hopper::pair2(vj + 8 * S, vj + 9 * S));
       }
     }
   }
 
-  __nv_bfloat16* o_b = out + (size_t)bi * sq * q_row + (size_t)hh * D;
+  T* o_b = out + (size_t)bi * sq * q_row + (size_t)hh * D;
   const float inv_lo = l_lo == 0.f ? 0.f : 1.f / l_lo;
   const float inv_hi = l_hi == 0.f ? 0.f : 1.f / l_hi;
 #pragma unroll
   for (int j = 0; j < DT; ++j) {
     const int c = j * 8 + 2 * t;
     if (r_lo < sq) {
-      *reinterpret_cast<__nv_bfloat162*>(o_b + (size_t)r_lo * q_row + c) =
-          __floats2bfloat162_rn(o[j][0] * inv_lo, o[j][1] * inv_lo);
+      hopper::store2(o_b + (size_t)r_lo * q_row + c, o[j][0] * inv_lo,
+                     o[j][1] * inv_lo);
     }
     if (r_hi < sq) {
-      *reinterpret_cast<__nv_bfloat162*>(o_b + (size_t)r_hi * q_row + c) =
-          __floats2bfloat162_rn(o[j][2] * inv_hi, o[j][3] * inv_hi);
+      hopper::store2(o_b + (size_t)r_hi * q_row + c, o[j][2] * inv_hi,
+                     o[j][3] * inv_hi);
     }
   }
   if (t == 0) {
@@ -476,8 +464,8 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on Hopper, d in {64, 128}: wgmma fed by TMA through an mbarrier
-// ring (hopper.cuh).
+// 16-bit (bf16 or f16, T) on Hopper, d in {64, 128}: wgmma fed by TMA
+// through an mbarrier ring (hopper.cuh).
 //
 // Block: 128 query rows of one (batch, head), 3 warpgroups. Warpgroups 0
 // and 1 are consumers, each owning 64 of the rows; one thread of
@@ -494,7 +482,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(
 //                  max in raw score units, p = 2^(s scale log2e - m scale
 //                  log2e) as one FMA and one ex2; the row sum kept per
 //                  thread and reduced over the quad once, at the end;
-//   O += P V       P rounded to bf16 in registers, fed as wgmma's register
+//   O += P V       P rounded to T in registers, fed as wgmma's register
 //                  A operand (two adjacent n8 column blocks of S are one
 //                  k16 A fragment); B = V from shared memory, MN-major
 //                  (d contiguous): the transpose bit.
@@ -538,12 +526,12 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kHThreads, 1) flash_fwd_wgmma_kernel(
     const __grid_constant__ CUtensorMap q_map,
     const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map,
-    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int heads,
+    T* __restrict__ out, float* __restrict__ lse, int heads,
     int kv_heads, int sq, int sk, float scale, int causal, int n_bh,
     int chunk) {
   using C = FwdCfg<D>;
@@ -648,7 +636,7 @@ __global__ void __launch_bounds__(kHThreads, 1) flash_fwd_wgmma_kernel(
     for (int kk = 0; kk < D / 16; ++kk) {
       const int off = (kk >> 2) * C::kQBox + (kk & 3) * 32;
       const int koff = (kk >> 2) * C::kKVBox + (kk & 3) * 32;
-      hopper::wgmma_ss<kHK, 0>(s, hopper::desc_k_major(q_wg + off),
+      hopper::wgmma_ss<kHK, 0, T>(s, hopper::desc_k_major(q_wg + off),
                                hopper::desc_k_major(kb + koff), kk > 0);
     }
     hopper::wgmma_commit();
@@ -661,14 +649,14 @@ __global__ void __launch_bounds__(kHThreads, 1) flash_fwd_wgmma_kernel(
     hopper::wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < kHK / 16; ++ks) {
-      hopper::wgmma_rs<D, 1>(o, p[ks],
+      hopper::wgmma_rs<D, 1, T>(o, p[ks],
                              hopper::desc_mn_major(vb + ks * 2048,
                                                    C::kKVBox),
                              1);
     }
     hopper::wgmma_commit();
   };
-  // the online softmax of key tile kt on s, in base 2: P as bf16 A
+  // the online softmax of key tile kt on s, in base 2: P as 16-bit A
   // fragments into p, the running max and sum updated; returns the
   // factors (lo, hi rows) by which O must be rescaled
   auto softmax = [&](int kt, uint32_t (&p)[kHK / 16][4], float& al_lo,
@@ -719,10 +707,10 @@ __global__ void __launch_bounds__(kHThreads, 1) flash_fwd_wgmma_kernel(
       }
       ps_lo += (x[0] + x[1]) + (x[4] + x[5]);
       ps_hi += (x[2] + x[3]) + (x[6] + x[7]);
-      p[ks][0] = hopper::pack_bf16(x[0], x[1]);
-      p[ks][1] = hopper::pack_bf16(x[2], x[3]);
-      p[ks][2] = hopper::pack_bf16(x[4], x[5]);
-      p[ks][3] = hopper::pack_bf16(x[6], x[7]);
+      p[ks][0] = hopper::pack2<T>(x[0], x[1]);
+      p[ks][1] = hopper::pack2<T>(x[2], x[3]);
+      p[ks][2] = hopper::pack2<T>(x[4], x[5]);
+      p[ks][3] = hopper::pack2<T>(x[6], x[7]);
     }
     l_lo = l_lo * al_lo + ps_lo;
     l_hi = l_hi * al_hi + ps_hi;
@@ -771,22 +759,19 @@ __global__ void __launch_bounds__(kHThreads, 1) flash_fwd_wgmma_kernel(
     l_hi += __shfl_xor_sync(0xffffffffu, l_hi, x);
   }
   const size_t row_stride = (size_t)heads * D;
-  __nv_bfloat16* o_b = out + (size_t)bi * sq * row_stride + (size_t)hh * D;
+  T* o_b = out + (size_t)bi * sq * row_stride + (size_t)hh * D;
   const float inv_lo = l_lo == 0.f ? 0.f : 1.f / l_lo;
   const float inv_hi = l_hi == 0.f ? 0.f : 1.f / l_hi;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int cc = 8 * j + 2 * (lane & 3);
     if (r_lo < sq) {
-      *reinterpret_cast<__nv_bfloat162*>(o_b + (size_t)r_lo * row_stride +
-                                         cc) =
-          __floats2bfloat162_rn(o[4 * j] * inv_lo, o[4 * j + 1] * inv_lo);
+      hopper::store2(o_b + (size_t)r_lo * row_stride + cc,
+                     o[4 * j] * inv_lo, o[4 * j + 1] * inv_lo);
     }
     if (r_hi < sq) {
-      *reinterpret_cast<__nv_bfloat162*>(o_b + (size_t)r_hi * row_stride +
-                                         cc) =
-          __floats2bfloat162_rn(o[4 * j + 2] * inv_hi,
-                                o[4 * j + 3] * inv_hi);
+      hopper::store2(o_b + (size_t)r_hi * row_stride + cc,
+                     o[4 * j + 2] * inv_hi, o[4 * j + 3] * inv_hi);
     }
   }
   if ((lane & 3) == 0) {
@@ -801,7 +786,7 @@ __global__ void __launch_bounds__(kHThreads, 1) flash_fwd_wgmma_kernel(
   }
 }
 
-template <int D>
+template <int D, typename T>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                  float* lse, int batch, int heads, int kv_heads, int sq,
                  int sk, float scale, int causal, cudaStream_t stream) {
@@ -813,7 +798,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                                    (cuuint64_t)heads * D * 2,
                                    (cuuint64_t)sq * heads * D * 2};
   const cuuint32_t q_box[4] = {64, 1, kHQ, 1};
-  int err = hopper::encode_bf16_map(&q_map, q, 4, q_dims, q_strides, q_box);
+  int err =
+      hopper::encode_16bit_map<T>(&q_map, q, 4, q_dims, q_strides, q_box);
   if (err) return err;
   const cuuint64_t kv_dims[4] = {(cuuint64_t)D, (cuuint64_t)kv_heads,
                                  (cuuint64_t)sk, (cuuint64_t)batch};
@@ -821,11 +807,13 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                                     (cuuint64_t)kv_heads * D * 2,
                                     (cuuint64_t)sk * kv_heads * D * 2};
   const cuuint32_t kv_box[4] = {64, 1, kHK, 1};
-  err = hopper::encode_bf16_map(&k_map, k, 4, kv_dims, kv_strides, kv_box);
+  err = hopper::encode_16bit_map<T>(&k_map, k, 4, kv_dims, kv_strides,
+                                    kv_box);
   if (err) return err;
-  err = hopper::encode_bf16_map(&v_map, v, 4, kv_dims, kv_strides, kv_box);
+  err = hopper::encode_16bit_map<T>(&v_map, v, 4, kv_dims, kv_strides,
+                                    kv_box);
   if (err) return err;
-  auto kernel = flash_fwd_wgmma_kernel<D>;
+  auto kernel = flash_fwd_wgmma_kernel<D, T>;
   cudaError_t cerr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (cerr != cudaSuccess) return (int)cerr;
@@ -846,12 +834,12 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   const int chunk_bh = (int)(chunk < 1 ? 1 : chunk > n_bh ? n_bh : chunk);
   const long long blocks = (long long)((sq + kHQ - 1) / kHQ) * n_bh;
   kernel<<<(unsigned)blocks, kHThreads, C::kSmem, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), lse, heads,
+      q_map, k_map, v_map, static_cast<T*>(out), lse, heads,
       kv_heads, sq, sk, scale, causal, n_bh, chunk_bh);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename T>
 int launch_d(const void* q, const void* k, const void* v, void* out,
              float* lse, int batch, int heads, int kv_heads, int sq, int sk,
              float scale, int causal, int dtype, cudaStream_t stream) {
@@ -866,69 +854,93 @@ int launch_d(const void* q, const void* k, const void* v, void* out,
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(out), lse, heads,
         kv_heads, sq, sk, scale, causal);
-  } else {
-    auto kernel = flash_fwd_tc_kernel<D>;
+  } else if constexpr (!std::is_same<T, float>::value) {
+    auto kernel = flash_fwd_tc_kernel<D, T>;
     const size_t smem = tc_smem_bytes(D);
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     kernel<<<grid, kTcThreads, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(out), lse, heads, kv_heads, sq, sk, scale,
-        causal);
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(out), lse, heads, kv_heads,
+        sq, sk, scale, causal);
   }
   return (int)cudaGetLastError();
+}
+
+// the kernels of one element type T (float selects the FMA kernel, bf16
+// and __half the mma.sync kernel or, with variant 1, the wgmma kernel)
+template <typename T>
+int launch_typed(const void* q, const void* k, const void* v, void* out,
+                 float* lse, int batch, int heads, int kv_heads, int sq,
+                 int sk, int d, float scale, int causal, int variant,
+                 cudaStream_t s) {
+  constexpr int dtype = std::is_same<T, float>::value ? 0 : 1;
+  if (variant != 0) {
+    if (variant != 1 || dtype == 0 || sk == 0) {
+      return (int)cudaErrorInvalidValue;
+    }
+    if constexpr (dtype == 1) {
+      if (d == 64) {
+        return launch_wgmma<64, T>(q, k, v, out, lse, batch, heads,
+                                   kv_heads, sq, sk, scale, causal, s);
+      }
+      if (d == 128) {
+        return launch_wgmma<128, T>(q, k, v, out, lse, batch, heads,
+                                    kv_heads, sq, sk, scale, causal, s);
+      }
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  switch (d) {
+    case 16:
+      return launch_d<16, T>(q, k, v, out, lse, batch, heads, kv_heads, sq,
+                             sk, scale, causal, dtype, s);
+    case 32:
+      return launch_d<32, T>(q, k, v, out, lse, batch, heads, kv_heads, sq,
+                             sk, scale, causal, dtype, s);
+    case 64:
+      return launch_d<64, T>(q, k, v, out, lse, batch, heads, kv_heads, sq,
+                             sk, scale, causal, dtype, s);
+    case 128:
+      return launch_d<128, T>(q, k, v, out, lse, batch, heads, kv_heads, sq,
+                              sk, scale, causal, dtype, s);
+    case 256:
+      return launch_d<256, T>(q, k, v, out, lse, batch, heads, kv_heads, sq,
+                              sk, scale, causal, dtype, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it). bf16 q, k
-// and v must start on a 16-byte boundary (the caller copies them if not).
-// variant: 0 = the kernel of the dtype (f32 FMA, or mma.sync for bf16);
-// 1 = the Hopper wgmma/TMA kernel (bf16, d 64 or 128, sk > 0).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v and out share
+// it). 16-bit q, k and v must start on a 16-byte boundary (the caller
+// copies them if not). variant: 0 = the kernel of the dtype (f32 FMA, or
+// mma.sync for bf16 and f16); 1 = the Hopper wgmma/TMA kernel (bf16 or
+// f16, d 64 or 128, sk > 0).
 int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
                                void* out, void* lse, int batch, int heads,
                                int kv_heads, int sq, int sk, int d,
                                float scale, int causal, int dtype,
                                int variant, void* stream) {
   if (batch == 0 || sq == 0) return 0;
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* lse_f = static_cast<float*>(lse);
-  if (variant != 0) {
-    if (variant != 1 || dtype != 1 || sk == 0) {
-      return (int)cudaErrorInvalidValue;
-    }
-    if (d == 64) {
-      return launch_wgmma<64>(q, k, v, out, lse_f, batch, heads, kv_heads,
-                              sq, sk, scale, causal, s);
-    }
-    if (d == 128) {
-      return launch_wgmma<128>(q, k, v, out, lse_f, batch, heads, kv_heads,
-                               sq, sk, scale, causal, s);
-    }
-    return (int)cudaErrorInvalidValue;
-  }
-  switch (d) {
-    case 16:
-      return launch_d<16>(q, k, v, out, lse_f, batch, heads, kv_heads, sq,
-                          sk, scale, causal, dtype, s);
-    case 32:
-      return launch_d<32>(q, k, v, out, lse_f, batch, heads, kv_heads, sq,
-                          sk, scale, causal, dtype, s);
-    case 64:
-      return launch_d<64>(q, k, v, out, lse_f, batch, heads, kv_heads, sq,
-                          sk, scale, causal, dtype, s);
-    case 128:
-      return launch_d<128>(q, k, v, out, lse_f, batch, heads, kv_heads, sq,
-                          sk, scale, causal, dtype, s);
-    case 256:
-      return launch_d<256>(q, k, v, out, lse_f, batch, heads, kv_heads, sq,
-                          sk, scale, causal, dtype, s);
+  float* l = static_cast<float*>(lse);
+  switch (dtype) {
+    case 0:
+      return launch_typed<float>(q, k, v, out, l, batch, heads, kv_heads, sq,
+                                 sk, d, scale, causal, variant, s);
+    case 1:
+      return launch_typed<__nv_bfloat16>(q, k, v, out, l, batch, heads,
+                                         kv_heads, sq, sk, d, scale, causal,
+                                         variant, s);
+    case 2:
+      return launch_typed<__half>(q, k, v, out, l, batch, heads, kv_heads,
+                                  sq, sk, d, scale, causal, variant, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -35,24 +35,37 @@
 // every s x s tile (S, P, dP, dS) in registers and read each q, k, v and
 // dout element once per tile pair. Three designs, by dtype and head dim
 // (the launch functions' `variant`):
-//  * bf16, d 64 and 128 (*_wgmma kernels, variant 1): Hopper's wgmma fed
-//    by TMA through an mbarrier ring, a producer thread and two consumer
-//    warpgroups; the dq kernel also computes delta. See the section
-//    "bf16 on Hopper" below.
-//  * bf16, d 16 and 32, and every bf16 call of variant 0 (*_tc kernels,
-//    the design every bf16 call ran before the wgmma kernels; kept at d
-//    64 and 128 as their yardstick): mma.sync.m16n8k16 on the tensor
-//    cores (bf16 in, f32 accumulate), with the fragment layouts and
+//  * 16-bit, d 64 and 128 (*_wgmma kernels, variant 1): Hopper's wgmma
+//    fed by TMA through an mbarrier ring, a producer thread and two
+//    consumer warpgroups; the dq kernel also computes delta. See the
+//    section "16-bit on Hopper" below.
+//  * 16-bit, d 16 and 32, and every 16-bit call of variant 0 (*_tc
+//    kernels, the design every bf16 call ran before the wgmma kernels;
+//    kept at d 64 and 128 as their yardstick): mma.sync.m16n8k16 on the
+//    tensor cores (16-bit in, f32 accumulate), with the fragment layouts and
 //    16-byte staging of flash_attention.cu. Every operand fragment read
 //    from shared memory comes through ldmatrix (.trans for the B operands
 //    of the second products, whose tiles hold k along their rows). P and
 //    dS go from the first products' accumulators to the second products'
-//    A operands in registers, rounded to bf16 only there. The s x s work
+//    A operands in registers, rounded to 16 bits only there. The s x s work
 //    is done 32 columns at a time. q, k, v and dout must start on a
 //    16-byte boundary (the Python wrapper copies any that do not).
 //  * f32: exact FMAs from shared memory (rows padded by one float), 256
 //    threads in a 16 x 16 grid, each owning a 4 x 4 block of the 64 x 64
 //    score tile and a 4 x (d / 16) block of its accumulators.
+//
+// "16-bit" is bf16 or float16: each 16-bit kernel is a template on its
+// element type T (__nv_bfloat16 or __half), which picks the PTX operand
+// type of mma.sync and wgmma (.bf16 or .f16), the f32 -> 16-bit packing
+// of P, dS and the gradients (hopper::pack2 / store2), the unpacking of
+// O and dO for delta (hopper::unpack2) and the TMA element type; the
+// designs are the same. In float16, P and dS keep 3 more mantissa bits
+// than in bf16 but only 5 exponent bits: dS values below 2^-14 lose
+// precision (subnormal) and below 2^-24 become 0, where bf16 keeps them.
+// Under a loss scale (amp's GradScaler) dO and dS are scaled up, which
+// keeps dS in float16's normal range; an overflow of dO shows as inf in
+// the gradients, which the scaler's finite check turns into a skipped
+// step.
 //
 // Launch contract: the two launch functions set each kernel's dynamic
 // shared memory, launch on the given stream and return cudaGetLastError()
@@ -60,8 +73,11 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -394,7 +410,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores. Fragment layouts are the PTX ISA's for
+// 16-bit (bf16 or f16, T) on the tensor cores. Fragment layouts are the
+// PTX ISA's for
 // mma.m16n8k16 (g = lane / 4, t = lane % 4; the lower half of a register
 // holds the lower column or k index):
 //   A (16x16): reg0 = A[g][2t..2t+1], reg1 = A[g+8][2t..], reg2 =
@@ -404,31 +421,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 // Two 16x8 C tiles side by side are one A fragment of the next product,
 // so P and dS go from accumulators to operands without shared memory.
 
-__device__ __forceinline__ void mma_bf16(float c[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// Four 8x8 bf16 matrices from shared memory, one per 8 lanes' row
+// Four 8x8 16-bit matrices from shared memory, one per 8 lanes' row
 // addresses (lane l gives row l % 8 of matrix l / 8). Plain: register i
 // of lane l holds row l / 4, columns 2 (l % 4) .. + 1 of matrix i, an A
 // or B fragment of rows stored along k. .trans: register i holds rows
 // 2 (l % 4) .. + 1 of column l / 4, the B fragment of a tile stored with
 // k along its rows.
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4],
-                                        const __nv_bfloat16* p) {
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -437,7 +436,7 @@ __device__ __forceinline__ void ldsm_x4(uint32_t r[4],
 }
 
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4],
-                                              const __nv_bfloat16* p) {
+                                              const void* p) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
@@ -446,17 +445,17 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4],
       : "r"(a));
 }
 
-// four [64][d + 8] bf16 tiles, then two [64] f32 rows
+// four [64][d + 8] 16-bit tiles, then two [64] f32 rows
 constexpr size_t tc_smem_bytes(int d) {
-  return 4 * (size_t)kBQ * (d + 8) * sizeof(__nv_bfloat16) +
+  return 4 * (size_t)kBQ * (d + 8) * 2 +
          2 * (size_t)kBQ * sizeof(float);
 }
 
-// rows [r0, r0 + 64) of a [rows, stride] bf16 matrix into shared memory
+// rows [r0, r0 + 64) of a [rows, stride] 16-bit matrix into shared memory
 // [64][d + 8], 16 bytes per load; rows at or past n_rows are zeros
-template <int D>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
+template <int D, typename T>
+__device__ __forceinline__ void stage_rows(T* dst,
+                                           const T* src,
                                            size_t stride, int r0,
                                            int n_rows) {
   constexpr int V = D / 8;  // 16-byte vectors per row
@@ -475,11 +474,11 @@ __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
 // x += A1 B1^T and y += A2 B2^T, [16 x 32] each: a1/a2 point at the
 // warp's 16 A rows, b1/b2 at the 32 B rows, all [.][D + 8] tiles with
 // the product's k (head dim) along their rows.
-template <int D>
+template <int D, typename T>
 __device__ __forceinline__ void rows_times_rows(
-    float x[4][4], float y[4][4], const __nv_bfloat16* a1,
-    const __nv_bfloat16* b1, const __nv_bfloat16* a2,
-    const __nv_bfloat16* b2, int lane) {
+    float x[4][4], float y[4][4], const T* a1,
+    const T* b1, const T* a2,
+    const T* b2, int lane) {
   constexpr int S = D + 8;
   // A: matrices (rows 0-7 | 8-15) x (k 0-7 | 8-15), in fragment order
   const int ao = (lane & 15) * S + (lane >> 4) * 8;
@@ -493,11 +492,11 @@ __device__ __forceinline__ void rows_times_rows(
 #pragma unroll
     for (int n = 0; n < 4; n += 2) {
       ldsm_x4(b, b1 + n * 8 * S + bo + kk);
-      mma_bf16(x[n], p[0], p[1], p[2], p[3], b[0], b[1]);
-      mma_bf16(x[n + 1], p[0], p[1], p[2], p[3], b[2], b[3]);
+      hopper::mma16816<T>(x[n], p[0], p[1], p[2], p[3], b[0], b[1]);
+      hopper::mma16816<T>(x[n + 1], p[0], p[1], p[2], p[3], b[2], b[3]);
       ldsm_x4(b, b2 + n * 8 * S + bo + kk);
-      mma_bf16(y[n], r[0], r[1], r[2], r[3], b[0], b[1]);
-      mma_bf16(y[n + 1], r[0], r[1], r[2], r[3], b[2], b[3]);
+      hopper::mma16816<T>(y[n], r[0], r[1], r[2], r[3], b[0], b[1]);
+      hopper::mma16816<T>(y[n + 1], r[0], r[1], r[2], r[3], b[2], b[3]);
     }
   }
 }
@@ -505,48 +504,48 @@ __device__ __forceinline__ void rows_times_rows(
 // acc[16 x D] += A[16 x 32] M[32 x D], A given as the 4 accumulator tiles
 // x[n] (keys or queries n * 8 ..), M the 32 rows starting at m of a
 // [.][D + 8] tile stored with k along its rows (B through ldmatrix.trans)
-template <int D>
+template <int D, typename T>
 __device__ __forceinline__ void acc_times_rows(float acc[D / 8][4],
                                                const float x[4][4],
-                                               const __nv_bfloat16* m,
+                                               const T* m,
                                                int lane) {
   constexpr int S = D + 8;
   // matrices (k 0-7, cols j), (k 8-15, cols j), (k 0-7, j + 1), (k 8-15,
   // j + 1): registers 0, 1 are column tile j's fragment, 2, 3 tile j + 1's
-  const __nv_bfloat16* mo =
+  const T* mo =
       m + ((lane & 7) + ((lane >> 3) & 1) * 8) * S + (lane >> 4) * 8;
 #pragma unroll
   for (int ks = 0; ks < 2; ++ks) {
-    const uint32_t a0 = pack_bf16(x[2 * ks][0], x[2 * ks][1]);
-    const uint32_t a1 = pack_bf16(x[2 * ks][2], x[2 * ks][3]);
-    const uint32_t a2 = pack_bf16(x[2 * ks + 1][0], x[2 * ks + 1][1]);
-    const uint32_t a3 = pack_bf16(x[2 * ks + 1][2], x[2 * ks + 1][3]);
+    const uint32_t a0 = hopper::pack2<T>(x[2 * ks][0], x[2 * ks][1]);
+    const uint32_t a1 = hopper::pack2<T>(x[2 * ks][2], x[2 * ks][3]);
+    const uint32_t a2 = hopper::pack2<T>(x[2 * ks + 1][0], x[2 * ks + 1][1]);
+    const uint32_t a3 = hopper::pack2<T>(x[2 * ks + 1][2], x[2 * ks + 1][3]);
 #pragma unroll
     for (int j = 0; j < D / 8; j += 2) {
       uint32_t b[4];
       ldsm_x4_trans(b, mo + ks * 16 * S + j * 8);
-      mma_bf16(acc[j], a0, a1, a2, a3, b[0], b[1]);
-      mma_bf16(acc[j + 1], a0, a1, a2, a3, b[2], b[3]);
+      hopper::mma16816<T>(acc[j], a0, a1, a2, a3, b[0], b[1]);
+      hopper::mma16816<T>(acc[j + 1], a0, a1, a2, a3, b[2], b[3]);
     }
   }
 }
 
 // One block of 4 warps per (b * heads, 64-row query tile); warp w owns
 // query rows 16 w .. 16 w + 15 and accumulates their dq.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_tc_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v,
-    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dq,
     int heads, int kv_heads, int sq, int sk, float scale, int causal) {
   constexpr int S = D + 8;
   constexpr int DT = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* do_s = q_s + kBQ * S;
-  __nv_bfloat16* k_s = do_s + kBQ * S;
-  __nv_bfloat16* v_s = k_s + kBK * S;
+  T* q_s = reinterpret_cast<T*>(smem_raw);
+  T* do_s = q_s + kBQ * S;
+  T* k_s = do_s + kBQ * S;
+  T* v_s = k_s + kBK * S;
 
   const int q0 = blockIdx.x * kBQ;
   const int bh = blockIdx.y;
@@ -561,11 +560,11 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_tc_kernel(
   const size_t q_row = (size_t)heads * D;
   const size_t kv_row = (size_t)kv_heads * D;
   const size_t q_off = (size_t)bi * sq * q_row + (size_t)hh * D;
-  const __nv_bfloat16* k_b = k + (size_t)bi * sk * kv_row + (size_t)kvh * D;
-  const __nv_bfloat16* v_b = v + (size_t)bi * sk * kv_row + (size_t)kvh * D;
+  const T* k_b = k + (size_t)bi * sk * kv_row + (size_t)kvh * D;
+  const T* v_b = v + (size_t)bi * sk * kv_row + (size_t)kvh * D;
 
-  stage_rows<D>(q_s, q + q_off, q_row, q0, sq);
-  stage_rows<D>(do_s, dout + q_off, q_row, q0, sq);
+  stage_rows<D, T>(q_s, q + q_off, q_row, q0, sq);
+  stage_rows<D, T>(do_s, dout + q_off, q_row, q0, sq);
 
   const int r_lo = q0 + warp * 16 + g;  // this lane's two query rows
   const int r_hi = r_lo + 8;
@@ -573,8 +572,8 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_tc_kernel(
   const float lse_hi = row_lse(lse, (size_t)bh * sq, r_hi, sq);
   const float dl_lo = r_lo < sq ? delta[(size_t)bh * sq + r_lo] : 0.f;
   const float dl_hi = r_hi < sq ? delta[(size_t)bh * sq + r_hi] : 0.f;
-  const __nv_bfloat16* qw = q_s + warp * 16 * S;   // the warp's rows
-  const __nv_bfloat16* dw = do_s + warp * 16 * S;
+  const T* qw = q_s + warp * 16 * S;   // the warp's rows
+  const T* dw = do_s + warp * 16 * S;
 
   float acc[DT][4];
 #pragma unroll
@@ -583,8 +582,8 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_tc_kernel(
   const int k_end = causal ? min(sk, q0 + kBQ) : sk;
   for (int k0 = 0; k0 < k_end; k0 += kBK) {
     __syncthreads();  // the previous tile's readers are done
-    stage_rows<D>(k_s, k_b, kv_row, k0, sk);
-    stage_rows<D>(v_s, v_b, kv_row, k0, sk);
+    stage_rows<D, T>(k_s, k_b, kv_row, k0, sk);
+    stage_rows<D, T>(v_s, v_b, kv_row, k0, sk);
     __syncthreads();
 
 #pragma unroll
@@ -594,7 +593,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_tc_kernel(
       for (int n = 0; n < 4; ++n)
         s[n][0] = s[n][1] = s[n][2] = s[n][3] = dp[n][0] = dp[n][1] =
             dp[n][2] = dp[n][3] = 0.f;
-      rows_times_rows<D>(s, dp, qw, k_s + kc * S, dw, v_s + kc * S, lane);
+      rows_times_rows<D, T>(s, dp, qw, k_s + kc * S, dw, v_s + kc * S, lane);
       // s becomes dS = P (dP - delta) scale
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
@@ -610,21 +609,19 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_tc_kernel(
           s[n][2 + e] = p_hi * (dp[n][2 + e] - dl_hi) * scale;
         }
       }
-      acc_times_rows<D>(acc, s, k_s + kc * S, lane);
+      acc_times_rows<D, T>(acc, s, k_s + kc * S, lane);
     }
   }
 
-  __nv_bfloat16* dq_b = dq + q_off;
+  T* dq_b = dq + q_off;
 #pragma unroll
   for (int j = 0; j < DT; ++j) {
     const int c = j * 8 + 2 * t;
     if (r_lo < sq) {
-      *reinterpret_cast<__nv_bfloat162*>(dq_b + (size_t)r_lo * q_row + c) =
-          __floats2bfloat162_rn(acc[j][0], acc[j][1]);
+      hopper::store2(dq_b + (size_t)r_lo * q_row + c, acc[j][0], acc[j][1]);
     }
     if (r_hi < sq) {
-      *reinterpret_cast<__nv_bfloat162*>(dq_b + (size_t)r_hi * q_row + c) =
-          __floats2bfloat162_rn(acc[j][2], acc[j][3]);
+      hopper::store2(dq_b + (size_t)r_hi * q_row + c, acc[j][2], acc[j][3]);
     }
   }
 }
@@ -632,21 +629,21 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_tc_kernel(
 // One block of 4 warps per (b * kv_heads, 64-key tile); warp w owns keys
 // 16 w .. 16 w + 15 and accumulates their dk and dv over every query head
 // of the group.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kTcThreads) flash_bwd_dkv_tc_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v,
-    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-    __nv_bfloat16* __restrict__ dv, int heads, int kv_heads, int sq, int sk,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dk,
+    T* __restrict__ dv, int heads, int kv_heads, int sq, int sk,
     float scale, int causal) {
   constexpr int S = D + 8;
   constexpr int DT = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* v_s = k_s + kBK * S;
-  __nv_bfloat16* q_s = v_s + kBK * S;
-  __nv_bfloat16* do_s = q_s + kBQ * S;
+  T* k_s = reinterpret_cast<T*>(smem_raw);
+  T* v_s = k_s + kBK * S;
+  T* q_s = v_s + kBK * S;
+  T* do_s = q_s + kBQ * S;
   float* lse_s = reinterpret_cast<float*>(do_s + kBQ * S);
   float* dl_s = lse_s + kBQ;
 
@@ -663,13 +660,13 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dkv_tc_kernel(
   const size_t q_row = (size_t)heads * D;
   const size_t kv_row = (size_t)kv_heads * D;
   const size_t kv_off = (size_t)bi * sk * kv_row + (size_t)kvh * D;
-  stage_rows<D>(k_s, k + kv_off, kv_row, k0, sk);
-  stage_rows<D>(v_s, v + kv_off, kv_row, k0, sk);
+  stage_rows<D, T>(k_s, k + kv_off, kv_row, k0, sk);
+  stage_rows<D, T>(v_s, v + kv_off, kv_row, k0, sk);
 
   const int kr_lo = k0 + warp * 16 + g;  // this lane's two key rows
   const int kr_hi = kr_lo + 8;
-  const __nv_bfloat16* kw = k_s + warp * 16 * S;   // the warp's keys
-  const __nv_bfloat16* vw = v_s + warp * 16 * S;
+  const T* kw = k_s + warp * 16 * S;   // the warp's keys
+  const T* vw = v_s + warp * 16 * S;
 
   float dka[DT][4], dva[DT][4];
 #pragma unroll
@@ -685,8 +682,8 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dkv_tc_kernel(
     const size_t l_off = ((size_t)bi * heads + hh) * sq;
     for (int q0 = q_start; q0 < sq; q0 += kBQ) {
       __syncthreads();  // the previous tile's readers are done
-      stage_rows<D>(q_s, q + q_off, q_row, q0, sq);
-      stage_rows<D>(do_s, dout + q_off, q_row, q0, sq);
+      stage_rows<D, T>(q_s, q + q_off, q_row, q0, sq);
+      stage_rows<D, T>(do_s, dout + q_off, q_row, q0, sq);
       for (int r = threadIdx.x; r < kBQ; r += kTcThreads) {
         const int row = q0 + r;
         lse_s[r] = row_lse(lse, l_off, row, sq);
@@ -701,7 +698,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dkv_tc_kernel(
         for (int n = 0; n < 4; ++n)
           st[n][0] = st[n][1] = st[n][2] = st[n][3] = dpt[n][0] =
               dpt[n][1] = dpt[n][2] = dpt[n][3] = 0.f;
-        rows_times_rows<D>(st, dpt, kw, q_s + qc * S, vw, do_s + qc * S,
+        rows_times_rows<D, T>(st, dpt, kw, q_s + qc * S, vw, do_s + qc * S,
                            lane);
         // st becomes P^T, dpt becomes dS^T
 #pragma unroll
@@ -722,8 +719,8 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dkv_tc_kernel(
             dpt[n][2 + e] = p_hi * (dpt[n][2 + e] - dl) * scale;
           }
         }
-        acc_times_rows<D>(dva, st, do_s + qc * S, lane);
-        acc_times_rows<D>(dka, dpt, q_s + qc * S, lane);
+        acc_times_rows<D, T>(dva, st, do_s + qc * S, lane);
+        acc_times_rows<D, T>(dka, dpt, q_s + qc * S, lane);
       }
     }
   }
@@ -733,23 +730,20 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dkv_tc_kernel(
     const int c = j * 8 + 2 * t;
     if (kr_lo < sk) {
       const size_t at = kv_off + (size_t)kr_lo * kv_row + c;
-      *reinterpret_cast<__nv_bfloat162*>(dk + at) =
-          __floats2bfloat162_rn(dka[j][0], dka[j][1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + at) =
-          __floats2bfloat162_rn(dva[j][0], dva[j][1]);
+      hopper::store2(dk + at, dka[j][0], dka[j][1]);
+      hopper::store2(dv + at, dva[j][0], dva[j][1]);
     }
     if (kr_hi < sk) {
       const size_t at = kv_off + (size_t)kr_hi * kv_row + c;
-      *reinterpret_cast<__nv_bfloat162*>(dk + at) =
-          __floats2bfloat162_rn(dka[j][2], dka[j][3]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + at) =
-          __floats2bfloat162_rn(dva[j][2], dva[j][3]);
+      hopper::store2(dk + at, dka[j][2], dka[j][3]);
+      hopper::store2(dv + at, dva[j][2], dva[j][3]);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on Hopper, d in {64, 128}: wgmma fed by TMA through mbarrier rings
+// 16-bit (T) on Hopper, d in {64, 128}: wgmma fed by TMA through mbarrier
+// rings
 // (hopper.cuh), as the forward's flash_fwd_wgmma_kernel.
 //
 // Both kernels: warpgroups 0 and 1 are consumers, each owning 64 rows of
@@ -758,7 +752,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dkv_tc_kernel(
 // layout, 64-wide boxes along d (two at d = 128): a box never crosses a
 // batch, rows past the sequence read as zeros, and the TMA stores of dq,
 // dk and dv clip them. Every accumulator is f32; P and dS are rounded to
-// bf16 only as the register A operand of the second products (two
+// T only as the register A operand of the second products (two
 // adjacent n8 column blocks of an accumulator are one k16 A fragment).
 // Scores run in base 2: P = 2^(S scale log2e - lse log2e), one FMA and
 // one ex2. The softmax scale of dS is applied once, to dq and dk at the
@@ -881,9 +875,9 @@ __device__ __forceinline__ float row_lse2(const float* lse, size_t base,
 }
 
 // sum over part `part` (of 4) of d of a[row] * b[row], in f32; 0 past n
-template <int D>
-__device__ __forceinline__ float row_dot(const __nv_bfloat16* a,
-                                         const __nv_bfloat16* b, size_t base,
+template <int D, typename T>
+__device__ __forceinline__ float row_dot(const T* a,
+                                         const T* b, size_t base,
                                          size_t stride, int row, int n,
                                          int part) {
   if (row >= n) return 0.f;
@@ -894,12 +888,12 @@ __device__ __forceinline__ float row_dot(const __nv_bfloat16* a,
   for (int i = 0; i < kPart; i += 8) {
     const uint4 x = *reinterpret_cast<const uint4*>(a + at + i);
     const uint4 y = *reinterpret_cast<const uint4*>(b + at + i);
-    const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
-    const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y);
+    const uint32_t* xp = reinterpret_cast<const uint32_t*>(&x);
+    const uint32_t* yp = reinterpret_cast<const uint32_t*>(&y);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float2 xf = __bfloat1622float2(xp[e]);
-      const float2 yf = __bfloat1622float2(yp[e]);
+      const float2 xf = hopper::unpack2<T>(xp[e]);
+      const float2 yf = hopper::unpack2<T>(yp[e]);
       acc = fmaf(xf.x, yf.x, acc);
       acc = fmaf(xf.y, yf.y, acc);
     }
@@ -922,11 +916,11 @@ __device__ __forceinline__ BlockSlot block_slot(int n_tiles, int n_heads,
 }
 
 // a warpgroup's 64 rows of an f32 accumulator [64 x D], times `mul`, as
-// bf16 into the rows of `half` (its 64 rows inside boxes of `box_bytes`
+// T into the rows of `half` (its 64 rows inside boxes of `box_bytes`
 // each, 128-byte swizzled as TMA reads them), then stored by TMA
 // to coordinates (., c1, c2, c3) of `map`; the warpgroup's thread 0
 // waits until the store has read shared memory
-template <int D>
+template <int D, typename T>
 __device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
                                            float mul, unsigned char* half,
                                            int box_bytes,
@@ -941,9 +935,9 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
     unsigned char* box = half + (j >> 3) * box_bytes;
     const int chunk = ((j & 7) ^ (r & 7)) * 16 + 4 * (lane & 3);
     *reinterpret_cast<uint32_t*>(box + r * 128 + chunk) =
-        hopper::pack_bf16(acc[4 * j] * mul, acc[4 * j + 1] * mul);
+        hopper::pack2<T>(acc[4 * j] * mul, acc[4 * j + 1] * mul);
     *reinterpret_cast<uint32_t*>(box + (r + 8) * 128 + chunk) =
-        hopper::pack_bf16(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
+        hopper::pack2<T>(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
   }
   hopper::fence_proxy_async();
   hopper::named_bar_sync(1 + wg, 128);
@@ -957,15 +951,15 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
   }
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dq_wgmma_kernel(
     const __grid_constant__ CUtensorMap q_map,
     const __grid_constant__ CUtensorMap do_map,
     const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map,
     const __grid_constant__ CUtensorMap dq_map,
-    const __nv_bfloat16* __restrict__ out,
-    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+    const T* __restrict__ out,
+    const T* __restrict__ dout, const float* __restrict__ lse,
     float2* __restrict__ rows, int heads, int kv_heads, int sq, int sk,
     float scale, int causal, int n_bh, int chunk) {
   using C = DqCfg<D>;
@@ -1040,8 +1034,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dq_wgmma_kernel(
   // pair a row, every row of the block (past sq: +inf and 0)
   const size_t row_stride = (size_t)heads * D;
   const size_t base = (size_t)bi * sq * row_stride + (size_t)hh * D;
-  float dl_lo = row_dot<D>(out, dout, base, row_stride, r_lo, sq, lane & 3);
-  float dl_hi = row_dot<D>(out, dout, base, row_stride, r_hi, sq, lane & 3);
+  float dl_lo = row_dot<D, T>(out, dout, base, row_stride, r_lo, sq, lane & 3);
+  float dl_hi = row_dot<D, T>(out, dout, base, row_stride, r_hi, sq, lane & 3);
 #pragma unroll
   for (int x = 1; x <= 2; x <<= 1) {
     dl_lo += __shfl_xor_sync(0xffffffffu, dl_lo, x);
@@ -1092,14 +1086,14 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dq_wgmma_kernel(
     for (int kk = 0; kk < D / 16; ++kk) {
       const int off = (kk >> 2) * C::kQBox + (kk & 3) * 32;
       const int koff = (kk >> 2) * C::kKBox + (kk & 3) * 32;
-      hopper::wgmma_ss<BK, 0>(s, hopper::desc_k_major(q_wg + off),
+      hopper::wgmma_ss<BK, 0, T>(s, hopper::desc_k_major(q_wg + off),
                               hopper::desc_k_major(kb + koff), kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const int off = (kk >> 2) * C::kQBox + (kk & 3) * 32;
       const int koff = (kk >> 2) * C::kKBox + (kk & 3) * 32;
-      hopper::wgmma_ss<BK, 0>(dp, hopper::desc_k_major(do_wg + off),
+      hopper::wgmma_ss<BK, 0, T>(dp, hopper::desc_k_major(do_wg + off),
                               hopper::desc_k_major(vb + koff), kk > 0);
     }
     hopper::wgmma_commit();
@@ -1107,7 +1101,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dq_wgmma_kernel(
     hopper::fence_regs(s);
     hopper::fence_regs(dp);
 
-    // dS = P (dP - delta) as bf16 A fragments; only the ragged key tail
+    // dS = P (dP - delta) as 16-bit A fragments; only the ragged key tail
     // and the causal diagonal are masked
     const int k0 = kt * BK;
     const bool edge =
@@ -1128,17 +1122,17 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dq_wgmma_kernel(
         }
         x[e] = p * (dp[8 * ks + e] - (hi ? dl_hi : dl_lo));
       }
-      ds[ks][0] = hopper::pack_bf16(x[0], x[1]);
-      ds[ks][1] = hopper::pack_bf16(x[2], x[3]);
-      ds[ks][2] = hopper::pack_bf16(x[4], x[5]);
-      ds[ks][3] = hopper::pack_bf16(x[6], x[7]);
+      ds[ks][0] = hopper::pack2<T>(x[0], x[1]);
+      ds[ks][1] = hopper::pack2<T>(x[2], x[3]);
+      ds[ks][2] = hopper::pack2<T>(x[4], x[5]);
+      ds[ks][3] = hopper::pack2<T>(x[6], x[7]);
     }
 
     hopper::fence_regs(dq);
     hopper::wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < BK / 16; ++ks) {
-      hopper::wgmma_rs<D, 1>(dq, ds[ks],
+      hopper::wgmma_rs<D, 1, T>(dq, ds[ks],
                              hopper::desc_mn_major(kb + ks * 2048, C::kKBox),
                              1);
     }
@@ -1154,11 +1148,11 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dq_wgmma_kernel(
 
   // dq scale, through this warpgroup's rows of the Q tile (its last
   // reader was this warpgroup's last S product)
-  store_rows<D>(dq, scale, q_s + wg * 64 * 128, C::kQBox, &dq_map, hh,
+  store_rows<D, T>(dq, scale, q_s + wg * 64 * 128, C::kQBox, &dq_map, hh,
                 q0 + wg * 64, bi, wg);
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dkv_wgmma_kernel(
     const __grid_constant__ CUtensorMap q_map,
     const __grid_constant__ CUtensorMap do_map,
@@ -1272,14 +1266,14 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dkv_wgmma_kernel(
       for (int kk = 0; kk < D / 16; ++kk) {
         const int aoff = (kk >> 2) * C::kKBox + (kk & 3) * 32;
         const int boff = (kk >> 2) * C::kQBox + (kk & 3) * 32;
-        hopper::wgmma_ss<BM, 0>(st, hopper::desc_k_major(k_wg_s + aoff),
+        hopper::wgmma_ss<BM, 0, T>(st, hopper::desc_k_major(k_wg_s + aoff),
                                 hopper::desc_k_major(qb + boff), kk > 0);
       }
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int aoff = (kk >> 2) * C::kKBox + (kk & 3) * 32;
         const int boff = (kk >> 2) * C::kQBox + (kk & 3) * 32;
-        hopper::wgmma_ss<BM, 0>(dpt, hopper::desc_k_major(v_wg_s + aoff),
+        hopper::wgmma_ss<BM, 0, T>(dpt, hopper::desc_k_major(v_wg_s + aoff),
                                 hopper::desc_k_major(dob + boff), kk > 0);
       }
       hopper::wgmma_commit();
@@ -1287,7 +1281,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dkv_wgmma_kernel(
       hopper::fence_regs(st);
       hopper::fence_regs(dpt);
 
-      // P^T and dS^T as bf16 A fragments; the causal mask only where
+      // P^T and dS^T as 16-bit A fragments; the causal mask only where
       // some query of the tile precedes some key of the warpgroup
       const bool edge = causal && qs < k_wg + 63;
       uint32_t pt[BM / 16][4], dst[BM / 16][4];
@@ -1312,14 +1306,14 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dkv_wgmma_kernel(
             y[4 * h + e] = p * (dpt[i] - ((e & 1) ? ld.w : ld.y));
           }
         }
-        pt[ks][0] = hopper::pack_bf16(x[0], x[1]);
-        pt[ks][1] = hopper::pack_bf16(x[2], x[3]);
-        pt[ks][2] = hopper::pack_bf16(x[4], x[5]);
-        pt[ks][3] = hopper::pack_bf16(x[6], x[7]);
-        dst[ks][0] = hopper::pack_bf16(y[0], y[1]);
-        dst[ks][1] = hopper::pack_bf16(y[2], y[3]);
-        dst[ks][2] = hopper::pack_bf16(y[4], y[5]);
-        dst[ks][3] = hopper::pack_bf16(y[6], y[7]);
+        pt[ks][0] = hopper::pack2<T>(x[0], x[1]);
+        pt[ks][1] = hopper::pack2<T>(x[2], x[3]);
+        pt[ks][2] = hopper::pack2<T>(x[4], x[5]);
+        pt[ks][3] = hopper::pack2<T>(x[6], x[7]);
+        dst[ks][0] = hopper::pack2<T>(y[0], y[1]);
+        dst[ks][1] = hopper::pack2<T>(y[2], y[3]);
+        dst[ks][2] = hopper::pack2<T>(y[4], y[5]);
+        dst[ks][3] = hopper::pack2<T>(y[6], y[7]);
       }
 
       hopper::fence_regs(dv);
@@ -1327,12 +1321,12 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dkv_wgmma_kernel(
       hopper::wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < BM / 16; ++ks) {
-        hopper::wgmma_rs<D, 1>(
+        hopper::wgmma_rs<D, 1, T>(
             dv, pt[ks], hopper::desc_mn_major(dob + ks * 2048, C::kQBox), 1);
       }
 #pragma unroll
       for (int ks = 0; ks < BM / 16; ++ks) {
-        hopper::wgmma_rs<D, 1>(
+        hopper::wgmma_rs<D, 1, T>(
             dk, dst[ks], hopper::desc_mn_major(qb + ks * 2048, C::kQBox), 1);
       }
       hopper::wgmma_commit();
@@ -1348,14 +1342,14 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dkv_wgmma_kernel(
   }
 
   // dk scale and dv, through this warpgroup's rows of K and V
-  store_rows<D>(dk, scale, k_s + wg * 64 * 128, C::kKBox, &dk_map, kvh,
+  store_rows<D, T>(dk, scale, k_s + wg * 64 * 128, C::kKBox, &dk_map, kvh,
                 k_wg, bi, wg);
-  store_rows<D>(dv, 1.f, v_s + wg * 64 * 128, C::kKBox, &dv_map, kvh, k_wg,
+  store_rows<D, T>(dv, 1.f, v_s + wg * 64 * 128, C::kKBox, &dv_map, kvh, k_wg,
                 bi, wg);
 }
 
-// a bf16 [batch, seq, heads, D] tensor map with boxes of `rows` x 64
-template <int D>
+// a 16-bit [batch, seq, heads, D] tensor map with boxes of `rows` x 64
+template <int D, typename T>
 int seq_map(CUtensorMap* map, const void* base, int batch, int seq,
             int heads, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
@@ -1364,7 +1358,7 @@ int seq_map(CUtensorMap* map, const void* base, int batch, int seq,
                                  (cuuint64_t)heads * D * 2,
                                  (cuuint64_t)seq * heads * D * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  return hopper::encode_bf16_map(map, base, 4, dims, strides, box);
+  return hopper::encode_16bit_map<T>(map, base, 4, dims, strides, box);
 }
 
 // (batch, head) pairs per chunk of the block order, as the forward's:
@@ -1376,7 +1370,7 @@ inline int chunk_heads(long long per_head, int n_heads) {
   return (int)(chunk < 1 ? 1 : chunk > n_heads ? n_heads : chunk);
 }
 
-template <int D>
+template <int D, typename T>
 int launch_dq_wgmma(const void* q, const void* k, const void* v,
                     const void* dout, const void* out, const float* lse,
                     float2* rows, void* dq, int batch, int heads,
@@ -1384,13 +1378,13 @@ int launch_dq_wgmma(const void* q, const void* k, const void* v,
                     cudaStream_t stream) {
   using C = DqCfg<D>;
   CUtensorMap q_map, do_map, k_map, v_map, dq_map;
-  int err = seq_map<D>(&q_map, q, batch, sq, heads, kHRows);
-  if (!err) err = seq_map<D>(&do_map, dout, batch, sq, heads, kHRows);
-  if (!err) err = seq_map<D>(&k_map, k, batch, sk, kv_heads, C::kBK);
-  if (!err) err = seq_map<D>(&v_map, v, batch, sk, kv_heads, C::kBK);
-  if (!err) err = seq_map<D>(&dq_map, dq, batch, sq, heads, 64);
+  int err = seq_map<D, T>(&q_map, q, batch, sq, heads, kHRows);
+  if (!err) err = seq_map<D, T>(&do_map, dout, batch, sq, heads, kHRows);
+  if (!err) err = seq_map<D, T>(&k_map, k, batch, sk, kv_heads, C::kBK);
+  if (!err) err = seq_map<D, T>(&v_map, v, batch, sk, kv_heads, C::kBK);
+  if (!err) err = seq_map<D, T>(&dq_map, dq, batch, sq, heads, 64);
   if (err) return err;
-  auto kernel = flash_bwd_dq_wgmma_kernel<D>;
+  auto kernel = flash_bwd_dq_wgmma_kernel<D, T>;
   const cudaError_t cerr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (cerr != cudaSuccess) return (int)cerr;
@@ -1400,27 +1394,27 @@ int launch_dq_wgmma(const void* q, const void* k, const void* v,
   const long long blocks = (long long)((sq + kHRows - 1) / kHRows) * n_bh;
   kernel<<<(unsigned)blocks, kBwdThreads, C::kSmem, stream>>>(
       q_map, do_map, k_map, v_map, dq_map,
-      static_cast<const __nv_bfloat16*>(out),
-      static_cast<const __nv_bfloat16*>(dout), lse, rows, heads, kv_heads,
+      static_cast<const T*>(out),
+      static_cast<const T*>(dout), lse, rows, heads, kv_heads,
       sq, sk, scale, causal, n_bh, chunk);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename T>
 int launch_dkv_wgmma(const void* q, const void* k, const void* v,
                      const void* dout, const float2* rows, void* dk,
                      void* dv, int batch, int heads, int kv_heads, int sq,
                      int sk, float scale, int causal, cudaStream_t stream) {
   using C = DkvCfg<D>;
   CUtensorMap q_map, do_map, k_map, v_map, dk_map, dv_map;
-  int err = seq_map<D>(&q_map, q, batch, sq, heads, C::kBM);
-  if (!err) err = seq_map<D>(&do_map, dout, batch, sq, heads, C::kBM);
-  if (!err) err = seq_map<D>(&k_map, k, batch, sk, kv_heads, kHRows);
-  if (!err) err = seq_map<D>(&v_map, v, batch, sk, kv_heads, kHRows);
-  if (!err) err = seq_map<D>(&dk_map, dk, batch, sk, kv_heads, 64);
-  if (!err) err = seq_map<D>(&dv_map, dv, batch, sk, kv_heads, 64);
+  int err = seq_map<D, T>(&q_map, q, batch, sq, heads, C::kBM);
+  if (!err) err = seq_map<D, T>(&do_map, dout, batch, sq, heads, C::kBM);
+  if (!err) err = seq_map<D, T>(&k_map, k, batch, sk, kv_heads, kHRows);
+  if (!err) err = seq_map<D, T>(&v_map, v, batch, sk, kv_heads, kHRows);
+  if (!err) err = seq_map<D, T>(&dk_map, dk, batch, sk, kv_heads, 64);
+  if (!err) err = seq_map<D, T>(&dv_map, dv, batch, sk, kv_heads, 64);
   if (err) return err;
-  auto kernel = flash_bwd_dkv_wgmma_kernel<D>;
+  auto kernel = flash_bwd_dkv_wgmma_kernel<D, T>;
   const cudaError_t cerr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (cerr != cudaSuccess) return (int)cerr;
@@ -1441,7 +1435,7 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int D>
+template <int D, typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, int batch,
               int heads, int kv_heads, int sq, int sk, float scale,
@@ -1457,23 +1451,23 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
         delta, static_cast<float*>(dq), heads, kv_heads, sq, sk, scale,
         causal);
-  } else {
-    auto kernel = flash_bwd_dq_tc_kernel<D>;
+  } else if constexpr (!std::is_same<T, float>::value) {
+    auto kernel = flash_bwd_dq_tc_kernel<D, T>;
     const size_t smem = tc_smem_bytes(D);
     cudaError_t err = prepare(kernel, smem);
     if (err != cudaSuccess) return (int)err;
     kernel<<<grid, kTcThreads, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<const __nv_bfloat16*>(dout), lse, delta,
-        static_cast<__nv_bfloat16*>(dq), heads, kv_heads, sq, sk, scale,
+        static_cast<const T*>(q),
+        static_cast<const T*>(k),
+        static_cast<const T*>(v),
+        static_cast<const T*>(dout), lse, delta,
+        static_cast<T*>(dq), heads, kv_heads, sq, sk, scale,
         causal);
   }
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename T>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, void* dk, void* dv,
                int batch, int heads, int kv_heads, int sq, int sk,
@@ -1489,36 +1483,126 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
         delta, static_cast<float*>(dk), static_cast<float*>(dv), heads,
         kv_heads, sq, sk, scale, causal);
-  } else {
-    auto kernel = flash_bwd_dkv_tc_kernel<D>;
+  } else if constexpr (!std::is_same<T, float>::value) {
+    auto kernel = flash_bwd_dkv_tc_kernel<D, T>;
     const size_t smem = tc_smem_bytes(D);
     cudaError_t err = prepare(kernel, smem);
     if (err != cudaSuccess) return (int)err;
     kernel<<<grid, kTcThreads, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<const __nv_bfloat16*>(dout), lse, delta,
-        static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+        static_cast<const T*>(q),
+        static_cast<const T*>(k),
+        static_cast<const T*>(v),
+        static_cast<const T*>(dout), lse, delta,
+        static_cast<T*>(dk), static_cast<T*>(dv),
         heads, kv_heads, sq, sk, scale, causal);
   }
   return (int)cudaGetLastError();
+}
+
+// the kernels of one element type T (float selects the FMA kernels, bf16
+// and __half the mma.sync kernels or, with variant 1, the wgmma kernels)
+template <typename T>
+int dq_typed(const void* q, const void* k, const void* v, const void* dout,
+             const void* out, const float* l, void* delta, void* dq,
+             int batch, int heads, int kv_heads, int sq, int sk, int d,
+             float scale, int causal, int variant, cudaStream_t s) {
+  constexpr int dtype = std::is_same<T, float>::value ? 0 : 1;
+  if (variant != 0) {
+    if (variant != 1 || dtype == 0 || sk == 0) {
+      return (int)cudaErrorInvalidValue;
+    }
+    if constexpr (dtype == 1) {
+      float2* rows = static_cast<float2*>(delta);
+      if (d == 64) {
+        return launch_dq_wgmma<64, T>(q, k, v, dout, out, l, rows, dq, batch,
+                                      heads, kv_heads, sq, sk, scale, causal,
+                                      s);
+      }
+      if (d == 128) {
+        return launch_dq_wgmma<128, T>(q, k, v, dout, out, l, rows, dq,
+                                       batch, heads, kv_heads, sq, sk, scale,
+                                       causal, s);
+      }
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  const float* dl = static_cast<const float*>(delta);
+  switch (d) {
+    case 16:
+      return launch_dq<16, T>(q, k, v, dout, l, dl, dq, batch, heads,
+                              kv_heads, sq, sk, scale, causal, dtype, s);
+    case 32:
+      return launch_dq<32, T>(q, k, v, dout, l, dl, dq, batch, heads,
+                              kv_heads, sq, sk, scale, causal, dtype, s);
+    case 64:
+      return launch_dq<64, T>(q, k, v, dout, l, dl, dq, batch, heads,
+                              kv_heads, sq, sk, scale, causal, dtype, s);
+    case 128:
+      return launch_dq<128, T>(q, k, v, dout, l, dl, dq, batch, heads,
+                               kv_heads, sq, sk, scale, causal, dtype, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int dkv_typed(const void* q, const void* k, const void* v, const void* dout,
+              const float* l, const void* delta, void* dk, void* dv,
+              int batch, int heads, int kv_heads, int sq, int sk, int d,
+              float scale, int causal, int variant, cudaStream_t s) {
+  constexpr int dtype = std::is_same<T, float>::value ? 0 : 1;
+  if (variant != 0) {
+    if (variant != 1 || dtype == 0 || sq == 0) {
+      return (int)cudaErrorInvalidValue;
+    }
+    if constexpr (dtype == 1) {
+      const float2* rows = static_cast<const float2*>(delta);
+      if (d == 64) {
+        return launch_dkv_wgmma<64, T>(q, k, v, dout, rows, dk, dv, batch,
+                                       heads, kv_heads, sq, sk, scale, causal,
+                                       s);
+      }
+      if (d == 128) {
+        return launch_dkv_wgmma<128, T>(q, k, v, dout, rows, dk, dv, batch,
+                                        heads, kv_heads, sq, sk, scale,
+                                        causal, s);
+      }
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  const float* dl = static_cast<const float*>(delta);
+  switch (d) {
+    case 16:
+      return launch_dkv<16, T>(q, k, v, dout, l, dl, dk, dv, batch, heads,
+                               kv_heads, sq, sk, scale, causal, dtype, s);
+    case 32:
+      return launch_dkv<32, T>(q, k, v, dout, l, dl, dk, dv, batch, heads,
+                               kv_heads, sq, sk, scale, causal, dtype, s);
+    case 64:
+      return launch_dkv<64, T>(q, k, v, dout, l, dl, dk, dv, batch, heads,
+                               kv_heads, sq, sk, scale, causal, dtype, s);
+    case 128:
+      return launch_dkv<128, T>(q, k, v, dout, l, dl, dk, dv, batch, heads,
+                                kv_heads, sq, sk, scale, causal, dtype, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout, out and the gradients
-// share it); lse is float32 [batch, heads, sq]. bf16 q, k, v, dout and
-// out must start on a 16-byte boundary (the caller copies them if not).
-// variant: 0 = the kernels of the dtype (f32 FMA, or mma.sync for bf16),
-// which read delta = rowsum(dout * out) from `delta`, float32 [batch,
-// heads, sq]; 1 = the Hopper wgmma/TMA kernels (bf16, d 64 or 128, sq
-// and sk > 0): `delta` is then float32 [batch * heads, sq_pad, 2], sq_pad
-// = sq rounded up to 128, which the dq kernel fills with (lse log2(e),
-// delta) pairs (computing delta from out and dout) for the dk/dv kernel,
-// launched after it on the same stream.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v, dout, out and
+// the gradients share it); lse is float32 [batch, heads, sq]. 16-bit q,
+// k, v, dout and out must start on a 16-byte boundary (the caller copies
+// them if not). variant: 0 = the kernels of the dtype (f32 FMA, or
+// mma.sync for bf16 and f16), which read delta = rowsum(dout * out) from
+// `delta`, float32 [batch, heads, sq]; 1 = the Hopper wgmma/TMA kernels
+// (bf16 or f16, d 64 or 128, sq and sk > 0): `delta` is then float32
+// [batch * heads, sq_pad, 2], sq_pad = sq rounded up to 128, which the dq
+// kernel fills with (lse log2(e), delta) pairs (computing delta from out
+// and dout) for the dk/dv kernel, launched after it on the same stream.
 int flash_attention_bwd_dq_launch(const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* out, const void* lse,
@@ -1527,38 +1611,19 @@ int flash_attention_bwd_dq_launch(const void* q, const void* k,
                                   int d, float scale, int causal, int dtype,
                                   int variant, void* stream) {
   if (batch == 0 || sq == 0) return 0;
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
-  if (variant != 0) {
-    if (variant != 1 || dtype != 1 || sk == 0) {
-      return (int)cudaErrorInvalidValue;
-    }
-    float2* rows = static_cast<float2*>(delta);
-    if (d == 64) {
-      return launch_dq_wgmma<64>(q, k, v, dout, out, l, rows, dq, batch,
-                                 heads, kv_heads, sq, sk, scale, causal, s);
-    }
-    if (d == 128) {
-      return launch_dq_wgmma<128>(q, k, v, dout, out, l, rows, dq, batch,
-                                  heads, kv_heads, sq, sk, scale, causal, s);
-    }
-    return (int)cudaErrorInvalidValue;
-  }
-  switch (d) {
-    case 16:
-      return launch_dq<16>(q, k, v, dout, l, dl, dq, batch, heads, kv_heads,
-                           sq, sk, scale, causal, dtype, s);
-    case 32:
-      return launch_dq<32>(q, k, v, dout, l, dl, dq, batch, heads, kv_heads,
-                           sq, sk, scale, causal, dtype, s);
-    case 64:
-      return launch_dq<64>(q, k, v, dout, l, dl, dq, batch, heads, kv_heads,
-                           sq, sk, scale, causal, dtype, s);
-    case 128:
-      return launch_dq<128>(q, k, v, dout, l, dl, dq, batch, heads,
-                            kv_heads, sq, sk, scale, causal, dtype, s);
+  switch (dtype) {
+    case 0:
+      return dq_typed<float>(q, k, v, dout, out, l, delta, dq, batch, heads,
+                             kv_heads, sq, sk, d, scale, causal, variant, s);
+    case 1:
+      return dq_typed<__nv_bfloat16>(q, k, v, dout, out, l, delta, dq, batch,
+                                     heads, kv_heads, sq, sk, d, scale,
+                                     causal, variant, s);
+    case 2:
+      return dq_typed<__half>(q, k, v, dout, out, l, delta, dq, batch, heads,
+                              kv_heads, sq, sk, d, scale, causal, variant, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1572,38 +1637,20 @@ int flash_attention_bwd_dkv_launch(const void* q, const void* k,
                                    float scale, int causal, int dtype,
                                    int variant, void* stream) {
   if (batch == 0 || sk == 0) return 0;
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  if (variant != 0) {
-    if (variant != 1 || dtype != 1 || sq == 0) {
-      return (int)cudaErrorInvalidValue;
-    }
-    const float2* rows = static_cast<const float2*>(delta);
-    if (d == 64) {
-      return launch_dkv_wgmma<64>(q, k, v, dout, rows, dk, dv, batch, heads,
-                                  kv_heads, sq, sk, scale, causal, s);
-    }
-    if (d == 128) {
-      return launch_dkv_wgmma<128>(q, k, v, dout, rows, dk, dv, batch,
-                                   heads, kv_heads, sq, sk, scale, causal, s);
-    }
-    return (int)cudaErrorInvalidValue;
-  }
-  switch (d) {
-    case 16:
-      return launch_dkv<16>(q, k, v, dout, l, dl, dk, dv, batch, heads,
-                            kv_heads, sq, sk, scale, causal, dtype, s);
-    case 32:
-      return launch_dkv<32>(q, k, v, dout, l, dl, dk, dv, batch, heads,
-                            kv_heads, sq, sk, scale, causal, dtype, s);
-    case 64:
-      return launch_dkv<64>(q, k, v, dout, l, dl, dk, dv, batch, heads,
-                            kv_heads, sq, sk, scale, causal, dtype, s);
-    case 128:
-      return launch_dkv<128>(q, k, v, dout, l, dl, dk, dv, batch, heads,
-                             kv_heads, sq, sk, scale, causal, dtype, s);
+  switch (dtype) {
+    case 0:
+      return dkv_typed<float>(q, k, v, dout, l, delta, dk, dv, batch, heads,
+                              kv_heads, sq, sk, d, scale, causal, variant, s);
+    case 1:
+      return dkv_typed<__nv_bfloat16>(q, k, v, dout, l, delta, dk, dv, batch,
+                                      heads, kv_heads, sq, sk, d, scale,
+                                      causal, variant, s);
+    case 2:
+      return dkv_typed<__half>(q, k, v, dout, l, delta, dk, dv, batch, heads,
+                               kv_heads, sq, sk, d, scale, causal, variant,
+                               s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -261,32 +261,31 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B from shared memory,
+// bf16 (wgmma_ss_n64) or f16 (wgmma_ss_n64_f16) operands
+#define HOPPER_WGMMA_SS_N64(NAME, TY) \
+template <int TransB> \
+__device__ __forceinline__ void NAME(float (&d)[32], uint64_t a, \
+                                     uint64_t b, int scale_d) { \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+      "%24, %25, %26, %27, %28, %29, %30, %31" \
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TransB)); \
 }
-
-// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B from shared memory
-template <int TransB>
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
-                                           uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TransB));
-}
+HOPPER_WGMMA_SS_N64(wgmma_ss_n64, "bf16")
+HOPPER_WGMMA_SS_N64(wgmma_ss_n64_f16, "f16")
 
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B from shared memory,
 // bf16 (wgmma_ss_n128) or f16 (wgmma_ss_n128_f16) operands
@@ -384,96 +383,165 @@ HOPPER_WGMMA_SS_N256(wgmma_ss_n256, "bf16")
 HOPPER_WGMMA_SS_N256(wgmma_ss_n256_f16, "f16")
 
 // D[64 x 64] += A[64 x 16] B[16 x 64], A from registers (the mma.sync
-// m16n8k16 A fragment of each warp's 16 rows), B from shared memory
-template <int TransB>
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                            const uint32_t (&a)[4], uint64_t b,
-                                            int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TransB));
+// m16n8k16 A fragment of each warp's 16 rows), B from shared memory;
+// bf16 (wgmma_rs_n64) or f16 (wgmma_rs_n64_f16) operands
+#define HOPPER_WGMMA_RS_N64(NAME, TY) \
+template <int TransB> \
+__device__ __forceinline__ void NAME(float (&d)[32], \
+                                            const uint32_t (&a)[4], uint64_t b, \
+                                            int scale_d) { \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+      "%24, %25, %26, %27, %28, %29, %30, %31" \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TransB)); \
 }
+HOPPER_WGMMA_RS_N64(wgmma_rs_n64, "bf16")
+HOPPER_WGMMA_RS_N64(wgmma_rs_n64_f16, "f16")
 
 // D[64 x 128] += A[64 x 16] B[16 x 128], A from registers (the mma.sync
-// m16n8k16 A fragment of each warp's 16 rows), B from shared memory
-template <int TransB>
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                            const uint32_t (&a)[4], uint64_t b,
-                                            int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TransB));
+// m16n8k16 A fragment of each warp's 16 rows), B from shared memory;
+// bf16 (wgmma_rs_n128) or f16 (wgmma_rs_n128_f16) operands
+#define HOPPER_WGMMA_RS_N128(NAME, TY) \
+template <int TransB> \
+__device__ __forceinline__ void NAME(float (&d)[64], \
+                                            const uint32_t (&a)[4], uint64_t b, \
+                                            int scale_d) { \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, " \
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, " \
+      "%60, %61, %62, %63" \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TransB)); \
 }
+HOPPER_WGMMA_RS_N128(wgmma_rs_n128, "bf16")
+HOPPER_WGMMA_RS_N128(wgmma_rs_n128_f16, "f16")
 
-// wgmma_ss<N, TransB[, E]> / wgmma_rs<N, TransB>: the wrappers above by
-// width (and, for wgmma_ss at N 128 and 256, by operand type E: bf16 or
-// __half)
+// wgmma_ss<N, TransB[, E]> / wgmma_rs<N, TransB[, E]>: the wrappers above
+// by width and operand type E (bf16 or __half)
 template <int N, int TransB, typename E = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
                                          uint64_t b, int scale_d) {
-  if constexpr (sizeof(E) == 2 && !std::is_same<E, __nv_bfloat16>::value) {
-    static_assert(N == 128 || N == 256, "f16 wgmma_ss: N is 128 or 256");
-    if constexpr (N == 128) {
-      wgmma_ss_n128_f16<TransB>(d, a, b, scale_d);
-    } else {
-      wgmma_ss_n256_f16<TransB>(d, a, b, scale_d);
-    }
-  } else if constexpr (N == 64) {
-    wgmma_ss_n64<TransB>(d, a, b, scale_d);
+  constexpr bool kHalf = std::is_same<E, __half>::value;
+  static_assert(kHalf || std::is_same<E, __nv_bfloat16>::value,
+                "wgmma_ss: E is bf16 or __half");
+  if constexpr (N == 64) {
+    if constexpr (kHalf) wgmma_ss_n64_f16<TransB>(d, a, b, scale_d);
+    else wgmma_ss_n64<TransB>(d, a, b, scale_d);
   } else if constexpr (N == 128) {
-    wgmma_ss_n128<TransB>(d, a, b, scale_d);
+    if constexpr (kHalf) wgmma_ss_n128_f16<TransB>(d, a, b, scale_d);
+    else wgmma_ss_n128<TransB>(d, a, b, scale_d);
   } else {
     static_assert(N == 256, "wgmma_ss: N is 64, 128 or 256");
-    wgmma_ss_n256<TransB>(d, a, b, scale_d);
+    if constexpr (kHalf) wgmma_ss_n256_f16<TransB>(d, a, b, scale_d);
+    else wgmma_ss_n256<TransB>(d, a, b, scale_d);
   }
 }
 
-template <int N, int TransB>
+template <int N, int TransB, typename E = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t b,
                                          int scale_d) {
+  constexpr bool kHalf = std::is_same<E, __half>::value;
+  static_assert(kHalf || std::is_same<E, __nv_bfloat16>::value,
+                "wgmma_rs: E is bf16 or __half");
   if constexpr (N == 64) {
-    wgmma_rs_n64<TransB>(d, a, b, scale_d);
+    if constexpr (kHalf) wgmma_rs_n64_f16<TransB>(d, a, b, scale_d);
+    else wgmma_rs_n64<TransB>(d, a, b, scale_d);
   } else {
     static_assert(N == 128, "wgmma_rs: N is 64 or 128");
-    wgmma_rs_n128<TransB>(d, a, b, scale_d);
+    if constexpr (kHalf) wgmma_rs_n128_f16<TransB>(d, a, b, scale_d);
+    else wgmma_rs_n128<TransB>(d, a, b, scale_d);
+  }
+}
+
+// 16-bit float elements, E = bf16 or __half: two f32 values as one
+// register (rounded to nearest; the lower half holds lo), one register
+// back to two f32 values, a pair stored, and mma.sync m16n8k16 on E
+// operands with f32 accumulators (c += a b, the PTX ISA's fragments)
+template <typename E>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<E, __half>::value) {
+    __half2 h = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  } else {
+    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+}
+
+template <typename E>
+__device__ __forceinline__ float2 unpack2(uint32_t w) {
+  if constexpr (std::is_same<E, __half>::value) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&w));
+  } else {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+  }
+}
+
+template <typename E>
+__device__ __forceinline__ void store2(E* p, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(p) = pack2<E>(lo, hi);
+}
+
+// two elements from two addresses as one register (lo in the lower half)
+template <typename E>
+__device__ __forceinline__ uint32_t pair2(const E* lo, const E* hi) {
+  return (uint32_t)*reinterpret_cast<const uint16_t*>(lo) |
+         ((uint32_t)*reinterpret_cast<const uint16_t*>(hi) << 16);
+}
+
+template <typename E>
+__device__ __forceinline__ void mma16816(float c[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  if constexpr (std::is_same<E, __half>::value) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
   }
 }
 

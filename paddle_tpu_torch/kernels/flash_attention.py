@@ -22,10 +22,14 @@ their plain PyTorch versions (``flash_attention_ref``,
 ``flash_attention_bwd_ref``) only for tensors on the CPU. Each has three
 device designs; ``_fwd_variant`` and ``_bwd_variant`` pick one from the
 dtype, head dim and lengths before the launch (counted per variant):
-"wgmma" (Hopper: TMA, an mbarrier ring and wgmma; bf16, d 64 or 128),
-"mma" (mma.sync, the other bf16 head dims) and "fma" (exact f32). The
-wgmma dq kernel also computes delta = rowsum(dO * O) for the dk/dv
-kernel; the other designs read it from ``attention_delta``.
+"wgmma" (Hopper: TMA, an mbarrier ring and wgmma; 16-bit, d 64 or 128),
+"mma" (mma.sync, the other 16-bit head dims) and "fma" (exact f32). The
+16-bit designs have a bf16 and a float16 instance each (one template in
+the sources); every launch is also counted under its dtype
+(``"<name>/bfloat16"``, ``"<name>/float16"``, ``"<name>/float32"``), so a
+run can tell a float16 launch from a bf16 one. The wgmma dq kernel also
+computes delta = rowsum(dO * O) for the dk/dv kernel; the other designs
+read it from ``attention_delta``.
 """
 from __future__ import annotations
 
@@ -50,7 +54,7 @@ _VARIANTS = {"fma": 0, "mma": 0, "wgmma": 1}
 # the backward kernels keep their f32 accumulators in registers: up to
 # d = 128 (d = 256 would not fit the f32 kernels' shared memory either)
 BWD_HEAD_DIMS = (16, 32, 64, 128)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _libs = {}
 
 
@@ -99,8 +103,8 @@ def _check_cuda(tensors, head_dims):
     if _DTYPES.get(q.dtype) is None or any(t.dtype != q.dtype
                                            for t in tensors):
         raise TypeError(
-            f"flash_attention kernel takes float32 or bfloat16 tensors of "
-            f"one dtype, got {[t.dtype for t in tensors]}"
+            f"flash_attention kernel takes float32, bfloat16 or float16 "
+            f"tensors of one dtype, got {[t.dtype for t in tensors]}"
         )
     d = q.shape[-1]
     if d not in head_dims:
@@ -112,7 +116,7 @@ def _check_cuda(tensors, head_dims):
 
 
 def _aligned(t):
-    """``t`` contiguous and starting on a 16-byte boundary (the bf16
+    """``t`` contiguous and starting on a 16-byte boundary (the 16-bit
     kernels stage rows with 16-byte loads; a TMA tensor map needs its base
     there): a copy if it is not."""
     t = t.contiguous()
@@ -128,11 +132,16 @@ def _raise_on(err, what):
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
+def _dtype_name(t):
+    """The launch count's dtype key: "bfloat16", "float16", "float32"."""
+    return str(t.dtype).removeprefix("torch.")
+
+
 def _fwd_variant(dtype, d, sq, sk):
     """The forward's device kernel for this dtype, head dim and lengths:
-    "wgmma" for bf16 at d 64 or 128 with keys to read, "mma" for the
-    other bf16 head dims (and sk == 0, which has no tensor map), "fma"
-    for float32."""
+    "wgmma" for bf16 or float16 at d 64 or 128 with keys to read, "mma"
+    for the other 16-bit head dims (and sk == 0, which has no tensor
+    map), "fma" for float32."""
     if dtype == torch.float32:
         return "fma"
     if d in WGMMA_HEAD_DIMS and sq > 0 and sk > 0:
@@ -176,7 +185,7 @@ def _launch_fwd(q, k, v, causal, scale, variant=None):
             _stream(q.device),
         )
     _raise_on(err, f"flash_attention ({variant})")
-    _build.count_launch("flash_attention", variant)
+    _build.count_launch("flash_attention", variant, _dtype_name(q))
     return out, lse
 
 
@@ -285,7 +294,7 @@ def _launch_bwd_dq(q, k, v, do, out, lse, delta, causal, scale, variant):
             *_bwd_args(q, k, causal, scale, variant),
         )
     _raise_on(err, f"flash_attention_bwd_dq ({variant})")
-    _build.count_launch("flash_attention_bwd_dq", variant)
+    _build.count_launch("flash_attention_bwd_dq", variant, _dtype_name(q))
     return dq
 
 
@@ -302,7 +311,8 @@ def _launch_bwd_dkv(q, k, v, do, lse, delta, causal, scale, variant):
             *_bwd_args(q, k, causal, scale, variant),
         )
     _raise_on(err, f"flash_attention_bwd_dkv ({variant})")
-    _build.count_launch("flash_attention_bwd_dkv", variant)
+    _build.count_launch("flash_attention_bwd_dkv", variant,
+                        _dtype_name(q))
     return dk, dv
 
 

@@ -1,4 +1,10 @@
 """Training utilities of the port."""
-from .clip import ClipGradByGlobalNorm
+from .clip import (
+    ClipGradBase,
+    ClipGradByGlobalNorm,
+    ClipGradByNorm,
+    ClipGradByValue,
+)
 
-__all__ = ["ClipGradByGlobalNorm"]
+__all__ = ["ClipGradBase", "ClipGradByGlobalNorm", "ClipGradByNorm",
+           "ClipGradByValue"]

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from ..amp.auto_cast import amp_op
 __all__ = ["rope_qk", "rope_table", "apply_rope",
            "fused_linear_cross_entropy"]
 
@@ -46,6 +47,7 @@ def apply_rope(x, cos, sin):
     return out.to(x.dtype)
 
 
+@amp_op("rope_qk")
 def rope_qk(q, k, position_ids=None, *, base=10000.0):
     """Rotate q and k. ``position_ids`` ([b, s] or [s]) gives each token's
     absolute position (decode rotates the new token at its cache
@@ -106,6 +108,7 @@ class _FusedLinearCrossEntropy(torch.autograd.Function):
         return dx, dw.to(weight.dtype), None, None, None
 
 
+@amp_op("fused_linear_cross_entropy")
 def fused_linear_cross_entropy(x, weight, labels, *, chunk_size=4096,
                                ignore_index=-100):
     """Chunked LM head plus softmax cross entropy: the mean CE of

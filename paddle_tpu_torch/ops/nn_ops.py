@@ -4,6 +4,8 @@ Counterpart of the parts of ``paddle_tpu/ops/impl/nn_ops.py`` the
 serving and training slices run: ``rms_norm``,
 ``scaled_dot_product_attention`` and ``cross_entropy``. Layouts follow
 the JAX package: attention tensors are [batch, seq, heads, head_dim].
+Each is one op of the ``amp.auto_cast`` policy, by its name
+(``amp_op``).
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import math
 
 import torch
 
+from ..amp.auto_cast import amp_op
 from ..kernels import flash_attention as _flash
 
 __all__ = [
@@ -19,6 +22,7 @@ __all__ = [
 ]
 
 
+@amp_op("rms_norm")
 def rms_norm(x, weight=None, *, epsilon=1e-6):
     """Over the last dim: f32 accumulation, cast back to x's dtype, then
     the scale."""
@@ -29,7 +33,8 @@ def rms_norm(x, weight=None, *, epsilon=1e-6):
 
 
 def flash_eligible(query, key, value, attn_mask, is_causal):
-    """The flash kernel's contract: CUDA tensors of one supported dtype,
+    """The flash kernel's contract: CUDA tensors of one supported dtype
+    (float32, bfloat16 or float16, as the JAX kernel takes any float),
     no mask, a supported head dim, k/v heads dividing q
     heads, and no causal call with sq != sk (the kernel's causal mask is
     top-left aligned, the math form's bottom-right; KV-cache attention
@@ -53,10 +58,11 @@ def flash_eligible(query, key, value, attn_mask, is_causal):
     if torch.is_grad_enabled() and d not in _flash.BWD_HEAD_DIMS and any(
             t.requires_grad for t in (query, key, value)):
         return False
-    return (query.dtype in (torch.float32, torch.bfloat16)
+    return (query.dtype in (torch.float32, torch.bfloat16, torch.float16)
             and key.dtype == query.dtype and value.dtype == query.dtype)
 
 
+@amp_op("scaled_dot_product_attention")
 def scaled_dot_product_attention(query, key, value, attn_mask=None, *,
                                  is_causal=False, scale=None):
     """[batch, seq, heads, head_dim] attention. Calls that fit
@@ -99,6 +105,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None, *,
     return out.transpose(1, 2).to(query.dtype)
 
 
+@amp_op("cross_entropy")
 def cross_entropy(logits, labels, ignore_index=-100, reduction="mean"):
     """Softmax cross entropy over the last dim with integer ``labels``
     (the JAX ``cross_entropy`` with hard labels): f32 log-softmax, the

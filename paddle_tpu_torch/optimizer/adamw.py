@@ -5,7 +5,8 @@ one) before the Adam update, scaled by the effective learning rate:
 ``w *= 1 - lr * lr_ratio(p) * coeff``. ``apply_decay_param_fun(name)``
 chooses the parameters that decay; ``lr_ratio(param)`` scales each
 parameter's learning rate; a group's own ``weight_decay`` is its
-decoupled coefficient.
+decoupled coefficient. A parameter's own ``regularizer`` (``L1Decay``,
+``L2Decay``) is added to its gradient as well, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -30,14 +31,16 @@ class AdamW(Adam):
         self._lr_ratio = lr_ratio
         self._apply_decay_param_fun = apply_decay_param_fun
 
-    def _group_l2(self, group):
-        return 0.0
+    def _group_weight_decay(self, group):
+        # the group's weight_decay is the decoupled coefficient; a
+        # parameter's own regularizer still couples into its gradient
+        return None, 0.0
 
     def _param_extras(self, p, group):
         decay = self._coeff
         gwd = group.get("weight_decay")
         if gwd is not None:
-            decay = float(gwd)
+            decay = float(getattr(gwd, "coeff", gwd))
         if self._apply_decay_param_fun is not None and not (
                 self._apply_decay_param_fun(self.param_name(p))):
             decay = 0.0

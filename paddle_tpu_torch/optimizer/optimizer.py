@@ -1,21 +1,28 @@
 """Optimizer base class.
 
 Counterpart of ``paddle_tpu/optimizer/optimizer.py``: parameter groups, a
-float or ``LRScheduler`` learning rate, gradient clipping, a coupled L2
-weight decay, fp32 master weights for bf16/f16 parameters
-(``multi_precision``) and an accumulator ``state_dict``. The update math
-is the JAX ``_make_step_fn``'s, in the same order: clip the gradients,
-cast each to the dtype of the weight it updates (the master where there
-is one), add the coupled decay, apply the decoupled decay to that weight,
-then the subclass's rule, then round the master back into the parameter.
+float or ``LRScheduler`` learning rate (``set_lr_scheduler``), gradient
+clipping by any ``nn.clip.ClipGradBase``, a coupled weight decay (a float
+is L2; ``regularizer.L1Decay``/``L2Decay``; a parameter's own
+``regularizer`` attribute overrides its group's, under AdamW too), fp32
+master weights for bf16/f16 parameters (``multi_precision``), ``minimize`` and an
+accumulator ``state_dict`` that round-trips masters, moments,
+``global_step`` and the scheduler bit for bit. The update math is the
+JAX ``_make_step_fn``'s, in the same order: clip the gradients, cast each
+to the dtype of the weight it updates (the master where there is one),
+add the coupled decay, apply the decoupled decay to that weight, then
+the subclass's rule, then round the master back into the parameter.
+``_set_found_inf(flag)`` (a bool tensor) makes a step with the flag set
+keep every parameter and accumulator as it was, as the JAX staged update
+does; the global step still advances. The update runs outside any
+``amp.auto_cast`` policy (the JAX package's is a staged program the
+dispatch hook never sees).
 
 The JAX package stages the whole update into one XLA program. Here it
 runs eagerly, in place, with ``torch._foreach_*`` ops over all parameters
 at once (one launch per op for a list of tensors, not one per tensor).
-``torch.optim`` is not used: it keeps no master weights. Not ported:
-L1Decay/L2Decay objects (a float weight decay is L2), per-parameter
-regularizers, the GradScaler hook, ZeRO shardings and the chunked and
-donated update.
+``torch.optim`` is not used: it keeps no master weights. Not ported: ZeRO
+shardings and the chunked and donated update.
 
 Parameters are named as in the JAX package, ``param_0``, ``param_1``, ...
 in the order given, unless they come as ``(name, parameter)`` pairs
@@ -29,7 +36,9 @@ from typing import NamedTuple
 
 import torch
 
-from ..nn.clip import ClipGradByGlobalNorm
+from ..amp.auto_cast import suspended
+from ..nn.clip import ClipGradBase
+from ..regularizer import L1Decay, L2Decay, WeightDecayRegularizer
 from .lr import LRScheduler
 
 __all__ = ["Optimizer"]
@@ -39,20 +48,29 @@ class _Attr(NamedTuple):
     """Per-parameter attributes of one update."""
 
     lr_scale: float
-    l2_coeff: float
+    reg_kind: str | None   # "l1" | "l2" | None (coupled regularizer)
+    reg_coeff: float
     need_clip: bool
     multi_precision: bool
     decoupled_decay: float = 0.0   # AdamW: w *= 1 - lr * coeff
     lr_ratio: float = 1.0          # AdamW: lr_ratio(param)
 
 
-def _l2_coeff(weight_decay):
-    if weight_decay is None:
-        return 0.0
-    if isinstance(weight_decay, (int, float)):
-        return float(weight_decay)
+def _normalize_weight_decay(wd):
+    """``weight_decay`` -> (kind, coeff): None, a float (L2), or an
+    ``L1Decay``/``L2Decay``."""
+    if wd is None:
+        return None, 0.0
+    if isinstance(wd, L1Decay):
+        return "l1", wd.coeff
+    if isinstance(wd, L2Decay):
+        return "l2", wd.coeff
+    if isinstance(wd, (int, float)):
+        return "l2", float(wd)
+    if isinstance(wd, WeightDecayRegularizer):
+        raise TypeError(f"unsupported regularizer {wd!r}")
     raise TypeError(
-        f"weight_decay must be a float (L2) or None, got {weight_decay!r}"
+        f"weight_decay must be float or L1Decay/L2Decay, got {wd!r}"
     )
 
 
@@ -74,9 +92,8 @@ class Optimizer:
                 "model.named_parameters())"
             )
         parameters = list(parameters)
-        if grad_clip is not None and not isinstance(grad_clip,
-                                                    ClipGradByGlobalNorm):
-            raise TypeError("grad_clip must be a ClipGradByGlobalNorm")
+        if grad_clip is not None and not isinstance(grad_clip, ClipGradBase):
+            raise TypeError("grad_clip must be an nn.ClipGradBy* instance")
         if not isinstance(learning_rate, (int, float, LRScheduler)):
             raise TypeError("learning_rate must be float or LRScheduler")
         self._learning_rate = learning_rate
@@ -87,6 +104,7 @@ class Optimizer:
         self._names = {}          # id(param) -> name
         self._accumulators = {}   # id(param) -> {slot: tensor}
         self._global_step = 0
+        self._found_inf = None
         if parameters and isinstance(parameters[0], dict):
             for group in parameters:
                 self._add_param_group(dict(group))
@@ -134,6 +152,16 @@ class Optimizer:
             )
         self._learning_rate = float(value)
 
+    def set_lr_scheduler(self, scheduler):
+        if not isinstance(scheduler, LRScheduler):
+            raise TypeError("expected an LRScheduler")
+        self._learning_rate = scheduler
+
+    def _set_found_inf(self, found_inf):
+        """GradScaler hook: a bool tensor; a step taken while it is True
+        leaves the parameters and accumulators as they were."""
+        self._found_inf = found_inf
+
     # -- state ------------------------------------------------------------
     def _init_state(self, w):
         return {}
@@ -158,22 +186,28 @@ class Optimizer:
         """(decoupled decay coefficient, lr ratio) of ``p``: AdamW's."""
         return 0.0, 1.0
 
-    def _group_l2(self, group):
-        return _l2_coeff(group.get("weight_decay"))
+    def _group_weight_decay(self, group):
+        return _normalize_weight_decay(group.get("weight_decay"))
 
     def _collect(self):
         """(param, grad, attr) for every parameter that requires grad and
-        has one."""
+        has one; a parameter's own ``regularizer`` overrides its
+        group's."""
         out = []
         for group in self._param_groups:
-            l2 = self._group_l2(group)
+            g_kind, g_coeff = self._group_weight_decay(group)
             lr_scale = float(group.get("learning_rate", 1.0))
             for p in group["params"]:
                 if not p.requires_grad or p.grad is None:
                     continue
+                kind, coeff = g_kind, g_coeff
+                preg = getattr(p, "regularizer", None)
+                if preg is not None:
+                    kind, coeff = _normalize_weight_decay(preg)
                 decay, ratio = self._param_extras(p, group)
                 out.append((p, p.grad, _Attr(
-                    lr_scale=lr_scale, l2_coeff=l2,
+                    lr_scale=lr_scale, reg_kind=kind,
+                    reg_coeff=coeff,
                     need_clip=getattr(p, "need_clip", True),
                     multi_precision=self._use_master(p),
                     decoupled_decay=decay, lr_ratio=ratio,
@@ -186,8 +220,13 @@ class Optimizer:
         """One update from the parameters' ``.grad``. With ``grad_clip``
         the gradients are clipped in place (as
         ``torch.nn.utils.clip_grad_norm_`` does)."""
+        with suspended():
+            self._step()
+        self._global_step += 1
+
+    def _step(self):
         triples = self._collect()
-        if triples:
+        if triples and not self._skip_for_found_inf():
             if self._grad_clip is not None:
                 self._grad_clip.clip_([g for _, g, _ in triples],
                                       [a.need_clip for _, _, a in triples])
@@ -197,8 +236,10 @@ class Optimizer:
                 st = self._ensure_state(p)
                 w = st["master_weight"] if a.multi_precision else p.data
                 g = g.to(w.dtype)
-                if a.l2_coeff:
-                    g = g + a.l2_coeff * w
+                if a.reg_kind == "l2":
+                    g = g + a.reg_coeff * w
+                elif a.reg_kind == "l1":
+                    g = g + a.reg_coeff * torch.sign(w)
                 eff_lr = lr * a.lr_scale * a.lr_ratio
                 if a.decoupled_decay:
                     w.mul_(1.0 - eff_lr * a.decoupled_decay)
@@ -210,7 +251,11 @@ class Optimizer:
             for p, _, a in triples:
                 if a.multi_precision:
                     p.copy_(self._accumulators[id(p)]["master_weight"])
-        self._global_step += 1
+
+    def _skip_for_found_inf(self):
+        """True when the GradScaler hook says this step's gradients hold
+        an inf or a NaN (one host read of the flag)."""
+        return self._found_inf is not None and bool(self._found_inf)
 
     def _update(self, weights, grads, states, lrs, t):
         raise NotImplementedError
@@ -221,6 +266,18 @@ class Optimizer:
                 p.grad.zero_()
             else:
                 p.grad = None
+
+    clear_gradients = clear_grad
+
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """``loss.backward()``, then ``step()``; returns (None, the
+        (param, grad) pairs that had a gradient)."""
+        loss.backward()
+        self.step()
+        params_grads = [(p, p.grad) for p in self._parameter_list
+                        if p.grad is not None]
+        return None, params_grads
 
     # -- checkpointing ----------------------------------------------------
     def state_dict(self):

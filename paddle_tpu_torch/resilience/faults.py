@@ -13,9 +13,10 @@ Tests activate a seeded schedule with a context manager:
         ...                                          # 3rd flush raises
     assert inj.fired["journal.append"] == 1
 
-Sites the port fires (each failure degrades, none is fatal, except an
-injected ``torch.AcceleratorError`` at a serving site: a CUDA error is
-sticky for the process, so the engine re-raises it):
+Sites the port fires (each serving failure degrades, none is fatal,
+except an injected ``torch.AcceleratorError`` at a serving site: a CUDA
+error is sticky for the process, so the engine re-raises it; the two
+training sites fail the step or the save, which a resume recovers):
 
     serving.step       one engine prefill/decode/verify launch, fired on
                        the host before the staging copy and the replay
@@ -59,6 +60,14 @@ sticky for the process, so the engine re-raises it):
     kv.restore         one KV fetch from the host tier (context: key=) —
                        the recompute path the spill replaced (warned
                        once, ``restore_errors``, no block leak)
+    train.step         one ``TrainLoop`` step, fired before ``step_fn``
+                       (context: step=) — an injected exception kills
+                       the training process like a crash; the next
+                       incarnation resumes from the last checkpoint
+    ckpt.write         one checkpoint file write (context: file=
+                       "data.npz"/"metadata.json", path=) — the save
+                       fails, its temporary directory is removed and
+                       ``latest`` stays on the previous checkpoint
     http.accept        one POST /v1/completions accept (context: path=,
                        client=): a structured 500 for that request
     http.stream        one SSE chunk write (context: rid=, seq=): that

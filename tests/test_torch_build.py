@@ -59,9 +59,10 @@ def test_each_source_built_once_then_reused(tmp_path, build_dir,
     _build.build()
     calls = log.read_text().splitlines()
     assert len(calls) == len(_build.KERNELS)
-    for name, line in zip(_build.KERNELS, calls):
-        assert f"csrc/{name}.cu" in line
-        assert "arch=compute_90a,code=sm_90a" in line
+    # the nvcc processes run at once, so they log in any order
+    for name in _build.KERNELS:
+        assert sum(f"csrc/{name}.cu" in line for line in calls) == 1
+    assert all("arch=compute_90a,code=sm_90a" in line for line in calls)
     assert sorted(p.name.split("-")[0] for p in build_dir.glob("*.so")) == \
         sorted(_build.KERNELS)
     _build.build()                               # cached: no new process

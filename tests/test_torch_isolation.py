@@ -1,7 +1,8 @@
 """paddle_tpu_torch stands alone: importing it (its serving, training,
 MoE and quantization modules, the journal, QoS, the HTTP server and its
 CLI, the retry policy, the replica supervisor and the fleet, the step
-observatory, the compile log and the host spill tier too) loads neither
+observatory, the compile log and the host spill tier, the data loader,
+amp, the checkpoints, the watchdog and the train loop too) loads neither
 jax, nor anything of paddle_tpu, nor ml_dtypes, and its entry points
 refuse to fall back to the CPU quietly when no CUDA device exists."""
 import os
@@ -46,6 +47,13 @@ import paddle_tpu_torch.serving.fleet
 import paddle_tpu_torch.serving.spill
 import paddle_tpu_torch.observability.stepstats
 import paddle_tpu_torch.observability.jit_events
+import paddle_tpu_torch.io
+import paddle_tpu_torch.amp
+import paddle_tpu_torch.regularizer
+import paddle_tpu_torch.optimizer.lr
+import paddle_tpu_torch.distributed.checkpoint
+import paddle_tpu_torch.distributed.watchdog
+import paddle_tpu_torch.resilience.train_state
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.")
@@ -146,6 +154,17 @@ def test_spill_and_observatory_follow_the_models_device():
     assert not engine.spill.slab.rows.is_pinned()
     assert engine.stepstats.backend == "cpu"
     assert engine.stepstats.peak_source == "CPU placeholder"
+
+
+def test_dataloader_without_device_raises_without_cuda():
+    from paddle_tpu_torch.io import DataLoader, TensorDataset
+
+    _require_no_cuda()
+    data = TensorDataset([torch.arange(8)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DataLoader(data, batch_size=2)
+    batches = list(DataLoader(data, batch_size=2, device="cpu"))
+    assert len(batches) == 4 and batches[0][0].device.type == "cpu"
 
 
 def test_resolve_device_default_raises_explicit_cpu_works():
