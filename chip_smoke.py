@@ -36,7 +36,10 @@ Phases, in order; any failure exits non-zero:
                float16 lhs and float16 or int8 rhs, and the flash forward
                and backward (PR 15: the training shape, b 1 s 2048, GQA
                hq 32 hkv 4 d 64; the backward held to its plain version
-               evaluated in float64). The fused KV write
+               evaluated in float64). The DiT cell's attention:
+               non-causal, b 32, h 8, d 64, s 256, forward and backward
+               in bf16 (wgmma) and f32 (FMA), beside SDPA and its
+               autograd. The fused KV write
                (``kv_write``) at the serving decode shape (8 rows) and a
                512-row prefill, bf16, float16, f32 and int8 pools:
                pages and scales equal to its plain version bit for bit.
@@ -307,6 +310,26 @@ Phases, in order; any failure exits non-zero:
                same for float16 with its scaler state. Emergency
                checkpoint ms and GB/s, restore ms, restore + first step,
                SIGTERM to the first resumed step.
+7d. dit     — BASELINE config #5, ``bench.py``'s ``bench_dit``:
+               DiT hidden 512, depth 8, 8 heads of d 64, 2x2 patches of a
+               4x32x32 latent (256 tokens), batch 32, 38.4M parameters
+               from seed 0, AdamW(1e-4), MSE to a noise target, through
+               ``jit.TrainStep`` in f32 (the bench's dtype, TF32 off) and
+               amp O2 bf16, 14 steps each (1 + 3 + 10 timed): every flash
+               kernel launched steps x 8 times on the FMA design (f32) or
+               the wgmma one (bf16); the first step's loss and gradients
+               against plain attention, and again after the steps (the
+               first step's adaLN-Zero gates are 0); losses finite and
+               falling; step ms, samples/s, MFU (f32 against 67e12, bf16
+               against 989e12), peak memory, a profiled step's device ms
+               by family and busy share, and the q/k/v copies of the
+               strided qkv views. Then one update of each of the twelve
+               new optimizers (Adam and AdamW as controls) on the DiT's
+               parameters and gradients, against the same update on CPU
+               copies within 1e-5 relative L2 (LBFGS: a closure step over
+               a quadratic of the same size, 1e-4), each timed; and one
+               dropout call at p 0.1 (no flash launch, the keep rate
+               within 5 binomial sigma, one seed one output).
 8. moe      — ``bench.py``'s MoE layer (``bench_kernels``: d_model 1024,
                8 experts, d_ff 2816, top-2, 8 x 1024 tokens, bf16):
                ``impl="ragged"`` runs 3 grouped GEMM launches and agrees
@@ -433,6 +456,14 @@ TRAIN_CFG = dict(
     max_position_embeddings=2048, fused_loss_chunk=2048, dtype="bfloat16",
 )
 TRAIN_BATCH, TRAIN_SEQ = 12, 1024
+# bench.py's bench_dit (BASELINE config #5, its TPU branch): hidden 512,
+# depth 8, 8 heads of d 64, 2x2 patches of a 4x32x32 latent (256
+# tokens), 10 classes, batch 32, AdamW at 1e-4, MSE to a noise target
+DIT_CFG = dict(input_size=32, patch_size=2, in_channels=4, hidden_size=512,
+               depth=8, num_heads=8, num_classes=10)
+DIT_BATCH = 32
+DIT_SEQ = (DIT_CFG["input_size"] // DIT_CFG["patch_size"]) ** 2
+DIT_HEAD_DIM = DIT_CFG["hidden_size"] // DIT_CFG["num_heads"]
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -780,7 +811,8 @@ def flash_case(torch, fa, flush, s, dtype=None, h=16, d=128, b=1,
         f"_gqa{h}x{hkv}" if hkv != h else "") + (f"_d{d}" if d != 128
                                                  else "") + (
         "_full" if not causal else "") + ("_unaligned" if offset else "") + (
-        "_f16" if dtype == torch.float16 else "")
+        "_f16" if dtype == torch.float16 else "") + (
+        "_f32" if dtype == torch.float32 else "")
     variant = fa._fwd_variant(dtype, d, s, s)
     prev = "fma" if dtype == torch.float32 else "mma"
     kinds = [variant, prev] if variant != prev else [variant]
@@ -1534,6 +1566,13 @@ def phase_kernels(torch):
         flash_case(torch, fa, flush, 2048, dtype=f16),
         flash_case(torch, fa, flush, 512, h=32, hkv=4, d=64, dtype=f16),
     ]
+    # the DiT cell's attention: non-causal, b 32, h 8, d 64, s 256,
+    # bf16 (the wgmma kernel, amp O2) and f32 (the FMA kernel, the bench's
+    # dtype)
+    flash += [flash_case(torch, fa, flush, DIT_SEQ, h=DIT_CFG["num_heads"],
+                         d=DIT_HEAD_DIM, b=DIT_BATCH, causal=False,
+                         dtype=dt)
+              for dt in (torch.bfloat16, torch.float32)]
     bwd = [flash_bwd_case(torch, fa, flush, f"s{s}", s)
            for s in (128, 512, 1024, 2048)]
     bwd += [
@@ -1554,6 +1593,11 @@ def phase_kernels(torch):
         flash_bwd_case(torch, fa, flush, "gqa_f16", 512, h=32, hkv=4, d=64,
                        dtype=f16),
     ]
+    bwd += [flash_bwd_case(torch, fa, flush, name, DIT_SEQ,
+                           h=DIT_CFG["num_heads"], d=DIT_HEAD_DIM,
+                           b=DIT_BATCH, causal=False, dtype=dt)
+            for name, dt in (("dit", torch.bfloat16),
+                             ("dit_f32", torch.float32))]
     for c in paged + flash:
         log(f"[kernels] {json.dumps(c)}")
     for c in quant:
@@ -5304,6 +5348,429 @@ def phase_train_amp(torch):
     return result
 
 
+# ------------------------------------------------------------------ DiT
+# dit: the DiT cell (DIT_CFG, bench.py:402-442) through jit.TrainStep with
+# AdamW(1e-4), in two modes: f32 (the bench's dtype; TF32 off, as every
+# phase here) and amp O2 bf16 (amp.decorate, AdamW masters). Each runs
+# 1 + 3 warm-up + 10 timed steps on bench.py's seeded batch.
+DIT_MODES = {
+    # name: (AMP dtype or None, peak FLOP/s, flash design, launch dtype)
+    "f32": (None, F32_FLOPS, "fma", "float32"),
+    "o2_bf16": ("bfloat16", BF16_FLOPS, "wgmma", "bfloat16"),
+}
+DIT_TIMED_STEPS = 10
+DIT_DROPOUT_P = 0.1
+# the new optimizers' card update against the same update on the CPU:
+# f32 weights and every accumulator (relative L2); LBFGS over a quadratic
+DIT_OPT_RTOL = 1e-5
+DIT_LBFGS_RTOL = 1e-4
+DIT_OPTIMIZERS = (
+    ("SGD", dict(learning_rate=1e-2)),
+    ("Momentum", dict(learning_rate=1e-2, momentum=0.9, use_nesterov=True,
+                      weight_decay=5e-4)),
+    ("Adagrad", dict(learning_rate=1e-2)),
+    ("Adadelta", dict(learning_rate=1.0)),
+    ("Adamax", dict(learning_rate=1e-3)),
+    ("ASGD", dict(learning_rate=1e-2, batch_num=4)),
+    ("Lamb", dict(learning_rate=1e-3,
+                  exclude_from_weight_decay_fn=lambda p: p.dim() == 1)),
+    ("NAdam", dict(learning_rate=1e-3)),
+    ("RAdam", dict(learning_rate=1e-3)),
+    ("RMSProp", dict(learning_rate=1e-3, momentum=0.9, centered=True)),
+    ("Rprop", dict(learning_rate=1e-3)),
+    # controls: the optimizers earlier slices ported
+    ("Adam", dict(learning_rate=1e-3)),
+    ("AdamW", dict(learning_rate=1e-3, weight_decay=0.01)),
+)
+
+
+def _dit_batch(torch):
+    """bench.py's batch (its seeded order): latents, int32 timesteps in
+    [0, 1000), int64 labels in [0, 10), the noise target."""
+    rng = np.random.RandomState(0)
+    c, n = DIT_CFG["in_channels"], DIT_CFG["input_size"]
+    x = rng.randn(DIT_BATCH, c, n, n).astype("float32")
+    t = rng.randint(0, 1000, (DIT_BATCH,)).astype("int32")
+    y = rng.randint(0, DIT_CFG["num_classes"], (DIT_BATCH,)).astype("int64")
+    target = rng.randn(*x.shape).astype("float32")
+    return [torch.from_numpy(a).to("cuda") for a in (x, t, y, target)]
+
+
+def _dit_flops(model):
+    """Model FLOPs of one training step (forward and backward, 3x the
+    forward): 6 x the per-token linear parameters (x_embed, qkv, proj,
+    the MLP, final) x tokens, 6 x the per-sample ones (the timestep MLP,
+    every block's ada) x samples, and 12 b s^2 hidden a layer for the
+    two attention products."""
+    per_token = ["x_embed", "final"] + [
+        f"blocks.{i}.{n}" for i in range(DIT_CFG["depth"])
+        for n in ("qkv", "proj", "mlp_fc1", "mlp_fc2")]
+    per_sample = ["t_embed.fc1", "t_embed.fc2"] + [
+        f"blocks.{i}.ada" for i in range(DIT_CFG["depth"])]
+    mods = dict(model.named_modules())
+
+    def count(names):
+        return sum(p.numel() for n in names for p in mods[n].parameters())
+
+    p_tok, p_smp = count(per_token), count(per_sample)
+    tokens = DIT_BATCH * DIT_SEQ
+    attn = 12 * DIT_CFG["depth"] * DIT_BATCH * DIT_SEQ ** 2 * \
+        DIT_CFG["hidden_size"]
+    return {"per_token_params": p_tok, "per_sample_params": p_smp,
+            "tokens": tokens, "attention_flops": attn,
+            "flops": 6 * p_tok * tokens + 6 * p_smp * DIT_BATCH + attn}
+
+
+def _dit_mode(torch, name, data, flush):
+    """One mode of ``dit``. Returns (record, the f32 model's parameters
+    and gradients after its steps or None)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import DiT, DiTConfig
+    from paddle_tpu_torch.optimizer import AdamW
+
+    amp_dtype, peak_flops, design, launch_dtype = DIT_MODES[name]
+    L = DIT_CFG["depth"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = DiT(DiTConfig(**DIT_CFG), seed=0)
+    n_params = model.num_params()
+    flops = _dit_flops(model)
+    opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                multi_precision=amp_dtype is not None)
+    if amp_dtype is not None:
+        model, opt = amp.decorate(model, opt, level="O2", dtype=amp_dtype)
+
+    def loss_fn(m, x, t, y, target):
+        # f32: no policy at all (a disabled auto_cast still pushes its
+        # dispatch mode)
+        with (amp.auto_cast(True, level="O2", dtype=amp_dtype)
+              if amp_dtype else contextlib.nullcontext()):
+            return ((m(x, t, y) - target) ** 2).mean()
+
+    step = TrainStep(model, loss_fn, opt)
+
+    def loss_and_grads():
+        for p in model.parameters():
+            p.grad = None
+        loss = loss_fn(model, *data)
+        loss.backward()
+        grads = {n: p.grad.float() for n, p in model.named_parameters()}
+        for p in model.parameters():
+            p.grad = None
+        return loss.item(), grads
+
+    def grad_check(tag):
+        """Loss and every gradient, flash kernels vs plain attention."""
+        loss_k, g_k = loss_and_grads()
+        with plain_attention(fa):
+            loss_p, g_p = loss_and_grads()
+        rel = {n: ((g_k[n] - g_p[n]).norm()
+                   / g_p[n].norm().clamp_min(1e-30)).item() for n in g_p}
+        worst = max(rel, key=rel.get)
+        check(abs(loss_k - loss_p) <= TRAIN_LOSS_TOL,
+              f"dit {name} ({tag}): loss {loss_k} vs plain attention "
+              f"{loss_p}")
+        check(all(np.isfinite(list(rel.values())))
+              and rel[worst] <= TRAIN_GRAD_RTOL,
+              f"dit {name} ({tag}): gradient of {worst} differs from plain "
+              f"attention by {rel[worst]} (relative L2) > "
+              f"{TRAIN_GRAD_RTOL}")
+        qkv = [rel[f"blocks.{i}.qkv.weight"] for i in range(L)]
+        return {"loss": loss_k, "plain_loss": loss_p,
+                "worst_rel_l2": rel[worst], "worst_param": worst,
+                "median_rel_l2": float(np.median(list(rel.values()))),
+                "qkv_weight_rel_l2_max": max(qkv),
+                "qkv_weight_grad_norm": float(g_k["blocks.0.qkv.weight"]
+                                              .norm())}, g_k
+
+    # the first step: with every block's ada zero (adaLN-Zero), the
+    # gates are 0 and the attention and MLP weights get no gradient yet
+    first, _ = grad_check("first step")
+
+    n_steps = 4 + DIT_TIMED_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    losses = [step(*data) for _ in range(4)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(*data) for _ in range(DIT_TIMED_STEPS)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / DIT_TIMED_STEPS * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    counts = dict(_build.launch_counts(), **_build.variant_counts())
+    losses = [x.item() for x in losses]
+    want = n_steps * L
+    for n in FLASH:
+        check(counts[n] == want
+              and counts.get(f"{n}/{design}", 0) == want
+              and counts.get(f"{n}/{launch_dtype}", 0) == want,
+              f"dit {name}: {n} launches {counts[n]} ({design}: "
+              f"{counts.get(f'{n}/{design}', 0)}, {launch_dtype}: "
+              f"{counts.get(f'{n}/{launch_dtype}', 0)}), want {want} = "
+              f"{n_steps} steps x {L} layers on the {design} design")
+    check(all(np.isfinite(losses)), f"dit {name}: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"dit {name}: loss did not fall "
+          f"({losses[0]} -> {losses[-1]})")
+    check(abs(losses[0] - first["loss"]) <= TRAIN_LOSS_TOL,
+          f"dit {name}: the first step's loss {losses[0]} != "
+          f"{first['loss']}")
+    # after the steps the gates are open: the attention's gradients are
+    # the flash backward's, held to the plain version the same way
+    late, grads = grad_check(f"after {n_steps} steps")
+    check(late["qkv_weight_grad_norm"] > 0,
+          f"dit {name}: no gradient reached the attention after "
+          f"{n_steps} steps")
+    prof = _profiled_step(torch, lambda _: step(*data), None)
+    samples_s = DIT_BATCH / (step_ms / 1e3)
+    # the strided q, k, v views of the qkv projection: the flash wrapper
+    # copies each contiguous in the forward and again in the backward
+    qkv = torch.randn(DIT_BATCH, DIT_SEQ, 3, DIT_CFG["num_heads"],
+                      DIT_HEAD_DIM, device="cuda").to(
+        torch.bfloat16 if amp_dtype else torch.float32)
+    views = [qkv[:, :, i] for i in range(3)]
+    copy_ms = cuda_ms(torch, lambda: [fa._aligned(v) for v in views], 20,
+                      flush)
+    rec = {
+        "amp_dtype": amp_dtype, "params": n_params, "batch": DIT_BATCH,
+        "tokens_per_sample": DIT_SEQ, "step_ms": step_ms,
+        "samples_per_s": samples_s, **flops,
+        "mfu": flops["flops"] / (step_ms / 1e3) / peak_flops,
+        "peak_flops": peak_flops, "peak_bytes": peak, "losses": losses,
+        "steps": n_steps, "launches": counts, "first_step_check": first,
+        "late_check": late, "profile": prof,
+        "busy_share": (prof["device_ms"] / step_ms
+                       if prof["device_ms"] else None),
+        "qkv_copies_ms_per_layer_pass": copy_ms,
+        "qkv_copies_ms_per_step": 2 * L * copy_ms,
+    }
+    log(f"[dit] {name}: {step_ms:.2f} ms/step, {samples_s:.1f} samples/s, "
+        f"MFU {rec['mfu'] * 100:.2f}% of {peak_flops / 1e12:.0f} TFLOP/s "
+        f"({flops['flops'] / 1e12:.4f} TFLOP a step: "
+        f"{flops['per_token_params'] / 1e6:.2f}M per-token and "
+        f"{flops['per_sample_params'] / 1e6:.2f}M per-sample linear "
+        f"parameters, attention {flops['attention_flops'] / 1e12:.4f}); "
+        f"peak {peak / 2**30:.2f} GiB; losses {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f}; kernels vs plain attention, first step: loss "
+        f"{first['loss']:.6f} / {first['plain_loss']:.6f}, worst gradient "
+        f"{first['worst_rel_l2']:.3g}; after {n_steps} steps: worst "
+        f"{late['worst_rel_l2']:.3g} ({late['worst_param']}), qkv "
+        f"{late['qkv_weight_rel_l2_max']:.3g}")
+    log(f"[dit] {name} profiled step: device {prof['device_ms']:.3f} ms in "
+        f"{prof['kernel_launches']} kernels (busy {rec['busy_share']}); "
+        + ", ".join(f"{k} {v:.3f}" for k, v in
+                    sorted(prof["families_ms"].items()))
+        + f"; flash fwd {prof['flash_fwd_ms']:.3f}, dq "
+        f"{prof['flash_bwd_dq_ms']:.3f}, dk/dv "
+        f"{prof['flash_bwd_dkv_ms']:.3f}; q/k/v copies "
+        f"{copy_ms:.4f} ms a layer pass, {rec['qkv_copies_ms_per_step']:.3f}"
+        f" ms a step")
+    for kname, ms, n in prof["top"]:
+        log(f"[dit]   {kname:80s} {ms:9.3f} ms {n:5d} calls")
+    kept = None
+    if amp_dtype is None:
+        kept = ([(n, p.detach()) for n, p in model.named_parameters()],
+                grads)
+    del model, opt, step
+    return rec, kept
+
+
+def _dit_optimizers(torch, named, grads):
+    """One ``step()`` of each new optimizer (and Adam/AdamW) on the card
+    against the same step on CPU copies of the parameters, gradients and
+    state: the DiT's f32 parameters and gradients at bench width. The
+    first step on the card builds the state; the compared, timed step is
+    the second."""
+    from paddle_tpu_torch import optimizer as optim
+
+    def rel(a, b):
+        a, b = a.detach().double().cpu(), b.detach().double().cpu()
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    out = {}
+    grads_cpu = {n: g.cpu() for n, g in grads.items()}
+    for cls, kw in DIT_OPTIMIZERS:
+        card = [(n, torch.nn.Parameter(p.clone())) for n, p in named]
+        opt = getattr(optim, cls)(parameters=card, **kw)
+        for n, p in card:
+            p.grad = grads[n].clone()
+        opt.step()
+        host = [(n, torch.nn.Parameter(p.detach().to("cpu", copy=True)))
+                for n, p in card]
+        ref = getattr(optim, cls)(parameters=host, **kw)
+        ref.set_state_dict(opt.state_dict())
+        for (n, p), (_, q) in zip(card, host):
+            p.grad = grads[n].clone()
+            q.grad = grads_cpu[n].clone()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        opt.step()
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        ref.step()
+        worst = max(rel(p, q) for (_, p), (_, q) in zip(card, host))
+        got, want = opt.state_dict(), ref.state_dict()
+        check(set(got) == set(want), f"dit optimizer {cls}: state keys "
+              f"{sorted(set(got) ^ set(want))} differ")
+        acc = [rel(got[k], want[k]) for k in want
+               if torch.is_tensor(want[k])]
+        worst_acc = max(acc) if acc else 0.0
+        check(worst <= DIT_OPT_RTOL and worst_acc <= DIT_OPT_RTOL,
+              f"dit optimizer {cls}: card step vs CPU step: weights "
+              f"{worst}, accumulators {worst_acc} (relative L2) > "
+              f"{DIT_OPT_RTOL}")
+        out[cls] = {"update_ms": ms, "weights_rel_l2": worst,
+                    "accumulators_rel_l2": worst_acc,
+                    "accumulators": len(acc)}
+        del card, host, opt, ref
+        torch.cuda.empty_cache()
+
+    # LBFGS: one closure step over a fixed quadratic of the same size
+    n = sum(p.numel() for _, p in named)
+    g = torch.Generator().manual_seed(5)
+    a = torch.rand(n, generator=g) * 1.5 + 0.5
+    b = torch.randn(n, generator=g)
+
+    def lbfgs(device):
+        x = torch.nn.Parameter(torch.zeros(n, device=device))
+        ad, bd = a.to(device), b.to(device)
+        # max_eval above the first search's doublings (~25 evaluations
+        # from alpha = 1 / |g|_1), so all 5 iterations run and the later
+        # directions come from the two-loop recursion over the history
+        opt = optim.LBFGS(parameters=[x], learning_rate=1.0, max_iter=5,
+                          max_eval=100, history_size=4,
+                          line_search_fn="strong_wolfe")
+
+        def closure():
+            opt.clear_grad()
+            loss = 0.5 * (ad * x * x).sum() - (bd * x).sum()
+            loss.backward()
+            return loss
+
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss0 = float(opt.step(closure))
+        if device != "cpu":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return (x.detach(), loss0, float(closure().detach()),
+                opt._func_evals, ms, opt._len)
+
+    xc, l0, l1, evals, ms, pairs = lbfgs("cuda")
+    xh, _, l1h, evals_h, _, _ = lbfgs("cpu")
+    err = rel(xc, xh)
+    check(err <= DIT_LBFGS_RTOL and l1 < l0 and pairs > 1,
+          f"dit optimizer LBFGS: card vs CPU iterate {err} (relative L2) > "
+          f"{DIT_LBFGS_RTOL}, or loss {l0} -> {l1} did not fall, or "
+          f"{pairs} history pairs")
+    out["LBFGS"] = {"step_ms": ms, "weights_rel_l2": err, "loss": l0,
+                    "loss_after": l1, "loss_after_cpu": l1h,
+                    "func_evals": evals, "func_evals_cpu": evals_h,
+                    "history_pairs": pairs, "elements": n}
+    log("[dit] optimizers, card step vs CPU step (relative L2; update ms): "
+        + ", ".join(f"{k} {v['weights_rel_l2']:.2g}/"
+                    f"{v.get('accumulators_rel_l2', 0.0):.2g} "
+                    f"{v.get('update_ms', v.get('step_ms')):.3f}"
+                    for k, v in out.items()))
+    return out
+
+
+def _dit_dropout(torch, flush):
+    """One DiT-shaped attention call at p = 0.1 on the card: the math
+    form (no flash launch), the probabilities kept at 1 - p within 5
+    binomial sigma, the same output for the same generator seed."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.ops import nn_ops
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn(DIT_BATCH, DIT_SEQ, DIT_CFG["num_heads"],
+                           DIT_HEAD_DIM, device="cuda", generator=g)
+               for _ in range(3))
+    masks = []
+    real = nn_ops._keep_mask
+
+    def recording(p, shape, device, generator):
+        masks.append(real(p, shape, device, generator))
+        return masks[-1]
+
+    def call(seed):
+        return nn_ops.scaled_dot_product_attention(
+            q, k, v, dropout_p=DIT_DROPOUT_P,
+            generator=torch.Generator(device="cuda").manual_seed(seed))
+
+    _build.reset_launch_counts()
+    nn_ops._keep_mask = recording
+    try:
+        a, b, c = call(11), call(11), call(12)
+    finally:
+        nn_ops._keep_mask = real
+    torch.cuda.synchronize()
+    flash = {n: _build.launch_counts()[n] for n in FLASH}
+    kept = int(masks[0].sum())
+    n = masks[0].numel()
+    sigma = (n * DIT_DROPOUT_P * (1 - DIT_DROPOUT_P)) ** 0.5
+    dev = (kept - n * (1 - DIT_DROPOUT_P)) / sigma
+    plain = nn_ops.scaled_dot_product_attention(q, k, v)
+    check(not any(flash.values()), f"dit dropout: flash launches {flash}")
+    check(abs(dev) <= 5, f"dit dropout: kept {kept} of {n}, {dev:.2f} "
+          f"sigma from {1 - DIT_DROPOUT_P}")
+    check(torch.equal(a, b) and not torch.equal(a, c)
+          and bool(a.isfinite().all()) and not torch.equal(a, plain),
+          "dit dropout: not repeatable under one generator seed, or no "
+          "different under another")
+    ms = cuda_ms(torch, lambda: call(11), 5, flush)
+    rec = {"p": DIT_DROPOUT_P, "kept": kept, "probabilities": n,
+           "sigma_from_mean": dev, "flash_launches": flash, "ms": ms}
+    log(f"[dit] attention dropout p {DIT_DROPOUT_P}: kept {kept} of {n} "
+        f"({dev:+.2f} sigma), no flash launch, repeatable; {ms:.3f} ms a "
+        f"call (math form)")
+    return rec
+
+
+def phase_dit(torch):
+    """``dit``: the DiT cell (``bench.py``'s ``bench_dit``: hidden 512,
+    depth 8, 8 heads of d 64, 256 tokens, batch 32, AdamW(1e-4), MSE to a
+    noise target; 38.4M parameters from seed 0) through ``jit.TrainStep``
+    in f32 (the bench's dtype, TF32 off) and amp O2 bf16. Gates, each
+    mode: every flash kernel launched steps x 8 times on the mode's
+    design (FMA f32, wgmma bf16); the first step's loss within
+    ``TRAIN_LOSS_TOL`` and every gradient within ``TRAIN_GRAD_RTOL``
+    (relative L2) of the same step with plain attention, and again after
+    the steps (the first step's gates are zero, so its attention gets no
+    gradient); losses finite and falling. Recorded: step ms (mean of 10
+    after 1 + 3), samples/s, MFU (f32 against 67e12, bf16 against
+    989e12), peak memory, one profiled step (device ms by family,
+    kernels, busy share), the q/k/v copies. Then one update of each of
+    the twelve new optimizers (Adam and AdamW as controls) on the card
+    against the CPU, and one dropout call."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    data = _dit_batch(torch)
+    result = {"launches": {}}
+    kept = None
+    for name in DIT_MODES:
+        rec, got = _dit_mode(torch, name, data, flush)
+        result[name] = rec
+        kept = got or kept
+        for key, n in rec["launches"].items():
+            result["launches"][key] = result["launches"].get(key, 0) + n
+    result["f32_vs_o2_step_ms"] = (result["f32"]["step_ms"]
+                                   / result["o2_bf16"]["step_ms"])
+    result["optimizers"] = _dit_optimizers(torch, *kept)
+    del kept
+    result["dropout"] = _dit_dropout(torch, flush)
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
 # ------------------------------------------------------ resumable training
 # train_resume: full width, depth cut to 2 layers (234M parameters; a
 # checkpoint of weights, f32 masters and both moments ~3.7 GB), 12 x 1024
@@ -6205,6 +6672,27 @@ def flash_f16_entries(flash, bwd, launches):
     return out
 
 
+def dit_flash_cases(flash, bwd, part=None):
+    """The DiT cell's attention shape (non-causal, b 32, h 8, d 64, s 256)
+    in bf16 and f32, for the kernels line: the forward's cases, or with
+    ``part`` ("dq", "dkv") one backward kernel's, each with its time,
+    bound, plain and library times and error."""
+    if part is None:
+        cases = [c for c in flash if c["case"].startswith(
+            f"s{DIT_SEQ}_b{DIT_BATCH}_d{DIT_HEAD_DIM}_full")]
+        return {c["dtype"]: {k: c[k] for k in (
+            "variant", "ms", "prev_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "max_abs_err")} for c in cases}
+    grads = ("dq",) if part == "dq" else ("dk", "dv")
+    return {c["dtype"]: {
+        "variant": c["variant"], "ms": c[f"{part}_ms"],
+        "bound_ms": c[f"{part}_bound_ms"], "bound_by": c[f"{part}_bound_by"],
+        "backward_ms": c["ms"], "backward_bound_ms": c["bound_ms"],
+        "plain_ms": c["plain_ms"], "library_ms": c["library_ms"],
+        "max_abs_err": max(c["max_abs_err"][g] for g in grads)}
+        for c in bwd if c["case"] in ("dit", "dit_f32")}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
@@ -6212,12 +6700,12 @@ def main(argv=None):
         default="kernels,parity,serving,serving_int8,serving_f16,"
                 "serving_prefix,serving_spec,server,journal,poison,fleet,"
                 "spill,stepstats,train_parity,train,train_amp,train_resume,"
-                "moe",
+                "dit,moe",
         help="comma list of kernels, parity, serving, serving_int8, "
              "serving_f16, serving_prefix, serving_spec, server, journal, "
              "poison, fleet, spill, stepstats, train_parity, train, "
-             "train_amp, train_resume, moe, profile (default: all but "
-             "profile)",
+             "train_amp, train_resume, dit, moe, profile (default: all "
+             "but profile)",
     )
     ap.add_argument("--out", help="write the full report as JSON here")
     # the processes the server and journal phases start
@@ -6241,7 +6729,7 @@ def main(argv=None):
                         "serving_f16", "serving_prefix", "serving_spec",
                         "server", "journal", "poison", "fleet", "spill",
                         "stepstats", "train_parity", "train", "train_amp",
-                        "train_resume", "moe", "profile"}
+                        "train_resume", "dit", "moe", "profile"}
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
@@ -6297,7 +6785,7 @@ def main(argv=None):
             "spill": phase_spill, "stepstats": phase_stepstats,
             "train_parity": phase_train_parity, "train": phase_train,
             "train_amp": phase_train_amp,
-            "train_resume": phase_train_resume,
+            "train_resume": phase_train_resume, "dit": phase_dit,
             "moe": phase_moe, "profile": phase_profile,
         }
         results, report["phase_seconds"] = {}, {}
@@ -6355,12 +6843,12 @@ def main(argv=None):
         report["phases"].update(results)
         (serving, serving_int8, serving_f16, serving_prefix, serving_spec,
          server, journal, poison, fleet, spill, stepstats, train, train_amp,
-         train_resume, moe) = (
+         train_resume, dit, moe) = (
              results.get(p) for p in (
                  "serving", "serving_int8", "serving_f16", "serving_prefix",
                  "serving_spec", "server", "journal", "poison", "fleet",
                  "spill", "stepstats", "train", "train_amp", "train_resume",
-                 "moe"))
+                 "dit", "moe"))
         check("jax" not in sys.modules and not any(
             m == "paddle_tpu" or m.startswith("paddle_tpu.")
             for m in sys.modules),
@@ -6380,7 +6868,8 @@ def main(argv=None):
     # (unconstrained, spill and recompute, both pools), the observatory's
     # timed runs (on and off), the 14 counted train steps, the amp modes'
     # counted steps (O1 bf16, O2 bf16, O2 float16), the resume workers'
-    # steps (bf16 and float16), and the moe phase's counted forwards
+    # steps (bf16 and float16), the DiT cell's counted steps (f32 and O2
+    # bf16) and the moe phase's counted forwards
     by_path = {p: r["launches"] if r else {} for p, r in (
         ("serving", serving), ("serving_int8", serving_int8),
         ("serving_f16", serving_f16), ("serving_prefix", serving_prefix),
@@ -6388,7 +6877,7 @@ def main(argv=None):
         ("journal", journal), ("poison", poison), ("fleet", fleet),
         ("spill", spill), ("stepstats", stepstats), ("train", train),
         ("train_amp", train_amp), ("train_resume", train_resume),
-        ("moe", moe))}
+        ("dit", dit), ("moe", moe))}
 
     def launches(name):
         per = {p: c.get(name, 0) for p, c in by_path.items()}
@@ -6449,6 +6938,7 @@ def main(argv=None):
                 variant_entry("flash_attention", v, case, flash)
                 for v, case in (("wgmma", head), ("mma", head),
                                 ("fma", f32))],
+            "dit": dit_flash_cases(flash, bwd),
         })
         # the training shape, on the wrapper's choice (wgmma), the
         # mma.sync kernels there as prev_ms; each kernel alone (the wgmma
@@ -6492,6 +6982,7 @@ def main(argv=None):
                     "shape": case["case"]}
                     for v, case in (("wgmma", head), ("mma", head),
                                     ("fma", f32))],
+                "dit": dit_flash_cases(flash, bwd, part),
             })
         # the float16 instances (PR 15) of the forward and of both
         # backward kernels, at the training shape: their launches on the

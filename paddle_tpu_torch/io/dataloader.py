@@ -32,18 +32,25 @@ from .sampler import BatchSampler
 __all__ = ["DataLoader", "default_collate_fn"]
 
 
+def _narrow(arr):
+    return arr.astype(np.float32) if arr.dtype == np.float64 else arr
+
+
 def default_collate_fn(batch):
     """Stack samples into batched torch tensors (on the host; the loader
     moves them to its device): tensors and numpy arrays are stacked,
     numbers become a 1-D tensor, strings stay a list, dicts, lists and
-    tuples are collated field by field."""
+    tuples are collated field by field. Python floats and float64 numpy
+    data come out float32, as the JAX package's tensors narrow them to
+    the default float dtype; integers keep int64, torch's index
+    dtype."""
     sample = batch[0]
     if isinstance(sample, torch.Tensor):
         return torch.stack(batch)
     if isinstance(sample, np.ndarray):
-        return torch.from_numpy(np.stack(batch))
+        return torch.from_numpy(_narrow(np.stack(batch)))
     if isinstance(sample, (int, float, np.integer, np.floating)):
-        return torch.from_numpy(np.asarray(batch))
+        return torch.from_numpy(_narrow(np.asarray(batch)))
     if isinstance(sample, (str, bytes)):
         return list(batch)
     if isinstance(sample, dict):

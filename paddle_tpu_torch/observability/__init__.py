@@ -60,6 +60,7 @@ from .spans import (
     remote_span,
     span,
 )
+from .stepstats import StepStats, register_stepstats_view
 
 __all__ = [
     # metrics
@@ -77,6 +78,8 @@ __all__ = [
     # scrape endpoint
     "ScrapeServer", "start_scrape_server", "register_health_provider",
     "unregister_health_provider", "health_snapshot",
+    # serving step observatory
+    "StepStats", "register_stepstats_view",
     # submodules
     "flight", "jit_events", "latency", "metrics", "scrape", "spans",
     "stepstats",

@@ -5,6 +5,9 @@ accumulators), in the rescaled form of the JAX package:
 ``lr_t = lr * sqrt(1 - beta2^t) / (1 - beta1^t)`` with
 ``eps_t = eps * sqrt(1 - beta2^t)``, and
 ``w -= lr_t * m / (sqrt(v) + eps_t)`` (``sqrt(max v)`` with amsgrad).
+
+``lazy_mode`` is accepted and, as in the JAX package, changes nothing:
+gradients are dense, so every row of every moment is updated each step.
 """
 from __future__ import annotations
 
@@ -20,12 +23,14 @@ __all__ = ["Adam"]
 class Adam(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
-                 grad_clip=None, multi_precision=False, amsgrad=False):
+                 grad_clip=None, lazy_mode=False, name=None,
+                 multi_precision=False, amsgrad=False):
         super().__init__(
             learning_rate=learning_rate, parameters=parameters,
-            weight_decay=weight_decay, grad_clip=grad_clip,
+            weight_decay=weight_decay, grad_clip=grad_clip, name=name,
             multi_precision=multi_precision,
         )
+        self._lazy_mode = bool(lazy_mode)
         self._beta1 = float(beta1)
         self._beta2 = float(beta2)
         self._epsilon = float(epsilon)

@@ -19,13 +19,14 @@ class AdamW(Adam):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
                  lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
-                 multi_precision=False, amsgrad=False):
+                 lazy_mode=False, multi_precision=False, amsgrad=False,
+                 name=None):
         # decoupled, so not handed to the base class as an L2 term
         super().__init__(
             learning_rate=learning_rate, beta1=beta1, beta2=beta2,
             epsilon=epsilon, parameters=parameters, weight_decay=None,
-            grad_clip=grad_clip, multi_precision=multi_precision,
-            amsgrad=amsgrad,
+            grad_clip=grad_clip, lazy_mode=lazy_mode, name=name,
+            multi_precision=multi_precision, amsgrad=amsgrad,
         )
         self._coeff = float(weight_decay)
         self._lr_ratio = lr_ratio

@@ -12,9 +12,10 @@ JAX ``_make_step_fn``'s, in the same order: clip the gradients, cast each
 to the dtype of the weight it updates (the master where there is one),
 add the coupled decay, apply the decoupled decay to that weight, then
 the subclass's rule, then round the master back into the parameter.
-``_set_found_inf(flag)`` (a bool tensor) makes a step with the flag set
-keep every parameter and accumulator as it was, as the JAX staged update
-does; the global step still advances. The update runs outside any
+``set_dict`` is ``set_state_dict``, as in the JAX package, and
+``name`` is kept as given. ``_set_found_inf(flag)`` (a bool tensor)
+makes a step with the flag set keep every parameter and accumulator as
+it was, as the JAX staged update does; the global step still advances. The update runs outside any
 ``amp.auto_cast`` policy (the JAX package's is a staged program the
 dispatch hook never sees).
 
@@ -78,14 +79,16 @@ class Optimizer:
     """Subclasses define
 
     * ``_init_state(w) -> dict[slot, tensor]`` for a weight ``w`` (the
-      master when there is one);
+      master when there is one), its slots named as the JAX class's
+      ``_acc_names`` (they key ``state_dict``);
     * ``_update(weights, grads, states, lrs, t)``, which updates the
       weights and states in place; ``lrs`` are the per-parameter
       effective learning rates and ``t`` the 1-based global step.
     """
 
     def __init__(self, learning_rate=0.001, parameters=None,
-                 weight_decay=None, grad_clip=None, multi_precision=False):
+                 weight_decay=None, grad_clip=None, name=None,
+                 multi_precision=False):
         if parameters is None:
             raise ValueError(
                 "parameters is required (pass model.parameters() or "
@@ -96,6 +99,7 @@ class Optimizer:
             raise TypeError("grad_clip must be an nn.ClipGradBy* instance")
         if not isinstance(learning_rate, (int, float, LRScheduler)):
             raise TypeError("learning_rate must be float or LRScheduler")
+        self._name = name
         self._learning_rate = learning_rate
         self._grad_clip = grad_clip
         self._multi_precision = multi_precision
@@ -313,3 +317,5 @@ class Optimizer:
                     )
                 st[slot].copy_(src)
         return self
+
+    set_dict = set_state_dict

@@ -7,7 +7,13 @@ paddle_tpu_torch.serving serve``)."""
 from .access_log import AccessLog
 from .adapter import LlamaServingAdapter, build_adapter
 from .engine import Engine, EngineConfig, EngineOverloadedError
-from .fleet import Fleet, FleetConfig, FleetMetrics, NoReplicaError
+from .fleet import (
+    Fleet,
+    FleetConfig,
+    FleetMetrics,
+    FleetRequest,
+    NoReplicaError,
+)
 from .journal import Journal, ReplayEntry
 from .kv_cache import BlockManager, KVPool
 from .metrics import EngineMetrics
@@ -34,6 +40,7 @@ from .supervisor import ReplicaSupervisor
 __all__ = [
     "AccessLog", "BlockManager", "Engine", "EngineConfig", "EngineMetrics",
     "EngineOverloadedError", "Fleet", "FleetConfig", "FleetMetrics",
+    "FleetRequest",
     "HostSpillTier",
     "Journal", "KVPool", "LlamaServingAdapter", "NoReplicaError",
     "PrefixCache", "PrefixMatch", "QoS", "QoSConfig", "QoSRejection",

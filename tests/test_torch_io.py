@@ -233,6 +233,34 @@ def test_default_collate_fn_structures():
         io.default_collate_fn([object()])
 
 
+class _Float64Samples:
+    """Map-style samples of a Python float, a float64 array and an int."""
+
+    def __len__(self):
+        return 6
+
+    def __getitem__(self, i):
+        return 0.1 * i, np.full(3, i / 7.0), i
+
+
+@pytest.mark.parametrize("num_workers", [0, 2])
+def test_collate_narrows_float64_to_float32_like_jax(num_workers):
+    # JAX's tensors narrow Python floats and float64 arrays to float32
+    # (its default float dtype); the port's batches must come out the
+    # same, or a float32 layer refuses them. Integers stay int64.
+    t = io.DataLoader(_Float64Samples(), batch_size=4,
+                      num_workers=num_workers, device="cpu")
+    j = JaxDataLoader(_Float64Samples(), batch_size=4)
+    for got, want in zip(t, j):
+        assert [g.dtype for g in got] == [torch.float32, torch.float32,
+                                          torch.int64]
+        assert [w.numpy().dtype for w in want[:2]] == [np.float32] * 2
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w.numpy()))
+    out = io.default_collate_fn([1.5, 2.5])
+    assert out.dtype == torch.float32 and out.tolist() == [1.5, 2.5]
+
+
 def test_process_workers_are_refused_by_name():
     x, y = _data()
     with pytest.raises(NotImplementedError, match="use_shared_memory"):

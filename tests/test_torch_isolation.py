@@ -2,7 +2,8 @@
 MoE and quantization modules, the journal, QoS, the HTTP server and its
 CLI, the retry policy, the replica supervisor and the fleet, the step
 observatory, the compile log and the host spill tier, the data loader,
-amp, the checkpoints, the watchdog and the train loop too) loads neither
+amp, the checkpoints, the watchdog and the train loop, DiT and the
+optimizers too) loads neither
 jax, nor anything of paddle_tpu, nor ml_dtypes, and its entry points
 refuse to fall back to the CPU quietly when no CUDA device exists."""
 import os
@@ -54,6 +55,8 @@ import paddle_tpu_torch.optimizer.lr
 import paddle_tpu_torch.distributed.checkpoint
 import paddle_tpu_torch.distributed.watchdog
 import paddle_tpu_torch.resilience.train_state
+import paddle_tpu_torch.models.dit
+import paddle_tpu_torch.optimizer.lbfgs
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.")

@@ -1,8 +1,15 @@
 """paddle_tpu_torch ops against the JAX package's functions of the same name.
 
 The same numpy inputs (fixed seeds) go through the JAX function and its
-PyTorch counterpart on the CPU; f32 tolerance atol 1e-5, rtol 1e-4.
+PyTorch counterpart on the CPU; f32 tolerance atol 1e-5, rtol 1e-4
+(``cross_entropy``'s forms: 1e-6). Attention dropout cannot share JAX's
+random stream: the same keep-mask is injected on both sides, and the
+port's own draw is held to identities (p = 0 is no dropout, the keep
+rate within binomial bounds, one generator seed one output).
 """
+import types
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,16 +18,23 @@ import torch
 from paddle_tpu.generation import warp_logits as jax_warp_logits
 from paddle_tpu.ops.impl.activation import swiglu as jax_swiglu
 from paddle_tpu.ops.impl.fused_ops import rope_qk as jax_rope_qk
+from paddle_tpu.ops.impl.nn_ops import cross_entropy as jax_ce
 from paddle_tpu.ops.impl.nn_ops import rms_norm as jax_rms_norm
 from paddle_tpu.ops.impl.nn_ops import (
     scaled_dot_product_attention as jax_sdpa,
 )
+from paddle_tpu.ops.impl.nn_ops import (
+    softmax_with_cross_entropy as jax_swce,
+)
 from paddle_tpu_torch.generation import warp_logits
 from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
 from paddle_tpu_torch.ops import (
+    cross_entropy,
+    nn_ops,
     rms_norm,
     rope_qk,
     scaled_dot_product_attention,
+    softmax_with_cross_entropy,
     swiglu,
 )
 
@@ -43,6 +57,22 @@ def test_rms_norm(shape, eps):
            jax_rms_norm(jnp.asarray(x), jnp.asarray(w), epsilon=eps))
     _close(rms_norm(torch.from_numpy(x), epsilon=eps),
            jax_rms_norm(jnp.asarray(x), epsilon=eps))
+
+
+@pytest.mark.parametrize("begin_norm_axis", [-1, 1, 2])
+def test_rms_norm_bias_and_begin_norm_axis(begin_norm_axis):
+    rng = np.random.RandomState(9)
+    x = rng.randn(2, 3, 8).astype(np.float32)
+    shape = x.shape[begin_norm_axis % 3:]
+    w = rng.randn(*shape).astype(np.float32)
+    b = rng.randn(*shape).astype(np.float32)
+    kw = dict(epsilon=1e-5, begin_norm_axis=begin_norm_axis)
+    _close(rms_norm(torch.from_numpy(x), torch.from_numpy(w),
+                    torch.from_numpy(b), **kw),
+           jax_rms_norm(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                        **kw))
+    _close(rms_norm(torch.from_numpy(x), bias=torch.from_numpy(b), **kw),
+           jax_rms_norm(jnp.asarray(x), bias=jnp.asarray(b), **kw))
 
 
 @pytest.mark.parametrize("offset", [None, 0, 7])
@@ -178,3 +208,180 @@ def test_warp_logits_per_row():
                        torch.from_numpy(k), torch.from_numpy(p))
     _close(port, jax_warp_logits(jnp.asarray(logits), jnp.asarray(t),
                                  jnp.asarray(k), jnp.asarray(p)))
+
+
+# ---------------------------------------------------------- cross entropy
+CE_TOL = dict(atol=1e-6, rtol=1e-6)
+
+
+def _ce_inputs(n=6, c=11, seed=10):
+    rng = np.random.RandomState(seed)
+    logits = (2 * rng.randn(n, c)).astype(np.float32)
+    labels = rng.randint(0, c, n).astype(np.int64)
+    labels[[1, 4]] = -100
+    soft = rng.rand(n, c).astype(np.float32)
+    soft /= soft.sum(-1, keepdims=True)
+    weight = (0.5 + rng.rand(c)).astype(np.float32)
+    return logits, labels, soft, weight
+
+
+def _ce_pair(logits, label, weight=None, **kw):
+    port = cross_entropy(torch.from_numpy(logits), torch.from_numpy(label),
+                         None if weight is None else torch.from_numpy(weight),
+                         **kw)
+    ref = jax_ce(jnp.asarray(logits), jnp.asarray(label),
+                 None if weight is None else jnp.asarray(weight), **kw)
+    np.testing.assert_allclose(port.numpy(), np.asarray(ref), **CE_TOL)
+    return port
+
+
+@pytest.mark.parametrize("reduction", ["mean", "sum", "none"])
+def test_cross_entropy_n1_labels_match_n_labels(reduction):
+    # [N, 1] hard labels (paddle's usual layout) are the [N] labels: the
+    # label axis of the logits' rank is squeezed, as in the JAX op
+    logits, labels, _, _ = _ce_inputs()
+    flat = _ce_pair(logits, labels, reduction=reduction)
+    col = _ce_pair(logits, labels[:, None], reduction=reduction)
+    np.testing.assert_array_equal(col.numpy(), flat.numpy())
+
+
+CE_FORMS = {
+    "weight_ignore": dict(weighted=True),
+    "weight_ignore_sum": dict(weighted=True, reduction="sum"),
+    "weight_ignore_none": dict(weighted=True, reduction="none"),
+    "smooth_hard": dict(label_smoothing=0.1),
+    "smooth_hard_weight": dict(weighted=True, label_smoothing=0.2),
+    "ignore_other_index": dict(ignore_index=3),
+    "probabilities": dict(use_softmax=False),
+}
+
+
+@pytest.mark.parametrize("form", sorted(CE_FORMS))
+def test_cross_entropy_hard_label_forms(form):
+    kw = dict(CE_FORMS[form])
+    logits, labels, _, weight = _ce_inputs()
+    if kw.pop("weighted", False) is False:
+        weight = None
+    if "ignore_index" in kw:
+        labels = np.where(labels == -100, kw["ignore_index"], labels)
+    if kw.get("use_softmax") is False:
+        logits = np.array(jax.nn.softmax(jnp.asarray(logits), axis=-1))
+        logits[0, 0] = 0.0                # clipped at 1e-30 before the log
+    _ce_pair(logits, labels, weight, **kw)
+
+
+@pytest.mark.parametrize("smoothing", [0.0, 0.15])
+@pytest.mark.parametrize("reduction", ["mean", "sum", "none"])
+@pytest.mark.parametrize("explicit", [True, False],
+                         ids=["soft_label", "by_shape"])
+def test_cross_entropy_soft_labels(explicit, reduction, smoothing):
+    logits, _, soft, _ = _ce_inputs()
+    kw = dict(reduction=reduction, label_smoothing=smoothing)
+    if explicit:
+        kw["soft_label"] = True
+    _ce_pair(logits, soft, **kw)
+
+
+def test_cross_entropy_soft_labels_on_axis_1():
+    rng = np.random.RandomState(11)
+    logits = rng.randn(2, 5, 3).astype(np.float32)
+    soft = rng.rand(2, 5, 3).astype(np.float32)
+    soft /= soft.sum(1, keepdims=True)
+    _ce_pair(logits, soft, axis=1, reduction="none", label_smoothing=0.1)
+
+
+def test_cross_entropy_hard_labels_on_axis_1_gather_there():
+    # the class axis in the middle: the label's log-probability along it,
+    # the JAX op's answer with the class axis moved last (the JAX op
+    # itself gathers along the wrong axis there)
+    rng = np.random.RandomState(12)
+    logits = rng.randn(3, 5, 4).astype(np.float32)
+    labels = rng.randint(0, 5, (3, 4)).astype(np.int64)
+    port = cross_entropy(torch.from_numpy(logits), torch.from_numpy(labels),
+                         axis=1, reduction="none")
+    ref = jax_ce(jnp.asarray(np.moveaxis(logits, 1, -1)),
+                 jnp.asarray(labels), reduction="none")
+    np.testing.assert_allclose(port.numpy(), np.asarray(ref), **CE_TOL)
+
+
+def test_cross_entropy_gradient_with_weight_and_smoothing():
+    logits, labels, _, weight = _ce_inputs(seed=13)
+    x = torch.from_numpy(logits).requires_grad_()
+    cross_entropy(x, torch.from_numpy(labels), torch.from_numpy(weight),
+                  label_smoothing=0.1).backward()
+    want = jax.grad(lambda z: jax_ce(z, jnp.asarray(labels),
+                                     jnp.asarray(weight),
+                                     label_smoothing=0.1))(jnp.asarray(logits))
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(want), **CE_TOL)
+
+
+@pytest.mark.parametrize("soft", [False, True])
+def test_softmax_with_cross_entropy(soft):
+    logits, labels, soft_labels, _ = _ce_inputs(seed=14)
+    label = soft_labels if soft else labels[:, None]
+    loss, sm = softmax_with_cross_entropy(
+        torch.from_numpy(logits), torch.from_numpy(label), soft_label=soft,
+        return_softmax=True)
+    jloss, jsm = jax_swce(jnp.asarray(logits), jnp.asarray(label),
+                          soft_label=soft, return_softmax=True)
+    assert loss.shape == (6, 1)
+    np.testing.assert_allclose(loss.numpy(), np.asarray(jloss), **CE_TOL)
+    np.testing.assert_allclose(sm.numpy(), np.asarray(jsm), **CE_TOL)
+
+
+# ------------------------------------------------------ attention dropout
+def _qkv(seed, b=2, s=6, h=4, d=8):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(b, s, h, d).astype(np.float32) for _ in range(3)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_sdpa_dropout_with_one_injected_mask_matches_jax(monkeypatch,
+                                                         causal):
+    q, k, v = _qkv(20)
+    p = 0.3
+    keep = np.random.RandomState(21).rand(2, 4, 6, 6) >= p
+    monkeypatch.setattr(jax.random, "bernoulli",
+                        lambda key, prob, shape: jnp.asarray(keep))
+    monkeypatch.setattr(nn_ops, "_keep_mask",
+                        lambda p_, shape, device, gen: torch.from_numpy(keep))
+    port = scaled_dot_product_attention(
+        *(torch.from_numpy(t) for t in (q, k, v)), dropout_p=p,
+        is_causal=causal)
+    ref = jax_sdpa(*(jnp.asarray(t) for t in (q, k, v)), dropout_p=p,
+                   is_causal=causal, key_rng=jax.random.PRNGKey(0))
+    _close(port, ref)
+
+
+def test_sdpa_dropout_identities():
+    q, k, v = (torch.from_numpy(t) for t in _qkv(22, b=4, s=32, d=16))
+    plain = scaled_dot_product_attention(q, k, v)
+    # p = 0 is no dropout, whatever the generator
+    torch.testing.assert_close(
+        scaled_dot_product_attention(
+            q, k, v, dropout_p=0.0,
+            generator=torch.Generator().manual_seed(1)),
+        plain, rtol=0, atol=0)
+    # one generator seed, one output; another seed, another output
+    outs = [scaled_dot_product_attention(
+        q, k, v, dropout_p=0.1, generator=torch.Generator().manual_seed(s))
+        for s in (5, 5, 6)]
+    assert torch.equal(outs[0], outs[1])
+    assert not torch.equal(outs[0], outs[2])
+    # the keep rate of the probabilities within 5 sigma of binomial(1 - p)
+    p = 0.1
+    keep = nn_ops._keep_mask(p, (4, 4, 32, 32), torch.device("cpu"),
+                             torch.Generator().manual_seed(7))
+    n = keep.numel()
+    sigma = (n * p * (1 - p)) ** 0.5
+    assert abs(int(keep.sum()) - n * (1 - p)) <= 5 * sigma
+
+
+def test_sdpa_dropout_is_not_flash_eligible():
+    # JAX's gate refuses dropout; a dropout call on the card takes the
+    # math form (no kernel keeps a mask)
+    t = types.SimpleNamespace(shape=(2, 16, 4, 64), dtype=torch.bfloat16,
+                              device=types.SimpleNamespace(type="cuda"),
+                              requires_grad=False)
+    assert nn_ops.flash_eligible(t, t, t, None, False)
+    assert not nn_ops.flash_eligible(t, t, t, None, False, dropout_p=0.1)
