@@ -330,6 +330,37 @@ Phases, in order; any failure exits non-zero:
                a quadratic of the same size, 1e-4), each timed; and one
                dropout call at p 0.1 (no flash launch, the keep rate
                within 5 binomial sigma, one seed one output).
+7e. resnet  — BASELINE config #1, ``bench.py``'s ``bench_resnet``:
+               ResNet-50 (10 classes, 23.5M parameters from seed 0) on
+               the bench's batch of 128 32x32 images, Momentum(0.1, 0.9,
+               weight_decay 5e-4), cross entropy, through
+               ``jit.TrainStep`` in f32 (TF32 off) and amp O2 bf16, 40
+               steps each (1 + 3 + 10 timed). Gates: the first f32 step
+               on the card against the same step on the CPU (loss 1e-4,
+               running statistics 1e-4) and against the f64 step on the
+               CPU that takes the card's ReLU and max-pool decisions
+               (every gradient 1e-3); the running statistics against the
+               JAX formula over the batch (m 0.9, biased variance); O2's
+               first step unit by unit (stem, 16 blocks, head) against
+               each unit redone in f64 on the CPU from the card's bf16
+               weights, input, decisions and output gradient (outputs
+               2e-2, every gradient 5e-2, the loss 1e-2), and its whole
+               forward against f32 after the stem (1e-2) and layer1
+               (5e-2); each gradient gate first shown to catch a planted
+               fault; losses finite and falling by step 40; the eval
+               forward on the running statistics; no hand kernel
+               launched. Recorded: step ms, images/s, MFU (64.1 GFLOP a
+               step), peak memory, a profiled step's device ms by
+               family, kernels and busy share. Then the data path: the
+               f32 step fed by 4 forked DataLoader workers over shared
+               memory (synthetic CIFAR-10, RandomCrop, flip, ToTensor,
+               Normalize): images/s and the wait in ``next()``; with a
+               fixed transform the first 4 batches equal the in-process
+               loader's bit for bit, the workers are other processes
+               (collating the CPU tensors the dataset returns), an early
+               ``break`` leaves no shared-memory segment, and a dataset
+               that calls CUDA in a worker makes the loader raise with
+               the worker's traceback.
 8. moe      — ``bench.py``'s MoE layer (``bench_kernels``: d_model 1024,
                8 experts, d_ff 2816, top-2, 8 x 1024 tokens, bf16):
                ``impl="ragged"`` runs 3 grouped GEMM launches and agrees
@@ -358,7 +389,9 @@ serving, training and MoE counters) as JSON to PATH.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
+import copy
 import gc
 import json
 import os
@@ -4931,9 +4964,10 @@ def phase_train_parity(torch):
     return result
 
 
-def _profiled_step(torch, step, ids):
-    """Device time of one training step, all kernels and the flash ones by
-    name, from torch.profiler."""
+def _profiled_step(torch, step, ids, family=None):
+    """Device time of one training step, all kernels, the flash ones by
+    name and each family (``family``: a kernel's name -> its family),
+    from torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -4950,10 +4984,11 @@ def _profiled_step(torch, step, ids):
         return sum(e.self_device_time_total for e in kernels
                    if tag in e.key) / 1e3
 
-    # kernel families by name: cuBLAS GEMMs, the port's flash kernels, the
-    # optimizer's multi-tensor (foreach) kernels, and everything else
-    # (casts, norms, RoPE, residual adds, the loss, gradient sums)
-    def family(key):
+    # kernel families by name (``family``; by default cuBLAS GEMMs, the
+    # port's flash kernels, the optimizer's multi-tensor (foreach)
+    # kernels, and everything else: casts, norms, RoPE, residual adds,
+    # the loss, gradient sums)
+    def default(key):
         if "nvjet" in key or "gemm" in key.lower() or "cutlass" in key:
             return "gemm"
         if "flash_" in key:
@@ -4962,6 +4997,7 @@ def _profiled_step(torch, step, ids):
             return "foreach"
         return "other"
 
+    family = family or default
     families = {}
     for e in kernels:
         f = family(e.key)
@@ -5766,6 +5802,754 @@ def phase_dit(torch):
     del kept
     result["dropout"] = _dit_dropout(torch, flush)
     del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+# ------------------------------------------------------------ ResNet-50
+# bench.py's bench_resnet (BASELINE config #1, its TPU branch): ResNet-50
+# with a 10-class head on 32 x 32 images, batch 128, Momentum(0.1, 0.9,
+# weight_decay 5e-4), cross entropy, through jit.TrainStep; f32 (the
+# bench's dtype, TF32 off) and amp O2 bf16 (every parameter bf16, the
+# batch norms' running buffers f32)
+RESNET_BATCH = 128
+RESNET_MODES = {"f32": (None, F32_FLOPS), "o2_bf16": ("bfloat16", BF16_FLOPS)}
+RESNET_TIMED_STEPS = 10
+# lr 0.1 on one fixed batch first throws the loss up (to ~10x at steps
+# 2-4 in a CPU run at batch 32) before it falls: the losses are followed
+# to step 40, and the last must be below the first
+RESNET_STEPS = 40
+# the first f32 step on the card: the loss within 1e-4 relative of the
+# same step on the CPU, and each layer's running mean and variance
+# within 1e-4 relative L2 of the CPU's; each gradient within 1e-3
+# relative L2 of the step in f64 on the CPU that takes the card's ReLU
+# and max-pool decisions (``_pin_decisions``). Against a step that makes
+# its own decisions no such bound holds: the f32 forward stands ~7e-5
+# from f64 at the logits, enough to flip a few ReLUs near 0, and each
+# flip moves the gradients of every layer below it, so the CPU's own
+# f32 gradients stand up to ~2e-2 from its f64 ones (recorded: the card
+# against the CPU)
+RESNET_LOSS_RTOL = 1e-4
+RESNET_GRAD_RTOL = 1e-3
+RESNET_STATS_RTOL = 1e-4
+# O2 bf16's first step, unit by unit (``_resnet_o2_units``): each unit
+# of the network (the stem, each block, the head) redone on the CPU
+# from the card's bf16 weights, input and output gradient, with the
+# card's decisions, in f64 and under O2 bf16. Each output (the head's
+# loss), input gradient and parameter gradient on the card within 2e-2
+# relative L2 of the f64 unit, plus twice the CPU bf16 unit's distance
+# from it: a gradient that sums many terms that cancel (the stem batch
+# norm's bias: 32768 terms a channel that largely cancel) carries its
+# bf16 rounding magnified, on any device (the port's O2 on the CPU:
+# 2.5e-2 there, 3-9e-3 elsewhere). Through
+# the whole network the roundings compound (the f32 forward's own
+# error grows ~12 % a batch norm), so O2's whole first step is
+# recorded against f32's, stage by stage, and gated only after the
+# stem's max pool and after layer1
+RESNET_O2_UNIT_RTOL = 2e-2
+RESNET_O2_STAGE_RTOL = {"stem": 1e-2, "layer1": 5e-2}
+RESNET_STAGES = ("maxpool", "layer1", "layer2", "layer3", "layer4")
+# the gradient that the gates' self-test plants a fault in: 1 % off in
+# f32, 10 % in O2, the gate must name it
+RESNET_PLANT = ("layer1.0.conv2.weight", {"f32": 1.01, "o2_bf16": 1.1})
+# the data path: bench's step fed by the CIFAR pipeline users run
+RESNET_DATA = dict(synthetic_size=2048, num_workers=4)
+
+
+def _resnet_batch(torch, dev="cuda", batch=RESNET_BATCH):
+    """bench.py's batch: RandomState(0) randn images, then labels."""
+    rng = np.random.RandomState(0)
+    x = rng.randn(batch, 3, 32, 32).astype("float32")
+    y = rng.randint(0, 10, (batch,)).astype("int64")
+    return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+
+
+def _resnet_flops(torch, model, x):
+    """Model FLOPs of one training step (3x the forward): 2 x the
+    multiply-adds of every convolution and of the head, counted from the
+    shapes of one forward (no-grad)."""
+    from paddle_tpu_torch.nn import Conv2D, Linear
+
+    total = [0]
+
+    def conv(m, inp, out):
+        k = int(np.prod(m.weight.shape[1:]))
+        total[0] += 2 * k * out.numel()
+
+    def linear(m, inp, out):
+        total[0] += 2 * m.weight.shape[0] * out.numel()
+
+    hooks = [m.register_forward_hook(conv if isinstance(m, Conv2D)
+                                     else linear)
+             for m in model.modules() if isinstance(m, (Conv2D, Linear))]
+    was = model.training
+    model.eval()
+    with torch.no_grad():
+        model(x)
+    model.train(was)
+    for h in hooks:
+        h.remove()
+    return {"forward_flops": total[0], "flops": 3 * total[0],
+            "forward_flops_per_image": total[0] / x.shape[0]}
+
+
+def _rel(torch, a, b):
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _stage_hooks(model, stages):
+    """Record each of ``RESNET_STAGES``' outputs (f32) into ``stages``."""
+    def keep(name):
+        def hook(m, inp, out):
+            stages[name] = out.detach().float()
+        return hook
+    return [getattr(model, n).register_forward_hook(keep(n))
+            for n in RESNET_STAGES]
+
+
+def _record_decisions(torch, model, dec):
+    """Forward hooks that keep, in call order under the module's name in
+    ``dec``, each ReLU's mask and each max pool's argmax (the flat H * W
+    index): the network's only discrete choices."""
+    from paddle_tpu_torch import nn, ops
+
+    def relu(name):
+        def hook(m, inp, out):
+            dec.setdefault(name, []).append(out.detach() > 0)
+        return hook
+
+    def pool(name):
+        def hook(m, inp, out):
+            dec.setdefault(name, []).append(ops.max_pool2d_with_index(
+                inp[0].detach(), m.kernel_size, m.stride, m.padding,
+                m.ceil_mode)[1])
+        return hook
+
+    return [m.register_forward_hook(
+        (relu if isinstance(m, nn.ReLU) else pool)(n))
+        for n, m in model.named_modules()
+        if isinstance(m, (nn.ReLU, nn.MaxPool2D))]
+
+
+def _pin_decisions(torch, model, dec, prefix=""):
+    """Forward hooks that make ``model``'s ReLUs and max pools take, in
+    call order, the choices ``_record_decisions`` kept in ``dec`` for
+    the modules named ``prefix`` + theirs. The step is then a smooth
+    function of the weights and the input, and its f64 value the
+    reference of an f32 or bf16 step that made those choices."""
+    from paddle_tpu_torch import nn
+
+    def pinned(name):
+        calls = iter(dec[name])
+
+        def hook(m, inp, out):
+            d = next(calls).to(inp[0].device)
+            if isinstance(m, nn.ReLU):
+                return inp[0] * d.to(inp[0].dtype)
+            return inp[0].flatten(2).gather(2, d.flatten(2)).view(out.shape)
+        return hook
+
+    return [m.register_forward_hook(pinned(prefix + n))
+            for n, m in model.named_modules()
+            if isinstance(m, (nn.ReLU, nn.MaxPool2D)) and prefix + n in dec]
+
+
+def _resnet_grads(torch, model, x, y, bn_inputs=None, stages=None,
+                  hooks=()):
+    """Loss and every gradient of one forward and backward in train
+    mode (the batch norms' running statistics advance once); with
+    ``bn_inputs`` (a dict), each batch norm's input statistics in f64:
+    {layer name: (mean, biased variance)}; with ``stages``, the stages'
+    outputs; ``hooks``, handles to remove after the step."""
+    from paddle_tpu_torch import nn
+
+    hooks = list(hooks) + ([] if stages is None
+                           else _stage_hooks(model, stages))
+    if bn_inputs is not None:
+        def capture(name):
+            def hook(m, inp):
+                t = inp[0].detach().double()
+                bn_inputs[name] = (t.mean(dim=(0, 2, 3)),
+                                   t.var(dim=(0, 2, 3), unbiased=False))
+            return hook
+        hooks += [m.register_forward_pre_hook(capture(n))
+                  for n, m in model.named_modules()
+                  if isinstance(m, nn.BatchNorm2D)]
+    for p in model.parameters():
+        p.grad = None
+    loss = nn.CrossEntropyLoss()(model(x), y)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    for h in hooks:
+        h.remove()
+    return float(loss.detach()), grads
+
+
+def _leaf_gate(torch, kind, card, ref, rtol, plant=None, floor=None):
+    """Relative L2 of each leaf of ``card`` from ``ref``; fails unless
+    every one is within ``rtol``, plus twice ``floor[leaf]`` where a
+    floor is given (the distance from ``ref`` of the same computation
+    on another device). With ``plant`` (leaf, factor), first shows that
+    the gate names that leaf once its value is scaled by ``factor``: a
+    check that cannot fail holds nothing."""
+    tol = {n: rtol + 2 * (floor[n] if floor else 0.0) for n in ref}
+
+    def over(c):
+        rels = {n: _rel(torch, c[n], ref[n]) for n in ref}
+        return rels, {n: (e, tol[n]) for n, e in rels.items() if e > tol[n]}
+
+    if plant is not None:
+        leaf, factor = plant
+        _, caught = over({**card, leaf: card[leaf] * factor})
+        check(leaf in caught, f"{kind}: the gate missed a planted fault "
+              f"(x{factor} on {leaf})")
+    rels, bad = over(card)
+    check(not bad, f"{kind}: {len(bad)} leaves over their limit (relative "
+          f"L2, limit): {sorted(bad.items(), key=lambda kv: -kv[1][0])[:4]}")
+    return rels
+
+
+def _summary(rels):
+    """Worst, median and the worst leaf of a {leaf: relative L2}."""
+    worst = max(rels, key=rels.get)
+    return {"worst": rels[worst], "worst_leaf": worst,
+            "median": float(np.median(list(rels.values())))}
+
+
+def _resnet_first_step(torch, model):
+    """The f32 model's first step on the card against the same step of
+    the port on the CPU (the loss, the running statistics; the
+    gradients recorded), and its gradients against the step in f64 on
+    the CPU that takes the card's decisions, from the same weights and
+    batch (copies; ``model`` is left as built)."""
+    from paddle_tpu_torch.vision.models import resnet50
+
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    cpu_init = {k: v.cpu() for k, v in init.items()}
+    x, y = _resnet_batch(torch)
+    bn_in, stages, dec, host_dec = {}, {}, {}, {}
+    loss, grads = _resnet_grads(torch, model, x, y, bn_in, stages,
+                                _record_decisions(torch, model, dec))
+    after = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    model.load_state_dict(init)
+    host = resnet50(num_classes=10, device="cpu")
+    host.load_state_dict(cpu_init)
+    t0 = time.perf_counter()
+    loss_h, grads_h = _resnet_grads(
+        torch, host, x.cpu(), y.cpu(),
+        hooks=_record_decisions(torch, host, host_dec))
+    host_s = time.perf_counter() - t0
+    exact = resnet50(num_classes=10, device="cpu").double()
+    exact.load_state_dict(cpu_init)
+    t0 = time.perf_counter()
+    loss_d, grads_d = _resnet_grads(
+        torch, exact, x.cpu().double(), y.cpu(),
+        hooks=_pin_decisions(torch, exact, dec))
+    exact_s = time.perf_counter() - t0
+    bufs = {k: v for k, v in after.items()
+            if k.endswith(("._mean", "._variance"))}
+    host_bufs = {k: v for k, v in host.state_dict().items() if k in bufs}
+    del host, exact
+    flips = sum(int((a.cpu() != b).sum()) for n in dec
+                for a, b in zip(dec[n], host_dec[n]))
+    choices = sum(a.numel() for n in dec for a in dec[n])
+
+    check(abs(loss - loss_h) <= RESNET_LOSS_RTOL * abs(loss_h),
+          f"resnet f32 first step: loss {loss} on the card vs {loss_h} on "
+          f"the CPU")
+    g = _leaf_gate(torch, "resnet f32 first step: gradients against the "
+                   "pinned f64 step", grads, grads_d, RESNET_GRAD_RTOL,
+                   (RESNET_PLANT[0], RESNET_PLANT[1]["f32"]))
+    g_cpu = {n: _rel(torch, grads[n], grads_h[n]) for n in grads_h}
+    s = _leaf_gate(torch, "resnet f32 first step: running statistics "
+                   "against the CPU's", bufs, host_bufs, RESNET_STATS_RTOL)
+    # the running statistics are the JAX formula over the batch: m = 0.9,
+    # the biased variance, from the initial 0 / 1
+    formula = 0.0
+    for name, (mean, var) in bn_in.items():
+        for buf, want in (("_mean", 0.1 * mean),
+                          ("_variance", 0.9 + 0.1 * var)):
+            formula = max(formula, _rel(torch, bufs[f"{name}.{buf}"], want))
+    check(formula <= RESNET_STATS_RTOL, f"resnet f32 first step: running "
+          f"statistics {formula:.3g} from the JAX formula over the batch")
+    return {"loss": loss, "cpu_loss": loss_h, "f64_pinned_loss": loss_d,
+            "cpu_step_s": host_s, "f64_step_s": exact_s,
+            "gradients_vs_pinned_f64": _summary(g),
+            "gradients_vs_cpu_f32": _summary(g_cpu),
+            "gradients_by_leaf": {n: [g[n], g_cpu[n]] for n in g},
+            "decisions": choices, "decisions_differing_from_cpu": flips,
+            "running_stats": _summary(s),
+            "stats_vs_formula_rel_l2": formula,
+            "batch_norms": len(bn_in)}, grads, loss, stages
+
+
+def _resnet_units(torch, model):
+    """(name, module, parameter prefix) of the units that tile ResNet in
+    order: the stem (conv1, bn1, relu, maxpool), each block, and the
+    head (avgpool, flatten, fc)."""
+    seq = torch.nn.Sequential
+    stem = seq(collections.OrderedDict(
+        (n, getattr(model, n)) for n in ("conv1", "bn1", "relu", "maxpool")))
+    head = seq(collections.OrderedDict(
+        avgpool=model.avgpool, flatten=torch.nn.Flatten(1), fc=model.fc))
+    blocks = [(f"{s}.{i}", b, f"{s}.{i}.")
+              for s in ("layer1", "layer2", "layer3", "layer4")
+              for i, b in enumerate(getattr(model, s))]
+    return [("stem", stem, ""), *blocks, ("head", head, "")]
+
+
+def _resnet_o2_units(torch, model, loss_fn, x, y):
+    """O2's first forward and backward on the card, held unit by unit
+    (``_resnet_units``): each unit's input, output and output gradient
+    are kept from the one step of the whole model, and each unit's step
+    is redone on the CPU from the card's bf16 weights and input, with
+    the card's decisions, back from the card's output gradient: in f64,
+    the reference, and under O2 bf16, the same rounding on another
+    device. Gated (``RESNET_O2_UNIT_RTOL``), each quantity against the
+    f64 unit within the limit plus twice the CPU bf16 unit's distance:
+    each unit's output (the head's: the loss), its input gradient
+    (against the card's output gradient of the unit before) and every
+    parameter gradient. Returns (record, loss, gradients, stage
+    outputs)."""
+    from paddle_tpu_torch import amp, nn
+
+    units = _resnet_units(torch, model)
+    kept, dec, stages = {}, {}, {}
+
+    def keep(name):
+        def hook(m, inp, out):
+            kept[name] = {"out": out.detach()}
+            out.register_hook(
+                lambda g: kept[name].__setitem__("gout", g.detach()))
+        return hook
+
+    hooks = (_record_decisions(torch, model, dec)
+             + _stage_hooks(model, stages)
+             + [model.maxpool.register_forward_hook(keep("stem"))]
+             + [m.register_forward_hook(keep(n))
+                for n, m, _ in units[1:-1]])
+    for p in model.parameters():
+        p.grad = None
+    loss_t = loss_fn(model, x, y)
+    loss_t.backward()
+    loss = float(loss_t.detach())
+    for h in hooks:
+        h.remove()
+    grads = {n: p.grad.detach().float() for n, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    card = {f"out:{n}": v["out"] for n, v in kept.items()}
+    card["out:head"] = torch.tensor([loss])
+    card.update({f"grad_in:{units[k + 1][0]}": kept[n]["gout"]
+                 for k, (n, _, _) in enumerate(units[:-1])})
+    card.update(grads)
+
+    def redo(unit, name, prefix, xin, exact):
+        """The unit's step on the CPU: (output, gradients by the card's
+        names)."""
+        ref = copy.deepcopy(unit).cpu()
+        ref = ref.double() if exact else ref
+        for p in ref.parameters():
+            p.grad = None
+        pins = _pin_decisions(torch, ref, dec, prefix)
+        a = xin.detach().cpu()
+        a = (a.double() if exact else a).requires_grad_()
+        with (contextlib.nullcontext() if exact else
+              amp.auto_cast(True, level="O2", dtype="bfloat16")):
+            out = ref(a)
+            if name == "head":
+                out = nn.CrossEntropyLoss()(out, y.cpu()).reshape(1)
+        out.backward(None if name == "head" else
+                     kept[name]["gout"].cpu().to(out.dtype).reshape(out.shape))
+        for h in pins:
+            h.remove()
+        got = {f"out:{name}": out.detach()}
+        if name != "stem":
+            got[f"grad_in:{name}"] = a.grad
+        got.update({prefix + n: p.grad for n, p in ref.named_parameters()})
+        return got
+
+    t0 = time.perf_counter()
+    exact, low = {}, {}
+    for k, (name, unit, prefix) in enumerate(units):
+        xin = x if k == 0 else kept[units[k - 1][0]]["out"]
+        exact.update(redo(unit, name, prefix, xin, True))
+        low.update(redo(unit, name, prefix, xin, False))
+    ref_s = time.perf_counter() - t0
+    floor = {n: _rel(torch, low[n], exact[n]) for n in exact}
+    rels = _leaf_gate(torch, "resnet o2_bf16 units: against the pinned f64 "
+                      "units", card, exact, RESNET_O2_UNIT_RTOL, (
+                          RESNET_PLANT[0], RESNET_PLANT[1]["o2_bf16"]),
+                      floor)
+
+    def part(d, keep):
+        return _summary({n: e for n, e in d.items() if keep(n)})
+
+    kinds = {"outputs": lambda n: n.startswith("out:"),
+             "input_grads": lambda n: n.startswith("grad_in:"),
+             "gradients": lambda n: ":" not in n}
+    rec = {"units": len(units), "reference_s": ref_s,
+           "head_loss": rels["out:head"],
+           **{k: part(rels, f) for k, f in kinds.items()},
+           "cpu_bf16": {k: part(floor, f) for k, f in kinds.items()},
+           "by_quantity": {n: [rels[n], floor[n]] for n in rels}}
+    return rec, loss, grads, stages
+
+
+def _resnet_family(key):
+    """A ResNet step's kernel family, from the kernel's name."""
+    k = key.lower()
+    if "multi_tensor_apply" in k:
+        return "foreach"
+    if "pool" in k:
+        return "pooling"
+    if "batch_norm" in k or "bn_" in k or "welford" in k:
+        return "batch_norm"
+    if any(t in k for t in ("conv", "cudnn", "xmma", "implicit", "fprop",
+                            "dgrad", "wgrad", "nchwtonhwc", "nhwctonchw",
+                            "winograd", "fft")):
+        return "convolution"
+    if "gemm" in k or "nvjet" in k or "cutlass" in k:
+        return "gemm"
+    if "elementwise" in k or "relu" in k or "threshold" in k:
+        return "elementwise"
+    return "other"
+
+
+def _resnet_mode(torch, name, f32_ref):
+    """One mode of ``resnet``. ``f32_ref``: None for f32 (then the first
+    step is held to the CPU and f64), else the f32 mode's (loss,
+    gradients, stage outputs) for O2. Returns (record, (loss, gradients,
+    stage outputs))."""
+    from paddle_tpu_torch import amp, nn
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    amp_dtype, peak_flops = RESNET_MODES[name]
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = resnet50(num_classes=10, seed=0)
+    x, y = _resnet_batch(torch)
+    flops = _resnet_flops(torch, model, x)
+    rec = {"amp_dtype": amp_dtype, "batch": RESNET_BATCH,
+           "params": sum(p.numel() for p in model.parameters()),
+           "state_entries": len(model.state_dict()), **flops,
+           "cudnn_benchmark": bool(torch.backends.cudnn.benchmark)}
+    if f32_ref is None:
+        rec["first_step"], grads, loss, stages = _resnet_first_step(
+            torch, model)
+    opt = Momentum(learning_rate=0.1, momentum=0.9,
+                   parameters=model.named_parameters(), weight_decay=5e-4,
+                   multi_precision=amp_dtype is not None)
+    if amp_dtype is not None:
+        model, opt = amp.decorate(model, opt, level="O2", dtype=amp_dtype)
+        bufs = {b.dtype for b in model.buffers()}
+        check(bufs == {torch.float32} and all(
+            p.dtype == torch.bfloat16 for p in model.parameters()),
+            f"resnet {name}: parameters not all bf16 or buffers {bufs} not "
+            f"f32 after amp.decorate")
+    ce = nn.CrossEntropyLoss()
+
+    def policy():
+        return (amp.auto_cast(True, level="O2", dtype=amp_dtype)
+                if amp_dtype else contextlib.nullcontext())
+
+    def loss_fn(m, xb, yb):
+        with policy():
+            return ce(m(xb), yb)
+
+    if f32_ref is not None:
+        init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        units, loss, grads, stages = _resnet_o2_units(
+            torch, model, loss_fn, x, y)
+        model.load_state_dict(init)
+        ref_loss, ref_grads, ref_stages = f32_ref
+        each = sorted(_rel(torch, grads[n], ref_grads[n]) for n in grads)
+        flat = _rel(torch, torch.cat([grads[n].flatten() for n in grads]),
+                    torch.cat([ref_grads[n].flatten() for n in grads]))
+        staged = {("stem" if n == "maxpool" else n):
+                  _rel(torch, stages[n], ref_stages[n]) for n in stages}
+        rec["first_step"] = {
+            "units": units, "loss": loss, "f32_loss": ref_loss,
+            "stages_rel_l2": staged, "grads_rel_l2": flat,
+            "median_grad_rel_l2": float(np.median(each)),
+            "worst_grad_rel_l2": each[-1]}
+        check(np.isfinite(loss) and all(
+            staged[n] <= tol for n, tol in RESNET_O2_STAGE_RTOL.items()),
+            f"resnet {name}: first forward against f32: loss {loss} vs "
+            f"{ref_loss}, stages {staged} (gates {RESNET_O2_STAGE_RTOL})")
+    step = TrainStep(model, loss_fn, opt)
+    n_steps = 4 + RESNET_TIMED_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    losses = [step(x, y) for _ in range(4)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(x, y) for _ in range(RESNET_TIMED_STEPS)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / RESNET_TIMED_STEPS * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    losses += [step(x, y) for _ in range(RESNET_STEPS - n_steps)]
+    counts = dict(_build.launch_counts())
+    losses = [float(v) for v in losses]
+    check(not any(counts.values()), f"resnet {name}: hand kernels launched "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    check(all(np.isfinite(losses)), f"resnet {name}: non-finite loss "
+          f"{losses}")
+    check(losses[-1] < losses[0], f"resnet {name}: loss did not fall "
+          f"over {RESNET_STEPS} steps: {[round(v, 3) for v in losses]}")
+    check(abs(losses[0] - loss) <= RESNET_LOSS_RTOL * abs(loss),
+          f"resnet {name}: TrainStep's first loss {losses[0]} != {loss}")
+    # eval: the running statistics, the same on the CPU, no update
+    model.eval()
+    bufs = {k: v.clone() for k, v in model.state_dict().items()
+            if k.endswith(("._mean", "._variance"))}
+    with torch.no_grad(), policy():
+        logits = model(x).float()
+    check(all(torch.equal(v, model.state_dict()[k]) for k, v in
+              bufs.items()), f"resnet {name}: an eval forward changed the "
+          f"running statistics")
+    eval_rec = {"logits_finite": bool(logits.isfinite().all())}
+    if amp_dtype is None:
+        from paddle_tpu_torch.vision.models import resnet50 as build
+
+        host = build(num_classes=10, device="cpu").eval()
+        host.load_state_dict({k: v.cpu() for k, v in
+                              model.state_dict().items()})
+        with torch.no_grad():
+            want = host(x.cpu())
+        eval_rec["cpu_rel_l2"] = _rel(torch, logits, want)
+        check(eval_rec["cpu_rel_l2"] <= RESNET_STATS_RTOL * 10,
+              f"resnet {name}: eval logits {eval_rec['cpu_rel_l2']:.3g} "
+              f"from the CPU's")
+        del host
+    with torch.no_grad(), policy():
+        train_logits = model.train()(x).float()
+    model.load_state_dict({**model.state_dict(), **bufs})
+    eval_rec["train_vs_eval_rel_l2"] = _rel(torch, train_logits, logits)
+    check(eval_rec["logits_finite"] and eval_rec["train_vs_eval_rel_l2"]
+          > 1e-3, f"resnet {name}: eval logits {eval_rec}")
+    prof = _profiled_step(torch, lambda _: step(x, y), None,
+                          family=_resnet_family)
+    images_s = RESNET_BATCH / (step_ms / 1e3)
+    rec.update({
+        "step_ms": step_ms, "images_per_s": images_s,
+        "mfu": flops["flops"] / (step_ms / 1e3) / peak_flops,
+        "peak_flops": peak_flops,
+        "bound_ms": flops["flops"] / peak_flops * 1e3,
+        "peak_bytes": peak, "losses": losses, "steps": RESNET_STEPS,
+        "launches": counts, "eval": eval_rec, "profile": prof,
+        "busy_share": prof["device_ms"] / step_ms,
+    })
+    log(f"[resnet] {name}: {step_ms:.2f} ms/step, {images_s:.0f} images/s, "
+        f"MFU {rec['mfu'] * 100:.2f}% of {peak_flops / 1e12:.0f} TFLOP/s "
+        f"({flops['flops'] / 1e9:.2f} GFLOP a step, bound "
+        f"{rec['bound_ms']:.3f} ms); peak {peak / 2**30:.2f} GiB; losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    first = rec["first_step"]
+    if amp_dtype is None:
+        flips = first["decisions_differing_from_cpu"]
+        log(f"[resnet] {name} first step: loss {first['loss']!r} (CPU "
+            f"{first['cpu_loss']!r}, pinned f64 {first['f64_pinned_loss']!r});"
+            f" gradients against the pinned f64 step "
+            f"{first['gradients_vs_pinned_f64']}, against the CPU "
+            f"{first['gradients_vs_cpu_f32']}; {flips} of "
+            f"{first['decisions']} decisions differ from the CPU's; running "
+            f"statistics {first['running_stats']}, "
+            f"{first['stats_vs_formula_rel_l2']:.3g} from the formula")
+    else:
+        u = first["units"]
+        log(f"[resnet] {name} first step: loss {first['loss']!r} (f32 "
+            f"{first['f32_loss']!r}); {u['units']} units against pinned "
+            f"f64 (the CPU bf16 units' in brackets): outputs "
+            f"{u['outputs']} [{u['cpu_bf16']['outputs']}], head loss "
+            f"{u['head_loss']:.3g}, input gradients {u['input_grads']} "
+            f"[{u['cpu_bf16']['input_grads']}], parameter gradients "
+            f"{u['gradients']} [{u['cpu_bf16']['gradients']}]; whole step "
+            f"against f32: stages "
+            f"{ {k: round(v, 4) for k, v in first['stages_rel_l2'].items()} }"
+            f", gradients {first['grads_rel_l2']:.3g}")
+    log(f"[resnet] {name} profiled step: device {prof['device_ms']:.3f} ms "
+        f"in {prof['kernel_launches']} kernels (busy "
+        f"{rec['busy_share']:.3f}); "
+        + ", ".join(f"{k} {v:.3f}" for k, v in
+                    sorted(prof["families_ms"].items())))
+    for kname, ms, n in prof["top"]:
+        log(f"[resnet]   {kname:80s} {ms:9.3f} ms {n:5d} calls")
+    ref = (loss, {n: g.float() for n, g in grads.items()}, stages)
+    del model, opt, step
+    return rec, ref
+
+
+class _Probed:
+    """A dataset's items, the image as a CPU torch tensor (collated in
+    the worker), plus the loading process's pid."""
+
+    def __init__(self, ds):
+        self.ds = ds
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, i):
+        import torch
+
+        img, label = self.ds[i]
+        return torch.from_numpy(img), label, np.asarray([os.getpid()])
+
+
+class _CudaInWorker:
+    """A dataset whose items are made on the card: in a worker forked
+    from a process with a CUDA context, the first item must fail."""
+
+    def __len__(self):
+        return 8
+
+    def __getitem__(self, i):
+        import torch
+
+        return torch.full((2,), float(i), device="cuda").cpu().numpy()
+
+
+def _resnet_data(torch, fixed_images_s):
+    """The f32 step fed by the CIFAR pipeline: synthetic CIFAR-10 (2048
+    images) with RandomCrop(32, 4), RandomHorizontalFlip, ToTensor,
+    Normalize, batch 128, shuffle, 4 forked workers over shared memory."""
+    from paddle_tpu_torch import io, nn
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision import datasets, transforms as T
+    from paddle_tpu_torch.vision.models import resnet50
+
+    cfg = RESNET_DATA
+    norm = T.Normalize([0.4914, 0.4822, 0.4465], [0.2470, 0.2435, 0.2616])
+    plain = datasets.Cifar10(mode="train", backend="synthetic",
+                             synthetic_size=cfg["synthetic_size"],
+                             transform=T.Compose([T.ToTensor(), norm]))
+
+    def seeded(ds, **kw):
+        sampler = io.BatchSampler(sampler=io.RandomSampler(ds, seed=3),
+                                  batch_size=RESNET_BATCH, drop_last=True)
+        return io.DataLoader(ds, batch_sampler=sampler, **kw)
+
+    # deterministic transform: the first 4 batches equal the in-process
+    # loader's bit for bit; the items come from other processes, whose
+    # default collate stacks the CPU tensors the dataset returns
+    procs = seeded(_Probed(plain), num_workers=cfg["num_workers"],
+                   use_shared_memory=True)
+    sync = seeded(plain)
+    got = []
+    for i, batch in enumerate(procs):
+        got.append(batch)
+        if i == 3:
+            break
+    segments = [n for n in os.listdir("/dev/shm") if n.startswith("ptt")]
+    want = [b for _, b in zip(range(4), sync)]
+    equal = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                for a, b in zip(got, want))
+    pids = sorted(set(int(p) for b in got for p in b[2].flatten()))
+    check(equal and len(got) == 4, "resnet data: process batches differ "
+          "from the in-process loader's")
+    check(os.getpid() not in pids and len(pids) == cfg["num_workers"],
+          f"resnet data: items loaded by pids {pids} (parent "
+          f"{os.getpid()})")
+    check(not segments, f"resnet data: shared memory left after an early "
+          f"break: {segments[:4]}")
+    # the negative control: this process holds a CUDA context, so a
+    # worker whose dataset calls CUDA fails, and the loader raises with
+    # the worker's traceback (a worker never reaches the card)
+    try:
+        list(io.DataLoader(_CudaInWorker(), batch_size=2, num_workers=2,
+                           use_shared_memory=True))
+        cuda_error = None
+    except RuntimeError as e:
+        cuda_error = str(e)
+    check(cuda_error is not None and "in __getitem__" in cuda_error
+          and "forked subprocess" in cuda_error,
+          f"resnet data: a CUDA call in a worker gave {cuda_error!r}")
+    # the augmented pipeline feeding the f32 step
+    aug = datasets.Cifar10(
+        mode="train", backend="synthetic",
+        synthetic_size=cfg["synthetic_size"],
+        transform=T.Compose([T.RandomCrop(32, padding=4),
+                             T.RandomHorizontalFlip(), T.ToTensor(), norm]))
+    loader = io.DataLoader(aug, batch_size=RESNET_BATCH, shuffle=True,
+                           drop_last=True, num_workers=cfg["num_workers"],
+                           use_shared_memory=True)
+    model = resnet50(num_classes=10, seed=0)
+    opt = Momentum(learning_rate=0.1, momentum=0.9,
+                   parameters=model.parameters(), weight_decay=5e-4)
+    ce = nn.CrossEntropyLoss()
+    step = TrainStep(model, lambda m, xb, yb: ce(m(xb), yb), opt)
+    waits, losses = [], []
+    it = iter(loader)
+    t_start = None
+    for i in range(len(loader)):
+        t0 = time.perf_counter()
+        xb, yb = next(it)
+        waits.append(time.perf_counter() - t0)
+        if i == 1:       # after the first step: workers warm, step built
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        losses.append(step(xb, yb))
+    torch.cuda.synchronize()
+    steady = len(loader) - 1
+    secs = time.perf_counter() - t_start
+    losses = [float(v) for v in losses]
+    check(all(np.isfinite(losses)), f"resnet data: losses {losses}")
+    rec = {"batches": len(loader), "workers": cfg["num_workers"],
+           "images_per_s": steady * RESNET_BATCH / secs,
+           "fixed_batch_images_per_s": fixed_images_s,
+           "wait_ms_per_step": float(np.mean(waits[1:]) * 1e3),
+           "first_wait_ms": waits[0] * 1e3, "losses": losses,
+           "worker_pids": pids, "equal_to_in_process": equal,
+           "cuda_in_worker_error": cuda_error.strip().splitlines()[-1]}
+    rec["vs_fixed_batch"] = rec["images_per_s"] / fixed_images_s
+    log(f"[resnet] data path: {rec['images_per_s']:.0f} images/s over "
+        f"{steady} steps ({rec['vs_fixed_batch']:.3f} of the fixed batch's "
+        f"{fixed_images_s:.0f}); waiting in next() "
+        f"{rec['wait_ms_per_step']:.2f} ms a step (first "
+        f"{rec['first_wait_ms']:.1f} ms); workers {pids}; 4 batches equal "
+        f"to the in-process loader's; no segment left after a break")
+    del model, opt, step, loader, it
+    return rec
+
+
+def phase_resnet(torch):
+    """``resnet``: BASELINE config #1, ``bench.py``'s ``bench_resnet``:
+    ResNet-50 (23.5M parameters from seed 0, 10 classes) on the bench's
+    batch of 128 32 x 32 images, Momentum(0.1, 0.9, weight_decay 5e-4),
+    cross entropy, through ``jit.TrainStep`` in f32 (TF32 off) and amp O2
+    bf16, 40 steps each (1 + 3 + 10 timed, then on to 40: lr 0.1 first
+    throws the loss up). Gates: the f32 first step against the CPU and
+    the pinned f64 step (``_resnet_first_step``) and the running
+    statistics against the JAX formula over the batch; O2's first step
+    unit by unit against pinned f64 units (``_resnet_o2_units``) and its
+    forward against f32 after the stem and layer1; losses finite and
+    falling; the eval forward on the running statistics (the CPU's
+    within 1e-3 in f32), leaving them as they were; no hand kernel
+    launched. Recorded: step ms, images/s, MFU (64.1 GFLOP a step, f32
+    against 67e12, bf16 against 989e12), peak memory, one profiled step
+    (device ms by family, kernels, busy share), cudnn.benchmark. Then
+    the data path (``_resnet_data``)."""
+    result = {"launches": {}}
+    ref = None
+    for name in RESNET_MODES:
+        rec, got = _resnet_mode(torch, name, ref)
+        result[name] = rec
+        ref = ref or got
+        for key, n in rec["launches"].items():
+            result["launches"][key] = result["launches"].get(key, 0) + n
+    result["f32_vs_o2_step_ms"] = (result["f32"]["step_ms"]
+                                   / result["o2_bf16"]["step_ms"])
+    result["data"] = _resnet_data(torch, result["f32"]["images_per_s"])
     gc.collect()
     torch.cuda.empty_cache()
     return result
@@ -6700,12 +7484,12 @@ def main(argv=None):
         default="kernels,parity,serving,serving_int8,serving_f16,"
                 "serving_prefix,serving_spec,server,journal,poison,fleet,"
                 "spill,stepstats,train_parity,train,train_amp,train_resume,"
-                "dit,moe",
+                "dit,resnet,moe",
         help="comma list of kernels, parity, serving, serving_int8, "
              "serving_f16, serving_prefix, serving_spec, server, journal, "
              "poison, fleet, spill, stepstats, train_parity, train, "
-             "train_amp, train_resume, dit, moe, profile (default: all "
-             "but profile)",
+             "train_amp, train_resume, dit, resnet, moe, profile (default: "
+             "all but profile)",
     )
     ap.add_argument("--out", help="write the full report as JSON here")
     # the processes the server and journal phases start
@@ -6729,7 +7513,7 @@ def main(argv=None):
                         "serving_f16", "serving_prefix", "serving_spec",
                         "server", "journal", "poison", "fleet", "spill",
                         "stepstats", "train_parity", "train", "train_amp",
-                        "train_resume", "dit", "moe", "profile"}
+                        "train_resume", "dit", "resnet", "moe", "profile"}
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
@@ -6786,7 +7570,8 @@ def main(argv=None):
             "train_parity": phase_train_parity, "train": phase_train,
             "train_amp": phase_train_amp,
             "train_resume": phase_train_resume, "dit": phase_dit,
-            "moe": phase_moe, "profile": phase_profile,
+            "resnet": phase_resnet, "moe": phase_moe,
+            "profile": phase_profile,
         }
         results, report["phase_seconds"] = {}, {}
         for name, run in runners.items():
@@ -6843,12 +7628,12 @@ def main(argv=None):
         report["phases"].update(results)
         (serving, serving_int8, serving_f16, serving_prefix, serving_spec,
          server, journal, poison, fleet, spill, stepstats, train, train_amp,
-         train_resume, dit, moe) = (
+         train_resume, dit, resnet, moe) = (
              results.get(p) for p in (
                  "serving", "serving_int8", "serving_f16", "serving_prefix",
                  "serving_spec", "server", "journal", "poison", "fleet",
                  "spill", "stepstats", "train", "train_amp", "train_resume",
-                 "dit", "moe"))
+                 "dit", "resnet", "moe"))
         check("jax" not in sys.modules and not any(
             m == "paddle_tpu" or m.startswith("paddle_tpu.")
             for m in sys.modules),
@@ -6869,7 +7654,8 @@ def main(argv=None):
     # timed runs (on and off), the 14 counted train steps, the amp modes'
     # counted steps (O1 bf16, O2 bf16, O2 float16), the resume workers'
     # steps (bf16 and float16), the DiT cell's counted steps (f32 and O2
-    # bf16) and the moe phase's counted forwards
+    # bf16), the ResNet-50 cell's (f32 and O2 bf16: no hand kernel on its
+    # path, all 0) and the moe phase's counted forwards
     by_path = {p: r["launches"] if r else {} for p, r in (
         ("serving", serving), ("serving_int8", serving_int8),
         ("serving_f16", serving_f16), ("serving_prefix", serving_prefix),
@@ -6877,7 +7663,7 @@ def main(argv=None):
         ("journal", journal), ("poison", poison), ("fleet", fleet),
         ("spill", spill), ("stepstats", stepstats), ("train", train),
         ("train_amp", train_amp), ("train_resume", train_resume),
-        ("dit", dit), ("moe", moe))}
+        ("dit", dit), ("resnet", resnet), ("moe", moe))}
 
     def launches(name):
         per = {p: c.get(name, 0) for p, c in by_path.items()}

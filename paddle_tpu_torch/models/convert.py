@@ -1,4 +1,5 @@
-"""Load a JAX-package Llama ``state_dict`` into the port's model.
+"""Load a JAX-package ``state_dict`` into the port's model (Llama, DiT,
+the ResNets and any model of the port's ``nn`` layers).
 
 ``state`` maps the JAX parameter names (``llama.embed_tokens.weight``,
 ``llama.layers.0.self_attn.q_proj.weight``, ``lm_head.weight``, ...) to
@@ -14,6 +15,12 @@ stacked expert weights ``[e, in, out]`` are not ``nn.Linear`` and have the
 same layout on both sides, so they load untransposed; so do the int8
 experts' ``*_scale`` buffers of a quantized model (quantize the port's
 model first, as in the JAX package).
+
+Models of the port's ``nn`` layers (the ResNets): their ``nn.Linear`` keeps
+the JAX [in, out] weight and is not a ``torch.nn.Linear``, so it loads
+untransposed; convolution weights are [out, in / groups, *k] (transposed
+ones [in, out / groups, *k]) on both sides and load as they are; the
+batch norms' ``_mean`` and ``_variance`` load as buffers.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ def load_reference_state(model, state):
     casting to each parameter's (or buffer's) dtype and device. Raises ``KeyError`` on
     missing or unexpected names and ``ValueError`` on a shape mismatch.
     Returns ``model``."""
+    # torch.nn.Linear only: the port's nn.Linear keeps [in, out]
     linear_weights = {
         f"{name}.weight" for name, mod in model.named_modules()
         if isinstance(mod, nn.Linear)

@@ -1,5 +1,9 @@
-from .activation import swiglu
+from . import activation as _activation
+from . import manipulation as _manipulation
+from . import nn_ops as _nn_ops
+from .activation import *  # noqa: F401,F403
 from .fused_ops import fused_linear_cross_entropy, rope_qk
+from .manipulation import *  # noqa: F401,F403
 from .moe_ops import (
     grouped_matmul,
     moe_combine,
@@ -7,16 +11,12 @@ from .moe_ops import (
     moe_ragged_combine,
     moe_ragged_dispatch,
 )
-from .nn_ops import (
-    cross_entropy,
-    rms_norm,
-    scaled_dot_product_attention,
-    softmax_with_cross_entropy,
-)
+from .nn_ops import *  # noqa: F401,F403
 
-__all__ = [
-    "cross_entropy", "fused_linear_cross_entropy", "grouped_matmul",
-    "moe_combine", "moe_gate_dispatch", "moe_ragged_combine",
-    "moe_ragged_dispatch", "rms_norm", "rope_qk",
-    "scaled_dot_product_attention", "softmax_with_cross_entropy", "swiglu",
-]
+__all__ = sorted(
+    {"fused_linear_cross_entropy", "grouped_matmul", "moe_combine",
+     "moe_gate_dispatch", "moe_ragged_combine", "moe_ragged_dispatch",
+     "rope_qk"}
+    | set(_activation.__all__) | set(_manipulation.__all__)
+    | (set(_nn_ops.__all__) - {"flash_eligible"})
+)

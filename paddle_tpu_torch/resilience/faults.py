@@ -68,6 +68,12 @@ training sites fail the step or the save, which a resume recovers):
                        "data.npz"/"metadata.json", path=) — the save
                        fails, its temporary directory is removed and
                        ``latest`` stays on the previous checkpoint
+    dataloader.worker  one batch in a DataLoader process worker (context:
+                       worker_id=, batch=), fired in the worker before
+                       the batch is loaded; schedules active in the
+                       parent reach the worker through fork: the worker
+                       reports the exception and the loader raises it,
+                       with the worker's traceback
     http.accept        one POST /v1/completions accept (context: path=,
                        client=): a structured 500 for that request
     http.stream        one SSE chunk write (context: rid=, seq=): that

@@ -1,0 +1,194 @@
+"""The ResNet family (counterpart of
+``paddle_tpu/vision/models/resnet.py``): ``BasicBlock``,
+``BottleneckBlock``, ``ResNet``, ``resnet18`` .. ``resnet152`` and the
+wide variants. BASELINE config #1's model is ``resnet50(num_classes=10)``
+on 32 x 32 CIFAR images.
+
+``ResNet(..., device=None, seed=0)`` builds on the CUDA device unless
+``device`` names another one, its weights drawn from a ``torch.Generator``
+seeded with ``seed`` (with the JAX layers' initializers). The state dict's
+names are the JAX model's (``conv1.weight``, ``bn1._mean``,
+``layer1.0.downsample.0.weight``, ..., ``fc.weight`` [in, out]), so a JAX
+state dict loads through ``models.load_reference_state`` or
+``set_state_dict``. No pretrained weights ship: ``pretrained=True``
+raises, as in the JAX package.
+"""
+from __future__ import annotations
+
+import torch
+
+from ... import nn
+from ... import ops as F
+from ...core.device import resolve_device
+from ...nn import initializer as I
+
+__all__ = [
+    "ResNet", "resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
+    "wide_resnet50_2", "wide_resnet101_2",
+]
+
+
+class BasicBlock(nn.Layer):
+    expansion = 1
+
+    def __init__(self, inplanes, planes, stride=1, downsample=None,
+                 groups=1, base_width=64, dilation=1, norm_layer=None):
+        super().__init__()
+        norm_layer = norm_layer or nn.BatchNorm2D
+        if groups != 1 or base_width != 64:
+            raise ValueError("BasicBlock only supports groups=1, width=64")
+        self.conv1 = nn.Conv2D(inplanes, planes, 3, stride=stride,
+                               padding=1, bias_attr=False)
+        self.bn1 = norm_layer(planes)
+        self.relu = nn.ReLU()
+        self.conv2 = nn.Conv2D(planes, planes, 3, padding=1, bias_attr=False)
+        self.bn2 = norm_layer(planes)
+        self.downsample = downsample
+        self.stride = stride
+
+    def forward(self, x):
+        identity = x
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        if self.downsample is not None:
+            identity = self.downsample(x)
+        return self.relu(out + identity)
+
+
+class BottleneckBlock(nn.Layer):
+    expansion = 4
+
+    def __init__(self, inplanes, planes, stride=1, downsample=None,
+                 groups=1, base_width=64, dilation=1, norm_layer=None):
+        super().__init__()
+        norm_layer = norm_layer or nn.BatchNorm2D
+        width = int(planes * (base_width / 64.0)) * groups
+        self.conv1 = nn.Conv2D(inplanes, width, 1, bias_attr=False)
+        self.bn1 = norm_layer(width)
+        self.conv2 = nn.Conv2D(width, width, 3, padding=dilation,
+                               stride=stride, groups=groups,
+                               dilation=dilation, bias_attr=False)
+        self.bn2 = norm_layer(width)
+        self.conv3 = nn.Conv2D(width, planes * self.expansion, 1,
+                               bias_attr=False)
+        self.bn3 = norm_layer(planes * self.expansion)
+        self.relu = nn.ReLU()
+        self.downsample = downsample
+        self.stride = stride
+
+    def forward(self, x):
+        identity = x
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        if self.downsample is not None:
+            identity = self.downsample(x)
+        return self.relu(out + identity)
+
+
+_DEPTHS = {18: [2, 2, 2, 2], 34: [3, 4, 6, 3], 50: [3, 4, 6, 3],
+           101: [3, 4, 23, 3], 152: [3, 8, 36, 3]}
+
+
+class ResNet(nn.Layer):
+    """``ResNet(block, depth=50, width=64, num_classes=1000,
+    with_pool=True, groups=1, device=None, seed=0)``: a 7 x 7 stride-2
+    stem, a 3 x 3 stride-2 max pool, four stages, the average pool and
+    the ``fc`` head (none when ``num_classes`` <= 0)."""
+
+    def __init__(self, block, depth=50, width=64, num_classes=1000,
+                 with_pool=True, groups=1, device=None, seed=0):
+        super().__init__()
+        device = resolve_device(device)
+        layers = _DEPTHS[depth]
+        self.groups = groups
+        self.base_width = width
+        self.num_classes = num_classes
+        self.with_pool = with_pool
+        self._norm_layer = nn.BatchNorm2D
+        self.inplanes = 64
+        self.dilation = 1
+        with I.init_generator(torch.Generator().manual_seed(seed)):
+            self.conv1 = nn.Conv2D(3, self.inplanes, 7, stride=2, padding=3,
+                                   bias_attr=False)
+            self.bn1 = self._norm_layer(self.inplanes)
+            self.relu = nn.ReLU()
+            self.maxpool = nn.MaxPool2D(kernel_size=3, stride=2, padding=1)
+            self.layer1 = self._make_layer(block, 64, layers[0])
+            self.layer2 = self._make_layer(block, 128, layers[1], stride=2)
+            self.layer3 = self._make_layer(block, 256, layers[2], stride=2)
+            self.layer4 = self._make_layer(block, 512, layers[3], stride=2)
+            if with_pool:
+                self.avgpool = nn.AdaptiveAvgPool2D((1, 1))
+            if num_classes > 0:
+                self.fc = nn.Linear(512 * block.expansion, num_classes)
+        self.to(device)
+
+    def _make_layer(self, block, planes, blocks, stride=1):
+        norm_layer = self._norm_layer
+        downsample = None
+        if stride != 1 or self.inplanes != planes * block.expansion:
+            downsample = nn.Sequential(
+                nn.Conv2D(self.inplanes, planes * block.expansion, 1,
+                          stride=stride, bias_attr=False),
+                norm_layer(planes * block.expansion),
+            )
+        layers = [block(self.inplanes, planes, stride, downsample,
+                        self.groups, self.base_width, self.dilation,
+                        norm_layer)]
+        self.inplanes = planes * block.expansion
+        for _ in range(1, blocks):
+            layers.append(block(self.inplanes, planes, groups=self.groups,
+                                base_width=self.base_width,
+                                norm_layer=norm_layer))
+        return nn.Sequential(*layers)
+
+    def forward(self, x):
+        x = self.relu(self.bn1(self.conv1(x)))
+        x = self.maxpool(x)
+        x = self.layer1(x)
+        x = self.layer2(x)
+        x = self.layer3(x)
+        x = self.layer4(x)
+        if self.with_pool:
+            x = self.avgpool(x)
+        if self.num_classes > 0:
+            x = self.fc(F.flatten(x, 1))
+        return x
+
+
+def _resnet(block, depth, width, pretrained, **kwargs):
+    if pretrained:
+        raise ValueError(
+            "pretrained weights are not available; load a state dict "
+            "with model.set_state_dict(...) or "
+            "models.load_reference_state(model, state)")
+    return ResNet(block, depth, width=width, **kwargs)
+
+
+def resnet18(pretrained=False, **kwargs):
+    return _resnet(BasicBlock, 18, 64, pretrained, **kwargs)
+
+
+def resnet34(pretrained=False, **kwargs):
+    return _resnet(BasicBlock, 34, 64, pretrained, **kwargs)
+
+
+def resnet50(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 50, 64, pretrained, **kwargs)
+
+
+def resnet101(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 101, 64, pretrained, **kwargs)
+
+
+def resnet152(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 152, 64, pretrained, **kwargs)
+
+
+def wide_resnet50_2(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 50, 128, pretrained, **kwargs)
+
+
+def wide_resnet101_2(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 101, 128, pretrained, **kwargs)

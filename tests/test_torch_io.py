@@ -262,10 +262,29 @@ def test_collate_narrows_float64_to_float32_like_jax(num_workers):
 
 
 def test_process_workers_are_refused_by_name():
+    # process workers take map-style datasets (they are ported since the
+    # layer-set slice: the batches equal the in-process loader's); an
+    # iterable dataset is refused by name, as in the JAX package
     x, y = _data()
-    with pytest.raises(NotImplementedError, match="use_shared_memory"):
-        io.DataLoader(io.TensorDataset([x, y]), batch_size=2,
-                      num_workers=2, use_shared_memory=True, device="cpu")
+
+    def batches(**kw):
+        return [[t.numpy() for t in b] for b in io.DataLoader(
+            io.TensorDataset([x, y]), batch_size=2, device="cpu", **kw)]
+
+    got = batches(num_workers=2, use_shared_memory=True)
+    want = batches()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(a, b)
+
+    class Stream(io.IterableDataset):
+        def __iter__(self):
+            yield np.zeros((1,), np.float32)
+
+    with pytest.raises(ValueError, match="map-style"):
+        io.DataLoader(Stream(), batch_size=1, num_workers=2,
+                      use_shared_memory=True, device="cpu")
 
 
 def test_worker_errors_reach_the_consumer():

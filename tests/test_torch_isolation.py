@@ -3,7 +3,8 @@ MoE and quantization modules, the journal, QoS, the HTTP server and its
 CLI, the retry policy, the replica supervisor and the fleet, the step
 observatory, the compile log and the host spill tier, the data loader,
 amp, the checkpoints, the watchdog and the train loop, DiT and the
-optimizers too) loads neither
+optimizers, the nn layer set, vision and the DataLoader's process
+workers too) loads neither
 jax, nor anything of paddle_tpu, nor ml_dtypes, and its entry points
 refuse to fall back to the CPU quietly when no CUDA device exists."""
 import os
@@ -57,6 +58,23 @@ import paddle_tpu_torch.distributed.watchdog
 import paddle_tpu_torch.resilience.train_state
 import paddle_tpu_torch.models.dit
 import paddle_tpu_torch.optimizer.lbfgs
+import paddle_tpu_torch.nn.functional
+import paddle_tpu_torch.nn.initializer
+import paddle_tpu_torch.nn.parameter
+import paddle_tpu_torch.nn.layer.layers
+import paddle_tpu_torch.nn.layer.conv
+import paddle_tpu_torch.nn.layer.norm
+import paddle_tpu_torch.nn.layer.pooling
+import paddle_tpu_torch.nn.layer.activation
+import paddle_tpu_torch.nn.layer.common
+import paddle_tpu_torch.nn.layer.container
+import paddle_tpu_torch.nn.layer.loss
+import paddle_tpu_torch.ops.manipulation
+import paddle_tpu_torch.vision
+import paddle_tpu_torch.vision.models.resnet
+import paddle_tpu_torch.vision.transforms
+import paddle_tpu_torch.vision.datasets
+import paddle_tpu_torch.io.dataloader
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.")
