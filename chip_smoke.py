@@ -812,6 +812,117 @@ def gmm_case(torch, gk, flush, name, dtype, k, m, group_sizes, quant=False):
     return case
 
 
+def _grouped_mm_wgrad(torch, lhs, g, gs):
+    """(``torch._grouped_mm`` computing drhs, note) where this PyTorch
+    takes the ragged contraction (2-D x 2-D with ``offs`` along the
+    rows), else (None, why not)."""
+    if not hasattr(torch, "_grouped_mm"):
+        return None, "torch._grouped_mm absent"
+    offs = torch.cumsum(gs, 0, dtype=torch.int32)
+    a = lhs.t()            # [k, n], the rows contracted
+
+    def fn():
+        return torch._grouped_mm(a, g, offs=offs)
+
+    try:
+        fn()
+        torch.cuda.synchronize()
+        return fn, "torch._grouped_mm (2-D x 2-D, offs)"
+    except (RuntimeError, TypeError) as err:
+        return None, f"torch._grouped_mm refused: {err}"[:200]
+
+
+def wgrad_case(torch, gk, flush, name, dtype, k, m, group_sizes,
+               transpose_copy=False):
+    """The grouped GEMM weight-gradient kernel (``grouped_matmul_wgrad``)
+    against ``_segment_outer`` on the same inputs (``GATE``), with every
+    group's matrix, empty ones included, written. ``ms`` the wrapper's
+    call; ``library_ms`` ``torch._grouped_mm``'s ragged contraction where
+    this PyTorch takes it, else the per-expert cuBLAS loop (the plain
+    version) and a note saying so. ``transpose_copy`` also times the
+    ``rhs.transpose(1, 2).contiguous()`` copy the backward makes for
+    ``dlhs`` at this shape ([e, m, k] -> [e, k, m])."""
+    dev = "cuda"
+    gs = torch.as_tensor(group_sizes, dtype=torch.int32, device=dev)
+    n, e = int(gs.sum()), gs.numel()
+    gen = torch.Generator(device=dev).manual_seed(n + 7 * k + m)
+    lhs = torch.randn(n, k, generator=gen, device=dev).to(dtype)
+    g = torch.randn(n, m, generator=gen, device=dev).to(dtype)
+    out = gk.grouped_matmul_wgrad(lhs, g, gs, e)
+    ref = gk._segment_outer(lhs, g, gs, e)
+    torch.cuda.synchronize()
+    ok, stats = compare(out, ref)
+    check(ok, f"grouped_matmul_wgrad {name}: {stats} outside the gate")
+    empty = [i for i, s in enumerate(group_sizes) if s == 0]
+    check(all(bool((out[i] == 0).all()) for i in empty),
+          f"grouped_matmul_wgrad {name}: an empty group's matrix is not 0")
+    ms, median = cuda_times(
+        torch, lambda: gk.grouped_matmul_wgrad(lhs, g, gs, e), 20, flush)
+    plain_ms = cuda_ms(torch, lambda: gk._segment_outer(lhs, g, gs, e), 5,
+                       flush)
+    library_ms, library_note = None, "none: f32"
+    if dtype != torch.float32:
+        lib, library_note = _grouped_mm_wgrad(torch, lhs, g, gs)
+        if lib is not None:
+            got = lib()
+            if got.shape == ref.shape:
+                lib_ok, lib_stats = compare(got.to(dtype), ref)
+                if not lib_ok:
+                    library_note += f", off the gate: {lib_stats}"
+            else:
+                library_note += f", shape {tuple(got.shape)}"
+            library_ms = cuda_ms(torch, lib, 20, flush)
+        else:
+            library_ms = plain_ms
+            library_note += "; library_ms is the per-expert cuBLAS loop"
+    nbytes = (lhs.numel() + g.numel() + out.numel()) * lhs.element_size()
+    flops = 2 * n * k * m
+    bound_ms, bound_by = bound(nbytes, flops, dtype, torch)
+    case = {
+        "case": name, "dtype": str(dtype).split(".")[-1], "n": n, "k": k,
+        "m": m, "experts": e,
+        "group_sizes": [int(x) for x in gs.tolist()],
+        "variant": "fma" if dtype == torch.float32 else "mma", **stats,
+        "ms": ms, "median_ms": median, "plain_ms": plain_ms,
+        "library_ms": library_ms, "library": library_note,
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+        "flops": flops,
+    }
+    if transpose_copy:
+        rhs = torch.randn(e, m, k, generator=gen, device=dev).to(dtype)
+        case["transpose_copy_ms"] = cuda_ms(
+            torch, lambda: rhs.transpose(1, 2).contiguous(), 20, flush)
+        case["transpose_copy_bytes"] = rhs.numel() * rhs.element_size()
+    log(f"[kernels] wgrad {json.dumps(case)}")
+    return case
+
+
+def wgrad_cases(torch, gk, flush, routed):
+    """``wgrad_case`` at the bench shape (routed rows, up and down, bf16
+    and float16) and the edge cases: an empty expert, a 1-row expert,
+    segment starts off every tile boundary, n below one tile, f32."""
+    d, f = MOE_LAYER["d_model"], MOE_LAYER["d_ff"]
+    bf16, f16 = torch.bfloat16, torch.float16
+    return [
+        wgrad_case(torch, gk, flush, "up", bf16, d, f, routed, True),
+        wgrad_case(torch, gk, flush, "down", bf16, f, d, routed, True),
+        wgrad_case(torch, gk, flush, "up_f16", f16, d, f, routed),
+        wgrad_case(torch, gk, flush, "down_f16", f16, f, d, routed),
+        # empty leading, trailing and interior groups, 1-row segments,
+        # starts at 5, 16, 29, ... (off the 32-row chunk and 128 tiles)
+        wgrad_case(torch, gk, flush, "edges", bf16, 136, 200,
+                   [0, 5, 1, 0, 11, 1, 143, 0, 37, 1]),
+        wgrad_case(torch, gk, flush, "tiny_n", bf16, 24, 40, [1, 0, 3, 2]),
+        wgrad_case(torch, gk, flush, "all_empty", bf16, 24, 40, [0, 0, 0]),
+        wgrad_case(torch, gk, flush, "edges_f16", f16, 136, 200,
+                   [0, 5, 1, 0, 11, 1, 143, 0, 37, 1]),
+        wgrad_case(torch, gk, flush, "f32", torch.float32, 136, 200,
+                   [0, 5, 1, 0, 11, 1, 143, 0, 37, 1]),
+        wgrad_case(torch, gk, flush, "f32_odd", torch.float32, 12, 10,
+                   [3, 0, 5, 1]),
+    ]
+
+
 def flash_case(torch, fa, flush, s, dtype=None, h=16, d=128, b=1,
                offset=0, hkv=None, causal=True):
     """The forward kernels against ``flash_attention_ref``: out within
@@ -1732,8 +1843,11 @@ def phase_kernels(torch):
         paged_prefill_batched_case(torch, pp, flush, "verify_f16", f16, 16,
                                    16, 128),
     ]
+    # the grouped GEMM's weight gradient at the MoE shapes and its edge
+    # cases (routed is the up / down projections' group sizes above)
+    wgrad = wgrad_cases(torch, gk, flush, routed)
     return (paged, flash, bwd, gate_faults(torch, fa), quant, gmm,
-            gmm_quant, kvw, rkv, pfx, pfx_batched)
+            gmm_quant, kvw, rkv, pfx, pfx_batched, wgrad)
 
 
 # ---------------------------------------------------------------- parity
@@ -7205,6 +7319,875 @@ def phase_moe(torch):
             **speed, "llama_moe": llama, "launches": path}
 
 
+# ----------------------------------------------------------- MoE training
+# moe_train: bench_moe's level-0 Llama MoE trained with AdamW (1 + 3
+# warm-up + 10 timed steps, as the train phase), and the ragged MoE layer
+# trained through the grouped GEMM kernels: 3 forward launches, 3 for
+# dlhs and 3 of the weight-gradient kernel a step
+MOE_TRAIN_BATCH = 8
+MOE_LAYER_STEPS = 6
+# the planted fault in drhs: its f32 sums 1 % off (a relative L2 of 1e-2,
+# the bf16 gate's limit, before the cast's rounding adds to it)
+MOE_WGRAD_PLANT = 1.01
+
+
+@contextlib.contextmanager
+def plain_gmm_autograd(gk):
+    """Inside: ``GroupedMatmulFunction`` runs the plain forward
+    (``grouped_matmul_ref``) and the plain weight gradient
+    (``_segment_outer``): the comparison's step."""
+    saved = gk._forward, gk.grouped_matmul_wgrad
+    gk._forward = gk.grouped_matmul_ref
+    gk.grouped_matmul_wgrad = gk._segment_outer
+    try:
+        yield
+    finally:
+        gk._forward, gk.grouped_matmul_wgrad = saved
+
+
+@contextlib.contextmanager
+def sync_free_gmm(torch, gk):
+    """Inside: every grouped GEMM call (forward, dlhs, drhs) runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host read of the
+    group sizes there raises."""
+    saved = gk._forward, gk.grouped_matmul_wgrad
+
+    def guarded(fn):
+        def call(*args, **kwargs):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return call
+
+    gk._forward = guarded(saved[0])
+    gk.grouped_matmul_wgrad = guarded(saved[1])
+    try:
+        yield
+    finally:
+        gk._forward, gk.grouped_matmul_wgrad = saved
+
+
+@contextlib.contextmanager
+def routing(moe_ops, record, replay=False):
+    """Inside: the MoE router's top-k choices are appended to ``record``
+    call by call, or with ``replay`` taken from it in the same order (the
+    gates and combine weights still computed from this run's logits):
+    the comparison step takes the kernel step's discrete decisions, as
+    the resnet phase pins its ReLU decisions."""
+    real = moe_ops._route
+    replayed = iter(record)
+
+    def route(gate_logits, k):
+        if replay:
+            idx = next(replayed)
+            gates = gate_logits.float().softmax(dim=-1)
+            return gates, gates.gather(-1, idx), idx
+        gates, vals, idx = real(gate_logits, k)
+        record.append(idx)
+        return gates, vals, idx
+
+    moe_ops._route = route
+    try:
+        yield
+    finally:
+        moe_ops._route = real
+
+
+def _moe_llama_train(torch):
+    """bench_moe level 0 on the card: vocab 32000, hidden 1024, 8 layers,
+    8 experts top-2 (impl dense), bf16 weights, AdamW 3e-4, 8 x 1024
+    tokens a step."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import moe_ops
+    from paddle_tpu_torch.optimizer import AdamW
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = LlamaConfig(**MOE_LLAMA_CFG)
+    L = cfg.num_hidden_layers
+    model = LlamaForCausalLM(cfg, seed=0)
+    opt = AdamW(learning_rate=3e-4, parameters=model.parameters())
+    step = TrainStep(model, _lm_loss, opt)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (MOE_TRAIN_BATCH, 1024))).to("cuda")
+    n = model.num_params()
+    # bench.py's count: every parameter but the (e - k) idle experts' FFNs
+    expert = 3 * cfg.hidden_size * cfg.intermediate_size
+    active = n - L * (cfg.num_experts - cfg.num_experts_per_tok) * expert
+
+    def loss_and_grads():
+        for p in model.parameters():
+            p.grad = None
+        loss = _lm_loss(model, ids)
+        loss.backward()
+        grads = {k: p.grad.float() for k, p in model.named_parameters()
+                 if p.grad is not None}
+        for p in model.parameters():
+            p.grad = None
+        return loss.item(), grads
+
+    # the first step with plain attention takes the kernel step's routing
+    # (top-2 of 8 flips for a few tokens on differences at bf16 rounding,
+    # and a flip moves the expert weights' gradients by more than the
+    # kernels do); how many it would flip is recorded
+    decisions, unpinned = [], []
+    with routing(moe_ops, decisions):
+        loss_k, g_k = loss_and_grads()
+    with plain_attention(fa), routing(moe_ops, decisions, replay=True):
+        loss_p, g_p = loss_and_grads()
+    with torch.no_grad(), plain_attention(fa), routing(moe_ops, unpinned):
+        _lm_loss(model, ids)
+    flips = sum(int((a != b).sum()) for a, b in zip(decisions, unpinned))
+    rel = {k: _rel_l2(g_k[k], g_p[k]) for k in g_p}
+    del g_k, g_p
+    worst = max(rel, key=rel.get)
+    check(abs(loss_k - loss_p) <= TRAIN_LOSS_TOL,
+          f"moe_train: first-step loss {loss_k} vs plain attention "
+          f"{loss_p}")
+    check(all(np.isfinite(list(rel.values()))) and
+          rel[worst] <= TRAIN_GRAD_RTOL,
+          f"moe_train: gradient of {worst} differs from plain attention "
+          f"by {rel[worst]} > {TRAIN_GRAD_RTOL}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [step(ids)]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    losses += [step(ids) for _ in range(3)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(ids) for _ in range(10)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 10 * 1e3
+    counts = _build.launch_counts()
+    variants = _build.variant_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [x.item() for x in losses]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"moe_train: losses {losses}")
+    check(all(counts[k] == 14 * L for k in FLASH),
+          f"moe_train: flash launches {_flash_counts(counts)} over 14 "
+          f"steps, want {L} of each a step")
+    tokens_s = MOE_TRAIN_BATCH * 1024 / (step_ms / 1e3)
+    mfu = tokens_s * 6 * active / BF16_FLOPS
+    prof = _profiled_step(torch, step, ids)
+    rec = {"params": n, "active_params": active, "batch": MOE_TRAIN_BATCH,
+           "seq": 1024, "first_step_s": first_s, "step_ms": step_ms,
+           "tokens_per_s": tokens_s, "mfu_active": mfu, "peak_bytes": peak,
+           "losses": losses, "launches": dict(counts, **variants),
+           "grad_check": {"loss": loss_k, "plain_loss": loss_p,
+                          "worst_rel_l2": rel[worst], "worst_param": worst,
+                          "median_rel_l2": float(np.median(
+                              list(rel.values()))),
+                          "routing_flips_unpinned": flips,
+                          "routing_decisions": sum(
+                              d.numel() for d in decisions)},
+           "profile": prof}
+    log(f"[moe_train] Llama MoE {n / 1e6:.1f}M params ({active / 1e6:.1f}M "
+        f"active) bf16, {L} layers, batch {MOE_TRAIN_BATCH} x 1024: "
+        f"{step_ms:.2f} ms/step, {tokens_s:.0f} tokens/s, active MFU "
+        f"{mfu * 100:.2f}% of {BF16_FLOPS / 1e12:.0f} TFLOP/s, peak "
+        f"{peak / 2**30:.2f} GiB; losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; first step vs plain attention: loss {loss_k:.5f}"
+        f" vs {loss_p:.5f}, worst gradient {rel[worst]:.3g} ({worst}) with "
+        f"the routing pinned ({flips} of "
+        f"{sum(d.numel() for d in decisions)} top-2 choices flip "
+        f"unpinned)")
+    log(f"[moe_train] profiled step: device {prof['device_ms']:.2f} ms in "
+        f"{prof['kernel_launches']} kernels; by family " + ", ".join(
+            f"{k} {v:.2f}" for k, v in sorted(prof["families_ms"].items())))
+    for name, ms, c in prof["top"]:
+        log(f"[moe_train]   {name:80s} {ms:9.3f} ms {c:5d} calls")
+    del step, model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _moe_layer_train(torch):
+    """The bench's ragged MoE layer trained with AdamW on the grouped GEMM
+    kernels, held to the same step on the plain versions."""
+    from paddle_tpu_torch.incubate import MoELayer
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import grouped_matmul as gk
+    from paddle_tpu_torch.optimizer import AdamW
+
+    bf16 = torch.bfloat16
+    layer = MoELayer(**MOE_LAYER, impl="ragged", dtype=bf16, seed=0)
+    g = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn(MOE_BATCH, MOE_SEQ, MOE_LAYER["d_model"], generator=g,
+                    device="cuda").to(bf16)
+    wgt = torch.randn(x.shape, generator=g, device="cuda")
+
+    def grads():
+        layer.zero_grad(set_to_none=True)
+        xi = x.detach().clone().requires_grad_()
+        o, a = layer(xi)
+        ((o.float() * wgt).sum() + a).backward()
+        got = {n: p.grad.clone() for n, p in layer.named_parameters()}
+        got["input"] = xi.grad.clone()
+        layer.zero_grad(set_to_none=True)
+        return got
+
+    def held(got, ref):
+        out = {}
+        for n in ref:
+            ok, stats = compare(got[n], ref[n])
+            out[n] = (ok, stats)
+        return out
+
+    # the kernel step with every grouped GEMM call sync-free, its launches
+    _build.reset_launch_counts()
+    with sync_free_gmm(torch, gk):
+        g_k = grads()
+    torch.cuda.synchronize()
+    one = _build.launch_counts()
+    check(one["grouped_matmul"] == 6 and one["grouped_matmul_wgrad"] == 3,
+          f"moe_train layer: a step launched {one['grouped_matmul']} "
+          f"grouped_matmul and {one['grouped_matmul_wgrad']} "
+          f"grouped_matmul_wgrad, want 6 and 3")
+    # the negative control: the plain weight gradient reads the group
+    # sizes on the host, which the same mode refuses
+    gsz = torch.full((8,), 2, dtype=torch.int32, device="cuda")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gk._segment_outer(x[0, :16], x[0, :16], gsz, 8)
+        control = None
+    except RuntimeError as err:
+        control = str(err).splitlines()[0][:120]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(control is not None, "moe_train layer: a host read of the group "
+          "sizes under set_sync_debug_mode('error') did not raise")
+    with plain_gmm_autograd(gk):
+        g_p = grads()
+    res = held(g_k, g_p)
+    log("[moe_train] ragged layer, kernel step vs the plain step: " + ", ".join(
+        f"{n} rel_l2 {st['rel_l2']:.3g} ({st['limit_frac']:.2f} of the "
+        f"element bound)" for n, (_, st) in res.items()))
+    bad = {n: st for n, (ok, st) in res.items() if not ok}
+    check(not bad, f"moe_train layer: gradients off the gate against the "
+                   f"plain step: {json.dumps(bad)[:600]}")
+    # the planted fault: a weight gradient 1 % off in its f32 sums, before
+    # the cast to bf16, must fail the gate (1 % of an already rounded bf16
+    # value rounds to 0.4-1.2 %: its relative L2 can fall under 1e-2)
+    real = gk.grouped_matmul_wgrad
+
+    def faulty(lhs, gr, gs, e):
+        exact = gk._segment_outer(lhs.float(), gr.float(), gs, e)
+        return (exact * MOE_WGRAD_PLANT).to(lhs.dtype)
+
+    gk.grouped_matmul_wgrad = faulty
+    try:
+        g_f = grads()
+    finally:
+        gk.grouped_matmul_wgrad = real
+    planted = held(g_f, g_p)
+    caught = sorted(n for n, (ok, _) in planted.items() if not ok)
+    log("[moe_train] planted drhs fault: " + ", ".join(
+        f"{n} rel_l2 {st['rel_l2']:.4g}" for n, (_, st) in planted.items()
+        if n.startswith("experts.")))
+    check(set(caught) >= {"experts.w_gate", "experts.w_up",
+                          "experts.w_down"},
+          f"moe_train layer: the planted drhs fault (x{MOE_WGRAD_PLANT}) "
+          f"was caught only in {caught}")
+    del g_f
+    # AdamW steps on the kernels, then the same on the plain versions
+    opt = AdamW(learning_rate=3e-4, parameters=layer.parameters())
+
+    def train_step():
+        # the input needs its gradient, as inside a model (the layer
+        # before takes it): the backward runs dlhs for all three
+        # projections
+        opt.clear_grad()
+        o, a = layer(x.detach().requires_grad_())
+        loss = (o.float() * wgt).mean() + a
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    _build.reset_launch_counts()
+    losses = [train_step()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [train_step() for _ in range(MOE_LAYER_STEPS - 1)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / (MOE_LAYER_STEPS - 1) * 1e3
+    counts = _build.launch_counts()
+    variants = _build.variant_counts()
+    losses = [v.item() for v in losses]
+    check(all(np.isfinite(losses)),
+          f"moe_train layer: losses {losses}")
+    check(counts["grouped_matmul"] == 6 * MOE_LAYER_STEPS
+          and counts["grouped_matmul_wgrad"] == 3 * MOE_LAYER_STEPS,
+          f"moe_train layer: {MOE_LAYER_STEPS} steps launched {counts}")
+    with plain_gmm_autograd(gk):
+        train_step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            train_step()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) / 2 * 1e3
+    worst = {n: st["rel_l2"] for n, (_, st) in res.items()}
+    rec = {"steps": MOE_LAYER_STEPS, "step_ms": step_ms,
+           "plain_step_ms": plain_ms,
+           "tokens_per_s": MOE_BATCH * MOE_SEQ / (step_ms / 1e3),
+           "losses": losses, "grad_vs_plain_rel_l2": worst,
+           "grad_vs_plain_limit_frac": {n: st["limit_frac"]
+                                        for n, (_, st) in res.items()},
+           "planted_fault_caught_in": caught, "sync_control": control,
+           "launches": dict(counts, **variants)}
+    log(f"[moe_train] ragged layer: a step 6 grouped_matmul + 3 "
+        f"grouped_matmul_wgrad launches, none reading the group sizes on "
+        f"the host (control: {control!r}); gradients vs the plain step "
+        f"{json.dumps(worst)}; planted drhs fault caught in {caught}; "
+        f"AdamW step {step_ms:.3f} ms ({rec['tokens_per_s']:.0f} tokens/s; "
+        f"plain {plain_ms:.3f} ms); losses {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f}")
+    del layer, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_moe_train(torch):
+    """``moe_train``: MoE pretraining on the card. Launches on this path:
+    the Llama MoE's 14 counted steps and the ragged layer's counted AdamW
+    steps (the comparisons are not counted)."""
+    llama = _moe_llama_train(torch)
+    layer = _moe_layer_train(torch)
+    launches = {}
+    for part in (llama, layer):
+        for k, v in part["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    log(f"[moe_train] launches on the path {launches}")
+    return {"llama_moe": llama, "layer": layer, "launches": launches}
+
+
+# ------------------------------------------------------------------ hapi
+# hapi: BASELINE config #1 as its users write it (hapi.Model over
+# resnet50, the CIFAR pipeline through 4 process workers), and the
+# Transformer base (the JAX class's defaults) on a copy task
+HAPI_RESNET_LOSS_RTOL = 1e-6
+TRANSFORMER_CFG = dict(d_model=512, nhead=8, num_encoder_layers=6,
+                       num_decoder_layers=6, dim_feedforward=2048,
+                       dropout=0.1)
+TRANSFORMER_VOCAB, TRANSFORMER_BATCH, TRANSFORMER_SEQ = 32000, 32, 256
+TRANSFORMER_STEPS = 12
+# the eval loss with the flash kernels against plain attention (f32
+# activations; the kernels' f32 FMA path sums in another order)
+TRANSFORMER_EVAL_TOL = 1e-2
+# the first training step at dropout 0, card against the CPU (f32)
+TRANSFORMER_CPU_TOL = 1e-4
+
+
+class _FixedFirst:
+    """bench's fixed batch (its 128 images and labels, unaugmented), then
+    the items of ``rest``: with ``shuffle=False`` the first batch is the
+    manual step's."""
+
+    def __init__(self, x, y, rest):
+        self.x, self.y, self.rest = x, y, rest
+
+    def __len__(self):
+        return len(self.x) + len(self.rest)
+
+    def __getitem__(self, i):
+        if i < len(self.x):
+            return self.x[i], int(self.y[i])
+        return self.rest[i - len(self.x)]
+
+
+class _Steps:
+    """A hapi callback: each fit step's loss and host time."""
+
+    def __init__(self):
+        self.losses, self.times = [], []
+
+    def set_model(self, model):
+        self.model = model
+
+    def __getattr__(self, name):
+        if name.startswith("on_"):
+            return lambda *a, **k: None
+        raise AttributeError(name)
+
+    def on_train_batch_end(self, step, logs=None):
+        self.losses.append(logs["loss"])
+        self.times.append(time.perf_counter())
+
+
+def _count_syncs(torch, fn):
+    """(fn's result, the synchronizing CUDA calls it made), counted by
+    ``torch.cuda.set_sync_debug_mode("warn")``'s warnings."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def _hapi_resnet(torch):
+    from paddle_tpu_torch import hapi, io, metric, nn
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision import datasets, transforms as T
+    from paddle_tpu_torch.vision.models import resnet50
+
+    def momentum(model):
+        return Momentum(learning_rate=0.1, momentum=0.9,
+                        parameters=model.parameters(), weight_decay=5e-4)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the manual step of the resnet phase: fixed batch, same seed
+    x, y = _resnet_batch(torch)
+    model = resnet50(num_classes=10, seed=0)
+    ce = nn.CrossEntropyLoss()
+    step = TrainStep(model, lambda m, xb, yb: ce(m(xb), yb), momentum(model))
+    manual_loss = step(x, y).item()
+    for _ in range(2):
+        step(x, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(RESNET_TIMED_STEPS):
+        step(x, y)
+    torch.cuda.synchronize()
+    manual_ms = (time.perf_counter() - t0) / RESNET_TIMED_STEPS * 1e3
+    del model, step
+    # hapi: the same weights and first batch, then synthetic CIFAR-10 with
+    # the augmentations, through 4 forked workers
+    norm = T.Normalize([0.4914, 0.4822, 0.4465], [0.2470, 0.2435, 0.2616])
+    aug = datasets.Cifar10(
+        mode="train", backend="synthetic",
+        synthetic_size=RESNET_DATA["synthetic_size"],
+        transform=T.Compose([T.RandomCrop(32, padding=4),
+                             T.RandomHorizontalFlip(), T.ToTensor(), norm]))
+    xs, ys = x.cpu().numpy(), y.cpu().numpy()
+    train = io.DataLoader(_FixedFirst(xs, ys, aug), batch_size=RESNET_BATCH,
+                          shuffle=False, drop_last=True,
+                          num_workers=RESNET_DATA["num_workers"],
+                          use_shared_memory=True)
+    test = datasets.Cifar10(mode="test", backend="synthetic",
+                            transform=T.Compose([T.ToTensor(), norm]))
+    net = resnet50(num_classes=10, seed=0)
+    m = hapi.Model(net).prepare(momentum(net), nn.CrossEntropyLoss(),
+                                metric.Accuracy())
+    rec = _Steps()
+    _build.reset_launch_counts()
+    (hist, syncs) = _count_syncs(torch, lambda: m.fit(
+        train, epochs=1, verbose=0, callbacks=[rec]))
+    steps = len(rec.losses)
+    check(abs(rec.losses[0] - manual_loss)
+          <= HAPI_RESNET_LOSS_RTOL * abs(manual_loss),
+          f"hapi resnet: first fit loss {rec.losses[0]} vs the manual "
+          f"step's {manual_loss}")
+    check(all(np.isfinite(rec.losses)), f"hapi resnet: losses {rec.losses}")
+    # steady state: from the end of step 1 (workers warm) to the last
+    fit_ms = (rec.times[-1] - rec.times[1]) / (steps - 2) * 1e3
+    logs = m.evaluate(test, batch_size=RESNET_BATCH, verbose=0)
+    counts = _build.launch_counts()
+    check(set(counts.values()) == {0},
+          f"hapi resnet: hand kernels launched {counts}")
+    out = {"manual_loss": manual_loss, "first_fit_loss": rec.losses[0],
+           "steps": steps, "losses": rec.losses,
+           "fit_step_ms": fit_ms, "manual_step_ms": manual_ms,
+           "fit_images_per_s": RESNET_BATCH / (fit_ms / 1e3),
+           "manual_images_per_s": RESNET_BATCH / (manual_ms / 1e3),
+           "syncs": syncs, "syncs_per_step": syncs / steps,
+           "eval": logs, "history": hist, "launches": counts}
+    out["fit_vs_manual"] = out["fit_images_per_s"] / out[
+        "manual_images_per_s"]
+    log(f"[hapi] resnet50 through Model.fit, {steps} steps over 4 workers: "
+        f"first loss {rec.losses[0]:.7f} vs the manual step's "
+        f"{manual_loss:.7f}; {out['fit_images_per_s']:.0f} images/s "
+        f"against the manual step's {out['manual_images_per_s']:.0f} "
+        f"({out['fit_vs_manual']:.3f}); {syncs} host syncs in the fit "
+        f"({out['syncs_per_step']:.2f} a step); evaluate {logs}")
+    del m, net, train
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _seq2seq(torch, dropout, device, seed=0):
+    """The Transformer base with a shared 32000-token embedding (scaled by
+    sqrt(d)) and output projection, sinusoidal positions, a causal
+    target mask."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch import ops as F
+    from paddle_tpu_torch.core.device import resolve_device
+    from paddle_tpu_torch.nn import initializer as I
+
+    class Seq2Seq(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            d = TRANSFORMER_CFG["d_model"]
+            self.embed = nn.Embedding(TRANSFORMER_VOCAB, d)
+            self.transformer = nn.Transformer(
+                **dict(TRANSFORMER_CFG, dropout=dropout))
+            pos = np.arange(TRANSFORMER_SEQ)[:, None] / np.power(
+                10000.0, np.arange(0, d, 2)[None, :] / d)
+            pe = np.zeros((TRANSFORMER_SEQ, d), np.float32)
+            pe[:, 0::2], pe[:, 1::2] = np.sin(pos), np.cos(pos)
+            self.register_buffer("pe", torch.from_numpy(pe),
+                                 persistable=False)
+            self.register_buffer("mask", nn.Transformer
+                                 .generate_square_subsequent_mask(
+                                     TRANSFORMER_SEQ), persistable=False)
+            self.scale = d ** 0.5
+
+        def forward(self, src, tgt):
+            s = self.embed(src) * self.scale + self.pe[:src.shape[1]]
+            t = self.embed(tgt) * self.scale + self.pe[:tgt.shape[1]]
+            n = tgt.shape[1]
+            h = self.transformer(s, t, tgt_mask=self.mask[:n, :n]
+                                 .to(t.dtype))
+            return F.linear(h, self.embed.weight.t())
+
+    with I.init_generator(torch.Generator().manual_seed(seed)):
+        model = Seq2Seq()
+    return model.to(resolve_device(device))
+
+
+def _copy_task(torch, n):
+    """n seeded copy sequences: source tokens, the target input (a start
+    token, then the source shifted right) and the target (the source)."""
+    rng = np.random.RandomState(5)
+    src = rng.randint(1, TRANSFORMER_VOCAB, (n, TRANSFORMER_SEQ))
+    tgt_in = np.concatenate([np.zeros((n, 1), np.int64), src[:, :-1]], 1)
+    return [torch.from_numpy(a.astype(np.int64)) for a in (src, tgt_in, src)]
+
+
+class _SeqLoss:
+    """Token cross entropy over [b, s, vocab] logits."""
+
+    def __init__(self, nn):
+        self.ce = nn.CrossEntropyLoss()
+
+    def __call__(self, logits, labels):
+        return self.ce(logits.reshape(-1, logits.shape[-1]).float(),
+                       labels.reshape(-1))
+
+
+def _transformer_flops(torch):
+    """Training FLOPs of one step, counted from the shapes: 6 x the
+    multiply-adds of every projection per token (encoder, decoder,
+    output), plus 3 x 4 s d per token per attention (scores and the
+    weighted sum, forward and backward)."""
+    d, f = TRANSFORMER_CFG["d_model"], TRANSFORMER_CFG["dim_feedforward"]
+    le, ld = (TRANSFORMER_CFG["num_encoder_layers"],
+              TRANSFORMER_CFG["num_decoder_layers"])
+    tokens = TRANSFORMER_BATCH * TRANSFORMER_SEQ
+    enc = le * (4 * d * d + 2 * d * f)
+    dec = ld * (8 * d * d + 2 * d * f) + d * TRANSFORMER_VOCAB
+    attn = 12 * TRANSFORMER_SEQ * d * (le + 2 * ld)
+    return 6 * (enc + dec) * tokens + attn * tokens
+
+
+def _hapi_transformer(torch):
+    from paddle_tpu_torch import amp, hapi, io, nn
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    src, tgt_in, tgt = _copy_task(torch, TRANSFORMER_BATCH
+                                  * TRANSFORMER_STEPS)
+    train = io.TensorDataset([src, tgt_in, tgt])
+    evalset = io.TensorDataset([t[:TRANSFORMER_BATCH]
+                                for t in (src, tgt_in, tgt)])
+    flops = _transformer_flops(torch)
+    out = {"flops_per_step": flops}
+    # the first step at dropout 0, card against the CPU (f32)
+    first = {}
+    for dev in ("cpu", "cuda"):
+        net = _seq2seq(torch, 0.0, dev)
+        m = hapi.Model(net).prepare(
+            AdamW(learning_rate=5e-4, parameters=net.parameters()),
+            _SeqLoss(nn))
+        rec = _Steps()
+        m.fit(train, batch_size=TRANSFORMER_BATCH, epochs=1, shuffle=False,
+              verbose=0, callbacks=[rec], num_iters=1)
+        first[dev] = rec.losses[0]
+        del m, net
+    check(abs(first["cuda"] - first["cpu"])
+          <= TRANSFORMER_CPU_TOL * abs(first["cpu"]),
+          f"hapi transformer: first step at dropout 0 on the card "
+          f"{first['cuda']} vs the CPU {first['cpu']}")
+    out["first_step_dropout0"] = first
+    L = TRANSFORMER_CFG["num_encoder_layers"]
+    for mode in ("f32", "o2_bf16"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        net = _seq2seq(torch, TRANSFORMER_CFG["dropout"], "cuda")
+        opt = AdamW(learning_rate=5e-4, parameters=net.parameters(),
+                    multi_precision=mode == "o2_bf16")
+        if mode == "o2_bf16":
+            net, opt = amp.decorate(net, opt, level="O2", dtype="bfloat16")
+        m = hapi.Model(net).prepare(opt, _SeqLoss(nn))
+        ctx = (amp.auto_cast(True, level="O2", dtype="bfloat16")
+               if mode == "o2_bf16" else contextlib.nullcontext())
+        rec = _Steps()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        with ctx:
+            m.fit(train, batch_size=TRANSFORMER_BATCH, epochs=1,
+                  shuffle=False, verbose=0, callbacks=[rec])
+            train_counts = _build.launch_counts()
+            _build.reset_launch_counts()
+            logs = m.evaluate(evalset, batch_size=TRANSFORMER_BATCH,
+                              verbose=0)
+            eval_counts = _build.launch_counts()
+            with plain_attention(fa):
+                plain_logs = m.evaluate(evalset,
+                                        batch_size=TRANSFORMER_BATCH,
+                                        verbose=0)
+        peak = torch.cuda.max_memory_allocated()
+        losses = rec.losses
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"hapi transformer {mode}: losses {losses}")
+        check(eval_counts["flash_attention"] == 2 * L,
+              f"hapi transformer {mode}: evaluate launched "
+              f"{eval_counts['flash_attention']} flash forwards, want "
+              f"{2 * L} (the encoder's self-attention and the "
+              f"cross-attention)")
+        gap = abs(logs["eval_loss"] - plain_logs["eval_loss"])
+        check(gap <= TRANSFORMER_EVAL_TOL,
+              f"hapi transformer {mode}: eval loss {logs['eval_loss']} vs "
+              f"plain attention {plain_logs['eval_loss']}")
+        step_ms = ((rec.times[-1] - rec.times[1]) / (len(rec.times) - 2)
+                   * 1e3)
+        tokens_s = TRANSFORMER_BATCH * TRANSFORMER_SEQ / (step_ms / 1e3)
+        peak_flops = F32_FLOPS if mode == "f32" else BF16_FLOPS
+        mfu = flops / (step_ms / 1e3) / peak_flops
+        out[mode] = {"step_ms": step_ms, "tokens_per_s": tokens_s,
+                     "mfu": mfu, "peak_bytes": peak, "losses": losses,
+                     "eval_loss": logs["eval_loss"],
+                     "plain_eval_loss": plain_logs["eval_loss"],
+                     "train_launches": train_counts,
+                     "eval_launches": eval_counts}
+        log(f"[hapi] transformer base {mode}: {step_ms:.2f} ms/step, "
+            f"{tokens_s:.0f} target tokens/s, MFU {mfu * 100:.2f}% of "
+            f"{peak_flops / 1e12:.0f} TFLOP/s ({flops / 1e12:.3f} TFLOP a "
+            f"step), peak {peak / 2**30:.2f} GiB; losses {losses[0]:.4f} "
+            f"-> {losses[-1]:.4f}; eval loss {logs['eval_loss']:.5f} "
+            f"({eval_counts['flash_attention']} flash launches) vs plain "
+            f"{plain_logs['eval_loss']:.5f}; fit launched "
+            f"{train_counts['flash_attention']} flash forwards (dropout "
+            f"0.1: the math form)")
+        del m, net, opt
+    out["launches"] = {}
+    for mode in ("f32", "o2_bf16"):
+        for k, v in out[mode]["train_launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+        for k, v in out[mode]["eval_launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+    return out
+
+
+def phase_hapi(torch):
+    """``hapi``: ``hapi.Model`` training ResNet-50 (BASELINE config #1) and
+    the Transformer base. Launches on this path: the fits' and the
+    kernel evaluations' (the plain-attention evaluation is not
+    counted)."""
+    resnet = _hapi_resnet(torch)
+    transformer = _hapi_transformer(torch)
+    launches = dict(transformer["launches"])
+    return {"resnet": resnet, "transformer": transformer,
+            "launches": launches}
+
+
+# ---------------------------------------------------------------- nn_zoo
+# every zoo factory at its native size (the MobileNets at CIFAR's, as the
+# JAX tests run them), the recurrent layers, vision.ops and the resize
+# ops: the card against the CPU
+ZOO_CASES = [
+    ("lenet", 28), ("alexnet", 224), ("mobilenet_v1", 32),
+    ("mobilenet_v2", 32), ("mobilenet_v3_small", 32),
+    ("mobilenet_v3_large", 32), ("vgg11", 224), ("vgg13", 224),
+    ("vgg16", 224), ("vgg19", 224), ("vgg11_bn", 224), ("vgg13_bn", 224),
+    ("vgg16_bn", 224), ("vgg19_bn", 224), ("squeezenet1_0", 224),
+    ("squeezenet1_1", 224), ("densenet121", 224), ("densenet161", 224),
+    ("densenet169", 224), ("densenet201", 224), ("densenet264", 224),
+    ("googlenet", 224), ("shufflenet_v2_x0_25", 224),
+    ("shufflenet_v2_x0_5", 224), ("shufflenet_v2_x1_0", 224),
+    ("shufflenet_v2_x1_5", 224), ("shufflenet_v2_x2_0", 224),
+    ("inception_v3", 299),
+]
+ZOO_BATCH = 8
+ZOO_TOL = 1e-4
+RNN_CFG = dict(input_size=256, hidden_size=512, num_layers=2,
+               direction="bidirect")
+RNN_BATCH, RNN_SEQ = 32, 128
+OPS_TOL = 1e-5
+
+
+def _zoo_model(torch, name):
+    """Factory ``name`` (``_bn``: with batch norm) on the CPU, seed 0,
+    10 classes; LeNet (no factory) from the same seed."""
+    from paddle_tpu_torch.nn import initializer as I
+    from paddle_tpu_torch.vision import models as M
+
+    if name == "lenet":
+        with I.init_generator(torch.Generator().manual_seed(0)):
+            return M.LeNet(num_classes=10)
+    kw = {}
+    if name.endswith("_bn"):
+        name, kw = name[:-3], dict(batch_norm=True)
+    return getattr(M, name)(num_classes=10, device="cpu", seed=0, **kw)
+
+
+def _nn_zoo_models(torch):
+    import copy
+
+    out = {}
+    for name, hw in ZOO_CASES:
+        cpu = _zoo_model(torch, name)
+        cpu.eval()
+        card = copy.deepcopy(cpu).to("cuda").eval()
+        ch = 1 if name == "lenet" else 3
+        x = torch.from_numpy(np.random.RandomState(0).randn(
+            ZOO_BATCH, ch, hw, hw).astype(np.float32))
+        with torch.no_grad():
+            want = cpu(x)
+            got = card(x.to("cuda"))
+        rel = _rel_l2(got.cpu(), want)
+        check(np.isfinite(rel) and rel <= ZOO_TOL,
+              f"nn_zoo: {name} eval forward on the card vs the CPU "
+              f"{rel} > {ZOO_TOL}")
+        out[name] = {"input": hw, "rel_l2": rel}
+        del cpu, card
+    log(f"[nn_zoo] {len(out)} factories, eval forward batch {ZOO_BATCH}, "
+        f"card vs CPU relative L2: worst "
+        f"{max(v['rel_l2'] for v in out.values()):.3g} "
+        f"({max(out, key=lambda k: out[k]['rel_l2'])})")
+    return out
+
+
+def _nn_zoo_rnn(torch):
+    import copy
+
+    from paddle_tpu_torch import nn
+
+    out = {}
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.randn(RNN_BATCH, RNN_SEQ, RNN_CFG["input_size"])
+                         .astype(np.float32))
+    for cls in ("LSTM", "GRU", "SimpleRNN"):
+        torch.manual_seed(0)
+        cpu = getattr(nn, cls)(**RNN_CFG)
+        card = copy.deepcopy(cpu).to("cuda")
+
+        def run(layer, xin):
+            xin = xin.clone().requires_grad_()
+            y, states = layer(xin)
+            states = states if isinstance(states, tuple) else (states,)
+            g = torch.Generator().manual_seed(2)
+            cot = torch.randn(y.shape, generator=g).to(y.device)
+            loss = (y * cot).sum() + sum(s.sum() for s in states)
+            loss.backward()
+            grads = {n: p.grad.cpu() for n, p in layer.named_parameters()}
+            grads["input"] = xin.grad.cpu()
+            return [y.detach().cpu()] + [s.detach().cpu()
+                                         for s in states], grads
+
+        outs_c, grads_c = run(cpu, x)
+        outs_g, grads_g = run(card, x.to("cuda"))
+        rel = max(_rel_l2(a, b) for a, b in zip(outs_g, outs_c))
+        grel = max(_rel_l2(grads_g[n], grads_c[n]) for n in grads_c)
+        check(rel <= ZOO_TOL and grel <= ZOO_TOL,
+              f"nn_zoo: {cls} on the card vs the CPU: outputs {rel}, "
+              f"gradients {grel} (> {ZOO_TOL})")
+        out[cls] = {"rel_l2": rel, "grad_rel_l2": grel}
+    log(f"[nn_zoo] LSTM / GRU / SimpleRNN {RNN_CFG} batch {RNN_BATCH} x "
+        f"{RNN_SEQ}: card vs CPU {json.dumps(out)}")
+    return out
+
+
+def _nn_zoo_ops(torch):
+    from paddle_tpu_torch import ops as F
+    from paddle_tpu_torch.vision import ops as V
+
+    rng = np.random.RandomState(3)
+    x = rng.rand(2, 12, 32, 32).astype(np.float32)
+    boxes = np.array([[1.0, 1.0, 20.0, 22.0], [4.5, 3.0, 30.0, 12.5],
+                      [0.0, 8.0, 16.0, 31.0]], np.float32)
+    num = np.array([2, 1], np.int64)
+    grid = (rng.rand(2, 24, 20, 2) * 2.4 - 1.2).astype(np.float32)
+    off = (rng.randn(2, 18, 30, 30) * 0.7).astype(np.float32)
+    w = rng.randn(6, 12, 3, 3).astype(np.float32)
+    cases = {
+        "roi_align": lambda t: V.roi_align(t(x), t(boxes), t(num), 7),
+        "roi_pool": lambda t: V.roi_pool(t(x), t(boxes), t(num), 4),
+        "psroi_pool": lambda t: V.psroi_pool(t(x), t(boxes), t(num), 2),
+        "deform_conv2d": lambda t: V.deform_conv2d(t(x), t(off), t(w)),
+        "box_coder": lambda t: V.box_coder(
+            t(boxes), None, t(boxes[::-1].copy() + 1.0)),
+        "grid_sample_zeros": lambda t: F.grid_sample(t(x), t(grid)),
+        "grid_sample_border": lambda t: F.grid_sample(
+            t(x), t(grid), padding_mode="border", align_corners=False),
+        "bicubic_up": lambda t: F.interpolate(t(x), size=[45, 51],
+                                              mode="bicubic"),
+        "bicubic_down": lambda t: F.interpolate(t(x), size=[13, 9],
+                                                mode="bicubic"),
+        "area_down": lambda t: F.interpolate(t(x), size=[10, 14],
+                                             mode="area"),
+        "area_up": lambda t: F.interpolate(t(x), size=[40, 33],
+                                           mode="area"),
+    }
+    out = {}
+    for name, fn in cases.items():
+        want = fn(torch.from_numpy)
+        got = fn(lambda a: torch.from_numpy(a).to("cuda"))
+        rel = _rel_l2(got.cpu(), want)
+        check(rel <= OPS_TOL, f"nn_zoo: {name} on the card vs the CPU "
+                              f"{rel} > {OPS_TOL}")
+        out[name] = rel
+    keep_c = V.nms(torch.from_numpy(boxes), 0.3,
+                   torch.from_numpy(np.array([0.5, 0.9, 0.7], np.float32)))
+    keep_g = V.nms(torch.from_numpy(boxes).cuda(), 0.3, torch.from_numpy(
+        np.array([0.5, 0.9, 0.7], np.float32)).cuda())
+    check(keep_g.cpu().tolist() == keep_c.tolist(),
+          f"nn_zoo: nms {keep_g.tolist()} vs {keep_c.tolist()}")
+    log(f"[nn_zoo] vision.ops and resize ops, card vs CPU relative L2: "
+        f"{json.dumps(out)}; nms equal")
+    return out
+
+
+def phase_nn_zoo(torch):
+    """``nn_zoo``: the vision zoo, the recurrent layers, vision.ops and the
+    resize ops on the card against the CPU (f32, TF32 off); no hand
+    kernel on this path."""
+    from paddle_tpu_torch.kernels import _build
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    _build.reset_launch_counts()
+    rec = {"models": _nn_zoo_models(torch), "rnn": _nn_zoo_rnn(torch),
+           "ops": _nn_zoo_ops(torch)}
+    counts = _build.launch_counts()
+    check(set(counts.values()) == {0},
+          f"nn_zoo: hand kernels launched {counts}")
+    rec["launches"] = counts
+    return rec
+
+
 # host runtime calls that launch device work, as torch.profiler names them
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                      "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch")
@@ -7484,12 +8467,12 @@ def main(argv=None):
         default="kernels,parity,serving,serving_int8,serving_f16,"
                 "serving_prefix,serving_spec,server,journal,poison,fleet,"
                 "spill,stepstats,train_parity,train,train_amp,train_resume,"
-                "dit,resnet,moe",
+                "dit,resnet,moe,moe_train,hapi,nn_zoo",
         help="comma list of kernels, parity, serving, serving_int8, "
              "serving_f16, serving_prefix, serving_spec, server, journal, "
              "poison, fleet, spill, stepstats, train_parity, train, "
-             "train_amp, train_resume, dit, resnet, moe, profile (default: "
-             "all but profile)",
+             "train_amp, train_resume, dit, resnet, moe, moe_train, hapi, "
+             "nn_zoo, profile (default: all but profile)",
     )
     ap.add_argument("--out", help="write the full report as JSON here")
     # the processes the server and journal phases start
@@ -7513,7 +8496,8 @@ def main(argv=None):
                         "serving_f16", "serving_prefix", "serving_spec",
                         "server", "journal", "poison", "fleet", "spill",
                         "stepstats", "train_parity", "train", "train_amp",
-                        "train_resume", "dit", "resnet", "moe", "profile"}
+                        "train_resume", "dit", "resnet", "moe", "moe_train",
+                        "hapi", "nn_zoo", "profile"}
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
@@ -7571,7 +8555,8 @@ def main(argv=None):
             "train_amp": phase_train_amp,
             "train_resume": phase_train_resume, "dit": phase_dit,
             "resnet": phase_resnet, "moe": phase_moe,
-            "profile": phase_profile,
+            "moe_train": phase_moe_train, "hapi": phase_hapi,
+            "nn_zoo": phase_nn_zoo, "profile": phase_profile,
         }
         results, report["phase_seconds"] = {}, {}
         for name, run in runners.items():
@@ -7585,13 +8570,14 @@ def main(argv=None):
         paged = flash = bwd = None
         if "kernels" in results:
             (paged, flash, bwd, faults, quant, gmm, gmm_quant, kvw, rkv,
-             pfx, pfx_batched) = results.pop("kernels")
+             pfx, pfx_batched, wgrad) = results.pop("kernels")
             report["phases"]["kernels"] = {
                 "paged": paged, "flash": flash, "flash_bwd": bwd,
                 "gate_faults": faults, "paged_quant": quant, "gmm": gmm,
                 "gmm_quant": gmm_quant, "kv_write": kvw,
                 "rope_kv_write": rkv,
                 "paged_prefill": pfx, "paged_prefill_batched": pfx_batched,
+                "grouped_matmul_wgrad": wgrad,
             }
             # the wrapper's choice against the previous kernel, same
             # inputs, run and host path: reported, not gated (the small
@@ -7628,12 +8614,12 @@ def main(argv=None):
         report["phases"].update(results)
         (serving, serving_int8, serving_f16, serving_prefix, serving_spec,
          server, journal, poison, fleet, spill, stepstats, train, train_amp,
-         train_resume, dit, resnet, moe) = (
+         train_resume, dit, resnet, moe, moe_train, hapi, nn_zoo) = (
              results.get(p) for p in (
                  "serving", "serving_int8", "serving_f16", "serving_prefix",
                  "serving_spec", "server", "journal", "poison", "fleet",
                  "spill", "stepstats", "train", "train_amp", "train_resume",
-                 "dit", "resnet", "moe"))
+                 "dit", "resnet", "moe", "moe_train", "hapi", "nn_zoo"))
         check("jax" not in sys.modules and not any(
             m == "paddle_tpu" or m.startswith("paddle_tpu.")
             for m in sys.modules),
@@ -7655,7 +8641,10 @@ def main(argv=None):
     # counted steps (O1 bf16, O2 bf16, O2 float16), the resume workers'
     # steps (bf16 and float16), the DiT cell's counted steps (f32 and O2
     # bf16), the ResNet-50 cell's (f32 and O2 bf16: no hand kernel on its
-    # path, all 0) and the moe phase's counted forwards
+    # path, all 0), the moe phase's counted forwards, moe_train's counted
+    # steps (the Llama MoE's 14, the ragged layer's AdamW steps), hapi's
+    # fits and kernel evaluations (the Transformer's; ResNet-50's launch
+    # none) and nn_zoo's (none)
     by_path = {p: r["launches"] if r else {} for p, r in (
         ("serving", serving), ("serving_int8", serving_int8),
         ("serving_f16", serving_f16), ("serving_prefix", serving_prefix),
@@ -7663,7 +8652,8 @@ def main(argv=None):
         ("journal", journal), ("poison", poison), ("fleet", fleet),
         ("spill", spill), ("stepstats", stepstats), ("train", train),
         ("train_amp", train_amp), ("train_resume", train_resume),
-        ("dit", dit), ("resnet", resnet), ("moe", moe))}
+        ("dit", dit), ("resnet", resnet), ("moe", moe),
+        ("moe_train", moe_train), ("hapi", hapi), ("nn_zoo", nn_zoo))}
 
     def launches(name):
         per = {p: c.get(name, 0) for p, c in by_path.items()}
@@ -7803,6 +8793,34 @@ def main(argv=None):
                 "variants": [variant_entry(name, v, case, cases)
                              for v, case in variants],
             })
+        # the weight gradient at the MoE layer's up projection, bf16
+        # (mma.sync); the f32 FMA kernel under "variants"; library: one
+        # torch._grouped_mm call where this PyTorch takes the ragged
+        # contraction, else the plain per-expert loop (its note says which)
+        head = wgrad[0]
+        f32 = next(c for c in wgrad if c["case"] == "f32")
+        kernels.append({
+            "name": "grouped_matmul_wgrad", "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/grouped_matmul_bwd.cu",
+            "replaces": "paddle_tpu/kernels/pallas/grouped_matmul.py:220 "
+                        "(_gmm_pallas_bwd: drhs from the XLA fallback's "
+                        "VJP, no TPU kernel)",
+            **launches("grouped_matmul_wgrad"),
+            "max_abs_err": max(c["max_abs_err"] for c in wgrad),
+            "variant": head["variant"], "ms": head["ms"],
+            "median_ms": head["median_ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "library": head["library"],
+            "shape": f"{head['case']}: n {head['n']}, k {head['k']}, "
+                     f"m {head['m']}, e {head['experts']}",
+            "transpose_copy_ms": head["transpose_copy_ms"],
+            "variants": [{
+                "variant": c["variant"],
+                **launches(f"grouped_matmul_wgrad/{c['variant']}"),
+                "ms": c["ms"], "median_ms": c["median_ms"],
+                "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                "shape": c["case"]} for c in (head, f32)],
+        })
     if paged is not None:
         # the fused KV write at the serving decode shape on the bf16 pool
         # (library: index_put_ of K and V), with each pool type's kernel

@@ -54,14 +54,15 @@ __all__ = [
 
 # kernel sources, csrc/<name>.cu
 KERNELS = ("paged_attention", "flash_attention", "flash_attention_bwd",
-           "grouped_matmul", "kv_write", "paged_prefill")
+           "grouped_matmul", "grouped_matmul_bwd", "kv_write", "paged_prefill")
 # launched kernels, as counted ("flash_attention" is the forward), and
 # "paged_attention_ref" / "paged_prefill_ref": the plain paged attention
 # and continuation attention run by name (``EngineConfig(decode_kernel=
 # "xla")``), counted per call
 LAUNCHES = ("paged_attention", "paged_attention_quant", "flash_attention",
             "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-            "grouped_matmul", "grouped_matmul_quant", "kv_write",
+            "grouped_matmul", "grouped_matmul_quant", "grouped_matmul_wgrad",
+            "kv_write",
             "rope_kv_write", "paged_prefill", "paged_attention_ref",
             "paged_prefill_ref")
 

@@ -25,7 +25,12 @@ float path is differentiable through
 ``GroupedMatmulFunction``, the counterpart of the JAX custom VJP: the
 JAX backward has no kernel (it runs the fallback's contraction), so here
 ``dlhs`` is the forward on ``rhs`` transposed over the same segments and
-``drhs`` the per-segment ``lhs^T g``. The int8 path is inference-only:
+``drhs`` the per-segment ``lhs^T g``, ``grouped_matmul_wgrad``: on CUDA
+tensors ``csrc/grouped_matmul_bwd.cu`` (counted ``grouped_matmul_wgrad``,
+variant ``mma`` for 16-bit, ``fma`` for f32), which finds each group's
+rows from the group sizes on the device, so the backward reads nothing
+back to the host; ``_segment_outer``, its plain version, on the CPU.
+The int8 path is inference-only:
 on CUDA it raises when a gradient is needed; on the CPU the plain int8
 version stays differentiable, as ``grouped_matmul_xla`` is in JAX.
 
@@ -44,7 +49,8 @@ import torch
 from . import _build
 from .flash_attention import _aligned
 
-__all__ = ["grouped_matmul", "grouped_matmul_ref", "GroupedMatmulFunction"]
+__all__ = ["grouped_matmul", "grouped_matmul_ref", "grouped_matmul_wgrad",
+           "GroupedMatmulFunction"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # device kernels of grouped_matmul_launch's ``variant`` argument: 0 picks
@@ -69,6 +75,7 @@ WGMMA_MIN_MACS = 1 << 25
 INT8_WGMMA_MIN_MACS = 1 << 25
 INT8_WGMMA_MAX_GROUPS = 128
 _lib = None
+_wgrad_lib = None
 
 
 def _kernel():
@@ -82,6 +89,19 @@ def _kernel():
         lib.grouped_matmul_launch.restype = ci
         _lib = lib
     return _lib
+
+
+def _wgrad_kernel():
+    global _wgrad_lib
+    if _wgrad_lib is None:
+        lib = _build.load("grouped_matmul_bwd")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.grouped_matmul_wgrad_launch.argtypes = [
+            vp, vp, vp, vp, ci, ci, ci, ci, ci, vp,
+        ]
+        lib.grouped_matmul_wgrad_launch.restype = ci
+        _wgrad_lib = lib
+    return _wgrad_lib
 
 
 def _check(lhs, rhs, group_sizes, rhs_scales):
@@ -225,7 +245,8 @@ def grouped_matmul_ref(lhs, rhs, group_sizes, rhs_scales=None):
 def _segment_outer(lhs, g, group_sizes, e):
     """drhs [e, k, m]: per group, lhs[seg]^T @ g[seg] (the product the JAX
     custom VJP takes from the fallback), in f32 or wider, cast to lhs's
-    dtype. One read of the group sizes on the host."""
+    dtype: ``grouped_matmul_wgrad``'s plain version. One read of the
+    group sizes on the host, one product per group."""
     acc = torch.promote_types(lhs.dtype, torch.float32)
     k, m = lhs.shape[1], g.shape[1]
     out = torch.zeros((e, k, m), dtype=acc, device=lhs.device)
@@ -239,11 +260,86 @@ def _segment_outer(lhs, g, group_sizes, e):
     return out.to(lhs.dtype)
 
 
+def _check_wgrad(lhs, g, group_sizes, e):
+    if lhs.dim() != 2 or g.dim() != 2 or g.shape[0] != lhs.shape[0]:
+        raise ValueError(
+            f"grouped_matmul_wgrad: want lhs [n, k] and g [n, m], got "
+            f"{tuple(lhs.shape)}, {tuple(g.shape)}"
+        )
+    if group_sizes.shape != (e,):
+        raise ValueError(
+            f"grouped_matmul_wgrad: group_sizes {tuple(group_sizes.shape)} "
+            f"must be [{e}]"
+        )
+    if g.dtype != lhs.dtype:
+        raise TypeError(
+            f"grouped_matmul_wgrad: g {g.dtype} must have lhs's dtype "
+            f"{lhs.dtype}"
+        )
+    for name, t in (("g", g), ("group_sizes", group_sizes)):
+        if t.device != lhs.device:
+            raise ValueError(
+                f"grouped_matmul_wgrad: {name} is on {t.device}, lhs on "
+                f"{lhs.device}"
+            )
+
+
+def _launch_wgrad(lhs, g, group_sizes, e):
+    """The weight-gradient kernel on checked CUDA inputs -> [e, k, m] in
+    lhs's dtype."""
+    dtype = _DTYPES.get(lhs.dtype)
+    if dtype is None:
+        raise TypeError(
+            f"grouped_matmul_wgrad kernel takes float32, bfloat16 or "
+            f"float16, got {lhs.dtype}"
+        )
+    n, k = lhs.shape
+    m = g.shape[1]
+    if dtype != 0 and (k % 8 or m % 8):
+        raise ValueError(
+            f"grouped_matmul_wgrad kernel: {lhs.dtype} needs k % 8 == 0 and "
+            f"m % 8 == 0, got k {k}, m {m}"
+        )
+    lhs, g = _aligned(lhs), _aligned(g)
+    gs = group_sizes.to(torch.int32).contiguous()
+    # every block stores its whole tile (zeros for an empty group)
+    out = torch.empty((e, k, m), dtype=lhs.dtype, device=lhs.device)
+    variant = "fma" if dtype == 0 else "mma"
+    with torch.cuda.device(lhs.device):
+        err = _wgrad_kernel().grouped_matmul_wgrad_launch(
+            lhs.data_ptr(), g.data_ptr(), gs.data_ptr(), out.data_ptr(),
+            n, k, m, e, dtype,
+            torch.cuda.current_stream(lhs.device).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(
+            f"grouped_matmul_wgrad ({variant}) kernel launch failed: CUDA "
+            f"error {err}")
+    _build.count_launch("grouped_matmul_wgrad", variant)
+    return out
+
+
+def grouped_matmul_wgrad(lhs, g, group_sizes, e):
+    """The weight gradient of the ragged grouped GEMM: ``drhs[i] =
+    lhs[seg_i]^T @ g[seg_i]`` -> [e, k, m] in lhs's dtype, f32
+    accumulation, zeros for an empty group. The kernel on CUDA tensors
+    (no read of ``group_sizes`` on the host), ``_segment_outer`` on CPU
+    tensors."""
+    _check_wgrad(lhs, g, group_sizes, e)
+    if lhs.device.type == "cpu":
+        return _segment_outer(lhs, g, group_sizes, e)
+    if lhs.device.type != "cuda":
+        raise ValueError(
+            f"grouped_matmul_wgrad: unsupported device {lhs.device}")
+    return _launch_wgrad(lhs, g, group_sizes, e)
+
+
 class GroupedMatmulFunction(torch.autograd.Function):
     """``out = grouped_matmul(lhs, rhs, group_sizes)`` (float rhs) with
     the JAX custom VJP's gradients: ``dlhs`` runs the forward (kernel on
     the card) on ``rhs`` transposed, ``drhs`` is the per-segment
-    ``lhs^T g``. Group sizes get no gradient."""
+    ``lhs^T g`` (``grouped_matmul_wgrad``). Group sizes get no
+    gradient."""
 
     @staticmethod
     def forward(ctx, lhs, rhs, group_sizes):
@@ -258,7 +354,7 @@ class GroupedMatmulFunction(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dlhs = _forward(g, rhs.transpose(1, 2).contiguous(), group_sizes)
         if ctx.needs_input_grad[1]:
-            drhs = _segment_outer(lhs, g, group_sizes, rhs.shape[0])
+            drhs = grouped_matmul_wgrad(lhs, g, group_sizes, rhs.shape[0])
         return dlhs, drhs, None
 
 

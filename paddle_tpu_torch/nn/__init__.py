@@ -1,9 +1,7 @@
 """The port's layer set (counterpart of ``paddle_tpu.nn``): ``Layer``,
-the convolution, normalisation, pooling, activation, common, container
-and loss layers, ``functional``, ``initializer``, ``Parameter`` and
-``ParamAttr``, and the gradient clips. The recurrent and transformer
-layers (``nn/layer/rnn.py``, ``nn/layer/transformer.py``) are not ported
-yet (ROADMAP A11)."""
+the convolution, normalisation, pooling, activation, common, container,
+loss, recurrent and transformer layers, ``functional``, ``initializer``,
+``Parameter`` and ``ParamAttr``, and the gradient clips."""
 from . import functional  # noqa: F401
 from . import initializer  # noqa: F401
 from .clip import (  # noqa: F401
@@ -45,4 +43,6 @@ from .layer.layers import Layer  # noqa: F401
 from .layer.loss import *  # noqa: F401,F403
 from .layer.norm import *  # noqa: F401,F403
 from .layer.pooling import *  # noqa: F401,F403
+from .layer.rnn import *  # noqa: F401,F403
+from .layer.transformer import *  # noqa: F401,F403
 from .parameter import Parameter, ParamAttr  # noqa: F401

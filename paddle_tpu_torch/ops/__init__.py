@@ -1,6 +1,7 @@
 from . import activation as _activation
 from . import manipulation as _manipulation
 from . import nn_ops as _nn_ops
+from . import rnn_ops as _rnn_ops
 from .activation import *  # noqa: F401,F403
 from .fused_ops import fused_linear_cross_entropy, rope_qk
 from .manipulation import *  # noqa: F401,F403
@@ -12,11 +13,13 @@ from .moe_ops import (
     moe_ragged_dispatch,
 )
 from .nn_ops import *  # noqa: F401,F403
+from .rnn_ops import rnn  # noqa: F401
 
 __all__ = sorted(
     {"fused_linear_cross_entropy", "grouped_matmul", "moe_combine",
      "moe_gate_dispatch", "moe_ragged_combine", "moe_ragged_dispatch",
      "rope_qk"}
     | set(_activation.__all__) | set(_manipulation.__all__)
+    | set(_rnn_ops.__all__)
     | (set(_nn_ops.__all__) - {"flash_eligible"})
 )

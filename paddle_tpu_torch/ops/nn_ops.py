@@ -44,7 +44,7 @@ __all__ = [
     "hinge_embedding_loss", "margin_ranking_loss", "cosine_embedding_loss",
     "triplet_margin_loss", "log_loss", "square_error_cost", "ctc_loss",
     "cosine_similarity", "label_smooth", "pixel_shuffle", "pixel_unshuffle",
-    "unfold", "interpolate", "upsample",
+    "unfold", "interpolate", "upsample", "affine_grid", "grid_sample",
 ]
 
 
@@ -1005,15 +1005,60 @@ def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1):
     return F.unfold(F.pad(x, _flat(pairs)), k, dilation=d, stride=s)
 
 
+def _keys_cubic(x):
+    """Keys' cubic kernel with a = -0.5 (``jax.image.resize``'s
+    "cubic")."""
+    x = np.abs(x)
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return np.where(x >= 2.0, 0.0, out)
+
+
+def _triangle(x):
+    return np.maximum(0.0, 1.0 - np.abs(x))
+
+
+def _resize_weights(n_in, n_out, kernel):
+    """[n_in, n_out] weights of one axis as ``jax.image.resize`` builds
+    them: half-pixel centres, the kernel widened by in / out when
+    shrinking (antialiasing), each column normalised to sum 1, zero for
+    samples outside the input."""
+    inv_scale = n_in / n_out
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (np.arange(n_out) + 0.5) * inv_scale - 0.5
+    w = kernel(np.abs(sample[None, :] - np.arange(n_in)[:, None])
+               / kernel_scale)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, 1), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, 0.0).astype(np.float32)
+
+
+def _resize_separable(x, size, kernel):
+    """``jax.image.resize`` with ``kernel`` over every spatial axis whose
+    size changes: one f32 product with that axis's weight matrix each."""
+    out = x.float()
+    for dim, (n, o) in enumerate(zip(x.shape[2:], size)):
+        if n == o:
+            continue
+        w = torch.from_numpy(_resize_weights(n, o, kernel)).to(out.device)
+        out = torch.movedim(torch.tensordot(out, w, dims=([2 + dim], [0])),
+                            -1, 2 + dim)
+    return out.to(x.dtype)
+
+
 def interpolate(x, size=None, scale_factor=None, mode="nearest",
-                align_corners=False, data_format="NCHW"):
-    """Resize the spatial axes of a channel-first input. "nearest" takes
-    index floor(i * in / out); the linear modes with ``align_corners``
-    interpolate between the corner-aligned grid points; without it, the
-    JAX op's ``jax.image.resize`` (half-pixel centres, a triangle filter
-    widened by the scale when shrinking), which is torch's
-    ``antialias=True`` form. "bicubic" (JAX: Keys' a = -0.5, torch's
-    a = -0.75) and "area" are not ported (ROADMAP A11)."""
+                align_corners=False, data_format="NCHW", name=None):
+    """Resize the spatial axes of a channel-first input, as the JAX op.
+    "nearest" takes index floor(i * in / out); every other mode with
+    ``align_corners`` interpolates linearly between the corner-aligned
+    grid points (the JAX op does so for "bicubic" and "area" too).
+    Without it, ``jax.image.resize``'s weights, one matrix a resized
+    axis (half-pixel centres, the filter widened by the scale when
+    shrinking): the linear modes and "area" its "linear" (a triangle
+    filter; "area" is not torch's adaptive average pooling), "bicubic"
+    its "cubic" (Keys' a = -0.5; torch's bicubic is a = -0.75)."""
     if data_format not in ("NCHW", "NCL", "NCDHW"):
         raise NotImplementedError("interpolate expects channel-first")
     spatial = x.shape[2:]
@@ -1029,9 +1074,8 @@ def interpolate(x, size=None, scale_factor=None, mode="nearest",
             idx = torch.floor(torch.arange(o, device=x.device) * (n / o))
             out = out.index_select(2 + dim, idx.long())
         return out
-    if mode not in ("linear", "bilinear", "trilinear"):
-        raise NotImplementedError(
-            f"interpolate mode {mode!r} is not ported (ROADMAP A11)")
+    if mode not in ("linear", "bilinear", "trilinear", "bicubic", "area"):
+        raise ValueError(f"interpolate: unknown mode {mode!r}")
     if align_corners:
         out = x.float()
         for dim, (n, o) in enumerate(zip(spatial, size)):
@@ -1045,12 +1089,8 @@ def interpolate(x, size=None, scale_factor=None, mode="nearest",
             b = out.index_select(2 + dim, hi)
             out = a * (1 - frac) + b * frac
         return out.to(x.dtype)
-    torch_mode = {1: "linear", 2: "bilinear", 3: "trilinear"}[len(spatial)]
-    shrink = any(o < n for n, o in zip(spatial, size))
-    out = F.interpolate(x.float(), size=size, mode=torch_mode,
-                        align_corners=False,
-                        antialias=shrink and len(spatial) == 2)
-    return out.to(x.dtype)
+    return _resize_separable(
+        x, size, _keys_cubic if mode == "bicubic" else _triangle)
 
 
 def upsample(x, size=None, scale_factor=None, mode="nearest",
@@ -1058,3 +1098,68 @@ def upsample(x, size=None, scale_factor=None, mode="nearest",
     """``interpolate``."""
     return interpolate(x, size, scale_factor, mode, align_corners,
                        data_format)
+
+
+def affine_grid(theta, out_shape, align_corners=True, name=None):
+    """Sampling grid of an affine map, as the JAX op: theta [N, 2, 3] ->
+    [N, H, W, 2] for a 4-D ``out_shape`` [N, C, H, W], [N, 3, 4] ->
+    [N, D, H, W, 3] for a 5-D one; coordinates in [-1, 1] at the
+    corners (``align_corners``) or at the pixel centres."""
+    out_shape = [int(v) for v in out_shape]
+    dt, dev = theta.dtype, theta.device
+
+    def coords(n):
+        if align_corners:
+            if n == 1:
+                return torch.zeros(1, dtype=dt, device=dev)
+            return torch.linspace(-1.0, 1.0, n, device=dev).to(dt)
+        return ((torch.arange(n, device=dev) * 2 + 1) / n - 1.0).to(dt)
+
+    if len(out_shape) == 4:
+        _, _, h, w = out_shape
+        gy, gx = torch.meshgrid(coords(h), coords(w), indexing="ij")
+        base = torch.stack([gx, gy, torch.ones_like(gx)], dim=-1)
+        return torch.einsum("hwk,nok->nhwo", base, theta)
+    if len(out_shape) == 5:
+        _, _, d, h, w = out_shape
+        gz, gy, gx = torch.meshgrid(coords(d), coords(h), coords(w),
+                                    indexing="ij")
+        base = torch.stack([gx, gy, gz, torch.ones_like(gx)], dim=-1)
+        return torch.einsum("dhwk,nok->ndhwo", base, theta)
+    raise ValueError(
+        f"affine_grid expects a 4-D or 5-D out_shape, got {out_shape}")
+
+
+def grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=True, name=None):
+    """Bilinear samples of x [N, C, H, W] at grid [N, Ho, Wo, 2] ((x, y)
+    in [-1, 1]) -> [N, C, Ho, Wo], as the JAX op computes it: the JAX op
+    samples bilinearly whatever ``mode`` says, and a corner outside the
+    image reads as 0 under ``padding_mode="zeros"`` and as the nearest
+    edge pixel under any other mode (its "border"; "reflection" is not
+    reflected there either)."""
+    n, c, h, w = x.shape
+    gx, gy = grid[..., 0], grid[..., 1]
+    if align_corners:
+        fx = (gx + 1) * (w - 1) / 2
+        fy = (gy + 1) * (h - 1) / 2
+    else:
+        fx = ((gx + 1) * w - 1) / 2
+        fy = ((gy + 1) * h - 1) / 2
+    x0, y0 = fx.floor().long(), fy.floor().long()
+    wx, wy = (fx - x0).unsqueeze(1), (fy - y0).unsqueeze(1)
+    flat = x.reshape(n, c, h * w)
+
+    def gather(yy, xx):
+        idx = yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)
+        out = flat.gather(2, idx.reshape(n, 1, -1).expand(n, c, -1))
+        out = out.reshape(n, c, *yy.shape[1:])
+        if padding_mode == "zeros":
+            valid = (yy >= 0) & (yy <= h - 1) & (xx >= 0) & (xx <= w - 1)
+            out = out * valid.unsqueeze(1).to(out.dtype)
+        return out
+
+    return (gather(y0, x0) * (1 - wx) * (1 - wy)
+            + gather(y0, x0 + 1) * wx * (1 - wy)
+            + gather(y0 + 1, x0) * (1 - wx) * wy
+            + gather(y0 + 1, x0 + 1) * wx * wy)

@@ -1,7 +1,6 @@
-"""Vision (counterpart of ``paddle_tpu.vision``): the ResNet family
-(``models``), the numpy transforms and the CIFAR and MNIST datasets.
-The rest of the JAX zoo and ``vision.ops`` are not ported yet (ROADMAP
-A11)."""
-from . import datasets, models, transforms
+"""Vision (counterpart of ``paddle_tpu.vision``): the model zoo
+(``models``), the detection and vision operators (``ops``), the numpy
+transforms and the CIFAR and MNIST datasets."""
+from . import datasets, models, ops, transforms
 
-__all__ = ["datasets", "transforms", "models"]
+__all__ = ["datasets", "transforms", "models", "ops"]

@@ -21,6 +21,7 @@ from ... import nn
 from ... import ops as F
 from ...core.device import resolve_device
 from ...nn import initializer as I
+from ._factory import _no_pretrained
 
 __all__ = [
     "ResNet", "resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
@@ -158,11 +159,7 @@ class ResNet(nn.Layer):
 
 
 def _resnet(block, depth, width, pretrained, **kwargs):
-    if pretrained:
-        raise ValueError(
-            "pretrained weights are not available; load a state dict "
-            "with model.set_state_dict(...) or "
-            "models.load_reference_state(model, state)")
+    _no_pretrained(pretrained)
     return ResNet(block, depth, width=width, **kwargs)
 
 

@@ -296,7 +296,7 @@ def test_scaler_state_machine_matches_jax(decr_every, dtype):
     for i, g in enumerate(GRADS):
         scaled = np.asarray([g, 0.5], np.float32) * js._scale
         jp.grad = paddle.to_tensor(scaled).astype(dtype)
-        tp.grad = torch.from_numpy(scaled).to(getattr(torch, dtype))
+        tp.grad = torch.tensor(scaled).to(getattr(torch, dtype))   # own copy
         js.step(jopt)
         ts.step(topt)
         assert ts._found_inf == js._found_inf, i

@@ -21,9 +21,6 @@ A9_JIT = ("to_static and jit.save/load, whose torch analogues are "
 A9_QUANT = "the sparse and quantization surface (ROADMAP A9)"
 A9_PLACE = "serving/placement.py and autoscaling (ROADMAP A9)"
 A9_TP = "tensor-parallel serving (ROADMAP A9)"
-A11_ZOO = ("the vision zoo beyond the ResNets: mobilenet.py, big_nets.py, "
-           "small_nets.py (ROADMAP A11)")
-
 LEFT_OUT = {
     "distributed": dict.fromkeys((
         "ColWiseParallel", "DataParallel", "DistMeta", "DistModel", "Group",
@@ -53,8 +50,6 @@ LEFT_OUT = {
         "PerChannelAbsmaxObserver", "QAT", "QuantConfig", "quant_dequant",
         "quantize_weights", "weight_dequantize", "weight_quantize"),
         A9_QUANT),
-    "vision": {"ops": "vision/ops.py: detection ops, roi pooling, nms "
-                      "(ROADMAP A11)"},
     "serving": dict(
         dict.fromkeys(("Autoscaler", "PlacementError", "PlacementPlan",
                        "ScalingPolicy"), A9_PLACE),
@@ -120,28 +115,14 @@ def test_subpackage_exports_match_jax(name):
     assert all(left_out.values())
 
 
-# vision.models: the ResNets are ported; the rest of the zoo is listed
-VISION_MODELS_LEFT_OUT = dict.fromkeys((
-    "MobileNetV1", "MobileNetV2", "MobileNetV3Small", "MobileNetV3Large",
-    "mobilenet_v1", "mobilenet_v2", "mobilenet_v3_small",
-    "mobilenet_v3_large", "LeNet", "AlexNet", "VGG", "SqueezeNet",
-    "alexnet", "vgg11", "vgg13", "vgg16", "vgg19", "squeezenet1_0",
-    "squeezenet1_1", "DenseNet", "densenet121", "densenet161",
-    "densenet169", "densenet201", "densenet264", "GoogLeNet", "googlenet",
-    "ShuffleNetV2", "shufflenet_v2_x0_25", "shufflenet_v2_x0_5",
-    "shufflenet_v2_x1_0", "shufflenet_v2_x1_5", "shufflenet_v2_x2_0",
-    "InceptionV3", "inception_v3"), A11_ZOO)
-
-
+# vision.models: the whole zoo is ported
 def test_vision_models_exports_match_jax():
     from paddle_tpu.vision import models as jax_models
     from paddle_tpu_torch.vision import models
 
     want, got = set(jax_models.__all__), set(models.__all__)
     assert all(hasattr(models, n) for n in got)
-    assert got <= want, sorted(got - want)
-    assert want - got == set(VISION_MODELS_LEFT_OUT), sorted(
-        (want - got) ^ set(VISION_MODELS_LEFT_OUT))
+    assert got == want, sorted(got ^ want)
 
 
 def test_the_slice_names_are_exported():

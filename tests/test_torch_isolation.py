@@ -216,7 +216,8 @@ def test_kernel_build_needs_nvcc_not_at_import():
     assert _build._libs == {}
     assert _build.KERNELS == ("paged_attention", "flash_attention",
                               "flash_attention_bwd", "grouped_matmul",
-                              "kv_write", "paged_prefill")
+                              "grouped_matmul_bwd", "kv_write",
+                              "paged_prefill")
 
 
 def test_prefill_ext_on_cpu_tensors_takes_the_plain_version():

@@ -192,7 +192,7 @@ def _run(make_jax, make_port, steps=5, grad_scale=1.0, setup=None):
     for i in range(steps):
         for p, q, g in zip(jp, tp, _arrays(10 + i, grad_scale)):
             p.grad = paddle.to_tensor(g)
-            q.grad = torch.from_numpy(g)
+            q.grad = torch.tensor(g)   # a copy, as the clips work in place
         jopt.step()
         topt.step()
     for p, q in zip(jp, tp):

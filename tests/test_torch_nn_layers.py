@@ -672,7 +672,7 @@ def test_loss_matches_jax(case):
 def test_functional_names_are_jax_s():
     import paddle_tpu_torch.nn.functional as pfn
 
-    left_out = {"grid_sample"}   # ROADMAP A11
+    left_out = set()
     want = {n for n in dir(jF) if not n.startswith("_")}
     got = {n for n in dir(pfn) if not n.startswith("_")}
     assert want - got == left_out

@@ -50,7 +50,7 @@ def _run(make_jax, make_port, dtype="float32", steps=5, grad_scale=1.0,
         for p, q, g in zip(jp, tp, _arrays(10 + i, grad_scale)):
             jg = paddle.to_tensor(g)
             p.grad = jg.astype("bfloat16") if dtype == "bfloat16" else jg
-            q.grad = torch.from_numpy(g).to(q.dtype)
+            q.grad = torch.tensor(g).to(q.dtype)   # its own copy of g
         jopt.step()
         topt.step()
         if schedulers:

@@ -13,6 +13,8 @@ steps and loaded into a fresh optimizer continues bit for bit. LBFGS
 runs a seeded least-squares problem, plain and with the strong-Wolfe
 search, against JAX's iterates.
 """
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -69,14 +71,21 @@ CASES = {
 # lamb_weight_decay, Rprop (full-batch, no decay in the JAX class) once
 
 
+# Each side gets its own copy of every array. ``paddle.to_tensor`` of a
+# numpy array whose buffer happens to be 64-byte aligned keeps that buffer
+# (no copy) on the CPU, and ``torch.from_numpy`` always shares it: the
+# port's in-place update would then move the JAX parameter too, in
+# whichever test the allocator left the array aligned.
+
+
 def _params(dtypes):
     """(JAX tensors, port parameters) from the seed-0 arrays, each in its
-    dtype of ``dtypes``."""
+    dtype of ``dtypes``; no memory shared between the two."""
     jp, tp = [], []
     for a, dt in zip(_arrays(0), dtypes):
         j = paddle.to_tensor(a, stop_gradient=False)
         jp.append(j.astype("bfloat16") if dt == "bfloat16" else j)
-        tp.append(torch.nn.Parameter(torch.from_numpy(a).to(
+        tp.append(torch.nn.Parameter(torch.tensor(a).to(
             torch.bfloat16 if dt == "bfloat16" else torch.float32)))
     return jp, tp
 
@@ -87,7 +96,40 @@ def _set_grads(jp, tp, i):
         jg = paddle.to_tensor(g)
         p.grad = jg.astype(p.dtype) if str(p.dtype).endswith(
             "bfloat16") else jg
-        q.grad = torch.from_numpy(g).to(q.dtype)
+        q.grad = torch.tensor(g).to(q.dtype)
+
+
+def _aligned_arrays(arrays, align=64):
+    """Copies of ``arrays`` whose buffers start on ``align`` bytes."""
+    out = []
+    for a in arrays:
+        buf = np.empty(a.nbytes + align, np.uint8)
+        off = (-buf.ctypes.data) % align
+        b = buf[off:off + a.nbytes].view(a.dtype).reshape(a.shape)
+        b[...] = a
+        out.append(b)
+    return out
+
+
+def test_no_memory_shared_with_jax_on_aligned_arrays(monkeypatch):
+    # an in-place change on the port's side leaves the JAX parameters
+    # and gradients as they were, also when every array is 64-byte
+    # aligned (the heap state under which a test's JAX weights used to
+    # follow the port's update)
+    real = _arrays
+    monkeypatch.setattr(
+        sys.modules[__name__], "_arrays",
+        lambda seed, scale=1.0: _aligned_arrays(real(seed, scale)))
+    jp, tp = _params(["float32"] * 3)
+    _set_grads(jp, tp, 0)
+    before = [(p.numpy().copy(), p.grad.numpy().copy()) for p in jp]
+    with torch.no_grad():
+        for q in tp:
+            q.sub_(1.0)
+            q.grad.mul_(3.0)
+    for p, (w, g) in zip(jp, before):
+        np.testing.assert_array_equal(p.numpy(), w)
+        np.testing.assert_array_equal(p.grad.numpy(), g)
 
 
 def _make(cls, kw, decay, jp, tp, multi_precision=False):

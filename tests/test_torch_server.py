@@ -234,6 +234,9 @@ def test_unknown_endpoint_404_and_cohosted_observability(servers):
                                 path="/v1/chat/completions")
         assert status == 404
         assert resp["error"]["type"] == "invalid_request_error"
+    # one answered request of its own, so the latency series exists
+    # whatever ran on this server before
+    assert _post(mine.port, {"prompt": PROMPT, "max_tokens": 2})[0] == 200
     status, text = _get(mine.port, "/metrics")
     assert status == 200
     assert "paddle_tpu_serving_http_requests_total" in text

@@ -520,6 +520,12 @@ def test_headroom_is_reclaimable_and_reclaimed_first(model):
 
 
 def test_health_reports_the_accept_rate(spec_engine):
+    # its own greedy repetitive traffic (12 copies of one token): drafts
+    # are proposed whatever ran on this engine before, or nothing did
+    prompts = [[int(t)] * 12
+               for t in np.random.RandomState(5).randint(1, 128, 4)]
+    spec_engine.generate(prompts, [SamplingParams(max_new_tokens=12)
+                                   for _ in prompts])
     m = spec_engine.metrics
     assert m.spec_proposed > 0
     assert m.spec_accept_hist()
