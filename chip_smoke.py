@@ -31,7 +31,12 @@ Phases, in order; any failure exits non-zero:
                The int8 paged kernel also stays within 0.05 of the float
                kernel on the unquantized pages; the grouped GEMM runs at
                the MoE layer's shapes, the JAX sweeps of empty and
-               one-row groups, f32 and int8 rhs. float16: paged decode
+               one-row groups, f32 and int8 rhs. Its backward at the same
+               shapes and edge groups: the weight gradient (the wgmma and
+               the mma.sync design, empty groups exactly 0, beside
+               ``torch._grouped_mm``) and ``dlhs`` on the transposed
+               instance (wgmma and mma.sync, ``prev_ms`` the transposing
+               copy plus the forward it replaced). float16: paged decode
                over float16 and int8 pools, the grouped GEMM with
                float16 lhs and float16 or int8 rhs, and the flash forward
                and backward (PR 15: the training shape, b 1 s 2048, GQA
@@ -832,32 +837,45 @@ def _grouped_mm_wgrad(torch, lhs, g, gs):
         return None, f"torch._grouped_mm refused: {err}"[:200]
 
 
-def wgrad_case(torch, gk, flush, name, dtype, k, m, group_sizes,
-               transpose_copy=False):
-    """The grouped GEMM weight-gradient kernel (``grouped_matmul_wgrad``)
+def wgrad_case(torch, gk, flush, name, dtype, k, m, group_sizes):
+    """The grouped GEMM weight-gradient kernels (``grouped_matmul_wgrad``)
     against ``_segment_outer`` on the same inputs (``GATE``), with every
-    group's matrix, empty ones included, written. ``ms`` the wrapper's
-    call; ``library_ms`` ``torch._grouped_mm``'s ragged contraction where
-    this PyTorch takes it, else the per-expert cuBLAS loop (the plain
-    version) and a note saying so. ``transpose_copy`` also times the
-    ``rhs.transpose(1, 2).contiguous()`` copy the backward makes for
-    ``dlhs`` at this shape ([e, m, k] -> [e, k, m])."""
+    group's matrix, empty ones included, written as exact zeros. Every
+    device kernel of the dtype (16-bit: the wgmma kernel and the mma.sync
+    kernel, forced through ``_launch_wgrad``; f32: the FMA kernel) is held
+    and timed side by side (``variants``); ``ms`` is the wrapper's call
+    (on the kernel ``_wgrad_variant`` picks), ``prev_ms`` the mma.sync
+    kernel. ``library_ms`` ``torch._grouped_mm``'s ragged contraction
+    where this PyTorch takes it, else the per-expert cuBLAS loop (the
+    plain version) and a note saying so."""
     dev = "cuda"
     gs = torch.as_tensor(group_sizes, dtype=torch.int32, device=dev)
     n, e = int(gs.sum()), gs.numel()
     gen = torch.Generator(device=dev).manual_seed(n + 7 * k + m)
     lhs = torch.randn(n, k, generator=gen, device=dev).to(dtype)
     g = torch.randn(n, m, generator=gen, device=dev).to(dtype)
+    variant = gk._wgrad_variant(dtype, n, k, m, e)
+    kinds = ["fma"] if dtype == torch.float32 else ["wgmma", "mma"]
     out = gk.grouped_matmul_wgrad(lhs, g, gs, e)
     ref = gk._segment_outer(lhs, g, gs, e)
     torch.cuda.synchronize()
-    ok, stats = compare(out, ref)
-    check(ok, f"grouped_matmul_wgrad {name}: {stats} outside the gate")
     empty = [i for i, s in enumerate(group_sizes) if s == 0]
-    check(all(bool((out[i] == 0).all()) for i in empty),
-          f"grouped_matmul_wgrad {name}: an empty group's matrix is not 0")
+
+    def held(v, got):
+        ok, st = compare(got, ref)
+        check(ok, f"grouped_matmul_wgrad {name} ({v}): {st} outside the "
+                  f"gate")
+        check(all(bool((got[i] == 0).all()) for i in empty),
+              f"grouped_matmul_wgrad {name} ({v}): an empty group's "
+              f"matrix is not 0")
+        return st
+
+    stats = held(variant, out)
     ms, median = cuda_times(
         torch, lambda: gk.grouped_matmul_wgrad(lhs, g, gs, e), 20, flush)
+    variants = _timed_variants(
+        torch, held, kinds,
+        lambda v: gk._launch_wgrad(lhs, g, gs, e, variant=v), flush, 20)
     plain_ms = cuda_ms(torch, lambda: gk._segment_outer(lhs, g, gs, e), 5,
                        flush)
     library_ms, library_note = None, "none: f32"
@@ -878,22 +896,99 @@ def wgrad_case(torch, gk, flush, name, dtype, k, m, group_sizes,
     nbytes = (lhs.numel() + g.numel() + out.numel()) * lhs.element_size()
     flops = 2 * n * k * m
     bound_ms, bound_by = bound(nbytes, flops, dtype, torch)
+    prev = "fma" if dtype == torch.float32 else "mma"
     case = {
         "case": name, "dtype": str(dtype).split(".")[-1], "n": n, "k": k,
         "m": m, "experts": e,
         "group_sizes": [int(x) for x in gs.tolist()],
-        "variant": "fma" if dtype == torch.float32 else "mma", **stats,
-        "ms": ms, "median_ms": median, "plain_ms": plain_ms,
+        "variant": variant, "prev": prev, **stats,
+        "ms": ms, "median_ms": median, "prev_ms": variants[prev]["ms"],
+        "variants": variants, "plain_ms": plain_ms,
         "library_ms": library_ms, "library": library_note,
         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
         "flops": flops,
     }
-    if transpose_copy:
-        rhs = torch.randn(e, m, k, generator=gen, device=dev).to(dtype)
-        case["transpose_copy_ms"] = cuda_ms(
-            torch, lambda: rhs.transpose(1, 2).contiguous(), 20, flush)
-        case["transpose_copy_bytes"] = rhs.numel() * rhs.element_size()
     log(f"[kernels] wgrad {json.dumps(case)}")
+    return case
+
+
+def dlhs_case(torch, gk, flush, name, dtype, k, m, group_sizes):
+    """The backward's ``dlhs = g @ rhs[g(i)]^T`` (rhs [e, k, m] as the
+    forward stores it, g [n, m]) on the transposed instance of the grouped
+    GEMM kernels (``_forward(..., trans_rhs=True)``, no copy) against
+    ``grouped_matmul_ref(g, rhs.transpose(1, 2), gs)`` (``GATE``). Every
+    device kernel that takes the inputs (16-bit: wgmma and mma.sync; f32:
+    FMA) is held and timed side by side through ``_launch``; ``ms`` is
+    the wrapper's call; ``prev_ms`` what the backward ran before: the
+    transposing copy of rhs and the forward on it. ``library_ms`` is
+    ``torch._grouped_mm(g, rhs.transpose(1, 2), offs=offs)`` where this
+    PyTorch has it."""
+    dev = "cuda"
+    gs = torch.as_tensor(group_sizes, dtype=torch.int32, device=dev)
+    n, e = int(gs.sum()), gs.numel()
+    gen = torch.Generator(device=dev).manual_seed(n + 5 * k + m)
+    g = torch.randn(n, m, generator=gen, device=dev).to(dtype)
+    rhs = (torch.randn(e, k, m, generator=gen, device=dev)
+           / m ** 0.5).to(dtype)
+    variant = gk._gmm_variant(dtype, dtype, n, m, k, e)
+    kinds = ["fma"] if dtype == torch.float32 else ["wgmma", "mma"]
+    with torch.no_grad():
+        out = gk._forward(g, rhs, gs, trans_rhs=True)
+        ref = gk.grouped_matmul_ref(g, rhs.transpose(1, 2), gs)
+        torch.cuda.synchronize()
+
+        def held(v, got):
+            ok, st = compare(got, ref)
+            check(ok, f"grouped_matmul dlhs {name} ({v}_t): {st} outside "
+                      f"the gate")
+            return st
+
+        stats = held(variant, out)
+        ms, median = cuda_times(
+            torch, lambda: gk._forward(g, rhs, gs, trans_rhs=True), 20,
+            flush)
+        variants = _timed_variants(
+            torch, held, kinds,
+            lambda v: gk._launch(g, rhs, gs, None, variant=v,
+                                 trans_rhs=True), flush, 20)
+        prev_ms, prev_median = cuda_times(
+            torch, lambda: gk._forward(g, rhs.transpose(1, 2).contiguous(),
+                                       gs), 20, flush)
+        plain_ms = cuda_ms(torch, lambda: gk.grouped_matmul_ref(
+            g, rhs.transpose(1, 2), gs), 5, flush)
+        library_ms, library_note = None, "none: f32"
+        if dtype != torch.float32:
+            library_note = "torch._grouped_mm absent"
+            if hasattr(torch, "_grouped_mm"):
+                offs = torch.cumsum(gs, 0, dtype=torch.int32)
+                rhs_t = rhs.transpose(1, 2)
+                try:
+                    lib = torch._grouped_mm(g, rhs_t, offs=offs)
+                    torch.cuda.synchronize()
+                    lib_ok, lib_stats = compare(lib, ref)
+                    library_ms = cuda_ms(torch, lambda: torch._grouped_mm(
+                        g, rhs_t, offs=offs), 20, flush)
+                    library_note = ("torch._grouped_mm" if lib_ok else
+                                    f"torch._grouped_mm, off the gate: "
+                                    f"{lib_stats}")
+                except (RuntimeError, TypeError) as err:
+                    library_note = f"torch._grouped_mm refused: {err}"[:200]
+    nbytes = (g.numel() + rhs.numel() + out.numel()) * g.element_size()
+    flops = 2 * n * k * m
+    bound_ms, bound_by = bound(nbytes, flops, dtype, torch)
+    case = {
+        "case": name, "dtype": str(dtype).split(".")[-1], "n": n,
+        "k": k, "m": m, "experts": e,
+        "group_sizes": [int(x) for x in gs.tolist()],
+        "variant": variant + "_t", **stats, "ms": ms, "median_ms": median,
+        "prev_ms": prev_ms, "prev_median_ms": prev_median,
+        "prev": "rhs.transpose(1, 2).contiguous() + the forward",
+        "variants": {f"{v}_t": st for v, st in variants.items()},
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        "library": library_note, "bound_ms": bound_ms,
+        "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+    }
+    log(f"[kernels] dlhs {json.dumps(case)}")
     return case
 
 
@@ -904,8 +999,8 @@ def wgrad_cases(torch, gk, flush, routed):
     d, f = MOE_LAYER["d_model"], MOE_LAYER["d_ff"]
     bf16, f16 = torch.bfloat16, torch.float16
     return [
-        wgrad_case(torch, gk, flush, "up", bf16, d, f, routed, True),
-        wgrad_case(torch, gk, flush, "down", bf16, f, d, routed, True),
+        wgrad_case(torch, gk, flush, "up", bf16, d, f, routed),
+        wgrad_case(torch, gk, flush, "down", bf16, f, d, routed),
         wgrad_case(torch, gk, flush, "up_f16", f16, d, f, routed),
         wgrad_case(torch, gk, flush, "down_f16", f16, f, d, routed),
         # empty leading, trailing and interior groups, 1-row segments,
@@ -920,7 +1015,38 @@ def wgrad_cases(torch, gk, flush, routed):
                    [0, 5, 1, 0, 11, 1, 143, 0, 37, 1]),
         wgrad_case(torch, gk, flush, "f32_odd", torch.float32, 12, 10,
                    [3, 0, 5, 1]),
+        # 64 rows exactly (a segment that ends on a box edge), and segments
+        # ending 1 row before and after one
+        wgrad_case(torch, gk, flush, "box_edges", bf16, 136, 200,
+                   [64, 63, 65, 128, 0, 1]),
     ]
+
+
+def dlhs_cases(torch, gk, flush, routed):
+    """``dlhs_case`` at the bench shape (the up and down projections'
+    dlhs, bf16 and float16), the edge groups, the JAX sweeps' groups
+    (k 24, m 40), segments on and off the 64-row box, and f32."""
+    d, f = MOE_LAYER["d_model"], MOE_LAYER["d_ff"]
+    bf16, f16 = torch.bfloat16, torch.float16
+    edges = [0, 5, 1, 0, 11, 1, 143, 0, 37, 1]
+    cases = [
+        dlhs_case(torch, gk, flush, "up", bf16, d, f, routed),
+        dlhs_case(torch, gk, flush, "down", bf16, f, d, routed),
+        dlhs_case(torch, gk, flush, "up_f16", f16, d, f, routed),
+        dlhs_case(torch, gk, flush, "down_f16", f16, f, d, routed),
+        dlhs_case(torch, gk, flush, "edges", bf16, 136, 200, edges),
+        dlhs_case(torch, gk, flush, "edges_f16", f16, 136, 200, edges),
+        dlhs_case(torch, gk, flush, "box_edges", bf16, 136, 200,
+                  [64, 63, 65, 128, 0, 1]),
+    ]
+    cases += [dlhs_case(torch, gk, flush, f"sweep{gs}", bf16, 24, 40, gs)
+              for gs in GMM_SWEEP]
+    cases += [
+        dlhs_case(torch, gk, flush, "f32", torch.float32, 136, 200, edges),
+        dlhs_case(torch, gk, flush, "f32_odd", torch.float32, 12, 10,
+                  [3, 0, 5, 1]),
+    ]
+    return cases
 
 
 def flash_case(torch, fa, flush, s, dtype=None, h=16, d=128, b=1,
@@ -1843,11 +1969,13 @@ def phase_kernels(torch):
         paged_prefill_batched_case(torch, pp, flush, "verify_f16", f16, 16,
                                    16, 128),
     ]
-    # the grouped GEMM's weight gradient at the MoE shapes and its edge
-    # cases (routed is the up / down projections' group sizes above)
+    # the grouped GEMM's backward at the MoE shapes and its edge cases
+    # (routed is the up / down projections' group sizes above): the weight
+    # gradient, and dlhs on the transposed instance
     wgrad = wgrad_cases(torch, gk, flush, routed)
+    dlhs = dlhs_cases(torch, gk, flush, routed)
     return (paged, flash, bwd, gate_faults(torch, fa), quant, gmm,
-            gmm_quant, kvw, rkv, pfx, pfx_batched, wgrad)
+            gmm_quant, kvw, rkv, pfx, pfx_batched, wgrad, dlhs)
 
 
 # ---------------------------------------------------------------- parity
@@ -7322,22 +7450,38 @@ def phase_moe(torch):
 # ----------------------------------------------------------- MoE training
 # moe_train: bench_moe's level-0 Llama MoE trained with AdamW (1 + 3
 # warm-up + 10 timed steps, as the train phase), and the ragged MoE layer
-# trained through the grouped GEMM kernels: 3 forward launches, 3 for
-# dlhs and 3 of the weight-gradient kernel a step
+# trained through the grouped GEMM kernels: 3 forward launches
+# (grouped_matmul/wgmma), 3 for dlhs on the transposed instance
+# (grouped_matmul/wgmma_t) and 3 of the weight-gradient kernel
+# (grouped_matmul_wgrad/wgmma) a step
 MOE_TRAIN_BATCH = 8
 MOE_LAYER_STEPS = 6
-# the planted fault in drhs: its f32 sums 1 % off (a relative L2 of 1e-2,
-# the bf16 gate's limit, before the cast's rounding adds to it)
+MOE_LAYER_LAUNCHES = {"grouped_matmul/wgmma": 3, "grouped_matmul/wgmma_t": 3,
+                      "grouped_matmul_wgrad/wgmma": 3}
+# the planted faults, in drhs and in dlhs: the f32 sums 1 % off (a
+# relative L2 of 1e-2, the bf16 gate's limit, before the cast's rounding
+# adds to it)
 MOE_WGRAD_PLANT = 1.01
+MOE_DLHS_PLANT = 1.01
+
+
+def _plain_forward(gk):
+    """``gk._forward``'s plain counterpart: ``grouped_matmul_ref``, on
+    ``rhs.transpose(1, 2)`` for the transposed instance."""
+    def forward(lhs, rhs, group_sizes, rhs_scales=None, trans_rhs=False):
+        if trans_rhs:
+            rhs = rhs.transpose(1, 2)
+        return gk.grouped_matmul_ref(lhs, rhs, group_sizes, rhs_scales)
+    return forward
 
 
 @contextlib.contextmanager
 def plain_gmm_autograd(gk):
-    """Inside: ``GroupedMatmulFunction`` runs the plain forward
-    (``grouped_matmul_ref``) and the plain weight gradient
-    (``_segment_outer``): the comparison's step."""
+    """Inside: ``GroupedMatmulFunction`` runs the plain forward and dlhs
+    (``grouped_matmul_ref``, on the transposed view for dlhs) and the
+    plain weight gradient (``_segment_outer``): the comparison's step."""
     saved = gk._forward, gk.grouped_matmul_wgrad
-    gk._forward = gk.grouped_matmul_ref
+    gk._forward = _plain_forward(gk)
     gk.grouped_matmul_wgrad = gk._segment_outer
     try:
         yield
@@ -7347,7 +7491,8 @@ def plain_gmm_autograd(gk):
 
 @contextlib.contextmanager
 def sync_free_gmm(torch, gk):
-    """Inside: every grouped GEMM call (forward, dlhs, drhs) runs under
+    """Inside: every grouped GEMM call (forward, dlhs through the same
+    entry with ``trans_rhs``, drhs) runs under
     ``torch.cuda.set_sync_debug_mode("error")``: a host read of the
     group sizes there raises."""
     saved = gk._forward, gk.grouped_matmul_wgrad
@@ -7511,6 +7656,19 @@ def _moe_llama_train(torch):
     return rec
 
 
+def _moe_layer_family(key):
+    """A ragged layer step's kernel by part: the grouped GEMM forward, its
+    transposed instance (``dlhs``), the weight gradient, AdamW's foreach
+    kernels, and the rest (routing, dispatch, SwiGLU, the loss)."""
+    if "gmm_wgrad" in key:
+        return "weight_gradient"
+    if "gmm_" in key:
+        return "dlhs" if ", true>" in key else "forward"
+    if "multi_tensor_apply" in key:
+        return "adamw"
+    return "other"
+
+
 def _moe_layer_train(torch):
     """The bench's ragged MoE layer trained with AdamW on the grouped GEMM
     kernels, held to the same step on the plain versions."""
@@ -7549,10 +7707,23 @@ def _moe_layer_train(torch):
         g_k = grads()
     torch.cuda.synchronize()
     one = _build.launch_counts()
-    check(one["grouped_matmul"] == 6 and one["grouped_matmul_wgrad"] == 3,
+    one_v = _build.variant_counts()
+    check(one["grouped_matmul"] == 6 and one["grouped_matmul_wgrad"] == 3
+          and all(one_v.get(k, 0) == n
+                  for k, n in MOE_LAYER_LAUNCHES.items()),
           f"moe_train layer: a step launched {one['grouped_matmul']} "
           f"grouped_matmul and {one['grouped_matmul_wgrad']} "
-          f"grouped_matmul_wgrad, want 6 and 3")
+          f"grouped_matmul_wgrad ({one_v}), want {MOE_LAYER_LAUNCHES}")
+    # the comparison step must not reach a kernel: every grouped GEMM call
+    # in it is the plain version
+    _build.reset_launch_counts()
+    with plain_gmm_autograd(gk):
+        g_p = grads()
+    torch.cuda.synchronize()
+    check(_build.launch_counts()["grouped_matmul"] == 0
+          and _build.launch_counts()["grouped_matmul_wgrad"] == 0,
+          f"moe_train layer: the plain step launched kernels: "
+          f"{_build.variant_counts()}")
     # the negative control: the plain weight gradient reads the group
     # sizes on the host, which the same mode refuses
     gsz = torch.full((8,), 2, dtype=torch.int32, device="cuda")
@@ -7566,8 +7737,6 @@ def _moe_layer_train(torch):
         torch.cuda.set_sync_debug_mode("default")
     check(control is not None, "moe_train layer: a host read of the group "
           "sizes under set_sync_debug_mode('error') did not raise")
-    with plain_gmm_autograd(gk):
-        g_p = grads()
     res = held(g_k, g_p)
     log("[moe_train] ragged layer, kernel step vs the plain step: " + ", ".join(
         f"{n} rel_l2 {st['rel_l2']:.3g} ({st['limit_frac']:.2f} of the "
@@ -7599,6 +7768,30 @@ def _moe_layer_train(torch):
           f"moe_train layer: the planted drhs fault (x{MOE_WGRAD_PLANT}) "
           f"was caught only in {caught}")
     del g_f
+    # the planted fault in dlhs: the transposed product 1 % off in its f32
+    # sums, before the cast; it must fail the gate on the input gradient
+    real_fwd = gk._forward
+
+    def faulty_dlhs(lhs, rhs, gs, rhs_scales=None, trans_rhs=False):
+        if not trans_rhs:
+            return real_fwd(lhs, rhs, gs, rhs_scales)
+        exact = gk.grouped_matmul_ref(lhs.float(),
+                                      rhs.float().transpose(1, 2), gs)
+        return (exact * MOE_DLHS_PLANT).to(lhs.dtype)
+
+    gk._forward = faulty_dlhs
+    try:
+        g_f = grads()
+    finally:
+        gk._forward = real_fwd
+    planted_dlhs = held(g_f, g_p)
+    caught_dlhs = sorted(n for n, (ok, _) in planted_dlhs.items() if not ok)
+    log(f"[moe_train] planted dlhs fault: input rel_l2 "
+        f"{planted_dlhs['input'][1]['rel_l2']:.4g}; caught in {caught_dlhs}")
+    check("input" in caught_dlhs,
+          f"moe_train layer: the planted dlhs fault (x{MOE_DLHS_PLANT}) "
+          f"was not caught on the input gradient (caught in {caught_dlhs})")
+    del g_f
     # AdamW steps on the kernels, then the same on the plain versions
     opt = AdamW(learning_rate=3e-4, parameters=layer.parameters())
 
@@ -7622,12 +7815,22 @@ def _moe_layer_train(torch):
     step_ms = (time.perf_counter() - t0) / (MOE_LAYER_STEPS - 1) * 1e3
     counts = _build.launch_counts()
     variants = _build.variant_counts()
+    # one more step under the profiler: device ms by part of the backward
+    # (the transposed instance is the grouped GEMM template's TransRhs =
+    # true, ``Lb1E`` in its mangled name)
+    prof = _profiled_step(torch, lambda _: train_step(), None,
+                          family=_moe_layer_family)
+    gmm_ms = sum(prof["families_ms"].get(f, 0.0)
+                 for f in ("forward", "dlhs", "weight_gradient"))
     losses = [v.item() for v in losses]
     check(all(np.isfinite(losses)),
           f"moe_train layer: losses {losses}")
     check(counts["grouped_matmul"] == 6 * MOE_LAYER_STEPS
-          and counts["grouped_matmul_wgrad"] == 3 * MOE_LAYER_STEPS,
-          f"moe_train layer: {MOE_LAYER_STEPS} steps launched {counts}")
+          and counts["grouped_matmul_wgrad"] == 3 * MOE_LAYER_STEPS
+          and all(variants.get(k, 0) == n * MOE_LAYER_STEPS
+                  for k, n in MOE_LAYER_LAUNCHES.items()),
+          f"moe_train layer: {MOE_LAYER_STEPS} steps launched {counts}, "
+          f"{variants}")
     with plain_gmm_autograd(gk):
         train_step()
         torch.cuda.synchronize()
@@ -7643,15 +7846,23 @@ def _moe_layer_train(torch):
            "losses": losses, "grad_vs_plain_rel_l2": worst,
            "grad_vs_plain_limit_frac": {n: st["limit_frac"]
                                         for n, (_, st) in res.items()},
-           "planted_fault_caught_in": caught, "sync_control": control,
+           "profile": prof, "grouped_gemm_device_ms": gmm_ms,
+           "planted_fault_caught_in": caught,
+           "planted_dlhs_fault_caught_in": caught_dlhs,
+           "planted_dlhs_input_rel_l2": planted_dlhs["input"][1]["rel_l2"],
+           "sync_control": control,
            "launches": dict(counts, **variants)}
-    log(f"[moe_train] ragged layer: a step 6 grouped_matmul + 3 "
-        f"grouped_matmul_wgrad launches, none reading the group sizes on "
-        f"the host (control: {control!r}); gradients vs the plain step "
-        f"{json.dumps(worst)}; planted drhs fault caught in {caught}; "
+    log(f"[moe_train] ragged layer: a step {one_v} launches, none "
+        f"reading the group sizes on the host (control: {control!r}); "
+        f"gradients vs the plain step {json.dumps(worst)}; planted drhs "
+        f"fault caught in {caught}, dlhs fault in {caught_dlhs}; "
         f"AdamW step {step_ms:.3f} ms ({rec['tokens_per_s']:.0f} tokens/s; "
         f"plain {plain_ms:.3f} ms); losses {losses[0]:.5f} -> "
         f"{losses[-1]:.5f}")
+    log(f"[moe_train] ragged layer, a profiled step: device "
+        f"{prof['device_ms']:.3f} ms in {prof['kernel_launches']} kernels, "
+        f"the grouped GEMM kernels {gmm_ms:.3f} ms; by part " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(prof["families_ms"].items())))
     del layer, opt
     gc.collect()
     torch.cuda.empty_cache()
@@ -8570,14 +8781,14 @@ def main(argv=None):
         paged = flash = bwd = None
         if "kernels" in results:
             (paged, flash, bwd, faults, quant, gmm, gmm_quant, kvw, rkv,
-             pfx, pfx_batched, wgrad) = results.pop("kernels")
+             pfx, pfx_batched, wgrad, dlhs) = results.pop("kernels")
             report["phases"]["kernels"] = {
                 "paged": paged, "flash": flash, "flash_bwd": bwd,
                 "gate_faults": faults, "paged_quant": quant, "gmm": gmm,
                 "gmm_quant": gmm_quant, "kv_write": kvw,
                 "rope_kv_write": rkv,
                 "paged_prefill": pfx, "paged_prefill_batched": pfx_batched,
-                "grouped_matmul_wgrad": wgrad,
+                "grouped_matmul_wgrad": wgrad, "grouped_matmul_dlhs": dlhs,
             }
             # the wrapper's choice against the previous kernel, same
             # inputs, run and host path: reported, not gated (the small
@@ -8586,7 +8797,8 @@ def main(argv=None):
             # without its copies; the backward's dq plus dk/dv kernels)
             for stat in ("ms", "median_ms", "kernel_median_ms"):
                 slower = {}
-                for c in flash + bwd + gmm + gmm_quant + paged + quant:
+                for c in (flash + bwd + gmm + gmm_quant + paged + quant
+                          + wgrad):
                     prev = c.get("prev") or (
                         "fma" if c["dtype"] == "float32" else "mma")
                     now, was = (
@@ -8655,8 +8867,14 @@ def main(argv=None):
         ("dit", dit), ("resnet", resnet), ("moe", moe),
         ("moe_train", moe_train), ("hapi", hapi), ("nn_zoo", nn_zoo))}
 
-    def launches(name):
-        per = {p: c.get(name, 0) for p, c in by_path.items()}
+    def launches(name, variants=None):
+        """Launches of ``name`` on each main path; with ``variants``, the
+        sum of ``name/<variant>`` over them (the grouped GEMM's forward
+        and its transposed instance share the name ``grouped_matmul``)."""
+        keys = [name] if variants is None else [f"{name}/{v}"
+                                                for v in variants]
+        per = {p: sum(c.get(key, 0) for key in keys)
+               for p, c in by_path.items()}
         return {"launches": sum(per.values()), "launches_by_path": per}
 
     def variant_entry(name, v, case, cases):
@@ -8782,7 +9000,7 @@ def main(argv=None):
                 "source": "paddle_tpu_torch/kernels/csrc/grouped_matmul.cu",
                 "replaces":
                     f"paddle_tpu/kernels/pallas/grouped_matmul.py:{line}",
-                **launches(name),
+                **launches(name, [v for v, _ in variants]),
                 "max_abs_err": max(c["max_abs_err"] for c in cases),
                 "variant": head["variant"], "ms": head["ms"],
                 "prev_ms": head["prev_ms"], "plain_ms": head["plain_ms"],
@@ -8793,10 +9011,11 @@ def main(argv=None):
                 "variants": [variant_entry(name, v, case, cases)
                              for v, case in variants],
             })
-        # the weight gradient at the MoE layer's up projection, bf16
-        # (mma.sync); the f32 FMA kernel under "variants"; library: one
-        # torch._grouped_mm call where this PyTorch takes the ragged
-        # contraction, else the plain per-expert loop (its note says which)
+        # the weight gradient at the MoE layer's up projection, bf16 (the
+        # wgmma kernel, the mma.sync kernel as prev_ms); the f32 FMA
+        # kernel under "variants"; library: one torch._grouped_mm call
+        # where this PyTorch takes the ragged contraction, else the plain
+        # per-expert loop (its note says which)
         head = wgrad[0]
         f32 = next(c for c in wgrad if c["case"] == "f32")
         kernels.append({
@@ -8806,20 +9025,46 @@ def main(argv=None):
                         "(_gmm_pallas_bwd: drhs from the XLA fallback's "
                         "VJP, no TPU kernel)",
             **launches("grouped_matmul_wgrad"),
-            "max_abs_err": max(c["max_abs_err"] for c in wgrad),
+            "max_abs_err": max(c["variants"][v]["max_abs_err"]
+                               for c in wgrad for v in c["variants"]),
             "variant": head["variant"], "ms": head["ms"],
-            "median_ms": head["median_ms"], "plain_ms": head["plain_ms"],
+            "median_ms": head["median_ms"], "prev_ms": head["prev_ms"],
+            "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "library": head["library"],
             "shape": f"{head['case']}: n {head['n']}, k {head['k']}, "
                      f"m {head['m']}, e {head['experts']}",
-            "transpose_copy_ms": head["transpose_copy_ms"],
-            "variants": [{
-                "variant": c["variant"],
-                **launches(f"grouped_matmul_wgrad/{c['variant']}"),
-                "ms": c["ms"], "median_ms": c["median_ms"],
-                "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-                "shape": c["case"]} for c in (head, f32)],
+            "variants": [variant_entry("grouped_matmul_wgrad", v, case,
+                                       wgrad)
+                         for v, case in (("wgmma", head), ("mma", head),
+                                         ("fma", f32))],
+        })
+        # dlhs at the up projection, bf16, on the transposed instance of
+        # the grouped GEMM kernels (wgmma_t; prev_ms: the transposing copy
+        # of rhs and the forward on it, what the backward ran before);
+        # its launches are grouped_matmul's under the _t variants
+        head = dlhs[0]
+        f32 = next(c for c in dlhs if c["case"] == "f32")
+        kernels.append({
+            "name": "grouped_matmul_dlhs", "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/grouped_matmul.cu",
+            "replaces": "paddle_tpu/kernels/pallas/grouped_matmul.py:220 "
+                        "(_gmm_pallas_bwd: dlhs from the XLA fallback's "
+                        "VJP, no TPU kernel)",
+            **launches("grouped_matmul", ["wgmma_t", "mma_t", "fma_t"]),
+            "max_abs_err": max(c["variants"][v]["max_abs_err"]
+                               for c in dlhs for v in c["variants"]),
+            "variant": head["variant"], "ms": head["ms"],
+            "median_ms": head["median_ms"], "prev_ms": head["prev_ms"],
+            "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "library": head["library"],
+            "shape": f"{head['case']}: g [{head['n']}, {head['m']}] @ "
+                     f"rhs[g]^T, rhs [{head['experts']}, {head['k']}, "
+                     f"{head['m']}]",
+            "variants": [variant_entry("grouped_matmul", v, case, dlhs)
+                         for v, case in (("wgmma_t", head), ("mma_t", head),
+                                         ("fma_t", f32))],
         })
     if paged is not None:
         # the fused KV write at the serving decode shape on the bf16 pool

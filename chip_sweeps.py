@@ -38,9 +38,19 @@ Sweeps:
   and two product groups left in flight while it converts against one;
 * ``gmm_crossover``: the wgmma and the mma.sync grouped GEMM side by side
   from the JAX sweep shape to the MoE layer's (the built sources as they
-  are), bf16 rhs and int8 rhs (at the widths the int8 wgmma kernel takes,
+  are), bf16 rhs, its transposed instance (``trans_rhs``, the backward's
+  ``dlhs``) and int8 rhs (at the widths the int8 wgmma kernel takes,
   m % 16 == 0), for ``grouped_matmul.WGMMA_MIN_MACS`` and
   ``INT8_WGMMA_MIN_MACS``, in two turns with the kernels' order swapped;
+* ``wgrad_tile``: the weight-gradient wgmma kernel's ring depth (4
+  stages with its output staged two boxes a round, against 3 stages with
+  all four boxes or two, and 2) and output tile (128 x 256,
+  wgmma.m64n256k16, against 128 x 128), at the MoE layer's up and down
+  projections;
+* ``wgrad_crossover``: the weight gradient's wgmma and mma.sync kernels
+  side by side over the same shapes as ``gmm_crossover``, for
+  ``grouped_matmul.WGRAD_WGMMA_MIN_MACS``, in two turns with the order
+  swapped;
 * ``prefill_split``: the continuation kernel's split design at forced
   geometries (splits 1, 2, 4 and 8 in a build whose clusters go to 8
   blocks; ring depth 3 and 6) beside the wrapper's choice and the ring
@@ -105,6 +115,13 @@ SWEEPS = {
         "tma_store": {},
         "register_store": {"gmm_tma_store": "false"},
     }),
+    "wgrad_tile": ("grouped_matmul_bwd", {
+        "stages_4_out_2": {},
+        "stages_3_out_4": {"wgrad_stages": "3", "wgrad_out_boxes": "4"},
+        "stages_3_out_2": {"wgrad_stages": "3"},
+        "stages_2": {"wgrad_stages": "2"},
+        "n128": {"wgrad_tile_n": "128"},
+    }),
     "gmm_int8_stages": ("grouped_matmul", {
         "stages_4": {},
         "stages_3": {"gmm_int8_stages": "3"},
@@ -148,7 +165,8 @@ GMM_SHAPES = [
 ]
 # the same with int8 rhs (the int8 wgmma kernel)
 GMM_INT8_SHAPES = [(*c, True) for c in GMM_SHAPES]
-# n k m from 38K multiply-adds to the up projection's 47G
+# n k m from 38K multiply-adds to the up projection's 47G (the weight
+# gradient's two designs cross between 134M and 5.9G)
 GMM_CROSSOVER = [(name, t, k, m, ["mma", "wgmma"]) for name, t, k, m in (
     ("sweep_k24_m40", 0, 24, 40),              # 38K
     ("t64_k64_m128", 64, 64, 128),             # 1.0M
@@ -159,12 +177,20 @@ GMM_CROSSOVER = [(name, t, k, m, ["mma", "wgmma"]) for name, t, k, m in (
     ("t256_k384_m256", 256, 384, 256),         # 50.3M
     ("t256_k512_m256", 256, 512, 256),         # 67.1M
     ("t256_k1024_m256", 256, 1024, 256),       # 134M
+    ("t512_k1024_m512", 512, 1024, 512),       # 537M
+    ("t1024_k1024_m1024", 1024, 1024, 1024),   # 2.1G
+    ("t512_k1024_m2816", 512, 1024, 2816),     # 2.95G
     ("t1024_k1024_m2816", 1024, 1024, 2816),   # 5.9G
     ("up", 8192, 1024, 2816),                  # 47G
 )]
-# int8 rhs at the widths its wgmma kernel takes (m % 16 == 0)
+# the weight gradient over the same shapes
+WGRAD_CROSSOVER = list(GMM_CROSSOVER)
+# the transposed instance (rhs [e, m, k] read as rhs[g]^T), and int8 rhs
+# at the widths its wgmma kernel takes (m % 16 == 0)
+GMM_CROSSOVER += [(f"{name}_t", t, k, m, v, "trans")
+                  for name, t, k, m, v in WGRAD_CROSSOVER]
 GMM_CROSSOVER += [(f"{name}_int8", t, k, m, v, True)
-                  for name, t, k, m, v in GMM_CROSSOVER if m % 16 == 0]
+                  for name, t, k, m, v in WGRAD_CROSSOVER if m % 16 == 0]
 # the continuation kernel's split design: name, hq, hkv, d, cache_len,
 # chunk tokens, int8 pool; the serving pool's geometry (page 16, 32
 # pages a table), bf16 q
@@ -381,25 +407,39 @@ def child(kind, csrc, build, shapes):
     from paddle_tpu_torch.kernels import grouped_matmul as gk
     from paddle_tpu_torch.quantization import weight_quantize_grouped
 
-    for name, tokens, k, m, variants, *quant in shapes:
+    for name, tokens, k, m, variants, *opt in shapes:
         sizes = (cs._routed_group_sizes(torch, tokens, 1024, 8, 2, seed=3)
                  if tokens else cs.GMM_SWEEP[0])
         gs = torch.as_tensor(sizes, dtype=torch.int32, device="cuda")
         n, e = int(gs.sum()), gs.numel()
         g = torch.Generator(device="cuda").manual_seed(n + k + m)
         lhs = torch.randn(n, k, generator=g, device="cuda").bfloat16()
-        rhs = (torch.randn(e, k, m, generator=g, device="cuda")
-               / k ** 0.5).bfloat16()
-        scales = None
-        if quant and quant[0]:
-            rhs, scales = weight_quantize_grouped(rhs.float())
-        ref = gk.grouped_matmul_ref(lhs, rhs, gs, scales)
+        if kind == "grouped_matmul_bwd":   # the weight gradient
+            dout = torch.randn(n, m, generator=g, device="cuda").bfloat16()
+            ref = gk._segment_outer(lhs, dout, gs, e)
+
+            def run(v):
+                return gk._launch_wgrad(lhs, dout, gs, e, variant=v)
+        else:
+            trans = bool(opt) and opt[0] == "trans"
+            rhs = (torch.randn(e, m, k, generator=g, device="cuda")
+                   if trans else
+                   torch.randn(e, k, m, generator=g, device="cuda"))
+            rhs = (rhs / k ** 0.5).bfloat16()
+            scales = None
+            if opt and opt[0] is True:
+                rhs, scales = weight_quantize_grouped(rhs.float())
+            ref = gk.grouped_matmul_ref(
+                lhs, rhs.transpose(1, 2) if trans else rhs, gs, scales)
+
+            def run(v):
+                return gk._launch(lhs, rhs, gs, scales, variant=v,
+                                  trans_rhs=trans)
         for v in variants:
-            ok, _ = cs.compare(gk._launch(lhs, rhs, gs, scales, variant=v),
-                               ref)
+            ok, _ = cs.compare(run(v), ref)
             assert ok, "gate"
-            out[f"{name}/{v}"] = cs.cuda_times(torch, lambda: gk._launch(
-                lhs, rhs, gs, scales, variant=v), 20, flush)
+            out[f"{name}/{v}"] = cs.cuda_times(torch, lambda: run(v), 20,
+                                               flush)
     return out
 
 
@@ -417,7 +457,7 @@ def run_child(kind, csrc, build, shapes):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sweeps", default=",".join(
-        [*SWEEPS, "gmm_crossover", "prefill_split"]))
+        [*SWEEPS, "gmm_crossover", "wgrad_crossover", "prefill_split"]))
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
@@ -451,13 +491,17 @@ def main(argv=None):
                 print(f"[{sweep}] (turn {turn}) {json.dumps(times)}",
                       flush=True)
             continue
-        if sweep == "gmm_crossover":
+        if sweep in ("gmm_crossover", "wgrad_crossover"):
             # two turns, the kernels' order swapped in the second
+            kind, cases = {
+                "gmm_crossover": ("grouped_matmul", GMM_CROSSOVER),
+                "wgrad_crossover": ("grouped_matmul_bwd", WGRAD_CROSSOVER),
+            }[sweep]
             csrc, build = variant_dir(sweep, "as_built", {})
             for turn in range(2):
                 shapes = [(*c[:4], c[4][::-1] if turn else c[4], *c[5:])
-                          for c in GMM_CROSSOVER]
-                times = run_child("grouped_matmul", csrc, build, shapes)
+                          for c in cases]
+                times = run_child(kind, csrc, build, shapes)
                 report[sweep][f"turn{turn}"] = times
                 print(f"[{sweep}] (turn {turn}) {json.dumps(times)}",
                       flush=True)

@@ -2,16 +2,29 @@
 //
 // Replaces: paddle_tpu/kernels/pallas/grouped_matmul.py:_gmm_pallas_raw
 //           (kernel bodies _gmm_kernel and, for int8 expert weights,
-//           _gmm_kernel_quant; work list _group_metadata).
+//           _gmm_kernel_quant; work list _group_metadata). Its transposed
+//           instance (trans_rhs) replaces the dlhs half of
+//           _gmm_pallas_bwd (:220): XLA's VJP of the fallback's
+//           contraction, no Pallas kernel.
 //
 // Computes, for rows sorted so that each group's rows are one contiguous
 // segment of group_sizes[g] rows (group 0 first):
 //   out[i] = lhs[i] @ rhs[g(i)]               float rhs
 //   out[i] = (lhs[i] @ q[g(i)]) * scales[g(i)]  int8 rhs, per column
+//   out[i] = lhs[i] @ rhs[g(i)]^T             trans_rhs, rhs [e, m, k]
 // with lhs [n, k], rhs [e, k, m], scales [e, m] f32, out [n, m] in lhs's
 // dtype, f32 accumulation. Empty groups are allowed. Segments are clamped
 // to [0, n): group sizes summing past n never write past the output, and
 // rows past the sum are left unwritten (the JAX contract: unspecified).
+// The transposed instance is the backward's dlhs = dout @ rhs^T: it reads
+// the expert weights where they lie, in place of a transposing copy of
+// all of them (46.1 MB at the MoE shapes, ~0.17 ms on an H100 80GB HBM3
+// at 700 W: chip_smoke.py's prev_ms of the dlhs cases) and the forward
+// run on the copy. Each kernel below has it as a compile-time form: the
+// wgmma kernel's rhs box becomes BN stored rows by 64 k values, K-major
+// (desc_k_major, transpose bit 0, as its lhs); the mma.sync kernel stages
+// the rhs tile as stored and reads it by plain ldmatrix; the FMA kernel
+// swaps the rhs strides. int8 rhs has no transposed form (inference only).
 //
 // What bounds it on an H100: at the MoE shapes (n = 16384 rows, k 1024,
 // m 2816, 8 groups) operations (2 n k m at 989 TFLOP/s bf16 is ~0.1 ms;
@@ -121,11 +134,14 @@ __device__ __forceinline__ float to_f32(int8_t x) {
   return static_cast<float>(x);
 }
 
+// trans_rhs: rhs is stored [e, m, k] (rhs[g]^T is the product's right
+// factor), so the rhs tile's rows run along the stored rows: the two
+// strides swap, and the loads walk the stored rows' contiguous k
 template <typename R>
 __global__ void __launch_bounds__(kFThreads) gmm_f32_kernel(
     const float* __restrict__ lhs, const R* __restrict__ rhs,
     const float* __restrict__ scales, const int32_t* __restrict__ group_sizes,
-    float* __restrict__ out, int n, int k, int m, int e) {
+    float* __restrict__ out, int n, int k, int m, int e, bool trans_rhs) {
   __shared__ float a_s[kFK][kFM + 4];  // lhs tile, k-major
   __shared__ float b_s[kFK][kFN + 4];
   Item it;
@@ -154,10 +170,11 @@ __global__ void __launch_bounds__(kFThreads) gmm_f32_kernel(
                       ? lhs[(size_t)row * k + k0 + c] : 0.f;
     }
     for (int i = threadIdx.x; i < kFK * kFN; i += kFThreads) {
-      const int r = i / kFN;
-      const int c = i - r * kFN;
-      b_s[r][c] = k0 + r < k && col0 + c < m
-                      ? to_f32(w[(size_t)(k0 + r) * m + col0 + c]) : 0.f;
+      const int r = trans_rhs ? i % kFK : i / kFN;
+      const int c = trans_rhs ? i / kFK : i % kFN;
+      const size_t at = trans_rhs ? (size_t)(col0 + c) * k + k0 + r
+                                  : (size_t)(k0 + r) * m + col0 + c;
+      b_s[r][c] = k0 + r < k && col0 + c < m ? to_f32(w[at]) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -202,16 +219,20 @@ constexpr int kStages = 3;     // cp.async ring depth
 constexpr int kSA = kBK + 8;   // padded lhs row: conflict-free ldmatrix
 constexpr int kSB = kBN + 8;   // padded rhs row
 
-// one ring stage: the lhs tile, then the rhs tile (bf16 [kBK][kSB], or
-// int8 [kBK][kBN] staged as loaded)
-template <typename R>
+// one ring stage: the lhs tile, then the rhs tile (16-bit [kBK][kSB];
+// transposed rhs [kBN][kSA], stored rows along the tile's columns; int8
+// [kBK][kBN] staged as loaded)
+template <typename R, bool TransRhs = false>
 __host__ __device__ constexpr int stage_bytes() {
-  return kBM * kSA * 2 + (sizeof(R) == 1 ? kBK * kBN : kBK * kSB * 2);
+  return kBM * kSA * 2 + (sizeof(R) == 1 ? kBK * kBN
+                          : TransRhs     ? kBN * kSA * 2
+                                         : kBK * kSB * 2);
 }
-template <typename R>
+template <typename R, bool TransRhs = false>
 __host__ __device__ constexpr int tc_smem_bytes() {
   // int8 rhs: one 16-bit tile more, the stage's rhs converted
-  return kStages * stage_bytes<R>() + (sizeof(R) == 1 ? kBK * kSB * 2 : 0);
+  return kStages * stage_bytes<R, TransRhs>() +
+         (sizeof(R) == 1 ? kBK * kSB * 2 : 0);
 }
 
 // 16 (or, for int8 rhs, 8) bytes global -> shared, asynchronously; zeros
@@ -297,13 +318,18 @@ __device__ __forceinline__ void store2(L* p, float lo, float hi) {
 // filled by cp.async, kStages - 1 steps ahead of the products. int8 rhs
 // is staged as loaded and converted to an L tile (exact for |q| <= 128)
 // right before its step's products. L is the lhs and output type (bf16 or
-// f16), R the rhs type (L or int8).
-template <typename L, typename R>
+// f16), R the rhs type (L or int8). TransRhs (16-bit rhs only): rhs is
+// stored [e, m, k] and the product takes rhs[g]^T; its tile is staged as
+// stored (output columns along the rows, k contiguous), the way lhs is,
+// and read by plain ldmatrix in place of ldmatrix.trans.
+template <typename L, typename R, bool TransRhs = false>
 __global__ void __launch_bounds__(kTcThreads) gmm_mma_kernel(
     const L* __restrict__ lhs, const R* __restrict__ rhs,
     const float* __restrict__ scales, const int32_t* __restrict__ group_sizes,
     L* __restrict__ out, int n, int k, int m, int e) {
   constexpr bool kInt8 = sizeof(R) == 1;
+  static_assert(!(kInt8 && TransRhs), "int8 rhs takes no transpose");
+  constexpr int kStage = stage_bytes<R, TransRhs>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Item it;
   if (!find_item(group_sizes, e, n, kBM, blockIdx.x, &it)) return;
@@ -319,12 +345,12 @@ __global__ void __launch_bounds__(kTcThreads) gmm_mma_kernel(
   const int wn = (warp & 3) * 32;
 
   auto a_tile = [&](int st) {
-    return reinterpret_cast<L*>(smem_raw + st * stage_bytes<R>());
+    return reinterpret_cast<L*>(smem_raw + st * kStage);
   };
   auto b_stage = [&](int st) {
-    return smem_raw + st * stage_bytes<R>() + kBM * kSA * 2;
+    return smem_raw + st * kStage + kBM * kSA * 2;
   };
-  L* b_conv = reinterpret_cast<L*>(smem_raw + kStages * stage_bytes<R>());
+  L* b_conv = reinterpret_cast<L*>(smem_raw + kStages * kStage);
 
   // issue the loads of k step kt into ring stage kt % kStages
   auto load = [&](int kt) {
@@ -340,8 +366,19 @@ __global__ void __launch_bounds__(kTcThreads) gmm_mma_kernel(
       cp_async16(a_s + r * kSA + c,
                  lhs + (ok ? (size_t)row * k + k0 + c : 0), ok);
     }
-    // rhs: 32 rows x 16 vectors of 8
     unsigned char* b = b_stage(kt % kStages);
+    if constexpr (TransRhs) {
+      // rhs[g]^T: 128 stored rows (the output columns) x 4 vectors of k
+      for (int i = tid; i < kBN * (kBK / 8); i += kTcThreads) {
+        const int r = i >> 2;
+        const int c = (i & 3) * 8;
+        const bool ok = col0 + r < m && k0 + c < k;
+        cp_async16(reinterpret_cast<L*>(b) + r * kSA + c,
+                   w + (ok ? (size_t)(col0 + r) * k + k0 + c : 0), ok);
+      }
+      return;
+    }
+    // rhs: 32 rows x 16 vectors of 8
     for (int i = tid; i < kBK * (kBN / 8); i += kTcThreads) {
       const int r = i >> 4;
       const int c = (i & 15) * 8;
@@ -363,9 +400,16 @@ __global__ void __launch_bounds__(kTcThreads) gmm_mma_kernel(
       acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
 
   // ldmatrix lane offsets: A as in a row-major [m][k] tile; B (k along
-  // rows) through .trans, registers 0, 1 for column tile j, 2, 3 for j + 1
+  // rows) through .trans, registers 0, 1 for column tile j, 2, 3 for j + 1;
+  // the transposed rhs tile (columns along rows) by plain ldmatrix in the
+  // same register order: matrices (cols 0-7, k 0-7), (cols 0-7, k 8-15),
+  // (cols 8-15, k 0-7), (cols 8-15, k 8-15)
   const int ao = (lane & 15) * kSA + (lane >> 4) * 8;
-  const int bo = ((lane & 7) + ((lane >> 3) & 1) * 8) * kSB + (lane >> 4) * 8;
+  const int bo = TransRhs
+                     ? ((lane & 7) + (lane >> 4) * 8) * kSA +
+                           ((lane >> 3) & 1) * 8
+                     : ((lane & 7) + ((lane >> 3) & 1) * 8) * kSB +
+                           (lane >> 4) * 8;
 
   const int steps = (k + kBK - 1) / kBK;
 #pragma unroll
@@ -409,7 +453,11 @@ __global__ void __launch_bounds__(kTcThreads) gmm_mma_kernel(
 #pragma unroll
       for (int j = 0; j < 4; j += 2) {
         uint32_t b[4];
-        ldsm_x4_trans(b, b_s + kk * kSB + bo + wn + j * 8);
+        if constexpr (TransRhs) {
+          ldsm_x4(b, b_s + (wn + j * 8) * kSA + kk + bo);
+        } else {
+          ldsm_x4_trans(b, b_s + kk * kSB + bo + wn + j * 8);
+        }
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           mma16816<L>(acc[i][j], a[i], b[0], b[1]);
@@ -544,7 +592,11 @@ __device__ __forceinline__ WTile locate(int t, int n_cols, int e,
   return w;
 }
 
-template <int BN, typename E>
+// TransRhs: rhs is stored [e, m, k] and the product takes rhs[g]^T
+// (dlhs = dout @ rhs^T in the backward, with no transposed copy): the
+// stage's rhs is one box of BN stored rows by 64 k values, the reduction
+// contiguous, so B is K-major (transpose bit 0) as lhs is.
+template <int BN, typename E, bool TransRhs>
 __global__ void __launch_bounds__(kWThreads, 1) gmm_wgmma_kernel(
     const __grid_constant__ CUtensorMap lhs_map,
     const __grid_constant__ CUtensorMap rhs_map,
@@ -593,10 +645,16 @@ __global__ void __launch_bounds__(kWThreads, 1) gmm_wgmma_kernel(
           hopper::mbar_arrive_expect_tx(&full[stage], C::kStageBytes);
           hopper::tma_load_2d(st, &lhs_map, &full[stage], ks * kWK,
                               w.tile * kWM);
+          if constexpr (TransRhs) {
+            hopper::tma_load_3d(st + C::kABytes, &rhs_map, &full[stage],
+                                ks * kWK, w.col0, w.g);
+          } else {
 #pragma unroll
-          for (int j = 0; j < BN / 64; ++j) {
-            hopper::tma_load_3d(st + C::kABytes + j * C::kBBox, &rhs_map,
-                                &full[stage], w.col0 + 64 * j, ks * kWK, w.g);
+            for (int j = 0; j < BN / 64; ++j) {
+              hopper::tma_load_3d(st + C::kABytes + j * C::kBBox, &rhs_map,
+                                  &full[stage], w.col0 + 64 * j, ks * kWK,
+                                  w.g);
+            }
           }
           if (++stage == C::kStages) {
             stage = 0;
@@ -625,10 +683,16 @@ __global__ void __launch_bounds__(kWThreads, 1) gmm_wgmma_kernel(
         hopper::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kWK / 16; ++kk) {
-          hopper::wgmma_ss<BN, 1, E>(acc, hopper::desc_k_major(a + kk * 32),
-                                  hopper::desc_mn_major(b + kk * 2048,
-                                                        C::kBBox),
-                                  ks > 0 || kk > 0);
+          if constexpr (TransRhs) {
+            hopper::wgmma_ss<BN, 0, E>(acc, hopper::desc_k_major(a + kk * 32),
+                                       hopper::desc_k_major(b + kk * 32),
+                                       ks > 0 || kk > 0);
+          } else {
+            hopper::wgmma_ss<BN, 1, E>(acc, hopper::desc_k_major(a + kk * 32),
+                                       hopper::desc_mn_major(b + kk * 2048,
+                                                             C::kBBox),
+                                       ks > 0 || kk > 0);
+          }
         }
         hopper::wgmma_commit();
         // the previous step's products are done: release its stage
@@ -704,7 +768,7 @@ __global__ void __launch_bounds__(kWThreads, 1) gmm_wgmma_kernel(
   }
 }
 
-template <int BN, typename E>
+template <int BN, typename E, bool TransRhs>
 int launch_wgmma(const void* lhs, const void* rhs, const int32_t* gs,
                  void* out, int n, int k, int m, int e, cudaStream_t stream) {
   using C = WgmmaCfg<BN>;
@@ -715,10 +779,13 @@ int launch_wgmma(const void* lhs, const void* rhs, const int32_t* gs,
   int err = hopper::encode_16bit_map<E>(&lhs_map, lhs, 2, l_dims, l_strides,
                                         l_box);
   if (err) return err;
-  const cuuint64_t r_dims[3] = {(cuuint64_t)m, (cuuint64_t)k, (cuuint64_t)e};
-  const cuuint64_t r_strides[2] = {(cuuint64_t)m * 2,
+  // rhs (m, k, e) in 64 x 64 boxes; transposed, (k, m, e) as stored, in
+  // boxes of 64 k values by BN stored rows
+  const cuuint64_t r_dims[3] = {(cuuint64_t)(TransRhs ? k : m),
+                                (cuuint64_t)(TransRhs ? m : k), (cuuint64_t)e};
+  const cuuint64_t r_strides[2] = {(cuuint64_t)(TransRhs ? k : m) * 2,
                                    (cuuint64_t)k * m * 2};
-  const cuuint32_t r_box[3] = {64, kWK, 1};
+  const cuuint32_t r_box[3] = {64, TransRhs ? (cuuint32_t)BN : kWK, 1};
   err = hopper::encode_16bit_map<E>(&rhs_map, rhs, 3, r_dims, r_strides,
                                     r_box);
   if (err) return err;
@@ -733,7 +800,7 @@ int launch_wgmma(const void* lhs, const void* rhs, const int32_t* gs,
   // barriers, the work list
   const int smem = 1024 + C::kTileBytes + 2 * C::kStages * 8 +
                    (3 * e + 1) * 4;
-  auto kernel = gmm_wgmma_kernel<BN, E>;
+  auto kernel = gmm_wgmma_kernel<BN, E, TransRhs>;
   cudaError_t cerr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (cerr != cudaSuccess) return (int)cerr;
@@ -748,12 +815,12 @@ int launch_wgmma(const void* lhs, const void* rhs, const int32_t* gs,
   return (int)cudaGetLastError();
 }
 
-template <typename L, typename R>
+template <typename L, typename R, bool TransRhs = false>
 int launch_mma(const void* lhs, const void* rhs, const float* scales,
                const int32_t* gs, void* out, int n, int k, int m, int e,
                cudaStream_t stream) {
-  auto kernel = gmm_mma_kernel<L, R>;
-  constexpr int smem = tc_smem_bytes<R>();
+  auto kernel = gmm_mma_kernel<L, R, TransRhs>;
+  constexpr int smem = tc_smem_bytes<R, TransRhs>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -1157,13 +1224,15 @@ extern "C" {
 // rhs_int8: rhs is int8 with f32 scales [e, m] (else rhs has lhs's dtype
 // and scales is null). variant: 0 = the kernel of the dtypes (f32 FMA, or
 // mma.sync for 16-bit lhs); 1 = wgmma (16-bit lhs, k > 0; int8 rhs also
-// needs m % 16 == 0).
+// needs m % 16 == 0). trans_rhs: rhs is stored [e, m, k] and each group
+// multiplies by rhs[g]^T (float rhs only).
 int grouped_matmul_launch(const void* lhs, const void* rhs,
                           const void* scales, const void* group_sizes,
                           void* out, int n, int k, int m, int e,
                           int lhs_dtype, int rhs_int8, int variant,
-                          void* stream) {
+                          int trans_rhs, void* stream) {
   if (n == 0 || m == 0 || e == 0) return 0;
+  if (trans_rhs && rhs_int8) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t* gs = static_cast<const int32_t*>(group_sizes);
   const float* sc = static_cast<const float*>(scales);
@@ -1179,9 +1248,16 @@ int grouped_matmul_launch(const void* lhs, const void* rhs,
                   : launch_wgmma_int8<__nv_bfloat16>(lhs, rhs, sc, gs, out,
                                                      n, k, m, e, s);
     }
-    return half ? launch_wgmma<kWN, __half>(lhs, rhs, gs, out, n, k, m, e, s)
-                : launch_wgmma<kWN, __nv_bfloat16>(lhs, rhs, gs, out, n, k,
-                                                   m, e, s);
+    if (trans_rhs) {
+      return half ? launch_wgmma<kWN, __half, true>(lhs, rhs, gs, out, n, k,
+                                                    m, e, s)
+                  : launch_wgmma<kWN, __nv_bfloat16, true>(lhs, rhs, gs, out,
+                                                           n, k, m, e, s);
+    }
+    return half ? launch_wgmma<kWN, __half, false>(lhs, rhs, gs, out, n, k, m,
+                                                   e, s)
+                : launch_wgmma<kWN, __nv_bfloat16, false>(lhs, rhs, gs, out,
+                                                          n, k, m, e, s);
   }
   if (variant != 0) return (int)cudaErrorInvalidValue;
   if (lhs_dtype == 0) {
@@ -1189,16 +1265,22 @@ int grouped_matmul_launch(const void* lhs, const void* rhs,
     if (rhs_int8) {
       gmm_f32_kernel<int8_t><<<grid, kFThreads, 0, s>>>(
           static_cast<const float*>(lhs), static_cast<const int8_t*>(rhs), sc,
-          gs, static_cast<float*>(out), n, k, m, e);
+          gs, static_cast<float*>(out), n, k, m, e, false);
     } else {
       gmm_f32_kernel<float><<<grid, kFThreads, 0, s>>>(
           static_cast<const float*>(lhs), static_cast<const float*>(rhs),
-          nullptr, gs, static_cast<float*>(out), n, k, m, e);
+          nullptr, gs, static_cast<float*>(out), n, k, m, e, trans_rhs != 0);
     }
     return (int)cudaGetLastError();
   }
   if (lhs_dtype == 1 || half) {
     if (k % 8 || m % 8) return (int)cudaErrorInvalidValue;
+    if (trans_rhs) {
+      return half ? launch_mma<__half, __half, true>(lhs, rhs, nullptr, gs,
+                                                     out, n, k, m, e, s)
+                  : launch_mma<__nv_bfloat16, __nv_bfloat16, true>(
+                        lhs, rhs, nullptr, gs, out, n, k, m, e, s);
+    }
     if (half) {
       return rhs_int8 ? launch_mma<__half, int8_t>(lhs, rhs, sc, gs, out, n,
                                                    k, m, e, s)

@@ -19,7 +19,8 @@
 //        values of m or n are the next box (leading byte offset = one box).
 //        A k16 step is two 8-row groups: the start moves by 2048 bytes.
 //  * wgmma_* wrap wgmma.mma_async for a 64-row warpgroup tile with f32
-//    accumulators: d[4 j + 0, 1] hold row 16 w + lane / 4, columns
+//    accumulators (A MN-major with wgmma_ss's TransA, B with TransB):
+//    d[4 j + 0, 1] hold row 16 w + lane / 4, columns
 //    8 j + 2 (lane % 4) + {0, 1} of warp w, d[4 j + 2, 3] the row 8 below
 //    (the mma.sync m16n8 C layout, repeated across n). The register-A form
 //    takes each warp's 16 rows in the mma.sync m16n8k16 A layout, so two
@@ -174,6 +175,16 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
          "r"(c0), "r"(c1)
       : "memory");
 }
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)),
+         "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
                                              const void* src, int c0, int c1,
                                              int c2, int c3) {
@@ -264,7 +275,7 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 // D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B from shared memory,
 // bf16 (wgmma_ss_n64) or f16 (wgmma_ss_n64_f16) operands
 #define HOPPER_WGMMA_SS_N64(NAME, TY) \
-template <int TransB> \
+template <int TransB, int TransA = 0> \
 __device__ __forceinline__ void NAME(float (&d)[32], uint64_t a, \
                                      uint64_t b, int scale_d) { \
   asm volatile( \
@@ -273,7 +284,7 @@ __device__ __forceinline__ void NAME(float (&d)[32], uint64_t a, \
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
       "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
       "%24, %25, %26, %27, %28, %29, %30, %31" \
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n" \
+      "}, %32, %33, p, 1, 1, %36, %35;\n}\n" \
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
@@ -282,7 +293,7 @@ __device__ __forceinline__ void NAME(float (&d)[32], uint64_t a, \
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TransB)); \
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TransB), "n"(TransA)); \
 }
 HOPPER_WGMMA_SS_N64(wgmma_ss_n64, "bf16")
 HOPPER_WGMMA_SS_N64(wgmma_ss_n64_f16, "f16")
@@ -290,7 +301,7 @@ HOPPER_WGMMA_SS_N64(wgmma_ss_n64_f16, "f16")
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B from shared memory,
 // bf16 (wgmma_ss_n128) or f16 (wgmma_ss_n128_f16) operands
 #define HOPPER_WGMMA_SS_N128(NAME, TY) \
-template <int TransB> \
+template <int TransB, int TransA = 0> \
 __device__ __forceinline__ void NAME(float (&d)[64], uint64_t a, \
                                             uint64_t b, int scale_d) { \
   asm volatile( \
@@ -302,7 +313,7 @@ __device__ __forceinline__ void NAME(float (&d)[64], uint64_t a, \
       "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, " \
       "%60, %61, %62, %63" \
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n" \
+      "}, %64, %65, p, 1, 1, %68, %67;\n}\n" \
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
@@ -319,7 +330,7 @@ __device__ __forceinline__ void NAME(float (&d)[64], uint64_t a, \
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TransB)); \
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TransB), "n"(TransA)); \
 }
 HOPPER_WGMMA_SS_N128(wgmma_ss_n128, "bf16")
 HOPPER_WGMMA_SS_N128(wgmma_ss_n128_f16, "f16")
@@ -327,7 +338,7 @@ HOPPER_WGMMA_SS_N128(wgmma_ss_n128_f16, "f16")
 // D[64 x 256] (+)= A[64 x 16] B[16 x 256], A and B from shared memory,
 // bf16 (wgmma_ss_n256) or f16 (wgmma_ss_n256_f16) operands
 #define HOPPER_WGMMA_SS_N256(NAME, TY) \
-template <int TransB> \
+template <int TransB, int TransA = 0> \
 __device__ __forceinline__ void NAME(float (&d)[128], uint64_t a, \
                                             uint64_t b, int scale_d) { \
   asm volatile( \
@@ -344,7 +355,7 @@ __device__ __forceinline__ void NAME(float (&d)[128], uint64_t a, \
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, " \
       "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, " \
       "%120, %121, %122, %123, %124, %125, %126, %127" \
-      "}, %128, %129, p, 1, 1, 0, %131;\n}\n" \
+      "}, %128, %129, p, 1, 1, %132, %131;\n}\n" \
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
@@ -377,7 +388,7 @@ __device__ __forceinline__ void NAME(float (&d)[128], uint64_t a, \
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), \
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127]) \
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TransB)); \
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TransB), "n"(TransA)); \
 }
 HOPPER_WGMMA_SS_N256(wgmma_ss_n256, "bf16")
 HOPPER_WGMMA_SS_N256(wgmma_ss_n256_f16, "f16")
@@ -449,24 +460,27 @@ __device__ __forceinline__ void NAME(float (&d)[64], \
 HOPPER_WGMMA_RS_N128(wgmma_rs_n128, "bf16")
 HOPPER_WGMMA_RS_N128(wgmma_rs_n128_f16, "f16")
 
-// wgmma_ss<N, TransB[, E]> / wgmma_rs<N, TransB[, E]>: the wrappers above
-// by width and operand type E (bf16 or __half)
-template <int N, int TransB, typename E = __nv_bfloat16>
+// wgmma_ss<N, TransB[, E[, TransA]]> / wgmma_rs<N, TransB[, E]>: the
+// wrappers above by width and operand type E (bf16 or __half). TransA = 1
+// reads A from shared memory MN-major (its 64 rows contiguous, as
+// desc_mn_major describes; only the shared-memory form has the bit), 0
+// K-major, the default every existing caller compiles to.
+template <int N, int TransB, typename E = __nv_bfloat16, int TransA = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
                                          uint64_t b, int scale_d) {
   constexpr bool kHalf = std::is_same<E, __half>::value;
   static_assert(kHalf || std::is_same<E, __nv_bfloat16>::value,
                 "wgmma_ss: E is bf16 or __half");
   if constexpr (N == 64) {
-    if constexpr (kHalf) wgmma_ss_n64_f16<TransB>(d, a, b, scale_d);
-    else wgmma_ss_n64<TransB>(d, a, b, scale_d);
+    if constexpr (kHalf) wgmma_ss_n64_f16<TransB, TransA>(d, a, b, scale_d);
+    else wgmma_ss_n64<TransB, TransA>(d, a, b, scale_d);
   } else if constexpr (N == 128) {
-    if constexpr (kHalf) wgmma_ss_n128_f16<TransB>(d, a, b, scale_d);
-    else wgmma_ss_n128<TransB>(d, a, b, scale_d);
+    if constexpr (kHalf) wgmma_ss_n128_f16<TransB, TransA>(d, a, b, scale_d);
+    else wgmma_ss_n128<TransB, TransA>(d, a, b, scale_d);
   } else {
     static_assert(N == 256, "wgmma_ss: N is 64, 128 or 256");
-    if constexpr (kHalf) wgmma_ss_n256_f16<TransB>(d, a, b, scale_d);
-    else wgmma_ss_n256<TransB>(d, a, b, scale_d);
+    if constexpr (kHalf) wgmma_ss_n256_f16<TransB, TransA>(d, a, b, scale_d);
+    else wgmma_ss_n256<TransB, TransA>(d, a, b, scale_d);
   }
 }
 

@@ -24,15 +24,20 @@ kernel below its own measured crossover), f32 lhs the FMA kernel. The
 float path is differentiable through
 ``GroupedMatmulFunction``, the counterpart of the JAX custom VJP: the
 JAX backward has no kernel (it runs the fallback's contraction), so here
-``dlhs`` is the forward on ``rhs`` transposed over the same segments and
-``drhs`` the per-segment ``lhs^T g``, ``grouped_matmul_wgrad``: on CUDA
-tensors ``csrc/grouped_matmul_bwd.cu`` (counted ``grouped_matmul_wgrad``,
-variant ``mma`` for 16-bit, ``fma`` for f32), which finds each group's
-rows from the group sizes on the device, so the backward reads nothing
-back to the host; ``_segment_outer``, its plain version, on the CPU.
-The int8 path is inference-only:
-on CUDA it raises when a gradient is needed; on the CPU the plain int8
-version stays differentiable, as ``grouped_matmul_xla`` is in JAX.
+``dlhs = g @ rhs[g(i)]^T`` is the transposed instance of the same kernels
+(``_forward(g, rhs, group_sizes, trans_rhs=True)``: rhs read where it
+lies, no transposed copy; counted ``grouped_matmul`` under the variants
+``wgmma_t``, ``mma_t`` and ``fma_t``; ``grouped_matmul_ref`` on
+``rhs.transpose(1, 2)``, a view, on the CPU) and ``drhs`` the
+per-segment ``lhs^T g``, ``grouped_matmul_wgrad``: on CUDA tensors
+``csrc/grouped_matmul_bwd.cu`` (counted ``grouped_matmul_wgrad`` under
+``wgmma``, the Hopper kernel, from ``WGRAD_WGMMA_MIN_MACS``, ``mma``
+below it, ``fma`` for f32; ``_wgrad_variant`` picks), which finds each
+group's rows from the group sizes on the device, so the backward reads
+nothing back to the host; ``_segment_outer``, its plain version, on the
+CPU. The int8 path is inference-only: it refuses ``trans_rhs``; on CUDA
+it raises when a gradient is needed; on the CPU the plain int8 version
+stays differentiable, as ``grouped_matmul_xla`` is in JAX.
 
 Contract: ``sum(group_sizes) == lhs.shape[0]``; rows past the sum are
 unspecified (the kernel leaves them unwritten, the plain version zero).
@@ -53,9 +58,10 @@ __all__ = ["grouped_matmul", "grouped_matmul_ref", "grouped_matmul_wgrad",
            "GroupedMatmulFunction"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# device kernels of grouped_matmul_launch's ``variant`` argument: 0 picks
-# the dtypes' own kernel (f32 FMA, or mma.sync for 16-bit lhs); 1 the
-# wgmma kernel of the rhs type (16-bit or int8)
+# device kernels of grouped_matmul_launch's and grouped_matmul_wgrad_launch's
+# ``variant`` argument: 0 picks the dtypes' own kernel (f32 FMA, or
+# mma.sync for 16-bit lhs); 1 the wgmma kernel (of the rhs type: 16-bit
+# or int8)
 _VARIANTS = {"fma": 0, "mma": 0, "wgmma": 1}
 # the measured crossover in multiply-adds (n k m). Below it the mma.sync
 # kernel is ahead: by 8-9 % at n 512 x k 128 x m 256 (16.8M) and x k 136 x
@@ -74,6 +80,17 @@ WGMMA_MIN_MACS = 1 << 25
 # work list shares shared memory with the 192 KB ring and buffers)
 INT8_WGMMA_MIN_MACS = 1 << 25
 INT8_WGMMA_MAX_GROUPS = 128
+# the weight gradient: its wgmma kernel from this many multiply-adds (n k
+# m), the mma.sync kernel below: level at n 512 x k 1024 x m 256 (2^27;
+# 0.0121 ms each), the mma.sync kernel 14-22 % ahead at 4.2M-67M (its
+# 128 x 128 tiles fill more SMs where each group has ~64 rows), the wgmma
+# kernel 1.42x ahead at 537M and 1.8-2.0x from 2.1G to the MoE up
+# projection (medians of two turns of chip_sweeps.py wgrad_crossover on an
+# NVIDIA H100 80GB HBM3 at 700 W); and at most WGRAD_WGMMA_MAX_GROUPS
+# experts (the work list shares shared memory with the 192 KB ring and
+# the 32 KB of output staging: 165 fit)
+WGRAD_WGMMA_MIN_MACS = 1 << 27
+WGRAD_WGMMA_MAX_GROUPS = 160
 _lib = None
 _wgrad_lib = None
 
@@ -84,7 +101,7 @@ def _kernel():
         lib = _build.load("grouped_matmul")
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.grouped_matmul_launch.argtypes = [
-            vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp,
+            vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp,
         ]
         lib.grouped_matmul_launch.restype = ci
         _lib = lib
@@ -97,7 +114,7 @@ def _wgrad_kernel():
         lib = _build.load("grouped_matmul_bwd")
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.grouped_matmul_wgrad_launch.argtypes = [
-            vp, vp, vp, vp, ci, ci, ci, ci, ci, vp,
+            vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp,
         ]
         lib.grouped_matmul_wgrad_launch.restype = ci
         _wgrad_lib = lib
@@ -145,10 +162,29 @@ def _gmm_variant(lhs_dtype, rhs_dtype, n, k, m, groups=1):
     return "mma"
 
 
-def _launch(lhs, rhs, group_sizes, rhs_scales, variant=None):
+def _refuse_int8_trans(rhs_scales, trans_rhs):
+    if trans_rhs and rhs_scales is not None:
+        raise ValueError(
+            "grouped_matmul: int8 rhs is inference-only and takes no "
+            "trans_rhs")
+
+
+def _variant_id(name, variant):
+    if variant not in _VARIANTS:
+        raise ValueError(
+            f"{name}: variant {variant!r} is not one of "
+            f"{sorted(_VARIANTS)}")
+    return _VARIANTS[variant]
+
+
+def _launch(lhs, rhs, group_sizes, rhs_scales, variant=None,
+            trans_rhs=False):
     """The kernel on checked CUDA inputs -> [n, m] in lhs's dtype.
     ``variant`` forces a device kernel (``chip_smoke.py`` times them side
-    by side); by default ``_gmm_variant`` picks it."""
+    by side); by default ``_gmm_variant`` picks it. ``trans_rhs``: rhs is
+    [e, m, k] and each group multiplies by ``rhs[g]^T`` (counted under
+    the variant with ``_t``)."""
+    _refuse_int8_trans(rhs_scales, trans_rhs)
     dtype = _DTYPES.get(lhs.dtype)
     quant = rhs_scales is not None
     if dtype is None:
@@ -176,7 +212,11 @@ def _launch(lhs, rhs, group_sizes, rhs_scales, variant=None):
                 f"{lhs.device}"
             )
     n, k = lhs.shape
-    e, _, m = rhs.shape
+    e, m = rhs.shape[0], rhs.shape[1 if trans_rhs else 2]
+    if trans_rhs and (rhs.dim() != 3 or rhs.shape[2] != k):
+        raise ValueError(
+            f"grouped_matmul: trans_rhs wants rhs [e, m, {k}], got "
+            f"{tuple(rhs.shape)}")
     if dtype != 0 and (k % 8 or m % 8):
         raise ValueError(
             f"grouped_matmul kernel: {lhs.dtype} needs k % 8 == 0 and "
@@ -184,6 +224,7 @@ def _launch(lhs, rhs, group_sizes, rhs_scales, variant=None):
         )
     if variant is None:
         variant = _gmm_variant(lhs.dtype, rhs.dtype, n, k, m, e)
+    vid = _variant_id("grouped_matmul", variant)
     # whole 16-byte (int8: 8-byte) vectors from the start of each tensor;
     # TMA also needs its base on 16 bytes
     lhs, rhs = _aligned(lhs), _aligned(rhs)
@@ -195,11 +236,13 @@ def _launch(lhs, rhs, group_sizes, rhs_scales, variant=None):
         err = lib.grouped_matmul_launch(
             lhs.data_ptr(), rhs.data_ptr(),
             scales.data_ptr() if quant else None, gs.data_ptr(),
-            out.data_ptr(), n, k, m, e, dtype, int(quant),
-            _VARIANTS[variant],
+            out.data_ptr(), n, k, m, e, dtype, int(quant), vid,
+            int(trans_rhs),
             torch.cuda.current_stream(lhs.device).cuda_stream,
         )
     name = "grouped_matmul_quant" if quant else "grouped_matmul"
+    if trans_rhs:
+        variant += "_t"
     if err:
         raise RuntimeError(
             f"{name} ({variant}) kernel launch failed: CUDA error {err}")
@@ -207,13 +250,19 @@ def _launch(lhs, rhs, group_sizes, rhs_scales, variant=None):
     return out
 
 
-def _forward(lhs, rhs, group_sizes, rhs_scales=None):
-    """Kernel on CUDA tensors, plain version on CPU tensors."""
+def _forward(lhs, rhs, group_sizes, rhs_scales=None, trans_rhs=False):
+    """Kernel on CUDA tensors, plain version on CPU tensors.
+    ``trans_rhs``: rhs is [e, m, k] and the product takes each
+    ``rhs[g]^T`` where it lies (the backward's ``dlhs``); the plain
+    version gets the transposed view."""
     if lhs.device.type == "cpu":
+        _refuse_int8_trans(rhs_scales, trans_rhs)
+        if trans_rhs:
+            rhs = rhs.transpose(1, 2)
         return grouped_matmul_ref(lhs, rhs, group_sizes, rhs_scales)
     if lhs.device.type != "cuda":
         raise ValueError(f"grouped_matmul: unsupported device {lhs.device}")
-    return _launch(lhs, rhs, group_sizes, rhs_scales)
+    return _launch(lhs, rhs, group_sizes, rhs_scales, trans_rhs=trans_rhs)
 
 
 def grouped_matmul_ref(lhs, rhs, group_sizes, rhs_scales=None):
@@ -284,9 +333,23 @@ def _check_wgrad(lhs, g, group_sizes, e):
             )
 
 
-def _launch_wgrad(lhs, g, group_sizes, e):
+def _wgrad_variant(dtype, n, k, m, e):
+    """The weight gradient's device kernel for these shapes: "wgmma"
+    (Hopper: TMA, an mbarrier ring, wgmma) for 16-bit from
+    ``WGRAD_WGMMA_MIN_MACS`` multiply-adds with at most
+    ``WGRAD_WGMMA_MAX_GROUPS`` groups, "mma" (mma.sync) for the other
+    16-bit shapes, "fma" for f32."""
+    if dtype == torch.float32:
+        return "fma"
+    if n * k * m >= WGRAD_WGMMA_MIN_MACS and e <= WGRAD_WGMMA_MAX_GROUPS:
+        return "wgmma"
+    return "mma"
+
+
+def _launch_wgrad(lhs, g, group_sizes, e, variant=None):
     """The weight-gradient kernel on checked CUDA inputs -> [e, k, m] in
-    lhs's dtype."""
+    lhs's dtype. ``variant`` forces a device kernel (``chip_smoke.py``
+    times them side by side); by default ``_wgrad_variant`` picks it."""
     dtype = _DTYPES.get(lhs.dtype)
     if dtype is None:
         raise TypeError(
@@ -300,15 +363,17 @@ def _launch_wgrad(lhs, g, group_sizes, e):
             f"grouped_matmul_wgrad kernel: {lhs.dtype} needs k % 8 == 0 and "
             f"m % 8 == 0, got k {k}, m {m}"
         )
+    if variant is None:
+        variant = _wgrad_variant(lhs.dtype, n, k, m, e)
+    vid = _variant_id("grouped_matmul_wgrad", variant)
     lhs, g = _aligned(lhs), _aligned(g)
     gs = group_sizes.to(torch.int32).contiguous()
-    # every block stores its whole tile (zeros for an empty group)
+    # every tile is stored whole (zeros for an empty group)
     out = torch.empty((e, k, m), dtype=lhs.dtype, device=lhs.device)
-    variant = "fma" if dtype == 0 else "mma"
     with torch.cuda.device(lhs.device):
         err = _wgrad_kernel().grouped_matmul_wgrad_launch(
             lhs.data_ptr(), g.data_ptr(), gs.data_ptr(), out.data_ptr(),
-            n, k, m, e, dtype,
+            n, k, m, e, dtype, vid,
             torch.cuda.current_stream(lhs.device).cuda_stream,
         )
     if err:
@@ -336,10 +401,10 @@ def grouped_matmul_wgrad(lhs, g, group_sizes, e):
 
 class GroupedMatmulFunction(torch.autograd.Function):
     """``out = grouped_matmul(lhs, rhs, group_sizes)`` (float rhs) with
-    the JAX custom VJP's gradients: ``dlhs`` runs the forward (kernel on
-    the card) on ``rhs`` transposed, ``drhs`` is the per-segment
-    ``lhs^T g`` (``grouped_matmul_wgrad``). Group sizes get no
-    gradient."""
+    the JAX custom VJP's gradients: ``dlhs`` is the transposed instance
+    of the forward's kernels on ``rhs`` as it lies (no copy), ``drhs`` the
+    per-segment ``lhs^T g`` (``grouped_matmul_wgrad``). Group sizes get
+    no gradient."""
 
     @staticmethod
     def forward(ctx, lhs, rhs, group_sizes):
@@ -352,7 +417,7 @@ class GroupedMatmulFunction(torch.autograd.Function):
         g = g.contiguous()
         dlhs = drhs = None
         if ctx.needs_input_grad[0]:
-            dlhs = _forward(g, rhs.transpose(1, 2).contiguous(), group_sizes)
+            dlhs = _forward(g, rhs, group_sizes, trans_rhs=True)
         if ctx.needs_input_grad[1]:
             drhs = grouped_matmul_wgrad(lhs, g, group_sizes, rhs.shape[0])
         return dlhs, drhs, None

@@ -199,7 +199,8 @@ def _chip_sweeps():
                                    "flash_bwd_stages", "flash_bwd_tile",
                                    "gmm_tile", "gmm_epilogue",
                                    "gmm_int8_stages", "paged_cluster",
-                                   "prefill_mma", "prefill_slices"])
+                                   "prefill_mma", "prefill_slices",
+                                   "wgrad_tile"])
 def test_every_sweep_marker_marks_one_line_of_its_source(sweep):
     # chip_sweeps.py sets the value of each `// sweep: <key>` line in a
     # copy of the sources; an edit that drops or repeats a marker fails
