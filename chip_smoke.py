@@ -43,8 +43,15 @@ Phases, in order; any failure exits non-zero:
                hq 32 hkv 4 d 64; the backward held to its plain version
                evaluated in float64). The DiT cell's attention:
                non-causal, b 32, h 8, d 64, s 256, forward and backward
-               in bf16 (wgmma) and f32 (FMA), beside SDPA and its
-               autograd. The fused KV write
+               in bf16 (wgmma) and f32 (forward 3xTF32 beside FMA,
+               backward FMA), beside SDPA and its autograd. The f32
+               forward's two designs at s 100 d 128, the DiT
+               shape, the training shape, GQA d 64 and off the 16-byte
+               grid, each also against the plain version in float64
+               (3xTF32 within 2x FMA's error), and two planted copies of
+               the 3xTF32 kernel (one-pass TF32; the last key tile's
+               scores x 1.01), built beside the library, that the gate
+               must reject at the DiT shape. The fused KV write
                (``kv_write``) at the serving decode shape (8 rows) and a
                512-row prefill, bf16, float16, f32 and int8 pools:
                pages and scales equal to its plain version bit for bit.
@@ -280,9 +287,12 @@ Phases, in order; any failure exits non-zero:
                serving_spec cell's traffic (rejected drafts counted); a
                flight dump with the step samples and a compile log
                holding every capture, no retrace after warm-up.
-6. train_parity — tiny f32 Llama (MHA and GQA): 10 ``TrainStep`` steps
-               of AdamW through the flash kernels give the losses of the
-               same 10 steps with the plain attention functions.
+6. train_parity — tiny f32 Llama (MHA and GQA, d 16: the FMA forward;
+               and MHA at d 64: the 3xTF32 forward; the backward FMA):
+               10 ``TrainStep`` steps of AdamW through the flash kernels
+               give the losses of the same 10 steps with the plain
+               attention functions, every launch on the design the
+               wrappers name.
 7. train    — the repo's pretraining configuration (``bench.py``'s
                ``bench_llama``: 12 layers, hidden 2048, bf16 weights from a
                seed, fused chunked loss, AdamW with fp32 master weights),
@@ -321,8 +331,11 @@ Phases, in order; any failure exits non-zero:
                from seed 0, AdamW(1e-4), MSE to a noise target, through
                ``jit.TrainStep`` in f32 (the bench's dtype, TF32 off) and
                amp O2 bf16, 14 steps each (1 + 3 + 10 timed): every flash
-               kernel launched steps x 8 times on the FMA design (f32) or
-               the wgmma one (bf16); the first step's loss and gradients
+               kernel launched steps x 8 times, f32 on the 3xTF32 forward
+               and the FMA backward, bf16 on wgmma; the f32 step also
+               with its forward on FMA, in turns (step ms, the profiled
+               forward's share of device time); the first step's loss
+               and gradients
                against plain attention, and again after the steps (the
                first step's adaLN-Zero gates are 0); losses finite and
                falling; step ms, samples/s, MFU (f32 against 67e12, bf16
@@ -397,6 +410,7 @@ import argparse
 import collections
 import contextlib
 import copy
+import ctypes
 import gc
 import json
 import os
@@ -410,6 +424,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
+TF32_FLOPS = 495e12            # H100 SXM dense TF32 tensor cores
 # Kernel output vs its plain version on the same inputs, for each output
 # tensor (out; dq, dk, dv), scaled to the data: with randn inputs at
 # scale 1/sqrt(d) the outputs of late causal rows are an order of
@@ -437,7 +452,10 @@ F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 #    kernels (paged decode, grouped GEMM) keep f32 scores and accumulators
 #    and round only the output, as the plain versions do.
 # gate_faults() shows that a backward with delta left out, or 10 % off in
-# the late rows only, fails this gate at the training shape.
+# the late rows only, fails this gate at the training shape, and
+# tf32_plant_faults() that the f32 forward's 3xTF32 design with its cross
+# terms left out (one-pass TF32) or its last key tile's scores 1 % off
+# fails it at the DiT shape.
 GATE = {
     "bfloat16": {"l2": 1e-2, "rtol": 2.0 ** -7, "row_ulps": 4,
                  "ulp": 2.0 ** -8, "floor": 2.0 ** -12, "atol": 0.0},
@@ -447,6 +465,9 @@ GATE = {
     "float32": {"l2": 1e-5, "rtol": 1e-4, "row_ulps": 0, "ulp": 0.0,
                 "floor": 0.0, "atol": 1e-4},
 }
+# the f32 flash forward's 3xTF32 design against the plain version in
+# float64: at most this many times the FMA design's relative L2 error
+F32_DESIGN_F64_RATIO = 2.0
 # a fixed bound of the kind bf16 flash checks often use, reported beside
 # each planted fault to show what it would let through
 FIXED_BOUND = (3e-2, 2e-2)
@@ -502,6 +523,9 @@ DIT_CFG = dict(input_size=32, patch_size=2, in_channels=4, hidden_size=512,
 DIT_BATCH = 32
 DIT_SEQ = (DIT_CFG["input_size"] // DIT_CFG["patch_size"]) ** 2
 DIT_HEAD_DIM = DIT_CFG["hidden_size"] // DIT_CFG["num_heads"]
+# flash_case's name of the DiT attention in f32 (the 3xTF32 forward's
+# main path)
+DIT_F32_CASE = f"s{DIT_SEQ}_b{DIT_BATCH}_d{DIT_HEAD_DIM}_full_f32"
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -599,6 +623,15 @@ def bound(nbytes, flops, dtype, torch):
     peak = (BF16_FLOPS if dtype in (torch.bfloat16, torch.float16)
             else F32_FLOPS)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def tf32x3_bound(nbytes, flops):
+    """(bound ms, bound_by) of an f32 function whose products run as three
+    TF32 tensor-core products each (3xTF32, the f32 flash forward's
+    "tf32x3" design): 3 ``flops`` at the dense TF32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1062,7 +1095,12 @@ def flash_case(torch, fa, flush, s, dtype=None, h=16, d=128, b=1,
     steps (the copies, then ``_launch_fwd``: ``variants``), and with
     ``offset`` also alone on aligned copies (``kernel_ms``,
     ``kernel_median_ms``); ``prev_ms`` is the dtype's kernel before the
-    wgmma one."""
+    wgmma one. f32 at d 64 or 128 has two designs, "tf32x3" (the
+    wrapper's) and "fma" (``prev_ms``): each is also held to the plain
+    version evaluated in float64 (``f64_rel_l2``), and the 3xTF32 one may
+    be at most ``F32_DESIGN_F64_RATIO`` times further from it than FMA's;
+    its ``bound_ms`` counts three TF32 products (``tf32x3_bound``), the
+    FMA bound kept beside it (``fma_bound_ms``)."""
     import torch.nn.functional as F
 
     dtype = dtype or torch.bfloat16
@@ -1117,10 +1155,34 @@ def flash_case(torch, fa, flush, s, dtype=None, h=16, d=128, b=1,
                 cuda_times(torch, lambda: fa._launch_fwd(qa, ka, va, causal,
                                                          scale, vn),
                            20, flush)
+    if dtype == torch.float32:
+        # the f32 designs against the plain version in float64 (the gate's
+        # reference, the f32 plain version, is itself ~4e-7 from it)
+        ref64 = fa.flash_attention_ref(*(t.double() for t in (q, k, v)),
+                                       causal=causal)[0]
+        for vn in kinds:
+            o = fa._launch_fwd(*(fa._aligned(t) for t in (q, k, v)), causal,
+                               scale, vn)[0]
+            variants[vn]["f64_rel_l2"] = (
+                (o.double() - ref64).norm() / ref64.norm()).item()
+        del ref64, o
+        if variant != prev:
+            ratio = (variants[variant]["f64_rel_l2"]
+                     / variants[prev]["f64_rel_l2"])
+            variants[variant]["f64_rel_l2_vs_fma"] = ratio
+            check(ratio <= F32_DESIGN_F64_RATIO,
+                  f"flash_attention {name}: {variant} is {ratio:.3g}x "
+                  f"further from the float64 plain version than {prev} "
+                  f"(> {F32_DESIGN_F64_RATIO})")
     plain_ms = cuda_ms(
         torch, lambda: fa.flash_attention_ref(q, k, v, causal=causal), 5,
         flush)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    # yardstick: PyTorch's own attention (never called by the port); in
+    # f32 on aligned copies (its f32 kernel faults on inputs off the
+    # 16-byte grid)
+    qt, kt, vt = (x.transpose(1, 2) for x in (
+        (fa._aligned(t) for t in (q, k, v)) if dtype == torch.float32
+        else (q, k, v)))
     gqa = {"enable_gqa": True} if hkv != h else {}
     library_ms = cuda_ms(
         torch,
@@ -1133,14 +1195,18 @@ def flash_case(torch, fa, flush, s, dtype=None, h=16, d=128, b=1,
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = 4 * b * h * d * pairs
     bound_ms, bound_by = bound(nbytes, flops, dtype, torch)
+    extra = {}
+    if variant == "tf32x3":
+        extra = {"fma_bound_ms": bound_ms, "fma_bound_by": bound_by}
+        bound_ms, bound_by = tf32x3_bound(nbytes, flops)
     return {
         "case": name, "dtype": str(dtype).split(".")[-1], "batch": b,
         "heads": h, "kv_heads": hkv, "d": d, "seq": s, "causal": causal,
         "variant": variant, **stats, "ms": ms,
         "prev_ms": variants[prev]["ms"], "variants": variants,
         "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-        "flops": flops,
+        "bound_ms": bound_ms, "bound_by": bound_by, **extra,
+        "bytes": nbytes, "flops": flops,
     }
 
 
@@ -1295,6 +1361,70 @@ def gate_faults(torch, fa, s=TRAIN_SEQ, b=TRAIN_BATCH, h=16, d=128):
                   f"gate: {fault} {gname} {'passed' if ok else 'failed'} "
                   f"({stats})")
     log(f"[kernels] gate faults {json.dumps(result)}")
+    return result
+
+
+# planted copies of the f32 flash forward (FLASH_TF32_PLANT in
+# csrc/flash_attention.cu), built beside the library
+TF32_PLANTS = {1: "one_pass_tf32", 2: "late_tile_x1.01"}
+
+
+def start_plant_builds():
+    """One nvcc per planted copy of ``csrc/flash_attention.cu``, all
+    started at once (they build while the kernels phase runs): {plant:
+    (library path, process)}."""
+    from paddle_tpu_torch.kernels import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = _build.CSRC_DIR / "flash_attention.cu"
+    procs = {}
+    for plant in TF32_PLANTS:
+        out = _build.BUILD_DIR / f"flash_attention-plant{plant}.so"
+        procs[plant] = (out, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS,
+             f"-DFLASH_TF32_PLANT={plant}", "-o", str(out), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def tf32_plant_faults(torch, fa, procs):
+    """``GATE`` must reject both planted copies of the 3xTF32 forward
+    (``TF32_PLANTS``: the cross terms left out, one-pass TF32; the last
+    key tile's scores x 1.01) at the DiT shape in f32 (non-causal, b 32,
+    h 8, d 64, s 256), and pass the library's kernel on the same inputs.
+    Each copy is loaded in place of the library for one launch. Returns
+    what the gate read on each."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v = (torch.randn(DIT_BATCH, DIT_SEQ, DIT_CFG["num_heads"],
+                           DIT_HEAD_DIM, generator=g, device="cuda")
+               for _ in range(3))
+    ref = fa.flash_attention_ref(q, k, v, causal=False)[0]
+    real = fa._kernel("flash_attention")
+    entry = real.flash_attention_fwd_launch
+    result = {}
+    for plant in (0, *TF32_PLANTS):
+        name = TF32_PLANTS.get(plant, "none")
+        if plant:
+            path, proc = procs[plant]
+            text, _ = proc.communicate()
+            check(proc.returncode == 0,
+                  f"planted flash forward {name}: nvcc failed\n{text}")
+            lib = ctypes.CDLL(str(path))
+            lib.flash_attention_fwd_launch.argtypes = entry.argtypes
+            lib.flash_attention_fwd_launch.restype = entry.restype
+            fa._libs["flash_attention"] = lib
+        try:
+            o = fa._launch_fwd(q, k, v, False, DIT_HEAD_DIM ** -0.5,
+                               "tf32x3")[0]
+            torch.cuda.synchronize()
+        finally:
+            fa._libs["flash_attention"] = real
+        ok, stats = compare(o, ref)
+        result[name] = dict(stats, gate_ok=ok)
+        check(ok == (plant == 0),
+              f"gate: f32 flash forward, plant {name} "
+              f"{'passed' if ok else 'failed'} ({stats})")
+    log(f"[kernels] f32 forward plants {json.dumps(result)}")
     return result
 
 
@@ -1793,6 +1923,17 @@ def paged_prefill_batched_case(torch, pp, flush, name, dtype, hq, hkv, d,
 
 
 def phase_kernels(torch):
+    plants = start_plant_builds()
+    try:
+        return _kernel_cases(torch, plants)
+    finally:
+        for _, proc in plants.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+def _kernel_cases(torch, plants):
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import grouped_matmul as gk
     from paddle_tpu_torch.kernels import kv_write as kw
@@ -1837,12 +1978,20 @@ def phase_kernels(torch):
         flash_case(torch, fa, flush, 512, h=32, hkv=4, d=64, dtype=f16),
     ]
     # the DiT cell's attention: non-causal, b 32, h 8, d 64, s 256,
-    # bf16 (the wgmma kernel, amp O2) and f32 (the FMA kernel, the bench's
-    # dtype)
+    # bf16 (the wgmma kernel, amp O2) and f32 (the 3xTF32 kernel beside
+    # the FMA one, the bench's dtype)
     flash += [flash_case(torch, fa, flush, DIT_SEQ, h=DIT_CFG["num_heads"],
                          d=DIT_HEAD_DIM, b=DIT_BATCH, causal=False,
                          dtype=dt)
               for dt in (torch.bfloat16, torch.float32)]
+    # f32 at the training shape, GQA d 64 and off the 16-byte grid: both
+    # f32 designs (with s 100 d 128 and the DiT shape above)
+    f32 = torch.float32
+    flash += [
+        flash_case(torch, fa, flush, TRAIN_SEQ, b=TRAIN_BATCH, dtype=f32),
+        flash_case(torch, fa, flush, 512, h=32, hkv=4, d=64, dtype=f32),
+        flash_case(torch, fa, flush, 100, offset=1, dtype=f32),
+    ]
     bwd = [flash_bwd_case(torch, fa, flush, f"s{s}", s)
            for s in (128, 512, 1024, 2048)]
     bwd += [
@@ -1975,7 +2124,8 @@ def phase_kernels(torch):
     wgrad = wgrad_cases(torch, gk, flush, routed)
     dlhs = dlhs_cases(torch, gk, flush, routed)
     return (paged, flash, bwd, gate_faults(torch, fa), quant, gmm,
-            gmm_quant, kvw, rkv, pfx, pfx_batched, wgrad, dlhs)
+            gmm_quant, kvw, rkv, pfx, pfx_batched, wgrad, dlhs,
+            tf32_plant_faults(torch, fa, plants))
 
 
 # ---------------------------------------------------------------- parity
@@ -1988,6 +2138,7 @@ def phase_parity(torch):
     engine's history (``SamplingParams(seed=)``: a busy engine and a fresh
     one under another engine seed agree)."""
     from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
 
@@ -2002,6 +2153,9 @@ def phase_parity(torch):
         model = LlamaForCausalLM(
             LlamaConfig.tiny(num_key_value_heads=kv), seed=0
         )
+        cfg = model.config
+        fwd_design = fa._fwd_variant(
+            torch.float32, cfg.hidden_size // cfg.num_attention_heads, 1, 1)
         refs = [model.generate(torch.tensor([p], device="cuda"),
                                max_new_tokens=k)[0, len(p):].tolist()
                 for p, k in zip(prompts, max_new)]
@@ -2012,6 +2166,8 @@ def phase_parity(torch):
                 prompts, [SamplingParams(max_new_tokens=k) for k in max_new]
             )
             counts = _build.launch_counts()
+            fwd = _build.variant_counts().get(
+                f"flash_attention/{fwd_design}", 0)
             m = engine.metrics
             tag = f"parity kv_heads={kv or 4} decode_kernel={kernel}"
             for o, ref in zip(outs, refs):
@@ -2019,6 +2175,11 @@ def phase_parity(torch):
                       f"{tag}: engine {o.token_ids} != generate {ref}")
             check(engine.block_manager.num_used == 0, f"{tag}: block leak")
             L = model.config.num_hidden_layers
+            # the f32 prefill's flash forwards, on the design the wrapper
+            # names for the tiny model's head dim
+            check(fwd == counts["flash_attention"] > 0,
+                  f"{tag}: {counts['flash_attention']} flash forwards, "
+                  f"{fwd} on {fwd_design}")
             plain = counts["paged_attention_ref"]
             check(m.decode_compiles == 1 and m.prefill_compiles <= 2
                   and (plain, counts["paged_attention"]) == (
@@ -5175,8 +5336,16 @@ def phase_train_parity(torch):
     ids = torch.from_numpy(
         np.random.RandomState(1).randint(0, 128, (4, 100))).to("cuda")
     result = {}
-    for kv in (None, 2):
-        cfg = LlamaConfig.tiny(num_key_value_heads=kv)
+    # the tiny model (d 16: the f32 forward on FMA) and one of d 64 heads
+    # (the f32 forward on 3xTF32); the backward on FMA in both
+    for kv, width in ((None, 64), (2, 64), (None, 256)):
+        cfg = LlamaConfig.tiny(num_key_value_heads=kv, hidden_size=width,
+                               intermediate_size=2 * width)
+        d = width // cfg.num_attention_heads
+        designs = {n: fa._fwd_variant(torch.float32, d, 100, 100)
+                   if n == "flash_attention"
+                   else fa._bwd_variant(torch.float32, d, 100, 100)
+                   for n in FLASH}
 
         def run():
             model = LlamaForCausalLM(cfg, seed=0)
@@ -5188,18 +5357,22 @@ def phase_train_parity(torch):
         _build.reset_launch_counts()
         kern = run()
         counts = _flash_counts(_build.launch_counts())
+        variants = _build.variant_counts()
         with plain_attention(fa):
             plain = run()
         L = cfg.num_hidden_layers
-        check(counts == {n: 10 * L for n in FLASH},
-              f"train_parity: flash launches {counts}, want {10 * L} each")
+        on_design = all(variants.get(f"{n}/{v}", 0) == 10 * L
+                        for n, v in designs.items())
+        check(counts == {n: 10 * L for n in FLASH} and on_design,
+              f"train_parity: flash launches {counts} ({variants}), want "
+              f"{10 * L} each on {designs}")
         rel = max(abs(a - b) / abs(b) for a, b in zip(kern, plain))
         check(rel <= PARITY_LOSS_RTOL,
               f"train_parity kv_heads={kv}: losses {kern} vs plain {plain}"
               f" differ by {rel} > {PARITY_LOSS_RTOL} relative")
-        key = f"kv_heads={kv or cfg.num_attention_heads}"
+        key = f"d{d}_kv_heads={kv or cfg.num_attention_heads}"
         result[key] = {"losses": kern, "plain_losses": plain,
-                       "max_rel_diff": rel}
+                       "max_rel_diff": rel, "designs": designs}
         log(f"[train_parity] {key}: 10 f32 steps, losses {kern[0]:.6f} -> "
             f"{kern[-1]:.6f}, max relative difference to plain attention "
             f"{rel:.3g}")
@@ -5632,9 +5805,10 @@ def phase_train_amp(torch):
 # phase here) and amp O2 bf16 (amp.decorate, AdamW masters). Each runs
 # 1 + 3 warm-up + 10 timed steps on bench.py's seeded batch.
 DIT_MODES = {
-    # name: (AMP dtype or None, peak FLOP/s, flash design, launch dtype)
-    "f32": (None, F32_FLOPS, "fma", "float32"),
-    "o2_bf16": ("bfloat16", BF16_FLOPS, "wgmma", "bfloat16"),
+    # name: (AMP dtype or None, peak FLOP/s, flash forward design, flash
+    # backward design, launch dtype)
+    "f32": (None, F32_FLOPS, "tf32x3", "fma", "float32"),
+    "o2_bf16": ("bfloat16", BF16_FLOPS, "wgmma", "wgmma", "bfloat16"),
 }
 DIT_TIMED_STEPS = 10
 DIT_DROPOUT_P = 0.1
@@ -5709,7 +5883,8 @@ def _dit_mode(torch, name, data, flush):
     from paddle_tpu_torch.models import DiT, DiTConfig
     from paddle_tpu_torch.optimizer import AdamW
 
-    amp_dtype, peak_flops, design, launch_dtype = DIT_MODES[name]
+    amp_dtype, peak_flops, fwd_design, bwd_design, launch_dtype = \
+        DIT_MODES[name]
     L = DIT_CFG["depth"]
     gc.collect()
     torch.cuda.empty_cache()
@@ -5783,6 +5958,7 @@ def _dit_mode(torch, name, data, flush):
     losses = [x.item() for x in losses]
     want = n_steps * L
     for n in FLASH:
+        design = fwd_design if n == "flash_attention" else bwd_design
         check(counts[n] == want
               and counts.get(f"{n}/{design}", 0) == want
               and counts.get(f"{n}/{launch_dtype}", 0) == want,
@@ -5803,6 +5979,10 @@ def _dit_mode(torch, name, data, flush):
           f"dit {name}: no gradient reached the attention after "
           f"{n_steps} steps")
     prof = _profiled_step(torch, lambda _: step(*data), None)
+    designs = None
+    if fwd_design == "tf32x3":
+        designs = _dit_forward_designs(torch, fa, lambda: step(*data),
+                                       step_ms, prof)
     samples_s = DIT_BATCH / (step_ms / 1e3)
     # the strided q, k, v views of the qkv projection: the flash wrapper
     # copies each contiguous in the forward and again in the backward
@@ -5824,6 +6004,7 @@ def _dit_mode(torch, name, data, flush):
                        if prof["device_ms"] else None),
         "qkv_copies_ms_per_layer_pass": copy_ms,
         "qkv_copies_ms_per_step": 2 * L * copy_ms,
+        "forward_designs": designs,
     }
     log(f"[dit] {name}: {step_ms:.2f} ms/step, {samples_s:.1f} samples/s, "
         f"MFU {rec['mfu'] * 100:.2f}% of {peak_flops / 1e12:.0f} TFLOP/s "
@@ -5854,6 +6035,58 @@ def _dit_mode(torch, name, data, flush):
                 grads)
     del model, opt, step
     return rec, kept
+
+
+@contextlib.contextmanager
+def forced_forward(fa, design):
+    """Inside: the flash forward launches ``design`` wherever the wrapper
+    would choose the f32 3xTF32 kernel (the comparison runs only)."""
+    real = fa._fwd_variant
+
+    def variant(*args):
+        chosen = real(*args)
+        return design if chosen == "tf32x3" else chosen
+
+    fa._fwd_variant = variant
+    try:
+        yield
+    finally:
+        fa._fwd_variant = real
+
+
+def _dit_forward_designs(torch, fa, step, step_ms, prof):
+    """The f32 DiT step with its flash forward on the 3xTF32 design (the
+    wrapper's; ``step_ms`` and ``prof`` already measured) and on the FMA
+    design it had before, in turns on the same model and data (FMA,
+    3xTF32, FMA): each turn's wall ms a step (mean of
+    ``DIT_TIMED_STEPS``), and one profiled step of each: device ms, the
+    forward's ms and its share."""
+    times = {"tf32x3": [step_ms], "fma": []}
+    profs = {"tf32x3": prof}
+    for design in ("fma", "tf32x3", "fma"):
+        with forced_forward(fa, design):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DIT_TIMED_STEPS):
+                step()
+            torch.cuda.synchronize()
+            times[design].append(
+                (time.perf_counter() - t0) / DIT_TIMED_STEPS * 1e3)
+            if design not in profs:
+                profs[design] = _profiled_step(torch, lambda _: step(), None)
+    out = {d: {"step_ms": times[d], "device_ms": profs[d]["device_ms"],
+               "flash_fwd_ms": profs[d]["flash_fwd_ms"],
+               "flash_fwd_share": (profs[d]["flash_fwd_ms"]
+                                   / profs[d]["device_ms"]
+                                   if profs[d]["device_ms"] else None)}
+           for d in times}
+    log("[dit] f32 step by forward design (turns: 3xTF32, FMA, 3xTF32, "
+        "FMA): " + "; ".join(
+            f"{d} {', '.join(f'{t:.3f}' for t in r['step_ms'])} ms, device "
+            f"{r['device_ms']:.3f} ms, flash forward {r['flash_fwd_ms']:.3f}"
+            f" ms ({(r['flash_fwd_share'] or 0) * 100:.2f} %)"
+            for d, r in out.items()))
+    return out
 
 
 def _dit_optimizers(torch, named, grads):
@@ -8164,7 +8397,8 @@ def _hapi_transformer(torch):
             _build.reset_launch_counts()
             logs = m.evaluate(evalset, batch_size=TRANSFORMER_BATCH,
                               verbose=0)
-            eval_counts = _build.launch_counts()
+            eval_counts = dict(_build.launch_counts(),
+                               **_build.variant_counts())
             with plain_attention(fa):
                 plain_logs = m.evaluate(evalset,
                                         batch_size=TRANSFORMER_BATCH,
@@ -8173,11 +8407,15 @@ def _hapi_transformer(torch):
         losses = rec.losses
         check(all(np.isfinite(losses)) and losses[-1] < losses[0],
               f"hapi transformer {mode}: losses {losses}")
-        check(eval_counts["flash_attention"] == 2 * L,
+        # d 64 heads: the 3xTF32 forward in f32, wgmma in bf16
+        design = "tf32x3" if mode == "f32" else "wgmma"
+        check(eval_counts["flash_attention"] == 2 * L
+              and eval_counts.get(f"flash_attention/{design}", 0) == 2 * L,
               f"hapi transformer {mode}: evaluate launched "
-              f"{eval_counts['flash_attention']} flash forwards, want "
-              f"{2 * L} (the encoder's self-attention and the "
-              f"cross-attention)")
+              f"{eval_counts['flash_attention']} flash forwards "
+              f"({design}: {eval_counts.get(f'flash_attention/{design}')}),"
+              f" want {2 * L} (the encoder's self-attention and the "
+              f"cross-attention) on the {design} design")
         gap = abs(logs["eval_loss"] - plain_logs["eval_loss"])
         check(gap <= TRANSFORMER_EVAL_TOL,
               f"hapi transformer {mode}: eval loss {logs['eval_loss']} vs "
@@ -8650,6 +8888,43 @@ def flash_f16_entries(flash, bwd, launches):
     return out
 
 
+def flash_tf32_entry(flash, plants, launches):
+    """The kernels line's entry of the f32 forward's 3xTF32 design at the
+    DiT shape (its main path, 8 launches a f32 DiT step): ``ms`` through
+    the wrapper, ``prev_ms`` the FMA kernel there, the plain version's
+    and SDPA f32's times, its bound (three TF32 products) beside the FMA
+    design's, every f32 case it ran (times, float64 errors of both
+    designs) and what the gate read on the planted copies."""
+    cases = [c for c in flash if c["variant"] == "tf32x3"]
+    head = next(c for c in cases if c["case"] == DIT_F32_CASE)
+    return {
+        "name": "flash_attention_fwd/tf32x3", "route": "cuda",
+        "source": "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "paddle_tpu/kernels/pallas/flash_attention.py:37",
+        **launches("flash_attention", ["tf32x3"]),
+        "max_abs_err": max(c["variants"]["tf32x3"]["max_abs_err"]
+                           for c in cases),
+        "variant": "tf32x3", "ms": head["ms"], "prev_ms": head["prev_ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "fma_bound_ms": head["fma_bound_ms"],
+        "library_ms": head["library_ms"],
+        "shape": f"b{DIT_BATCH} h{DIT_CFG['num_heads']} d{DIT_HEAD_DIM} "
+                 f"s{DIT_SEQ} full, float32",
+        "cases": {c["case"]: {
+            "ms": c["ms"], "kernel_ms": c["variants"]["tf32x3"].get(
+                "kernel_ms", c["variants"]["tf32x3"]["ms"]),
+            "prev_ms": c["prev_ms"], "plain_ms": c["plain_ms"],
+            "library_ms": c["library_ms"], "bound_ms": c["bound_ms"],
+            "fma_bound_ms": c["fma_bound_ms"],
+            "max_abs_err": c["variants"]["tf32x3"]["max_abs_err"],
+            "f64_rel_l2": c["variants"]["tf32x3"]["f64_rel_l2"],
+            "fma_f64_rel_l2": c["variants"]["fma"]["f64_rel_l2"]}
+            for c in cases},
+        "plants": {n: {"rel_l2": st["rel_l2"], "gate_ok": st["gate_ok"]}
+                   for n, st in plants.items()},
+    }
+
+
 def dit_flash_cases(flash, bwd, part=None):
     """The DiT cell's attention shape (non-causal, b 32, h 8, d 64, s 256)
     in bf16 and f32, for the kernels line: the forward's cases, or with
@@ -8781,10 +9056,11 @@ def main(argv=None):
         paged = flash = bwd = None
         if "kernels" in results:
             (paged, flash, bwd, faults, quant, gmm, gmm_quant, kvw, rkv,
-             pfx, pfx_batched, wgrad, dlhs) = results.pop("kernels")
+             pfx, pfx_batched, wgrad, dlhs, plants) = results.pop("kernels")
             report["phases"]["kernels"] = {
                 "paged": paged, "flash": flash, "flash_bwd": bwd,
-                "gate_faults": faults, "paged_quant": quant, "gmm": gmm,
+                "gate_faults": faults, "f32_forward_plants": plants,
+                "paged_quant": quant, "gmm": gmm,
                 "gmm_quant": gmm_quant, "kv_write": kvw,
                 "rope_kv_write": rkv,
                 "paged_prefill": pfx, "paged_prefill_batched": pfx_batched,
@@ -8913,11 +9189,11 @@ def main(argv=None):
         kernels.append(paged_entry("paged_attention", 73, paged))
         # the forward at the training shape, on the wrapper's choice
         # (wgmma), the mma.sync kernel there as prev_ms; "variants" lists
-        # every device kernel of the function (the f32 FMA one at its own
-        # case) with its launches on the main paths
+        # every device kernel of the function (the f32 3xTF32 and FMA
+        # ones at the DiT shape) with its launches on the main paths
         head = next(c for c in flash
                     if c["case"] == f"s{TRAIN_SEQ}_b{TRAIN_BATCH}")
-        f32 = next(c for c in flash if c["dtype"] == "float32")
+        f32 = next(c for c in flash if c["case"] == DIT_F32_CASE)
         kernels.append({
             "name": "flash_attention_fwd", "route": "cuda",
             "source": "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
@@ -8931,9 +9207,10 @@ def main(argv=None):
             "variants": [
                 variant_entry("flash_attention", v, case, flash)
                 for v, case in (("wgmma", head), ("mma", head),
-                                ("fma", f32))],
+                                ("tf32x3", f32), ("fma", f32))],
             "dit": dit_flash_cases(flash, bwd),
         })
+        kernels.append(flash_tf32_entry(flash, plants, launches))
         # the training shape, on the wrapper's choice (wgmma), the
         # mma.sync kernels there as prev_ms; each kernel alone (the wgmma
         # dq kernel with delta), plain and library times of the whole

@@ -20,7 +20,7 @@
 // the kernel is bound by launch and latency. Every element of q, k and v
 // is read once per (query tile, key tile) pair, from L2 where the block
 // order keeps it there, and the s x s score matrix never leaves the SM.
-// Causal tiles above the diagonal are skipped. Three kernels, chosen by
+// Causal tiles above the diagonal are skipped. Four kernels, chosen by
 // the wrapper (flash_attention.py:_fwd_variant) and passed as `variant`:
 //
 //  * 16-bit, d 64 or 128 (flash_fwd_wgmma_kernel, variant 1): the Hopper
@@ -32,7 +32,12 @@
 //    accumulators; K and V staged synchronously. It stages rows with
 //    16-byte loads, so q, k and v must start on a 16-byte boundary (the
 //    Python wrapper copies any that do not; TMA needs the same).
-//  * f32 (flash_fwd_kernel, variant 0): exact f32 FMAs from shared memory,
+//  * f32, d 64 or 128 (flash_fwd_tf32_kernel, variant 2): 3xTF32 on the
+//    tensor cores (mma.sync m16n8k8 .tf32, every f32 operand split into a
+//    TF32 high and low part, three products), K and V by cp.async into a
+//    two-stage ring. Described at the kernel.
+//  * f32, other head dims and sk == 0 (flash_fwd_kernel, variant 0):
+//    exact f32 FMAs from shared memory,
 //    for the f32 path whose outputs must match the plain version to f32
 //    rounding. One block of 256 threads per (b * heads, 64-row query
 //    tile) stages Q once, then walks 64-key tiles of K and V with an f32
@@ -49,8 +54,9 @@
 // In float16, P (in [0, 1]) keeps 3 more mantissa bits than in bf16; q, k
 // and v must lie within float16's range, as any float16 tensor does.
 //
-// Launch contract: variant 0 launches a grid (ceil(sq / 64), b * heads),
-// variant 1 one block per (128-row query tile, batch x head); the launch
+// Launch contract: variants 0 and 2 launch a grid (ceil(sq / 64),
+// b * heads), variant 1 one block per (128-row query tile, batch x head);
+// the launch
 // function sets each kernel's dynamic shared memory, returns
 // cudaGetLastError() (0 on success) and launches on the given stream.
 
@@ -839,6 +845,365 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// f32 on the tensor cores, d in {64, 128}: 3xTF32 on mma.sync (variant 2).
+//
+// What bounds the FMA kernel above: K and V come in by synchronous 4-byte
+// loads behind three __syncthreads a tile, the scores go through shared
+// memory, one warp walks the online softmax over 8 rows in turn, and its
+// 4 x 4 register tiles need 8 shared loads for 16 FMAs, so shared memory
+// caps it near half the 67 TFLOP/s f32 peak (23 % of it on an H100 at the
+// DiT shape). Here the products run on the tensor cores in TF32 (495
+// TFLOP/s dense), three of them to keep f32's accuracy:
+//   x = hi + lo,  hi = x rounded to TF32 (nearest, ties away),  lo = x - hi
+//   a b ~ (lo_a hi_b + hi_a lo_b) + hi_a hi_b
+// (the split of CUTLASS's fast-f32 GEMMs). hi keeps 11 significant bits;
+// lo, exact in f32, is read by the tensor core as TF32 (its low 13 bits
+// ignored), so the operands keep ~22 bits and the dropped lo_a lo_b is
+// ~2^-22 of the product. The rounding is two integer operations on the
+// bits: cvt.rna.tf32.f32 compiles to a longer compare-and-select sequence.
+// A one-pass TF32 product (hi_a hi_b) is ~2^-11 off and fails the f32
+// gate (chip_smoke.py plants it, FLASH_TF32_PLANT below).
+//
+// The tensor core adds each product into its f32 accumulator with
+// truncation, so a long chain of mma.sync into one accumulator drifts
+// (toward zero) further than f32 FMAs do. The chains are kept short:
+// the small cross terms go to accumulators of their own (their
+// truncation is ~2^-11 of the big terms'), and P V is summed per 32-key
+// tile from zero, then added to the running output with an f32 FMA that
+// also applies the softmax rescale. Every chain is D / 8 (scores) or 4
+// (P V) products long.
+//
+// Block: 4 warps, 64 query rows of one (batch, head); warp w owns rows
+// 16 w .. 16 w + 15, as in the mma.sync kernel above. Q is staged once;
+// K and V tiles of 32 keys stream through a two-stage ring by 16-byte
+// cp.async (zeros past sk), the next tile's copies issued before the
+// current tile's products, one __syncthreads a tile. Per tile each warp
+// computes its 16 x 32 scores (4 n8 tiles, D / 8 k-steps), masks the
+// ragged tail and the causal diagonal, runs the online softmax in base 2
+// on the accumulators (a row's values in the 4 lanes of a quad; the
+// running sum kept per lane, reduced once at the end), and adds P V.
+// Fragment layouts of m16n8k8 .tf32 (g = lane / 4, t = lane % 4):
+//   A (16x8): a0 = A[g][t], a1 = A[g+8][t], a2 = A[g][t+4], a3 = A[g+8][t+4]
+//   B (8x8):  b0 = B[t][g], b1 = B[t+4][g]
+//   C (16x8): c0, c1 = C[g][2t..2t+1], c2, c3 = C[g+8][2t..2t+1]
+// P leaves S's products in the C layout (lane holds keys 2t, 2t + 1 of
+// each 8-key tile), not in A's (keys t, t + 4). The sum over keys does
+// not care about their order, so P V takes k = t as key 2t and k = t + 4
+// as key 2t + 1: a0..a3 = c0, c2, c1, c3, and V's B fragment reads rows
+// 2t and 2t + 1. No shuffle.
+// Shared memory rows are padded to D + 4 floats (4 mod 32 words, a
+// multiple of 16 bytes for cp.async): K's fragments read K[g][t] (bank
+// 4 g + t), V's V[2t][g] and V[2t + 1][g] (banks 8 t + g and 8 t + 4 + g),
+// Q's Q[g][t]: 32 distinct banks each. Q stays in shared memory and is
+// split per k-step (hi and lo of 16 x D in registers would take D
+// registers a thread); 52 KB (d 64) or 101 KB (d 128) a block, 4 or 2
+// blocks an SM (127 and 255 registers, no spill).
+//
+// Blocks run the heaviest (causal) query tile of each head first. lse is
+// stored in natural log units; a row with no visible key gives out 0 and
+// lse -inf, as the FMA kernel does.
+
+// 0 in the library. chip_smoke.py builds two planted copies to show that
+// the f32 gate catches their faults: 1 keeps hi x hi only (one-pass TF32),
+// 2 scales the scores of the last key tile by 1.01
+#ifndef FLASH_TF32_PLANT
+#define FLASH_TF32_PLANT 0
+#endif
+
+constexpr int kXBK = 32;     // keys per K/V tile
+constexpr int kXStages = 2;  // K/V ring depth
+
+template <int D>
+struct Tf32Cfg {
+  static constexpr int kRow = D + 4;       // padded row, floats
+  static constexpr int kQ = kBQ * kRow;    // floats of the Q tile
+  static constexpr int kKV = kXBK * kRow;  // floats of one K (or V) tile
+  static constexpr int kSmem =
+      (kQ + 2 * kXStages * kKV) * (int)sizeof(float);
+};
+
+// 16 bytes global -> shared, asynchronously; zeros when !ok (src-size 0:
+// nothing is read)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// rows [r0, r0 + Rows) of a [n_rows, stride] f32 matrix into shared
+// memory [Rows][D + 4]; rows at or past n_rows are zeros
+template <int D, int Rows>
+__device__ __forceinline__ void stage_f32(float* dst, const float* src,
+                                          size_t stride, int r0,
+                                          int n_rows) {
+  constexpr int V = D / 4;  // 16-byte vectors per row
+  static_assert(Rows * V % kTcThreads == 0, "whole rounds of copies");
+#pragma unroll
+  for (int it = 0; it < Rows * V / kTcThreads; ++it) {
+    const int i = threadIdx.x + it * kTcThreads;
+    const int r = i / V;
+    const int c = (i - r * V) * 4;
+    const bool ok = r0 + r < n_rows;
+    cp_async16(dst + r * (D + 4) + c,
+               ok ? src + (size_t)(r0 + r) * stride + c : src, ok);
+  }
+}
+
+// x = hi + lo: hi is x rounded to TF32 (to nearest, ties away from zero:
+// a carry into bit 13 of the magnitude, then the low 13 bits cleared; as
+// cvt.rna.tf32.f32 for finite x), lo = x - hi exactly
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// a b in 3xTF32: big += hi_a hi_b, small += lo_a hi_b + hi_a lo_b
+__device__ __forceinline__ void mma_3xtf32(float (&big)[4], float (&small)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  if (FLASH_TF32_PLANT != 1) {
+    mma_tf32(small, al, bh0, bh1);
+    mma_tf32(small, ah, bl0, bl1);
+  }
+  mma_tf32(big, ah, bh0, bh1);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, D == 64 ? 4 : 2)
+    flash_fwd_tf32_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          float* __restrict__ out, float* __restrict__ lse,
+                          int heads, int kv_heads, int sq, int sk,
+                          float scale, int causal) {
+  using C = Tf32Cfg<D>;
+  constexpr int R = C::kRow;
+  constexpr int DT = D / 8;  // 8-wide output column tiles
+  constexpr int NT = kXBK / 8;  // 8-key score tiles
+  extern __shared__ __align__(16) float xs[];
+  float* q_s = xs;                       // [kBQ][R]
+  float* k_s = q_s + C::kQ;              // [kXStages][kXBK][R]
+  float* v_s = k_s + kXStages * C::kKV;  // [kXStages][kXBK][R]
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int bh = blockIdx.y;
+  const int bi = bh / heads;
+  const int hh = bh - bi * heads;
+  const int kvh = hh / (heads / kv_heads);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+
+  const size_t q_row = (size_t)heads * D;
+  const size_t kv_row = (size_t)kv_heads * D;
+  const float* q_b = q + (size_t)bi * sq * q_row + (size_t)hh * D;
+  const float* k_b = k + (size_t)bi * sk * kv_row + (size_t)kvh * D;
+  const float* v_b = v + (size_t)bi * sk * kv_row + (size_t)kvh * D;
+
+  const int k_end = causal ? min(sk, q0 + kBQ) : sk;
+  const int n_kt = (k_end + kXBK - 1) / kXBK;  // >= 1: the launcher
+                                                // sends sk > 0 only
+  auto stage_kv = [&](int kt) {
+    const int st = kt % kXStages;
+    stage_f32<D, kXBK>(k_s + st * C::kKV, k_b, kv_row, kt * kXBK, sk);
+    stage_f32<D, kXBK>(v_s + st * C::kKV, v_b, kv_row, kt * kXBK, sk);
+  };
+  stage_f32<D, kBQ>(q_s, q_b, q_row, q0, sq);
+  stage_kv(0);
+  cp_async_commit();
+
+  const int r_lo = q0 + warp * 16 + g;  // this lane's two query rows
+  const int r_hi = r_lo + 8;
+  const float* qa = q_s + (warp * 16 + g) * R + t;
+  const float sl2 = scale * 1.4426950408889634f;  // scale log2(e)
+  // running max (base-2 units), this lane's share of the running sum
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+  float o[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    cp_async_wait_all();  // tile kt (and Q): this thread's copies
+    __syncthreads();      // everyone's; tile kt - 1's readers are done
+    if (kt + 1 < n_kt) stage_kv(kt + 1);  // into the stage kt - 1 used
+    cp_async_commit();
+    const float* kb = k_s + (kt % kXStages) * C::kKV;
+    const float* vb = v_s + (kt % kXStages) * C::kKV;
+
+    // S = Q K^T: 16 rows x 32 keys, NT tiles of 8 keys; s the hi x hi
+    // products, s2 the cross terms
+    float s[NT][4], s2[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = s2[n][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < D; kk += 8) {
+      uint32_t ah[4], al[4];
+      split_tf32(qa[kk], ah[0], al[0]);
+      split_tf32(qa[8 * R + kk], ah[1], al[1]);
+      split_tf32(qa[kk + 4], ah[2], al[2]);
+      split_tf32(qa[8 * R + kk + 4], ah[3], al[3]);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float* kr = kb + (n * 8 + g) * R + kk + t;
+        uint32_t bh0, bh1, bl0, bl1;
+        split_tf32(kr[0], bh0, bl0);
+        split_tf32(kr[4], bh1, bl1);
+        mma_3xtf32(s[n], s2[n], ah, al, bh0, bh1, bl0, bl1);
+      }
+    }
+
+    // scores in base-2 units; the ragged key tail and the causal
+    // diagonal masked
+    const int k0 = kt * kXBK;
+    const float plant = (FLASH_TF32_PLANT == 2 && kt == n_kt - 1) ? 1.01f
+                                                                  : 1.f;
+    const bool edge = k0 + kXBK > sk ||
+                      (causal && k0 + kXBK - 1 > q0 + warp * 16);
+    float mn_lo = m_lo, mn_hi = m_hi;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[n][e] = (s[n][e] + s2[n][e]) * (sl2 * plant);
+        s[n][2 + e] = (s[n][2 + e] + s2[n][2 + e]) * (sl2 * plant);
+        if (edge) {
+          const int col = k0 + n * 8 + 2 * t + e;
+          if (col >= sk || (causal && col > r_lo)) s[n][e] = -INFINITY;
+          if (col >= sk || (causal && col > r_hi)) s[n][2 + e] = -INFINITY;
+        }
+        mn_lo = fmaxf(mn_lo, s[n][e]);
+        mn_hi = fmaxf(mn_hi, s[n][2 + e]);
+      }
+    }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      mn_lo = fmaxf(mn_lo, __shfl_xor_sync(0xffffffffu, mn_lo, x));
+      mn_hi = fmaxf(mn_hi, __shfl_xor_sync(0xffffffffu, mn_hi, x));
+    }
+    // a row with no visible key yet keeps p = 0 (2^-inf); its old state
+    // is scaled by 2^-inf = 0 until its first key
+    const float base_lo = mn_lo == -INFINITY ? 0.f : mn_lo;
+    const float base_hi = mn_hi == -INFINITY ? 0.f : mn_hi;
+    const float al_lo = exp2f(m_lo - base_lo);
+    const float al_hi = exp2f(m_hi - base_hi);
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+    float ps_lo = 0.f, ps_hi = 0.f;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[n][e] = exp2f(s[n][e] - base_lo);
+        s[n][2 + e] = exp2f(s[n][2 + e] - base_hi);
+        ps_lo += s[n][e];
+        ps_hi += s[n][2 + e];
+      }
+    }
+    l_lo = l_lo * al_lo + ps_lo;
+    l_hi = l_hi * al_hi + ps_hi;
+
+    // O = O alpha + P V: per 8 output columns, NT k-steps of 8 keys from
+    // zero, key 2t as k = t and key 2t + 1 as k = t + 4 (see above)
+    uint32_t ph[NT][4], pl[NT][4];
+#pragma unroll
+    for (int ks = 0; ks < NT; ++ks) {
+      split_tf32(s[ks][0], ph[ks][0], pl[ks][0]);  // P[g][2t]
+      split_tf32(s[ks][2], ph[ks][1], pl[ks][1]);  // P[g + 8][2t]
+      split_tf32(s[ks][1], ph[ks][2], pl[ks][2]);  // P[g][2t + 1]
+      split_tf32(s[ks][3], ph[ks][3], pl[ks][3]);  // P[g + 8][2t + 1]
+    }
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      float pv[4] = {0.f, 0.f, 0.f, 0.f}, pv2[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int ks = 0; ks < NT; ++ks) {
+        const float* vr = vb + (ks * 8 + 2 * t) * R + j * 8 + g;
+        uint32_t bh0, bh1, bl0, bl1;
+        split_tf32(vr[0], bh0, bl0);  // V[2t][8j + g]
+        split_tf32(vr[R], bh1, bl1);  // V[2t + 1][8j + g]
+        mma_3xtf32(pv, pv2, ph[ks], pl[ks], bh0, bh1, bl0, bl1);
+      }
+      o[j][0] = fmaf(o[j][0], al_lo, pv[0] + pv2[0]);
+      o[j][1] = fmaf(o[j][1], al_lo, pv[1] + pv2[1]);
+      o[j][2] = fmaf(o[j][2], al_hi, pv[2] + pv2[2]);
+      o[j][3] = fmaf(o[j][3], al_hi, pv[3] + pv2[3]);
+    }
+  }
+  cp_async_wait_all();  // the last (empty) group
+
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, x);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, x);
+  }
+  float* o_b = out + (size_t)bi * sq * q_row + (size_t)hh * D;
+  const float inv_lo = l_lo == 0.f ? 0.f : 1.f / l_lo;
+  const float inv_hi = l_hi == 0.f ? 0.f : 1.f / l_hi;
+#pragma unroll
+  for (int j = 0; j < DT; ++j) {
+    const int c = j * 8 + 2 * t;
+    if (r_lo < sq) {
+      *reinterpret_cast<float2*>(o_b + (size_t)r_lo * q_row + c) =
+          make_float2(o[j][0] * inv_lo, o[j][1] * inv_lo);
+    }
+    if (r_hi < sq) {
+      *reinterpret_cast<float2*>(o_b + (size_t)r_hi * q_row + c) =
+          make_float2(o[j][2] * inv_hi, o[j][3] * inv_hi);
+    }
+  }
+  if (t == 0) {
+    constexpr float kLn2 = 0.6931471805599453f;
+    if (r_lo < sq) {
+      lse[(size_t)bh * sq + r_lo] = m_lo * kLn2 + logf(l_lo == 0.f ? 1.f
+                                                                   : l_lo);
+    }
+    if (r_hi < sq) {
+      lse[(size_t)bh * sq + r_hi] = m_hi * kLn2 + logf(l_hi == 0.f ? 1.f
+                                                                   : l_hi);
+    }
+  }
+}
+
+template <int D>
+int launch_tf32(const float* q, const float* k, const float* v, float* out,
+                float* lse, int batch, int heads, int kv_heads, int sq,
+                int sk, float scale, int causal, cudaStream_t stream) {
+  auto kernel = flash_fwd_tf32_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Tf32Cfg<D>::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((sq + kBQ - 1) / kBQ, batch * heads);
+  kernel<<<grid, kTcThreads, Tf32Cfg<D>::kSmem, stream>>>(
+      q, k, v, out, lse, heads, kv_heads, sq, sk, scale, causal);
+  return (int)cudaGetLastError();
+}
+
 template <int D, typename T>
 int launch_d(const void* q, const void* k, const void* v, void* out,
              float* lse, int batch, int heads, int kv_heads, int sq, int sk,
@@ -868,14 +1233,32 @@ int launch_d(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
-// the kernels of one element type T (float selects the FMA kernel, bf16
-// and __half the mma.sync kernel or, with variant 1, the wgmma kernel)
+// the kernels of one element type T (float selects the FMA kernel or,
+// with variant 2, the 3xTF32 kernel; bf16 and __half the mma.sync kernel
+// or, with variant 1, the wgmma kernel)
 template <typename T>
 int launch_typed(const void* q, const void* k, const void* v, void* out,
                  float* lse, int batch, int heads, int kv_heads, int sq,
                  int sk, int d, float scale, int causal, int variant,
                  cudaStream_t s) {
   constexpr int dtype = std::is_same<T, float>::value ? 0 : 1;
+  if (variant == 2) {
+    if constexpr (dtype == 0) {
+      const float* qf = static_cast<const float*>(q);
+      const float* kf = static_cast<const float*>(k);
+      const float* vf = static_cast<const float*>(v);
+      float* of = static_cast<float*>(out);
+      if (sk > 0 && d == 64) {
+        return launch_tf32<64>(qf, kf, vf, of, lse, batch, heads, kv_heads,
+                               sq, sk, scale, causal, s);
+      }
+      if (sk > 0 && d == 128) {
+        return launch_tf32<128>(qf, kf, vf, of, lse, batch, heads,
+                                kv_heads, sq, sk, scale, causal, s);
+      }
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   if (variant != 0) {
     if (variant != 1 || dtype == 0 || sk == 0) {
       return (int)cudaErrorInvalidValue;
@@ -918,10 +1301,11 @@ int launch_typed(const void* q, const void* k, const void* v, void* out,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v and out share
-// it). 16-bit q, k and v must start on a 16-byte boundary (the caller
-// copies them if not). variant: 0 = the kernel of the dtype (f32 FMA, or
+// it). q, k and v must start on a 16-byte boundary (the caller copies
+// them if not). variant: 0 = the kernel of the dtype (f32 FMA, or
 // mma.sync for bf16 and f16); 1 = the Hopper wgmma/TMA kernel (bf16 or
-// f16, d 64 or 128, sk > 0).
+// f16, d 64 or 128, sk > 0); 2 = the 3xTF32 kernel (f32, d 64 or 128,
+// sk > 0).
 int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
                                void* out, void* lse, int batch, int heads,
                                int kv_heads, int sq, int sk, int d,

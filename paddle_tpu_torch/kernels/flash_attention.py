@@ -24,6 +24,9 @@ device designs; ``_fwd_variant`` and ``_bwd_variant`` pick one from the
 dtype, head dim and lengths before the launch (counted per variant):
 "wgmma" (Hopper: TMA, an mbarrier ring and wgmma; 16-bit, d 64 or 128),
 "mma" (mma.sync, the other 16-bit head dims) and "fma" (exact f32). The
+f32 forward has a fourth, "tf32x3" (f32 at d 64 or 128 on the tensor
+cores, each product as three TF32 products of split operands), which
+the backward does not share: its f32 kernels stay "fma". The
 16-bit designs have a bf16 and a float16 instance each (one template in
 the sources); every launch is also counted under its dtype
 (``"<name>/bfloat16"``, ``"<name>/float16"``, ``"<name>/float32"``), so a
@@ -50,7 +53,7 @@ SUPPORTED_HEAD_DIMS = (16, 32, 64, 128, 256)
 # of d: one or two 128-byte swizzled boxes)
 WGMMA_HEAD_DIMS = (64, 128)
 # the launch functions' ``variant``: 0 is the dtype's own kernel
-_VARIANTS = {"fma": 0, "mma": 0, "wgmma": 1}
+_VARIANTS = {"fma": 0, "mma": 0, "wgmma": 1, "tf32x3": 2}
 # the backward kernels keep their f32 accumulators in registers: up to
 # d = 128 (d = 256 would not fit the f32 kernels' shared memory either)
 BWD_HEAD_DIMS = (16, 32, 64, 128)
@@ -117,8 +120,8 @@ def _check_cuda(tensors, head_dims):
 
 def _aligned(t):
     """``t`` contiguous and starting on a 16-byte boundary (the 16-bit
-    kernels stage rows with 16-byte loads; a TMA tensor map needs its base
-    there): a copy if it is not."""
+    and the 3xTF32 kernels stage rows with 16-byte loads or copies; a TMA
+    tensor map needs its base there): a copy if it is not."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -139,19 +142,22 @@ def _dtype_name(t):
 
 def _fwd_variant(dtype, d, sq, sk):
     """The forward's device kernel for this dtype, head dim and lengths:
-    "wgmma" for bf16 or float16 at d 64 or 128 with keys to read, "mma"
-    for the other 16-bit head dims (and sk == 0, which has no tensor
-    map), "fma" for float32."""
+    at d 64 or 128 with keys to read, "wgmma" for bf16 or float16 and
+    "tf32x3" for float32; at the other head dims (and sk == 0) "mma" for
+    16-bit and "fma" for float32."""
+    tensor_cores = d in WGMMA_HEAD_DIMS and sq > 0 and sk > 0
+    if dtype == torch.float32:
+        return "tf32x3" if tensor_cores else "fma"
+    return "wgmma" if tensor_cores else "mma"
+
+
+def _bwd_variant(dtype, d, sq, sk):
+    """The backward's device kernels: the 16-bit forward's rule (the
+    wgmma kernels take the same dtype, head dims and lengths); float32
+    "fma" at every head dim (no 3xTF32 backward)."""
     if dtype == torch.float32:
         return "fma"
-    if d in WGMMA_HEAD_DIMS and sq > 0 and sk > 0:
-        return "wgmma"
-    return "mma"
-
-
-# the backward's device kernels: the forward's rule (the wgmma kernels
-# take the same dtype, head dims and lengths)
-_bwd_variant = _fwd_variant
+    return _fwd_variant(dtype, d, sq, sk)
 
 
 def flash_attention_fwd(q, k, v, *, causal=True, scale=None):
@@ -169,7 +175,8 @@ def flash_attention_fwd(q, k, v, *, causal=True, scale=None):
 def _launch_fwd(q, k, v, causal, scale, variant=None):
     """The forward kernel on checked, aligned CUDA inputs; ``variant``
     forces a device kernel (``chip_smoke.py`` times the wgmma and the
-    mma.sync kernels side by side), by default ``_fwd_variant``'s."""
+    mma.sync kernels, and the 3xTF32 and the FMA kernels, side by side),
+    by default ``_fwd_variant``'s."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     if variant is None:

@@ -189,8 +189,10 @@ def gumbel_softmax(x, temperature=1.0, hard=False, axis=-1, *,
     one-hot of its argmax forward and the soft gradient backward."""
     u = torch.rand(x.shape, device=x.device, generator=generator)
     tiny = torch.finfo(torch.float32).tiny
-    g = (-torch.log(-torch.log(u.clamp(tiny, 1.0)).clamp_min(tiny))).to(
-        x.dtype)
+    # g = -log(-log(u)), jax.random.gumbel's draw; -log(u) > 0 is clamped
+    # away from 0 (u near 1) and u away from 0, so g stays finite
+    e = -torch.log(u.clamp(tiny, 1.0))
+    g = (-torch.log(e.clamp_min(tiny))).to(x.dtype)
     y = torch.softmax((x + g) / temperature, dim=axis)
     if hard:
         idx = y.argmax(dim=axis, keepdim=True)

@@ -13,6 +13,9 @@ compute in f32 and round the output to float16, whose unit roundoff is
 ``FlashAttentionFunction`` are also held to autograd through the math
 attention, and to finite differences in float64.
 """
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -385,13 +388,134 @@ def test_flash_function_gradcheck_float64():
     (torch.bfloat16, 32, 128, 128, "mma"),
     (torch.bfloat16, 256, 1024, 1024, "mma"),
     (torch.bfloat16, 128, 5, 0, "mma"),           # no keys: no tensor map
-    (torch.float32, 128, 1024, 1024, "fma"),
-    (torch.float32, 64, 100, 100, "fma"),
+    # f32 at d 64 and 128 runs the 3xTF32 kernel (ids as before it, when
+    # these cases expected the FMA kernel)
+    pytest.param(torch.float32, 128, 1024, 1024, "tf32x3",
+                 id="dtype9-128-1024-1024-fma"),
+    pytest.param(torch.float32, 64, 100, 100, "tf32x3",
+                 id="dtype10-64-100-100-fma"),
     (torch.float32, 16, 8, 8, "fma"),
+    # the FMA kernel keeps the other head dims and sk == 0
+    (torch.float32, 32, 128, 128, "fma"),
+    (torch.float32, 256, 128, 128, "fma"),
+    (torch.float32, 128, 5, 0, "fma"),
+    (torch.float32, 64, 7, 300, "tf32x3"),        # sq != sk (full)
+    (torch.float32, 64, 256, 256, "tf32x3"),      # the DiT shape
 ])
 def test_fwd_variant(dtype, d, sq, sk, want):
     assert fa._fwd_variant(dtype, d, sq, sk) == want
     assert want in fa._VARIANTS
+
+
+def test_fwd_variant_ids_reach_their_kernels():
+    # the launch function's variant argument: 0 the dtype's own kernel
+    # (FMA for f32, mma.sync for 16-bit), 1 wgmma, 2 the f32 3xTF32 kernel
+    assert fa._VARIANTS == {"fma": 0, "mma": 0, "wgmma": 1, "tf32x3": 2}
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _tf32_parts(x):
+    """The 3xTF32 kernel's split of an f32 tensor: hi rounded to TF32
+    (carry into bit 13, low 13 bits cleared), lo = x - hi as the tensor
+    core reads it (its low 13 bits ignored)."""
+    hi = ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+    lo = ((x - hi).view(torch.int32) & ~0x1FFF).view(torch.float32)
+    return hi, lo
+
+
+def _tf32x3_mm(a, b, passes):
+    """a @ b as the kernel forms it: hi x hi, plus the two cross terms
+    with three passes (every product of TF32 parts is exact in f32)."""
+    ah, al = _tf32_parts(a)
+    bh, bl = _tf32_parts(b)
+    if passes == 1:
+        return ah @ bh
+    return ah @ bh + (al @ bh + ah @ bl)
+
+
+def _tf32x3_flash(q, k, v, causal, passes=3, tile=32):
+    """The 3xTF32 forward's arithmetic in f32 on the CPU: scores of 32-key
+    tiles in base-2 units, the online softmax (running max and sum), P V
+    per tile added to the rescaled running output, lse = m ln 2 + ln l."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    sl2 = d ** -0.5 * 1.4426950408889634
+    qf, kf, vf = (x.transpose(1, 2) for x in (q, k, v))
+    m = torch.full((b, h, sq, 1), float("-inf"))
+    l = torch.zeros((b, h, sq, 1))
+    o = torch.zeros((b, h, sq, d))
+    rows = torch.arange(sq)[:, None]
+    for k0 in range(0, sk, tile):
+        kt, vt = kf[:, :, k0:k0 + tile], vf[:, :, k0:k0 + tile]
+        s = _tf32x3_mm(qf, kt.transpose(-1, -2), passes) * sl2
+        if causal:
+            cols = torch.arange(k0, k0 + kt.shape[2])[None]
+            s = s.masked_fill(cols > rows, float("-inf"))
+        mn = torch.maximum(m, s.amax(-1, keepdim=True))
+        base = torch.where(torch.isinf(mn), torch.zeros_like(mn), mn)
+        alpha = torch.exp2(m - base)
+        p = torch.exp2(s - base)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + _tf32x3_mm(p, vt, passes)
+        m = mn
+    out = torch.where(l == 0, torch.zeros_like(o), o / l)
+    lse = m[..., 0] * 0.6931471805599453 + torch.log(
+        torch.where(l == 0, torch.ones_like(l), l))[..., 0]
+    return out.transpose(1, 2), lse
+
+
+@pytest.mark.parametrize("b,s,h,d,causal", [
+    (2, 96, 2, 64, True),
+    (1, 70, 2, 128, False),      # a ragged last key tile
+    (4, 64, 2, 64, False),
+])
+def test_tf32x3_arithmetic_meets_the_f32_gate(b, s, h, d, causal):
+    # the 3xTF32 forward's split, products and tiled base-2 softmax,
+    # emulated in f32: within chip_smoke's f32 gate of the plain version,
+    # as close to the float64 plain version as the f32 plain version is
+    # (within F32_DESIGN_F64_RATIO of it, the card's bound), and lse
+    # within 1e-3. One pass (hi x hi only) fails the gate: the planted
+    # copy the card must reject.
+    cs = _chip_smoke()
+    q, k, v = _t(*_qkv(50 + d, b, s, h, d))
+    ref, ref_lse = fa.flash_attention_ref(q, k, v, causal=causal)
+    ref64 = fa.flash_attention_ref(q.double(), k.double(), v.double(),
+                                   causal=causal)[0]
+    out, lse = _tf32x3_flash(q, k, v, causal)
+    ok, stats = cs.compare(out, ref)
+    assert ok, stats
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+    def f64_err(x):
+        return ((x.double() - ref64).norm() / ref64.norm()).item()
+
+    assert f64_err(out) <= cs.F32_DESIGN_F64_RATIO * f64_err(ref)
+    one_pass, _ = _tf32x3_flash(q, k, v, causal, passes=1)
+    ok, stats = cs.compare(one_pass, ref)
+    assert not ok and stats["rel_l2"] > cs.GATE["float32"]["l2"], stats
+
+
+@pytest.mark.parametrize("d", fa.WGMMA_HEAD_DIMS)
+def test_f32_forward_wrapper_plain_on_cpu_at_tf32x3_shapes(d):
+    # f32 at a head dim the card would run on the 3xTF32 kernel: on the
+    # CPU the wrapper still returns the plain version, launching nothing
+    q, k, v = _t(*_qkv(45, 1, 33, 4, d, hkv=2))
+    assert fa._fwd_variant(q.dtype, d, 33, 33) == "tf32x3"
+    reset_launch_counts()
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    ref, ref_lse = fa.flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=0)
+    assert out.dtype == torch.float32 and lse.dtype == torch.float32
+    assert set(launch_counts().values()) == {0}
+    assert variant_counts() == {}
 
 
 @pytest.mark.parametrize("d", fa.WGMMA_HEAD_DIMS)
@@ -451,6 +575,12 @@ def test_flash_ref_ragged_gqa_at_d64_matches_math_sdpa():
     (torch.float32, 128, 1024, 1024, "fma"),
     (torch.float32, 64, 100, 100, "fma"),
     (torch.float32, 16, 8, 8, "fma"),
+    # f32 stays on FMA at every head dim: the 3xTF32 forward does not
+    # move the backward
+    (torch.float32, 32, 128, 128, "fma"),
+    (torch.float32, 64, 256, 256, "fma"),         # the DiT shape
+    (torch.float32, 128, 7, 300, "fma"),
+    (torch.float32, 64, 5, 0, "fma"),
 ])
 def test_bwd_variant(dtype, d, sq, sk, want):
     assert fa._bwd_variant(dtype, d, sq, sk) == want

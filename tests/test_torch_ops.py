@@ -6,6 +6,9 @@ PyTorch counterpart on the CPU; f32 tolerance atol 1e-5, rtol 1e-4
 random stream: the same keep-mask is injected on both sides, and the
 port's own draw is held to identities (p = 0 is no dropout, the keep
 rate within binomial bounds, one generator seed one output).
+``gumbel_softmax`` draws its noise from another stream than JAX's too: the
+two are held to each other by distribution (argmax frequencies within 4
+binomial sigma of softmax(x), mean outputs within 4 sigma of each other).
 """
 import types
 
@@ -16,6 +19,9 @@ import pytest
 import torch
 
 from paddle_tpu.generation import warp_logits as jax_warp_logits
+from paddle_tpu.ops.impl.activation import (
+    gumbel_softmax as jax_gumbel_softmax,
+)
 from paddle_tpu.ops.impl.activation import swiglu as jax_swiglu
 from paddle_tpu.ops.impl.fused_ops import rope_qk as jax_rope_qk
 from paddle_tpu.ops.impl.nn_ops import cross_entropy as jax_ce
@@ -28,6 +34,7 @@ from paddle_tpu.ops.impl.nn_ops import (
 )
 from paddle_tpu_torch.generation import warp_logits
 from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+from paddle_tpu_torch.ops.activation import gumbel_softmax
 from paddle_tpu_torch.ops import (
     cross_entropy,
     nn_ops,
@@ -385,3 +392,72 @@ def test_sdpa_dropout_is_not_flash_eligible():
                               requires_grad=False)
     assert nn_ops.flash_eligible(t, t, t, None, False)
     assert not nn_ops.flash_eligible(t, t, t, None, False, dropout_p=0.1)
+
+
+# --------------------------------------------------------- gumbel_softmax
+@pytest.mark.parametrize("shape", [(4, 6, 5), (1000, 50)],
+                         ids=["4x6x5", "1000x50"])
+def test_gumbel_softmax_rows_sum_to_one(shape):
+    x = torch.from_numpy(np.random.RandomState(30).randn(*shape)
+                         .astype(np.float32))
+    y = gumbel_softmax(x, generator=torch.Generator().manual_seed(0))
+    assert y.shape == x.shape and y.dtype == x.dtype
+    assert not y.isnan().any() and bool((y >= 0).all())
+    torch.testing.assert_close(y.sum(-1), torch.ones(shape[:-1]),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("tau", [1.0, 0.5])
+def test_gumbel_softmax_argmax_frequencies_match_jax(tau):
+    # argmax((x + g) / tau) = argmax(x + g): with g Gumbel, class i wins
+    # with probability softmax(x)_i at every temperature. Port and JAX op
+    # each within 4 binomial sigma of it over n draws (the rows of one
+    # call), and their mean outputs, which do depend on tau, within 4
+    # sigma of each other
+    n = 20000
+    x = np.random.RandomState(31).randn(5).astype(np.float32)
+    xs = np.tile(x, (n, 1))
+    port = gumbel_softmax(torch.from_numpy(xs), temperature=tau,
+                          generator=torch.Generator().manual_seed(1)).numpy()
+    ref = np.asarray(jax_gumbel_softmax(jnp.asarray(xs),
+                                        key=jax.random.PRNGKey(1),
+                                        temperature=tau))
+    p = np.exp(x - x.max())
+    p /= p.sum()
+    sigma = np.sqrt(n * p * (1 - p))
+    for y in (port, ref):
+        assert np.isfinite(y).all()
+        counts = np.bincount(y.argmax(-1), minlength=5)
+        assert (np.abs(counts - n * p) <= 4 * sigma).all(), (counts, n * p)
+    se = np.sqrt((port.var(0) + ref.var(0)) / n)
+    assert (np.abs(port.mean(0) - ref.mean(0)) <= 4 * se).all()
+
+
+def test_gumbel_softmax_hard_is_one_hot_with_soft_gradient():
+    # one generator seed, one noise: the hard output is the one-hot of the
+    # soft output's argmax, and its gradient is the soft output's. The
+    # soft output is softmax((x + g) / tau) with g = -log(-log(u)) of the
+    # generator's uniform draw (computed here in float64)
+    tau = 0.7
+    x0 = np.random.RandomState(32).randn(8, 6).astype(np.float32)
+    w = torch.from_numpy(np.random.RandomState(33).randn(8, 6)
+                         .astype(np.float32))
+
+    def run(hard):
+        x = torch.from_numpy(x0.copy()).requires_grad_()
+        y = gumbel_softmax(x, temperature=tau, hard=hard,
+                           generator=torch.Generator().manual_seed(4))
+        (y * w).sum().backward()
+        return y.detach(), x.grad
+
+    soft, g_soft = run(False)
+    hard, g_hard = run(True)
+    u = torch.rand((8, 6), generator=torch.Generator().manual_seed(4))
+    noise = -torch.log(-torch.log(u.double()))
+    want = torch.softmax((torch.from_numpy(x0).double() + noise) / tau, -1)
+    torch.testing.assert_close(soft.double(), want, rtol=1e-5, atol=1e-6)
+    one_hot = torch.zeros_like(soft).scatter_(-1, soft.argmax(-1, True), 1.0)
+    torch.testing.assert_close(hard, one_hot, rtol=0, atol=1e-6)
+    assert bool((hard.sum(-1) == 1).all())
+    torch.testing.assert_close(g_hard, g_soft, rtol=0, atol=0)
+    assert g_soft.abs().sum() > 0
