@@ -43,15 +43,19 @@ Phases, in order; any failure exits non-zero:
                hq 32 hkv 4 d 64; the backward held to its plain version
                evaluated in float64). The DiT cell's attention:
                non-causal, b 32, h 8, d 64, s 256, forward and backward
-               in bf16 (wgmma) and f32 (forward 3xTF32 beside FMA,
-               backward FMA), beside SDPA and its autograd. The f32
-               forward's two designs at s 100 d 128, the DiT
-               shape, the training shape, GQA d 64 and off the 16-byte
-               grid, each also against the plain version in float64
-               (3xTF32 within 2x FMA's error), and two planted copies of
-               the 3xTF32 kernel (one-pass TF32; the last key tile's
-               scores x 1.01), built beside the library, that the gate
-               must reject at the DiT shape. The fused KV write
+               in bf16 (wgmma) and f32 (3xTF32 beside FMA), beside SDPA
+               and its autograd. The f32 forward's and backward's two
+               designs at s 100 d 128, the DiT shape, the training shape,
+               GQA d 64 (the backward also at a ragged s 100) and off the
+               16-byte grid, each also against the plain version in
+               float64 (3xTF32 within 2x FMA's error, every gradient;
+               two runs of the 3xTF32 backward bit-identical), and two
+               planted copies each of the 3xTF32 forward (one-pass TF32;
+               the last key tile's scores x 1.01) and backward (one-pass
+               TF32; dS x 1.01 in dq's last key tile and dk/dv's last
+               query tile), built beside the library, that the gate must
+               reject at the DiT shape (the backward's in dq, dk and dv,
+               and dq and dk). The fused KV write
                (``kv_write``) at the serving decode shape (8 rows) and a
                512-row prefill, bf16, float16, f32 and int8 pools:
                pages and scales equal to its plain version bit for bit.
@@ -287,8 +291,9 @@ Phases, in order; any failure exits non-zero:
                serving_spec cell's traffic (rejected drafts counted); a
                flight dump with the step samples and a compile log
                holding every capture, no retrace after warm-up.
-6. train_parity — tiny f32 Llama (MHA and GQA, d 16: the FMA forward;
-               and MHA at d 64: the 3xTF32 forward; the backward FMA):
+6. train_parity — tiny f32 Llama (MHA and GQA, d 16: the FMA forward
+               and backward; and MHA at d 64: the 3xTF32 forward and
+               backward):
                10 ``TrainStep`` steps of AdamW through the flash kernels
                give the losses of the same 10 steps with the plain
                attention functions, every launch on the design the
@@ -332,9 +337,10 @@ Phases, in order; any failure exits non-zero:
                ``jit.TrainStep`` in f32 (the bench's dtype, TF32 off) and
                amp O2 bf16, 14 steps each (1 + 3 + 10 timed): every flash
                kernel launched steps x 8 times, f32 on the 3xTF32 forward
-               and the FMA backward, bf16 on wgmma; the f32 step also
-               with its forward on FMA, in turns (step ms, the profiled
-               forward's share of device time); the first step's loss
+               and backward (no FMA launch), bf16 on wgmma; the f32 step
+               also with its forward, then its backward, on FMA, in turns
+               (step ms, the profiled forward's or backward's share of
+               device time); the first step's loss
                and gradients
                against plain attention, and again after the steps (the
                first step's adaLN-Zero gates are 0); losses finite and
@@ -453,9 +459,10 @@ TF32_FLOPS = 495e12            # H100 SXM dense TF32 tensor cores
 #    and round only the output, as the plain versions do.
 # gate_faults() shows that a backward with delta left out, or 10 % off in
 # the late rows only, fails this gate at the training shape, and
-# tf32_plant_faults() that the f32 forward's 3xTF32 design with its cross
-# terms left out (one-pass TF32) or its last key tile's scores 1 % off
-# fails it at the DiT shape.
+# tf32_plant_faults() and bwd_tf32_plant_faults() that the f32 3xTF32
+# designs with their cross terms left out (one-pass TF32), or with the
+# forward's last key tile's scores or the backward's last tile's dS 1 %
+# off, fail it at the DiT shape.
 GATE = {
     "bfloat16": {"l2": 1e-2, "rtol": 2.0 ** -7, "row_ulps": 4,
                  "ulp": 2.0 ** -8, "floor": 2.0 ** -12, "atol": 0.0},
@@ -465,8 +472,9 @@ GATE = {
     "float32": {"l2": 1e-5, "rtol": 1e-4, "row_ulps": 0, "ulp": 0.0,
                 "floor": 0.0, "atol": 1e-4},
 }
-# the f32 flash forward's 3xTF32 design against the plain version in
-# float64: at most this many times the FMA design's relative L2 error
+# the f32 flash 3xTF32 designs (the forward's output, each of the
+# backward's gradients) against the plain version in float64: at most
+# this many times the FMA design's relative L2 error
 F32_DESIGN_F64_RATIO = 2.0
 # a fixed bound of the kind bf16 flash checks often use, reported beside
 # each planted fault to show what it would let through
@@ -1223,7 +1231,13 @@ def flash_bwd_case(torch, fa, flush, name, s, dtype=None, h=16, hkv=None,
     wrapper's own steps (``fa._bwd``: ``variants``), and each kernel alone
     on aligned inputs (``dq_ms``, ``dkv_ms`` and their medians: the wgmma
     dq kernel computes delta, the mma.sync one reads it); ``prev_ms`` is
-    the dtype's design before the wgmma kernels."""
+    the dtype's design before the wgmma kernels. f32 at d 64 or 128 has
+    two designs, "tf32x3" (the wrapper's) and "fma" (``prev_ms``): each
+    gradient of each is also held to the plain version evaluated in
+    float64 (``f64_rel_l2``), the 3xTF32 one at most
+    ``F32_DESIGN_F64_RATIO`` times further from it than FMA's, two of its
+    runs must be bit-identical, and its bounds count three TF32 products
+    (``tf32x3_bound``), the FMA bounds kept beside them (``fma_*``)."""
     import torch.nn.functional as F
 
     dtype = dtype or torch.bfloat16
@@ -1291,6 +1305,30 @@ def flash_bwd_case(torch, fa, flush, name, s, dtype=None, h=16, hkv=None,
             torch, lambda: fa._launch_bwd_dkv(qa, ka, va, da, lse, delta,
                                               causal, scale, vn), 20, flush)
         t["kernel_median_ms"] = t["dq_median_ms"] + t["dkv_median_ms"]
+    if variant == "tf32x3":
+        # both f32 designs against the plain version in float64 (the
+        # gate's reference, the f32 plain version, is itself ~4e-7 from
+        # it), gradient by gradient; the 3xTF32 kernels run twice
+        ref64 = fa.flash_attention_bwd_ref(
+            *(t.double() for t in (q, k, v, out, lse, do)), causal=causal)
+        for vn in kinds:
+            got = fa._bwd(qa, ka, va, oa, lse, da, causal, scale, vn)
+            variants[vn]["f64_rel_l2"] = {
+                gn: ((x.double() - r).norm() / r.norm()).item()
+                for gn, x, r in zip(("dq", "dk", "dv"), got, ref64)}
+            if vn == variant:
+                again = fa._bwd(qa, ka, va, oa, lse, da, causal, scale, vn)
+                check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                      f"flash_attention_bwd {name} ({vn}): two runs differ")
+        del ref64, got, again
+        ratio = {gn: variants[variant]["f64_rel_l2"][gn]
+                 / variants[prev]["f64_rel_l2"][gn]
+                 for gn in ("dq", "dk", "dv")}
+        variants[variant]["f64_rel_l2_vs_fma"] = ratio
+        check(max(ratio.values()) <= F32_DESIGN_F64_RATIO,
+              f"flash_attention_bwd {name}: {variant} is {ratio} times "
+              f"further from the float64 plain version than {prev} "
+              f"(> {F32_DESIGN_F64_RATIO})")
     plain_ms = cuda_ms(torch, lambda: fa.flash_attention_bwd_ref(
         q, k, v, out, lse, do, causal=causal), 5, flush)
     # yardstick: PyTorch's own attention backward (never called by the
@@ -1310,11 +1348,17 @@ def flash_bwd_case(torch, fa, flush, name, s, dtype=None, h=16, hkv=None,
     # the function: q, k, v, out, dO read, dq, dk, dv written, lse and
     # delta; five products. Each kernel alone: its own reads and writes;
     # dq runs S, dP, dS K (3), dk/dv S^T, dP^T, P^T dO, dS^T Q (4)
-    b_ms, b_by = bound(3 * nq + 2 * nkv + 2 * nkv + nq + 2 * rows,
-                       5 * prod, dtype, torch)
-    dq_b, dq_by = bound(3 * nq + 2 * nkv + 2 * rows, 3 * prod, dtype, torch)
-    dkv_b, dkv_by = bound(2 * nq + 4 * nkv + 2 * rows, 4 * prod, dtype,
-                          torch)
+    work = {"": (3 * nq + 2 * nkv + 2 * nkv + nq + 2 * rows, 5 * prod),
+            "dq_": (3 * nq + 2 * nkv + 2 * rows, 3 * prod),
+            "dkv_": (2 * nq + 4 * nkv + 2 * rows, 4 * prod)}
+    bounds = {}
+    for part, (nbytes, flops) in work.items():
+        b_ms, b_by = bound(nbytes, flops, dtype, torch)
+        if variant == "tf32x3":
+            bounds[f"fma_{part}bound_ms"] = b_ms
+            bounds[f"fma_{part}bound_by"] = b_by
+            b_ms, b_by = tf32x3_bound(nbytes, flops)
+        bounds[f"{part}bound_ms"], bounds[f"{part}bound_by"] = b_ms, b_by
     case = {
         "case": name, "dtype": str(dtype).split(".")[-1], "batch": b,
         "heads": h, "kv_heads": hkv, "d": d, "seq": s, "causal": causal,
@@ -1324,9 +1368,7 @@ def flash_bwd_case(torch, fa, flush, name, s, dtype=None, h=16, hkv=None,
         "dkv_ms": variants[variant]["dkv_ms"],
         "prev_ms": variants[prev]["ms"], "variants": variants,
         "plain_ms": plain_ms,
-        "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "dq_bound_ms": dq_b, "dq_bound_by": dq_by, "dkv_bound_ms": dkv_b,
-        "dkv_bound_by": dkv_by, "flops": 5 * prod,
+        "library_ms": library_ms, **bounds, "flops": 5 * prod,
     }
     log(f"[kernels] {json.dumps(case)}")
     return case
@@ -1365,26 +1407,52 @@ def gate_faults(torch, fa, s=TRAIN_SEQ, b=TRAIN_BATCH, h=16, d=128):
 
 
 # planted copies of the f32 flash forward (FLASH_TF32_PLANT in
-# csrc/flash_attention.cu), built beside the library
+# csrc/flash_attention.cu) and backward (FLASH_BWD_TF32_PLANT in
+# csrc/flash_attention_bwd.cu), built beside the library
 TF32_PLANTS = {1: "one_pass_tf32", 2: "late_tile_x1.01"}
+BWD_TF32_PLANTS = {1: "one_pass_tf32", 2: "late_tile_ds_x1.01"}
+# the gradients each backward plant must push out of the gate (dv does not
+# read dS)
+BWD_PLANT_CHANGES = {0: (), 1: ("dq", "dk", "dv"), 2: ("dq", "dk")}
 
 
 def start_plant_builds():
-    """One nvcc per planted copy of ``csrc/flash_attention.cu``, all
-    started at once (they build while the kernels phase runs): {plant:
-    (library path, process)}."""
+    """One nvcc per planted copy of ``csrc/flash_attention.cu`` and of
+    ``csrc/flash_attention_bwd.cu``, all started at once (they build
+    while the kernels phase runs): {(source, plant): (library path,
+    process)}."""
     from paddle_tpu_torch.kernels import _build
 
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src = _build.CSRC_DIR / "flash_attention.cu"
     procs = {}
-    for plant in TF32_PLANTS:
-        out = _build.BUILD_DIR / f"flash_attention-plant{plant}.so"
-        procs[plant] = (out, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS,
-             f"-DFLASH_TF32_PLANT={plant}", "-o", str(out), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for name, macro, plants in (
+            ("flash_attention", "FLASH_TF32_PLANT", TF32_PLANTS),
+            ("flash_attention_bwd", "FLASH_BWD_TF32_PLANT",
+             BWD_TF32_PLANTS)):
+        src = _build.CSRC_DIR / f"{name}.cu"
+        for plant in plants:
+            out = _build.BUILD_DIR / f"{name}-plant{plant}.so"
+            procs[name, plant] = (out, subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, f"-D{macro}={plant}",
+                 "-o", str(out), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
     return procs
+
+
+def _planted(fa, name, procs, plant, entries):
+    """The planted copy ``plant`` of library ``name`` (its nvcc waited
+    for), its ``entries`` typed as the library's."""
+    path, proc = procs[name, plant]
+    text, _ = proc.communicate()
+    check(proc.returncode == 0,
+          f"planted {name} {plant}: nvcc failed\n{text}")
+    real = fa._kernel(name)
+    lib = ctypes.CDLL(str(path))
+    for entry in entries:
+        fn, want = getattr(lib, entry), getattr(real, entry)
+        fn.argtypes, fn.restype = want.argtypes, want.restype
+    return lib
 
 
 def tf32_plant_faults(torch, fa, procs):
@@ -1400,19 +1468,13 @@ def tf32_plant_faults(torch, fa, procs):
                for _ in range(3))
     ref = fa.flash_attention_ref(q, k, v, causal=False)[0]
     real = fa._kernel("flash_attention")
-    entry = real.flash_attention_fwd_launch
     result = {}
     for plant in (0, *TF32_PLANTS):
         name = TF32_PLANTS.get(plant, "none")
         if plant:
-            path, proc = procs[plant]
-            text, _ = proc.communicate()
-            check(proc.returncode == 0,
-                  f"planted flash forward {name}: nvcc failed\n{text}")
-            lib = ctypes.CDLL(str(path))
-            lib.flash_attention_fwd_launch.argtypes = entry.argtypes
-            lib.flash_attention_fwd_launch.restype = entry.restype
-            fa._libs["flash_attention"] = lib
+            fa._libs["flash_attention"] = _planted(
+                fa, "flash_attention", procs, plant,
+                ("flash_attention_fwd_launch",))
         try:
             o = fa._launch_fwd(q, k, v, False, DIT_HEAD_DIM ** -0.5,
                                "tf32x3")[0]
@@ -1425,6 +1487,45 @@ def tf32_plant_faults(torch, fa, procs):
               f"gate: f32 flash forward, plant {name} "
               f"{'passed' if ok else 'failed'} ({stats})")
     log(f"[kernels] f32 forward plants {json.dumps(result)}")
+    return result
+
+
+def bwd_tf32_plant_faults(torch, fa, procs):
+    """``GATE`` must reject both planted copies of the 3xTF32 backward
+    (``BWD_TF32_PLANTS``: one-pass TF32 in every product; dS x 1.01 in
+    dq's last key tile and dk/dv's last query tile) at the DiT shape in
+    f32, in every gradient the plant touches (``BWD_PLANT_CHANGES``:
+    dv does not read dS), and pass the library's kernels and the
+    gradients a plant leaves alone. Each copy is loaded in place of the
+    library for one backward. Returns what the gate read on each."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    q, k, v, do = (torch.randn(DIT_BATCH, DIT_SEQ, DIT_CFG["num_heads"],
+                               DIT_HEAD_DIM, generator=g, device="cuda")
+                   for _ in range(4))
+    scale = DIT_HEAD_DIM ** -0.5
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=False)
+    refs = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=False)
+    real = fa._kernel("flash_attention_bwd")
+    result = {}
+    for plant in (0, *BWD_TF32_PLANTS):
+        name = BWD_TF32_PLANTS.get(plant, "none")
+        if plant:
+            fa._libs["flash_attention_bwd"] = _planted(
+                fa, "flash_attention_bwd", procs, plant,
+                ("flash_attention_bwd_dq_launch",
+                 "flash_attention_bwd_dkv_launch"))
+        try:
+            got = fa._bwd(q, k, v, out, lse, do, False, scale, "tf32x3")
+            torch.cuda.synchronize()
+        finally:
+            fa._libs["flash_attention_bwd"] = real
+        for gname, x, ref in zip(("dq", "dk", "dv"), got, refs):
+            ok, stats = compare(x, ref)
+            result[f"{name}.{gname}"] = dict(stats, gate_ok=ok)
+            check(ok != (gname in BWD_PLANT_CHANGES[plant]),
+                  f"gate: f32 flash backward, plant {name} {gname} "
+                  f"{'passed' if ok else 'failed'} ({stats})")
+    log(f"[kernels] f32 backward plants {json.dumps(result)}")
     return result
 
 
@@ -2006,6 +2107,17 @@ def _kernel_cases(torch, plants):
         flash_bwd_case(torch, fa, flush, "unaligned", 100, offset=1),
         flash_bwd_case(torch, fa, flush, "d32", 128, d=32),   # mma.sync
         flash_bwd_case(torch, fa, flush, "f32", 100, dtype=torch.float32),
+        # f32 at the training shape, GQA d 64 (also ragged) and off the
+        # 16-byte grid: both f32 designs (with s 100 d 128 above and the
+        # DiT shape below)
+        flash_bwd_case(torch, fa, flush, "train_f32", TRAIN_SEQ,
+                       b=TRAIN_BATCH, dtype=torch.float32),
+        flash_bwd_case(torch, fa, flush, "gqa_f32", 512, h=32, hkv=4, d=64,
+                       dtype=torch.float32),
+        flash_bwd_case(torch, fa, flush, "ragged_gqa_d64_f32", 100, h=32,
+                       hkv=4, d=64, dtype=torch.float32),
+        flash_bwd_case(torch, fa, flush, "unaligned_f32", 100, offset=1,
+                       dtype=torch.float32),
         flash_bwd_case(torch, fa, flush, "train_f16", TRAIN_SEQ,
                        b=TRAIN_BATCH, dtype=f16),
         flash_bwd_case(torch, fa, flush, "s2048_f16", 2048, dtype=f16),
@@ -2125,7 +2237,8 @@ def _kernel_cases(torch, plants):
     dlhs = dlhs_cases(torch, gk, flush, routed)
     return (paged, flash, bwd, gate_faults(torch, fa), quant, gmm,
             gmm_quant, kvw, rkv, pfx, pfx_batched, wgrad, dlhs,
-            tf32_plant_faults(torch, fa, plants))
+            tf32_plant_faults(torch, fa, plants),
+            bwd_tf32_plant_faults(torch, fa, plants))
 
 
 # ---------------------------------------------------------------- parity
@@ -5336,8 +5449,8 @@ def phase_train_parity(torch):
     ids = torch.from_numpy(
         np.random.RandomState(1).randint(0, 128, (4, 100))).to("cuda")
     result = {}
-    # the tiny model (d 16: the f32 forward on FMA) and one of d 64 heads
-    # (the f32 forward on 3xTF32); the backward on FMA in both
+    # the tiny model (d 16: the f32 forward and backward on FMA) and one
+    # of d 64 heads (both on 3xTF32)
     for kv, width in ((None, 64), (2, 64), (None, 256)):
         cfg = LlamaConfig.tiny(num_key_value_heads=kv, hidden_size=width,
                                intermediate_size=2 * width)
@@ -5807,7 +5920,7 @@ def phase_train_amp(torch):
 DIT_MODES = {
     # name: (AMP dtype or None, peak FLOP/s, flash forward design, flash
     # backward design, launch dtype)
-    "f32": (None, F32_FLOPS, "tf32x3", "fma", "float32"),
+    "f32": (None, F32_FLOPS, "tf32x3", "tf32x3", "float32"),
     "o2_bf16": ("bfloat16", BF16_FLOPS, "wgmma", "wgmma", "bfloat16"),
 }
 DIT_TIMED_STEPS = 10
@@ -5979,10 +6092,13 @@ def _dit_mode(torch, name, data, flush):
           f"dit {name}: no gradient reached the attention after "
           f"{n_steps} steps")
     prof = _profiled_step(torch, lambda _: step(*data), None)
-    designs = None
+    designs = bwd_designs = None
     if fwd_design == "tf32x3":
-        designs = _dit_forward_designs(torch, fa, lambda: step(*data),
-                                       step_ms, prof)
+        designs = _dit_designs(torch, fa, lambda: step(*data), step_ms,
+                               prof, "forward")
+    if bwd_design == "tf32x3":
+        bwd_designs = _dit_designs(torch, fa, lambda: step(*data), step_ms,
+                                   prof, "backward")
     samples_s = DIT_BATCH / (step_ms / 1e3)
     # the strided q, k, v views of the qkv projection: the flash wrapper
     # copies each contiguous in the forward and again in the backward
@@ -6004,7 +6120,7 @@ def _dit_mode(torch, name, data, flush):
                        if prof["device_ms"] else None),
         "qkv_copies_ms_per_layer_pass": copy_ms,
         "qkv_copies_ms_per_step": 2 * L * copy_ms,
-        "forward_designs": designs,
+        "forward_designs": designs, "backward_designs": bwd_designs,
     }
     log(f"[dit] {name}: {step_ms:.2f} ms/step, {samples_s:.1f} samples/s, "
         f"MFU {rec['mfu'] * 100:.2f}% of {peak_flops / 1e12:.0f} TFLOP/s "
@@ -6038,33 +6154,45 @@ def _dit_mode(torch, name, data, flush):
 
 
 @contextlib.contextmanager
-def forced_forward(fa, design):
-    """Inside: the flash forward launches ``design`` wherever the wrapper
-    would choose the f32 3xTF32 kernel (the comparison runs only)."""
-    real = fa._fwd_variant
+def forced_design(fa, design, part="forward"):
+    """Inside: the flash forward (``part`` "forward") or backward
+    ("backward") launches ``design`` wherever the wrapper would choose the
+    f32 3xTF32 kernels (the comparison runs only)."""
+    attr = "_fwd_variant" if part == "forward" else "_bwd_variant"
+    real = getattr(fa, attr)
 
     def variant(*args):
         chosen = real(*args)
         return design if chosen == "tf32x3" else chosen
 
-    fa._fwd_variant = variant
+    setattr(fa, attr, variant)
     try:
         yield
     finally:
-        fa._fwd_variant = real
+        setattr(fa, attr, real)
 
 
-def _dit_forward_designs(torch, fa, step, step_ms, prof):
-    """The f32 DiT step with its flash forward on the 3xTF32 design (the
-    wrapper's; ``step_ms`` and ``prof`` already measured) and on the FMA
-    design it had before, in turns on the same model and data (FMA,
-    3xTF32, FMA): each turn's wall ms a step (mean of
+def _flash_part_ms(prof, part):
+    return (prof["flash_fwd_ms"] if part == "forward"
+            else prof["flash_bwd_dq_ms"] + prof["flash_bwd_dkv_ms"])
+
+
+# the designs record's key of each part
+_PART_KEY = {"forward": "fwd", "backward": "bwd"}
+
+
+def _dit_designs(torch, fa, step, step_ms, prof, part):
+    """The f32 DiT step with its flash forward or backward (``part``) on
+    the 3xTF32 design (the wrapper's; ``step_ms`` and ``prof`` already
+    measured) and on the FMA design it had before, in turns on the same
+    model and data (FMA, 3xTF32, FMA): each turn's wall ms a step (mean of
     ``DIT_TIMED_STEPS``), and one profiled step of each: device ms, the
-    forward's ms and its share."""
+    part's flash ms and its share (``flash_fwd_ms`` / ``flash_fwd_share``
+    or ``flash_bwd_ms`` / ``flash_bwd_share``)."""
     times = {"tf32x3": [step_ms], "fma": []}
     profs = {"tf32x3": prof}
     for design in ("fma", "tf32x3", "fma"):
-        with forced_forward(fa, design):
+        with forced_design(fa, design, part):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(DIT_TIMED_STEPS):
@@ -6074,17 +6202,21 @@ def _dit_forward_designs(torch, fa, step, step_ms, prof):
                 (time.perf_counter() - t0) / DIT_TIMED_STEPS * 1e3)
             if design not in profs:
                 profs[design] = _profiled_step(torch, lambda _: step(), None)
-    out = {d: {"step_ms": times[d], "device_ms": profs[d]["device_ms"],
-               "flash_fwd_ms": profs[d]["flash_fwd_ms"],
-               "flash_fwd_share": (profs[d]["flash_fwd_ms"]
-                                   / profs[d]["device_ms"]
-                                   if profs[d]["device_ms"] else None)}
-           for d in times}
-    log("[dit] f32 step by forward design (turns: 3xTF32, FMA, 3xTF32, "
+    key = _PART_KEY[part]
+    out = {}
+    for d in times:
+        flash_ms = _flash_part_ms(profs[d], part)
+        device_ms = profs[d]["device_ms"]
+        out[d] = {"step_ms": times[d], "device_ms": device_ms,
+                  f"flash_{key}_ms": flash_ms,
+                  f"flash_{key}_share": (flash_ms / device_ms
+                                         if device_ms else None)}
+    log(f"[dit] f32 step by {part} design (turns: 3xTF32, FMA, 3xTF32, "
         "FMA): " + "; ".join(
             f"{d} {', '.join(f'{t:.3f}' for t in r['step_ms'])} ms, device "
-            f"{r['device_ms']:.3f} ms, flash forward {r['flash_fwd_ms']:.3f}"
-            f" ms ({(r['flash_fwd_share'] or 0) * 100:.2f} %)"
+            f"{r['device_ms']:.3f} ms, flash {part} "
+            f"{r[f'flash_{key}_ms']:.3f} ms "
+            f"({(r[f'flash_{key}_share'] or 0) * 100:.2f} %)"
             for d, r in out.items()))
     return out
 
@@ -8925,6 +9057,62 @@ def flash_tf32_entry(flash, plants, launches):
     }
 
 
+def flash_bwd_tf32_entries(bwd, plants, launches):
+    """The kernels line's entries of the f32 backward's 3xTF32 kernels
+    (dq, dk/dv) at the DiT shape (their main path, 8 launches each a f32
+    DiT step): ``ms`` each kernel alone, ``prev_ms`` the FMA kernel
+    there, the plain version's and SDPA f32 autograd's times of the whole
+    backward, the bounds (three TF32 products) beside the FMA design's,
+    every f32 case the kernels ran (times, float64 errors of both designs
+    per gradient) and what the gate read on the planted copies."""
+    cases = [c for c in bwd if c["variant"] == "tf32x3"]
+    head = next(c for c in cases if c["case"] == "dit_f32")
+    out = []
+    for part, line in (("dq", 138), ("dkv", 191)):
+        grads = ("dq",) if part == "dq" else ("dk", "dv")
+        name = f"flash_attention_bwd_{part}"
+        out.append({
+            "name": f"{name}/tf32x3", "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": f"paddle_tpu/kernels/pallas/flash_attention.py:{line}",
+            **launches(name, ["tf32x3"]),
+            "max_abs_err": max(c["variants"]["tf32x3"]["max_abs_err"][g]
+                               for c in cases for g in grads),
+            "variant": "tf32x3", "ms": head[f"{part}_ms"],
+            "median_ms": head["variants"]["tf32x3"][f"{part}_median_ms"],
+            "prev_ms": head["variants"]["fma"][f"{part}_ms"],
+            "plain_ms": head["plain_ms"],
+            "bound_ms": head[f"{part}_bound_ms"],
+            "bound_by": head[f"{part}_bound_by"],
+            "fma_bound_ms": head[f"fma_{part}_bound_ms"],
+            "library_ms": head["library_ms"],
+            "shape": f"b{DIT_BATCH} h{DIT_CFG['num_heads']} d{DIT_HEAD_DIM} "
+                     f"s{DIT_SEQ} full, float32",
+            "backward_ms": head["ms"], "backward_prev_ms": head["prev_ms"],
+            "backward_bound_ms": head["bound_ms"],
+            "backward_fma_bound_ms": head["fma_bound_ms"],
+            "cases": {c["case"]: {
+                "ms": c["ms"], f"{part}_ms": c[f"{part}_ms"],
+                f"{part}_prev_ms": c["variants"]["fma"][f"{part}_ms"],
+                "prev_ms": c["prev_ms"], "plain_ms": c["plain_ms"],
+                "library_ms": c["library_ms"], "bound_ms": c["bound_ms"],
+                f"{part}_bound_ms": c[f"{part}_bound_ms"],
+                "fma_bound_ms": c["fma_bound_ms"],
+                f"fma_{part}_bound_ms": c[f"fma_{part}_bound_ms"],
+                "max_abs_err": {g: c["variants"]["tf32x3"]["max_abs_err"][g]
+                                for g in grads},
+                "f64_rel_l2": {g: c["variants"]["tf32x3"]["f64_rel_l2"][g]
+                               for g in grads},
+                "fma_f64_rel_l2": {g: c["variants"]["fma"]["f64_rel_l2"][g]
+                                   for g in grads}}
+                for c in cases},
+            "plants": {n: {"rel_l2": st["rel_l2"], "gate_ok": st["gate_ok"]}
+                       for n, st in plants.items()
+                       if n.rsplit(".", 1)[1] in grads},
+        })
+    return out
+
+
 def dit_flash_cases(flash, bwd, part=None):
     """The DiT cell's attention shape (non-causal, b 32, h 8, d 64, s 256)
     in bf16 and f32, for the kernels line: the forward's cases, or with
@@ -9056,10 +9244,12 @@ def main(argv=None):
         paged = flash = bwd = None
         if "kernels" in results:
             (paged, flash, bwd, faults, quant, gmm, gmm_quant, kvw, rkv,
-             pfx, pfx_batched, wgrad, dlhs, plants) = results.pop("kernels")
+             pfx, pfx_batched, wgrad, dlhs, plants,
+             bwd_plants) = results.pop("kernels")
             report["phases"]["kernels"] = {
                 "paged": paged, "flash": flash, "flash_bwd": bwd,
                 "gate_faults": faults, "f32_forward_plants": plants,
+                "f32_backward_plants": bwd_plants,
                 "paged_quant": quant, "gmm": gmm,
                 "gmm_quant": gmm_quant, "kv_write": kvw,
                 "rope_kv_write": rkv,
@@ -9215,9 +9405,10 @@ def main(argv=None):
         # mma.sync kernels there as prev_ms; each kernel alone (the wgmma
         # dq kernel with delta), plain and library times of the whole
         # backward (dq, dk and dv), the function both kernels make up;
-        # "variants" lists every design (the f32 FMA one at its own case)
+        # "variants" lists every design (the f32 3xTF32 and FMA ones at
+        # s 100 d 128)
         head = next(c for c in bwd if c["case"] == "train")
-        f32 = next(c for c in bwd if c["dtype"] == "float32")
+        f32 = next(c for c in bwd if c["case"] == "f32")
         for part, line in (("dq", 138), ("dkv", 191)):
             grads = ("dq",) if part == "dq" else ("dk", "dv")
             name = f"flash_attention_bwd_{part}"
@@ -9252,9 +9443,10 @@ def main(argv=None):
                     "median_ms": case["variants"][v][f"{part}_median_ms"],
                     "shape": case["case"]}
                     for v, case in (("wgmma", head), ("mma", head),
-                                    ("fma", f32))],
+                                    ("tf32x3", f32), ("fma", f32))],
                 "dit": dit_flash_cases(flash, bwd, part),
             })
+        kernels.extend(flash_bwd_tf32_entries(bwd, bwd_plants, launches))
         # the float16 instances (PR 15) of the forward and of both
         # backward kernels, at the training shape: their launches on the
         # main paths are the ``/float16`` counts (the entries above count

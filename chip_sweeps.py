@@ -30,6 +30,11 @@ Sweeps:
 * ``flash_bwd_tile``: its tiles: the dk/dv query-tile height at 128
   where it is 64 (d 128: more registers) and the dq key-tile width at 64
   against 128, timed through ``_bwd`` (delta and both kernels);
+* ``flash_bwd_tf32``: the f32 backward's 3xTF32 kernels (dq, dk/dv):
+  32-row streamed tiles at d 128 (1 block an SM) against 16 (as built),
+  and the d-64 dq kernel compiled for 3 blocks an SM (168 registers)
+  against 2, each kernel alone and the whole backward, f32 inputs at the
+  DiT, training and GQA shapes;
 * ``gmm_tile``: the grouped GEMM's output tile 128 x 256
   (wgmma.m64n256k16) against 128 x 128;
 * ``gmm_epilogue``: the grouped GEMM's output through a TMA store from
@@ -107,6 +112,11 @@ SWEEPS = {
         "dkv_rows_128": {"flash_bwd_dkv_rows": "128"},
         "dq_keys_64": {"flash_bwd_dq_keys": "64"},
     }),
+    "flash_bwd_tf32": ("flash_attention_bwd", {
+        "as_built": {},
+        "rows_32": {"flash_bwd_tf32_rows": "32"},
+        "dq_3_blocks_d64": {"flash_bwd_tf32_dq_blocks": "D == 64 ? 3 : 2"},
+    }),
     "gmm_tile": ("grouped_matmul", {
         "n256": {},
         "n128": {"gmm_tile_n": "128"},
@@ -155,6 +165,13 @@ BWD_SHAPES = [  # b, s, h, hkv, d, causal
     (12, 1024, 16, 16, 128, True),   # the training shape
     (1, 2048, 16, 16, 128, True),
     (1, 512, 16, 16, 64, True),
+    (1, 512, 32, 4, 64, True),
+]
+# the f32 backward's shapes: the DiT cell's attention, the training
+# shape, GQA d 64 (b, s, h, hkv, d, causal)
+BWD_TF32_SHAPES = [
+    (32, 256, 8, 8, 64, False),
+    (12, 1024, 16, 16, 128, True),
     (1, 512, 32, 4, 64, True),
 ]
 # name, tokens routed top-2 over 8 experts (n = 2 tokens; 0: the JAX
@@ -311,6 +328,34 @@ def child(kind, csrc, build, shapes):
             name = f"b{b}_s{s}_h{h}x{hkv}_d{d}" + ("" if causal else "_full")
             out[name] = cs.cuda_times(torch, lambda: fa._bwd(
                 q, k, v, o, lse, do, causal, d ** -0.5, "wgmma"), 20, flush)
+        return out
+    if kind == "flash_attention_bwd_tf32":
+        from paddle_tpu_torch.kernels import flash_attention as fa
+
+        for b, s, h, hkv, d, causal in shapes:
+            g = torch.Generator(device="cuda").manual_seed(s)
+            q, k, v, do = (torch.randn(b, s, heads, d, generator=g,
+                                       device="cuda")
+                           for heads in (h, hkv, hkv, h))
+            scale = d ** -0.5
+            o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+            refs = fa.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                              causal=causal)
+            got = fa._bwd(q, k, v, o, lse, do, causal, scale, "tf32x3")
+            assert all(cs.compare(x, r)[0] for x, r in zip(got, refs)), \
+                "gate"
+            del refs, got
+            delta = fa._delta(o, do, "tf32x3")
+            name = f"b{b}_s{s}_h{h}x{hkv}_d{d}" + ("" if causal else "_full")
+            out[name] = cs.cuda_times(torch, lambda: fa._bwd(
+                q, k, v, o, lse, do, causal, scale, "tf32x3"), 20, flush)
+            out[f"{name}/dq"] = cs.cuda_times(torch, lambda: fa._launch_bwd_dq(
+                q, k, v, do, o, lse, delta, causal, scale, "tf32x3"), 20,
+                flush)
+            out[f"{name}/dkv"] = cs.cuda_times(
+                torch, lambda: fa._launch_bwd_dkv(
+                    q, k, v, do, lse, delta, causal, scale, "tf32x3"), 20,
+                flush)
         return out
     if kind == "paged_attention":
         from paddle_tpu_torch.kernels import paged_attention as pa
@@ -515,6 +560,8 @@ def main(argv=None):
             shapes = GMM_INT8_SHAPES
         if sweep == "flash_stages":
             shapes = [x for x in shapes if x[4] == 128]
+        if sweep == "flash_bwd_tf32":
+            kind, shapes = "flash_attention_bwd_tf32", BWD_TF32_SHAPES
         for turn in range(2):
             for variant, values in variants.items():
                 csrc, build = variant_dir(sweep, variant, values)

@@ -69,6 +69,7 @@
 #include <type_traits>
 
 #include "hopper.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -854,16 +855,10 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
 // 4 x 4 register tiles need 8 shared loads for 16 FMAs, so shared memory
 // caps it near half the 67 TFLOP/s f32 peak (23 % of it on an H100 at the
 // DiT shape). Here the products run on the tensor cores in TF32 (495
-// TFLOP/s dense), three of them to keep f32's accuracy:
-//   x = hi + lo,  hi = x rounded to TF32 (nearest, ties away),  lo = x - hi
-//   a b ~ (lo_a hi_b + hi_a lo_b) + hi_a hi_b
-// (the split of CUTLASS's fast-f32 GEMMs). hi keeps 11 significant bits;
-// lo, exact in f32, is read by the tensor core as TF32 (its low 13 bits
-// ignored), so the operands keep ~22 bits and the dropped lo_a lo_b is
-// ~2^-22 of the product. The rounding is two integer operations on the
-// bits: cvt.rna.tf32.f32 compiles to a longer compare-and-select sequence.
-// A one-pass TF32 product (hi_a hi_b) is ~2^-11 off and fails the f32
-// gate (chip_smoke.py plants it, FLASH_TF32_PLANT below).
+// TFLOP/s dense), three of them to keep f32's accuracy (the split and
+// the products: tf32x3.cuh). A one-pass TF32 product (hi_a hi_b) is
+// ~2^-11 off and fails the f32 gate (chip_smoke.py plants it,
+// FLASH_TF32_PLANT below).
 //
 // The tensor core adds each product into its f32 accumulator with
 // truncation, so a long chain of mma.sync into one accumulator drifts
@@ -883,10 +878,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
 // ragged tail and the causal diagonal, runs the online softmax in base 2
 // on the accumulators (a row's values in the 4 lanes of a quad; the
 // running sum kept per lane, reduced once at the end), and adds P V.
-// Fragment layouts of m16n8k8 .tf32 (g = lane / 4, t = lane % 4):
-//   A (16x8): a0 = A[g][t], a1 = A[g+8][t], a2 = A[g][t+4], a3 = A[g+8][t+4]
-//   B (8x8):  b0 = B[t][g], b1 = B[t+4][g]
-//   C (16x8): c0, c1 = C[g][2t..2t+1], c2, c3 = C[g+8][2t..2t+1]
+// Fragment layouts of m16n8k8 .tf32: tf32x3.cuh.
 // P leaves S's products in the C layout (lane holds keys 2t, 2t + 1 of
 // each 8-key tile), not in A's (keys t, t + 4). The sum over keys does
 // not care about their order, so P V takes k = t as key 2t and k = t + 4
@@ -923,71 +915,15 @@ struct Tf32Cfg {
       (kQ + 2 * kXStages * kKV) * (int)sizeof(float);
 };
 
-// 16 bytes global -> shared, asynchronously; zeros when !ok (src-size 0:
-// nothing is read)
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(ok ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
+// the cp.async staging and the split products: tf32x3.cuh (shared with
+// the f32 backward)
+using tf32x3::cp_async_commit;
+using tf32x3::cp_async_wait_all;
+using tf32x3::split_tf32;
+using tf32x3::stage_f32;
 
-// rows [r0, r0 + Rows) of a [n_rows, stride] f32 matrix into shared
-// memory [Rows][D + 4]; rows at or past n_rows are zeros
-template <int D, int Rows>
-__device__ __forceinline__ void stage_f32(float* dst, const float* src,
-                                          size_t stride, int r0,
-                                          int n_rows) {
-  constexpr int V = D / 4;  // 16-byte vectors per row
-  static_assert(Rows * V % kTcThreads == 0, "whole rounds of copies");
-#pragma unroll
-  for (int it = 0; it < Rows * V / kTcThreads; ++it) {
-    const int i = threadIdx.x + it * kTcThreads;
-    const int r = i / V;
-    const int c = (i - r * V) * 4;
-    const bool ok = r0 + r < n_rows;
-    cp_async16(dst + r * (D + 4) + c,
-               ok ? src + (size_t)(r0 + r) * stride + c : src, ok);
-  }
-}
-
-// x = hi + lo: hi is x rounded to TF32 (to nearest, ties away from zero:
-// a carry into bit 13 of the magnitude, then the low 13 bits cleared; as
-// cvt.rna.tf32.f32 for finite x), lo = x - hi exactly
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// a b in 3xTF32: big += hi_a hi_b, small += lo_a hi_b + hi_a lo_b
-__device__ __forceinline__ void mma_3xtf32(float (&big)[4], float (&small)[4],
-                                           const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4],
-                                           uint32_t bh0, uint32_t bh1,
-                                           uint32_t bl0, uint32_t bl1) {
-  if (FLASH_TF32_PLANT != 1) {
-    mma_tf32(small, al, bh0, bh1);
-    mma_tf32(small, ah, bl0, bl1);
-  }
-  mma_tf32(big, ah, bh0, bh1);
-}
+// this file's products: one-pass TF32 in the planted copy 1
+constexpr bool kOnePass = FLASH_TF32_PLANT == 1;
 
 template <int D>
 __global__ void __launch_bounds__(kTcThreads, D == 64 ? 4 : 2)
@@ -1073,7 +1009,8 @@ __global__ void __launch_bounds__(kTcThreads, D == 64 ? 4 : 2)
         uint32_t bh0, bh1, bl0, bl1;
         split_tf32(kr[0], bh0, bl0);
         split_tf32(kr[4], bh1, bl1);
-        mma_3xtf32(s[n], s2[n], ah, al, bh0, bh1, bl0, bl1);
+        tf32x3::mma_3xtf32<kOnePass>(s[n], s2[n], ah, al, bh0, bh1, bl0,
+                                        bl1);
       }
     }
 
@@ -1146,7 +1083,8 @@ __global__ void __launch_bounds__(kTcThreads, D == 64 ? 4 : 2)
         uint32_t bh0, bh1, bl0, bl1;
         split_tf32(vr[0], bh0, bl0);  // V[2t][8j + g]
         split_tf32(vr[R], bh1, bl1);  // V[2t + 1][8j + g]
-        mma_3xtf32(pv, pv2, ph[ks], pl[ks], bh0, bh1, bl0, bl1);
+        tf32x3::mma_3xtf32<kOnePass>(pv, pv2, ph[ks], pl[ks], bh0, bh1,
+                                        bl0, bl1);
       }
       o[j][0] = fmaf(o[j][0], al_lo, pv[0] + pv2[0]);
       o[j][1] = fmaf(o[j][1], al_lo, pv[1] + pv2[1]);

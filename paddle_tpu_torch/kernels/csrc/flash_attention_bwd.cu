@@ -33,7 +33,7 @@
 // What bounds it on an H100: at the training shapes (s = 1024, d = 128)
 // the products dominate, so it is bound by operations; the designs keep
 // every s x s tile (S, P, dP, dS) in registers and read each q, k, v and
-// dout element once per tile pair. Three designs, by dtype and head dim
+// dout element once per tile pair. Four designs, by dtype and head dim
 // (the launch functions' `variant`):
 //  * 16-bit, d 64 and 128 (*_wgmma kernels, variant 1): Hopper's wgmma
 //    fed by TMA through an mbarrier ring, a producer thread and two
@@ -50,9 +50,14 @@
 //    A operands in registers, rounded to 16 bits only there. The s x s work
 //    is done 32 columns at a time. q, k, v and dout must start on a
 //    16-byte boundary (the Python wrapper copies any that do not).
-//  * f32: exact FMAs from shared memory (rows padded by one float), 256
-//    threads in a 16 x 16 grid, each owning a 4 x 4 block of the 64 x 64
-//    score tile and a 4 x (d / 16) block of its accumulators.
+//  * f32, d 64 and 128 (*_tf32 kernels, variant 2): 3xTF32 on mma.sync,
+//    streamed tiles by cp.async. See the section "f32 on the tensor
+//    cores" below.
+//  * f32, d 16 and 32, and every f32 call of variant 0 (kept at d 64 and
+//    128 as the 3xTF32 kernels' yardstick): exact FMAs from shared memory
+//    (rows padded by one float), 256 threads in a 16 x 16 grid, each
+//    owning a 4 x 4 block of the 64 x 64 score tile and a 4 x (d / 16)
+//    block of its accumulators.
 //
 // "16-bit" is bf16 or float16: each 16-bit kernel is a template on its
 // element type T (__nv_bfloat16 or __half), which picks the PTX operand
@@ -80,6 +85,7 @@
 #include <type_traits>
 
 #include "hopper.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -407,6 +413,488 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
       }
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// f32 on the tensor cores, d in {64, 128}: 3xTF32 on mma.sync (variant 2).
+//
+// What bounds the FMA kernels above: every s x s x d product runs as f32
+// FMAs from shared memory, whose 4 x 4 register tiles need 8 shared loads
+// for 16 FMAs (about a quarter of the 67 TFLOP/s f32 peak at the DiT
+// shape), and K/V or Q/dO tiles come in by synchronous 4-byte loads
+// behind three __syncthreads a tile. Here every product runs on the tensor
+// cores as three TF32 products of split operands (tf32x3.cuh: the split,
+// the products, the cp.async staging and the fragment layouts), as in the
+// f32 forward (flash_attention.cu); a one-pass TF32 product fails the f32
+// gate (chip_smoke.py plants it, FLASH_BWD_TF32_PLANT below).
+//
+// The tensor core truncates as it accumulates, so no chain is long: the
+// cross terms have accumulators of their own, the hi x hi products of S
+// and dP are summed 32 values of D at a time (a chain of 4) and added in
+// f32, and each streamed tile's dS K, P^T dO and dS^T Q is summed from
+// zero (N / 8 products) and then added to the f32 gradient registers. P
+// is exp(S scale - lse) in natural units, as the FMA kernels form it:
+// 2^(S scale log2(e) - lse log2(e)) rounds lse log2(e) once per row, an
+// error that every key of the row shares and dq does not average away.
+// At GQA hq 32 / hkv 4 / s 512 a dk/dv block walks 8 heads x 16 tiles:
+// one chain over them would drift as the forward's first form did.
+//
+// dq: a block is 64 query rows of one (batch, head), 4 warps of 16 rows.
+// It computes delta = rowsum(dO O) of its rows and stores it for the
+// dk/dv kernel (no separate pass over O and dO, as the wgmma dq kernel).
+// Q and dO are staged once; K and V tiles of N keys stream by 16-byte
+// cp.async (zeros past sk) through a two-stage ring, the next tile's
+// copies issued before the current tile's products, one __syncthreads a
+// tile. Per tile each warp forms S = Q K^T and dP = dO V^T (16 x N, in
+// the C layout), P = exp(S scale - lse) with the ragged tail and the
+// causal diagonal masked (a row past sq, or whose lse is -inf, has lse
+// +inf: P = 0), dS = P (dP - delta) scale, and dq += dS K
+// with dS as the A operand straight from the C layout: key 2t as k = t,
+// key 2t + 1 as k = t + 4 (a0..a3 = c0, c2, c1, c3), K's rows read in
+// that order, no shuffle. Causal blocks stop at the diagonal; the
+// heaviest query tiles run first.
+//
+// dk/dv: a block is 64 keys of one (batch, kv head), 4 warps of 16 keys.
+// K and V are staged once; Q, dO, lse and delta tiles of N queries stream
+// through the ring over every query head of the group (causal: from the
+// block's first key). With rows as keys, S^T = K Q^T and dP^T = V dO^T
+// come out in the C layout, so P^T and dS^T feed dv += P^T dO and
+// dk += dS^T Q as A operands by the same trick, dO and Q read at rows 2t
+// and 2t + 1. dv's product runs before dP^T is formed, which keeps the
+// registers a thread holds at once near 128 (dk, dv) + 48.
+//
+// N is 32 at d 64 and 16 at d 128: shared memory 68 KB (dq) and 68.5 KB
+// (dk/dv) a block at d 64, 99 KB and 99.25 KB at d 128, so two blocks fit
+// an SM at either (their registers allow two, no more, at d 64 too).
+// Each warp splits the streamed values it reads. Splitting each tile once,
+// as it lands, into hi and lo planes doubles the ring (102 KB at d 64,
+// 132 KB at d 128: one block an SM); on an H100 that was no faster at
+// d 64 and slower at d 128 (PERF.md), and 32-row tiles at d 128 were
+// slower than 16 (chip_sweeps.py flash_bwd_tf32).
+// Rows are padded to D + 4 floats: Q[g][t], K[g][t] (bank 4 g + t) and
+// the C-layout pairs' rows 2t, 2t + 1 (banks 8 t + g, 8 t + 4 + g) are
+// 32 distinct banks each, in both kernels' orientations. No atomics: two
+// runs give bit-identical gradients.
+
+// 0 in the library. chip_smoke.py builds two planted copies to show that
+// the f32 gate catches their faults: 1 keeps hi x hi only in every
+// product (one-pass TF32), 2 scales dS by 1.01 in dq's last key tile and
+// in dk/dv's last query tile of each head
+#ifndef FLASH_BWD_TF32_PLANT
+#define FLASH_BWD_TF32_PLANT 0
+#endif
+
+constexpr bool kBwdOnePass = FLASH_BWD_TF32_PLANT == 1;
+constexpr int kXStages = 2;  // ring depth of the streamed tiles
+
+using tf32x3::cp_async_commit;
+using tf32x3::cp_async_wait_all;
+using tf32x3::split_tf32;
+using tf32x3::stage_f32;
+
+// the blocks an SM the dq kernel is compiled for (its registers: at most
+// 65536 / (128 x this))
+template <int D>
+constexpr int kDqMinBlocks = 2;  // sweep: flash_bwd_tf32_dq_blocks
+
+template <int D>
+struct BwdTf32Cfg {
+  static constexpr int kRow = D + 4;  // padded row, floats
+  // rows of a streamed tile
+  static constexpr int kN = D == 128 ? 16 : 32;  // sweep: flash_bwd_tf32_rows
+  static constexpr int kBlock = kBQ * kRow;  // floats of a 64-row operand
+  static constexpr int kTile = kN * kRow;    // floats of a streamed tile
+  // dq: Q and dO once, K and V tiles in the ring
+  static constexpr int kDqSmem =
+      (2 * kBlock + 2 * kXStages * kTile) * (int)sizeof(float);
+  // dk/dv: K and V once; Q, dO, lse and delta tiles in the ring
+  static constexpr int kDkvSmem =
+      (2 * kBlock + 2 * kXStages * (kTile + kN)) * (int)sizeof(float);
+};
+
+// 4 bytes global -> shared, asynchronously; a zero when !ok
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+
+// big + small = A B^T over D for one warp's 16 rows of A and NT x 8 rows
+// of B, both [rows][D + 4] in shared memory: a is A + g R + t (rows g and
+// g + 8), and b is B + g R + t, both split per k-step. The hi x hi
+// products of every 32 values of D are summed from zero (a chain of 4),
+// then added to big in f32; the cross terms chain D / 8 into small
+template <int D, int NT>
+__device__ __forceinline__ void mma_rows(float (&big)[NT][4],
+                                         float (&small)[NT][4],
+                                         const float* a, const float* b) {
+  constexpr int R = D + 4;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) big[n][e] = small[n][e] = 0.f;
+  }
+#pragma unroll 1
+  for (int kc = 0; kc < D; kc += 32) {
+    float part[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = kc; kk < kc + 32; kk += 8) {
+      uint32_t ah[4], al[4];
+      split_tf32(a[kk], ah[0], al[0]);
+      split_tf32(a[8 * R + kk], ah[1], al[1]);
+      split_tf32(a[kk + 4], ah[2], al[2]);
+      split_tf32(a[8 * R + kk + 4], ah[3], al[3]);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float* br = b + n * 8 * R + kk;
+        uint32_t bh0, bh1, bl0, bl1;
+        split_tf32(br[0], bh0, bl0);
+        split_tf32(br[4], bh1, bl1);
+        tf32x3::mma_3xtf32<kBwdOnePass>(part[n], small[n], ah, al, bh0,
+                                        bh1, bl0, bl1);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) big[n][e] += part[n][e];
+    }
+  }
+}
+
+// the C-layout values c of a 16 x 8 NT tile (lane: rows g, g + 8, columns
+// 2t, 2t + 1 of each 8-column step) as split A fragments whose k runs
+// over those columns: column 2t as k = t, 2t + 1 as k = t + 4
+template <int NT>
+__device__ __forceinline__ void c_to_a(const float (&c)[NT][4],
+                                       uint32_t (&h)[NT][4],
+                                       uint32_t (&l)[NT][4]) {
+#pragma unroll
+  for (int ks = 0; ks < NT; ++ks) {
+    split_tf32(c[ks][0], h[ks][0], l[ks][0]);  // [g][2t]
+    split_tf32(c[ks][2], h[ks][1], l[ks][1]);  // [g + 8][2t]
+    split_tf32(c[ks][1], h[ks][2], l[ks][2]);  // [g][2t + 1]
+    split_tf32(c[ks][3], h[ks][3], l[ks][3]);  // [g + 8][2t + 1]
+  }
+}
+
+// acc += X B for one warp's 16 rows: X (16 x 8 NT) in c_to_a's fragments,
+// B [8 NT][D + 4] in shared memory at b = B + 2t R + g (rows 2t and
+// 2t + 1 of each 8-row step: c_to_a's k order), split per read. Each
+// 8-column tile of the product is summed from zero over the tile (a chain
+// of NT), then added to acc in f32
+template <int D, int NT>
+__device__ __forceinline__ void mma_cols(float (&acc)[D / 8][4],
+                                         const uint32_t (&xh)[NT][4],
+                                         const uint32_t (&xl)[NT][4],
+                                         const float* b) {
+  constexpr int R = D + 4;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    float x[4] = {0.f, 0.f, 0.f, 0.f}, x2[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int ks = 0; ks < NT; ++ks) {
+      const float* br = b + ks * 8 * R + j * 8;
+      uint32_t bh0, bh1, bl0, bl1;
+      split_tf32(br[0], bh0, bl0);  // B[8 ks + 2t][8 j + g]
+      split_tf32(br[R], bh1, bl1);  // B[8 ks + 2t + 1][8 j + g]
+      tf32x3::mma_3xtf32<kBwdOnePass>(x, x2, xh[ks], xl[ks], bh0, bh1, bl0,
+                                      bl1);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] += x[e] + x2[e];
+  }
+}
+
+// rows r_lo and r_lo + 8 of a 16 x D register tile (the C layout) into
+// f32 rows of `stride` floats; rows at or past n are not written
+template <int D>
+__device__ __forceinline__ void store_f32_rows(float* dst, size_t stride,
+                                           const float (&acc)[D / 8][4],
+                                           int r_lo, int n, int t) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = j * 8 + 2 * t;
+    if (r_lo < n) {
+      *reinterpret_cast<float2*>(dst + (size_t)r_lo * stride + c) =
+          make_float2(acc[j][0], acc[j][1]);
+    }
+    if (r_lo + 8 < n) {
+      *reinterpret_cast<float2*>(dst + (size_t)(r_lo + 8) * stride + c) =
+          make_float2(acc[j][2], acc[j][3]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, kDqMinBlocks<D>)
+    flash_bwd_dq_tf32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ out, const float* __restrict__ lse,
+    float* __restrict__ delta, float* __restrict__ dq, int heads,
+    int kv_heads, int sq, int sk, float scale, int causal) {
+  using C = BwdTf32Cfg<D>;
+  constexpr int R = C::kRow;
+  constexpr int N = C::kN;
+  constexpr int NT = N / 8;
+  extern __shared__ __align__(16) float xs[];
+  float* q_s = xs;                          // [kBQ][R]
+  float* do_s = q_s + C::kBlock;            // [kBQ][R]
+  float* k_s = do_s + C::kBlock;            // [kXStages][N][R]
+  float* v_s = k_s + kXStages * C::kTile;   // [kXStages][N][R]
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int bh = blockIdx.y;
+  const int bi = bh / heads;
+  const int hh = bh - bi * heads;
+  const int kvh = hh / (heads / kv_heads);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+
+  const size_t q_row = (size_t)heads * D;
+  const size_t kv_row = (size_t)kv_heads * D;
+  const size_t q_off = (size_t)bi * sq * q_row + (size_t)hh * D;
+  const float* k_b = k + (size_t)bi * sk * kv_row + (size_t)kvh * D;
+  const float* v_b = v + (size_t)bi * sk * kv_row + (size_t)kvh * D;
+
+  const int k_end = causal ? min(sk, q0 + kBQ) : sk;
+  const int n_kt = (k_end + N - 1) / N;  // >= 1: the launcher sends sk > 0
+  auto stage_kv = [&](int kt) {
+    const int st = kt % kXStages;
+    stage_f32<D, N>(k_s + st * C::kTile, k_b, kv_row, kt * N, sk);
+    stage_f32<D, N>(v_s + st * C::kTile, v_b, kv_row, kt * N, sk);
+  };
+  stage_f32<D, kBQ>(q_s, q + q_off, q_row, q0, sq);
+  stage_f32<D, kBQ>(do_s, dout + q_off, q_row, q0, sq);
+  stage_kv(0);
+  cp_async_commit();
+
+  const int r_lo = q0 + warp * 16 + g;  // this lane's two query rows
+  const int r_hi = r_lo + 8;
+  const size_t l_off = (size_t)bh * sq;
+  const float lse_lo = row_lse(lse, l_off, r_lo, sq);
+  const float lse_hi = row_lse(lse, l_off, r_hi, sq);
+  // delta = rowsum(dO O) of this lane's two rows, while the first tiles
+  // land: each lane of the quad sums a quarter of D, the quad adds the
+  // four; lane 0 stores it for the dk/dv kernel
+  float dl_lo = 0.f, dl_hi = 0.f;
+#pragma unroll
+  for (int c = t * (D / 4); c < (t + 1) * (D / 4); c += 4) {
+    if (r_lo < sq) {
+      const size_t at = q_off + (size_t)r_lo * q_row + c;
+      const float4 o = *reinterpret_cast<const float4*>(out + at);
+      const float4 d = *reinterpret_cast<const float4*>(dout + at);
+      dl_lo += o.x * d.x + o.y * d.y + o.z * d.z + o.w * d.w;
+    }
+    if (r_hi < sq) {
+      const size_t at = q_off + (size_t)r_hi * q_row + c;
+      const float4 o = *reinterpret_cast<const float4*>(out + at);
+      const float4 d = *reinterpret_cast<const float4*>(dout + at);
+      dl_hi += o.x * d.x + o.y * d.y + o.z * d.z + o.w * d.w;
+    }
+  }
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    dl_lo += __shfl_xor_sync(0xffffffffu, dl_lo, x);
+    dl_hi += __shfl_xor_sync(0xffffffffu, dl_hi, x);
+  }
+  if (t == 0) {
+    if (r_lo < sq) delta[l_off + r_lo] = dl_lo;
+    if (r_hi < sq) delta[l_off + r_hi] = dl_hi;
+  }
+  const float* qa = q_s + (warp * 16 + g) * R + t;
+  const float* da = do_s + (warp * 16 + g) * R + t;
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  }
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const float* kb = k_s + (kt % kXStages) * C::kTile;
+    const float* vb = v_s + (kt % kXStages) * C::kTile;
+    cp_async_wait_all();  // tile kt (and Q, dO): this thread's copies
+    __syncthreads();      // everyone's; tile kt - 1's readers are done
+    if (kt + 1 < n_kt) stage_kv(kt + 1);  // into the stage kt - 1 used
+    cp_async_commit();
+
+    float s[NT][4], s2[NT][4], dp[NT][4], dp2[NT][4];
+    mma_rows<D, NT>(s, s2, qa, kb + g * R + t);    // S = Q K^T
+    mma_rows<D, NT>(dp, dp2, da, vb + g * R + t);  // dP = dO V^T
+
+    // P, then dS in its place; the ragged key tail and the causal
+    // diagonal masked
+    const int k0 = kt * N;
+    const float ds_scale =
+        (FLASH_BWD_TF32_PLANT == 2 && kt == n_kt - 1) ? 1.01f * scale
+                                                       : scale;
+    const bool edge = k0 + N > sk ||
+                      (causal && k0 + N - 1 > q0 + warp * 16);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = k0 + n * 8 + 2 * t + e;
+        float p_lo = expf(fmaf(s[n][e] + s2[n][e], scale, -lse_lo));
+        float p_hi = expf(fmaf(s[n][2 + e] + s2[n][2 + e], scale, -lse_hi));
+        if (edge) {
+          if (col >= sk || (causal && col > r_lo)) p_lo = 0.f;
+          if (col >= sk || (causal && col > r_hi)) p_hi = 0.f;
+        }
+        s[n][e] = p_lo * (dp[n][e] + dp2[n][e] - dl_lo) * ds_scale;
+        s[n][2 + e] =
+            p_hi * (dp[n][2 + e] + dp2[n][2 + e] - dl_hi) * ds_scale;
+      }
+    }
+    uint32_t xh[NT][4], xl[NT][4];
+    c_to_a<NT>(s, xh, xl);
+    mma_cols<D, NT>(acc, xh, xl, kb + 2 * t * R + g);  // dq += dS K
+  }
+  cp_async_wait_all();  // the last (empty) group
+  store_f32_rows<D>(dq + q_off, q_row, acc, r_lo, sq, t);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 2) flash_bwd_dkv_tf32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk, float* __restrict__ dv, int heads,
+    int kv_heads, int sq, int sk, float scale, int causal) {
+  using C = BwdTf32Cfg<D>;
+  constexpr int R = C::kRow;
+  constexpr int N = C::kN;
+  constexpr int NT = N / 8;
+  extern __shared__ __align__(16) float xs[];
+  float* k_s = xs;                          // [kBQ][R], 64 keys
+  float* v_s = k_s + C::kBlock;             // [kBQ][R]
+  float* q_s = v_s + C::kBlock;             // [kXStages][N][R]
+  float* do_s = q_s + kXStages * C::kTile;  // [kXStages][N][R]
+  float* l_s = do_s + kXStages * C::kTile;  // [kXStages][N] lse
+  float* dl_s = l_s + kXStages * N;         // [kXStages][N] delta
+
+  const int k0 = blockIdx.x * kBQ;
+  const int bkv = blockIdx.y;
+  const int bi = bkv / kv_heads;
+  const int kvh = bkv - bi * kv_heads;
+  const int group = heads / kv_heads;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+
+  const size_t q_row = (size_t)heads * D;
+  const size_t kv_row = (size_t)kv_heads * D;
+  const size_t kv_off = (size_t)bi * sk * kv_row + (size_t)kvh * D;
+  stage_f32<D, kBQ>(k_s, k + kv_off, kv_row, k0, sk);
+  stage_f32<D, kBQ>(v_s, v + kv_off, kv_row, k0, sk);
+
+  // causal: the queries that see any key of this block start at k0. The
+  // tiles run head by head, N queries at a time
+  const int q_start = causal ? k0 : 0;
+  const int n_qt = sq > q_start ? (sq - q_start + N - 1) / N : 0;
+  const int n_tiles = group * n_qt;
+  auto stage_q = [&](int i) {
+    const int st = i % kXStages;
+    const int hh = kvh * group + i / n_qt;
+    const int q0 = q_start + (i % n_qt) * N;
+    const size_t q_off = (size_t)bi * sq * q_row + (size_t)hh * D;
+    stage_f32<D, N>(q_s + st * C::kTile, q + q_off, q_row, q0, sq);
+    stage_f32<D, N>(do_s + st * C::kTile, dout + q_off, q_row, q0, sq);
+    const int r = threadIdx.x;
+    if (r < 2 * N) {  // lse (r < N), then delta
+      const int row = q0 + r % N;
+      const bool ok = row < sq;
+      const float* src = (r < N ? lse : delta) +
+                         ((size_t)bi * heads + hh) * sq + (ok ? row : 0);
+      cp_async4((r < N ? l_s : dl_s) + st * N + r % N, src, ok);
+    }
+  };
+  if (n_tiles > 0) stage_q(0);
+  cp_async_commit();
+
+  const int key_lo = k0 + warp * 16 + g;  // this lane's two keys
+  const int key_hi = key_lo + 8;
+  const float* ka = k_s + (warp * 16 + g) * R + t;
+  const float* va = v_s + (warp * 16 + g) * R + t;
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+  }
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % kXStages;
+    const float* qb = q_s + st * C::kTile;
+    const float* dob = do_s + st * C::kTile;
+    cp_async_wait_all();  // tile i (and K, V): this thread's copies
+    __syncthreads();      // everyone's; tile i - 1's readers are done
+    if (i + 1 < n_tiles) stage_q(i + 1);  // into the stage i - 1 used
+    cp_async_commit();
+    const float* ls = l_s + st * N;
+    const float* dls = dl_s + st * N;
+    const int q0 = q_start + (i % n_qt) * N;
+
+    float s[NT][4], s2[NT][4];
+    mma_rows<D, NT>(s, s2, ka, qb + g * R + t);  // S^T = K Q^T
+
+    // P^T in place (columns are queries: a query past sq, or whose lse
+    // is -inf, has lse +inf), each column's delta kept for dS^T
+    const bool edge = causal && k0 + warp * 16 + 15 > q0;
+    float dl[NT][2];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = n * 8 + 2 * t + e;
+        const int query = q0 + c;
+        const float lq = ls[c];
+        const float l = query >= sq || lq == -INFINITY ? INFINITY : lq;
+        dl[n][e] = dls[c];
+        float p_lo = expf(fmaf(s[n][e] + s2[n][e], scale, -l));
+        float p_hi = expf(fmaf(s[n][2 + e] + s2[n][2 + e], scale, -l));
+        if (edge) {
+          if (key_lo > query) p_lo = 0.f;
+          if (key_hi > query) p_hi = 0.f;
+        }
+        s[n][e] = p_lo;
+        s[n][2 + e] = p_hi;
+      }
+    }
+    uint32_t xh[NT][4], xl[NT][4];
+    c_to_a<NT>(s, xh, xl);
+    mma_cols<D, NT>(dva, xh, xl, dob + 2 * t * R + g);  // dv += P^T dO
+
+    float dp[NT][4], dp2[NT][4];
+    mma_rows<D, NT>(dp, dp2, va, dob + g * R + t);  // dP^T = V dO^T
+    const float ds_scale =
+        (FLASH_BWD_TF32_PLANT == 2 && q0 + N >= sq) ? 1.01f * scale : scale;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[n][e] = s[n][e] * (dp[n][e] + dp2[n][e] - dl[n][e]) * ds_scale;
+        s[n][2 + e] =
+            s[n][2 + e] * (dp[n][2 + e] + dp2[n][2 + e] - dl[n][e]) *
+            ds_scale;
+      }
+    }
+    c_to_a<NT>(s, xh, xl);
+    mma_cols<D, NT>(dka, xh, xl, qb + 2 * t * R + g);  // dk += dS^T Q
+  }
+  cp_async_wait_all();  // the last (empty) group
+  store_f32_rows<D>(dk + kv_off, kv_row, dka, key_lo, sk, t);
+  store_f32_rows<D>(dv + kv_off, kv_row, dva, key_lo, sk, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -1435,6 +1923,44 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+template <int D>
+int launch_dq_tf32(const void* q, const void* k, const void* v,
+                   const void* dout, const void* out, const float* lse,
+                   float* delta, void* dq, int batch, int heads,
+                   int kv_heads, int sq, int sk, float scale, int causal,
+                   cudaStream_t stream) {
+  auto kernel = flash_bwd_dq_tf32_kernel<D>;
+  constexpr int smem = BwdTf32Cfg<D>::kDqSmem;
+  const cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((sq + kBQ - 1) / kBQ, batch * heads);
+  kernel<<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(out), lse, delta, static_cast<float*>(dq),
+      heads, kv_heads, sq, sk, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dkv_tf32(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* delta,
+                    void* dk, void* dv, int batch, int heads, int kv_heads,
+                    int sq, int sk, float scale, int causal,
+                    cudaStream_t stream) {
+  auto kernel = flash_bwd_dkv_tf32_kernel<D>;
+  constexpr int smem = BwdTf32Cfg<D>::kDkvSmem;
+  const cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((sk + kBQ - 1) / kBQ, batch * kv_heads);
+  kernel<<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dk), static_cast<float*>(dv), heads,
+      kv_heads, sq, sk, scale, causal);
+  return (int)cudaGetLastError();
+}
+
 template <int D, typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, int batch,
@@ -1499,14 +2025,28 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-// the kernels of one element type T (float selects the FMA kernels, bf16
-// and __half the mma.sync kernels or, with variant 1, the wgmma kernels)
+// the kernels of one element type T (float selects the FMA kernels or,
+// with variant 2, the 3xTF32 kernels; bf16 and __half the mma.sync
+// kernels or, with variant 1, the wgmma kernels)
 template <typename T>
 int dq_typed(const void* q, const void* k, const void* v, const void* dout,
              const void* out, const float* l, void* delta, void* dq,
              int batch, int heads, int kv_heads, int sq, int sk, int d,
              float scale, int causal, int variant, cudaStream_t s) {
   constexpr int dtype = std::is_same<T, float>::value ? 0 : 1;
+  if (variant == 2) {
+    if (dtype == 0 && sk > 0 && (d == 64 || d == 128)) {
+      float* dl = static_cast<float*>(delta);
+      return d == 64
+                 ? launch_dq_tf32<64>(q, k, v, dout, out, l, dl, dq, batch,
+                                      heads, kv_heads, sq, sk, scale, causal,
+                                      s)
+                 : launch_dq_tf32<128>(q, k, v, dout, out, l, dl, dq, batch,
+                                       heads, kv_heads, sq, sk, scale,
+                                       causal, s);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   if (variant != 0) {
     if (variant != 1 || dtype == 0 || sk == 0) {
       return (int)cudaErrorInvalidValue;
@@ -1551,6 +2091,19 @@ int dkv_typed(const void* q, const void* k, const void* v, const void* dout,
               int batch, int heads, int kv_heads, int sq, int sk, int d,
               float scale, int causal, int variant, cudaStream_t s) {
   constexpr int dtype = std::is_same<T, float>::value ? 0 : 1;
+  if (variant == 2) {
+    if (dtype == 0 && sq > 0 && (d == 64 || d == 128)) {
+      const float* dl = static_cast<const float*>(delta);
+      return d == 64
+                 ? launch_dkv_tf32<64>(q, k, v, dout, l, dl, dk, dv, batch,
+                                       heads, kv_heads, sq, sk, scale,
+                                       causal, s)
+                 : launch_dkv_tf32<128>(q, k, v, dout, l, dl, dk, dv, batch,
+                                        heads, kv_heads, sq, sk, scale,
+                                        causal, s);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   if (variant != 0) {
     if (variant != 1 || dtype == 0 || sq == 0) {
       return (int)cudaErrorInvalidValue;
@@ -1598,7 +2151,11 @@ extern "C" {
 // k, v, dout and out must start on a 16-byte boundary (the caller copies
 // them if not). variant: 0 = the kernels of the dtype (f32 FMA, or
 // mma.sync for bf16 and f16), which read delta = rowsum(dout * out) from
-// `delta`, float32 [batch, heads, sq]; 1 = the Hopper wgmma/TMA kernels
+// `delta`, float32 [batch, heads, sq]; 2 = the 3xTF32 kernels (f32, d 64
+// or 128, sq and sk > 0; q, k, v, dout and out 16-byte aligned): the dq
+// kernel fills `delta`, float32 [batch, heads, sq], computing it from
+// out and dout, for the dk/dv kernel launched after it on the same
+// stream; 1 = the Hopper wgmma/TMA kernels
 // (bf16 or f16, d 64 or 128, sq and sk > 0): `delta` is then float32
 // [batch * heads, sq_pad, 2], sq_pad = sq rounded up to 128, which the dq
 // kernel fills with (lse log2(e), delta) pairs (computing delta from out

@@ -23,16 +23,15 @@ their plain PyTorch versions (``flash_attention_ref``,
 device designs; ``_fwd_variant`` and ``_bwd_variant`` pick one from the
 dtype, head dim and lengths before the launch (counted per variant):
 "wgmma" (Hopper: TMA, an mbarrier ring and wgmma; 16-bit, d 64 or 128),
-"mma" (mma.sync, the other 16-bit head dims) and "fma" (exact f32). The
-f32 forward has a fourth, "tf32x3" (f32 at d 64 or 128 on the tensor
-cores, each product as three TF32 products of split operands), which
-the backward does not share: its f32 kernels stay "fma". The
+"mma" (mma.sync, the other 16-bit head dims), "tf32x3" (f32 at d 64 or
+128 on the tensor cores, each product as three TF32 products of split
+operands) and "fma" (exact f32, the other f32 head dims). The
 16-bit designs have a bf16 and a float16 instance each (one template in
 the sources); every launch is also counted under its dtype
 (``"<name>/bfloat16"``, ``"<name>/float16"``, ``"<name>/float32"``), so a
 run can tell a float16 launch from a bf16 one. The wgmma dq kernel also
-computes delta = rowsum(dO * O) for the dk/dv kernel; the other designs
-read it from ``attention_delta``.
+computes delta = rowsum(dO * O) for the dk/dv kernel, and so does the
+3xTF32 one; the other designs read it from ``attention_delta``.
 """
 from __future__ import annotations
 
@@ -152,11 +151,8 @@ def _fwd_variant(dtype, d, sq, sk):
 
 
 def _bwd_variant(dtype, d, sq, sk):
-    """The backward's device kernels: the 16-bit forward's rule (the
-    wgmma kernels take the same dtype, head dims and lengths); float32
-    "fma" at every head dim (no 3xTF32 backward)."""
-    if dtype == torch.float32:
-        return "fma"
+    """The backward's device kernels: the forward's rule (the wgmma and
+    the 3xTF32 kernels take the same dtypes, head dims and lengths)."""
     return _fwd_variant(dtype, d, sq, sk)
 
 
@@ -229,7 +225,7 @@ def flash_attention_ref(q, k, v, *, causal=True, scale=None):
 def attention_delta(out, do):
     """delta [b, h, sq] = rowsum(do * out) in f32 (outside the kernels, as
     in the JAX ``_flash_bwd``): the plain version's, and the mma.sync and
-    FMA kernels'; the wgmma dq kernel computes its own."""
+    FMA kernels'; the wgmma and 3xTF32 dq kernels compute their own."""
     acc = _acc_dtype(out)
     return (do.to(acc) * out.to(acc)).sum(-1).transpose(1, 2).contiguous()
 
@@ -257,9 +253,11 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal=True, scale=None):
 def _bwd(q, k, v, out, lse, do, causal, scale, variant=None):
     """Both backward kernels on checked, aligned CUDA inputs (lse f32
     [b, h, sq]); ``variant`` forces a design (``chip_smoke.py`` times the
-    wgmma and the mma.sync kernels side by side), by default
-    ``_bwd_variant``'s. The wgmma dq kernel computes delta for the dk/dv
-    kernel; the others read ``attention_delta``'s (``_delta``)."""
+    wgmma and the mma.sync kernels, and the 3xTF32 and the FMA kernels,
+    side by side), by default
+    ``_bwd_variant``'s. The wgmma and the 3xTF32 dq kernels compute delta
+    for the dk/dv kernel; the others read ``attention_delta``'s
+    (``_delta``)."""
     if variant is None:
         variant = _bwd_variant(q.dtype, q.shape[-1], q.shape[1], k.shape[1])
     delta = _delta(out, do, variant)
@@ -271,13 +269,17 @@ def _bwd(q, k, v, out, lse, do, causal, scale, variant=None):
 def _delta(out, do, variant):
     """What the dq kernel of ``variant`` takes as delta: for "wgmma" an
     uninitialised f32 [b * h, sq rounded up to 128, 2] buffer, which that
-    kernel fills with (lse log2(e), delta) pairs for the dk/dv kernel;
-    otherwise ``attention_delta``."""
-    if variant != "wgmma":
-        return attention_delta(out, do)
+    kernel fills with (lse log2(e), delta) pairs for the dk/dv kernel; for
+    "tf32x3" an uninitialised f32 [b, h, sq] buffer, which that kernel
+    fills with delta; otherwise ``attention_delta``."""
     b, sq, h, _ = out.shape
-    return torch.empty((b * h, -(-sq // 128) * 128, 2), dtype=torch.float32,
-                       device=out.device)
+    if variant == "wgmma":
+        return torch.empty((b * h, -(-sq // 128) * 128, 2),
+                           dtype=torch.float32, device=out.device)
+    if variant == "tf32x3":
+        return torch.empty((b, h, sq), dtype=torch.float32,
+                           device=out.device)
+    return attention_delta(out, do)
 
 
 def _bwd_args(q, k, causal, scale, variant):
@@ -289,9 +291,9 @@ def _bwd_args(q, k, causal, scale, variant):
 
 def _launch_bwd_dq(q, k, v, do, out, lse, delta, causal, scale, variant):
     """The dq kernel alone, on checked, aligned CUDA inputs (lse f32
-    [b, h, sq], delta as ``_delta`` makes it: the wgmma kernel fills it
-    from out, do and lse, the others read it). ``chip_smoke.py`` times it
-    by itself."""
+    [b, h, sq], delta as ``_delta`` makes it: the wgmma and the 3xTF32
+    kernels fill it from out, do (and lse), the others read it).
+    ``chip_smoke.py`` times it by itself."""
     dq = torch.empty_like(q)
     lib = _kernel("flash_attention_bwd")
     with torch.cuda.device(q.device):

@@ -197,6 +197,7 @@ def _chip_sweeps():
 
 @pytest.mark.parametrize("sweep", ["flash_chunk", "flash_stages",
                                    "flash_bwd_stages", "flash_bwd_tile",
+                                   "flash_bwd_tf32",
                                    "gmm_tile", "gmm_epilogue",
                                    "gmm_int8_stages", "paged_cluster",
                                    "prefill_mma", "prefill_slices",

@@ -289,11 +289,13 @@ def test_paged_wrapper_rejects_bad_group():
                            torch.ones(1, dtype=torch.int32))
 
 
-def _jax_bwd_vs_ref(causal, s, d, h, hkv, seed):
+def _jax_bwd_vs_ref(causal, s, d, h, hkv, seed,
+                    bwd=fa.flash_attention_bwd_ref):
     # the JAX backward kernels in interpret mode, 16 x 16 blocks, on the
-    # JAX forward's out and lse (row 0 of its [b*h, 8, s] layout); the JAX
-    # kernels take one K/V head per query head, so GQA runs them on K and
-    # V repeated over each group and sums dk and dv over it
+    # JAX forward's out and lse (row 0 of its [b*h, 8, s] layout), against
+    # ``bwd`` (the plain version, or an emulation of a device design); the
+    # JAX kernels take one K/V head per query head, so GQA runs them on K
+    # and V repeated over each group and sums dk and dv over it
     b, group = 2, h // hkv
     q, k, v = _qkv(seed, b, s, h, d, hkv=hkv)
     do = np.random.RandomState(seed + 10).randn(b, s, h, d).astype(
@@ -309,7 +311,7 @@ def _jax_bwd_vs_ref(causal, s, d, h, hkv, seed):
     split = lambda x: torch.from_numpy(np.array(x)).reshape(
         b, h, s, d).transpose(1, 2)
     lse = torch.from_numpy(np.array(jlse)[:, 0, :]).reshape(b, h, s)
-    grads = fa.flash_attention_bwd_ref(
+    grads = bwd(
         *_t(q, k, v), split(jout), lse, torch.from_numpy(do),
         causal=causal, scale=scale,
     )
@@ -430,14 +432,22 @@ def _tf32_parts(x):
     return hi, lo
 
 
-def _tf32x3_mm(a, b, passes):
+def _tf32x3_mm(a, b, passes, chunk=None):
     """a @ b as the kernel forms it: hi x hi, plus the two cross terms
-    with three passes (every product of TF32 parts is exact in f32)."""
+    with three passes (every product of TF32 parts is exact in f32). With
+    `chunk`, hi x hi is summed `chunk` values of k at a time, each sum
+    from zero, then added in f32, as the backward's S and dP products."""
     ah, al = _tf32_parts(a)
     bh, bl = _tf32_parts(b)
+    if chunk is None:
+        big = ah @ bh
+    else:
+        big = torch.zeros(())
+        for c in range(0, a.shape[-1], chunk):
+            big = big + ah[..., c:c + chunk] @ bh[..., c:c + chunk, :]
     if passes == 1:
-        return ah @ bh
-    return ah @ bh + (al @ bh + ah @ bl)
+        return big
+    return big + (al @ bh + ah @ bl)
 
 
 def _tf32x3_flash(q, k, v, causal, passes=3, tile=32):
@@ -500,6 +510,121 @@ def test_tf32x3_arithmetic_meets_the_f32_gate(b, s, h, d, causal):
     one_pass, _ = _tf32x3_flash(q, k, v, causal, passes=1)
     ok, stats = cs.compare(one_pass, ref)
     assert not ok and stats["rel_l2"] > cs.GATE["float32"]["l2"], stats
+
+
+def _tf32x3_flash_bwd(q, k, v, out, lse, do, *, causal, scale=None,
+                      passes=3):
+    """The 3xTF32 backward's arithmetic in f32 on the CPU, on the
+    forward's out and lse, in the kernels' tiles (32 rows at d 64, 16 at
+    d 128): S and dP of each tile in 3xTF32, hi x hi summed 32 values of
+    d at a time, P = exp(S scale - lse), dS = P (dP - delta) scale; dq
+    summed from per-key-tile partials dS K, dk and dv from per-query-tile
+    partials dS^T Q and P^T dO (each partial product in 3xTF32), GQA
+    summed over the group."""
+    b, sq, h, d = q.shape
+    tile = 16 if d == 128 else 32
+    sk, hkv = k.shape[1], k.shape[2]
+    group = h // hkv
+    scale = d ** -0.5 if scale is None else scale
+    qf, dof = (x.transpose(1, 2) for x in (q, do))        # [b, h, s, d]
+    kf, vf = (x.transpose(1, 2).repeat_interleave(group, dim=1)
+              for x in (k, v))
+    lse = torch.where(torch.isneginf(lse), float("inf"), lse)[..., None]
+    delta = fa.attention_delta(out, do)[..., None]
+
+    def p_ds(qt, dot, kt, vt, lt, dlt, rows, cols):
+        p = torch.exp(_tf32x3_mm(qt, kt.transpose(-1, -2), passes, 32)
+                      * scale - lt)
+        if causal:
+            p = p.masked_fill(cols > rows, 0.0)
+        dp = _tf32x3_mm(dot, vt.transpose(-1, -2), passes, 32)
+        return p, p * (dp - dlt) * scale
+
+    dq = torch.zeros_like(qf)
+    for k0 in range(0, sk, tile):
+        kt, vt = kf[:, :, k0:k0 + tile], vf[:, :, k0:k0 + tile]
+        _, ds = p_ds(qf, dof, kt, vt, lse, delta, torch.arange(sq)[:, None],
+                     torch.arange(k0, k0 + kt.shape[2])[None])
+        dq = dq + _tf32x3_mm(ds, kt, passes)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for q0 in range(0, sq, tile):
+        rows = slice(q0, q0 + tile)
+        qt, dot = qf[:, :, rows], dof[:, :, rows]
+        p, ds = p_ds(qt, dot, kf, vf, lse[:, :, rows], delta[:, :, rows],
+                     torch.arange(q0, q0 + qt.shape[2])[:, None],
+                     torch.arange(sk)[None])
+        dv = dv + _tf32x3_mm(p.transpose(-1, -2), dot, passes)
+        dk = dk + _tf32x3_mm(ds.transpose(-1, -2), qt, passes)
+    dk, dv = (x.view(b, hkv, group, sk, d).sum(2) for x in (dk, dv))
+    return tuple(x.transpose(1, 2) for x in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("b,s,h,hkv,d,causal", [
+    (2, 96, 2, 2, 64, True),
+    (1, 70, 2, 2, 128, False),   # a ragged last tile
+    (1, 64, 4, 2, 64, True),     # GQA 4 -> 2
+    (1, 45, 4, 2, 128, True),    # GQA, ragged
+    (2, 64, 2, 2, 64, False),
+])
+def test_tf32x3_bwd_arithmetic_meets_the_f32_gate(b, s, h, hkv, d, causal):
+    # the 3xTF32 backward's split products and per-tile partial sums,
+    # emulated in f32 on the plain forward's out and lse: every gradient
+    # within chip_smoke's f32 gate of the plain version and as close to
+    # the float64 plain version as the f32 plain version is (within
+    # F32_DESIGN_F64_RATIO of it, the card's bound). One pass (hi x hi
+    # only) fails the gate in every gradient: the planted copy the card
+    # must reject.
+    cs = _chip_smoke()
+    q, k, v = _t(*_qkv(60 + d, b, s, h, d, hkv=hkv))
+    do = torch.from_numpy(np.random.RandomState(61 + d).randn(
+        b, s, h, d).astype(np.float32))
+    out, lse = fa.flash_attention_ref(q, k, v, causal=causal)
+    refs = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal)
+    refs64 = fa.flash_attention_bwd_ref(
+        *(x.double() for x in (q, k, v, out, lse, do)), causal=causal)
+    got = _tf32x3_flash_bwd(q, k, v, out, lse, do, causal=causal)
+
+    def f64_err(x, r64):
+        return ((x.double() - r64).norm() / r64.norm()).item()
+
+    for x, ref, ref64 in zip(got, refs, refs64):
+        ok, stats = cs.compare(x, ref)
+        assert ok, stats
+        assert f64_err(x, ref64) <= (cs.F32_DESIGN_F64_RATIO
+                                     * f64_err(ref, ref64))
+    one_pass = _tf32x3_flash_bwd(q, k, v, out, lse, do, causal=causal,
+                                 passes=1)
+    for x, ref in zip(one_pass, refs):
+        ok, stats = cs.compare(x, ref)
+        assert not ok and stats["rel_l2"] > cs.GATE["float32"]["l2"], stats
+
+
+@pytest.mark.parametrize("d", fa.WGMMA_HEAD_DIMS)
+def test_tf32x3_bwd_emulation_matches_jax_kernel(d):
+    # the emulated 3xTF32 gradients against the JAX backward kernels in
+    # interpret mode (GQA 4 -> 2, causal), at the file's tolerance
+    _jax_bwd_vs_ref(True, 32, d, 4, 2, 130 + d, bwd=_tf32x3_flash_bwd)
+
+
+@pytest.mark.parametrize("hkv", [4, 2], ids=["mha", "gqa"])
+@pytest.mark.parametrize("d", fa.WGMMA_HEAD_DIMS)
+def test_f32_backward_wrapper_plain_on_cpu_at_tf32x3_shapes(d, hkv):
+    # f32 at a head dim the card would run on the 3xTF32 kernels: on the
+    # CPU the backward wrapper returns the plain version's gradients,
+    # launching nothing
+    q, k, v = _t(*_qkv(47, 1, 33, 4, d, hkv=hkv))
+    do = torch.from_numpy(np.random.RandomState(48).randn(
+        1, 33, 4, d).astype(np.float32))
+    assert fa._bwd_variant(q.dtype, d, 33, 33) == "tf32x3"
+    reset_launch_counts()
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    want = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=True)
+    for g, w, x in zip(got, want, (q, k, v)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+        assert g.dtype == torch.float32 and g.shape == x.shape
+    assert set(launch_counts().values()) == {0}
+    assert variant_counts() == {}
 
 
 @pytest.mark.parametrize("d", fa.WGMMA_HEAD_DIMS)
@@ -572,14 +697,19 @@ def test_flash_ref_ragged_gqa_at_d64_matches_math_sdpa():
     (torch.bfloat16, 32, 128, 128, "mma"),
     (torch.bfloat16, 128, 5, 0, "mma"),           # no keys: no tensor map
     (torch.bfloat16, 128, 0, 5, "mma"),           # no queries
-    (torch.float32, 128, 1024, 1024, "fma"),
-    (torch.float32, 64, 100, 100, "fma"),
+    # f32 at d 64 and 128 runs the 3xTF32 kernels (ids as before them,
+    # when these cases expected the FMA kernels)
+    pytest.param(torch.float32, 128, 1024, 1024, "tf32x3",
+                 id="dtype8-128-1024-1024-fma"),
+    pytest.param(torch.float32, 64, 100, 100, "tf32x3",
+                 id="dtype9-64-100-100-fma"),
     (torch.float32, 16, 8, 8, "fma"),
-    # f32 stays on FMA at every head dim: the 3xTF32 forward does not
-    # move the backward
+    # the FMA kernels keep d 16 and 32 and the empty lengths
     (torch.float32, 32, 128, 128, "fma"),
-    (torch.float32, 64, 256, 256, "fma"),         # the DiT shape
-    (torch.float32, 128, 7, 300, "fma"),
+    pytest.param(torch.float32, 64, 256, 256, "tf32x3",   # the DiT shape
+                 id="dtype12-64-256-256-fma"),
+    pytest.param(torch.float32, 128, 7, 300, "tf32x3",    # sq != sk (full)
+                 id="dtype13-128-7-300-fma"),
     (torch.float32, 64, 5, 0, "fma"),
 ])
 def test_bwd_variant(dtype, d, sq, sk, want):
