@@ -167,6 +167,23 @@ Phases, in order; any failure exits non-zero:
                tokens per verify launch, verify and decode steps, a verify
                replay's host wall ms against a decode replay's, and per
                request the first token where spec and base diverge.
+5e2. analysis — the static analyzer on the serving cell with the prefix
+               cache, chunked prefill (128) and speculation (K = 4) on:
+               the gated engine (``analysis_check="error"``, the card's
+               memory as ``device_memory_budget``) built beside an
+               ungated twin, ``check_programs``' seconds, launch counts,
+               capture counters and ``memory_allocated()`` equal around
+               it; every program's predicted transient bytes against
+               ``max_memory_allocated`` over its warm-up and capture
+               (``ANALYSIS_MEM_TOL``); the decode program's peak minus
+               one byte refused before anything is allocated, and
+               warned through under ``"warn"``; three planted decode
+               programs (a host sync, a frozen Python scalar, a float64
+               upcast) found under ``"error"``; the gated engine serving
+               the 32 requests (greedy tokens equal the twin's, the
+               serving launch gates); a two-replica fleet under the
+               default gate. Its summary is one ``[analysis] summary``
+               JSON line.
 5f. server  — the serving cell behind the HTTP front door: the bf16
                serving model over an engine with a journal, an access log
                and an SLO, behind ``serve(port=0)`` with two API keys for
@@ -3281,6 +3298,350 @@ def phase_serving_spec(torch):
             result["launches"][key] = result["launches"].get(key, 0) + n
         result["int8" if pool else "bf16"] = r
     del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+# ------------------------------------------------------------ the analyzer
+# the analysis cell: the serving model and geometry with every program
+# family on (prefix cache, chunked prefill, speculation), so decode (both
+# kinds), every prefill bucket, every continuation bucket, copy-on-write
+# and verify exist
+ANALYSIS_ENGINE = dict(max_batch_slots=8, max_model_len=512, page_size=16,
+                       enable_prefix_cache=True, prefill_chunk_tokens=128,
+                       speculate_tokens=4)
+# predicted (fake-tensor trace) against measured (max_memory_allocated
+# over a program's eager warm-up and capture, above the same baseline)
+# transient bytes of each program: within this many bytes plus this
+# fraction of the prediction (the card's kernels keep internal scratch
+# the trace cannot see: sort and reduction workspaces, cuBLAS's)
+ANALYSIS_MEM_TOL = (16 << 20, 0.25)
+
+
+def _analysis_state(torch, engine):
+    """What an analysis must not move: launch counts, the engine's
+    capture counters, the capture log, the device's allocated bytes."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.observability import jit_events
+
+    torch.cuda.synchronize()
+    m = engine.metrics
+    return {
+        "launches": dict(_build.launch_counts(), **_build.variant_counts()),
+        "compiles": (m.decode_compiles, m.prefill_compiles,
+                     m.prefill_ext_compiles, m.cow_compiles,
+                     m.verify_compiles),
+        "capture_log": len(jit_events.compile_log()),
+        "memory_allocated": torch.cuda.memory_allocated(),
+    }
+
+
+def _planted_decode(engine, rule):
+    """A copy of ``engine``'s decode program function with one planted
+    fault of ``rule``'s: a host sync (``.item()``), a Python scalar of
+    its closure frozen into the capture, a float64 upcast."""
+    real = engine._decode_fn
+    shift = 1
+
+    def build(f, pool, any_sample, gen):
+        fn = real(f, pool, any_sample, gen)
+
+        def decode_fn():
+            nxt, logits = fn()
+            if rule == "host-sync":
+                nxt = nxt + int(logits[0, 0].item() > 0)
+            elif rule == "retrace-hazard":
+                nxt = nxt + shift
+            else:
+                logits = logits.double()
+            return nxt, logits
+
+        return decode_fn
+
+    return build
+
+
+def _measured_programs(torch, engine):
+    """Build every program of ``engine``'s family (``_program_tags``) one
+    at a time; each one's predicted transient bytes (the analyzer's peak
+    above its entry tensors) against ``max_memory_allocated`` over its
+    eager warm-up and capture above the bytes allocated just before. The
+    capture stream's cuBLAS workspace is allocated first, apart."""
+    builders = {
+        "decode": lambda b, s: engine._decode_program(s),
+        "prefill": lambda b, s: engine._prefill_program(b),
+        "prefill_ext": lambda b, s: engine._prefill_ext_program(b),
+        "cow": lambda b, s: engine._cow_program(),
+        "verify": lambda b, s: engine._verify_program(),
+    }
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    with torch.cuda.stream(engine._capture_stream):
+        x = torch.ones(64, 64, device="cuda", dtype=torch.bfloat16)
+        y = x @ x
+        del x, y
+    torch.cuda.synchronize()
+    workspace = torch.cuda.memory_allocated() - base
+    rows = []
+    slack, frac = ANALYSIS_MEM_TOL
+    for kind, bucket, sample in engine._program_tags():
+        label = engine._program_label(kind, bucket, sample)
+        mem = engine._program_analysis[(kind, bucket, sample)]["memory"]
+        predicted = mem["peak"] - mem["argument"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        builders[kind](bucket, sample)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        measured = torch.cuda.max_memory_allocated() - base
+        kept = torch.cuda.memory_allocated() - base
+        ok = abs(measured - predicted) <= slack + frac * predicted
+        rows.append({"program": label, "predicted_peak": mem["peak"],
+                     "predicted_argument": mem["argument"],
+                     "predicted_transient": predicted,
+                     "measured_transient": measured,
+                     "kept_after_capture": kept,
+                     "ratio": measured / predicted if predicted else None,
+                     "within_tolerance": ok, "build_s": seconds})
+        log(f"[analysis] {label}: predicted transient {predicted} B (peak "
+            f"{mem['peak']}), measured {measured} B "
+            f"({measured / max(predicted, 1):.3f}x), {kept} B kept by the "
+            f"graph, built in {seconds:.2f}s")
+    return workspace, rows
+
+
+def phase_analysis(torch):
+    """``analysis``: the static analyzer (``paddle_tpu_torch.analysis``) on
+    the serving cell (the full-width bf16 Llama, 8 slots,
+    ``max_model_len`` 512, page 16) with the prefix cache, chunked
+    prefill (128) and speculation (K = 4) on: (a) ``Engine(...,
+    analysis_check="error", device_memory_budget=<the card's memory>)``
+    builds with no blocking finding, its build time beside an ungated
+    twin's, ``check_programs``' seconds; (b) launch counts, capture
+    counters, the capture log and ``memory_allocated()`` equal around
+    ``check_programs``; (c) each program's predicted transient bytes
+    against the measured peak of its warm-up and capture, within
+    ``ANALYSIS_MEM_TOL``; (d) the decode program's predicted peak minus
+    one byte as the budget: refused with ``AnalysisError`` before
+    anything is allocated, its ``memory-budget`` findings naming
+    ``serving.decode`` and the budget; (e) ``"warn"`` builds with a
+    ``UserWarning`` and serves; (f) planted decode programs (a host
+    sync, a frozen Python scalar, a float64 upcast) each raise under
+    ``"error"``; (g) the gated engine serves the serving cell's 32
+    requests: greedy tokens equal the ungated twin's, the launch gates
+    ``_serving_gates``'; (h) a two-replica fleet under the default
+    ``analysis_check="error"`` builds and serves."""
+    import warnings
+
+    from paddle_tpu_torch.analysis import AnalysisError
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import (
+        Engine,
+        EngineConfig,
+        Fleet,
+        FleetConfig,
+        SamplingParams,
+    )
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = LlamaConfig(**SERVING_CFG)
+    before_model = torch.cuda.memory_allocated()
+    model = LlamaForCausalLM(cfg, seed=0)
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated() - before_model
+    total = torch.cuda.get_device_properties(0).total_memory
+    result = {"card_memory_bytes": total, "weights_bytes": weights}
+
+    # (a) the gate at build, and an ungated twin
+    t0 = time.perf_counter()
+    plain = Engine(model, EngineConfig(**ANALYSIS_ENGINE))
+    torch.cuda.synchronize()
+    result["build_s_ungated"] = time.perf_counter() - t0
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    gated = Engine(model, EngineConfig(**ANALYSIS_ENGINE,
+                                       analysis_check="error",
+                                       device_memory_budget=total))
+    torch.cuda.synchronize()
+    result["build_s_gated"] = time.perf_counter() - t0
+    result["engine_bytes"] = torch.cuda.memory_allocated() - mem0
+    result["pool_bytes"] = gated.pool.per_chip_nbytes()
+    pb = dict(gated.metrics.program_bytes)
+    result["program_bytes"] = pb
+    check(len(pb) == len(gated._program_tags()),
+          f"analysis: {len(pb)} programs summarized of "
+          f"{len(gated._program_tags())}")
+    check(gated.health()["predicted_peak_bytes_per_chip"] == max(pb.values())
+          and gated.health()["device_memory_budget"] == total,
+          f"analysis: health() {gated.health()}")
+    log(f"[analysis] engine build: {result['build_s_gated']:.2f}s gated "
+        f"against {result['build_s_ungated']:.2f}s ungated; family peak "
+        f"{max(pb.values())} B of {total} B (weights {weights} B, pool "
+        f"{result['pool_bytes']} B)")
+
+    # (b) a check_programs call moves nothing
+    state = _analysis_state(torch, gated)
+    t0 = time.perf_counter()
+    report = gated.check_programs("error")
+    result["check_programs_s"] = time.perf_counter() - t0
+    after = _analysis_state(torch, gated)
+    check(state == after,
+          f"analysis: check_programs moved {state} -> {after}")
+    check(not report.errors, f"analysis: {report.render()}")
+    result["findings"] = {f.rule: len(report.by_rule(f.rule))
+                          for f in report.findings}
+    log(f"[analysis] check_programs: {result['check_programs_s']:.2f}s, "
+        f"{len(report)} findings ({result['findings']}), none blocking; "
+        f"launches, capture counters, capture log and "
+        f"memory_allocated() unchanged")
+
+    # (c) predicted against measured, program by program
+    workspace, rows = _measured_programs(torch, gated)
+    result["cublas_workspace_bytes"] = workspace
+    result["programs"] = rows
+    bad = [r["program"] for r in rows if not r["within_tolerance"]]
+    check(not bad, f"analysis: measured transient outside "
+                   f"{ANALYSIS_MEM_TOL} of the prediction for {bad}")
+    state = _analysis_state(torch, gated)
+    report = gated.check_programs("error")
+    check(state == _analysis_state(torch, gated),
+          "analysis: check_programs moved something once the programs "
+          "existed")
+
+    # (d) a budget below the decode program's predicted peak
+    budget = pb["decode"] - 1
+    gc.collect()
+    mem = torch.cuda.memory_allocated()
+    try:
+        Engine(model, EngineConfig(**ANALYSIS_ENGINE,
+                                   device_memory_budget=budget))
+        refused = None
+    except AnalysisError as e:
+        refused = e.report.by_rule("memory-budget")
+    gc.collect()
+    torch.cuda.synchronize()
+    check(refused and any("serving.decode" in f.message for f in refused)
+          and all(f"device_memory_budget={budget}" in f.message
+                  for f in refused),
+          f"analysis: budget {budget} not refused as it should be: "
+          f"{refused}")
+    check(torch.cuda.memory_allocated() == mem,
+          f"analysis: the refused build left "
+          f"{torch.cuda.memory_allocated() - mem} B allocated")
+    result["refused"] = {"budget": budget, "findings": len(refused),
+                         "programs": sorted(f.root for f in refused)}
+    log(f"[analysis] budget {budget} B refused before any allocation: "
+        f"{len(refused)} memory-budget findings "
+        f"({result['refused']['programs']})")
+
+    # (e) the same budget under "warn": built, serving
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        warned = Engine(model, EngineConfig(**ANALYSIS_ENGINE,
+                                            analysis_check="warn",
+                                            device_memory_budget=budget))
+    check(any(issubclass(w.category, UserWarning)
+              and "memory-budget" in str(w.message) for w in caught),
+          "analysis: warn mode gave no memory-budget warning")
+    outs = warned.generate([[1, 2, 3, 4]] * 4,
+                           SamplingParams(max_new_tokens=8))
+    check(all(len(o.token_ids) == 8 for o in outs),
+          "analysis: the warned engine did not serve")
+    del warned, outs
+    gc.collect()
+
+    # (f) planted faults, found before any capture
+    planted = {}
+    for rule in ("host-sync", "retrace-hazard", "dtype-drift"):
+        gated._decode_fn = _planted_decode(gated, rule)
+        try:
+            gated.check_decode("error")
+            planted[rule] = None
+        except AnalysisError as e:
+            planted[rule] = [f.render() for f in e.report.by_rule(rule)]
+        finally:
+            del gated._decode_fn   # the class's builder again
+        check(planted[rule], f"analysis: planted {rule} not found")
+        log(f"[analysis] planted {rule}: {planted[rule][0]}")
+    result["planted"] = planted
+
+    # (g) the gated engine serves the cell's traffic
+    prompts, params = _serving_workload(cfg)
+    kinds, program = set(), gated._decode_program
+    gated._decode_program = lambda any_sample: (
+        kinds.add(any_sample), program(any_sample))[1]
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    with host_dispatch_probe() as probe:
+        t0 = time.perf_counter()
+        outs = gated.generate(prompts, params)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    counts = dict(_build.launch_counts(), **_build.variant_counts())
+    m = gated.metrics
+    check(all(o.finish_reason in ("length", "stop") for o in outs),
+          "analysis: not every request finished")
+    check(gated.block_manager.num_used
+          == gated.prefix_cache.reclaimable_blocks(),
+          f"analysis: {gated.block_manager.num_used} KV blocks in use, "
+          f"{gated.prefix_cache.reclaimable_blocks()} of them cached")
+    _serving_gates("analysis", counts, m, probe, cfg.num_hidden_layers,
+                   "paged_attention", "float", True,
+                   gated.config.prefill_buckets, m.decode_compiles)
+    twin = plain.generate(prompts, params)
+    greedy = [i for i, p in enumerate(params) if not p.do_sample]
+    check(all(outs[i].token_ids == twin[i].token_ids for i in greedy),
+          "analysis: the gated engine's greedy tokens differ from the "
+          "ungated twin's")
+    n_tokens = sum(len(o.token_ids) for o in outs)
+    result.update({
+        "launches": counts, "seconds": dt, "tokens_per_s": n_tokens / dt,
+        "generated_tokens": n_tokens, "decode_steps": m.decode_steps,
+        "verify_steps": m.verify_steps, "prefill_steps": m.prefill_steps,
+        "sampled_equal_twin": all(
+            outs[i].token_ids == twin[i].token_ids
+            for i in range(len(outs)) if i not in greedy),
+    })
+    log(f"[analysis] gated engine: {len(outs)} requests, {n_tokens} tokens "
+        f"in {dt:.3f}s ({n_tokens / dt:.1f} tokens/s), greedy tokens equal "
+        f"the ungated twin's; launch gates held")
+    del plain, gated, twin, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (h) a fleet under the JAX default gate
+    t0 = time.perf_counter()
+    fleet = Fleet(model, EngineConfig(**ANALYSIS_ENGINE), FleetConfig(
+        num_replicas=2))
+    check(fleet.config.analysis_check == "error",
+          "analysis: the fleet's default gate is not 'error'")
+    build_s = time.perf_counter() - t0
+    outs = fleet.generate(prompts[:8], SamplingParams(max_new_tokens=32))
+    check(len(outs) == 8 and all(len(o.token_ids) == 32 for o in outs),
+          "analysis: the gated fleet did not serve")
+    result["fleet_build_s"] = build_s
+    log(f"[analysis] 2-replica fleet under analysis_check='error': built "
+        f"in {build_s:.2f}s, served 8 requests")
+    # the phase's summary, on a line of its own
+    log("[analysis] summary " + json.dumps({
+        "build_s_gated": result["build_s_gated"],
+        "build_s_ungated": result["build_s_ungated"],
+        "check_programs_s": result["check_programs_s"],
+        "family_peak_bytes": max(pb.values()),
+        "card_memory_bytes": total,
+        "cublas_workspace_bytes": workspace,
+        "programs": {r["program"]: [r["predicted_transient"],
+                                    r["measured_transient"]]
+                     for r in rows},
+        "refused_budget": budget, "planted": sorted(planted),
+        "tokens_per_s": result["tokens_per_s"],
+        "fleet_build_s": build_s}))
+    del fleet, model
     gc.collect()
     torch.cuda.empty_cache()
     return result
@@ -9139,14 +9500,14 @@ def main(argv=None):
     ap.add_argument(
         "--phases",
         default="kernels,parity,serving,serving_int8,serving_f16,"
-                "serving_prefix,serving_spec,server,journal,poison,fleet,"
-                "spill,stepstats,train_parity,train,train_amp,train_resume,"
-                "dit,resnet,moe,moe_train,hapi,nn_zoo",
+                "serving_prefix,serving_spec,analysis,server,journal,poison,"
+                "fleet,spill,stepstats,train_parity,train,train_amp,"
+                "train_resume,dit,resnet,moe,moe_train,hapi,nn_zoo",
         help="comma list of kernels, parity, serving, serving_int8, "
-             "serving_f16, serving_prefix, serving_spec, server, journal, "
-             "poison, fleet, spill, stepstats, train_parity, train, "
-             "train_amp, train_resume, dit, resnet, moe, moe_train, hapi, "
-             "nn_zoo, profile (default: all but profile)",
+             "serving_f16, serving_prefix, serving_spec, analysis, server, "
+             "journal, poison, fleet, spill, stepstats, train_parity, "
+             "train, train_amp, train_resume, dit, resnet, moe, moe_train, "
+             "hapi, nn_zoo, profile (default: all but profile)",
     )
     ap.add_argument("--out", help="write the full report as JSON here")
     # the processes the server and journal phases start
@@ -9168,7 +9529,7 @@ def main(argv=None):
     phases = set(args.phases.split(","))
     unknown = phases - {"kernels", "parity", "serving", "serving_int8",
                         "serving_f16", "serving_prefix", "serving_spec",
-                        "server", "journal", "poison", "fleet", "spill",
+                        "analysis", "server", "journal", "poison", "fleet", "spill",
                         "stepstats", "train_parity", "train", "train_amp",
                         "train_resume", "dit", "resnet", "moe", "moe_train",
                         "hapi", "nn_zoo", "profile"}
@@ -9222,7 +9583,7 @@ def main(argv=None):
             "serving_f16": phase_serving_f16,
             "serving_prefix": phase_serving_prefix,
             "serving_spec": phase_serving_spec,
-            "server": phase_server, "journal": phase_journal,
+            "analysis": phase_analysis, "server": phase_server, "journal": phase_journal,
             "poison": phase_poison, "fleet": phase_fleet,
             "spill": phase_spill, "stepstats": phase_stepstats,
             "train_parity": phase_train_parity, "train": phase_train,
@@ -9291,11 +9652,13 @@ def main(argv=None):
                 f"{[k for k, r in ratio.items() if r > 1] or 'none'}")
         report["phases"].update(results)
         (serving, serving_int8, serving_f16, serving_prefix, serving_spec,
-         server, journal, poison, fleet, spill, stepstats, train, train_amp,
-         train_resume, dit, resnet, moe, moe_train, hapi, nn_zoo) = (
+         analysis, server, journal, poison, fleet, spill, stepstats, train,
+         train_amp, train_resume, dit, resnet, moe, moe_train, hapi,
+         nn_zoo) = (
              results.get(p) for p in (
                  "serving", "serving_int8", "serving_f16", "serving_prefix",
-                 "serving_spec", "server", "journal", "poison", "fleet",
+                 "serving_spec", "analysis", "server", "journal", "poison",
+                 "fleet",
                  "spill", "stepstats", "train", "train_amp", "train_resume",
                  "dit", "resnet", "moe", "moe_train", "hapi", "nn_zoo"))
         check("jax" not in sys.modules and not any(
@@ -9326,7 +9689,8 @@ def main(argv=None):
     by_path = {p: r["launches"] if r else {} for p, r in (
         ("serving", serving), ("serving_int8", serving_int8),
         ("serving_f16", serving_f16), ("serving_prefix", serving_prefix),
-        ("serving_spec", serving_spec), ("server", server),
+        ("serving_spec", serving_spec), ("analysis", analysis),
+        ("server", server),
         ("journal", journal), ("poison", poison), ("fleet", fleet),
         ("spill", spill), ("stepstats", stepstats), ("train", train),
         ("train_amp", train_amp), ("train_resume", train_resume),

@@ -36,6 +36,16 @@ runtime every kernel of the port goes through.
 There is no fallback counter: a wrapper given a CUDA tensor launches its
 kernel or raises, and takes its plain PyTorch version only for a tensor
 on the CPU.
+
+* The static analyzer (``paddle_tpu_torch.analysis``) traces programs over
+  fake tensors (``torch._subclasses.fake_tensor``), which allocate
+  nothing. A wrapper given a fake tensor, on any device, runs its own
+  input checks, makes its outputs with ``torch.empty`` at the kernel's
+  shapes and returns them through ``fake_launch``, which hands the
+  analyzer's recorder (``set_fake_hook``) one ``kernel:<name>/<variant>``
+  node. It loads nothing, launches nothing and counts nothing, and no
+  plain version runs. ``is_fake`` is the one type check this costs the
+  real path.
 """
 from __future__ import annotations
 
@@ -46,10 +56,13 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from torch._subclasses.fake_tensor import FakeTensor
+
 __all__ = [
     "KERNELS", "LAUNCHES", "build", "load", "count_launch", "launch_counts",
     "variant_counts", "reset_launch_counts", "record_launches",
-    "count_replay", "build_logs", "BUILD_DIR",
+    "count_replay", "build_logs", "BUILD_DIR", "is_fake", "fake_launch",
+    "set_fake_hook",
 ]
 
 # kernel sources, csrc/<name>.cu
@@ -203,3 +216,30 @@ def count_replay(record):
             _variants[key] = _variants.get(key, 0) + n
         else:
             _launches[key] += n
+
+
+_fake_hook = None
+
+
+def is_fake(t):
+    """``t`` is a fake tensor (the analyzer's trace): the wrapper takes its
+    analysis branch, whatever the device."""
+    return isinstance(t, FakeTensor)
+
+
+def set_fake_hook(hook):
+    """Install the analyzer's recorder for ``fake_launch`` (None removes
+    it); returns the previous one."""
+    global _fake_hook
+    prev, _fake_hook = _fake_hook, hook
+    return prev
+
+
+def fake_launch(name, variant, outputs, reads=(), writes=()):
+    """A kernel wrapper's analysis branch: hand the recorder one
+    ``kernel:<name>/<variant>`` node (the tensors the kernel reads, the
+    outputs it makes, the pages it writes in place) and return
+    ``outputs``. Counts nothing."""
+    if _fake_hook is not None:
+        _fake_hook(name, variant, outputs, reads, writes)
+    return outputs

@@ -19,9 +19,10 @@ multiples of the tile.
 ``flash_attention_bwd`` launches the two kernels of
 ``csrc/flash_attention_bwd.cu`` (dq, and dk/dv) on CUDA tensors; both take
 their plain PyTorch versions (``flash_attention_ref``,
-``flash_attention_bwd_ref``) only for tensors on the CPU. Each has three
-device designs; ``_fwd_variant`` and ``_bwd_variant`` pick one from the
-dtype, head dim and lengths before the launch (counted per variant):
+``flash_attention_bwd_ref``) only for tensors on the CPU; a fake tensor
+(the static analyzer's) takes ``kernels._build.fake_launch`` in both.
+Each has three device designs; ``_fwd_variant`` and ``_bwd_variant``
+pick one from the dtype, head dim and lengths before the launch (counted per variant):
 "wgmma" (Hopper: TMA, an mbarrier ring and wgmma; 16-bit, d 64 or 128),
 "mma" (mma.sync, the other 16-bit head dims), "tf32x3" (f32 at d 64 or
 128 on the tensor cores, each product as three TF32 products of split
@@ -100,7 +101,7 @@ def _check(q, k, v):
 
 def _check_cuda(tensors, head_dims):
     q = tensors[0]
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not _build.is_fake(q):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if _DTYPES.get(q.dtype) is None or any(t.dtype != q.dtype
                                            for t in tensors):
@@ -161,9 +162,19 @@ def flash_attention_fwd(q, k, v, *, causal=True, scale=None):
     _check(q, k, v)
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
-    if q.device.type == "cpu":
+    fake = _build.is_fake(q)
+    if q.device.type == "cpu" and not fake:
         return flash_attention_ref(q, k, v, causal=causal, scale=scale)
     _check_cuda((q, k, v), SUPPORTED_HEAD_DIMS)
+    if fake:
+        # the analyzer's trace: the kernel's outputs, nothing launched
+        b, sq, h, d = q.shape
+        outs = (torch.empty_like(q),
+                torch.empty((b, h, sq), dtype=torch.float32,
+                            device=q.device))
+        return _build.fake_launch(
+            "flash_attention", _fwd_variant(q.dtype, d, sq, k.shape[1]),
+            outs, reads=[q, k, v])
     q, k, v = (_aligned(t) for t in (q, k, v))
     return _launch_fwd(q, k, v, causal, scale)
 
@@ -242,10 +253,17 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal=True, scale=None):
             f"flash_attention_bwd: out {tuple(out.shape)} and do "
             f"{tuple(do.shape)} must have q's shape {tuple(q.shape)}"
         )
-    if q.device.type == "cpu":
+    fake = _build.is_fake(q)
+    if q.device.type == "cpu" and not fake:
         return flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
                                        scale=scale)
     _check_cuda((q, k, v, do, out), BWD_HEAD_DIMS)
+    if fake:
+        # the analyzer's trace: one node for the dq and the dk/dv kernels
+        grads = tuple(torch.empty_like(t) for t in (q, k, v))
+        variant = _bwd_variant(q.dtype, q.shape[-1], q.shape[1], k.shape[1])
+        return _build.fake_launch("flash_attention_bwd", variant, grads,
+                                  reads=[q, k, v, out, lse, do])
     return _bwd(*(_aligned(t) for t in (q, k, v, out)),
                 lse.float().contiguous(), _aligned(do), causal, scale)
 

@@ -15,7 +15,8 @@ expert's contribution is scaled per column, ``(x @ q) * scale``, which is
 ``grouped_matmul`` launches ``csrc/grouped_matmul.cu`` on CUDA tensors
 (counted as ``grouped_matmul``, and ``grouped_matmul_quant`` for int8
 rhs) and takes the plain PyTorch version ``grouped_matmul_ref`` only for
-tensors on the CPU. lhs is float32, bfloat16 or float16. Which device
+tensors on the CPU (a fake tensor, the static analyzer's, takes
+``kernels._build.fake_launch``). lhs is float32, bfloat16 or float16. Which device
 kernel serves is decided from the dtypes and shapes before the launch
 (``_gmm_variant``, counted per variant): 16-bit (bf16 or f16) lhs with
 rhs of its dtype runs the wgmma/TMA kernel (the mma.sync kernel below
@@ -225,6 +226,14 @@ def _launch(lhs, rhs, group_sizes, rhs_scales, variant=None,
     if variant is None:
         variant = _gmm_variant(lhs.dtype, rhs.dtype, n, k, m, e)
     vid = _variant_id("grouped_matmul", variant)
+    if _build.is_fake(lhs):
+        # the analyzer's trace: the kernel's output, nothing launched
+        name = "grouped_matmul_quant" if quant else "grouped_matmul"
+        return _build.fake_launch(
+            name, variant + ("_t" if trans_rhs else ""),
+            torch.empty((n, m), dtype=lhs.dtype, device=lhs.device),
+            reads=[lhs, rhs, group_sizes]
+            + ([rhs_scales] if quant else []))
     # whole 16-byte (int8: 8-byte) vectors from the start of each tensor;
     # TMA also needs its base on 16 bytes
     lhs, rhs = _aligned(lhs), _aligned(rhs)
@@ -255,12 +264,13 @@ def _forward(lhs, rhs, group_sizes, rhs_scales=None, trans_rhs=False):
     ``trans_rhs``: rhs is [e, m, k] and the product takes each
     ``rhs[g]^T`` where it lies (the backward's ``dlhs``); the plain
     version gets the transposed view."""
-    if lhs.device.type == "cpu":
+    fake = _build.is_fake(lhs)
+    if lhs.device.type == "cpu" and not fake:
         _refuse_int8_trans(rhs_scales, trans_rhs)
         if trans_rhs:
             rhs = rhs.transpose(1, 2)
         return grouped_matmul_ref(lhs, rhs, group_sizes, rhs_scales)
-    if lhs.device.type != "cuda":
+    if lhs.device.type != "cuda" and not fake:
         raise ValueError(f"grouped_matmul: unsupported device {lhs.device}")
     return _launch(lhs, rhs, group_sizes, rhs_scales, trans_rhs=trans_rhs)
 
@@ -366,6 +376,12 @@ def _launch_wgrad(lhs, g, group_sizes, e, variant=None):
     if variant is None:
         variant = _wgrad_variant(lhs.dtype, n, k, m, e)
     vid = _variant_id("grouped_matmul_wgrad", variant)
+    if _build.is_fake(lhs):
+        # the analyzer's trace: the kernel's output, nothing launched
+        return _build.fake_launch(
+            "grouped_matmul_wgrad", variant,
+            torch.empty((e, k, m), dtype=lhs.dtype, device=lhs.device),
+            reads=[lhs, g, group_sizes])
     lhs, g = _aligned(lhs), _aligned(g)
     gs = group_sizes.to(torch.int32).contiguous()
     # every tile is stored whole (zeros for an empty group)
@@ -391,9 +407,10 @@ def grouped_matmul_wgrad(lhs, g, group_sizes, e):
     (no read of ``group_sizes`` on the host), ``_segment_outer`` on CPU
     tensors."""
     _check_wgrad(lhs, g, group_sizes, e)
-    if lhs.device.type == "cpu":
+    fake = _build.is_fake(lhs)
+    if lhs.device.type == "cpu" and not fake:
         return _segment_outer(lhs, g, group_sizes, e)
-    if lhs.device.type != "cuda":
+    if lhs.device.type != "cuda" and not fake:
         raise ValueError(
             f"grouped_matmul_wgrad: unsupported device {lhs.device}")
     return _launch_wgrad(lhs, g, group_sizes, e)

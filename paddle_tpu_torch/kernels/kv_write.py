@@ -46,7 +46,10 @@ v as ``kv_write`` writes them (and returns the rotated k too with
 (``csrc/kv_write.cu``'s ``rope_kv_write_launch``, counted
 ``rope_kv_write`` with the variant ``float`` or ``int8``) for CUDA
 tensors; ``rope_kv_write_ref`` (``apply_rope``, then ``kv_write_ref``)
-for tensors on the CPU.
+for tensors on the CPU. A fake tensor (the static analyzer's trace) takes
+neither: both wrappers check it as for the kernel and return the kernel's
+outputs through ``kernels._build.fake_launch``, the pages they write
+named.
 """
 from __future__ import annotations
 
@@ -152,16 +155,24 @@ def kv_write(k_pages, v_pages, k_new, v_new, block_tables, rows, positions,
     vq, vs = split_pages(v_pages)
     _check(kq, ks, vq, vs, k_new, v_new, block_tables, rows, positions,
            valid)
-    if k_new.device.type == "cpu":
+    fake = _build.is_fake(k_new)
+    if k_new.device.type == "cpu" and not fake:
         kv_write_ref(k_pages, v_pages, k_new, v_new, block_tables, rows,
                      positions, valid)
         return
-    if k_new.device.type != "cuda":
+    if k_new.device.type != "cuda" and not fake:
         raise ValueError(f"kv_write: unsupported device {k_new.device}")
     dtype, (tables, rows, positions, valid) = _kernel_args(
         "kv_write", (k_new, v_new), (kq, ks, vq, vs), block_tables, rows,
         positions, valid)
     quant = ks is not None
+    if fake:
+        pages = [t for t in (kq, ks, vq, vs) if t is not None]
+        _build.fake_launch(
+            "kv_write", "int8" if quant else "float", (),
+            reads=[k_new, v_new, tables, rows, positions, valid],
+            writes=pages)
+        return
     hkv, n_pages, page_size, d = kq.shape
     k_new, v_new = k_new.contiguous(), v_new.contiguous()
     vec = int(d % (16 // k_new.element_size()) == 0
@@ -214,16 +225,25 @@ def rope_kv_write(q, k, v, cos, sin, k_pages, v_pages, block_tables, rows,
         if t.device != q.device:
             raise ValueError(f"{name}: a tensor is on {t.device}, q on "
                              f"{q.device}")
-    if q.device.type == "cpu":
+    fake = _build.is_fake(q)
+    if q.device.type == "cpu" and not fake:
         return rope_kv_write_ref(q, k, v, cos, sin, k_pages, v_pages,
                                  block_tables, rows, positions, valid,
                                  want_k=want_k)
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not fake:
         raise ValueError(f"{name}: unsupported device {q.device}")
     dtype, (tables, rows, positions, valid) = _kernel_args(
         name, (q, k, v), (kq, ks, vq, vs), block_tables, rows, positions,
         valid)
     quant = ks is not None
+    if fake:
+        outs = (torch.empty_like(q),) + ((torch.empty_like(k),)
+                                         if want_k else ())
+        _build.fake_launch(
+            name, "int8" if quant else "float", outs,
+            reads=[q, k, v, cos, sin, tables, rows, positions, valid],
+            writes=[t for t in (kq, ks, vq, vs) if t is not None])
+        return outs if want_k else outs[0]
     _, n_pages, page_size, _ = kq.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     cos, sin = cos.contiguous(), sin.contiguous()

@@ -22,7 +22,8 @@ cached token per kv head (``quantize_tokens``, written by
 ``paged_attention`` launches the CUDA kernel ``csrc/paged_attention.cu``
 (float pages, counted as ``paged_attention``; int8 pairs, counted as
 ``paged_attention_quant``) on CUDA tensors and takes the plain PyTorch
-version ``paged_attention_ref`` only for tensors on the CPU. q is
+version ``paged_attention_ref`` only for tensors on the CPU (a fake
+tensor, the static analyzer's, takes ``kernels._build.fake_launch``). q is
 float32, bfloat16 or float16. Two device kernels compute it, counted per
 variant: ``"cluster"`` (the default, ``_paged_variant``: one launch, the
 chunks of a sequence's kv head merged through distributed shared memory,
@@ -171,11 +172,12 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
     d = q.shape[-1]
     if scale is None:
         scale = 1.0 / (d ** 0.5)
-    if q.device.type == "cpu":
+    fake = _build.is_fake(q)
+    if q.device.type == "cpu" and not fake:
         return paged_attention_ref(q, k_pages, v_pages, block_tables,
                                    lengths, scale=scale)
     k_pages, v_pages = kq, vq
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not fake:
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     page_dtype = torch.int8 if quant else q.dtype
     if k_pages.dtype != page_dtype or v_pages.dtype != page_dtype:
@@ -205,6 +207,13 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
     if quant and (k_scales.dtype != torch.float32
                   or v_scales.dtype != torch.float32):
         raise TypeError("paged_attention kernel: scales must be float32")
+    if fake:
+        # the analyzer's trace: the kernel's output, nothing launched (the
+        # split design's workspace, sized by the library, is left out)
+        return _build.fake_launch(
+            "paged_attention_quant" if quant else "paged_attention",
+            variant, torch.empty_like(q),
+            reads=[q] + [t for _, t in named])
     return _launch(q.contiguous(), k_pages, v_pages, k_scales, v_scales,
                    block_tables.to(torch.int32).contiguous(),
                    lengths.to(torch.int32).contiguous(), float(scale),

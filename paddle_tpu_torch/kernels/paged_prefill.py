@@ -35,7 +35,8 @@ In the JAX package this is XLA, not a TPU kernel: ``_gather_context``
 ``csrc/paged_prefill.cu`` on CUDA tensors, once for all slots: its grid
 is fixed by S, the heads, the slots and the table's capacity, and it
 reads ``cache_len`` and ``length`` from device memory, so one CUDA graph
-replays any chunk or window at any offsets. CPU tensors take the plain
+replays any chunk or window at any offsets (a fake tensor, the static
+analyzer's, takes ``kernels._build.fake_launch``). CPU tensors take the plain
 version ``paged_prefill_ref`` (a gather of the context, then the masked
 product; fixed-shape and free of host syncs, like the kernel), which the
 serving adapter also runs by name when its ``decode_kernel`` is
@@ -274,10 +275,11 @@ def paged_prefill(q, k_pages, v_pages, block_table, cache_len, length, *,
         scale = 1.0 / math.sqrt(d)
     if q.dim() == 3:
         cache_len, length = cache_len.reshape(()), length.reshape(())
-    if q.device.type == "cpu":
+    fake = _build.is_fake(q)
+    if q.device.type == "cpu" and not fake:
         return paged_prefill_ref(q, k_pages, v_pages, block_table,
                                  cache_len, length, scale=scale)
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not fake:
         raise ValueError(f"paged_prefill: unsupported device {q.device}")
     quant = ks is not None
     if q.dtype not in _DTYPES:
@@ -311,6 +313,14 @@ def paged_prefill(q, k_pages, v_pages, block_table, cache_len, length, *,
     if quant and (ks.dtype != torch.float32 or vs.dtype != torch.float32):
         raise TypeError("paged_prefill kernel: scales must be float32")
     one = q.dim() == 3
+    if fake:
+        # the analyzer's trace: the design ``design_for`` picks (a fake has
+        # no address, so the alignment fallback to the ring design cannot
+        # be asked; the pool's pages start aligned), nothing launched
+        out = _build.fake_launch(
+            "paged_prefill", design_for(q.dtype, d, kq.shape[2], design),
+            torch.empty_like(q), reads=[q] + [t for _, t in named])
+        return out
     q = (q[None] if one else q).contiguous()
     if q.data_ptr() % 16:
         q = q.clone()

@@ -1,6 +1,7 @@
 """Always-on telemetry for the serving front door (counterpart of
-``paddle_tpu.observability``, cut to what the serving path uses; the
-``top``/``dump`` CLI waits for its slice):
+``paddle_tpu.observability``, cut to what the serving path uses; its CLI,
+``python -m paddle_tpu_torch.observability dump|metrics|slo|top``, is
+``__main__.py``):
 
   * **metrics** — a process-wide registry of labeled
     Counter/Gauge/Histogram with Prometheus text exposition and a JSON

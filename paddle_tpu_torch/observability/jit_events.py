@@ -18,9 +18,11 @@ capture is explicit, so JAX's ``mark_traced`` (called from inside a
 traced body, which only runs while XLA traces) collapses into the watch
 itself: a watch whose body completes records one event. The port's
 ``jit.TrainStep`` runs eagerly and captures nothing, so it records
-nothing. ``mark_aot_hit`` and ``suppress`` wait for the compile cache
-and the analyzer (``compilecache/``, ``analysis/``), which the port does
-not have yet.
+nothing. :class:`suppress` masks the recording for its dynamic extent
+on the calling thread: the static analyzer (``analysis/``) wraps its
+traces in it, so analysis never reads as capture activity.
+``mark_aot_hit`` waits for the compile cache (``compilecache/``), which
+the port does not have yet.
 """
 from __future__ import annotations
 
@@ -31,10 +33,12 @@ from collections import deque
 from . import metrics as _metrics
 
 __all__ = [
-    "watch", "compile_log", "clear_compile_log", "retraces_after_warmup",
+    "watch", "suppress", "compile_log", "clear_compile_log",
+    "retraces_after_warmup",
 ]
 
 _lock = threading.Lock()
+_tls = threading.local()
 _log: deque = deque(maxlen=256)
 _seen: dict = {}      # (name, kind, signature) -> capture count
 
@@ -47,6 +51,23 @@ _retraces = _metrics.counter(
     "captures of a (fn, signature) pair that was already captured once — "
     "a program rebuilt where it should be replayed", ("kind",),
 )
+
+
+def _suppressed():
+    return getattr(_tls, "suppress", 0) > 0
+
+
+class suppress:
+    """Mask capture-event recording for the dynamic extent (the
+    trace-only analyzer's traces never read as captures)."""
+
+    def __enter__(self):
+        _tls.suppress = getattr(_tls, "suppress", 0) + 1
+        return self
+
+    def __exit__(self, *exc):
+        _tls.suppress -= 1
+        return False
 
 
 class watch:
@@ -70,7 +91,7 @@ class watch:
         return self
 
     def __exit__(self, exc_type, exc, tb):
-        if exc_type is None:
+        if exc_type is None and not _suppressed():
             self.event = _record(self.name, self.kind, self.signature,
                                  time.perf_counter() - self._t0)
         return False

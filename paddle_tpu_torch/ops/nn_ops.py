@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..amp.auto_cast import amp_op
+from ..kernels import _build
 from ..kernels import flash_attention as _flash
 
 __all__ = [
@@ -76,8 +77,10 @@ def flash_eligible(query, key, value, attn_mask, is_causal, dropout_p=0.0):
     (``BWD_HEAD_DIMS``); other head dims take the math form. The TPU
     version also gates on a minimum sequence length
     (``FLAGS_flash_attention_min_seq``) measured on a TPU; on the card
-    every eligible call runs the kernel."""
-    if query.device.type != "cuda":
+    every eligible call runs the kernel. A fake tensor (the static
+    analyzer's trace) on any device is held to the same contract, so a
+    trace on the CPU takes the route the card takes."""
+    if query.device.type != "cuda" and not _build.is_fake(query):
         return False
     if attn_mask is not None or dropout_p > 0.0:
         return False

@@ -78,6 +78,13 @@ training sites fail the step or the save, which a resume recovers):
                        client=): a structured 500 for that request
     http.stream        one SSE chunk write (context: rid=, seq=): that
                        stream is aborted, the others go on
+    analysis.pass      one L1 analysis pass over a traced program
+                       (context: rule=): a ``pass-crash`` finding, a
+                       warning under ``mode="warn"``, an ``AnalysisError``
+                       only under ``mode="error"``
+    analysis.compiled  one L3 rule over a program summary (context:
+                       rule=, program=): the same degradation; an engine
+                       build's memory gate collects it as ``pass-crash``
 
 A fired spec is counted in ``paddle_tpu_resilience_fault_fires_total
 {site}`` and logged to the flight recorder. Schedules are deterministic:
@@ -231,7 +238,7 @@ def _record_fire(site, context):
             **{k: repr(v) for k, v in context.items()},
         )
     except Exception:
-        # telemetry is best-effort here;
+        # analysis: allow(broad-except) telemetry is best-effort here;
         # the scheduled fault must still raise even if recording fails
         pass
 

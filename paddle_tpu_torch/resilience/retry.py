@@ -114,8 +114,8 @@ def _count_retry(fn, exc):
             exc=type(exc).__name__,
         )
     except Exception:
-        # telemetry is best-effort; the backoff/retry semantics must be
-        # unaffected by a counting failure
+        # analysis: allow(broad-except) telemetry is best-effort; the
+        # backoff/retry semantics must be unaffected by a counting failure
         pass
 
 

@@ -80,7 +80,7 @@ def _register_view(log, log_id):
             f"serving.accesslog.{log_id}", collect
         )
     except Exception:
-        # telemetry is best-effort
+        # analysis: allow(broad-except) telemetry is best-effort
         pass
 
 
@@ -246,7 +246,7 @@ def record_finish(req, latency=None, slo=None, access_log=None,
 
         flight.record_timeline(entry)
     except Exception:
-        # flight telemetry is best-effort
+        # analysis: allow(broad-except) flight telemetry is best-effort
         pass
     if access_log is not None:
         access_log.log(entry)

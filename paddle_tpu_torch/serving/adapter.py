@@ -180,7 +180,8 @@ class LlamaServingAdapter:
 
     def _paged_attn(self, q, kp, vp, block_tables, lengths):
         if self.decode_kernel == "xla":
-            _build.count_launch("paged_attention_ref")
+            if not _build.is_fake(q):   # the analyzer's trace counts nothing
+                _build.count_launch("paged_attention_ref")
             return paged_attention_ref(q, kp, vp, block_tables, lengths)
         return paged_attention(q, kp, vp, block_tables, lengths)
 
@@ -188,7 +189,8 @@ class LlamaServingAdapter:
         """Continuation attention through the block table: one chunk, or
         (batched) every verify window, one launch either way."""
         if self.decode_kernel == "xla":
-            _build.count_launch("paged_prefill_ref")
+            if not _build.is_fake(q):   # the analyzer's trace counts nothing
+                _build.count_launch("paged_prefill_ref")
             return paged_prefill_ref(q, kp, vp, block_table, cache_len,
                                      length)
         return paged_prefill(q, kp, vp, block_table, cache_len, length)

@@ -133,11 +133,24 @@ recompute; a ``torch.AcceleratorError`` re-raises. A pool too large for
 the card is refused as ``EngineOverloadedError``, its partial
 allocation released.
 
+Static analysis (``paddle_tpu_torch.analysis``, JAX's gates):
+``EngineConfig(analysis_check="warn"|"error", device_memory_budget=)``
+runs the gates at build, before the KV pool or any step buffer is
+allocated, over fake tensors (a fake pool, fake step buffers, the real
+weights converted as the programs reach them; nothing is captured,
+launched or allocated, and no capture counter moves). The memory gate
+traces every program of the family (``_program_tags``), predicts each
+one's per-device peak (``metrics.program_bytes``, exported as
+``paddle_tpu_serving_program_bytes{program=}``; ``health()``'s
+``predicted_peak_bytes_per_chip``) and refuses a config that exceeds the
+budget with an ``AnalysisError`` naming the program and the budget.
+``check_programs`` (and its ``check_decode``/``check_prefill``/
+``check_verify`` slices) holds the programs to zero host-sync, capture
+hazard (``retrace-hazard``) and ``dtype-drift`` findings.
+
 Not ported yet (later slices): tensor parallelism and placement (the
 ``tp_*`` fields of ``health()`` report one card), the comm watchdog
-(``health()["watchdog"]`` reports it disabled), the analysis gate (and
-its ``check_verify``, the memory budget behind
-``device_memory_budget``) and the compile cache.
+(``health()["watchdog"]`` reports it disabled) and the compile cache.
 """
 from __future__ import annotations
 
@@ -198,6 +211,19 @@ _MASK63 = (1 << 63) - 1
 # bisecting or retrying past it would only hide it
 _DEVICE_FAULTS = (torch.AcceleratorError,)
 
+# level-1 rules that block a serving program at the analysis gate: a CUDA
+# graph replays whatever its capture froze (a host sync fails the capture,
+# a frozen Python scalar or a widened dtype is replayed every step)
+_BLOCKING_RULES = ("host-sync", "retrace-hazard", "dtype-drift")
+# what each level-1 gate protects, for its refusal
+_INVARIANTS = {
+    "check_decode": "decode step (the one-capture decode invariant)",
+    "check_prefill": "prefill programs (the chunked-prefill latency "
+                     "invariant)",
+    "check_verify": "verify step (the speculative-decode latency "
+                    "invariant)",
+}
+
 # monotonic engine ids (labels of the registry views and the health
 # provider): id(self) is reused after an engine is collected
 _engine_counter = itertools.count(1)
@@ -244,7 +270,8 @@ class EngineConfig:
                  max_prefill_chunks_per_step=1, speculate_tokens=None,
                  speculate_ngram=3, journal=None, access_log=None,
                  slo=None, stepstats=True, stepstats_ring=256,
-                 host_spill_bytes=None, spill_dir=None):
+                 host_spill_bytes=None, spill_dir=None, analysis_check=None,
+                 device_memory_budget=None):
         if max_batch_slots < 1:
             raise ValueError("max_batch_slots must be >= 1")
         if page_size < 1 or max_model_len < 2:
@@ -410,6 +437,29 @@ class EngineConfig:
                 "host spill tier: set host_spill_bytes= too"
             )
         self.spill_dir = str(spill_dir) if spill_dir is not None else None
+        if analysis_check not in (None, "warn", "error"):
+            raise ValueError(
+                'analysis_check must be None, "warn" or "error", got '
+                f"{analysis_check!r}"
+            )
+        # the build gate: statically analyze the whole program family
+        # (paddle_tpu_torch.analysis, Engine.check_programs) before the
+        # KV pool exists, and warn or raise on its blocking findings
+        self.analysis_check = analysis_check
+        # per-device memory budget gate (analysis level 3): when set,
+        # the engine traces its whole program family over a fake pool
+        # and compares each program's predicted peak against this byte
+        # budget, refusing the config with an AnalysisError
+        # (analysis_check="warn" degrades to a warning) BEFORE the KV
+        # pool or any step buffer is allocated. None disables the gate.
+        if device_memory_budget is not None:
+            device_memory_budget = int(device_memory_budget)
+            if device_memory_budget < 1:
+                raise ValueError(
+                    f"device_memory_budget must be >= 1 byte or None, "
+                    f"got {device_memory_budget}"
+                )
+        self.device_memory_budget = device_memory_budget
 
 
 class Engine:
@@ -474,6 +524,24 @@ class Engine:
                            if cfg.access_log is not None else None)
         self.slo = SLOTracker(cfg.slo) if cfg.slo is not None else None
         self.metrics.slo = self.slo
+        # the static analysis gates run first, over a fake pool and fake
+        # step buffers (nothing is allocated, captured or launched): a
+        # config the memory budget refuses, or a program with a blocking
+        # finding, never allocates its pool
+        self._program_analysis: dict = {}   # tag -> L3 summary
+        self._trace_memo = None
+        if (cfg.device_memory_budget is not None
+                or cfg.analysis_check is not None):
+            self._trace_memo = {}
+            try:
+                if cfg.device_memory_budget is not None:
+                    self._enforce_memory_budget()
+                if cfg.analysis_check is not None:
+                    self.check_programs(
+                        cfg.analysis_check,
+                        compiled=cfg.device_memory_budget is not None)
+            finally:
+                self._trace_memo = None
         # the device setup (pool, pinned staging buffers, generators,
         # graph pool, capture stream) takes the capture lock: a fleet
         # builds a restarted replica on another thread, and a cudaMalloc
@@ -573,31 +641,13 @@ class Engine:
         self._prefill_generator = torch.Generator(device=dev)
         self._stream_base = _mix(cfg.seed, 0x5EED)
         self._key_counter = 0
-        # static inputs: one buffer for both decode programs, one for
-        # every prefill bucket (a bucket's program reads the first
-        # ``bucket`` ids)
-        n, pps = cfg.max_batch_slots, cfg.pages_per_seq
-        sampling = [("temperature", 1, "float32"), ("top_k", 1, "int32"),
-                    ("top_p", 1, "float32"), ("do_sample", 1, "int32")]
-        self._decode_buffers = StepBuffers(
-            [("tokens", n, "int32"), ("positions", n, "int32"),
-             ("active", n, "int32"), ("tables", n * pps, "int32")]
-            + [(name, n, t) for name, _, t in sampling], dev)
-        self._prefill_buffers = StepBuffers(
-            [("ids", cfg.prefill_buckets[-1], "int32"),
-             ("length", 1, "int32"), ("table", pps, "int32")] + sampling,
-            dev)
-        self._prefill_ext_buffers = StepBuffers(
-            [("ids", cfg.prefill_buckets[-1], "int32"),
-             ("length", 1, "int32"), ("cache_len", 1, "int32"),
-             ("table", pps, "int32")] + sampling, dev)
-        self._cow_buffers = StepBuffers(
-            [("src", 1, "int32"), ("dst", 1, "int32")], dev)
-        self._verify_buffers = (StepBuffers(
-            [("tokens", n * (cfg.speculate_tokens + 1), "int32"),
-             ("positions", n, "int32"), ("draft_lens", n, "int32"),
-             ("active", n, "int32"), ("tables", n * pps, "int32")], dev)
-            if self._speculating else None)
+        fields = self._buffer_fields()
+        self._decode_buffers = StepBuffers(fields["decode"], dev)
+        self._prefill_buffers = StepBuffers(fields["prefill"], dev)
+        self._prefill_ext_buffers = StepBuffers(fields["prefill_ext"], dev)
+        self._cow_buffers = StepBuffers(fields["cow"], dev)
+        self._verify_buffers = (StepBuffers(fields["verify"], dev)
+                                if self._speculating else None)
         self._decode_programs: dict = {}
         self._prefill_programs: dict = {}
         self._prefill_ext_programs: dict = {}
@@ -606,6 +656,34 @@ class Engine:
         if dev.type == "cuda":
             self._graph_pool = torch.cuda.graph_pool_handle()
             self._capture_stream = torch.cuda.Stream(dev)
+
+    def _buffer_fields(self):
+        """The programs' static inputs, by program: one buffer for both
+        decode programs, one for every prefill bucket (a bucket's program
+        reads the first ``bucket`` ids); ``StepBuffers`` fields."""
+        cfg = self.config
+        n, pps = cfg.max_batch_slots, cfg.pages_per_seq
+        sampling = [("temperature", 1, "float32"), ("top_k", 1, "int32"),
+                    ("top_p", 1, "float32"), ("do_sample", 1, "int32")]
+        fields = {
+            "decode": [("tokens", n, "int32"), ("positions", n, "int32"),
+                       ("active", n, "int32"), ("tables", n * pps, "int32")]
+            + [(name, n, t) for name, _, t in sampling],
+            "prefill": [("ids", cfg.prefill_buckets[-1], "int32"),
+                        ("length", 1, "int32"), ("table", pps, "int32")]
+            + sampling,
+            "prefill_ext": [("ids", cfg.prefill_buckets[-1], "int32"),
+                            ("length", 1, "int32"),
+                            ("cache_len", 1, "int32"),
+                            ("table", pps, "int32")] + sampling,
+            "cow": [("src", 1, "int32"), ("dst", 1, "int32")],
+        }
+        if self._speculating:
+            fields["verify"] = [
+                ("tokens", n * (cfg.speculate_tokens + 1), "int32"),
+                ("positions", n, "int32"), ("draft_lens", n, "int32"),
+                ("active", n, "int32"), ("tables", n * pps, "int32")]
+        return fields
 
     # -- durable request journal (serving/journal.py) ------------------------
     def _replay_journal(self):
@@ -662,8 +740,24 @@ class Engine:
         prog = self._decode_programs.get(any_sample)
         if prog is not None:
             return prog
-        f, pool, adapter = self._decode_buffers.dev, self.pool, self.adapter
-        cfg, gen = self.config, self._generator
+        gen = self._generator
+        self._pin_adapter()
+        # the build runs the function once eagerly: over zeroed inputs (no
+        # active slot) it writes no page
+        self._decode_buffers.device.zero_()
+        with self._capture("decode", f"any_sample={any_sample}"):
+            prog = self._program(
+                self._decode_fn(self._decode_buffers.dev, self.pool,
+                                any_sample, gen),
+                gen if any_sample else None)
+        self._decode_programs[any_sample] = prog
+        self.metrics.decode_compiles += 1
+        return prog
+
+    def _decode_fn(self, f, pool, any_sample, gen):
+        """The decode program's function over buffers ``f`` and ``pool``
+        (the engine's own, or the analyzer's fake ones)."""
+        adapter, cfg = self.adapter, self.config
         tables = f["tables"].view(cfg.max_batch_slots, cfg.pages_per_seq)
 
         def decode_fn():
@@ -675,15 +769,7 @@ class Engine:
                                 f["top_p"], f["do_sample"], u)
             return nxt, logits
 
-        self._pin_adapter()
-        # the build runs decode_fn once eagerly: over zeroed inputs (no
-        # active slot) it writes no page
-        self._decode_buffers.device.zero_()
-        with self._capture("decode", f"any_sample={any_sample}"):
-            prog = self._program(decode_fn, gen if any_sample else None)
-        self._decode_programs[any_sample] = prog
-        self.metrics.decode_compiles += 1
-        return prog
+        return decode_fn
 
     def _prefill_program(self, bucket):
         """The prefill program of one length bucket: the prompt's logits
@@ -693,8 +779,23 @@ class Engine:
         prog = self._prefill_programs.get(bucket)
         if prog is not None:
             return prog
-        f, pool, adapter = self._prefill_buffers.dev, self.pool, self.adapter
         gen = self._prefill_generator
+        self._pin_adapter()
+        # the build runs the function once eagerly: over zeroed inputs (a
+        # prompt of length 0) it writes no page
+        self._prefill_buffers.device.zero_()
+        with self._capture("prefill", f"bucket={bucket}"):
+            prog = self._program(
+                self._prefill_fn(self._prefill_buffers.dev, self.pool,
+                                 bucket, gen), gen)
+        self._prefill_programs[bucket] = prog
+        self.metrics.prefill_compiles += 1
+        return prog
+
+    def _prefill_fn(self, f, pool, bucket, gen):
+        """The prefill program's function of one bucket over buffers
+        ``f`` and ``pool``."""
+        adapter = self.adapter
         ids = f["ids"][:bucket]
 
         def prefill_fn():
@@ -705,15 +806,7 @@ class Engine:
                                 f["top_p"], f["do_sample"], u)
             return tok, logits
 
-        self._pin_adapter()
-        # the build runs prefill_fn once eagerly: over zeroed inputs (a
-        # prompt of length 0) it writes no page
-        self._prefill_buffers.device.zero_()
-        with self._capture("prefill", f"bucket={bucket}"):
-            prog = self._program(prefill_fn, gen)
-        self._prefill_programs[bucket] = prog
-        self.metrics.prefill_compiles += 1
-        return prog
+        return prefill_fn
 
     def _prefill_ext_program(self, bucket):
         """The continuation program of one length bucket: the chunk's
@@ -723,9 +816,23 @@ class Engine:
         prog = self._prefill_ext_programs.get(bucket)
         if prog is not None:
             return prog
-        f, pool, adapter = (self._prefill_ext_buffers.dev, self.pool,
-                            self.adapter)
         gen = self._prefill_generator
+        self._pin_adapter()
+        # the build runs the function once eagerly: over zeroed inputs (a
+        # chunk of length 0) it writes no page
+        self._prefill_ext_buffers.device.zero_()
+        with self._capture("prefill_ext", f"bucket={bucket}"):
+            prog = self._program(
+                self._prefill_ext_fn(self._prefill_ext_buffers.dev,
+                                     self.pool, bucket, gen), gen)
+        self._prefill_ext_programs[bucket] = prog
+        self.metrics.prefill_ext_compiles += 1
+        return prog
+
+    def _prefill_ext_fn(self, f, pool, bucket, gen):
+        """The continuation program's function of one bucket over
+        buffers ``f`` and ``pool``."""
+        adapter = self.adapter
         ids = f["ids"][:bucket]
 
         def prefill_ext_fn():
@@ -736,32 +843,31 @@ class Engine:
                                 f["top_p"], f["do_sample"], u)
             return tok, logits
 
-        self._pin_adapter()
-        # the build runs prefill_ext_fn once eagerly: over zeroed inputs
-        # (a chunk of length 0) it writes no page
-        self._prefill_ext_buffers.device.zero_()
-        with self._capture("prefill_ext", f"bucket={bucket}"):
-            prog = self._program(prefill_ext_fn, gen)
-        self._prefill_ext_programs[bucket] = prog
-        self.metrics.prefill_ext_compiles += 1
-        return prog
+        return prefill_ext_fn
 
     def _cow_program(self):
         """The copy-on-write program: block ``src`` over block ``dst`` in
         every layer's pages (``KVPool.copy_block``)."""
         if self._cow_prog is not None:
             return self._cow_prog
-        f, pool = self._cow_buffers.dev, self.pool
+        # the build runs the function once eagerly: the sink page over
+        # itself
+        self._cow_buffers.device.fill_(self.pool.sink_page)
+        with self._capture("cow", "copy"):
+            self._cow_prog = self._program(
+                self._cow_fn(self._cow_buffers.dev, self.pool), None)
+        self.metrics.cow_compiles += 1
+        return self._cow_prog
+
+    @staticmethod
+    def _cow_fn(f, pool):
+        """The copy-on-write program's function over buffers ``f`` and
+        ``pool``."""
 
         def cow_fn():
             pool.copy_block(f["src"][0], f["dst"][0])
 
-        # the build runs cow_fn once eagerly: the sink page over itself
-        self._cow_buffers.device.fill_(pool.sink_page)
-        with self._capture("cow", "copy"):
-            self._cow_prog = self._program(cow_fn, None)
-        self.metrics.cow_compiles += 1
-        return self._cow_prog
+        return cow_fn
 
     def _verify_program(self):
         """The verify program: every slot's K+1-token window scored in one
@@ -770,8 +876,20 @@ class Engine:
         per engine."""
         if self._verify_prog is not None:
             return self._verify_prog
-        f, pool, adapter = self._verify_buffers.dev, self.pool, self.adapter
-        cfg = self.config
+        self._pin_adapter()
+        # the build runs the function once eagerly: over zeroed inputs (no
+        # active slot) it writes no page and reads page 0 only
+        self._verify_buffers.device.zero_()
+        with self._capture("verify", f"k={self.config.speculate_tokens}"):
+            self._verify_prog = self._program(
+                self._verify_fn(self._verify_buffers.dev, self.pool), None)
+        self.metrics.verify_compiles += 1
+        return self._verify_prog
+
+    def _verify_fn(self, f, pool):
+        """The verify program's function over buffers ``f`` and
+        ``pool``."""
+        adapter, cfg = self.adapter, self.config
         n = cfg.max_batch_slots
         tokens = f["tokens"].view(n, cfg.speculate_tokens + 1)
         tables = f["tables"].view(n, cfg.pages_per_seq)
@@ -782,14 +900,7 @@ class Engine:
                                     f["active"] != 0)
             return logits.argmax(-1).to(torch.int32), logits
 
-        self._pin_adapter()
-        # the build runs verify_fn once eagerly: over zeroed inputs (no
-        # active slot) it writes no page and reads page 0 only
-        self._verify_buffers.device.zero_()
-        with self._capture("verify", f"k={cfg.speculate_tokens}"):
-            self._verify_prog = self._program(verify_fn, None)
-        self.metrics.verify_compiles += 1
-        return self._verify_prog
+        return verify_fn
 
     def _pin_adapter(self):
         """Re-assert this engine's decode attention on a shared adapter
@@ -814,6 +925,301 @@ class Engine:
         params = pack_sampling_params(requests)
         for name in ("temperature", "top_k", "top_p", "do_sample"):
             h[name][rows] = params[name]
+
+    # -- static analysis gates (paddle_tpu_torch.analysis L1 + L3) -----------
+    def check_programs(self, mode="error", compiled=True):
+        """THE analysis gate over this engine's whole program family.
+
+        Level 1: the decode program (greedy and sampling variants), the
+        prefill programs (one-shot, continuation and the COW copy, as
+        enabled) and the speculative verify program (when enabled) are
+        traced over fake tensors (never executed, never captured) and
+        held to zero host-sync, capture-hazard (``retrace-hazard``) and
+        ``dtype-drift`` findings: a CUDA graph replays whatever its
+        capture froze, every step. Level 3 (``compiled=True``): every
+        program in the family is summarized (collective census,
+        predicted per-device peak) and run through the compiled-program
+        rules against ``EngineConfig(device_memory_budget=)``; findings
+        are enforced per ``mode`` via ``analysis.enforce``.
+
+        ``EngineConfig(analysis_check=)`` runs this at build, before the
+        KV pool is allocated (level 3 included when the memory gate is
+        armed). Returns the merged analysis Report. Nothing is captured,
+        launched or allocated on the device, and no capture counter or
+        capture-log event moves.
+
+        ``mode``: "error" raises ``analysis.AnalysisError`` on a
+        blocking finding (and on an analyzer failure); "warn" degrades
+        everything to warnings.
+        """
+        from .. import analysis
+
+        if mode not in ("warn", "error"):
+            raise ValueError(
+                f'check_programs mode must be "warn" or "error", got '
+                f"{mode!r}"
+            )
+        report = analysis.Report()
+        report.extend(self._check_decode(mode).findings)
+        report.extend(self._check_prefill(mode).findings)
+        if self._speculating:
+            report.extend(self._check_verify(mode).findings)
+        if compiled:
+            r3 = self.check_compiled_programs()
+            analysis.enforce(
+                r3, mode, what="serving compiled program family"
+            )
+            report.extend(r3.findings)
+        return report
+
+    def check_decode(self, mode="error"):
+        """Thin delegate: the decode slice of :meth:`check_programs`
+        (level 1 only), kept for callers that gate one program."""
+        return self._check_decode(mode)
+
+    def check_prefill(self, mode="error"):
+        """Thin delegate: the prefill slice of :meth:`check_programs`
+        (level 1 only)."""
+        return self._check_prefill(mode)
+
+    def check_verify(self, mode="error"):
+        """Thin delegate: the speculative-verify slice of
+        :meth:`check_programs` (level 1 only)."""
+        return self._check_verify(mode)
+
+    def _program_tags(self):
+        """Every ``(kind, bucket, any_sample)`` in this engine's program
+        family: the set the level-3 checks summarize."""
+        cfg = self.config
+        tags = [("decode", None, False), ("decode", None, True)]
+        tags += [("prefill", b, False) for b in cfg.prefill_buckets]
+        if self._use_ext:
+            tags += [
+                ("prefill_ext", b, False) for b in cfg.prefill_buckets
+            ]
+            if cfg.enable_prefix_cache:
+                tags.append(("cow", None, False))
+        if self._speculating:
+            tags.append(("verify", None, False))
+        return tags
+
+    @staticmethod
+    def _program_label(kind, bucket, any_sample):
+        """``decode``, ``decode+sample``, ``prefill[16]``, ...: the
+        ``metrics.program_bytes`` key (JAX's labels)."""
+        label = kind if bucket is None else f"{kind}[{bucket}]"
+        return label + "+sample" if any_sample else label
+
+    def _analysis_env(self):
+        """The analyzer's stand-ins for the device state, all fake
+        tensors of one ``FakeTensorMode`` (no memory): the pool
+        (``KVPool.abstract``, its ``__init__`` never runs), every
+        program's step buffers, and a generator the fake draws do not
+        advance. The model's weights enter as the programs reach them."""
+        from types import SimpleNamespace
+
+        from ..analysis.trace import fake_mode
+
+        cfg, ad, dev = self.config, self.adapter, self.device
+        mode = fake_mode()
+        pool = KVPool.abstract(
+            ad.num_layers, ad.num_kv_heads, cfg.num_blocks, cfg.page_size,
+            ad.head_dim, ad.dtype, dev, cfg.kv_cache_dtype, mode)
+        with mode:
+            bufs = {name: StepBuffers.abstract(fields, dev)
+                    for name, fields in self._buffer_fields().items()}
+        return SimpleNamespace(mode=mode, pool=pool, bufs=bufs,
+                               gen=torch.Generator(device=dev))
+
+    def _trace_program(self, kind, bucket=None, any_sample=False,
+                       mode="collect"):
+        """``(TraceResult or None, Report)`` of one program's function
+        over the analysis stand-ins (``analysis.api.traced``); within one
+        gate run (``_trace_memo``) a program is traced once."""
+        from ..analysis.api import traced
+
+        tag = (kind, bucket, bool(any_sample))
+        memo = self._trace_memo
+        if memo is not None and tag in memo:
+            return memo[tag]
+        env = self._analysis_env()
+        f = env.bufs[kind].dev
+        if kind == "decode":
+            fn = self._decode_fn(f, env.pool, any_sample, env.gen)
+        elif kind == "prefill":
+            fn = self._prefill_fn(f, env.pool, bucket, env.gen)
+        elif kind == "prefill_ext":
+            fn = self._prefill_ext_fn(f, env.pool, bucket, env.gen)
+        elif kind == "cow":
+            fn = self._cow_fn(f, env.pool)
+        else:
+            fn = self._verify_fn(f, env.pool)
+        self._pin_adapter()
+        root = "serving." + self._program_label(kind, bucket, False)
+        got = traced(fn, mode=mode, root=root, fake=env.mode)
+        if memo is not None:
+            memo[tag] = got
+        return got
+
+    def _check_family(self, programs, mode, what):
+        """Level 1 over ``programs`` (``(kind, bucket, any_sample)``):
+        one report, findings shared by several programs kept once,
+        blocking findings enforced per ``mode``."""
+        from .. import analysis
+
+        if mode not in ("warn", "error"):
+            raise ValueError(
+                f'{what} mode must be "warn" or "error", got {mode!r}'
+            )
+        report = analysis.Report()
+        seen = set()
+        for kind, bucket, any_sample in programs:
+            tr, crash = self._trace_program(kind, bucket, any_sample, mode)
+            root = "serving." + self._program_label(kind, bucket, False)
+            variant = crash if tr is None else analysis.check_call(
+                None, mode=mode, root=root, trace_result=tr)
+            for f in variant.findings:
+                key = (f.rule, f.file, f.line, f.message)
+                if key not in seen:  # shared-path findings once
+                    seen.add(key)
+                    report.add(f)
+        blocking = [f for f in report.findings
+                    if f.rule in _BLOCKING_RULES]
+        if blocking:
+            msg = (
+                f"serving {_INVARIANTS[what]} failed static analysis:\n"
+                + "\n".join(f.render() for f in blocking)
+            )
+            if mode == "error":
+                raise analysis.AnalysisError(msg, report)
+            warnings.warn(msg, stacklevel=3)
+        return report
+
+    def _check_decode(self, mode="error"):
+        """The decode slice of :meth:`check_programs` (level 1): both
+        programs (greedy, and with the sampling warp and its noise), so
+        a hazard in the sampling path does not wait for the first
+        sampled request."""
+        return self._check_family(
+            [("decode", None, False), ("decode", None, True)], mode,
+            "check_decode")
+
+    def _check_prefill(self, mode="error"):
+        """The prefill slice of :meth:`check_programs` (level 1): the
+        one-shot prefill, the continuation (chunked prefill, a prefix
+        hit's suffix) and the copy-on-write copy, each as enabled, at the
+        first bucket."""
+        cfg = self.config
+        bucket = cfg.prefill_buckets[0]
+        programs = [("prefill", bucket, False)]
+        if self._use_ext:
+            programs.append(("prefill_ext", bucket, False))
+            if cfg.enable_prefix_cache:
+                programs.append(("cow", None, False))
+        return self._check_family(programs, mode, "check_prefill")
+
+    def _check_verify(self, mode="error"):
+        """The speculative-verify slice of :meth:`check_programs` (level
+        1): the draft-window scoring program."""
+        if mode not in ("warn", "error"):
+            raise ValueError(
+                f'check_verify mode must be "warn" or "error", got '
+                f"{mode!r}"
+            )
+        if self.config.speculate_tokens is None:
+            raise RuntimeError(
+                "check_verify needs EngineConfig(speculate_tokens=): "
+                "this engine has speculation disabled"
+            )
+        return self._check_family([("verify", None, False)], mode,
+                                  "check_verify")
+
+    def _program_summary(self, kind, bucket=None, any_sample=False):
+        """One program's L3 summary (collective census, predicted
+        per-device memory), memoized; records its predicted peak in
+        ``metrics.program_bytes``."""
+        from ..analysis import AnalysisError
+        from ..analysis.compiled import program_summary
+
+        tag = (kind, bucket, bool(any_sample))
+        s = self._program_analysis.get(tag)
+        if s is not None:
+            return s
+        tr, _ = self._trace_program(kind, bucket, any_sample, mode="error")
+        if tr is None:   # a crash raised under mode="error"
+            raise AnalysisError(f"analysis trace of {kind} failed")
+        s = program_summary(tr)
+        self._program_analysis[tag] = s
+        if s.get("memory"):
+            self.metrics.program_bytes[
+                self._program_label(kind, bucket, any_sample)
+            ] = int(s["memory"]["peak"])
+        return s
+
+    def check_compiled_programs(self, passes=None):
+        """Level-3 analysis over the whole program family: run the
+        compiled-program rule set (collective census, per-device memory
+        budget: ``analysis.compiled.COMPILED_PASSES``) over every
+        program's summary and return the collected Report. Pure
+        collection: callers (:meth:`check_programs`, the build-time
+        memory gate) enforce; a crashing pass or a program that cannot
+        be summarized degrades to a ``pass-crash`` finding, never an
+        exception (the ``analysis.compiled`` fault-site contract), but a
+        device error re-raises."""
+        from .. import analysis
+        from ..analysis.compiled import summary_findings
+
+        cfg = self.config
+        report = analysis.Report()
+        for kind, bucket, any_sample in self._program_tags():
+            label = "serving." + self._program_label(kind, bucket,
+                                                     any_sample)
+            try:
+                summary = self._program_summary(kind, bucket, any_sample)
+            except _DEVICE_FAULTS:
+                raise
+            except Exception as e:
+                # analysis: allow(broad-except) an analyzer failure
+                # degrades like a crashing pass: L3 must never take down
+                # an engine build
+                report.add(analysis.Finding(
+                    rule="pass-crash",
+                    severity=analysis.Severity.WARNING,
+                    message=(
+                        f"compiled analysis of {label} crashed: {e!r}"
+                    ),
+                    root=label,
+                ))
+                continue
+            report.extend(summary_findings(
+                summary,
+                program=label,
+                tp_numerics=None,
+                tp_degree=1,
+                device_memory_budget=cfg.device_memory_budget,
+                mode="collect",
+                passes=passes,
+            ))
+        return report
+
+    def _enforce_memory_budget(self):
+        """The build-time memory gate: the family's predicted per-device
+        peaks against ``EngineConfig(device_memory_budget=)``, refused
+        (``analysis_check=None``/"error") or warned ("warn") BEFORE the
+        KV pool exists: a config that would run out of device memory
+        never allocates its pool."""
+        from .. import analysis
+
+        mode = self.config.analysis_check or "error"
+        report = self.check_compiled_programs(passes=("memory-budget",))
+        analysis.enforce(
+            report, mode,
+            what=(
+                "serving program family under EngineConfig("
+                f"device_memory_budget={self.config.device_memory_budget})"
+            ),
+        )
+        return report
 
     # -- client API ----------------------------------------------------------
     def add_request(self, prompt_token_ids, sampling_params=None,
@@ -1015,9 +1421,9 @@ class Engine:
         is the observatory's summary and ``spill`` the tier's stats (None
         when off); ``kv_headroom_bytes_per_chip`` scales the headroom
         blocks by a block's bytes. The tensor-parallel fields report one
-        card (``tp_degree`` 1), and the memory gate's
-        (``device_memory_budget``, ``predicted_peak_bytes_per_chip``) are
-        None: the analyzer is not ported."""
+        card (``tp_degree`` 1). ``device_memory_budget`` is the config's
+        and ``predicted_peak_bytes_per_chip`` the largest predicted peak
+        of the programs the analyzer summarized (None before any)."""
         m, bm, cfg = self.metrics, self.block_manager, self.config
         util = bm.utilization()
         reclaimable, util_active = self._active_pressure()
@@ -1055,8 +1461,10 @@ class Engine:
             "kv_bytes_per_token": self.pool.bytes_per_token(),
             "kv_bytes_per_token_per_chip":
                 self.pool.bytes_per_token_per_chip(),
-            "device_memory_budget": None,
-            "predicted_peak_bytes_per_chip": None,
+            "device_memory_budget": cfg.device_memory_budget,
+            "predicted_peak_bytes_per_chip": (
+                max(m.program_bytes.values()) if m.program_bytes
+                else None),
             "kv_utilization": util,
             "kv_active_utilization": util_active,
             "kv_reclaimable_blocks": reclaimable,

@@ -103,7 +103,7 @@ from .request import (
     normalize_sampling_params,
 )
 from .spill import drop_handle
-from .supervisor import ReplicaSupervisor, check_analysis
+from .supervisor import ReplicaSupervisor
 
 __all__ = ["Fleet", "FleetConfig", "FleetMetrics", "FleetRequest",
            "NoReplicaError"]
@@ -120,7 +120,7 @@ _fleet_counter = itertools.count(1)
 
 class FleetConfig:
     def __init__(self, num_replicas=2, hedge_after_s=None, max_restarts=2,
-                 restart_policy=None, analysis_check=None,
+                 restart_policy=None, analysis_check="error",
                  max_pending=None, journal_dir=None, placement=None,
                  scaling=None):
         if num_replicas < 1:
@@ -146,9 +146,6 @@ class FleetConfig:
                 'analysis_check must be None, "warn" or "error", got '
                 f"{analysis_check!r}"
             )
-        # the JAX fleet's default is "error" (every spawn runs
-        # Engine.check_decode); the analyzer is not ported, so None here
-        check_analysis(analysis_check)
         for name, value in (("placement", placement), ("scaling", scaling)):
             if value is not None:
                 raise NotImplementedError(
@@ -167,8 +164,8 @@ class FleetConfig:
         # operator-initiated and do not spend it)
         self.max_restarts = int(max_restarts)
         self.restart_policy = restart_policy
-        # decode-loop gate each replica runs at spawn/restart (None only:
-        # see above)
+        # decode-program gate each replica runs at spawn/restart
+        # (Engine.check_decode, the JAX default "error"); None disables
         self.analysis_check = analysis_check
         # fleet admission bound: add_request raises
         # EngineOverloadedError (the engine's shedding semantics) once

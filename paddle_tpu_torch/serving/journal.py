@@ -141,7 +141,7 @@ def _register_view(journal, journal_id):
             f"serving.journal.{journal_id}", collect
         )
     except Exception:
-        # telemetry is best-effort
+        # analysis: allow(broad-except) telemetry is best-effort
         pass
 
 
@@ -151,7 +151,7 @@ def _flight_record(name, **data):
 
         flight.record("journal", name, **data)
     except Exception:
-        # flight telemetry is best-effort
+        # analysis: allow(broad-except) flight telemetry is best-effort
         pass
 
 

@@ -208,6 +208,25 @@ class KVPool:
     def __init__(self, num_layers, num_kv_heads, num_blocks, block_size,
                  head_dim, dtype=torch.float32, device=None,
                  quant_dtype=None):
+        self._build(num_layers, num_kv_heads, num_blocks, block_size,
+                    head_dim, dtype, device, quant_dtype)
+
+    @classmethod
+    def abstract(cls, num_layers, num_kv_heads, num_blocks, block_size,
+                 head_dim, dtype, device, quant_dtype, mode):
+        """The pool's shape-only twin, its pages fake tensors of
+        ``mode`` (a ``FakeTensorMode``: shapes, dtypes and the device, no
+        memory): what the static analyzer traces the serving programs
+        against, so a config the memory gate refuses never allocates its
+        pool (``__init__`` does not run)."""
+        pool = cls.__new__(cls)
+        with mode:
+            pool._build(num_layers, num_kv_heads, num_blocks, block_size,
+                        head_dim, dtype, device, quant_dtype)
+        return pool
+
+    def _build(self, num_layers, num_kv_heads, num_blocks, block_size,
+               head_dim, dtype, device, quant_dtype):
         if quant_dtype not in (None, "int8"):
             raise ValueError(
                 f'KVPool quant_dtype must be None or "int8", got '

@@ -94,6 +94,15 @@ def _register_view(metrics, engine_id):
             fams.append(MetricFamily(
                 f"paddle_tpu_serving_{key}{suffix}", kind,
             ).add(value, label))
+        if m.program_bytes:
+            # predicted per-device peak per serving program (the
+            # analyzer's memory-budget source), one sample per program
+            fam = MetricFamily(
+                "paddle_tpu_serving_program_bytes", "gauge",
+            )
+            for prog, nbytes in sorted(m.program_bytes.items()):
+                fam.add(nbytes, {**label, "program": prog})
+            fams.append(fam)
         hist = m.spec_accept_hist()
         if hist:
             # per-step accepted-draft-length histogram (the observed
@@ -177,6 +186,11 @@ class EngineMetrics:
         # (serving/spill.py) by a lookup that ran into a demoted chain
         self.prefix_restores = 0
         self.cow_copies = 0
+        # predicted per-device peak bytes of each summarized serving
+        # program ({"decode": ..., "prefill[16]": ...}), filled by the
+        # analyzer's level 3 (Engine.check_compiled_programs) and
+        # exported as paddle_tpu_serving_program_bytes{program=}
+        self.program_bytes: dict = {}
         # gauges, refreshed by the engine every step
         self.queue_depth = 0
         self.num_running = 0

@@ -95,15 +95,37 @@ class StepBuffers:
         self._staged = (torch.cuda.Event() if device.type == "cuda"
                         else None)
         words = self.host.numpy()
-        self.np, self.dev = {}, {}
+        self.np = {}
+        self.dev = self._views(fields)
         off = 0
         for name, n, dtype in fields:
-            host, dev = words[off:off + n], self.device[off:off + n]
-            if dtype == "float32":
-                host, dev = host.view(np.float32), dev.view(torch.float32)
-            self.np[name], self.dev[name] = host, dev
+            host = words[off:off + n]
+            self.np[name] = host.view(np.float32) if dtype == "float32" \
+                else host
             off += n
         self._words = words
+
+    @classmethod
+    def abstract(cls, fields, device):
+        """The device side alone, made under the caller's
+        ``FakeTensorMode`` (no memory, no host buffer): the static
+        analyzer's stand-in, whose ``dev`` views the programs read."""
+        bufs = cls.__new__(cls)
+        bufs.device = torch.zeros(sum(n for _, n, _ in fields),
+                                  dtype=torch.int32, device=device)
+        bufs.host = bufs._staged = bufs._words = None
+        bufs.np = {}
+        bufs.dev = bufs._views(fields)
+        return bufs
+
+    def _views(self, fields):
+        dev, off = {}, 0
+        for name, n, dtype in fields:
+            view = self.device[off:off + n]
+            dev[name] = view.view(torch.float32) if dtype == "float32" \
+                else view
+            off += n
+        return dev
 
     def clear(self):
         """Zero the host buffer for the next fill, once the last staging

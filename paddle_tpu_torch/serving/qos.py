@@ -531,7 +531,7 @@ def _register_view(qos, qos_id):
         get_registry().register_collector(f"serving.qos.{qos_id}",
                                           collect)
     except Exception:
-        # telemetry is best-effort
+        # analysis: allow(broad-except) telemetry is best-effort
         pass
 
 
@@ -557,5 +557,5 @@ def _register_tenant_latency_view(qos, st):
             "paddle_tpu_serving_latency", labels={"tenant": st.name},
         )
     except Exception:
-        # telemetry is best-effort
+        # analysis: allow(broad-except) telemetry is best-effort
         pass

@@ -184,7 +184,7 @@ def _register_server_view(m, server_id):
             f"serving.server.{server_id}", collect
         )
     except Exception:
-        # telemetry is best-effort
+        # analysis: allow(broad-except) telemetry is best-effort
         pass
 
 
@@ -357,7 +357,8 @@ class Server(ThreadedHTTPHost):
         ``server_draining``), wait for in-flight requests to finish.
         Returns True when everything drained inside ``timeout``
         (default ``drain_timeout_s``)."""
-        # GIL-atomic one-way bool flip; racing writers all write True
+        # a GIL-atomic one-way bool flip; racing writers all write True
+        # analysis: allow(unlocked-shared-mutation) benign idempotent flag
         self._draining = True
         self.metrics.draining = True
         deadline = time.monotonic() + (
@@ -389,6 +390,7 @@ class Server(ThreadedHTTPHost):
         if self._closed:
             return
         # one-way bool flip; a racing duplicate close is idempotent
+        # analysis: allow(unlocked-shared-mutation) benign idempotent flag
         self._closed = True
         with self._progress:
             self._progress.notify_all()

@@ -4,10 +4,13 @@
 One ``ReplicaSupervisor`` owns one ``Engine`` replica's lifecycle on
 behalf of ``serving.fleet.Fleet``:
 
-  * **spawn** — synchronous first launch. The JAX package gates the
-    replica's decode step through ``Engine.check_decode`` first; that
-    analyzer is not ported yet, so the port takes ``analysis_check=None``
-    only and refuses any other value by name.
+  * **spawn** — synchronous first launch, gated as in the JAX package:
+    with ``analysis_check="error"`` (the default) or ``"warn"`` the
+    replica's decode programs go through ``Engine.check_decode`` (the
+    static analyzer, over fake tensors: nothing is captured or
+    allocated) unless the engine's own ``EngineConfig(analysis_check=)``
+    already ran the whole gate at its build; a blocking finding keeps the
+    replica out of the fleet.
   * **supervised stepping** — :meth:`step` fires the ``serving.replica``
     fault site (``phase="step"``) and forwards to ``Engine.step``; any
     exception that escapes is a replica death the fleet turns into a
@@ -45,17 +48,6 @@ from .engine import _DEVICE_FAULTS
 __all__ = ["ReplicaSupervisor"]
 
 
-def check_analysis(analysis_check):
-    """The spawn gate's setting: only None (no gate) until the analyzer
-    (``Engine.check_decode``) is ported."""
-    if analysis_check is not None:
-        raise NotImplementedError(
-            f"analysis_check={analysis_check!r} needs the static analyzer "
-            "(Engine.check_decode), which paddle_tpu_torch does not port "
-            "yet; pass analysis_check=None"
-        )
-
-
 class _DeviceFaultInRestart(BaseException):
     """Carries a device fault out of the restart policy's loop, which
     retries every ``Exception``: no attempt follows a CUDA error."""
@@ -63,8 +55,7 @@ class _DeviceFaultInRestart(BaseException):
 
 class ReplicaSupervisor:
     def __init__(self, name, factory, restart_policy=None, max_restarts=2,
-                 analysis_check=None):
-        check_analysis(analysis_check)
+                 analysis_check="error"):
         self.name = name
         self._factory = factory
         # restart attempts retry ANY exception: an engine build failure
@@ -100,7 +91,14 @@ class ReplicaSupervisor:
     # -- build / spawn -------------------------------------------------------
     def _build(self, phase):
         faults.fire("serving.replica", replica=self.name, phase=phase)
-        return self._factory()
+        engine = self._factory()
+        if (self.analysis_check is not None
+                and engine.config.analysis_check is None):
+            # decode-program gate (skipped only when the engine config
+            # already ran the whole gate at its build): host-sync and
+            # capture-hazard findings keep a replica out of the fleet
+            engine.check_decode(self.analysis_check)
+        return engine
 
     def _rebuild(self):
         try:

@@ -8,8 +8,9 @@ greedy tokens, the replica each request was dispatched to, and the
 failed replicas, shed, timeouts, route errors, prefix-affinity routes).
 
 Left out of ``tests/test_fleet.py``: ``test_spawn_gate_runs_check_decode``
-(the analyzer, ``Engine.check_decode``, is not ported: the port refuses
-``analysis_check="error"`` by name, tested below) and
+(the spawn gate, ``Engine.check_decode``, is held to its contract in
+``tests/test_torch_observability_cli.py``; the fleets here pass
+``analysis_check=None`` as the JAX ones do) and
 ``test_width_normalized_load_and_per_chip_headroom`` (tensor-parallel
 width and a sharded pool: every port replica is one device wide; the
 headroom tie-break is tested).
@@ -379,17 +380,23 @@ def test_config_validation_as_jax(sides):
 @pytest.mark.parametrize("kw,needle", [
     (dict(placement=object()), "tensor parallelism"),
     (dict(scaling=object()), "tensor parallelism"),
-    (dict(analysis_check="error"), "not port yet"),
-    (dict(analysis_check="warn"), "not port yet"),
+    (dict(analysis_check="error"), None),
+    (dict(analysis_check="warn"), None),
 ], ids=["placement", "scaling", "analysis_error", "analysis_warn"])
 def test_unported_fleet_options_are_refused_by_name(kw, needle):
-    with pytest.raises(NotImplementedError, match=needle):
-        serving.FleetConfig(**kw)
-    if "analysis_check" in kw:
-        with pytest.raises(NotImplementedError, match="analysis_check"):
-            serving.ReplicaSupervisor("r0", lambda: None, **kw)
-    # the JAX default gates every spawn; the port's default is None
-    assert serving.FleetConfig().analysis_check is None
+    """Options that wait for tensor parallelism are refused by name; the
+    spawn gate's settings (the analyzer is ported) are taken as the JAX
+    fleet takes them (``needle`` None)."""
+    if needle is None:
+        assert serving.FleetConfig(**kw).analysis_check == \
+            kw["analysis_check"]
+        sup = serving.ReplicaSupervisor("r0", lambda: None, **kw)
+        assert sup.analysis_check == kw["analysis_check"]
+    else:
+        with pytest.raises(NotImplementedError, match=needle):
+            serving.FleetConfig(**kw)
+    # the JAX default: every spawn runs the gate
+    assert serving.FleetConfig().analysis_check == "error"
 
 
 def test_engine_journal_under_fleet_refused(sides, tmp_path):

@@ -4,7 +4,7 @@ CLI, the retry policy, the replica supervisor and the fleet, the step
 observatory, the compile log and the host spill tier, the data loader,
 amp, the checkpoints, the watchdog and the train loop, DiT and the
 optimizers, the nn layer set, vision and the DataLoader's process
-workers too) loads neither
+workers, the static analyzer and the observability CLI too) loads neither
 jax, nor anything of paddle_tpu, nor ml_dtypes, and its entry points
 refuse to fall back to the CPU quietly when no CUDA device exists."""
 import os
@@ -75,6 +75,13 @@ import paddle_tpu_torch.vision.models.resnet
 import paddle_tpu_torch.vision.transforms
 import paddle_tpu_torch.vision.datasets
 import paddle_tpu_torch.io.dataloader
+import paddle_tpu_torch.analysis
+import paddle_tpu_torch.analysis.__main__
+import paddle_tpu_torch.analysis.astlint
+import paddle_tpu_torch.analysis.trace
+import paddle_tpu_torch.analysis.passes
+import paddle_tpu_torch.analysis.compiled
+import paddle_tpu_torch.observability.__main__
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.")
