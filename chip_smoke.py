@@ -184,6 +184,30 @@ Phases, in order; any failure exits non-zero:
                serving launch gates); a two-replica fleet under the
                default gate. Its summary is one ``[analysis] summary``
                JSON line.
+5e3. jit    — the jit surface and the compile cache on the serving
+               cell's model (12 layers, bf16): ``to_static`` in eval at
+               [4, 512] (depth cut to 4 layers) in a cold process and
+               then a warm one over one ``cache=`` directory, each with
+               local Inductor and Triton caches of its own (4 flash
+               launches a compiled call, logits within 5e-2 of eager,
+               no compile on a second call, the warm process's FX-graph
+               cache hitting with no miss and its outputs bit-identical
+               in Inductor's deterministic mode); ``jit.save`` over sequence buckets
+               {256, 512}, ``jit.load`` in another process (12 flash
+               launches a call, a 300-token input padded and sliced
+               back); the 2-layer training model through ``to_static``
+               (AOTAutograd, ``aot_eager``) with a backward (2 launches
+               each of the flash forward, dq and dk/dv a step, gradients
+               within 5e-2 of eager, one more compile at a new length)
+               and the ragged MoE layer (3 grouped GEMM launches a
+               forward); the analysis cell's gated engine built cold
+               with a compile cache and warm in another process (no
+               analysis trace, one aot-hit a program, every program
+               captured at build and none while serving, greedy tokens
+               equal), and a flipped bit and a planted torch version
+               each degrading to a counted, warned fallback. Its summary
+               is one ``[jit] summary`` JSON line; the workers are this
+               script with ``--jit-worker``.
 5f. server  — the serving cell behind the HTTP front door: the bf16
                serving model over an engine with a journal, an access log
                and an SLO, behind ``serve(port=0)`` with two API keys for
@@ -336,8 +360,8 @@ Phases, in order; any failure exits non-zero:
                finite and falling; step ms, tokens/s, MFU, peak memory,
                max |dO|, the float16 scale trajectory and skipped steps.
 7c. train_resume — ``TrainLoop`` over ``TrainState`` in worker processes
-               (this script with ``--train-worker``): full width, 2
-               layers (a 234M-parameter checkpoint is ~3.7 GB), O2 bf16,
+               (this script with ``--train-worker``): full width, 1
+               layer (a 183M-parameter checkpoint is ~2.9 GB), O2 bf16,
                AdamW with masters, LinearWarmup over
                CosineAnnealingDecay, ClipGradByGlobalNorm, a seeded
                DataLoader, 6 steps. Two uninterrupted runs bit-identical;
@@ -2885,7 +2909,7 @@ def _first_continuation(torch, model, ecfg, prompts):
     "xla"``: ``paged_prefill_ref``) on copies of the pool taken just
     before the replay, over the program's own staged inputs."""
     from paddle_tpu_torch.serving import Engine, SamplingParams
-    from paddle_tpu_torch.serving.bucketing import next_bucket
+    from paddle_tpu_torch.jit.bucketing import next_bucket
 
     warm = Engine(model, ecfg)
     got = {}
@@ -3644,6 +3668,673 @@ def phase_analysis(torch):
     del fleet, model
     gc.collect()
     torch.cuda.empty_cache()
+    return result
+
+
+# ------------------------------------------------------------------- jit
+# the jit cell: the serving cell's model (SERVING_CFG, bf16) staged with
+# to_static (eval, [JIT_BATCH, JIT_SEQ] prompts) and its compile cache
+# across processes; jit.save over JIT_BUCKETS of the sequence dim, loaded
+# in another process; training through to_static on the 2-layer training
+# model (then JIT_TRAIN_SHORT tokens, a new shape) and the ragged MoE
+# layer, both on JIT_TRAIN_BACKEND (AOTAutograd without Inductor's code
+# generation: two more cold Inductor compiles would take ~55 s of the
+# script's 1200 s; Inductor's own run of the same steps is in PERF.md);
+# the analysis cell's engine warm-restarted from the compile cache
+JIT_BATCH, JIT_SEQ = 4, 512
+# (a) and (b) compile the serving model with Inductor cut to 4 layers:
+# its 12-layer cold compile took 53.5 s and 110.5 s in two runs of the
+# whole script (NVIDIA H100 80GB HBM3, 700 W), past what the script's
+# 1200 s limit leaves
+JIT_STATIC_CFG = dict(SERVING_CFG, num_hidden_layers=4)
+JIT_BUCKETS = [256, 512]
+JIT_RAGGED = 300
+JIT_TRAIN_CFG = dict(TRAIN_CFG, num_hidden_layers=2)
+JIT_TRAIN_BATCH, JIT_TRAIN_SEQ, JIT_TRAIN_SHORT = 2, 1024, 512
+JIT_TRAIN_BACKEND = "aot_eager"
+JIT_MOE_BATCH, JIT_MOE_SEQ = 4, 1024
+JIT_REQUESTS, JIT_NEW_TOKENS = 8, 32
+# the gated engine build of the analysis cell before the compile cache
+# (the analysis phase's, PERF.md; NVIDIA H100 80GB HBM3, 700 W)
+JIT_GATED_BUILD_BEFORE_S = 13.36
+JIT_WORKER_TIMEOUT_S = 600
+
+
+def _jit_ids(torch, vocab, b, s, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(1, vocab, (b, s), generator=g).cuda()
+
+
+def _logit_stats(torch, out, ref):
+    o, r = out.float(), ref.float()
+    d = (o - r).abs()
+    return {"max_abs_err": d.max().item(),
+            "rel_l2": (d.norm() / r.norm().clamp_min(1e-30)).item(),
+            "logit_absmax": r.abs().max().item(),
+            "finite": bool(o.isfinite().all())}
+
+
+def _counts():
+    from paddle_tpu_torch.kernels import _build
+
+    return dict(_build.launch_counts(), **_build.variant_counts())
+
+
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def _digest(torch, t):
+    import hashlib
+
+    return hashlib.sha256(
+        t.detach().float().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def _jit_requests(cfg):
+    from paddle_tpu_torch.serving import SamplingParams
+
+    prompts, _ = _serving_workload(cfg, n_req=JIT_REQUESTS)
+    return prompts, SamplingParams(max_new_tokens=JIT_NEW_TOKENS)
+
+
+def _jit_engine_config(cache, **kw):
+    import torch
+
+    from paddle_tpu_torch.serving import EngineConfig
+
+    return EngineConfig(**dict(
+        ANALYSIS_ENGINE, analysis_check="error",
+        device_memory_budget=torch.cuda.get_device_properties(0)
+        .total_memory, compile_cache=cache), **kw)
+
+
+def _jit_to_static_task(torch, spec):
+    """(a) and (b), in a process of its own: ``to_static(cache=)`` of the
+    serving model cut to ``JIT_STATIC_CFG``'s depth, in eval; the first
+    call's seconds, the flash launches of
+    one compiled call, the logits against the eager model's, no compile
+    on a second call at the same shape, Inductor's cache counters and the
+    compile cache's. The compiled calls run in
+    Inductor's deterministic mode (no choice by on-device benchmarking
+    where it changes numerics): two compiles of one program then agree to
+    the bit, and the cold and warm processes can be held to that. The
+    mode is patched around each call, as Dynamo resets it to
+    ``torch.are_deterministic_algorithms_enabled()`` after every
+    compile."""
+    from torch._dynamo.utils import counters
+    from torch._inductor import config as inductor_config
+
+    from paddle_tpu_torch import compilecache, jit
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(**JIT_STATIC_CFG)
+    model = LlamaForCausalLM(cfg, seed=0).eval()
+    ids = _jit_ids(torch, cfg.vocab_size, JIT_BATCH, JIT_SEQ)
+    with torch.no_grad():
+        ref = model(ids)
+    torch.cuda.synchronize()
+    jit.to_static(model, cache=spec["cache"])
+    staged = model.forward
+    counters.clear()
+    _build.reset_launch_counts()
+    det = inductor_config.patch(deterministic=True)
+    t0 = time.perf_counter()
+    with torch.no_grad(), det:
+        out = model(ids)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    first = _nonzero(_counts())
+    _build.reset_launch_counts()
+    with torch.no_grad(), det:
+        again = model(ids)
+    torch.cuda.synchronize()
+    per_call = _nonzero(_counts())
+    return {
+        "first_call_s": first_s,
+        "compiles_after_second_call": staged.compiles,
+        "launches_first_call": first, "launches_per_call": per_call,
+        "logits": _logit_stats(torch, out, ref),
+        "second_call_equal": bool(torch.equal(out, again)),
+        "digest": _digest(torch, out),
+        "inductor": dict(counters["inductor"]),
+        "aot_autograd": dict(counters["aot_autograd"]),
+        "cache": compilecache.resolve(spec["cache"]).metrics.snapshot(),
+        "launches": first,
+    }
+
+
+def _jit_load_task(torch, spec, model):
+    """(c), in the warm process: ``jit.load`` of the saved serving model;
+    the flash launches of one call of the loaded program, its logits
+    against the eager ``model``'s at JIT_SEQ and at JIT_RAGGED tokens
+    (padded to the bucket and sliced back)."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.kernels import _build
+
+    cfg = model.config
+    t0 = time.perf_counter()
+    loaded = jit.load(spec["path"])
+    load_s = time.perf_counter() - t0
+    ids = _jit_ids(torch, cfg.vocab_size, JIT_BATCH, JIT_SEQ)
+    ragged = ids[:, :JIT_RAGGED].contiguous()
+    with torch.no_grad():
+        ref, ref_ragged = model(ids), model(ragged)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    out = loaded(ids)
+    torch.cuda.synchronize()
+    per_call = _nonzero(_counts())
+    _build.reset_launch_counts()
+    out_ragged = loaded(ragged)
+    torch.cuda.synchronize()
+    ragged_launches = _nonzero(_counts())
+    return {
+        "load_s": load_s, "launches_per_call": per_call,
+        "launches_ragged_call": ragged_launches,
+        "logits": _logit_stats(torch, out, ref),
+        "ragged_shape": list(out_ragged.shape),
+        "logits_ragged": _logit_stats(torch, out_ragged, ref_ragged),
+        "launches": {k: per_call.get(k, 0) + ragged_launches.get(k, 0)
+                     for k in set(per_call) | set(ragged_launches)},
+    }
+
+
+def _jit_engine_task(torch, spec, model):
+    """(e), in the warm process: the analysis cell's gated engine over
+    ``model`` built warm from the compile cache: the analyzer's traces
+    (counted), the aot-hits, the programs captured at build and while
+    serving, the build's seconds, the greedy tokens of the cell's
+    requests."""
+    from paddle_tpu_torch.analysis import trace as analysis_trace
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.observability import jit_events
+    from paddle_tpu_torch.serving import Engine
+
+    prompts, params = _jit_requests(model.config)
+    torch.cuda.synchronize()
+    traces0, hits0 = analysis_trace.trace_count(), jit_events.aot_hits()
+    t0 = time.perf_counter()
+    engine = Engine(model, _jit_engine_config(spec["cache"]))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    m = engine.metrics
+    built = _program_counts(m)
+    _build.reset_launch_counts()
+    outs = engine.generate(prompts, params)
+    torch.cuda.synchronize()
+    return {
+        "build_s": build_s,
+        "analysis_traces": analysis_trace.trace_count() - traces0,
+        "aot_hits": int(jit_events.aot_hits() - hits0),
+        "programs": len(engine._program_tags()),
+        "compiles_at_build": built, "compiles_after_serving":
+            _program_counts(m),
+        "tokens": [o.token_ids for o in outs],
+        "cache": engine._cc.metrics.snapshot(),
+        "launches": _nonzero(_counts()),
+    }
+
+
+def _program_counts(m):
+    return [getattr(m, f) for f in _PROGRAM_FIELDS]
+
+
+def _jit_warm_task(torch, spec):
+    """(b)'s warm process, then (c)'s load and (e)'s warm engine in the
+    same fresh process, over one serving model (one process start and
+    two model builds less)."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    rec = {"to_static": _jit_to_static_task(torch, spec)}
+    gc.collect()
+    model = LlamaForCausalLM(LlamaConfig(**SERVING_CFG), seed=0).eval()
+    rec["load"] = _jit_load_task(torch, spec, model)
+    gc.collect()
+    rec["engine"] = _jit_engine_task(
+        torch, dict(spec, cache=spec["engine_cache"]), model)
+    return rec
+
+
+_JIT_TASKS = {"to_static": _jit_to_static_task, "warm": _jit_warm_task}
+
+
+def jit_worker_main(spec_path, out_path):
+    """One process of the ``jit`` phase (``chip_smoke.py --jit-worker SPEC
+    OUT``): the spec's task (``_JIT_TASKS``); writes its record to OUT on
+    any exit."""
+    import traceback
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rec = {"task": spec["task"]}
+    try:
+        rec.update(_JIT_TASKS[spec["task"]](torch, spec))
+    except Exception as e:
+        traceback.print_exc()
+        rec["error"] = f"{type(e).__name__}: {e}"
+    finally:
+        with open(out_path, "w") as f:
+            json.dump(rec, f)
+    return 1 if "error" in rec else 0
+
+
+def _jit_worker(tmp, name, **spec):
+    """Run one ``--jit-worker`` process to its end, with local Inductor
+    and Triton caches of its own (a fresh process on a fresh machine);
+    -> its record."""
+    spec_path = os.path.join(tmp, f"{name}.spec.json")
+    out_path = os.path.join(tmp, f"{name}.out.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    env = dict(os.environ,
+               TORCHINDUCTOR_CACHE_DIR=os.path.join(tmp, name, "inductor"),
+               TRITON_CACHE_DIR=os.path.join(tmp, name, "triton"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--jit-worker",
+         spec_path, out_path], env=env, capture_output=True, text=True,
+        timeout=JIT_WORKER_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    rec = {}
+    if os.path.exists(out_path):
+        with open(out_path) as f:
+            rec = json.load(f)
+    check(proc.returncode == 0 and "error" not in rec,
+          f"jit: worker {name} exit {proc.returncode}: {rec.get('error')}"
+          f"\n{proc.stderr[-3000:]}")
+    rec["process_s"] = wall
+    return rec
+
+
+def _merge(total, counts):
+    for k, n in counts.items():
+        total[k] = total.get(k, 0) + n
+
+
+def _jit_static_gates(tag, rec, layers):
+    """(a)'s gates on one to_static process's record."""
+    per = rec["launches_per_call"]
+    check(per.get("flash_attention") == layers
+          and per.get("flash_attention/wgmma") == layers,
+          f"jit {tag}: {per} flash launches in one compiled call, want "
+          f"{layers} on wgmma")
+    st = rec["logits"]
+    check(st["finite"] and st["max_abs_err"] <= LOGITS_TOL,
+          f"jit {tag}: compiled logits differ from eager by "
+          f"{st['max_abs_err']} > {LOGITS_TOL} ({st})")
+    check(rec["second_call_equal"]
+          and rec["compiles_after_second_call"] == 1,
+          f"jit {tag}: {rec['compiles_after_second_call']} compiles after "
+          f"a second call at the same shape (want 1)")
+
+
+def _jit_train(torch):
+    """(d): the 2-layer training model through ``to_static`` in train
+    mode, then a backward; the flash forward, dq and dk/dv launches of a
+    compiled step, its gradients against the eager step's; a step at a new
+    sequence length compiles once more (and a second call at a shape
+    never); the ragged MoE layer under ``to_static`` (fullgraph), its
+    grouped GEMM launches of a forward and its output against the eager
+    layer's. Both on ``JIT_TRAIN_BACKEND``."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.incubate import MoELayer
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(**JIT_TRAIN_CFG)
+    layers = cfg.num_hidden_layers
+    model = LlamaForCausalLM(cfg, seed=0)
+    ref = LlamaForCausalLM(cfg, seed=0)
+    ids = _jit_ids(torch, cfg.vocab_size, JIT_TRAIN_BATCH, JIT_TRAIN_SEQ, 1)
+    _, ref_loss = ref(ids, labels=ids)
+    ref_loss.backward()
+    jit.to_static(model, backend=JIT_TRAIN_BACKEND)
+    steps = []
+    for x in (ids, ids, ids[:, :JIT_TRAIN_SHORT].contiguous()):
+        model.zero_grad(set_to_none=True)
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, loss = model(x, labels=x)
+        loss.backward()
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0, _nonzero(_counts()),
+                      model.forward.compiles))
+        if len(steps) == 2:
+            rel = {n: ((p.grad.float() - q.grad.float()).norm()
+                       / q.grad.float().norm().clamp_min(1e-30)).item()
+                   for (n, p), q in zip(model.named_parameters(),
+                                        ref.parameters())}
+            step_loss = loss.item()
+    per_step = steps[1][1]
+    worst = max(rel, key=rel.get)
+    check(all(per_step.get(k) == layers for k in FLASH),
+          f"jit train: {per_step} flash launches in a compiled step, want "
+          f"{layers} of each of {FLASH}")
+    check([c for _, _, c in steps] == [1, 1, 2],
+          f"jit train: compiles after each step {[c for *_, c in steps]}, "
+          f"want 1, 1 (the same shape), 2 (a new one)")
+    check(abs(step_loss - ref_loss.item()) <= TRAIN_LOSS_TOL,
+          f"jit train: compiled loss {step_loss} against eager "
+          f"{ref_loss.item()}")
+    check(np.isfinite(rel[worst]) and rel[worst] <= TRAIN_GRAD_RTOL,
+          f"jit train: gradient of {worst} differs from the eager step's "
+          f"by {rel[worst]} (relative L2) > {TRAIN_GRAD_RTOL}")
+    result = {"backend": JIT_TRAIN_BACKEND, "first_step_s": steps[0][0],
+              "second_step_s": steps[1][0], "new_shape_step_s": steps[2][0],
+              "launches_per_step": per_step, "loss": step_loss,
+              "eager_loss": ref_loss.item(), "worst_grad_rel_l2":
+              [worst, rel[worst]], "compiles": [c for *_, c in steps]}
+    log(f"[jit] (d) train ({JIT_TRAIN_BACKEND}): 2-layer step through "
+        f"to_static, first {steps[0][0]:.1f}s (compile), then "
+        f"{steps[1][0] * 1e3:.1f} ms; launches {per_step}; loss "
+        f"{step_loss:.5f} (eager {ref_loss.item():.5f}); worst gradient "
+        f"{worst} at rel L2 {rel[worst]:.3g}; a {JIT_TRAIN_SHORT}-token "
+        f"step compiled once more ({steps[2][0]:.1f}s)")
+    launches = dict(per_step)
+    del model, ref
+    gc.collect()
+
+    layer = MoELayer(**MOE_LAYER, impl="ragged", device="cuda",
+                     dtype=torch.bfloat16, seed=0).eval()
+    x = torch.randn(JIT_MOE_BATCH, JIT_MOE_SEQ, MOE_LAYER["d_model"],
+                    device="cuda", generator=torch.Generator(
+                        device="cuda").manual_seed(2)).to(torch.bfloat16)
+    with torch.no_grad():
+        want, _ = layer(x)
+        jit.to_static(layer, backend=JIT_TRAIN_BACKEND)
+        t0 = time.perf_counter()
+        layer(x)
+        torch.cuda.synchronize()
+        moe_first_s = time.perf_counter() - t0
+        _build.reset_launch_counts()
+        got, _ = layer(x)
+        torch.cuda.synchronize()
+    moe = _nonzero(_counts())
+    moe_l2 = _rel_l2(got, want)
+    check(moe.get("grouped_matmul") == 3
+          and moe.get("grouped_matmul/wgmma") == 3,
+          f"jit moe: {moe} grouped GEMM launches in a compiled forward, "
+          f"want 3 on wgmma")
+    check(layer.forward.compiles == 1 and moe_l2 <= MOE_DENSE_L2,
+          f"jit moe: {layer.forward.compiles} compiles, output rel L2 "
+          f"{moe_l2} against eager (limit {MOE_DENSE_L2})")
+    log(f"[jit] (d) ragged MoE layer under to_static(fullgraph, "
+        f"{JIT_TRAIN_BACKEND}): first call {moe_first_s:.1f}s, launches "
+        f"{moe}, rel L2 {moe_l2:.3g} against eager")
+    result.update({"moe_first_call_s": moe_first_s,
+                   "moe_launches_per_forward": moe, "moe_rel_l2": moe_l2})
+    _merge(launches, moe)
+    result["launches"] = launches
+    del layer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def _jit_fallback(torch, model, src, tmp, prompts, params, cold_tokens):
+    """(f): a copy of the compile cache with the greedy decode program's
+    artifact bit-flipped (``_flip_bit``) and the sampling decode
+    program's stamped with another torch version (``_stale_torch``): the
+    engine builds, each damage is a counted, warned fallback that costs
+    its program one trace, and the greedy tokens equal the cold
+    engine's."""
+    import contextlib
+    import io
+    import shutil
+
+    from paddle_tpu_torch import compilecache
+    from paddle_tpu_torch.analysis import trace as analysis_trace
+    from paddle_tpu_torch.serving import Engine
+
+    dst = os.path.join(tmp, "damaged")
+    shutil.copytree(src, dst)
+    mdir = os.path.join(dst, "manifests")
+    (mname,) = os.listdir(mdir)
+    with open(os.path.join(mdir, mname)) as f:
+        entries = json.load(f)["entries"]
+    for sample, mutate in ((False, _flip_bit), (True, _stale_torch)):
+        entry = next(e for e in entries if e["kind"] == "decode"
+                     and e["any_sample"] == sample)
+        mutate(os.path.join(dst, "objects", entry["store_key"]))
+    cc = compilecache.resolve(dst)
+    traces0 = analysis_trace.trace_count()
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        engine = Engine(model, _jit_engine_config(dst))
+    traces = analysis_trace.trace_count() - traces0
+    tokens = [o.token_ids for o in engine.generate(prompts, params)]
+    snap = cc.metrics.snapshot()
+    warned = [line for line in err.getvalue().splitlines()
+              if "falling back" in line]
+    check(snap["fallbacks"] == 2 and traces == 2 and tokens == cold_tokens
+          and any("checksum mismatch" in w for w in warned)
+          and any("environment mismatch" in w for w in warned),
+          f"jit (f): fallbacks {snap['fallbacks']}, traces {traces}, "
+          f"tokens equal {tokens == cold_tokens}, warnings {warned!r}")
+    del engine
+    gc.collect()
+    return {"fallbacks": snap["fallbacks"], "analysis_traces": traces,
+            "warnings": warned}
+
+
+def _flip_bit(artifact):
+    p = os.path.join(artifact, "analysis.bin")
+    raw = bytearray(open(p, "rb").read())
+    raw[len(raw) // 2] ^= 0x01
+    open(p, "wb").write(bytes(raw))
+
+
+def _stale_torch(artifact):
+    p = os.path.join(artifact, "meta.json")
+    meta = json.load(open(p))
+    meta["env"]["torch"] = "0.0.1"
+    json.dump(meta, open(p, "w"))
+
+
+def phase_jit(torch):
+    """``jit``: the jit surface and the compile cache on the serving
+    cell's model (``SERVING_CFG``: 12 layers, hidden 2048, bf16): (a)
+    ``to_static`` in eval at [4, 512], depth cut to ``JIT_STATIC_CFG``'s
+    4 layers (the compiled calls in Inductor's deterministic mode,
+    ``_jit_to_static_task``): 4 flash launches (wgmma) a compiled call,
+    logits within ``LOGITS_TOL`` of eager, no compile on a second call;
+    (b) ``to_static(cache=)`` in a cold process, then a warm one, each
+    with fresh local Inductor and Triton caches: first-call seconds,
+    artifact bytes, Inductor's FX-graph cache hits and misses (the warm
+    one: hits, no miss), the outputs bit-identical ((a)'s gates run in
+    both); (c) ``jit.save`` with buckets {seq: [256, 512]}, loaded in the
+    warm process: 12 flash launches a call, logits within ``LOGITS_TOL``
+    of eager, a 300-token input padded to 512 and sliced back; (d) the
+    2-layer training model through ``to_static`` (``JIT_TRAIN_BACKEND``)
+    in train mode and a backward: 2 launches each of the flash forward,
+    dq and dk/dv a step, gradients within ``TRAIN_GRAD_RTOL`` of the eager
+    step, exactly one more compile at a new sequence length; the ragged
+    MoE layer under ``to_static``: 3 grouped GEMM launches a forward;
+    (e) the analysis cell's gated engine (``analysis_check="error"``,
+    the card's memory as budget, prefix cache and speculation on) built
+    cold with a compile cache, then warm in the warm process: no
+    analysis trace, one aot-hit a program, every program captured at
+    build and none while serving, greedy tokens equal the cold engine's;
+    both builds' seconds; (f) one artifact with a flipped bit, another
+    with a planted torch version, in one build: each a counted, warned
+    fallback, tokens unchanged."""
+    import shutil
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_jit_")
+    try:
+        return _jit_phase(torch, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _jit_phase(torch, tmp):
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.analysis import trace as analysis_trace
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import Engine
+
+    cfg = LlamaConfig(**SERVING_CFG)
+    layers = cfg.num_hidden_layers
+    result, launches = {}, {}
+    cache = os.path.join(tmp, "ts_cache")
+    ecache = os.path.join(tmp, "engine_cache")
+    path = os.path.join(tmp, "saved", "llama")
+
+    # (a) + (b): the cold to_static process
+    cold = _jit_worker(tmp, "cold", task="to_static", cache=cache)
+
+    # (c) jit.save here (loaded in the warm process below)
+    model = LlamaForCausalLM(cfg, seed=0).eval()
+    os.makedirs(os.path.dirname(path))
+    t0 = time.perf_counter()
+    jit.save(model, path,
+             input_spec=[jit.InputSpec([JIT_BATCH, None], "int64")],
+             bucket_sizes={1: JIT_BUCKETS})
+    save_s = time.perf_counter() - t0
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the engine cold here (warm in the warm process below)
+    model = LlamaForCausalLM(cfg, seed=0)
+    prompts, params = _jit_requests(cfg)
+    traces0 = analysis_trace.trace_count()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine = Engine(model, _jit_engine_config(ecache))
+    torch.cuda.synchronize()
+    cold_build_s = time.perf_counter() - t0
+    cold_traces = analysis_trace.trace_count() - traces0
+    programs = len(engine._program_tags())
+    built = _program_counts(engine.metrics)
+    _build.reset_launch_counts()
+    cold_tokens = [o.token_ids for o in engine.generate(prompts, params)]
+    torch.cuda.synchronize()
+    _merge(launches, _nonzero(_counts()))
+    check(_program_counts(engine.metrics) == built,
+          f"jit (e) cold: programs captured while serving {built} -> "
+          f"{_program_counts(engine.metrics)}")
+    del engine
+    gc.collect()
+
+    # (f) damaged artifacts degrade to a counted, warned fallback
+    result["fallbacks"] = _jit_fallback(torch, model, ecache, tmp, prompts,
+                                        params, cold_tokens)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) warm, (c) load and (e) warm, in one fresh process
+    rec = _jit_worker(tmp, "warm", task="warm", cache=cache, path=path,
+                      engine_cache=ecache)
+    warm, loaded, warm_e = rec["to_static"], rec["load"], rec["engine"]
+
+    for tag, r in (("cold", cold), ("warm", warm)):
+        _jit_static_gates(tag, r, JIT_STATIC_CFG["num_hidden_layers"])
+        _merge(launches, r["launches"])
+    check(cold["cache"]["misses"] == 1 and cold["cache"]["bytes_written"] > 0
+          and cold["inductor"].get("fxgraph_cache_miss", 0) > 0,
+          f"jit (b) cold: cache {cold['cache']}, inductor "
+          f"{cold['inductor']}")
+    check(warm["cache"]["hits"] == 1
+          and warm["inductor"].get("fxgraph_cache_hit", 0) > 0
+          and warm["inductor"].get("fxgraph_cache_miss", 0) == 0,
+          f"jit (b) warm: cache {warm['cache']}, inductor "
+          f"{warm['inductor']}")
+    check(warm["digest"] == cold["digest"],
+          "jit (b): the warm process's outputs are not bit-identical to "
+          "the cold one's")
+    result["to_static"] = {"cold": cold, "warm": warm,
+                           "warm_process_s": rec["process_s"]}
+    log(f"[jit] (a) to_static [{JIT_BATCH}, {JIT_SEQ}], "
+        f"{JIT_STATIC_CFG['num_hidden_layers']} layers: "
+        f"{cold['launches_per_call']} a compiled call; logits max abs err "
+        f"{cold['logits']['max_abs_err']:.4g} against eager; 1 compile "
+        f"after the second call")
+    log(f"[jit] (b) first call cold {cold['first_call_s']:.1f}s, warm "
+        f"{warm['first_call_s']:.1f}s; artifacts "
+        f"{cold['cache']['bytes_written']} B written, "
+        f"{warm['cache']['bytes_read']} B read; inductor cold "
+        f"{cold['inductor']}, warm {warm['inductor']}; processes "
+        f"{cold['process_s']:.1f}s (cold) and {rec['process_s']:.1f}s "
+        f"(warm, with (c) and (e)); outputs bit-identical")
+
+    for key in ("launches_per_call", "launches_ragged_call"):
+        per = loaded[key]
+        check(per.get("flash_attention") == layers
+              and per.get("flash_attention/wgmma") == layers,
+              f"jit (c): {per} flash launches in one call of the loaded "
+              f"program, want {layers} on wgmma")
+    for key in ("logits", "logits_ragged"):
+        st = loaded[key]
+        check(st["finite"] and st["max_abs_err"] <= LOGITS_TOL,
+              f"jit (c): loaded {key} differ from eager by "
+              f"{st['max_abs_err']} > {LOGITS_TOL}")
+    check(loaded["ragged_shape"] == [JIT_BATCH, JIT_RAGGED, cfg.vocab_size],
+          f"jit (c): a {JIT_RAGGED}-token input came back "
+          f"{loaded['ragged_shape']}")
+    _merge(launches, loaded["launches"])
+    result["save_load"] = dict(loaded, save_s=save_s)
+    log(f"[jit] (c) jit.save over {JIT_BUCKETS} in {save_s:.1f}s; loaded "
+        f"in another process ({loaded['load_s']:.1f}s): "
+        f"{loaded['launches_per_call']} a call, logits max abs err "
+        f"{loaded['logits']['max_abs_err']:.4g}; {JIT_RAGGED} tokens padded "
+        f"and sliced back to {loaded['ragged_shape']}, max abs err "
+        f"{loaded['logits_ragged']['max_abs_err']:.4g}")
+
+    _merge(launches, warm_e["launches"])
+    check(warm_e["analysis_traces"] == 0 and warm_e["aot_hits"] == programs
+          and warm_e["compiles_at_build"] == built
+          and warm_e["compiles_after_serving"] == built,
+          f"jit (e) warm: {warm_e['analysis_traces']} analysis traces, "
+          f"{warm_e['aot_hits']} aot-hits of {programs} programs, captured "
+          f"{warm_e['compiles_at_build']} at build and "
+          f"{warm_e['compiles_after_serving']} after serving (cold "
+          f"{built})")
+    check(warm_e["tokens"] == cold_tokens,
+          "jit (e): the warm engine's greedy tokens differ from the cold "
+          "engine's")
+    result["engine"] = {
+        "cold_build_s": cold_build_s, "cold_analysis_traces": cold_traces,
+        "programs": programs, "captured_at_build": built,
+        "warm": {k: v for k, v in warm_e.items() if k != "tokens"},
+        "gated_build_before_s": JIT_GATED_BUILD_BEFORE_S}
+    log(f"[jit] (e) gated engine with a compile cache: cold build "
+        f"{cold_build_s:.2f}s ({cold_traces} analysis traces, {programs} "
+        f"programs captured); warm build in another process "
+        f"{warm_e['build_s']:.2f}s (0 traces, {warm_e['aot_hits']} "
+        f"aot-hits, {programs} programs captured at build, none while "
+        f"serving); the gated build before the cache: "
+        f"{JIT_GATED_BUILD_BEFORE_S}s; greedy tokens equal")
+    log(f"[jit] (f) {result['fallbacks']['fallbacks']} fallbacks, "
+        f"{result['fallbacks']['analysis_traces']} traces, tokens equal: "
+        + "; ".join(w[:160] for w in result["fallbacks"]["warnings"]))
+
+    # (d) training, and the ragged MoE layer
+    result["train"] = _jit_train(torch)
+    _merge(launches, result["train"]["launches"])
+    result["launches"] = launches
+    log("[jit] summary " + json.dumps({
+        "to_static_first_call_s": [cold["first_call_s"],
+                                   warm["first_call_s"]],
+        "cache_bytes": cold["cache"]["bytes_written"],
+        "fxgraph_warm": warm["inductor"],
+        "logits_max_abs_err": cold["logits"]["max_abs_err"],
+        "load_max_abs_err": loaded["logits"]["max_abs_err"],
+        "train_step_s": result["train"]["second_step_s"],
+        "engine_build_s": [cold_build_s, warm_e["build_s"]],
+        "launches": launches}))
     return result
 
 
@@ -5746,15 +6437,23 @@ def _lm_loss(model, ids):
 
 @contextlib.contextmanager
 def plain_attention(fa):
-    """Inside: ``FlashAttentionFunction`` runs the plain forward and
-    backward instead of the kernels (the comparison runs only)."""
-    saved = fa.flash_attention_fwd, fa.flash_attention_bwd
-    fa.flash_attention_fwd = fa.flash_attention_ref
-    fa.flash_attention_bwd = fa.flash_attention_bwd_ref
+    """Inside: the flash ops run the plain forward and backward instead
+    of the kernels (the comparison runs only): their bodies are
+    swapped, so autograd still takes the backward op."""
+    saved = fa._fwd_impl, fa._bwd_impl
+
+    def fwd(q, k, v, causal, scale):
+        return fa.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+
+    def bwd(q, k, v, out, lse, do, causal, scale):
+        return fa.flash_attention_bwd_ref(q, k, v, out, lse, do,
+                                          causal=causal, scale=scale)
+
+    fa._fwd_impl, fa._bwd_impl = fwd, bwd
     try:
         yield
     finally:
-        fa.flash_attention_fwd, fa.flash_attention_bwd = saved
+        fa._fwd_impl, fa._bwd_impl = saved
 
 
 FLASH = ("flash_attention", "flash_attention_bwd_dq",
@@ -7524,11 +8223,12 @@ def phase_resnet(torch):
 
 
 # ------------------------------------------------------ resumable training
-# train_resume: full width, depth cut to 2 layers (234M parameters; a
-# checkpoint of weights, f32 masters and both moments ~3.7 GB), 12 x 1024
-# tokens a step, 6 steps over 48 seeded sequences (4 steps an epoch, so
-# every run crosses an epoch boundary)
-RESUME_CFG = dict(TRAIN_CFG, num_hidden_layers=2)
+# train_resume: full width, depth cut to 1 layer (183M parameters; a
+# checkpoint of weights, f32 masters and both moments ~2.9 GB; 2 layers
+# and ~3.7 GB until the jit phase joined the script), 12 x 1024 tokens a
+# step, 6 steps over 48 seeded sequences (4 steps an epoch, so every run
+# crosses an epoch boundary)
+RESUME_CFG = dict(TRAIN_CFG, num_hidden_layers=1)
 RESUME_STEPS = 6
 RESUME_SEQS = 48
 RESUME_SEED = 11
@@ -7759,7 +8459,7 @@ def _ckpt_meta(path):
 
 def phase_train_resume(torch):
     """``train_resume``: worker processes train the resume cell (full
-    width, 2 layers) with O2 bf16 (float16 + GradScaler in gate 6) and
+    width, 1 layer) with O2 bf16 (float16 + GradScaler in gate 6) and
     are stopped and resumed. Gates, every resumed run's final weights and
     optimizer state bit-identical (sha256 over each tensor's bytes) to
     the uninterrupted run's:
@@ -8203,7 +8903,7 @@ def _plain_forward(gk):
 
 @contextlib.contextmanager
 def plain_gmm_autograd(gk):
-    """Inside: ``GroupedMatmulFunction`` runs the plain forward and dlhs
+    """Inside: the grouped GEMM op runs the plain forward and dlhs
     (``grouped_matmul_ref``, on the transposed view for dlhs) and the
     plain weight gradient (``_segment_outer``): the comparison's step."""
     saved = gk._forward, gk.grouped_matmul_wgrad
@@ -9500,12 +10200,13 @@ def main(argv=None):
     ap.add_argument(
         "--phases",
         default="kernels,parity,serving,serving_int8,serving_f16,"
-                "serving_prefix,serving_spec,analysis,server,journal,poison,"
-                "fleet,spill,stepstats,train_parity,train,train_amp,"
+                "serving_prefix,serving_spec,analysis,jit,server,journal,"
+                "poison,fleet,spill,stepstats,train_parity,train,train_amp,"
                 "train_resume,dit,resnet,moe,moe_train,hapi,nn_zoo",
         help="comma list of kernels, parity, serving, serving_int8, "
-             "serving_f16, serving_prefix, serving_spec, analysis, server, "
-             "journal, poison, fleet, spill, stepstats, train_parity, "
+             "serving_f16, serving_prefix, serving_spec, analysis, jit, "
+             "server, journal, poison, fleet, spill, stepstats, "
+             "train_parity, "
              "train, train_amp, train_resume, dit, resnet, moe, moe_train, "
              "hapi, nn_zoo, profile (default: all but profile)",
     )
@@ -9518,6 +10219,8 @@ def main(argv=None):
                     help=argparse.SUPPRESS)
     ap.add_argument("--train-worker", nargs=2, metavar=("SPEC", "OUT"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--jit-worker", nargs=2, metavar=("SPEC", "OUT"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.http_client:
         return http_client_main(*args.http_client)
@@ -9526,10 +10229,13 @@ def main(argv=None):
         return journal_worker_main(jdir, out, int(kill_at))
     if args.train_worker:
         return train_worker_main(*args.train_worker)
+    if args.jit_worker:
+        return jit_worker_main(*args.jit_worker)
     phases = set(args.phases.split(","))
     unknown = phases - {"kernels", "parity", "serving", "serving_int8",
                         "serving_f16", "serving_prefix", "serving_spec",
-                        "analysis", "server", "journal", "poison", "fleet", "spill",
+                        "analysis", "jit", "server", "journal", "poison",
+                        "fleet", "spill",
                         "stepstats", "train_parity", "train", "train_amp",
                         "train_resume", "dit", "resnet", "moe", "moe_train",
                         "hapi", "nn_zoo", "profile"}
@@ -9583,7 +10289,8 @@ def main(argv=None):
             "serving_f16": phase_serving_f16,
             "serving_prefix": phase_serving_prefix,
             "serving_spec": phase_serving_spec,
-            "analysis": phase_analysis, "server": phase_server, "journal": phase_journal,
+            "analysis": phase_analysis, "jit": phase_jit,
+            "server": phase_server, "journal": phase_journal,
             "poison": phase_poison, "fleet": phase_fleet,
             "spill": phase_spill, "stepstats": phase_stepstats,
             "train_parity": phase_train_parity, "train": phase_train,
@@ -9652,13 +10359,13 @@ def main(argv=None):
                 f"{[k for k, r in ratio.items() if r > 1] or 'none'}")
         report["phases"].update(results)
         (serving, serving_int8, serving_f16, serving_prefix, serving_spec,
-         analysis, server, journal, poison, fleet, spill, stepstats, train,
-         train_amp, train_resume, dit, resnet, moe, moe_train, hapi,
+         analysis, jit_, server, journal, poison, fleet, spill, stepstats,
+         train, train_amp, train_resume, dit, resnet, moe, moe_train, hapi,
          nn_zoo) = (
              results.get(p) for p in (
                  "serving", "serving_int8", "serving_f16", "serving_prefix",
-                 "serving_spec", "analysis", "server", "journal", "poison",
-                 "fleet",
+                 "serving_spec", "analysis", "jit", "server", "journal",
+                 "poison", "fleet",
                  "spill", "stepstats", "train", "train_amp", "train_resume",
                  "dit", "resnet", "moe", "moe_train", "hapi", "nn_zoo"))
         check("jax" not in sys.modules and not any(
@@ -9682,7 +10389,9 @@ def main(argv=None):
     # counted steps (O1 bf16, O2 bf16, O2 float16), the resume workers'
     # steps (bf16 and float16), the DiT cell's counted steps (f32 and O2
     # bf16), the ResNet-50 cell's (f32 and O2 bf16: no hand kernel on its
-    # path, all 0), the moe phase's counted forwards, moe_train's counted
+    # path, all 0), the jit phase's compiled calls (to_static's, the loaded
+    # program's, the compiled training step and MoE forward, the cached
+    # engines' serving), the moe phase's counted forwards, moe_train's counted
     # steps (the Llama MoE's 14, the ragged layer's AdamW steps), hapi's
     # fits and kernel evaluations (the Transformer's; ResNet-50's launch
     # none) and nn_zoo's (none)
@@ -9690,7 +10399,7 @@ def main(argv=None):
         ("serving", serving), ("serving_int8", serving_int8),
         ("serving_f16", serving_f16), ("serving_prefix", serving_prefix),
         ("serving_spec", serving_spec), ("analysis", analysis),
-        ("server", server),
+        ("jit", jit_), ("server", server),
         ("journal", journal), ("poison", poison), ("fleet", fleet),
         ("spill", spill), ("stepstats", stepstats), ("train", train),
         ("train_amp", train_amp), ("train_resume", train_resume),

@@ -26,9 +26,8 @@ The port's own ops (``rms_norm``, ``scaled_dot_product_attention``,
 ``cross_entropy``, ``fused_linear_cross_entropy``, ``rope_qk``,
 ``swiglu``) are single ops of the JAX package: they consult the policy
 by their name through ``amp_op`` and run their bodies with the mode
-suspended, so their internals keep their own precision and
-``FlashAttentionFunction`` launches its kernels in the dtype the policy
-chose.
+suspended, so their internals keep their own precision and the flash
+ops launch their kernels in the dtype the policy chose.
 """
 from __future__ import annotations
 

@@ -21,9 +21,12 @@ file, else the innermost frame outside torch and this package).
   tensor on any device, runs its own input checks, makes its outputs
   with ``torch.empty`` at the kernel's shapes, and records one
   ``kernel:<name>/<variant>`` node through ``kernels._build.fake_launch``
-  (reads, outputs, and the pages it writes in place). Nothing is counted
-  and no plain version runs, so the memory the trace sees is the
-  kernel's.
+  (reads, outputs, and the pages it writes in place). The kernels
+  registered as ``torch.library`` ops (``kernels._build.OP_NAMESPACE``)
+  reach the recorder as one op each: their fake implementation makes the
+  outputs and the recorder turns the call into the same kernel node
+  (``_build.describe_op`` names it). Nothing is counted and no plain
+  version runs, so the memory the trace sees is the kernel's.
 * A data-dependent op (``.item()``, tensor truthiness, ``nonzero``, a
   masked select) cannot run on a fake: it is recorded as a host-sync
   point at its source line and answered with a placeholder (0, or an
@@ -67,7 +70,7 @@ from ..kernels import _build
 from .findings import Finding, Severity
 
 __all__ = ["Node", "TraceResult", "trace", "fn_location", "fake_mode",
-           "ALLOC_GRANULE"]
+           "ALLOC_GRANULE", "trace_count"]
 
 #: the CUDA caching allocator rounds every block up to this many bytes
 ALLOC_GRANULE = 512
@@ -317,6 +320,8 @@ class _Recorder(TorchDispatchMode):
             return func(*args, **kwargs)
         self._free_expired()
         name = _short(func)
+        if func.namespace == _build.OP_NAMESPACE:
+            return self._kernel_op(func, name, args, kwargs)
         flat, _ = tree_flatten((args, kwargs))
         lift = name in _LIFT_OPS
         ins = []
@@ -366,6 +371,20 @@ class _Recorder(TorchDispatchMode):
         if name in ("_to_copy", "copy_") and self._to_host(name, ins, outs):
             node.kind, node.effect = "sync", True
         self._record(node)
+        return out
+
+    def _kernel_op(self, func, name, args, kwargs):
+        """A hand kernel registered as an op: its fake implementation
+        makes the outputs (counted as made here), and the call becomes
+        one kernel node reading every tensor argument."""
+        out = func(*args, **kwargs)
+        outs = [t for t in tree_flatten(out)[0]
+                if isinstance(t, torch.Tensor)]
+        nbytes = sum(self._made(t) for t in outs)
+        reads = [a for a in tree_flatten((args, kwargs))[0]
+                 if isinstance(a, torch.Tensor)]
+        self.kernel(*_build.describe_op(name, args), outs, reads, ())
+        self.nodes[-1].nbytes = nbytes
         return out
 
     @staticmethod
@@ -440,12 +459,23 @@ def _fakeify(rec, value):
     return tree_map(conv, value)
 
 
+_traces = 0
+
+
+def trace_count():
+    """How many traces this process has run (a warm engine build from
+    the compile cache runs none)."""
+    return _traces
+
+
 def trace(fn, args, kwargs, static_argnums=(), fake=None):
     """Run ``fn(*args, **kwargs)`` over fake tensors and record it (see
     the module) -> ``TraceResult``. ``static_argnums``: positional
     arguments handed over as they are (not made fake); ``fake``: the
     ``FakeTensorMode`` whose fakes ``fn`` already closes over (a fresh
     one by default)."""
+    global _traces
+    _traces += 1
     inner = inspect.unwrap(getattr(fn, "__func__", fn))
     result = TraceResult(fn=inner)
     result.fn_file, result.fn_line = fn_location(inner)

@@ -62,7 +62,8 @@ __all__ = [
     "KERNELS", "LAUNCHES", "build", "load", "count_launch", "launch_counts",
     "variant_counts", "reset_launch_counts", "record_launches",
     "count_replay", "build_logs", "BUILD_DIR", "is_fake", "fake_launch",
-    "set_fake_hook",
+    "set_fake_hook", "OP_NAMESPACE", "op_node", "describe_op",
+    "library_digests",
 ]
 
 # kernel sources, csrc/<name>.cu
@@ -107,13 +108,25 @@ def _nvcc():
     return found
 
 
-def _target(name):
-    src = CSRC_DIR / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+def _digest(name):
+    """sha256 of ``csrc/<name>.cu``, every shared header and the flags:
+    what the library's file name carries."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):   # any may be included
         h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return src, BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
+
+
+def _target(name):
+    return (CSRC_DIR / f"{name}.cu",
+            BUILD_DIR / f"{name}-{_digest(name)}.so")
+
+
+def library_digests():
+    """``{kernel: digest}`` of every kernel library as the sources in the
+    checkout would build it (the compile cache's environment)."""
+    return {name: _digest(name) for name in KERNELS}
 
 
 def build(names=KERNELS):
@@ -243,3 +256,20 @@ def fake_launch(name, variant, outputs, reads=(), writes=()):
     if _fake_hook is not None:
         _fake_hook(name, variant, outputs, reads, writes)
     return outputs
+
+
+#: the ``torch.library`` namespace of the hand kernels registered as ops
+OP_NAMESPACE = "paddle_tpu_torch"
+_op_nodes: dict = {}
+
+
+def op_node(op, describe):
+    """Register how a call of ``OP_NAMESPACE::<op>`` is named in the
+    analyzer's trace: ``describe(*args)`` -> ``(name, variant)``, the
+    kernel the op's body would launch on these arguments."""
+    _op_nodes[op] = describe
+
+
+def describe_op(op, args):
+    """``(name, variant)`` of one call of op ``op`` on ``args``."""
+    return _op_nodes[op](*args)

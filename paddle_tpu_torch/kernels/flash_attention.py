@@ -4,7 +4,7 @@ Counterpart of ``paddle_tpu/kernels/pallas/flash_attention.py``: an
 online-softmax forward (``_flash_fwd``) that returns the output and the
 per-row logsumexp, a backward (``_flash_bwd``) that recomputes the
 probabilities from that logsumexp, and the custom VJP that joins them
-(``_flash_core``), here ``FlashAttentionFunction``.
+(``_flash_core``), here the forward op's registered autograd.
 
 Layout as in the JAX public op: q [batch, sq, heads, d], k/v
 [batch, sk, kv_heads, d] with ``heads % kv_heads == 0`` (GQA is read in
@@ -15,12 +15,19 @@ aligned (query i sees keys j <= i), as in the TPU kernels;
 when sq == sk. Unlike the TPU kernels, sequence lengths need not be
 multiples of the tile.
 
-``flash_attention_fwd`` launches ``csrc/flash_attention.cu`` and
-``flash_attention_bwd`` launches the two kernels of
-``csrc/flash_attention_bwd.cu`` (dq, and dk/dv) on CUDA tensors; both take
-their plain PyTorch versions (``flash_attention_ref``,
-``flash_attention_bwd_ref``) only for tensors on the CPU; a fake tensor
-(the static analyzer's) takes ``kernels._build.fake_launch`` in both.
+Both directions are ``torch.library`` custom ops,
+``paddle_tpu_torch::flash_attention_fwd`` and
+``paddle_tpu_torch::flash_attention_bwd``, opaque to Dynamo, AOTAutograd
+and ``torch.export`` (a compiled or exported program holds one node per
+call and launches the kernel when it runs). The forward op's autograd
+(``register_autograd``) calls ``flash_attention_bwd``. The forward op
+launches ``csrc/flash_attention.cu`` and the backward op the two
+kernels of ``csrc/flash_attention_bwd.cu`` (dq, and dk/dv) on CUDA
+tensors; both take their plain PyTorch versions (``flash_attention_ref``,
+``flash_attention_bwd_ref``) only for tensors on the CPU. Their fake
+implementations (``register_fake``) give the output shapes to a compile,
+an export and the static analyzer, whose recorder makes one
+``kernel:<name>/<variant>`` node of each call (``_build.op_node``).
 Each has three device designs; ``_fwd_variant`` and ``_bwd_variant``
 pick one from the dtype, head dim and lengths before the launch (counted per variant):
 "wgmma" (Hopper: TMA, an mbarrier ring and wgmma; 16-bit, d 64 or 128),
@@ -43,7 +50,7 @@ import torch
 from . import _build
 
 __all__ = [
-    "flash_attention", "FlashAttentionFunction", "flash_attention_fwd",
+    "flash_attention", "flash_attention_fwd",
     "flash_attention_ref", "flash_attention_bwd", "flash_attention_bwd_ref",
     "SUPPORTED_HEAD_DIMS", "BWD_HEAD_DIMS",
 ]
@@ -101,7 +108,7 @@ def _check(q, k, v):
 
 def _check_cuda(tensors, head_dims):
     q = tensors[0]
-    if q.device.type != "cuda" and not _build.is_fake(q):
+    if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if _DTYPES.get(q.dtype) is None or any(t.dtype != q.dtype
                                            for t in tensors):
@@ -158,25 +165,61 @@ def _bwd_variant(dtype, d, sq, sk):
 
 
 def flash_attention_fwd(q, k, v, *, causal=True, scale=None):
-    """-> (out [b, sq, h, d] in q's dtype, lse [b, h, sq] float32)."""
+    """-> (out [b, sq, h, d] in q's dtype, lse [b, h, sq] float32): one
+    call of the op ``paddle_tpu_torch::flash_attention_fwd``."""
     _check(q, k, v)
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
-    fake = _build.is_fake(q)
-    if q.device.type == "cpu" and not fake:
-        return flash_attention_ref(q, k, v, causal=causal, scale=scale)
+    return torch.ops.paddle_tpu_torch.flash_attention_fwd(
+        q, k, v, bool(causal), float(scale))
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_fwd",
+                         mutates_args=())
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool, scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    return _fwd_impl(q, k, v, causal, scale)
+
+
+def _fwd_impl(q, k, v, causal, scale):
+    """The forward op's body: the kernel on CUDA tensors, the plain
+    version on CPU tensors (``chip_smoke.py``'s comparisons swap it)."""
+    if q.device.type == "cpu":
+        out, lse = flash_attention_ref(q, k, v, causal=causal, scale=scale)
+        return out.contiguous(), lse
     _check_cuda((q, k, v), SUPPORTED_HEAD_DIMS)
-    if fake:
-        # the analyzer's trace: the kernel's outputs, nothing launched
-        b, sq, h, d = q.shape
-        outs = (torch.empty_like(q),
-                torch.empty((b, h, sq), dtype=torch.float32,
-                            device=q.device))
-        return _build.fake_launch(
-            "flash_attention", _fwd_variant(q.dtype, d, sq, k.shape[1]),
-            outs, reads=[q, k, v])
     q, k, v = (_aligned(t) for t in (q, k, v))
     return _launch_fwd(q, k, v, causal, scale)
+
+
+@_fwd_op.register_fake
+def _(q, k, v, causal, scale):
+    if q.device.type != "cpu":
+        _check_cuda((q, k, v), SUPPORTED_HEAD_DIMS)
+    b, sq, h, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((b, h, sq), dtype=torch.float32))
+
+
+def _fwd_setup(ctx, inputs, output):
+    q, k, v, causal, scale = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.causal, ctx.scale = causal, scale
+
+
+def _fwd_backward(ctx, do, _dlse):
+    """The JAX ``_flash_core`` custom VJP: ``flash_attention_bwd``
+    recomputes P from the saved lse; lse takes no gradient."""
+    q, k, v, out, lse = ctx.saved_tensors
+    return (*flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
+                                 causal=ctx.causal, scale=ctx.scale),
+            None, None)
+
+
+_fwd_op.register_autograd(_fwd_backward, setup_context=_fwd_setup)
+_build.op_node("flash_attention_fwd", lambda q, k, v, *_: (
+    "flash_attention", _fwd_variant(q.dtype, q.shape[-1], q.shape[1],
+                                    k.shape[1])))
 
 
 def _launch_fwd(q, k, v, causal, scale, variant=None):
@@ -244,7 +287,8 @@ def attention_delta(out, do):
 def flash_attention_bwd(q, k, v, out, lse, do, *, causal=True, scale=None):
     """Gradients of ``flash_attention_fwd``'s output: ``out`` and ``lse``
     are the forward's, ``do`` the gradient of ``out``. Returns
-    (dq, dk, dv) in the dtypes and shapes of q, k, v."""
+    (dq, dk, dv) in the dtypes and shapes of q, k, v: one call of the op
+    ``paddle_tpu_torch::flash_attention_bwd``."""
     _check(q, k, v)
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
@@ -253,19 +297,41 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal=True, scale=None):
             f"flash_attention_bwd: out {tuple(out.shape)} and do "
             f"{tuple(do.shape)} must have q's shape {tuple(q.shape)}"
         )
-    fake = _build.is_fake(q)
-    if q.device.type == "cpu" and not fake:
-        return flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
-                                       scale=scale)
+    return torch.ops.paddle_tpu_torch.flash_attention_bwd(
+        q, k, v, out, lse, do, bool(causal), float(scale))
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_bwd",
+                         mutates_args=())
+def _bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+            causal: bool, scale: float
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _bwd_impl(q, k, v, out, lse, do, causal, scale)
+
+
+def _bwd_impl(q, k, v, out, lse, do, causal, scale):
+    """The backward op's body: both kernels on CUDA tensors, the plain
+    version on CPU tensors (``chip_smoke.py``'s comparisons swap it)."""
+    if q.device.type == "cpu":
+        return tuple(g.contiguous() for g in flash_attention_bwd_ref(
+            q, k, v, out, lse, do, causal=causal, scale=scale))
     _check_cuda((q, k, v, do, out), BWD_HEAD_DIMS)
-    if fake:
-        # the analyzer's trace: one node for the dq and the dk/dv kernels
-        grads = tuple(torch.empty_like(t) for t in (q, k, v))
-        variant = _bwd_variant(q.dtype, q.shape[-1], q.shape[1], k.shape[1])
-        return _build.fake_launch("flash_attention_bwd", variant, grads,
-                                  reads=[q, k, v, out, lse, do])
     return _bwd(*(_aligned(t) for t in (q, k, v, out)),
                 lse.float().contiguous(), _aligned(do), causal, scale)
+
+
+@_bwd_op.register_fake
+def _(q, k, v, out, lse, do, causal, scale):
+    if q.device.type != "cpu":
+        _check_cuda((q, k, v, do, out), BWD_HEAD_DIMS)
+    return tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
+                 for t in (q, k, v))
+
+
+_build.op_node("flash_attention_bwd", lambda q, k, v, *_: (
+    "flash_attention_bwd", _bwd_variant(q.dtype, q.shape[-1], q.shape[1],
+                                        k.shape[1])))
 
 
 def _bwd(q, k, v, out, lse, do, causal, scale, variant=None):
@@ -380,32 +446,8 @@ def flash_attention_bwd_ref(q, k, v, out, lse, do, *, causal=True,
             dv.transpose(1, 2).to(v.dtype))
 
 
-class FlashAttentionFunction(torch.autograd.Function):
-    """``flash_attention_fwd`` with ``flash_attention_bwd`` as its
-    gradient (the JAX ``_flash_core`` custom VJP): the forward saves q, k,
-    v, out and lse; the backward recomputes P from lse. CPU tensors take
-    the plain versions both ways."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        out, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
-        return out
-
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(
-            q, k, v, out, lse, do, causal=ctx.causal, scale=ctx.scale
-        )
-        return dq, dk, dv, None, None
-
-
 def flash_attention(q, k, v, *, causal=True, scale=None):
     """q [b, sq, h, d], k/v [b, sk, hkv, d] -> out [b, sq, h, d], with
-    gradients for q, k and v through ``FlashAttentionFunction``."""
-    _check(q, k, v)
-    if scale is None:
-        scale = 1.0 / (q.shape[-1] ** 0.5)
-    return FlashAttentionFunction.apply(q, k, v, bool(causal), float(scale))
+    gradients for q, k and v through the forward op's autograd
+    (``flash_attention_bwd``)."""
+    return flash_attention_fwd(q, k, v, causal=causal, scale=scale)[0]

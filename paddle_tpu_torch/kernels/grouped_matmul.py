@@ -15,18 +15,23 @@ expert's contribution is scaled per column, ``(x @ q) * scale``, which is
 ``grouped_matmul`` launches ``csrc/grouped_matmul.cu`` on CUDA tensors
 (counted as ``grouped_matmul``, and ``grouped_matmul_quant`` for int8
 rhs) and takes the plain PyTorch version ``grouped_matmul_ref`` only for
-tensors on the CPU (a fake tensor, the static analyzer's, takes
-``kernels._build.fake_launch``). lhs is float32, bfloat16 or float16. Which device
+tensors on the CPU. The product and the weight gradient are
+``torch.library`` custom ops, ``paddle_tpu_torch::grouped_matmul`` and
+``paddle_tpu_torch::grouped_matmul_wgrad``, opaque to Dynamo, AOTAutograd
+and ``torch.export``; their fake implementations give the output shapes
+to a compile, an export and the static analyzer (one
+``kernel:<name>/<variant>`` node a call). lhs is float32, bfloat16 or
+float16. Which device
 kernel serves is decided from the dtypes and shapes before the launch
 (``_gmm_variant``, counted per variant): 16-bit (bf16 or f16) lhs with
 rhs of its dtype runs the wgmma/TMA kernel (the mma.sync kernel below
 2^25 multiply-adds), with int8 rhs the int8 wgmma kernel (the mma.sync
 kernel below its own measured crossover), f32 lhs the FMA kernel. The
-float path is differentiable through
-``GroupedMatmulFunction``, the counterpart of the JAX custom VJP: the
+float path is differentiable through the product op's registered
+autograd, the counterpart of the JAX custom VJP: the
 JAX backward has no kernel (it runs the fallback's contraction), so here
 ``dlhs = g @ rhs[g(i)]^T`` is the transposed instance of the same kernels
-(``_forward(g, rhs, group_sizes, trans_rhs=True)``: rhs read where it
+(``_gmm_call(g, rhs, group_sizes, trans_rhs=True)``: rhs read where it
 lies, no transposed copy; counted ``grouped_matmul`` under the variants
 ``wgmma_t``, ``mma_t`` and ``fma_t``; ``grouped_matmul_ref`` on
 ``rhs.transpose(1, 2)``, a view, on the CPU) and ``drhs`` the
@@ -49,14 +54,14 @@ lhs takes any shape. Outside it the wrapper raises.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from . import _build
 from .flash_attention import _aligned
 
-__all__ = ["grouped_matmul", "grouped_matmul_ref", "grouped_matmul_wgrad",
-           "GroupedMatmulFunction"]
+__all__ = ["grouped_matmul", "grouped_matmul_ref", "grouped_matmul_wgrad"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # device kernels of grouped_matmul_launch's and grouped_matmul_wgrad_launch's
@@ -178,13 +183,9 @@ def _variant_id(name, variant):
     return _VARIANTS[variant]
 
 
-def _launch(lhs, rhs, group_sizes, rhs_scales, variant=None,
-            trans_rhs=False):
-    """The kernel on checked CUDA inputs -> [n, m] in lhs's dtype.
-    ``variant`` forces a device kernel (``chip_smoke.py`` times them side
-    by side); by default ``_gmm_variant`` picks it. ``trans_rhs``: rhs is
-    [e, m, k] and each group multiplies by ``rhs[g]^T`` (counted under
-    the variant with ``_t``)."""
+def _check_launch(lhs, rhs, group_sizes, rhs_scales, trans_rhs):
+    """The kernel's gate (dtypes, devices, the transposed rhs's shape,
+    16-bit k and m multiples of 8) -> (n, k, m, e, dtype id)."""
     _refuse_int8_trans(rhs_scales, trans_rhs)
     dtype = _DTYPES.get(lhs.dtype)
     quant = rhs_scales is not None
@@ -223,17 +224,22 @@ def _launch(lhs, rhs, group_sizes, rhs_scales, variant=None,
             f"grouped_matmul kernel: {lhs.dtype} needs k % 8 == 0 and "
             f"m % 8 == 0, got k {k}, m {m}"
         )
+    return n, k, m, e, dtype
+
+
+def _launch(lhs, rhs, group_sizes, rhs_scales, variant=None,
+            trans_rhs=False):
+    """The kernel on CUDA inputs -> [n, m] in lhs's dtype. ``variant``
+    forces a device kernel (``chip_smoke.py`` times them side by side); by
+    default ``_gmm_variant`` picks it. ``trans_rhs``: rhs is [e, m, k] and
+    each group multiplies by ``rhs[g]^T`` (counted under the variant with
+    ``_t``)."""
+    n, k, m, e, dtype = _check_launch(lhs, rhs, group_sizes, rhs_scales,
+                                      trans_rhs)
+    quant = rhs_scales is not None
     if variant is None:
         variant = _gmm_variant(lhs.dtype, rhs.dtype, n, k, m, e)
     vid = _variant_id("grouped_matmul", variant)
-    if _build.is_fake(lhs):
-        # the analyzer's trace: the kernel's output, nothing launched
-        name = "grouped_matmul_quant" if quant else "grouped_matmul"
-        return _build.fake_launch(
-            name, variant + ("_t" if trans_rhs else ""),
-            torch.empty((n, m), dtype=lhs.dtype, device=lhs.device),
-            reads=[lhs, rhs, group_sizes]
-            + ([rhs_scales] if quant else []))
     # whole 16-byte (int8: 8-byte) vectors from the start of each tensor;
     # TMA also needs its base on 16 bytes
     lhs, rhs = _aligned(lhs), _aligned(rhs)
@@ -260,19 +266,94 @@ def _launch(lhs, rhs, group_sizes, rhs_scales, variant=None,
 
 
 def _forward(lhs, rhs, group_sizes, rhs_scales=None, trans_rhs=False):
-    """Kernel on CUDA tensors, plain version on CPU tensors.
-    ``trans_rhs``: rhs is [e, m, k] and the product takes each
+    """The product op's body: the kernel on CUDA tensors, the plain
+    version on CPU tensors (``chip_smoke.py``'s comparisons and plants
+    swap it). ``trans_rhs``: rhs is [e, m, k] and the product takes each
     ``rhs[g]^T`` where it lies (the backward's ``dlhs``); the plain
-    version gets the transposed view."""
-    fake = _build.is_fake(lhs)
-    if lhs.device.type == "cpu" and not fake:
+    version gets the transposed view. A fake tensor (a trace) goes
+    through the op."""
+    if _build.is_fake(lhs):
+        return _gmm_call(lhs, rhs, group_sizes, rhs_scales, trans_rhs)
+    if lhs.device.type == "cpu":
         _refuse_int8_trans(rhs_scales, trans_rhs)
         if trans_rhs:
             rhs = rhs.transpose(1, 2)
         return grouped_matmul_ref(lhs, rhs, group_sizes, rhs_scales)
-    if lhs.device.type != "cuda" and not fake:
+    if lhs.device.type != "cuda":
         raise ValueError(f"grouped_matmul: unsupported device {lhs.device}")
     return _launch(lhs, rhs, group_sizes, rhs_scales, trans_rhs=trans_rhs)
+
+
+def _known_device(name, t):
+    """A fake implementation's device check: the op runs on CUDA and CPU
+    tensors (a meta tensor is refused as the body refuses it)."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+
+
+def _gmm_call(lhs, rhs, group_sizes, rhs_scales=None, trans_rhs=False):
+    """One call of the op ``paddle_tpu_torch::grouped_matmul``."""
+    return torch.ops.paddle_tpu_torch.grouped_matmul(
+        lhs, rhs, group_sizes, rhs_scales, bool(trans_rhs))
+
+
+@torch.library.custom_op("paddle_tpu_torch::grouped_matmul", mutates_args=())
+def _gmm_op(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
+            rhs_scales: Optional[torch.Tensor], trans_rhs: bool
+            ) -> torch.Tensor:
+    return _forward(lhs, rhs, group_sizes, rhs_scales, trans_rhs)
+
+
+@_gmm_op.register_fake
+def _(lhs, rhs, group_sizes, rhs_scales, trans_rhs):
+    _known_device("grouped_matmul", lhs)
+    if lhs.device.type == "cpu":
+        _refuse_int8_trans(rhs_scales, trans_rhs)
+        m = rhs.shape[1 if trans_rhs else 2]
+    else:
+        _, _, m, _, _ = _check_launch(lhs, rhs, group_sizes, rhs_scales,
+                                      trans_rhs)
+    return lhs.new_empty((lhs.shape[0], m))
+
+
+def _gmm_setup(ctx, inputs, output):
+    lhs, rhs, group_sizes, rhs_scales, trans_rhs = inputs
+    ctx.plain = rhs_scales is None and not trans_rhs
+    ctx.save_for_backward(lhs, rhs, group_sizes)
+
+
+def _gmm_backward(ctx, g):
+    """The JAX custom VJP's gradients: ``dlhs`` the transposed instance of
+    the forward's kernels on ``rhs`` as it lies (no copy), ``drhs`` the
+    per-segment ``lhs^T g`` (``grouped_matmul_wgrad``); group sizes get
+    none. Float rhs only: int8 rhs is inference-only on the card."""
+    if not ctx.plain:
+        raise RuntimeError(
+            "grouped_matmul: gradients are defined for float rhs without "
+            "trans_rhs")
+    lhs, rhs, group_sizes = ctx.saved_tensors
+    g = g.contiguous()
+    dlhs = drhs = None
+    if ctx.needs_input_grad[0]:
+        dlhs = _gmm_call(g, rhs, group_sizes, trans_rhs=True)
+    if ctx.needs_input_grad[1]:
+        drhs = grouped_matmul_wgrad(lhs, g, group_sizes, rhs.shape[0])
+    return dlhs, drhs, None, None, None
+
+
+_gmm_op.register_autograd(_gmm_backward, setup_context=_gmm_setup)
+
+
+def _gmm_node(lhs, rhs, group_sizes, rhs_scales, trans_rhs):
+    quant = rhs_scales is not None
+    e, m = rhs.shape[0], rhs.shape[1 if trans_rhs else 2]
+    variant = _gmm_variant(lhs.dtype, rhs.dtype, lhs.shape[0], lhs.shape[1],
+                           m, e)
+    return ("grouped_matmul_quant" if quant else "grouped_matmul",
+            variant + ("_t" if trans_rhs else ""))
+
+
+_build.op_node("grouped_matmul", _gmm_node)
 
 
 def grouped_matmul_ref(lhs, rhs, group_sizes, rhs_scales=None):
@@ -356,10 +437,8 @@ def _wgrad_variant(dtype, n, k, m, e):
     return "mma"
 
 
-def _launch_wgrad(lhs, g, group_sizes, e, variant=None):
-    """The weight-gradient kernel on checked CUDA inputs -> [e, k, m] in
-    lhs's dtype. ``variant`` forces a device kernel (``chip_smoke.py``
-    times them side by side); by default ``_wgrad_variant`` picks it."""
+def _check_launch_wgrad(lhs, g):
+    """The weight-gradient kernel's gate -> (n, k, m, dtype id)."""
     dtype = _DTYPES.get(lhs.dtype)
     if dtype is None:
         raise TypeError(
@@ -373,15 +452,17 @@ def _launch_wgrad(lhs, g, group_sizes, e, variant=None):
             f"grouped_matmul_wgrad kernel: {lhs.dtype} needs k % 8 == 0 and "
             f"m % 8 == 0, got k {k}, m {m}"
         )
+    return n, k, m, dtype
+
+
+def _launch_wgrad(lhs, g, group_sizes, e, variant=None):
+    """The weight-gradient kernel on CUDA inputs -> [e, k, m] in lhs's
+    dtype. ``variant`` forces a device kernel (``chip_smoke.py`` times
+    them side by side); by default ``_wgrad_variant`` picks it."""
+    n, k, m, dtype = _check_launch_wgrad(lhs, g)
     if variant is None:
         variant = _wgrad_variant(lhs.dtype, n, k, m, e)
     vid = _variant_id("grouped_matmul_wgrad", variant)
-    if _build.is_fake(lhs):
-        # the analyzer's trace: the kernel's output, nothing launched
-        return _build.fake_launch(
-            "grouped_matmul_wgrad", variant,
-            torch.empty((e, k, m), dtype=lhs.dtype, device=lhs.device),
-            reads=[lhs, g, group_sizes])
     lhs, g = _aligned(lhs), _aligned(g)
     gs = group_sizes.to(torch.int32).contiguous()
     # every tile is stored whole (zeros for an empty group)
@@ -403,41 +484,38 @@ def _launch_wgrad(lhs, g, group_sizes, e, variant=None):
 def grouped_matmul_wgrad(lhs, g, group_sizes, e):
     """The weight gradient of the ragged grouped GEMM: ``drhs[i] =
     lhs[seg_i]^T @ g[seg_i]`` -> [e, k, m] in lhs's dtype, f32
-    accumulation, zeros for an empty group. The kernel on CUDA tensors
+    accumulation, zeros for an empty group. One call of the op
+    ``paddle_tpu_torch::grouped_matmul_wgrad``: the kernel on CUDA tensors
     (no read of ``group_sizes`` on the host), ``_segment_outer`` on CPU
     tensors."""
     _check_wgrad(lhs, g, group_sizes, e)
-    fake = _build.is_fake(lhs)
-    if lhs.device.type == "cpu" and not fake:
+    return torch.ops.paddle_tpu_torch.grouped_matmul_wgrad(
+        lhs, g, group_sizes, int(e))
+
+
+@torch.library.custom_op("paddle_tpu_torch::grouped_matmul_wgrad",
+                         mutates_args=())
+def _wgrad_op(lhs: torch.Tensor, g: torch.Tensor, group_sizes: torch.Tensor,
+              e: int) -> torch.Tensor:
+    if lhs.device.type == "cpu":
         return _segment_outer(lhs, g, group_sizes, e)
-    if lhs.device.type != "cuda" and not fake:
+    if lhs.device.type != "cuda":
         raise ValueError(
             f"grouped_matmul_wgrad: unsupported device {lhs.device}")
     return _launch_wgrad(lhs, g, group_sizes, e)
 
 
-class GroupedMatmulFunction(torch.autograd.Function):
-    """``out = grouped_matmul(lhs, rhs, group_sizes)`` (float rhs) with
-    the JAX custom VJP's gradients: ``dlhs`` is the transposed instance
-    of the forward's kernels on ``rhs`` as it lies (no copy), ``drhs`` the
-    per-segment ``lhs^T g`` (``grouped_matmul_wgrad``). Group sizes get
-    no gradient."""
+@_wgrad_op.register_fake
+def _(lhs, g, group_sizes, e):
+    _known_device("grouped_matmul_wgrad", lhs)
+    if lhs.device.type != "cpu":
+        _check_launch_wgrad(lhs, g)
+    return lhs.new_empty((e, lhs.shape[1], g.shape[1]))
 
-    @staticmethod
-    def forward(ctx, lhs, rhs, group_sizes):
-        ctx.save_for_backward(lhs, rhs, group_sizes)
-        return _forward(lhs, rhs, group_sizes)
 
-    @staticmethod
-    def backward(ctx, g):
-        lhs, rhs, group_sizes = ctx.saved_tensors
-        g = g.contiguous()
-        dlhs = drhs = None
-        if ctx.needs_input_grad[0]:
-            dlhs = _forward(g, rhs, group_sizes, trans_rhs=True)
-        if ctx.needs_input_grad[1]:
-            drhs = grouped_matmul_wgrad(lhs, g, group_sizes, rhs.shape[0])
-        return dlhs, drhs, None
+_build.op_node("grouped_matmul_wgrad", lambda lhs, g, group_sizes, e: (
+    "grouped_matmul_wgrad", _wgrad_variant(lhs.dtype, lhs.shape[0],
+                                           lhs.shape[1], g.shape[1], e)))
 
 
 def grouped_matmul(lhs, rhs, group_sizes, rhs_scales=None):
@@ -449,11 +527,14 @@ def grouped_matmul(lhs, rhs, group_sizes, rhs_scales=None):
     every path."""
     _check(lhs, rhs, group_sizes, rhs_scales)
     if rhs_scales is None:
-        return GroupedMatmulFunction.apply(lhs, rhs, group_sizes)
-    if lhs.device.type != "cpu" and torch.is_grad_enabled() and any(
+        return _gmm_call(lhs, rhs, group_sizes)
+    if lhs.device.type == "cpu" and not _build.is_fake(lhs):
+        # the plain int8 version stays differentiable, as JAX's fallback
+        return grouped_matmul_ref(lhs, rhs, group_sizes, rhs_scales)
+    if torch.is_grad_enabled() and any(
             t.requires_grad for t in (lhs, rhs, rhs_scales)):
         raise RuntimeError(
             "grouped_matmul with int8 rhs is inference-only: call it "
             "under torch.no_grad() or with inputs that need no gradient"
         )
-    return _forward(lhs, rhs, group_sizes, rhs_scales)
+    return _gmm_call(lhs, rhs, group_sizes, rhs_scales)

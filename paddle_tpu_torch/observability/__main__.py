@@ -65,7 +65,9 @@ def _render_dump(payload, out):
     if clog:
         out.write("-- compile log (oldest first) " + "-" * 30 + "\n")
         for ev in clog:
-            if ev.get("retrace"):
+            if ev.get("kind") == "aot-hit":
+                mark = "aot-hit"  # a cache load, not compile activity
+            elif ev.get("retrace"):
                 mark = "RETRACE"
             else:
                 mark = "compile"
@@ -134,10 +136,40 @@ def _render_dump(payload, out):
                 + "\n"
             )
     m = payload.get("metrics") or {}
+    _render_compilecache_summary(clog, m, out)
     if m:
         out.write("-- metrics snapshot " + "-" * 40 + "\n")
         for key in sorted(m):
             out.write(f"  {key} = {m[key]}\n")
+
+
+def _render_compilecache_summary(clog, m, out):
+    """Aggregate persistent-compile-cache activity: aot-hit entries in
+    the compile log plus the ``paddle_tpu_compilecache_*`` series
+    (summed across cache directories)."""
+    aot_loads = sum(1 for ev in clog if ev.get("kind") == "aot-hit")
+
+    def total(series):
+        return sum(
+            v for k, v in m.items()
+            if k == series or k.startswith(series + "{")
+        )
+
+    hits = total("paddle_tpu_compilecache_hits_total")
+    misses = total("paddle_tpu_compilecache_misses_total")
+    fallbacks = total("paddle_tpu_compilecache_fallbacks_total")
+    if not (aot_loads or hits or misses or fallbacks):
+        return
+    out.write("-- compile cache " + "-" * 43 + "\n")
+    out.write(
+        f"  hits={hits:g} misses={misses:g} fallbacks={fallbacks:g}"
+        f" (aot-hit loads in log: {aot_loads})\n"
+        f"  bytes_read={total('paddle_tpu_compilecache_bytes_read_total'):g}"
+        f" bytes_written="
+        f"{total('paddle_tpu_compilecache_bytes_written_total'):g}"
+        f" load_s="
+        f"{total('paddle_tpu_compilecache_load_seconds_total'):.3f}\n"
+    )
 
 
 def _render_goodput_summary(m, out):

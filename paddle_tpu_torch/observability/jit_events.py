@@ -21,8 +21,9 @@ itself: a watch whose body completes records one event. The port's
 nothing. :class:`suppress` masks the recording for its dynamic extent
 on the calling thread: the static analyzer (``analysis/``) wraps its
 traces in it, so analysis never reads as capture activity.
-``mark_aot_hit`` waits for the compile cache (``compilecache/``), which
-the port does not have yet.
+``mark_aot_hit`` records a program the compile cache (``compilecache/``)
+restored instead of building it: its own ``kind="aot-hit"``, counted in
+``paddle_tpu_jit_aot_hits_total`` and never as a capture or a retrace.
 """
 from __future__ import annotations
 
@@ -33,8 +34,8 @@ from collections import deque
 from . import metrics as _metrics
 
 __all__ = [
-    "watch", "suppress", "compile_log", "clear_compile_log",
-    "retraces_after_warmup",
+    "watch", "mark_aot_hit", "suppress", "compile_log",
+    "clear_compile_log", "retraces_after_warmup", "aot_hits",
 ]
 
 _lock = threading.Lock()
@@ -50,6 +51,11 @@ _retraces = _metrics.counter(
     "paddle_tpu_jit_retraces_after_warmup_total",
     "captures of a (fn, signature) pair that was already captured once — "
     "a program rebuilt where it should be replayed", ("kind",),
+)
+_aot_hits = _metrics.counter(
+    "paddle_tpu_jit_aot_hits_total",
+    "programs restored from the persistent compile cache instead of "
+    "built (compilecache warm restarts)",
 )
 
 
@@ -105,7 +111,7 @@ def _record(name, kind, signature, elapsed_s):
     _compiles.inc(kind=kind)
     if retrace:
         _retraces.inc(kind=kind)
-    ev = {
+    return _emit({
         "ts": time.time(),
         "fn": name,
         "kind": kind,
@@ -113,14 +119,43 @@ def _record(name, kind, signature, elapsed_s):
         "trace_no": count,
         "retrace": retrace,
         "elapsed_s": elapsed_s,
-    }
+    })
+
+
+def mark_aot_hit(name, signature="", elapsed_s=None):
+    """Record a program restored from the persistent compile cache
+    (``paddle_tpu_torch.compilecache``) instead of built. Logged under
+    its own ``kind="aot-hit"``: it bumps neither
+    ``paddle_tpu_jit_compiles_total`` nor the warm-retrace alarm, so a
+    warm restart that replays its manifest reads as zero compile
+    activity."""
+    if _suppressed():
+        return None
+    _aot_hits.inc()
+    return _emit({
+        "ts": time.time(),
+        "fn": name,
+        "kind": "aot-hit",
+        "signature": str(signature),
+        "trace_no": 0,
+        "retrace": False,
+        "elapsed_s": elapsed_s,
+    })
+
+
+def aot_hits():
+    """Total programs restored from the persistent compile cache."""
+    return sum(v for _, _, v in _aot_hits.family().samples)
+
+
+def _emit(ev):
     with _lock:
         _log.append(ev)
     from . import flight
 
     flight.record(
-        "compile", name, kind=kind, signature=signature, retrace=retrace,
-        elapsed_s=elapsed_s,
+        "compile", ev["fn"], kind=ev["kind"], signature=ev["signature"],
+        retrace=ev["retrace"], elapsed_s=ev["elapsed_s"],
     )
     return ev
 

@@ -134,7 +134,9 @@ def moe_ragged_dispatch(x, gate_logits, *, k=2, renormalize=True):
     e = gate_logits.shape[-1]
     gates, vals, idx = _route(gate_logits, k)
     flat_e, order = _sort_assignments(idx, s, k)
-    group_sizes = torch.bincount(flat_e, minlength=e).to(torch.int32)
+    # one count per expert: a one-hot sum, not bincount, whose output
+    # size depends on the data (a compiled graph keeps [e] static)
+    group_sizes = F.one_hot(flat_e, e).sum(0).to(torch.int32)
     x_sorted = x[order // k]
     if renormalize:
         vals = vals / (vals.sum(-1, keepdim=True) + 1e-9)

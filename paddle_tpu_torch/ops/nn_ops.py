@@ -111,7 +111,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None, *,
                                  is_causal=False, scale=None):
     """[batch, seq, heads, head_dim] attention. Calls that fit
     ``flash_eligible`` run the flash kernels through
-    ``FlashAttentionFunction`` (forward kernel, and the backward kernels
+    the flash ops (forward kernel, and the backward kernels
     for the gradients of q, k and v); all others take the math
     form: f32 scores, a bottom-right aligned causal mask when
     ``is_causal`` (query i of sq sees keys j <= i + sk - sq), a bool

@@ -148,9 +148,25 @@ budget with an ``AnalysisError`` naming the program and the budget.
 ``check_verify`` slices) holds the programs to zero host-sync, capture
 hazard (``retrace-hazard``) and ``dtype-drift`` findings.
 
+Compile cache (``EngineConfig(compile_cache=)``, a directory or a
+``compilecache.CompileCache``; JAX's ``_warm_from_cache``): the service
+key (the weights' shapes, the pool, the config fields that shape a
+program, the adapter's code identity and the kernel libraries' digests)
+names a warmup manifest, and every program of the family
+(``_program_tags``) has one artifact holding its analysis reports (the
+L3 summary and the L1 findings). A build reads them before the gates
+(one ``aot-hit`` a program), so a warm gated build runs no analysis
+trace: the memory gate and the blocking rules re-evaluate over the
+stored reports. A missing or damaged artifact costs that program a
+trace, counted and warned. With a cache the engine captures every
+program of the family at build, before the first request, cold and warm
+alike. A captured CUDA graph cannot be serialized, so the port's warm
+start still captures every program: what it skips is the fake-tensor
+analysis, not the capture.
+
 Not ported yet (later slices): tensor parallelism and placement (the
-``tp_*`` fields of ``health()`` report one card), the comm watchdog
-(``health()["watchdog"]`` reports it disabled) and the compile cache.
+``tp_*`` fields of ``health()`` report one card) and the comm watchdog
+(``health()["watchdog"]`` reports it disabled).
 """
 from __future__ import annotations
 
@@ -163,6 +179,7 @@ import weakref
 import torch
 
 from ..generation import uniform_noise
+from ..jit.bucketing import next_bucket
 from ..observability import flight as _flight
 from ..observability import jit_events
 from ..observability import (
@@ -175,7 +192,6 @@ from ..resilience import faults
 from . import speculation
 from .access_log import record_finish, resolve_access_log
 from .adapter import DECODE_KERNELS, build_adapter
-from .bucketing import next_bucket
 from .kv_cache import BlockManager, KVPool
 from .metrics import EngineMetrics
 from .prefix_cache import PrefixCache
@@ -261,6 +277,20 @@ def _default_buckets(max_model_len):
     return buckets
 
 
+def _finding_dict(f):
+    """An L1 finding as JSON-able data (the compile cache's report)."""
+    return {"rule": f.rule, "severity": int(f.severity),
+            "message": f.message, "file": f.file, "line": f.line,
+            "op": f.op, "root": f.root}
+
+
+def _finding(d):
+    """``_finding_dict``'s inverse."""
+    from ..analysis import Finding, Severity
+
+    return Finding(**dict(d, severity=Severity(d["severity"])))
+
+
 class EngineConfig:
     def __init__(self, max_batch_slots=8, max_model_len=2048, page_size=16,
                  num_blocks=None, prefill_buckets=None, max_waiting=None,
@@ -271,7 +301,7 @@ class EngineConfig:
                  speculate_ngram=3, journal=None, access_log=None,
                  slo=None, stepstats=True, stepstats_ring=256,
                  host_spill_bytes=None, spill_dir=None, analysis_check=None,
-                 device_memory_budget=None):
+                 device_memory_budget=None, compile_cache=None):
         if max_batch_slots < 1:
             raise ValueError("max_batch_slots must be >= 1")
         if page_size < 1 or max_model_len < 2:
@@ -460,6 +490,12 @@ class EngineConfig:
                     f"got {device_memory_budget}"
                 )
         self.device_memory_budget = device_memory_budget
+        # persistent compile cache (paddle_tpu_torch.compilecache): a
+        # directory path or a CompileCache. The programs' analysis
+        # reports are stored there and read back by a later build (a warm
+        # gated build traces nothing), and the whole program family is
+        # captured at build, before the first request
+        self.compile_cache = compile_cache
 
 
 class Engine:
@@ -530,6 +566,17 @@ class Engine:
         # finding, never allocates its pool
         self._program_analysis: dict = {}   # tag -> L3 summary
         self._trace_memo = None
+        # the compile cache's stored reports stand in for the traces they
+        # record (``_load_cached_analysis``)
+        self._cc = self._manifest = None
+        self._cached_reports: dict = {}     # tag -> stored reports
+        self._fresh_l1: dict = {}           # tag -> L1 findings to store
+        self._building = True
+        if cfg.compile_cache is not None:
+            from .. import compilecache
+
+            self._cc = compilecache.resolve(cfg.compile_cache)
+            self._load_cached_analysis()
         if (cfg.device_memory_budget is not None
                 or cfg.analysis_check is not None):
             self._trace_memo = {}
@@ -542,12 +589,17 @@ class Engine:
                         compiled=cfg.device_memory_budget is not None)
             finally:
                 self._trace_memo = None
+        if self._cc is not None:
+            self._store_analysis(self._program_tags())
+        self._building = False
         # the device setup (pool, pinned staging buffers, generators,
         # graph pool, capture stream) takes the capture lock: a fleet
         # builds a restarted replica on another thread, and a cudaMalloc
         # or cudaHostAlloc there would invalidate a capture in progress
         with capture_lock:
             self._setup_device(cfg)
+        if self._cc is not None:
+            self._capture_family()
         if self.spill is not None:
             register_spill_view(self.spill, self.engine_id)
         # step observatory: per-program launch walls, goodput ledger,
@@ -926,6 +978,125 @@ class Engine:
         for name in ("temperature", "top_k", "top_p", "do_sample"):
             h[name][rows] = params[name]
 
+    # -- persistent compile cache (paddle_tpu_torch.compilecache) -----------
+    def _service_signature(self):
+        """What every program of this engine depends on: the weights'
+        shapes and dtypes, the pool, the config fields that shape a
+        program, the adapter's code identity and the kernel libraries
+        (JAX's service key, plus the libraries)."""
+        from ..compilecache import abstractify, code_fingerprint, \
+            signature_str
+        from ..kernels._build import library_digests
+
+        cfg, ad = self.config, self.adapter
+        model = getattr(ad, "model", None)
+        weights = (signature_str(abstractify(dict(model.state_dict())))
+                   if model is not None else type(ad).__qualname__)
+        code = "|".join(
+            [type(ad).__qualname__]
+            + [code_fingerprint(getattr(ad, name, None)) or "?"
+               for name in ("prefill", "decode", "prefill_ext", "verify")])
+        libs = ",".join(f"{k}={v}" for k, v in
+                        sorted(library_digests().items()))
+        return (
+            f"{weights}|layers={ad.num_layers}|kvh={ad.num_kv_heads}"
+            f"|d={ad.head_dim}|dtype={ad.dtype}|dev={self.device.type}"
+            f"|slots={cfg.max_batch_slots}|mml={cfg.max_model_len}"
+            f"|page={cfg.page_size}|blocks={cfg.num_blocks}"
+            f"|buckets={cfg.prefill_buckets}"
+            f"|chunk={cfg.prefill_chunk_tokens}"
+            f"|pfx={int(cfg.enable_prefix_cache)}"
+            f"|spec={cfg.speculate_tokens}"
+            f"|dk={cfg.decode_kernel}|kvq={cfg.kv_cache_dtype}"
+            f"|code={code}|kernels={libs}"
+        )
+
+    def _program_meta(self, tag):
+        """``(name, signature, store key)`` of one program."""
+        name = "serving." + self._program_label(*tag)
+        sig = f"{name}|{self._service_sig}"
+        return name, sig, self._cc.key(name, sig)
+
+    def _load_cached_analysis(self):
+        """Open this service's manifest and read every program's stored
+        reports: each L3 summary fills ``_program_analysis`` and the L1
+        reports stand in for the traces (``_check_family``), so the gates
+        re-evaluate over them with no trace. Each program read is one
+        ``aot-hit``; a missing or damaged artifact is a miss or a counted,
+        warned fallback, and that program is traced as on a cold
+        build."""
+        import hashlib
+        import json
+
+        self._service_sig = self._service_signature()
+        self._service_key = hashlib.sha256(
+            self._service_sig.encode()).hexdigest()[:16]
+        self._manifest = self._cc.manifest(self._service_key)
+        self._manifest.load()
+        m = self._cc.metrics
+        before = (m.hits, m.misses, m.fallbacks)
+        for tag in self._program_tags():
+            name, sig, key = self._program_meta(tag)
+            got = self._cc.load_artifact(
+                key, name=name, signature=sig,
+                finish=lambda meta, blobs: json.loads(blobs["analysis"]))
+            if got is None:
+                continue
+            self._cached_reports[tag] = got
+            if got.get("summary") is not None:
+                self._record_summary(tag, got["summary"])
+        _flight.record(
+            "compilecache", "warm-start", engine=self.engine_id,
+            hits=m.hits - before[0], misses=m.misses - before[1],
+            fallbacks=m.fallbacks - before[2],
+        )
+
+    def _store_analysis(self, tags):
+        """Store the reports of ``tags`` that this engine computed afresh
+        and list every one in the manifest (one atomic rewrite)."""
+        import json
+
+        for tag in tags:
+            cached = self._cached_reports.get(tag, {})
+            report = {"summary": self._program_analysis.get(tag),
+                      "l1": self._fresh_l1.pop(tag, cached.get("l1"))}
+            name, sig, key = self._program_meta(tag)
+            extra = {}
+            if report["summary"] and report["summary"].get("memory"):
+                extra["memory"] = int(report["summary"]["memory"]["peak"])
+            if report != self._cached_reports.get(tag):
+                data = json.dumps(report, sort_keys=True).encode()
+                if self._cc.store_artifact(
+                        key, {"analysis": data}, name=name, signature=sig,
+                        extra_meta=extra):
+                    self._cached_reports[tag] = json.loads(data)
+            kind, bucket, any_sample = tag
+            self._manifest.add(name, sig, key, kind=kind, bucket=bucket,
+                               any_sample=any_sample, **extra)
+        try:
+            self._manifest.save()
+        except OSError as e:
+            warnings.warn(f"[compilecache] manifest save failed (a warm "
+                          f"restart will miss these programs): {e}")
+
+    def _capture_family(self):
+        """Capture every program of the family (``_program_tags``: the
+        manifest's program set) before the first request, each through
+        its builder (``_capture``'s watch, the capture lock): a CUDA graph
+        cannot be serialized, so a warm start still captures; what it
+        skips is the analysis."""
+        for kind, bucket, any_sample in self._program_tags():
+            if kind == "decode":
+                self._decode_program(any_sample)
+            elif kind == "prefill":
+                self._prefill_program(bucket)
+            elif kind == "prefill_ext":
+                self._prefill_ext_program(bucket)
+            elif kind == "cow":
+                self._cow_program()
+            else:
+                self._verify_program()
+
     # -- static analysis gates (paddle_tpu_torch.analysis L1 + L3) -----------
     def check_programs(self, mode="error", compiled=True):
         """THE analysis gate over this engine's whole program family.
@@ -1073,16 +1244,29 @@ class Engine:
             )
         report = analysis.Report()
         seen = set()
+        fresh = []
         for kind, bucket, any_sample in programs:
-            tr, crash = self._trace_program(kind, bucket, any_sample, mode)
-            root = "serving." + self._program_label(kind, bucket, False)
-            variant = crash if tr is None else analysis.check_call(
-                None, mode=mode, root=root, trace_result=tr)
-            for f in variant.findings:
+            tag = (kind, bucket, bool(any_sample))
+            stored = self._cached_reports.get(tag, {}).get("l1")
+            if stored is not None:   # from the compile cache: no trace
+                findings = [_finding(d) for d in stored]
+            else:
+                tr, crash = self._trace_program(kind, bucket, any_sample,
+                                                mode)
+                root = "serving." + self._program_label(kind, bucket, False)
+                findings = (crash if tr is None else analysis.check_call(
+                    None, mode=mode, root=root, trace_result=tr)).findings
+                if self._cc is not None:
+                    self._fresh_l1[tag] = [_finding_dict(f)
+                                           for f in findings]
+                    fresh.append(tag)
+            for f in findings:
                 key = (f.rule, f.file, f.line, f.message)
                 if key not in seen:  # shared-path findings once
                     seen.add(key)
                     report.add(f)
+        if self._cc is not None and fresh and not self._building:
+            self._store_analysis(fresh)   # a gate run after the build
         blocking = [f for f in report.findings
                     if f.rule in _BLOCKING_RULES]
         if blocking:
@@ -1149,12 +1333,16 @@ class Engine:
         if tr is None:   # a crash raised under mode="error"
             raise AnalysisError(f"analysis trace of {kind} failed")
         s = program_summary(tr)
-        self._program_analysis[tag] = s
-        if s.get("memory"):
-            self.metrics.program_bytes[
-                self._program_label(kind, bucket, any_sample)
-            ] = int(s["memory"]["peak"])
+        self._record_summary(tag, s)
         return s
+
+    def _record_summary(self, tag, summary):
+        """Memoize one program's L3 summary and record its predicted peak
+        in ``metrics.program_bytes``."""
+        self._program_analysis[tag] = summary
+        if summary.get("memory"):
+            self.metrics.program_bytes[self._program_label(*tag)] = int(
+                summary["memory"]["peak"])
 
     def check_compiled_programs(self, passes=None):
         """Level-3 analysis over the whole program family: run the

@@ -16,8 +16,6 @@ import paddle_tpu_torch
 
 A9_DIST = ("the collectives, meshes, sharding, pipelines and RPC on "
            "torch.distributed (ROADMAP A9)")
-A9_JIT = ("to_static and jit.save/load, whose torch analogues are "
-          "torch.compile and torch.export (ROADMAP A9)")
 A9_QUANT = "the sparse and quantization surface (ROADMAP A9)"
 A9_PLACE = "serving/placement.py and autoscaling (ROADMAP A9)"
 A9_TP = "tensor-parallel serving (ROADMAP A9)"
@@ -41,10 +39,6 @@ LEFT_OUT = {
         "to_static", "unshard_dtensor"), A9_DIST),
     "incubate": {"nn": "incubate.nn.functional (decode_attention, "
                        "ROADMAP A9)"},
-    "jit": dict.fromkeys((
-        "BucketedFunction", "InputSpec", "StaticFunction",
-        "TranslatedLayer", "bucketize", "ignore_module", "load",
-        "not_to_static", "save", "to_static"), A9_JIT),
     "quantization": dict.fromkeys((
         "AbsmaxObserver", "EMAObserver", "FakeQuanterWithAbsMax", "PTQ",
         "PerChannelAbsmaxObserver", "QAT", "QuantConfig", "quant_dequant",

@@ -82,6 +82,12 @@ import paddle_tpu_torch.analysis.trace
 import paddle_tpu_torch.analysis.passes
 import paddle_tpu_torch.analysis.compiled
 import paddle_tpu_torch.observability.__main__
+import paddle_tpu_torch.compilecache
+import paddle_tpu_torch.compilecache.__main__
+import paddle_tpu_torch.jit.api
+import paddle_tpu_torch.jit.bucketing
+import paddle_tpu_torch.jit.graph_break
+import paddle_tpu_torch.jit.serialization
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.")
