@@ -438,6 +438,28 @@ Phases, in order; any failure exits non-zero:
                experts, 3 wgmma launches each, against the plain grouped
                GEMM; then one forward of ``bench_moe``'s level-0 Llama
                MoE (8 layers) against plain attention.
+9. signal_dist — an ASR front end at Whisper's log-mel settings
+               (openai/whisper, ``whisper/audio.py``: 16 kHz, n_fft 400,
+               hop 160, 80 mels, 30 s clips): 64 seeded clips (a chirp
+               plus noise) through ``Spectrogram``, ``MelSpectrogram``
+               (f_min 0, f_max 8000, slaney), ``LogMelSpectrogram`` (top_db
+               80) and ``MFCC`` (40); the first 8 clips against the same
+               layers in float64 on the CPU (power and MFCC within 1e-5
+               relative L2, log-mel within 1e-2 dB); istft(stft(x)) within
+               1e-5 of the peak and bit-identical twice; 16-bit FFT input
+               refused; forward ms, audio s per wall s, stft, overlap_add
+               and istft ms. The distributions: 10^6 draws each of 12
+               continuous ones (KS statistic below 2.69 / sqrt(n) against
+               scipy's CDF) and of 8 discrete and multivariate ones (mean
+               and covariance within 6 standard errors); one seed, one
+               output; ``log_prob``, ``entropy`` and every registered
+               ``kl_divergence`` against the CPU (1e-5); each ``sample``'s
+               host syncs counted. A VAE-sized step (``Normal`` over [4096,
+               512]: ``rsample``, ``log_prob``, the KL to N(0, 1),
+               backward): gradients against the CPU on the same noise
+               (1e-5), its ms. The feature forwards and every ``rsample``,
+               ``log_prob``, ``entropy`` and KL run under
+               ``set_sync_debug_mode("error")``; no hand kernel launched.
 
 ``--phases`` picks a subset; ``profile`` (a profiled decode step over the
 bf16 and the int8 pool, replayed and with the program function run
@@ -9830,6 +9852,475 @@ def phase_nn_zoo(torch):
     return rec
 
 
+# ----------------------------------------------------------- signal_dist
+# An ASR front end at Whisper's published log-mel settings (openai/whisper,
+# whisper/audio.py: SAMPLE_RATE 16000, N_FFT 400, HOP_LENGTH 160, N_MELS
+# 80, CHUNK_LENGTH 30 s) over a batch of seeded clips, held on its first
+# clips against the same layers in float64 on the CPU; then the
+# distributions' samplers by distribution and their deterministic methods
+# against the CPU. No hand kernel lies on this path: the FFTs are cuFFT's
+# (torch.fft), the draws PyTorch's samplers.
+# (the mel layers' default filterbank norm is "slaney", as Whisper's)
+ASR = dict(sr=16000, n_fft=400, hop_length=160, n_mels=80, f_min=0.0,
+           f_max=8000.0)
+ASR_CLIP_S, ASR_BATCH, ASR_REF_CLIPS, ASR_MFCC = 30, 64, 8, 40
+ASR_TOP_DB = 80.0
+# f32 on the card against float64 on the CPU: the power spectrum and the
+# MFCCs by relative L2, the log-mel in dB (max abs); istft(stft(x)) within
+# this fraction of the signal's peak
+ASR_POWER_L2, ASR_LOGMEL_DB, ASR_MFCC_L2 = 1e-5, 1e-2, 1e-5
+ISTFT_PEAK_TOL = 1e-5
+DIST_DRAWS = 10 ** 6
+# the KS statistic of n draws against the exact CDF: below KS_C / sqrt(n)
+# (P(sqrt(n) D > 2.69) ~ 2 exp(-2 x 2.69^2) ~ 1e-6); moments within
+# MOMENT_SE standard errors (each estimated from the draws)
+KS_C, MOMENT_SE = 2.69, 6.0
+# log_prob, entropy and KL on the card against the CPU, relative L2 (f32)
+DIST_CPU_RTOL = 1e-5
+VAE_SHAPE, VAE_GRAD_RTOL = (4096, 512), 1e-5
+# the port's modules on this path (the end-of-run isolation check)
+SIGNAL_DIST_MODULES = tuple(f"paddle_tpu_torch.{m}" for m in (
+    "fft", "signal", "audio", "audio.functional", "audio.features",
+    "audio.backends", "distribution", "distribution.transform",
+    "ops.random", "ops.math", "ops.fft_ops"))
+
+
+@contextlib.contextmanager
+def no_host_sync(torch):
+    """Inside: a CUDA call that synchronizes with the host raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _asr_clips(torch, batch, dev):
+    """``batch`` seeded 30 s clips at 16 kHz: a linear chirp from 50-150
+    Hz to 6-7.5 kHz (amplitude 0.2-0.7) plus white noise (0.05), f32."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    n = ASR["sr"] * ASR_CLIP_S
+    f64 = dict(dtype=torch.float64, device=dev)
+    t = torch.arange(n, **f64) / ASR["sr"]
+    f0 = 50.0 + 100.0 * torch.rand(batch, 1, generator=g, **f64)
+    f1 = 6000.0 + 1500.0 * torch.rand(batch, 1, generator=g, **f64)
+    amp = 0.2 + 0.5 * torch.rand(batch, 1, generator=g, **f64)
+    chirp = amp * torch.sin(2 * np.pi * (
+        f0 * t + (f1 - f0) * t * t / (2 * ASR_CLIP_S)))
+    noise = 0.05 * torch.randn(batch, n, generator=g, **f64)
+    return (chirp + noise).float()
+
+
+def _asr_layers(dtype):
+    """The four feature layers at Whisper's settings, built on the CPU."""
+    from paddle_tpu_torch.audio import features as A
+
+    mel = dict(ASR, htk=False, dtype=dtype)
+    spec = dict(n_fft=ASR["n_fft"], hop_length=ASR["hop_length"],
+                dtype=dtype)
+    return {
+        "spectrogram": A.Spectrogram(**spec),
+        "mel": A.MelSpectrogram(**mel),
+        "logmel": A.LogMelSpectrogram(**mel, top_db=ASR_TOP_DB),
+        "mfcc": A.MFCC(n_mfcc=ASR_MFCC, top_db=ASR_TOP_DB, **mel),
+    }
+
+
+def _asr_front_end(torch, dev, flush):
+    """(a): the feature layers on the card against float64 on the CPU,
+    istft(stft(x)), the 16-bit refusal, times."""
+    from paddle_tpu_torch import fft, signal
+    from paddle_tpu_torch.audio.functional import get_window
+
+    x = _asr_clips(torch, ASR_BATCH, dev)
+    ref_x = x[:ASR_REF_CLIPS].cpu().double()
+    card = {k: m.to(dev).eval() for k, m in _asr_layers("float32").items()}
+    cpu = _asr_layers("float64")
+    rec = {"clips": ASR_BATCH, "clip_s": ASR_CLIP_S, "settings": ASR}
+    with torch.no_grad():
+        with no_host_sync(torch):
+            outs = {k: m(x) for k, m in card.items()}
+            head = {k: m(x[:ASR_REF_CLIPS]) for k, m in card.items()}
+        frames = 1 + ASR["sr"] * ASR_CLIP_S // ASR["hop_length"]
+        for k, want in (("spectrogram", ASR["n_fft"] // 2 + 1),
+                        ("mel", ASR["n_mels"]), ("logmel", ASR["n_mels"]),
+                        ("mfcc", ASR_MFCC)):
+            o = outs[k]
+            check(o.device.type == dev and o.dtype == torch.float32
+                  and tuple(o.shape) == (ASR_BATCH, want, frames)
+                  and bool(torch.isfinite(o).all()),
+                  f"signal_dist: {k} output {o.device} {o.dtype} "
+                  f"{tuple(o.shape)}, finite {bool(torch.isfinite(o).all())}")
+        refs = {k: m(ref_x) for k, m in cpu.items()}
+    gates = {
+        "power_rel_l2": (_rel_l2(head["spectrogram"].cpu().double(),
+                                 refs["spectrogram"]), ASR_POWER_L2),
+        "logmel_max_abs_db": (float((head["logmel"].cpu().double()
+                                     - refs["logmel"]).abs().max()),
+                              ASR_LOGMEL_DB),
+        "mfcc_rel_l2": (_rel_l2(head["mfcc"].cpu().double(),
+                                refs["mfcc"]), ASR_MFCC_L2),
+        "mel_rel_l2": (_rel_l2(head["mel"].cpu().double(), refs["mel"]),
+                       ASR_POWER_L2),
+    }
+    for k, (got, lim) in gates.items():
+        check(got <= lim, f"signal_dist: {k} {got} > {lim} against float64 "
+                          f"on the CPU")
+    rec["against_cpu_f64"] = {k: v[0] for k, v in gates.items()}
+
+    # istft(stft(x)) on the card, twice: within the peak gate, bit-equal
+    win = get_window("hann", ASR["n_fft"], fftbins=True,
+                     dtype="float32").to(dev)
+    n_fft, hop = ASR["n_fft"], ASR["hop_length"]
+
+    def stft():
+        return signal.stft(x, n_fft, hop, window=win)
+
+    with no_host_sync(torch):
+        spec = stft()
+        y1 = signal.istft(spec, n_fft, hop, window=win, length=x.shape[-1])
+        y2 = signal.istft(spec, n_fft, hop, window=win, length=x.shape[-1])
+    peak = float(x.abs().max())
+    err = float((y1 - x).abs().max())
+    check(spec.device.type == dev and y1.device.type == dev
+          and spec.dtype == torch.complex64,
+          f"signal_dist: stft {spec.device} {spec.dtype}, istft {y1.device}")
+    check(err <= ISTFT_PEAK_TOL * peak,
+          f"signal_dist: istft(stft(x)) max error {err} > "
+          f"{ISTFT_PEAK_TOL} x peak {peak}")
+    check(torch.equal(y1, y2), "signal_dist: two istft calls differ")
+    rec["istft_max_err_over_peak"] = err / peak
+    for dt in (torch.float16, torch.bfloat16):
+        refused = False
+        try:
+            fft.rfft(x[:1, :1024].to(dt))
+        except ValueError:
+            refused = True
+        check(refused, f"signal_dist: rfft took a {dt} input")
+    rec["refuses_16_bit"] = True
+
+    # times: each layer's forward over the batch (host clock, ending in a
+    # synchronize), stft and the overlap-add by CUDA events
+    audio_s = ASR_BATCH * ASR_CLIP_S
+    rec["forward_ms"], rec["audio_s_per_s"] = {}, {}
+    with torch.no_grad():
+        for k, m in card.items():
+            ms = _forward_ms(torch, lambda m=m: m(x), iters=5)
+            rec["forward_ms"][k] = ms
+            rec["audio_s_per_s"][k] = audio_s / (ms / 1e3)
+        wave = torch.fft.irfft(spec.transpose(1, 2), n=n_fft).transpose(1, 2)
+        wave = wave.contiguous()
+        rec["stft_ms"] = cuda_ms(torch, stft, 5, flush)
+        rec["overlap_add_ms"] = cuda_ms(
+            torch, lambda: signal.overlap_add(wave, hop), 5, flush)
+        rec["istft_ms"] = cuda_ms(
+            torch, lambda: signal.istft(spec, n_fft, hop, window=win,
+                                        length=x.shape[-1]), 5, flush)
+    log(f"[signal_dist] Whisper front end, {ASR_BATCH} x {ASR_CLIP_S} s "
+        f"clips: against float64 on the CPU "
+        f"{json.dumps(rec['against_cpu_f64'])}; istft(stft(x)) max error / "
+        f"peak {rec['istft_max_err_over_peak']:.3g}, bit-identical twice; "
+        f"forward ms {json.dumps(rec['forward_ms'])}; audio s per wall s "
+        f"{json.dumps(rec['audio_s_per_s'])}; stft {rec['stft_ms']:.3f} ms, "
+        f"overlap_add {rec['overlap_add_ms']:.3f} ms, istft "
+        f"{rec['istft_ms']:.3f} ms (CUDA events)")
+    return rec
+
+
+def _continuous_bernoulli_cdf(p):
+    def cdf(x):
+        return (p ** x * (1 - p) ** (1 - x) + p - 1) / (2 * p - 1)
+    return cdf
+
+
+def _dist_cases(torch, np_logits):
+    """name -> (constructor over a device, the exact CDF or None, the
+    exact mean and covariance or None). Python-number parameters, so a
+    distribution on the card is placed there by default."""
+    from scipy import stats
+
+    from paddle_tpu_torch import distribution as D
+    from paddle_tpu_torch.core.device import resolve_device
+
+    logits = np_logits.astype(np.float32)
+
+    def cat_logits(a, dev):
+        # a tensor parameter keeps its device: None places it as a number
+        # would be placed
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            resolve_device(dev))
+
+    p_cat = np.exp(logits.astype(np.float64) - logits.max())
+    p_cat /= p_cat.sum()
+    ks = np.arange(p_cat.size, dtype=np.float64)
+    cat_mean = float((ks * p_cat).sum())
+    p_mult = np.array([0.1, 0.2, 0.3, 0.4])
+    alpha = np.array([2.0, 3.0, 5.0])
+    a0 = alpha.sum()
+    a_ = np.random.RandomState(1).randn(3, 3)
+    mvn_cov = a_ @ a_.T + np.eye(3)
+    mvn_loc = np.array([0.5, -1.0, 2.0])
+
+    def moments(dist):
+        return np.array([dist.mean()]), np.array([[dist.var()]])
+
+    cases = {
+        "Normal": (lambda d: D.Normal(0.5, 2.0, device=d),
+                   stats.norm(0.5, 2.0).cdf, None),
+        "Uniform": (lambda d: D.Uniform(-1.0, 3.0, device=d),
+                    stats.uniform(-1.0, 4.0).cdf, None),
+        "Exponential": (lambda d: D.Exponential(1.5, device=d),
+                        stats.expon(scale=1 / 1.5).cdf, None),
+        "Laplace": (lambda d: D.Laplace(0.5, 2.0, device=d),
+                    stats.laplace(0.5, 2.0).cdf, None),
+        "LogNormal": (lambda d: D.LogNormal(0.2, 0.7, device=d),
+                      stats.lognorm(0.7, scale=np.exp(0.2)).cdf, None),
+        "Gumbel": (lambda d: D.Gumbel(0.5, 2.0, device=d),
+                   stats.gumbel_r(0.5, 2.0).cdf, None),
+        "Gamma": (lambda d: D.Gamma(2.5, 1.5, device=d),
+                  stats.gamma(2.5, scale=1 / 1.5).cdf, None),
+        "Beta": (lambda d: D.Beta(2.0, 3.0, device=d),
+                 stats.beta(2.0, 3.0).cdf, None),
+        "Cauchy": (lambda d: D.Cauchy(0.5, 2.0, device=d),
+                   stats.cauchy(0.5, 2.0).cdf, None),
+        "Chi2": (lambda d: D.Chi2(5.0, device=d), stats.chi2(5.0).cdf, None),
+        "StudentT": (lambda d: D.StudentT(4.0, 0.5, 2.0, device=d),
+                     stats.t(4.0, 0.5, 2.0).cdf, None),
+        "ContinuousBernoulli": (
+            lambda d: D.ContinuousBernoulli(0.3, device=d),
+            _continuous_bernoulli_cdf(0.3), None),
+        "Bernoulli": (lambda d: D.Bernoulli(0.3, device=d), None,
+                      moments(stats.bernoulli(0.3))),
+        "Categorical": (
+            lambda d: D.Categorical(logits=cat_logits(logits, d)), None,
+            (np.array([cat_mean]),
+             np.array([[float(((ks - cat_mean) ** 2 * p_cat).sum())]]))),
+        "Poisson": (lambda d: D.Poisson(4.5, device=d), None,
+                    moments(stats.poisson(4.5))),
+        # failures before the first success: scipy's geom shifted by 1
+        "Geometric": (lambda d: D.Geometric(0.3, device=d), None,
+                      moments(stats.geom(0.3, loc=-1))),
+        "Binomial": (lambda d: D.Binomial(20.0, 0.3, device=d), None,
+                     moments(stats.binom(20, 0.3))),
+        "Multinomial": (
+            lambda d: D.Multinomial(10, p_mult.astype(np.float32), device=d),
+            None, (10 * p_mult, 10 * (np.diag(p_mult)
+                                     - np.outer(p_mult, p_mult)))),
+        "Dirichlet": (
+            lambda d: D.Dirichlet(alpha.astype(np.float32), device=d), None,
+            (alpha / a0, (a0 * np.diag(alpha) - np.outer(alpha, alpha))
+             / (a0 ** 2 * (a0 + 1)))),
+        "MultivariateNormal": (
+            lambda d: D.MultivariateNormal(
+                mvn_loc.astype(np.float32),
+                covariance_matrix=mvn_cov.astype(np.float32), device=d),
+            None, (mvn_loc, mvn_cov)),
+    }
+    return cases, cat_logits
+
+
+def _ks_statistic(x, cdf):
+    """sup |F_n - F| of the sorted draws ``x`` against the exact CDF
+    (float64)."""
+    n = x.size
+    f = cdf(x)
+    return float(max((np.arange(1, n + 1) / n - f).max(),
+                     (f - np.arange(n) / n).max()))
+
+
+def _moment_errors(torch, draws, mean, cov):
+    """The largest |estimate - exact| / standard error over the mean's and
+    the covariance's entries; each standard error estimated from the
+    draws [n, d] (float64 on their device)."""
+    x = draws.reshape(draws.shape[0], -1).double()
+    n = x.shape[0]
+    mu = x.mean(0)
+    c = x - mu
+    cov_hat = c.T @ c / (n - 1)
+    m22 = (c * c).T @ (c * c) / n
+    se_mean = torch.sqrt(torch.diagonal(cov_hat) / n)
+    se_cov = torch.sqrt(torch.clamp(m22 - cov_hat ** 2, min=0.0) / n)
+    mean_t = torch.as_tensor(mean, dtype=torch.float64, device=x.device)
+    cov_t = torch.as_tensor(cov, dtype=torch.float64, device=x.device)
+    z_mean = (mu - mean_t).abs() / se_mean.clamp_min(1e-30)
+    z_cov = (cov_hat - cov_t).abs() / se_cov.clamp_min(1e-30)
+    return float(z_mean.max()), float(z_cov.max())
+
+
+def _has(dist, method):
+    from paddle_tpu_torch.distribution import Distribution
+
+    return getattr(type(dist), method) is not getattr(Distribution, method)
+
+
+def _distributions(torch, dev):
+    """(b): draws by distribution, one seed one output, the deterministic
+    methods against the CPU, the host syncs of each ``sample``."""
+    from paddle_tpu_torch.distribution import distributions as DD
+
+    np_logits = np.random.RandomState(0).randn(32000) * 2.0
+    cases, cat_logits = _dist_cases(torch, np_logits)
+    rec = {"draws": DIST_DRAWS, "ks": {}, "moments": {}, "sample_syncs": {},
+           "cpu_rel": {}, "sample_ms": {}}
+    n = DIST_DRAWS
+    ks_bound = KS_C / np.sqrt(n)
+    for name, (make, cdf, mom) in cases.items():
+        dist, dist_cpu = make(None), make("cpu")
+        check(dist._device.type == dev,
+              f"signal_dist: {name} placed on {dist._device}")
+        g = torch.Generator(device=dev).manual_seed(1)
+        draws, syncs = _count_syncs(torch, lambda: dist.sample([n], g))
+        check(draws.device.type == dev,
+              f"signal_dist: {name} drew on {draws.device}")
+        rec["sample_syncs"][name] = syncs
+        rec["sample_ms"][name] = _forward_ms(
+            torch, lambda: dist.sample([n], g), iters=3)
+        if cdf is not None:
+            d = _ks_statistic(
+                torch.sort(draws.double()).values.cpu().numpy(), cdf)
+            rec["ks"][name] = d
+            check(d < ks_bound, f"signal_dist: {name} KS statistic {d} >= "
+                                f"{ks_bound} over {n} draws")
+        else:
+            zm, zc = _moment_errors(torch, draws, *mom)
+            rec["moments"][name] = {"mean_se": zm, "cov_se": zc}
+            check(zm <= MOMENT_SE and zc <= MOMENT_SE,
+                  f"signal_dist: {name} moments off by {zm} (mean), {zc} "
+                  f"(covariance) standard errors > {MOMENT_SE}")
+        # one seed, one output
+        a, b = (dist.sample([1000], torch.Generator(device=dev).manual_seed(7))
+                for _ in range(2))
+        check(torch.equal(a, b), f"signal_dist: {name}: one seed, two draws")
+        # the deterministic methods on the card against the CPU, on the
+        # card's draws; rsample, log_prob and entropy with no host sync
+        v = draws[:4096]
+        with no_host_sync(torch):
+            lp = dist.log_prob(v)
+            ent = dist.entropy() if _has(dist, "entropy") else None
+            rs = dist.rsample([16]) if _has(dist, "rsample") else None
+        check(all(t.device.type == dev for t in (lp, ent, rs)
+                  if t is not None),
+              f"signal_dist: {name} computed off the card")
+        got = {"log_prob": (lp, dist_cpu.log_prob(v.cpu()))}
+        if ent is not None:
+            got["entropy"] = (ent, dist_cpu.entropy())
+        rels = {k: _rel_l2(a.cpu(), b) for k, (a, b) in got.items()}
+        rec["cpu_rel"][name] = rels
+        for k, r in rels.items():
+            check(r <= DIST_CPU_RTOL, f"signal_dist: {name}.{k} on the card "
+                                      f"vs the CPU {r} > {DIST_CPU_RTOL}")
+    # every registered KL pair: the second argument's parameters differ
+    kl_q = {DD.Normal: lambda d: DD.Normal(-0.3, 1.2, device=d),
+            DD.Uniform: lambda d: DD.Uniform(-2.0, 4.0, device=d),
+            DD.Bernoulli: lambda d: DD.Bernoulli(0.6, device=d),
+            DD.Categorical: lambda d: DD.Categorical(logits=cat_logits(
+                np_logits[::-1].astype(np.float32), d)),
+            DD.Exponential: lambda d: DD.Exponential(0.7, device=d)}
+    rec["kl_rel"] = {}
+    for pc, qc in DD._KL_REGISTRY:
+        check(pc is qc and pc in kl_q,
+              f"signal_dist: no case for the KL pair {pc.__name__}, "
+              f"{qc.__name__}")
+        make = cases[pc.__name__][0]
+        p_card, q_card = make(None), kl_q[qc](None)
+        with no_host_sync(torch):
+            kl = DD.kl_divergence(p_card, q_card)
+        ref = DD.kl_divergence(make("cpu"), kl_q[qc]("cpu"))
+        r = _rel_l2(kl.cpu(), ref)
+        rec["kl_rel"][pc.__name__] = r
+        check(kl.device.type == dev and r <= DIST_CPU_RTOL,
+              f"signal_dist: kl_divergence({pc.__name__}) on the card vs "
+              f"the CPU {r} > {DIST_CPU_RTOL}")
+    synced = {k: v for k, v in rec["sample_syncs"].items() if v}
+    log(f"[signal_dist] {len(cases)} distributions, {n} draws each: KS "
+        f"(bound {ks_bound:.5f}) {json.dumps(rec['ks'])}; moments in "
+        f"standard errors {json.dumps(rec['moments'])}; one seed one "
+        f"output; log_prob / entropy / KL vs the CPU within "
+        f"{DIST_CPU_RTOL} (worst "
+        f"{max(max(v.values()) for v in rec['cpu_rel'].values()):.3g}, KL "
+        f"{max(rec['kl_rel'].values()):.3g}); sample ms "
+        f"{json.dumps(rec['sample_ms'])}; samples that synchronize: "
+        f"{synced or 'none'}")
+    return rec
+
+
+@contextlib.contextmanager
+def fixed_noise(DD, eps):
+    """Inside: the reparameterized draws take ``eps`` as their noise (the
+    same noise on the card and on the CPU)."""
+    saved = DD._randn
+    DD._randn = lambda shape, like, generator: eps.to(like.device)
+    try:
+        yield
+    finally:
+        DD._randn = saved
+
+
+def _vae_step(torch, dev):
+    """A VAE-sized step: q = Normal(loc, exp(log_scale)) over [4096, 512],
+    z = q.rsample(), a reconstruction term, the analytic KL to N(0, 1) and
+    its Monte Carlo estimate by ``log_prob``, then backward; the gradients
+    on the card against the CPU on the same noise, and the step's time."""
+    from paddle_tpu_torch.distribution import distributions as DD
+
+    rng = np.random.RandomState(2)
+    init = [rng.randn(*VAE_SHAPE).astype(np.float32) * s
+            for s in (0.5, 0.1, 1.0)]
+    eps = torch.randn(VAE_SHAPE, generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev)
+
+    def leaves(d):
+        loc, log_scale, target = (torch.tensor(a, device=d) for a in init)
+        return loc.requires_grad_(), log_scale.requires_grad_(), target
+
+    def step(loc, log_scale, target):
+        loc.grad = log_scale.grad = None
+        q = DD.Normal(loc, torch.exp(log_scale))
+        p = DD.Normal(0.0, 1.0, device=loc.device)
+        z = q.rsample()
+        recon = 0.5 * torch.square(z - target).sum(-1).mean()
+        kl = DD.kl_divergence(q, p).sum(-1).mean()
+        mc = (q.log_prob(z) - p.log_prob(z)).sum(-1).mean()
+        loss = recon + kl + 0.5 * mc
+        loss.backward()
+        return loss.detach(), loc.grad, log_scale.grad
+
+    on_card = leaves(dev)
+    with fixed_noise(DD, eps):
+        with no_host_sync(torch):
+            card = step(*on_card)
+        cpu = step(*leaves("cpu"))
+        ms = _forward_ms(torch, lambda: step(*on_card), iters=10)
+    rels = {k: _rel_l2(a.cpu(), b)
+            for k, a, b in zip(("loss", "d_loc", "d_log_scale"), card, cpu)}
+    check(all(t.device.type == dev for t in card) and all(
+        r <= VAE_GRAD_RTOL for r in rels.values()),
+        f"signal_dist: VAE step on the card vs the CPU {rels} > "
+        f"{VAE_GRAD_RTOL}")
+    log(f"[signal_dist] VAE step over {VAE_SHAPE}: {ms:.3f} ms (host clock, "
+        f"mean of 10), card vs CPU {json.dumps(rels)}")
+    return {"shape": list(VAE_SHAPE), "step_ms": ms, "rel_l2": rels}
+
+
+def phase_signal_dist(torch):
+    """``signal_dist``: the Whisper log-mel front end, the distributions on
+    the card and a VAE-sized step; no hand kernel on this path."""
+    from paddle_tpu_torch.kernels import _build
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    _build.reset_launch_counts()
+    rec = {"asr": _asr_front_end(torch, "cuda", flush),
+           "distributions": _distributions(torch, "cuda"),
+           "vae": _vae_step(torch, "cuda")}
+    counts = _build.launch_counts()
+    check(set(counts.values()) == {0},
+          f"signal_dist: hand kernels launched {counts}")
+    rec["launches"] = counts
+    return rec
+
+
 # host runtime calls that launch device work, as torch.profiler names them
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                      "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch")
@@ -10202,13 +10693,15 @@ def main(argv=None):
         default="kernels,parity,serving,serving_int8,serving_f16,"
                 "serving_prefix,serving_spec,analysis,jit,server,journal,"
                 "poison,fleet,spill,stepstats,train_parity,train,train_amp,"
-                "train_resume,dit,resnet,moe,moe_train,hapi,nn_zoo",
+                "train_resume,dit,resnet,moe,moe_train,hapi,nn_zoo,"
+                "signal_dist",
         help="comma list of kernels, parity, serving, serving_int8, "
              "serving_f16, serving_prefix, serving_spec, analysis, jit, "
              "server, journal, poison, fleet, spill, stepstats, "
              "train_parity, "
              "train, train_amp, train_resume, dit, resnet, moe, moe_train, "
-             "hapi, nn_zoo, profile (default: all but profile)",
+             "hapi, nn_zoo, signal_dist, profile (default: all but "
+             "profile)",
     )
     ap.add_argument("--out", help="write the full report as JSON here")
     # the processes the server and journal phases start
@@ -10238,7 +10731,7 @@ def main(argv=None):
                         "fleet", "spill",
                         "stepstats", "train_parity", "train", "train_amp",
                         "train_resume", "dit", "resnet", "moe", "moe_train",
-                        "hapi", "nn_zoo", "profile"}
+                        "hapi", "nn_zoo", "signal_dist", "profile"}
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
@@ -10298,7 +10791,8 @@ def main(argv=None):
             "train_resume": phase_train_resume, "dit": phase_dit,
             "resnet": phase_resnet, "moe": phase_moe,
             "moe_train": phase_moe_train, "hapi": phase_hapi,
-            "nn_zoo": phase_nn_zoo, "profile": phase_profile,
+            "nn_zoo": phase_nn_zoo, "signal_dist": phase_signal_dist,
+            "profile": phase_profile,
         }
         results, report["phase_seconds"] = {}, {}
         for name, run in runners.items():
@@ -10361,17 +10855,22 @@ def main(argv=None):
         (serving, serving_int8, serving_f16, serving_prefix, serving_spec,
          analysis, jit_, server, journal, poison, fleet, spill, stepstats,
          train, train_amp, train_resume, dit, resnet, moe, moe_train, hapi,
-         nn_zoo) = (
+         nn_zoo, signal_dist) = (
              results.get(p) for p in (
                  "serving", "serving_int8", "serving_f16", "serving_prefix",
                  "serving_spec", "analysis", "jit", "server", "journal",
                  "poison", "fleet",
                  "spill", "stepstats", "train", "train_amp", "train_resume",
-                 "dit", "resnet", "moe", "moe_train", "hapi", "nn_zoo"))
+                 "dit", "resnet", "moe", "moe_train", "hapi", "nn_zoo",
+                 "signal_dist"))
         check("jax" not in sys.modules and not any(
             m == "paddle_tpu" or m.startswith("paddle_tpu.")
             for m in sys.modules),
             "the port imported jax or paddle_tpu")
+        if signal_dist is not None:
+            # the modules the phase ran are the port's own, and loaded
+            missing = [m for m in SIGNAL_DIST_MODULES if m not in sys.modules]
+            check(not missing, f"signal_dist: {missing} not loaded")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -10394,7 +10893,7 @@ def main(argv=None):
     # engines' serving), the moe phase's counted forwards, moe_train's counted
     # steps (the Llama MoE's 14, the ragged layer's AdamW steps), hapi's
     # fits and kernel evaluations (the Transformer's; ResNet-50's launch
-    # none) and nn_zoo's (none)
+    # none), nn_zoo's and signal_dist's (none)
     by_path = {p: r["launches"] if r else {} for p, r in (
         ("serving", serving), ("serving_int8", serving_int8),
         ("serving_f16", serving_f16), ("serving_prefix", serving_prefix),
@@ -10404,7 +10903,8 @@ def main(argv=None):
         ("spill", spill), ("stepstats", stepstats), ("train", train),
         ("train_amp", train_amp), ("train_resume", train_resume),
         ("dit", dit), ("resnet", resnet), ("moe", moe),
-        ("moe_train", moe_train), ("hapi", hapi), ("nn_zoo", nn_zoo))}
+        ("moe_train", moe_train), ("hapi", hapi), ("nn_zoo", nn_zoo),
+        ("signal_dist", signal_dist))}
 
     def launches(name, variants=None):
         """Launches of ``name`` on each main path; with ``variants``, the

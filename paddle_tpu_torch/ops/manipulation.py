@@ -1,5 +1,7 @@
 """Shape ops of the layer set (counterparts of ``flatten``, ``pad`` and
-``one_hot`` in ``paddle_tpu/ops/impl/manipulation.py``)."""
+``one_hot`` in ``paddle_tpu/ops/impl/manipulation.py``) and the complex
+constructors ``complex``, ``as_complex`` and ``as_real`` (``complex`` is
+in ``paddle_tpu/ops/impl/creation.py``)."""
 from __future__ import annotations
 
 import torch
@@ -7,7 +9,7 @@ import torch.nn.functional as F
 
 from ..amp.auto_cast import amp_op
 
-__all__ = ["flatten", "pad", "one_hot"]
+__all__ = ["flatten", "pad", "one_hot", "complex", "as_complex", "as_real"]
 
 
 def flatten(x, start_axis=0, stop_axis=-1):
@@ -66,3 +68,18 @@ def pad(x, pad, mode="constant", value=0.0, data_format="NCHW",
 def one_hot(x, num_classes):
     """float32 one-hot rows of the integer ids ``x``."""
     return F.one_hot(x.long(), num_classes).to(torch.float32)
+
+
+def complex(real, imag):
+    """``real + 1j * imag`` (both float32, or both float64)."""
+    return torch.complex(real, imag)
+
+
+def as_complex(x):
+    """[..., 2] (real, imaginary) pairs -> complex [...]."""
+    return torch.complex(x[..., 0], x[..., 1])
+
+
+def as_real(x):
+    """complex [...] -> [..., 2] (real, imaginary) pairs, a new tensor."""
+    return torch.stack([torch.real(x), torch.imag(x)], -1)

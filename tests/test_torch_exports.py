@@ -8,6 +8,7 @@ once, and so does a listed name once it is exported (take it off the
 list).
 """
 import importlib
+import inspect
 import pkgutil
 
 import pytest
@@ -50,10 +51,12 @@ LEFT_OUT = {
         **dict.fromkeys(("TPSpec", "build_tp_mesh"), A9_TP)),
 }
 # ops: the JAX package exports its whole op table (ops.yaml, generated,
-# and the manual ops of ops/api.py, ~470 names); the port exports the
+# and the manual ops of ops/api.py, ~450 names); the port exports the
 # ops its slices run. The rest of the table is ROADMAP A9 ("ops/, the
-# op YAML"). What is checked: every op the port implements and the JAX
-# package exports is exported from the port's ops.
+# op YAML": ops_math's reductions, linalg and search, the tensor and
+# creation ops). What is checked: every op the port implements and the
+# JAX package exports is exported from the port's ops, and no op module
+# the port has ported whole is left to OPS_REASON.
 OPS_REASON = "the rest of the JAX op table (ops.yaml, ROADMAP A9)"
 # subpackages whose JAX counterpart declares no __all__ (nothing to
 # compare), and the port's own
@@ -107,6 +110,62 @@ def test_subpackage_exports_match_jax(name):
     stale = sorted(set(left_out) - missing)
     assert not stale, f"{stale} are exported now: take them off LEFT_OUT"
     assert all(left_out.values())
+
+
+# modules ported whole: exactly the JAX module's names, none left out
+WHOLE = ("fft", "signal", "audio", "audio.functional", "audio.features",
+         "audio.backends", "distribution", "distribution.transform")
+
+
+@pytest.mark.parametrize("name", WHOLE)
+def test_whole_modules_export_exactly_jax(name):
+    port = importlib.import_module(f"paddle_tpu_torch.{name}")
+    jax_mod = importlib.import_module(f"paddle_tpu.{name}")
+    assert name.split(".")[0] not in LEFT_OUT
+    assert all(hasattr(port, n) for n in port.__all__)
+    assert set(port.__all__) == set(jax_mod.__all__), sorted(
+        set(port.__all__) ^ set(jax_mod.__all__))
+
+
+# JAX op modules whose every exported op the port's ops export: the
+# elementwise math (with the complex accessors), the FFT family with
+# frame/overlap_add, and the random ops; the complex constructors of
+# manipulation/creation by name
+OPS_PORTED = ("math", "fft_ops", "random")
+OPS_COMPLEX = ("real", "imag", "conj", "angle", "complex", "as_complex",
+               "as_real")
+
+
+def _module_ops(module):
+    return {n for n, v in vars(module).items()
+            if inspect.isfunction(v) and v.__module__ == module.__name__
+            and not n.startswith("_")}
+
+
+@pytest.mark.parametrize("impl", OPS_PORTED)
+def test_ported_op_modules_leave_nothing_to_ops_reason(impl):
+    from paddle_tpu import ops as jax_ops
+    from paddle_tpu_torch import ops
+
+    jax_impl = importlib.import_module(f"paddle_tpu.ops.impl.{impl}")
+    want = _module_ops(jax_impl) & set(jax_ops.__all__)
+    assert want
+    missing = sorted(want - set(ops.__all__))
+    assert not missing, f"{impl}: {missing} left to OPS_REASON"
+    assert all(callable(getattr(ops, n)) for n in want)
+
+
+def test_the_fft_frame_complex_and_random_names_are_exported():
+    from paddle_tpu import fft as jax_fft
+    from paddle_tpu_torch import ops
+
+    names = set(jax_fft.__all__) | {"frame", "overlap_add"} \
+        | set(OPS_COMPLEX) | {
+            "uniform", "gaussian", "randint", "randperm", "bernoulli",
+            "multinomial", "poisson", "exponential", "standard_gamma",
+            "binomial", "dirichlet"}
+    assert len(jax_fft.__all__) == 18
+    assert names <= set(ops.__all__), sorted(names - set(ops.__all__))
 
 
 # vision.models: the whole zoo is ported

@@ -4,7 +4,8 @@ CLI, the retry policy, the replica supervisor and the fleet, the step
 observatory, the compile log and the host spill tier, the data loader,
 amp, the checkpoints, the watchdog and the train loop, DiT and the
 optimizers, the nn layer set, vision and the DataLoader's process
-workers, the static analyzer and the observability CLI too) loads neither
+workers, the static analyzer and the observability CLI, fft, signal,
+audio, distribution and the random ops too) loads neither
 jax, nor anything of paddle_tpu, nor ml_dtypes, and its entry points
 refuse to fall back to the CPU quietly when no CUDA device exists."""
 import os
@@ -88,6 +89,17 @@ import paddle_tpu_torch.jit.api
 import paddle_tpu_torch.jit.bucketing
 import paddle_tpu_torch.jit.graph_break
 import paddle_tpu_torch.jit.serialization
+import paddle_tpu_torch.fft
+import paddle_tpu_torch.signal
+import paddle_tpu_torch.audio
+import paddle_tpu_torch.audio.functional
+import paddle_tpu_torch.audio.features
+import paddle_tpu_torch.audio.backends
+import paddle_tpu_torch.distribution
+import paddle_tpu_torch.distribution.transform
+import paddle_tpu_torch.ops.random
+import paddle_tpu_torch.ops.math
+import paddle_tpu_torch.ops.fft_ops
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.")
@@ -199,6 +211,24 @@ def test_dataloader_without_device_raises_without_cuda():
         DataLoader(data, batch_size=2)
     batches = list(DataLoader(data, batch_size=2, device="cpu"))
     assert len(batches) == 4 and batches[0][0].device.type == "cpu"
+
+
+def test_signal_and_distribution_creation_without_device_raise():
+    """The FFT frequencies, the random creation ops and a distribution
+    over Python numbers go to the card by default: without one they
+    raise; given the CPU they build there."""
+    from paddle_tpu_torch import distribution, fft, ops
+
+    _require_no_cuda()
+    for make in (lambda **kw: fft.fftfreq(8, **kw),
+                 lambda **kw: ops.uniform([4], **kw),
+                 lambda **kw: distribution.Normal(0.0, 1.0, **kw)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert fft.fftfreq(8, device="cpu").device.type == "cpu"
+    assert ops.uniform([4], device="cpu").device.type == "cpu"
+    d = distribution.Normal(0.0, 1.0, device="cpu")
+    assert d.sample([3]).device.type == "cpu"
 
 
 def test_resolve_device_default_raises_explicit_cpu_works():
